@@ -1,0 +1,47 @@
+"""Deterministic synthetic token streams (numpy only) — the port's copy of
+``repro.data.pipeline.SyntheticLM`` for the decoder families it serves.
+
+Per-sequence affine recurrences ``x_{t+1} = (a*x_t + b) mod V`` plus
+noise; a batch is a pure function of (seed, step), so both packages draw
+the same prompts from the same seed.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+
+
+class SyntheticLM:
+    def __init__(self, cfg: ModelConfig, batch: int, seq_len: int,
+                 seed: int = 0, noise: float = 0.05):
+        if cfg.frontend or cfg.is_encdec or cfg.family == "vlm":
+            raise NotImplementedError("frontend/encoder streams are not "
+                                      "ported yet")
+        self.cfg = cfg
+        self.batch = batch
+        self.seq = seq_len
+        self.seed = seed
+        self.noise = noise
+        self.text_len = seq_len
+
+    def _rng(self, step: int) -> np.random.Generator:
+        return np.random.default_rng(
+            np.random.SeedSequence([self.seed, step]))
+
+    def global_batch(self, step: int) -> Dict[str, np.ndarray]:
+        rng = self._rng(step)
+        v = self.cfg.vocab_size
+        b, s = self.batch, self.text_len + 1
+        a = rng.integers(1, 8, size=(b, 1))
+        c = rng.integers(0, v, size=(b, 1))
+        x = np.empty((b, s), dtype=np.int64)
+        x[:, 0] = rng.integers(0, v, size=b)
+        for t in range(1, s):
+            x[:, t] = (a[:, 0] * x[:, t - 1] + c[:, 0]) % v
+        flip = rng.random((b, s)) < self.noise
+        x[flip] = rng.integers(0, v, size=int(flip.sum()))
+        return {"tokens": x[:, :-1].astype(np.int32),
+                "targets": x[:, 1:].astype(np.int32)}

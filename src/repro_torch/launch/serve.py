@@ -1,0 +1,112 @@
+"""Serving CLI of the port: the continuous-batching engine over the dense
+slot pool, on the card by default.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch ternary-paper \\
+      --packed --requests 16 --slots 8 --prompt-len 128 --gen-lens 32,64
+  ... --device cpu --reduced --ternary-min-dim 64   # plain PyTorch path
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.weights import Dense2Bit
+from repro_torch.data import SyntheticLM
+from repro_torch.device import resolve_device
+from repro_torch.models import LM
+from repro_torch.models.layers import pack_params
+from repro_torch.serving import ContinuousScheduler
+
+
+def build_workload(cfg, requests: int, prompt_len: int,
+                   gen_lens: Sequence[int], seed: int = 0,
+                   ) -> Tuple[np.ndarray, List[int]]:
+    """(prompts (R, prompt_len) int32, per-request gen budgets): prompts from
+    the deterministic SyntheticLM stream, budgets drawn uniformly from
+    ``gen_lens`` — the same draws as ``repro.launch.serve.build_workload``."""
+    data = SyntheticLM(cfg, requests, max(prompt_len, 16), seed=seed)
+    prompts = data.global_batch(0)["tokens"][:, :prompt_len]
+    rng = np.random.default_rng(seed + 1)
+    gens = [int(g) for g in rng.choice(list(gen_lens), size=requests)]
+    return prompts.astype(np.int32), gens
+
+
+def run_continuous(engine, prompts: np.ndarray, gens: Sequence[int],
+                   ) -> Tuple[List[np.ndarray], Dict[str, Any]]:
+    """Submit the whole workload, drain it, return per-request token arrays
+    (in submit order) and the engine metrics dict."""
+    reqs = [engine.submit(p, g) for p, g in zip(prompts, gens)]
+    metrics = engine.run()
+    return [np.asarray(r.tokens, np.int32) for r in reqs], metrics
+
+
+def count_packed(params) -> int:
+    if isinstance(params, Dense2Bit):
+        return 1
+    if isinstance(params, dict):
+        return sum(count_packed(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(count_packed(v) for v in params)
+    return 0
+
+
+def build_params(cfg, seed: int, device, packed: bool):
+    """Random-init parameters from a seeded generator on ``device``, packed
+    into the ternary serving format when asked. Returns (cfg, params): a
+    packed model's config reads ``quantization="ternary_packed"``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = LM(cfg, dev).init(gen)
+    if packed:
+        params = pack_params(params, cfg)
+        if count_packed(params):
+            cfg = dataclasses.replace(cfg, quantization="ternary_packed")
+    return cfg, params
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="ternary-paper")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-lens", default="32",
+                    help="comma list; per-request budgets drawn uniformly")
+    ap.add_argument("--packed", action="store_true",
+                    help="quantize+pack ternarizable projections into the "
+                         "Dense2Bit serving format before load")
+    ap.add_argument("--ternary-min-dim", type=int, default=0,
+                    help=">0: override cfg.ternary_min_dim (reduced configs "
+                         "need ~64 for --packed to convert anything)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    overrides = ({"ternary_min_dim": args.ternary_min_dim}
+                 if args.ternary_min_dim > 0 else {})
+    cfg = get_config(args.arch, reduced=args.reduced, **overrides)
+    gen_lens = [int(g) for g in args.gen_lens.split(",")]
+    max_len = args.prompt_len + max(gen_lens) + 1
+    prompts, gens = build_workload(cfg, args.requests, args.prompt_len,
+                                   gen_lens, seed=args.seed)
+    cfg, params = build_params(cfg, args.seed, device, args.packed)
+    engine = ContinuousScheduler(cfg, max_slots=args.slots, max_len=max_len,
+                                 device=device)
+    engine.load(params)
+    _, metrics = run_continuous(engine, prompts, gens)
+    print(json.dumps(metrics))
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

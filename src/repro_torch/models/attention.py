@@ -1,0 +1,122 @@
+"""GQA attention of the port for the serving path: ``naive_attention``,
+prefill-into-cache and per-slot decode over a dense ``(B, S, KV, hd)``
+("bshd") cache — the counterparts of ``repro.models.attention``.
+
+``repro``'s attend-the-view rule carries over: prefill rounds K/V to the
+cache dtype, writes them, and attends the full ``max_len``-wide written
+cache view with causal masking; decode scatters each slot's token K/V at
+its own position and attends the view with ``kv_valid_len = pos + 1``.
+The cache tensors are updated in place (JAX returns new ones): the slot
+pool owns them and nothing else reads the old values.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import linear_apply, linear_init, rope
+
+NEG_INF = -1e30
+
+
+def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, kv, hd = cfg.d_model, cfg.num_kv_heads, cfg.head_dim
+    h = cfg.num_heads + cfg.head_pad
+    return {"q": linear_init(gen, cfg, d, h * hd),
+            "k": linear_init(gen, cfg, d, kv * hd),
+            "v": linear_init(gen, cfg, d, kv * hd),
+            "o": linear_init(gen, cfg, h * hd, d)}
+
+
+def naive_attention(q, k, v, *, causal: bool, window: int = 0,
+                    q_offset=0, kv_valid_len=None) -> torch.Tensor:
+    """Full-materialization attention. q: (B, Sq, H, hd); k/v: (B, Skv, KV,
+    hd). ``q_offset`` / ``kv_valid_len`` are ints or (B,) tensors (each slot
+    at its own position). Scores, softmax and both products in f32; the
+    probabilities are rounded to v's dtype before the second product, as in
+    ``repro``."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) \
+        * (1.0 / math.sqrt(hd))
+    dev = q.device
+    q_off = torch.as_tensor(q_offset, device=dev)
+    q_pos = q_off[..., None] + torch.arange(sq, device=dev)  # (sq,)|(B, sq)
+    if q_pos.ndim == 1:
+        q_pos = q_pos[None]
+    k_pos = torch.arange(skv, device=dev)
+    mask = torch.ones((1, sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (q_pos[:, :, None] >= k_pos)
+    if window:
+        mask = mask & (q_pos[:, :, None] - k_pos < window)
+    if kv_valid_len is not None:
+        valid = torch.as_tensor(kv_valid_len, device=dev)
+        valid = valid[:, None, None] if valid.ndim else valid
+        mask = mask & (k_pos < valid)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
+    return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+               positions: torch.Tensor, cache: dict,
+               cache_pos: Optional[torch.Tensor] = None,
+               ) -> Tuple[torch.Tensor, dict]:
+    """One attention layer over a dense bshd cache.
+
+    * prefill (``cache_pos is None``): x (B, S, d); K/V of all S tokens are
+      written at positions 0..S-1 and the layer attends the cache view;
+    * decode: x (B, 1, d) and ``cache_pos`` an int tensor, scalar or (B,)
+      (each slot at its own position).
+    """
+    if cfg.sliding_window or cfg.cache_layout != "bshd":
+        raise NotImplementedError("the port serves full attention over the "
+                                  "bshd cache only")
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    h = cfg.num_heads + cfg.head_pad
+    lead = x.shape[:-1]
+    q = linear_apply(params["q"], x, cfg).reshape(*lead, h, hd)
+    k = linear_apply(params["k"], x, cfg).reshape(*lead, kv, hd)
+    v = linear_apply(params["v"], x, cfg).reshape(*lead, kv, hd)
+    if cfg.rope_theta:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+
+    k_c, v_c = cache["k"], cache["v"]
+    if cache_pos is None:
+        s = k.shape[1]
+        if s > k_c.shape[1]:
+            raise ValueError(f"prompt of {s} tokens exceeds the cache's "
+                             f"{k_c.shape[1]} positions")
+        k_c[:, :s] = k.to(k_c.dtype)
+        v_c[:, :s] = v.to(v_c.dtype)
+        o = naive_attention(q, k_c, v_c, causal=True)
+    else:
+        if k.shape[1] != 1:
+            raise NotImplementedError("multi-token decode windows are not "
+                                      "ported yet")
+        if cache_pos.ndim:
+            rows = torch.arange(k.shape[0], device=k.device)
+            k_c[rows, cache_pos] = k[:, 0].to(k_c.dtype)
+            v_c[rows, cache_pos] = v[:, 0].to(v_c.dtype)
+        else:
+            k_c[:, cache_pos] = k[:, 0].to(k_c.dtype)
+            v_c[:, cache_pos] = v[:, 0].to(v_c.dtype)
+        o = naive_attention(q, k_c, v_c, causal=False, q_offset=cache_pos,
+                            kv_valid_len=cache_pos + 1)
+    y = linear_apply(params["o"], o.reshape(*lead, h * hd), cfg)
+    return y, {"k": k_c, "v": v_c}
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device="cpu") -> dict:
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,0 +1,209 @@
+"""Core layers of the port (functional, parameters in plain dicts): linear
+(latent or ternary-packed), norms, embeddings, RoPE, gated MLP — the
+counterparts of ``repro.models.layers``, with the same rounding points.
+
+Dtypes follow ``repro``: activations in ``cfg.dtype`` (bf16), parameters in
+``cfg.param_dtype`` (f32); norms compute in f32 and cast back; the packed
+GEMM's epilogue is f32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quantize, weights
+from repro_torch.kernels import ops
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _randn(gen: torch.Generator, shape, cfg: ModelConfig) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=dtype_of(cfg.param_dtype))
+
+
+# ---------------------------------------------------------------------------
+# Linear — the layer the paper's technique lives in
+# ---------------------------------------------------------------------------
+
+def linear_init(gen: torch.Generator, cfg: ModelConfig, d_in: int,
+                d_out: int, use_bias: Optional[bool] = None,
+                scale: Optional[float] = None) -> dict:
+    """A latent (d_in, d_out) projection, N(0, 1/d_in) unless ``scale``."""
+    use_bias = cfg.use_bias if use_bias is None else use_bias
+    std = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    params = {"w": _randn(gen, (d_in, d_out), cfg) * std}
+    if use_bias:
+        params["b"] = torch.zeros((d_out,), dtype=dtype_of(cfg.param_dtype),
+                                  device=gen.device)
+    return params
+
+
+def _is_ternary(cfg: ModelConfig, d_in: int, d_out: int) -> bool:
+    return (cfg.quantization != "none"
+            and min(d_in, d_out) >= cfg.ternary_min_dim)
+
+
+def linear_apply(params: dict, x: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """x: (..., d_in) -> (..., d_out)."""
+    wc = params.get("w_packed")
+    if wc is not None:
+        lead = x.shape[:-1]
+        y = ops.ternary_gemm(x.reshape(-1, x.shape[-1]), wc)
+        y = y.reshape(*lead, -1)
+    else:
+        w = params["w"]
+        if cfg.quantization == "ternary" and _is_ternary(cfg, *w.shape):
+            # forward of repro's straight-through ternarization
+            t, alpha = quantize.ternarize(w, cfg.ternary_threshold)
+            w = t.to(w.dtype) * alpha.to(w.dtype)
+        y = x @ w.to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(y.dtype)
+    return y
+
+
+def pack_linear(params: dict, cfg: ModelConfig) -> dict:
+    """Latent linear -> packed serving format (``Dense2Bit`` carrying the
+    per-channel ternarization scales and the bias)."""
+    if "w" not in params:
+        return params
+    w = params["w"]
+    if not _is_ternary(cfg, *w.shape[-2:]):
+        return params
+    return {"w_packed": weights.pack(w, "dense2bit", bias=params.get("b"),
+                                     threshold=cfg.ternary_threshold)}
+
+
+def pack_params(params, cfg: ModelConfig):
+    """Walk a param tree (dicts and lists) and pack every ternarizable
+    projection. Packing runs on the device the weights lie on."""
+    def walk(p):
+        if isinstance(p, dict):
+            w = p.get("w")
+            if w is not None and w.ndim in (2, 3) \
+                    and min(w.shape[-2:]) >= cfg.ternary_min_dim:
+                return pack_linear(p, cfg)
+            return {k: walk(v) for k, v in p.items()}
+        if isinstance(p, list):
+            return [walk(v) for v in p]
+        return p
+
+    return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def norm_init(gen: torch.Generator, cfg: ModelConfig, d: int) -> dict:
+    params = {"scale": torch.ones((d,), dtype=dtype_of(cfg.param_dtype),
+                                  device=gen.device)}
+    if cfg.norm_type == "layernorm":
+        params["bias"] = torch.zeros_like(params["scale"])
+    return params
+
+
+def norm_apply(params: dict, x: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm_type == "layernorm":
+        xf = xf - xf.mean(dim=-1, keepdim=True)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + cfg.norm_eps)
+    y = y * params["scale"].float()
+    if "bias" in params:
+        y = y + params["bias"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    return {"table": _randn(gen, (cfg.padded_vocab(), cfg.d_model), cfg)
+            * 0.02}
+
+
+def embed_apply(params: dict, tokens: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    # repro casts the table, then gathers; gathering first and casting the
+    # gathered rows gives the same values without a full-table cast per call
+    return params["table"][tokens].to(dtype_of(cfg.dtype))
+
+
+def unembed_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    return linear_init(gen, cfg, cfg.d_model, cfg.padded_vocab(),
+                       use_bias=False)
+
+
+def unembed_apply(params: dict, x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    return linear_apply(params, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd), positions: (B, S) -> rotated x (in x.dtype)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs            # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int) -> dict:
+    return {"in": linear_init(gen, cfg, cfg.d_model, d_ff),
+            "gate": linear_init(gen, cfg, cfg.d_model, d_ff),
+            "out": linear_init(gen, cfg, d_ff, cfg.d_model)}
+
+
+def _fused_mlp_weights(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """The (w_in, w_out, w_gate) containers when this MLP dispatches the
+    fused kernel: every projection packed (bias inside the container), the
+    kernel path active — here, the activations lie on the card — and fusion
+    not configured off."""
+    if cfg.fused_mlp == "off" or not x.is_cuda:
+        return None
+    ws = []
+    for name in ("in", "out", "gate"):
+        p = params.get(name, {})
+        wc = p.get("w_packed") if isinstance(p, dict) else None
+        if wc is None or "b" in p:
+            return None
+        ws.append(wc)
+    return tuple(ws)
+
+
+def mlp_apply(params: dict, x: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    fused = _fused_mlp_weights(params, x, cfg)
+    if fused is not None:
+        w_in, w_out, w_gate = fused
+        lead = x.shape[:-1]
+        y = ops.fused_mlp(x.reshape(-1, x.shape[-1]), w_in, w_out, w_gate)
+        return y.reshape(*lead, -1)
+    h = F.silu(linear_apply(params["gate"], x, cfg)) \
+        * linear_apply(params["in"], x, cfg)
+    return linear_apply(params["out"], h, cfg)

@@ -1,0 +1,148 @@
+"""The decoder LM of the port (dense, attention-only family): a Python loop
+over per-layer parameter dicts where ``repro`` scans stacked ones.
+
+    m = LM(cfg, device="cuda")
+    params = m.init(torch.Generator(device="cuda").manual_seed(0))
+    cache, logits = m.prefill(params, {"tokens": toks}, max_len)
+    logits, cache = m.decode_step(params, cache, next_tokens)
+
+Parameter tree: ``{"embed": {"table"}, "layers": [{"norm1", "mixer": {q, k,
+v, o}, "norm2", "ffn": {in, gate, out}}, ...], "final_norm", "unembed"}``
+with ``{"w"}`` latent or ``{"w_packed": Dense2Bit}`` linears. Caches:
+``{"layers": [{"k", "v"} per layer], "pos": int32 tensor}``, ``pos`` a
+scalar or a (B,) vector of per-slot positions.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention, layers
+
+
+class LM:
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        for i in range(cfg.num_layers):
+            if cfg.layer_kind(i) != "attn" or cfg.layer_ffn(i) not in (
+                    "mlp", "none"):
+                raise NotImplementedError(
+                    f"the port serves the dense attention-only family; "
+                    f"{cfg.name!r} layer {i} is "
+                    f"{cfg.layer_kind(i)}/{cfg.layer_ffn(i)}")
+        if cfg.is_encdec or cfg.family not in ("dense",):
+            raise NotImplementedError(f"family {cfg.family!r} is not ported")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------------
+    def init(self, generator: torch.Generator) -> dict:
+        """Random latent parameters drawn from ``generator`` on its device
+        (which must be this model's)."""
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator lies on {generator.device}, the "
+                             f"model on {self.device}")
+        cfg, g = self.cfg, generator
+        blocks = []
+        for i in range(cfg.num_layers):
+            bp = {"norm1": layers.norm_init(g, cfg, cfg.d_model),
+                  "mixer": attention.attn_init(g, cfg)}
+            if cfg.layer_ffn(i) == "mlp":
+                bp["norm2"] = layers.norm_init(g, cfg, cfg.d_model)
+                bp["ffn"] = layers.mlp_init(g, cfg, cfg.d_ff)
+            blocks.append(bp)
+        params = {"embed": layers.embed_init(g, cfg), "layers": blocks,
+                  "final_norm": layers.norm_init(g, cfg, cfg.d_model)}
+        if not cfg.tie_embeddings:
+            params["unembed"] = layers.unembed_init(g, cfg)
+        return params
+
+    # ------------------------------------------------------------------
+    def _apply_block(self, bp, x, *, positions, cache, cache_pos):
+        cfg = self.cfg
+        h = layers.norm_apply(bp["norm1"], x, cfg)
+        h, new_cache = attention.attn_apply(
+            bp["mixer"], h, cfg, positions=positions, cache=cache,
+            cache_pos=cache_pos)
+        x = x + h
+        if "ffn" in bp:
+            h2 = layers.norm_apply(bp["norm2"], x, cfg)
+            x = x + layers.mlp_apply(bp["ffn"], h2, cfg)
+        return x, new_cache
+
+    def _run_stack(self, params, x, *, positions, caches, cache_pos):
+        new_caches = []
+        for bp, c in zip(params["layers"], caches):
+            x, nc = self._apply_block(bp, x, positions=positions, cache=c,
+                                      cache_pos=cache_pos)
+            new_caches.append(nc)
+        return x, new_caches
+
+    def _logits(self, params, x):
+        if self.cfg.tie_embeddings:
+            return x @ params["embed"]["table"].to(x.dtype).T
+        return layers.unembed_apply(params["unembed"], x, self.cfg)
+
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
+        cfg = self.cfg
+        dtype = layers.dtype_of(cfg.cache_dtype) if dtype is None else dtype
+        return {"layers": [attention.init_kv_cache(cfg, batch, max_len,
+                                                   dtype, self.device)
+                           for _ in range(cfg.num_layers)],
+                "pos": torch.zeros((), dtype=torch.int32,
+                                   device=self.device)}
+
+    @staticmethod
+    def insert_cache(pool_layers: List[Dict[str, torch.Tensor]],
+                     req_layers: List[Dict[str, torch.Tensor]],
+                     slots) -> List[Dict[str, torch.Tensor]]:
+        """Write a freshly prefilled k-request cache (batch dim k, same
+        max_len) into the batch rows ``slots`` of a pool cache, in place."""
+        for big, small in zip(pool_layers, req_layers):
+            idx = torch.as_tensor(slots, device=big["k"].device).reshape(-1)
+            for name in ("k", "v"):
+                big[name][idx] = small[name].to(big[name].dtype)
+        return pool_layers
+
+    def prefill(self, params, batch, max_len: int,
+                cache_dtype=torch.bfloat16):
+        """Run the prompt, fill the caches, return (cache, last-position
+        logits (B, 1, V)). ``cache_dtype`` defaults to bf16 whatever the
+        config says, as ``repro``'s prefill does."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = layers.embed_apply(params["embed"], tokens, cfg)
+        positions = torch.arange(x.shape[1], device=x.device).expand(
+            x.shape[0], -1)
+        cache0 = self.init_cache(x.shape[0], max_len, cache_dtype)
+        x, new_caches = self._run_stack(params, x, positions=positions,
+                                        caches=cache0["layers"],
+                                        cache_pos=None)
+        x = layers.norm_apply(params["final_norm"], x, cfg)
+        logits = self._logits(params, x[:, -1:])
+        cache = {"layers": new_caches,
+                 "pos": torch.tensor(x.shape[1], dtype=torch.int32,
+                                     device=x.device)}
+        return cache, logits
+
+    def decode_step(self, params, cache, tokens):
+        """tokens (B, 1) -> (logits (B, 1, V), cache). ``cache["pos"]`` is
+        a scalar or a (B,) vector of per-slot positions; the caches are
+        written in place."""
+        if tokens.shape[1] != 1:
+            raise NotImplementedError("verify windows (S > 1) are not "
+                                      "ported yet")
+        cfg = self.cfg
+        pos = cache["pos"]
+        x = layers.embed_apply(params["embed"], tokens, cfg)
+        src = pos[:, None] if pos.ndim else pos
+        positions = src.expand(tokens.shape)
+        x, new_caches = self._run_stack(params, x, positions=positions,
+                                        caches=cache["layers"],
+                                        cache_pos=pos)
+        x = layers.norm_apply(params["final_norm"], x, cfg)
+        logits = self._logits(params, x)
+        return logits, dict(cache, layers=new_caches, pos=pos + 1)

@@ -1,0 +1,133 @@
+"""Request bookkeeping of the port's continuous-batching engine: one
+``Request`` per user call and a FIFO ``RequestQueue`` (the counterparts of
+``repro.serving.queue`` without deadlines, retries and SLO classes, which
+are not ported yet). Timestamps come from ``repro_torch.obs.clock``.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Deque, List, Optional
+
+import numpy as np
+
+from repro_torch.obs import clock as obs_clock
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray               # (prompt_len,) int32 token ids
+    max_new: int                     # generation budget (tokens)
+    eos_id: Optional[int] = None     # early-stop token (None: budget only)
+    state: str = "queued"            # queued | live | done
+
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    slot: Optional[int] = None
+    submit_t: float = 0.0
+    admit_t: Optional[float] = None
+    first_token_t: Optional[float] = None
+    done_t: Optional[float] = None
+
+    @property
+    def prompt_len(self) -> int:
+        return int(self.prompt.shape[0])
+
+    @property
+    def done(self) -> bool:
+        if len(self.tokens) >= self.max_new:
+            return True
+        return bool(self.tokens and self.eos_id is not None
+                    and self.tokens[-1] == self.eos_id)
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        if self.first_token_t is None:
+            return None
+        return self.first_token_t - self.submit_t
+
+    @property
+    def queue_wait_s(self) -> Optional[float]:
+        if self.admit_t is None:
+            return None
+        return self.admit_t - self.submit_t
+
+    @property
+    def prefill_s(self) -> Optional[float]:
+        if self.first_token_t is None or self.admit_t is None:
+            return None
+        return self.first_token_t - self.admit_t
+
+    @property
+    def tpot_s(self) -> Optional[float]:
+        """(done - first token) over the tokens generated after the first."""
+        if self.done_t is None or self.first_token_t is None:
+            return None
+        n = len(self.tokens) - 1
+        if n <= 0:
+            return None
+        return (self.done_t - self.first_token_t) / n
+
+    @property
+    def latency_s(self) -> Optional[float]:
+        if self.done_t is None:
+            return None
+        return self.done_t - self.submit_t
+
+    def metrics(self) -> dict:
+        return {
+            "rid": self.rid,
+            "prompt_len": self.prompt_len,
+            "gen_len": len(self.tokens),
+            "ttft_s": self.ttft_s,
+            "queue_wait_s": self.queue_wait_s,
+            "prefill_s": self.prefill_s,
+            "tpot_s": self.tpot_s,
+            "latency_s": self.latency_s,
+            "state": self.state,
+        }
+
+
+class RequestQueue:
+    """FIFO admission queue; ``submit`` stamps the enqueue time so TTFT
+    includes the queue wait."""
+
+    def __init__(self):
+        self._q: Deque[Request] = collections.deque()
+        self._next_rid = 0
+        self.submitted = 0
+
+    def submit(self, prompt: np.ndarray, max_new: int,
+               eos_id: Optional[int] = None) -> Request:
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        if max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {max_new}")
+        req = Request(rid=self._next_rid, prompt=prompt, max_new=max_new,
+                      eos_id=eos_id, submit_t=obs_clock.now())
+        self._next_rid += 1
+        self.submitted += 1
+        self._q.append(req)
+        return req
+
+    def pop(self) -> Request:
+        if not self._q:
+            raise IndexError("pop from an empty RequestQueue — admission "
+                             "must guard on .empty() before popping")
+        return self._q.popleft()
+
+    def peek(self) -> Optional[Request]:
+        return self._q[0] if self._q else None
+
+    def empty(self) -> bool:
+        return not self._q
+
+    def depth(self) -> int:
+        return len(self._q)
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+    def __bool__(self) -> bool:
+        return bool(self._q)

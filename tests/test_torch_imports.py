@@ -1,0 +1,50 @@
+"""The port stands alone: no module under ``src/repro_torch/`` and not
+``chip_smoke.py`` imports ``jax`` or anything of ``repro``; every module
+imports on a machine without a GPU, nvcc or triton."""
+import ast
+import importlib
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_ast_check_catches_a_forbidden_import(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("import os\nfrom repro.core import formats\n"
+                 "import jax.numpy as jnp\nfrom repro_torch import core\n")
+    assert sorted(set(_imported_roots(p)) & set(FORBIDDEN)) == ["jax",
+                                                                "repro"]
+
+
+@pytest.mark.parametrize("path", [p for p in FILES if p.parent != ROOT],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_every_module_imports_without_a_gpu(path):
+    rel = path.relative_to(ROOT / "src").with_suffix("")
+    name = ".".join(p for p in rel.parts if p != "__init__")
+    importlib.import_module(name)
