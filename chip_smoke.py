@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch/CUDA port (``src/repro_torch``): builds both
-hand-written kernels, holds each against its plain PyTorch version at the
-serving path's shapes, serves the full-width packed ``ternary-paper`` model
-through the continuous-batching engine, and compares the card's logits with
-the CPU's plain path on the same weights.
+"""On-card check of the PyTorch/CUDA port (``src/repro_torch``): builds the
+three hand-written kernels, holds each against its plain PyTorch version at
+the serving path's shapes, serves the full-width packed ``ternary-paper``
+model through the continuous-batching engine over the dense slot cache,
+then over the paged cache with bf16 pages and with int8 pages under page
+pressure (prefix sharing, copy-on-write, deferrals and preemptions), and
+compares the card's logits with the CPU's plain path and the paged decode
+step's logits with the dense one's on the same weights.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -19,13 +22,22 @@ each kernel agrees with its plain version within |d| <= 1e-2*|ref| +
 card (kernels) agree with the CPU's (plain versions) within
 5e-2*max|ref| — twelve bf16 layers compound those ulps — and the greedy
 token agrees unless the CPU's top-2 logits lie closer than that bound (a
-near tie, reported).
+near tie, reported). One decode step after prefilling the same prompts
+into a paged pool and into the dense cache gives logits within
+5e-2*max|logit| of each other with bf16 pages (the two paths differ only
+in sum order on the card; the CPU tests find them bitwise equal) and
+within 7e-2*max|logit| with int8 pages: the CPU measures int8 pages at
+1.2-1.5% of max|logit| from dense after one step at reduced and at full
+width, tests/test_torch_paging.py holds that under 2e-2, and the card's
+own rounding gets the 5e-2 above on top. Greedy tokens follow the same
+near-tie rule.
 
-Output: progress lines, the serving metrics JSON, one ``{"kernels": ...}``
-JSON line (each kernel's launches on the serving run, and its error and
-times summed over the shapes the serving path gives it, with the per-shape
-detail under ``shapes``), the card's name and power limit as nvidia-smi
-prints them, and the final ``{"ok": true, "device": ...}`` line.
+Output: progress lines, each serving run's metrics JSON, one
+``{"kernels": ...}`` JSON line (each kernel's launches summed over the
+serving runs that use it, with the per-run counts under ``runs``, and its
+error and times summed over the shapes the serving path gives it, with
+the per-shape detail under ``shapes``), the card's name and power limit as
+nvidia-smi prints them, and the final ``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
 
@@ -40,11 +52,24 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core peak
+F32_OPS_PER_S = 67e12           # f32 outside the tensor cores
 KERNEL_RTOL = 1e-2
 LOGIT_TOL = 5e-2
+INT8_LOGIT_TOL = 7e-2
 SEED = 0
 
 SERVE = dict(requests=16, slots=8, prompt_len=128, gen_lens=(32, 64))
+PAGE_SIZE = 16
+# 16 requests of 120-token prompts sharing a 64-token prefix, identical in
+# pairs. Full occupancy without sharing needs 8 x 12 = 96 pages, but the
+# sharing keeps this workload's peak at 56 (the page counts depend only on
+# prompts and budgets), so a 64-page pool never defers or preempts: 40
+# pages (39 usable) make it do both.
+PRESSURE = dict(requests=16, slots=8, prompt_len=120, prefix_len=64,
+                gen_lens=(32, 64), n_pages=40)
+# paged attention at the serving shape: 8 rows of up to 193 tokens in
+# 13 pages of 16 each, 16 heads (no GQA in ternary-paper), hd 64
+PAGED = dict(b=8, h=16, kv=16, hd=64, t=13, max_len=193)
 GEMM_SHAPES = [(m, k, n) for m in (8, 1024)
                for k, n in ((1024, 1024), (1024, 32768))]
 MLP_SHAPES = [(m, 1024, 4096, 1024) for m in (8, 1024)]
@@ -76,9 +101,9 @@ def cuda_ms(fn, iters: int, flush) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -172,14 +197,128 @@ def kernel_phase(flush):
     return results
 
 
+def paged_kernel_phase(flush):
+    """B5 against its plain version at the serving shape, bf16 and int8
+    pages: ragged lengths from the seeded generator, each row's pages
+    distinct, table entries past each length garbage."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.paging import Int8Pages
+    from repro_torch.paging import kernels as paged_lib
+
+    b, h, kv, hd, t = (PAGED[k] for k in ("b", "h", "kv", "hd", "t"))
+    ps, n_pages = PAGE_SIZE, PAGED["b"] * PAGED["t"] + 1
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    q = torch.randn(b, h, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn(n_pages, ps, kv, hd, generator=gen, device="cuda")
+    v = torch.randn(n_pages, ps, kv, hd, generator=gen, device="cuda")
+    lengths = torch.randint(1, PAGED["max_len"] + 1, (b,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    table = torch.randint(0, n_pages, (b, t), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+            ).to(torch.int32)
+    for row, n in enumerate(lengths.tolist()):
+        used = -(-n // ps)
+        table[row, :used] = perm[row * t:row * t + used]
+    valid = int(lengths.sum())
+    pos = torch.arange(t * ps, device="cuda")
+    mask = (pos < lengths[:, None])[:, None, None, :]       # (B, 1, 1, S)
+    rows = []
+    for label in ("bf16", "int8"):
+        if label == "int8":
+            kp, vp = Int8Pages.quantize(k), Int8Pages.quantize(v)
+        else:
+            kp, vp = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        args = (q, kp, vp, table, lengths)
+        got = ops.paged_decode_attention(*args)
+        ref = paged_lib.paged_decode_attention_ref(*args)
+        err = check_close(f"paged_decode_attention {label} pages", got, ref)
+        # yardstick: SDPA over K/V gathered (and dequantized) beforehand
+        ks, vs = (paged_lib.gather_pages(pg, table, torch.bfloat16)
+                  .transpose(1, 2).contiguous() for pg in (kp, vp))
+        qs = q[:, :, None]
+        iters = 50
+        row = {
+            "pages": label, "b": b, "h": h, "kv": kv, "hd": hd, "ps": ps,
+            "t": t, "valid_tokens": valid, "max_abs_err": err,
+            "ms": cuda_ms(lambda: ops.paged_decode_attention(*args), iters,
+                          flush),
+            "plain_ms": cuda_ms(
+                lambda: paged_lib.paged_decode_attention_ref(*args), iters,
+                flush),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask), iters, flush),
+        }
+        # K and V of the valid tokens read once (+ their scales), q and o,
+        # the table and the lengths
+        per_token = 2 * kv * (hd + 4 if label == "int8" else 2 * hd)
+        nbytes = valid * per_token + 2 * b * h * hd * 2 + b * t * 4 + b * 4
+        ops_needed = 4.0 * valid * h * hd             # q.k and p.v, f32
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_needed,
+                                                    F32_OPS_PER_S)
+        rows.append(row)
+        print(f"paged_decode_attention {label} pages: " + json.dumps(row),
+              flush=True)
+    return rows
+
+
+def _counters():
+    from repro_torch.kernels import fused_mlp as fused_lib
+    from repro_torch.kernels import ternary_gemm as gemm_lib
+    from repro_torch.paging import kernels as paged_lib
+    return {"ternary_gemm": gemm_lib.ternary_gemm_cuda,
+            "fused_mlp": fused_lib.fused_mlp_cuda,
+            "paged_decode_attention": paged_lib.paged_decode_attention_cuda}
+
+
+def serve_run(label, cfg, params, prompts, gens, max_len, **engine_kw):
+    """Drain one workload through the continuous engine on the card; the
+    launch counters are set to 0 just before the run and read just
+    after. Checks every request drained with its full budget of in-range
+    token ids."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousScheduler
+
+    engine = ContinuousScheduler(cfg, max_slots=SERVE["slots"],
+                                 max_len=max_len, device="cuda", **engine_kw)
+    engine.load(params)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    outs, metrics = serve.run_continuous(engine, prompts, gens)
+    launches = {name: fn.launches for name, fn in counters.items()}
+
+    brief = {k: v for k, v in metrics.items() if k != "per_request"}
+    print(f"{label} serving metrics: " + json.dumps(brief), flush=True)
+    print(f"{label} serving launches: {json.dumps(launches)}", flush=True)
+    if metrics["drained"] != len(gens):
+        raise AssertionError(f"{label}: drained {metrics['drained']} of "
+                             f"{len(gens)} requests")
+    for i, (toks, g) in enumerate(zip(outs, gens)):
+        if len(toks) != g or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{label}: request {i}: {len(toks)} tokens "
+                                 f"for a budget of {g}, or ids out of range")
+    for name in ("ternary_gemm", "fused_mlp"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: {name} kernel never launched")
+    paged = engine_kw.get("cache") == "paged"
+    want = cfg.num_layers * metrics["decode_steps"] if paged else 0
+    if launches["paged_decode_attention"] != want:
+        raise AssertionError(
+            f"{label}: paged_decode_attention launched "
+            f"{launches['paged_decode_attention']} times, expected {want} "
+            f"({cfg.num_layers} layers x {metrics['decode_steps']} decode "
+            f"steps)")
+    return outs, metrics, launches
+
+
 def serve_phase():
     """Full-width packed ternary-paper through the continuous engine; the
     launch counters are zeroed just before the run and read just after."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import fused_mlp as fused_lib
-    from repro_torch.kernels import ternary_gemm as gemm_lib
     from repro_torch.launch import serve
-    from repro_torch.serving import ContinuousScheduler
 
     cfg = get_config("ternary-paper")
     prompts, gens = serve.build_workload(
@@ -192,31 +331,9 @@ def serve_phase():
           f"{serve.count_packed(params)} packed linears in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
     max_len = SERVE["prompt_len"] + max(SERVE["gen_lens"]) + 1
-    engine = ContinuousScheduler(cfg, max_slots=SERVE["slots"],
-                                 max_len=max_len, device="cuda")
-    engine.load(params)
-
-    gemm_lib.ternary_gemm_cuda.launches = 0
-    fused_lib.fused_mlp_cuda.launches = 0
-    outs, metrics = serve.run_continuous(engine, prompts, gens)
-    launches = {"ternary_gemm": gemm_lib.ternary_gemm_cuda.launches,
-                "fused_mlp": fused_lib.fused_mlp_cuda.launches}
-
-    brief = {k: v for k, v in metrics.items() if k != "per_request"}
-    print("serving metrics: " + json.dumps(brief), flush=True)
-    print(f"serving launches: {json.dumps(launches)}", flush=True)
-    if metrics["drained"] != SERVE["requests"]:
-        raise AssertionError(f"drained {metrics['drained']} of "
-                             f"{SERVE['requests']} requests")
-    for i, (toks, g) in enumerate(zip(outs, gens)):
-        if len(toks) != g or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
-            raise AssertionError(f"request {i}: {len(toks)} tokens for a "
-                                 f"budget of {g}, or ids out of range")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} kernel never launched while "
-                                 f"serving")
-    return cfg, params, prompts, max_len, launches
+    outs, _, launches = serve_run("dense", cfg, params, prompts, gens,
+                                  max_len)
+    return cfg, params, prompts, gens, max_len, outs, launches
 
 
 def _tree_to(tree, device):
@@ -249,25 +366,127 @@ def model_phase(cfg, params, prompts, max_len):
     with torch.no_grad():
         _, cpu = LM(cfg, "cpu").prefill(_tree_to(params, "cpu"),
                                         {"tokens": toks}, max_len)
-    card, cpu = card[0, -1].float().cpu(), cpu[0, -1].float()
-    diff = float((card - cpu).abs().max())
-    scale = float(cpu.abs().max())
-    tok_card, tok_cpu = int(card.argmax()), int(cpu.argmax())
-    top2 = cpu.topk(2).values
-    margin = float(top2[0] - top2[1])
-    print(f"model check (CPU plain path {time.perf_counter() - t0:.1f}s): "
-          f"max|d logit| = {diff:.4g}, max|logit| = {scale:.4g}, "
-          f"greedy card {tok_card} / cpu {tok_cpu}, cpu top-2 margin "
-          f"{margin:.4g}", flush=True)
-    if not bool(torch.isfinite(card).all()) or diff > LOGIT_TOL * scale:
-        raise AssertionError(f"card logits differ from the CPU's by {diff} "
-                             f"> {LOGIT_TOL} * {scale}")
-    if tok_card != tok_cpu:
-        if margin > LOGIT_TOL * scale:
-            raise AssertionError(f"greedy token differs: card {tok_card}, "
-                                 f"cpu {tok_cpu}, margin {margin}")
-        print("greedy tokens differ on a near tie (within the logit "
-              "tolerance)", flush=True)
+    _compare_logits(f"model check, card vs CPU plain path "
+                    f"({time.perf_counter() - t0:.1f}s on the CPU)",
+                    cpu[:, -1], card[:, -1], LOGIT_TOL)
+
+
+def _compare_logits(what, ref, got, tol):
+    """max |got - ref| <= tol * max|ref| for (B, V) logits, finite, and
+    each row's greedy token equal unless ref's top-2 lie within that bound
+    (a near tie, reported). Returns the rows whose tokens agree."""
+    import torch
+    ref, got = ref.float().cpu(), got.float().cpu()
+    diff = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    agree = ref.argmax(-1) == got.argmax(-1)
+    print(f"{what}: max|d logit| = {diff:.4g} ({diff / scale:.4g} of "
+          f"max|logit| {scale:.4g}, bound {tol}); greedy tokens agree on "
+          f"{int(agree.sum())}/{len(agree)} rows", flush=True)
+    if not bool(torch.isfinite(got).all()) or diff > tol * scale:
+        raise AssertionError(f"{what}: logits differ by {diff} > {tol} * "
+                             f"{scale}")
+    for row in torch.nonzero(~agree).flatten().tolist():
+        if float(margin[row]) > tol * scale:
+            raise AssertionError(f"{what}: row {row} greedy token differs "
+                                 f"with a top-2 margin of "
+                                 f"{float(margin[row])}")
+        print(f"{what}: row {row} differs on a near tie (margin "
+              f"{float(margin[row]):.4g})", flush=True)
+    return int(agree.sum())
+
+
+def paged_step_check(what, cfg, params, prompts, max_len, kv_dtype, tol):
+    """Prefill the same prompts into the dense cache and into a paged pool
+    on the card, run one decode step in each from the same next tokens,
+    and compare the logits."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.paging import PagePool
+
+    model = LM(cfg, "cuda")
+    b, s = prompts.shape
+    toks = torch.as_tensor(prompts, device="cuda")
+    pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        with ops.serving_phase("prefill"):
+            cache, logits = model.prefill(params, {"tokens": toks}, max_len)
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        with ops.serving_phase("decode"):
+            dense, _ = model.decode_step(
+                params, {"layers": cache["layers"], "pos": pos}, nxt)
+        del cache
+        pool = PagePool(model, b, max_len, page_size=PAGE_SIZE,
+                        kv_dtype=kv_dtype)
+        adms = [pool.admit(p) for p in prompts]
+        if [a.slot for a in adms] != list(range(b)):
+            raise AssertionError("the pool's slots do not follow the rows")
+        with ops.serving_phase("prefill"):
+            pcache, _ = model.prefill(params, {"tokens": toks},
+                                      -(-s // PAGE_SIZE) * PAGE_SIZE)
+        pool.insert(adms, pcache["layers"])
+        del pcache
+        for a in adms:
+            if not pool.ensure_append(a.slot, s):
+                raise AssertionError("a default-size pool ran dry")
+        table = torch.tensor(pool.table, device="cuda")
+        with ops.serving_phase("decode"):
+            paged, _ = model.decode_step(
+                params, {"layers": pool.layers, "pos": pos,
+                         "block_table": table}, nxt)
+    return _compare_logits(what, dense[:, 0], paged[:, 0], tol)
+
+
+def pressure_workload(cfg):
+    """The int8 pressure run's prompts: a 64-token prefix common to all,
+    a 56-token tail shared by each adjacent pair (so twins share their
+    partial tail page and copy it on their first write); budgets drawn
+    from {32, 64}."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 3)
+    n, plen = PRESSURE["requests"], PRESSURE["prompt_len"]
+    common = rng.integers(0, cfg.vocab_size, size=PRESSURE["prefix_len"])
+    tails = rng.integers(0, cfg.vocab_size,
+                         size=(n // 2, plen - PRESSURE["prefix_len"]))
+    prompts = np.stack([np.concatenate([common, tails[i // 2]])
+                        for i in range(n)]).astype(np.int32)
+    gens = [int(g) for g in rng.choice(PRESSURE["gen_lens"], size=n)]
+    return prompts, gens
+
+
+def paged_phases(cfg, params, prompts, gens, max_len, dense_outs):
+    """Paged serving with bf16 pages on the dense run's workload, then with
+    int8 pages under pressure; each followed by the one-step logit check
+    against the dense cache. Returns the per-run launch counts."""
+    import numpy as np
+    outs, _, bf16_launches = serve_run(
+        "paged bf16", cfg, params, prompts, gens, max_len, cache="paged",
+        page_size=PAGE_SIZE)
+    same = sum(np.array_equal(a, b) for a, b in zip(outs, dense_outs))
+    print(f"paged bf16: {same}/{len(outs)} token streams equal the dense "
+          f"run's (information, not a gate)", flush=True)
+    runs = {"paged_bf16": bf16_launches}
+    paged_step_check("paged bf16 vs dense, one decode step", cfg, params,
+                     prompts[:SERVE["slots"]], max_len, None, LOGIT_TOL)
+
+    p_prompts, p_gens = pressure_workload(cfg)
+    p_max_len = PRESSURE["prompt_len"] + max(PRESSURE["gen_lens"]) + 1
+    _, pm, runs["paged_int8"] = serve_run(
+        "paged int8 under pressure", cfg, params, p_prompts, p_gens,
+        p_max_len, cache="paged", page_size=PAGE_SIZE,
+        n_pages=PRESSURE["n_pages"], kv_dtype="int8")
+    cache = pm["cache"]
+    if not (cache["prefix"]["hits"] > 0 and cache["cow_copies"] > 0
+            and cache["deferrals"] + cache["preemptions"] > 0):
+        raise AssertionError(f"the pressure run did not share prefixes, "
+                             f"copy on write and defer or preempt: {cache}")
+    paged_step_check("paged int8 vs dense, one decode step", cfg, params,
+                     p_prompts[:SERVE["slots"]], p_max_len, "int8",
+                     INT8_LOGIT_TOL)
+    return runs
 
 
 def main() -> int:
@@ -303,15 +522,22 @@ def main() -> int:
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     shapes = kernel_phase(flush)
+    shapes["paged_decode_attention"] = paged_kernel_phase(flush)
     del flush
-    cfg, params, prompts, max_len, launches = serve_phase()
+    cfg, params, prompts, gens, max_len, dense_outs, launches = serve_phase()
     model_phase(cfg, params, prompts, max_len)
+    runs = {"dense": launches}
+    runs.update(paged_phases(cfg, params, prompts, gens, max_len,
+                             dense_outs))
 
     meta = {
         "ternary_gemm": ("src/repro_torch/kernels/csrc/ternary_gemm.cu",
                          "src/repro/kernels/ternary_gemm.py:148"),
         "fused_mlp": ("src/repro_torch/kernels/csrc/fused_mlp.cu",
                       "src/repro/kernels/fused_mlp.py:187"),
+        "paged_decode_attention": (
+            "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "src/repro/paging/kernels.py:189"),
     }
     kernels = []
     for name, rows in shapes.items():
@@ -319,7 +545,9 @@ def main() -> int:
                  for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches[name],
+            "replaces": meta[name][1],
+            "launches": sum(run[name] for run in runs.values()),
+            "runs": {label: run[name] for label, run in runs.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"],

@@ -1,5 +1,6 @@
-"""Public ternary ops of the port: ``ternary_gemm`` and ``fused_mlp``, plus
-the serving-phase tag (``serving_phase`` / ``current_phase``).
+"""Public ops of the port: ``ternary_gemm``, ``fused_mlp`` and
+``paged_decode_attention``, plus the serving-phase tag (``serving_phase``
+/ ``current_phase``).
 
 Dispatch is by the device the activations lie on: a CUDA tensor launches
 the hand-written kernel (or the wrapper raises), a CPU tensor takes the
@@ -19,8 +20,8 @@ from repro_torch.core.weights import Dense2Bit
 from repro_torch.kernels import fused_mlp as fused_lib
 from repro_torch.kernels import ternary_gemm as gemm_lib
 
-__all__ = ["ternary_gemm", "fused_mlp", "serving_phase", "current_phase",
-           "SERVING_PHASES"]
+__all__ = ["ternary_gemm", "fused_mlp", "paged_decode_attention",
+           "serving_phase", "current_phase", "SERVING_PHASES"]
 
 SERVING_PHASES = ("prefill", "decode")
 
@@ -114,3 +115,22 @@ def fused_mlp(x: torch.Tensor, w_in: Dense2Bit, w_out: Dense2Bit,
         return fused_lib.fused_mlp_cuda(*args, activation=activation,
                                         variant=variant, ff_chunk=ff_chunk)
     return fused_lib.fused_mlp_ref(*args, activation=activation)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
+                           block_table: torch.Tensor, lengths: torch.Tensor,
+                           *, window: int = 0) -> torch.Tensor:
+    """Decode attention over block-table-indexed KV pages: q (B, H, hd);
+    k_pages/v_pages (P, ps, KV, hd) tensors or ``paging.Int8Pages``;
+    block_table (B, T) int32; lengths (B,) int32 valid-token counts (the
+    current token included). Returns (B, H, hd) in q's dtype."""
+    # imported here: repro_torch.paging imports the models, which import
+    # this module
+    from repro_torch.paging import kernels as paged_lib
+    if q.is_cuda:
+        return paged_lib.paged_decode_attention_cuda(
+            q.contiguous(), k_pages, v_pages, block_table, lengths,
+            window=window)
+    return paged_lib.paged_decode_attention_ref(q, k_pages, v_pages,
+                                                block_table, lengths,
+                                                window=window)

@@ -1,9 +1,10 @@
 """Serving CLI of the port: the continuous-batching engine over the dense
-slot pool, on the card by default.
+slot pool or the paged KV pool, on the card by default.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch ternary-paper \\
       --packed --requests 16 --slots 8 --prompt-len 128 --gen-lens 32,64
+  ... --cache paged --page-size 16 [--kv-dtype int8 --pages N]
   ... --device cpu --reduced --ternary-min-dim 64   # plain PyTorch path
 """
 from __future__ import annotations
@@ -80,6 +81,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-lens", default="32",
                     help="comma list; per-request budgets drawn uniformly")
+    ap.add_argument("--cache", default="dense", choices=("dense", "paged"),
+                    help="KV cache: dense slot rows, or the paged "
+                         "block-table pool")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="--cache paged: tokens per KV page")
+    ap.add_argument("--pages", type=int, default=0,
+                    help="--cache paged: page-pool capacity incl. the "
+                         "trash page (0: slots*ceil(max_len/page_size)+1)")
+    ap.add_argument("--kv-dtype", default="", choices=("", "int8"),
+                    help="--cache paged: int8 pages with per-row scales "
+                         "(default: the config's cache dtype)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="--cache paged: no shared-prefix page reuse")
     ap.add_argument("--packed", action="store_true",
                     help="quantize+pack ternarizable projections into the "
                          "Dense2Bit serving format before load")
@@ -101,6 +115,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                                    gen_lens, seed=args.seed)
     cfg, params = build_params(cfg, args.seed, device, args.packed)
     engine = ContinuousScheduler(cfg, max_slots=args.slots, max_len=max_len,
+                                 cache=args.cache, page_size=args.page_size,
+                                 n_pages=args.pages,
+                                 kv_dtype=args.kv_dtype or None,
+                                 prefix_cache=not args.no_prefix_cache,
                                  device=device)
     engine.load(params)
     _, metrics = run_continuous(engine, prompts, gens)

@@ -1,13 +1,14 @@
 """GQA attention of the port for the serving path: ``naive_attention``,
 prefill-into-cache and per-slot decode over a dense ``(B, S, KV, hd)``
-("bshd") cache — the counterparts of ``repro.models.attention``.
+("bshd") cache, and one-token decode over a paged cache — the
+counterparts of ``repro.models.attention``.
 
 ``repro``'s attend-the-view rule carries over: prefill rounds K/V to the
 cache dtype, writes them, and attends the full ``max_len``-wide written
 cache view with causal masking; decode scatters each slot's token K/V at
 its own position and attends the view with ``kv_valid_len = pos + 1``.
 The cache tensors are updated in place (JAX returns new ones): the slot
-pool owns them and nothing else reads the old values.
+or page pool owns them and nothing else reads the old values.
 """
 from __future__ import annotations
 
@@ -17,7 +18,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models.layers import linear_apply, linear_init, rope
+from repro_torch.paging.quant import Int8Pages, quantize_rows
 
 NEG_INF = -1e30
 
@@ -68,13 +71,17 @@ def naive_attention(q, k, v, *, causal: bool, window: int = 0,
 def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                positions: torch.Tensor, cache: dict,
                cache_pos: Optional[torch.Tensor] = None,
+               block_table: Optional[torch.Tensor] = None,
                ) -> Tuple[torch.Tensor, dict]:
-    """One attention layer over a dense bshd cache.
+    """One attention layer over a dense bshd cache or a paged cache.
 
     * prefill (``cache_pos is None``): x (B, S, d); K/V of all S tokens are
       written at positions 0..S-1 and the layer attends the cache view;
     * decode: x (B, 1, d) and ``cache_pos`` an int tensor, scalar or (B,)
-      (each slot at its own position).
+      (each slot at its own position);
+    * paged decode: cache ``{"k_pages", "v_pages"}``, ``block_table``
+      (B, T) int32 and ``cache_pos`` a (B,) vector; prefill never sees a
+      paged cache (the page pool scatters prefilled rows into pages).
     """
     if cfg.sliding_window or cfg.cache_layout != "bshd":
         raise NotImplementedError("the port serves full attention over the "
@@ -88,6 +95,14 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.rope_theta:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+
+    if "k_pages" in cache:
+        if cache_pos is None or block_table is None:
+            raise ValueError("paged caches are decode-only and need "
+                             "cache_pos and a block table")
+        o = _paged_decode(q, k, v, cache, cache_pos, block_table, cfg)
+        y = linear_apply(params["o"], o.reshape(*lead, h * hd), cfg)
+        return y, cache
 
     k_c, v_c = cache["k"], cache["v"]
     if cache_pos is None:
@@ -113,6 +128,49 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                             kv_valid_len=cache_pos + 1)
     y = linear_apply(params["o"], o.reshape(*lead, h * hd), cfg)
     return y, {"k": k_c, "v": v_c}
+
+
+def _paged_decode(q, k, v, cache: dict, cache_pos: torch.Tensor,
+                  block_table: torch.Tensor, cfg: ModelConfig):
+    """One token per row: write its K/V (quantized first for int8 pages)
+    at ``block_table[row, pos // ps]``, offset ``pos % ps``, in place, then
+    attend the row's pages. Live rows write to pages they own alone (the
+    pool copies shared pages on write first); free slots' table rows are
+    all zero, so their garbage writes land in the trash page 0."""
+    if k.shape[1] != 1:
+        raise NotImplementedError("multi-token decode windows are not "
+                                  "ported yet")
+    k_pages, v_pages = cache["k_pages"], cache["v_pages"]
+    ps = k_pages.shape[1]
+    rows = torch.arange(k.shape[0], device=k.device)
+    pids = block_table[rows, cache_pos // ps]
+    offs = cache_pos % ps
+    for pages, tok in ((k_pages, k[:, 0]), (v_pages, v[:, 0])):
+        if isinstance(pages, Int8Pages):
+            codes, scales = quantize_rows(tok)
+            pages.codes[pids, offs] = codes
+            pages.scales[pids, offs] = scales
+        else:
+            pages[pids, offs] = tok.to(pages.dtype)
+    o = ops.paged_decode_attention(q[:, 0], k_pages, v_pages, block_table,
+                                   cache_pos + 1, window=cfg.sliding_window)
+    return o[:, None]
+
+
+def init_paged_kv_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+                        dtype=torch.bfloat16, kv_dtype: Optional[str] = None,
+                        device="cpu") -> dict:
+    """One layer's pages: K and V as (n_pages, page_size, KV, hd) tensors
+    of ``dtype``, or ``Int8Pages`` for ``kv_dtype="int8"``. Page 0 is the
+    pool's trash page for free slots' garbage writes."""
+    shape = (n_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    if kv_dtype == "int8":
+        return {"k_pages": Int8Pages.zeros(shape, device),
+                "v_pages": Int8Pages.zeros(shape, device)}
+    if kv_dtype is not None:
+        raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -10,7 +10,9 @@ Parameter tree: ``{"embed": {"table"}, "layers": [{"norm1", "mixer": {q, k,
 v, o}, "norm2", "ffn": {in, gate, out}}, ...], "final_norm", "unembed"}``
 with ``{"w"}`` latent or ``{"w_packed": Dense2Bit}`` linears. Caches:
 ``{"layers": [{"k", "v"} per layer], "pos": int32 tensor}``, ``pos`` a
-scalar or a (B,) vector of per-slot positions.
+scalar or a (B,) vector of per-slot positions; a paged cache holds
+``{"k_pages", "v_pages"}`` per layer (``init_paged_cache``) and decodes with
+a ``"block_table"`` entry beside ``"pos"``.
 """
 from __future__ import annotations
 
@@ -60,23 +62,26 @@ class LM:
         return params
 
     # ------------------------------------------------------------------
-    def _apply_block(self, bp, x, *, positions, cache, cache_pos):
+    def _apply_block(self, bp, x, *, positions, cache, cache_pos,
+                     block_table):
         cfg = self.cfg
         h = layers.norm_apply(bp["norm1"], x, cfg)
         h, new_cache = attention.attn_apply(
             bp["mixer"], h, cfg, positions=positions, cache=cache,
-            cache_pos=cache_pos)
+            cache_pos=cache_pos, block_table=block_table)
         x = x + h
         if "ffn" in bp:
             h2 = layers.norm_apply(bp["norm2"], x, cfg)
             x = x + layers.mlp_apply(bp["ffn"], h2, cfg)
         return x, new_cache
 
-    def _run_stack(self, params, x, *, positions, caches, cache_pos):
+    def _run_stack(self, params, x, *, positions, caches, cache_pos,
+                   block_table=None):
         new_caches = []
         for bp, c in zip(params["layers"], caches):
             x, nc = self._apply_block(bp, x, positions=positions, cache=c,
-                                      cache_pos=cache_pos)
+                                      cache_pos=cache_pos,
+                                      block_table=block_table)
             new_caches.append(nc)
         return x, new_caches
 
@@ -94,6 +99,19 @@ class LM:
                            for _ in range(cfg.num_layers)],
                 "pos": torch.zeros((), dtype=torch.int32,
                                    device=self.device)}
+
+    def init_paged_cache(self, n_pages: int, page_size: int, batch: int,
+                         dtype=None, kv_dtype=None) -> dict:
+        """Per-layer page tensors shared by all slots and indexed through
+        per-slot block tables (owned by ``repro_torch.paging.PagePool``).
+        ``batch`` sizes per-slot state, which an attention-only stack does
+        not have; it keeps ``repro``'s signature."""
+        del batch
+        cfg = self.cfg
+        dtype = layers.dtype_of(cfg.cache_dtype) if dtype is None else dtype
+        return {"layers": [attention.init_paged_kv_cache(
+            cfg, n_pages, page_size, dtype, kv_dtype, self.device)
+            for _ in range(cfg.num_layers)]}
 
     @staticmethod
     def insert_cache(pool_layers: List[Dict[str, torch.Tensor]],
@@ -131,7 +149,8 @@ class LM:
     def decode_step(self, params, cache, tokens):
         """tokens (B, 1) -> (logits (B, 1, V), cache). ``cache["pos"]`` is
         a scalar or a (B,) vector of per-slot positions; the caches are
-        written in place."""
+        written in place. A ``cache["block_table"]`` entry switches the
+        attention layers to the paged cache."""
         if tokens.shape[1] != 1:
             raise NotImplementedError("verify windows (S > 1) are not "
                                       "ported yet")
@@ -142,7 +161,8 @@ class LM:
         positions = src.expand(tokens.shape)
         x, new_caches = self._run_stack(params, x, positions=positions,
                                         caches=cache["layers"],
-                                        cache_pos=pos)
+                                        cache_pos=pos,
+                                        block_table=cache.get("block_table"))
         x = layers.norm_apply(params["final_norm"], x, cfg)
         logits = self._logits(params, x)
         return logits, dict(cache, layers=new_caches, pos=pos + 1)

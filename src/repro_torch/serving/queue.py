@@ -111,6 +111,12 @@ class RequestQueue:
         self._q.append(req)
         return req
 
+    def push_front(self, req: Request) -> None:
+        """Re-queue a preempted request at the head (it keeps its original
+        ``submit_t`` and rid; ``submitted`` is not re-counted)."""
+        req.state = "queued"
+        self._q.appendleft(req)
+
     def pop(self) -> Request:
         if not self._q:
             raise IndexError("pop from an empty RequestQueue — admission "

@@ -9,6 +9,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from repro_torch.paging.pages import tree_nbytes
+
 
 class SlotPool:
     def __init__(self, model, max_slots: int, max_len: int,
@@ -26,6 +28,11 @@ class SlotPool:
     @property
     def n_free(self) -> int:
         return len(self._free)
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the cache tensors."""
+        return tree_nbytes(self.layers)
 
     @property
     def all_free(self) -> bool:

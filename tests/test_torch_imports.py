@@ -34,6 +34,12 @@ def test_no_jax_or_repro_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_checks_cover_the_paging_modules():
+    names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
+    assert {"paging/__init__.py", "paging/kernels.py", "paging/pages.py",
+            "paging/prefix.py", "paging/quant.py"} <= names
+
+
 def test_the_ast_check_catches_a_forbidden_import(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import os\nfrom repro.core import formats\n"

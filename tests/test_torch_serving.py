@@ -13,6 +13,7 @@ from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve
 from repro_torch.models import LM
+from repro_torch.paging import PagePool
 from repro_torch.serving import ContinuousScheduler, RequestQueue, SlotPool
 
 
@@ -85,7 +86,8 @@ def test_only_ternary_paper_is_registered():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "LM", "engine",
-                                   "serve", "bridge"])
+                                   "serve", "bridge", "paged_engine",
+                                   "page_pool", "paged_serve"])
 def test_default_device_entry_points_raise_without_gpu(no_cuda, entry):
     cfg = get_config("ternary-paper", reduced=True, num_layers=1)
     calls = {
@@ -94,6 +96,11 @@ def test_default_device_entry_points_raise_without_gpu(no_cuda, entry):
         "engine": lambda: ContinuousScheduler(cfg, max_slots=1, max_len=8),
         "serve": lambda: serve.main(["--reduced", "--requests", "1"]),
         "bridge": lambda: params_from_numpy({}, cfg),
+        "paged_engine": lambda: ContinuousScheduler(cfg, max_slots=1,
+                                                    max_len=8, cache="paged"),
+        "page_pool": lambda: PagePool(LM(cfg), 1, 8),
+        "paged_serve": lambda: serve.main(["--reduced", "--requests", "1",
+                                           "--cache", "paged"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
