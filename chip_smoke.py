@@ -1,12 +1,19 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port (``src/repro_torch``): builds the
-three hand-written kernels, holds each against its plain PyTorch version at
-the serving path's shapes, serves the full-width packed ``ternary-paper``
-model through the continuous-batching engine over the dense slot cache,
-then over the paged cache with bf16 pages and with int8 pages under page
-pressure (prefix sharing, copy-on-write, deferrals and preemptions), and
-compares the card's logits with the CPU's plain path and the paged decode
-step's logits with the dense one's on the same weights.
+six hand-written kernels, holds each serving kernel against its plain
+PyTorch version at the serving path's shapes, serves the full-width packed
+``ternary-paper`` model through the continuous-batching engine over the
+dense slot cache, then over the paged cache with bf16 pages and with int8
+pages under page pressure (prefix sharing, copy-on-write, deferrals and
+preemptions), and compares the card's logits with the CPU's plain path and
+the paged decode step's logits with the dense one's on the same weights.
+Then the ``gemm_formats`` phase drives the paper's sparse-GEMM surface
+(``weights.pack`` + ``ops.ternary_gemm``) at the paper's sizes: ``tiled``
+packs of 4096 x 4096 with 256 x 128 tiles over the paper's sparsities
+through the tile-skipping kernels (B2, B3) and the dense one (B1), a K
+sweep over the paper's K range, ``bitplane`` packs through B7 in both
+modes, and one ``base3`` pack through its plain ``ref`` row (it has no
+kernel, in ``repro`` neither).
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -32,11 +39,18 @@ width, tests/test_torch_paging.py holds that under 2e-2, and the card's
 own rounding gets the 5e-2 above on top. Greedy tokens follow the same
 near-tie rule.
 
+In ``gemm_formats`` B2, B3 and B1 on the same tiled pack are held equal
+with ``torch.equal`` (the skipping kernels run B1's MMA chunks in B1's
+order, minus chunks of empty tiles), each kernel against its plain version
+within the kernel bound above, and B7's factorized mode against its
+plain mode within the same bound.
+
 Output: progress lines, each serving run's metrics JSON, one
 ``{"kernels": ...}`` JSON line (each kernel's launches summed over the
-serving runs that use it, with the per-run counts under ``runs``, and its
-error and times summed over the shapes the serving path gives it, with
-the per-shape detail under ``shapes``), the card's name and power limit as
+runs that use it — the serving runs for B1, B4 and B5, the gemm_formats
+run for B2, B3 and B7 — with the per-run counts under ``runs``, and its
+error and times summed over the shapes its path gives it, with the
+per-shape detail under ``shapes``), the card's name and power limit as
 nvidia-smi prints them, and the final ``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
@@ -73,6 +87,11 @@ PAGED = dict(b=8, h=16, kv=16, hd=64, t=13, max_len=193)
 GEMM_SHAPES = [(m, k, n) for m in (8, 1024)
                for k, n in ((1024, 1024), (1024, 32768))]
 MLP_SHAPES = [(m, 1024, 4096, 1024) for m in (8, 1024)]
+# the paper-size sparse-GEMM surface (benchmarks/kernel_bench.py's
+# sparsity_skip acceptance shape and tile)
+FORMATS = dict(k=4096, n=4096, tile_k=256, tile_n=128, ms=(8, 1024),
+               bitplane_sparsities=(0.5, 0.0625), sweep_m=1024,
+               sweep_sparsity=0.125, base3=(8, 1024, 1024))
 
 
 def card_line() -> str:
@@ -265,12 +284,31 @@ def paged_kernel_phase(flush):
 
 
 def _counters():
+    """Kernel name -> (wrapper, attribute holding its launch count)."""
     from repro_torch.kernels import fused_mlp as fused_lib
     from repro_torch.kernels import ternary_gemm as gemm_lib
+    from repro_torch.kernels import ternary_gemm_bitplane as bitplane_lib
     from repro_torch.paging import kernels as paged_lib
-    return {"ternary_gemm": gemm_lib.ternary_gemm_cuda,
-            "fused_mlp": fused_lib.fused_mlp_cuda,
-            "paged_decode_attention": paged_lib.paged_decode_attention_cuda}
+    return {"ternary_gemm": (gemm_lib.ternary_gemm_cuda, "launches"),
+            "fused_mlp": (fused_lib.fused_mlp_cuda, "launches"),
+            "paged_decode_attention": (
+                paged_lib.paged_decode_attention_cuda, "launches"),
+            "ternary_gemm_skip": (gemm_lib.ternary_gemm_skip_cuda,
+                                  "launches"),
+            "ternary_gemm_skip_db": (gemm_lib.ternary_gemm_skip_cuda,
+                                     "launches_db"),
+            "ternary_gemm_bitplane": (
+                bitplane_lib.ternary_gemm_bitplane_cuda, "launches")}
+
+
+def _zero_counts():
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
+
+
+def _read_counts():
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _counters().items()}
 
 
 def serve_run(label, cfg, params, prompts, gens, max_len, **engine_kw):
@@ -284,11 +322,9 @@ def serve_run(label, cfg, params, prompts, gens, max_len, **engine_kw):
     engine = ContinuousScheduler(cfg, max_slots=SERVE["slots"],
                                  max_len=max_len, device="cuda", **engine_kw)
     engine.load(params)
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _zero_counts()
     outs, metrics = serve.run_continuous(engine, prompts, gens)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _read_counts()
 
     brief = {k: v for k, v in metrics.items() if k != "per_request"}
     print(f"{label} serving metrics: " + json.dumps(brief), flush=True)
@@ -489,7 +525,253 @@ def paged_phases(cfg, params, prompts, gens, max_len, dense_outs):
     return runs
 
 
+def _tiled_pack(rng_seed, k, n, sparsity, scale):
+    """A tile-structured ``tiled`` pack drawn as kernel_bench draws it,
+    packed on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.core import formats, weights
+    t = formats.random_tile_ternary(np.random.default_rng(rng_seed), k, n,
+                                    FORMATS["tile_k"], FORMATS["tile_n"],
+                                    sparsity)
+    return weights.pack(torch.from_numpy(t).cuda(), "tiled", scale=scale,
+                        tile_k=FORMATS["tile_k"], tile_n=FORMATS["tile_n"])
+
+
+def _effective(w):
+    """Pre-decoded, pre-scaled bf16 weights for the library yardstick."""
+    import torch
+    return w.materialize(torch.float32, with_scale=True).to(torch.bfloat16)
+
+
+def gemm_formats_phase(flush):
+    """The paper's sparse-GEMM surface at the paper's sizes. First the
+    path run: with every launch count set to 0, ``ops.ternary_gemm`` (auto
+    and each kernel row) over every pack and M; the counts are read just
+    after. Then each output is checked and each kernel timed (launches
+    that compare or time do not count). Returns (per-kernel rows,
+    launches of the path run)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.ternary_paper import (PAPER_K_RANGE,
+                                                   PAPER_SPARSITIES)
+    from repro_torch.core import formats, weights
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_gemm as gemm_lib
+    from repro_torch.kernels import ternary_gemm_bitplane as bitplane_lib
+
+    rng = np.random.default_rng(SEED + 4)
+    k, n, tk, tn = (FORMATS[key] for key in ("k", "n", "tile_k", "tile_n"))
+
+    def scale_of(cols):
+        return torch.from_numpy(rng.random(cols).astype(np.float32)
+                                + 0.5).cuda()
+
+    def act(m, kk):
+        return torch.from_numpy(rng.standard_normal((m, kk)).astype(
+            np.float32)).cuda().to(torch.bfloat16)
+
+    t0 = time.perf_counter()
+    tiled = {s: _tiled_pack(0, k, n, s, scale_of(n))
+             for s in PAPER_SPARSITIES}
+    sweep = {kk: _tiled_pack(kk, kk, n, FORMATS["sweep_sparsity"],
+                             scale_of(n)) for kk in PAPER_K_RANGE}
+    planes = {s: weights.pack(torch.from_numpy(formats.random_ternary(
+        np.random.default_rng(SEED + 5), k, n, s)).cuda(), "bitplane",
+        scale=scale_of(n)) for s in FORMATS["bitplane_sparsities"]}
+    bm, bk, bn = FORMATS["base3"]
+    base3 = weights.pack(torch.from_numpy(formats.random_ternary(
+        rng, bk, bn, 0.25)).cuda(), "base3", scale=scale_of(bn))
+    xs = {(m, kk): act(m, kk) for m in FORMATS["ms"] + (FORMATS["sweep_m"],)
+          for kk in sorted({k, *PAPER_K_RANGE})}
+    x_b3 = act(bm, bk)
+    alpha_bias = torch.from_numpy(rng.standard_normal(n).astype(
+        np.float32)).cuda()
+    torch.cuda.synchronize()
+    print(f"gemm_formats: packed {len(tiled)} tiled, {len(sweep)} sweep, "
+          f"{len(planes)} bitplane and 1 base3 weights on the card in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+
+    # ---- the path run ----
+    out = {}
+    _zero_counts()
+    for s, w in tiled.items():
+        for m in FORMATS["ms"]:
+            x = xs[(m, k)]
+            out[("tiled", s, m, "auto")] = ops.ternary_gemm(x, w)
+            for impl in ("skip", "skip_db", "dense"):
+                out[("tiled", s, m, impl)] = ops.ternary_gemm(x, w,
+                                                              impl=impl)
+    # one PReLU case with a bias, through the three 2-bit kernels
+    w_pr, x_pr = tiled[0.125], xs[(FORMATS["ms"][0], k)]
+    for impl in ("skip", "skip_db", "dense"):
+        out[("prelu", impl)] = ops.ternary_gemm(
+            x_pr, w_pr, bias=alpha_bias, fuse_prelu=True, impl=impl)
+    for kk, w in sweep.items():
+        x = xs[(FORMATS["sweep_m"], kk)]
+        out[("sweep", kk, "auto")] = ops.ternary_gemm(x, w)
+        out[("sweep", kk, "dense")] = ops.ternary_gemm(x, w, impl="dense")
+    for s, w in planes.items():
+        for m in FORMATS["ms"]:
+            x = xs[(m, k)]
+            out[("bitplane", s, m, "auto")] = ops.ternary_gemm(x, w)
+            out[("bitplane", s, m, "factorized")] = ops.ternary_gemm(
+                x, w, impl="bitplane_factorized")
+    out["base3"] = ops.ternary_gemm(x_b3, base3)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    print(f"gemm_formats launches: {json.dumps(launches)}", flush=True)
+    for name in ("ternary_gemm_skip", "ternary_gemm_skip_db",
+                 "ternary_gemm_bitplane", "ternary_gemm"):
+        if launches[name] <= 0:
+            raise AssertionError(f"gemm_formats: {name} never launched")
+
+    # ---- checks and times ----
+    rows = {"ternary_gemm_skip": [], "ternary_gemm_skip_db": [],
+            "ternary_gemm_bitplane": [], "k_sweep": []}
+
+    def skip_plain(x, w, **kw):
+        return gemm_lib.ternary_gemm_skip_ref(
+            x, w.packed, w.kt_indices, w.kt_counts, w.scale, kw.get("bias"),
+            n=w.n, tile_k=w.tile_k, tile_n=w.tile_n,
+            fuse_prelu=kw.get("fuse_prelu", False))
+
+    def tiled_bound(x, w, m):
+        words = w.occupied_tiles * (w.tile_k // 16) * w.tile_n * 4
+        meta = (w.kt_indices.numel() + w.kt_counts.numel()) * 4
+        nbytes = (m * w.k * 2 + words + meta + w.n * 4 + m * w.n * 2)
+        return bound_ms(nbytes, 2.0 * m * w.nnz)
+
+    def equal3(label, ys):
+        for impl in ("skip", "skip_db"):
+            if not torch.equal(ys[impl], ys["dense"]):
+                d = float((ys[impl].float() - ys["dense"].float()).abs()
+                          .max())
+                raise AssertionError(f"{label}: {impl} != dense bitwise "
+                                     f"(max |d| = {d})")
+
+    for s, w in tiled.items():
+        for m in FORMATS["ms"]:
+            x = xs[(m, k)]
+            label = f"tiled s={s} M={m} K={k} N={n}"
+            plan = ops.ternary_gemm_plan(w, m).impl
+            want = "dense" if w.occupancy() > ops.SKIP_OCCUPANCY_CUTOFF \
+                else "skip_db"
+            if plan != want or (s == 0.5) != (plan == "dense"):
+                raise AssertionError(f"{label}: auto planned {plan!r}, "
+                                     f"occupancy {w.occupancy()}")
+            ys = {impl: out[("tiled", s, m, impl)]
+                  for impl in ("skip", "skip_db", "dense")}
+            equal3(label, ys)
+            if not torch.equal(out[("tiled", s, m, "auto")], ys[plan]):
+                raise AssertionError(f"{label}: auto != {plan}")
+            ref = skip_plain(x, w)
+            errs = {impl: check_close(f"{label} {impl}", ys[impl], ref)
+                    for impl in ys}
+            w_eff = _effective(w)
+            iters = 20
+            times = {impl: cuda_ms(lambda i=impl: ops.ternary_gemm(
+                x, w, impl=i), iters, flush)
+                for impl in ("skip", "skip_db", "dense")}
+            plain_ms = cuda_ms(lambda: skip_plain(x, w), 5, flush)
+            library_ms = cuda_ms(lambda: torch.matmul(x, w_eff), iters,
+                                 flush)
+            b_ms, b_by = tiled_bound(x, w, m)
+            common = {"sparsity": s, "m": m, "k": k, "n": n,
+                      "tile": [w.tile_k, w.tile_n], "auto": plan,
+                      "occupancy": w.occupancy(),
+                      "tiles": {"occupied": w.occupied_tiles,
+                                "visited": w.visited_tiles(),
+                                "total": w.total_tiles()},
+                      "dense_ms": times["dense"], "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "dense_equal": True}
+            for name, impl in (("ternary_gemm_skip", "skip"),
+                               ("ternary_gemm_skip_db", "skip_db")):
+                rows[name].append({**common, "ms": times[impl],
+                                   "max_abs_err": errs[impl]})
+            print(f"{label}: auto={plan} skip==skip_db==dense; "
+                  + json.dumps({**common, "skip_ms": times["skip"],
+                                "skip_db_ms": times["skip_db"],
+                                "max_abs_err": errs}), flush=True)
+
+    ys = {impl: out[("prelu", impl)] for impl in ("skip", "skip_db", "dense")}
+    equal3("tiled PReLU+bias", ys)
+    err = check_close("tiled PReLU+bias", ys["skip"], skip_plain(
+        x_pr, w_pr, bias=alpha_bias, fuse_prelu=True))
+    print(f"tiled s=0.125 M={x_pr.shape[0]} with bias and PReLU: "
+          f"skip==skip_db==dense, max_abs_err {err}", flush=True)
+
+    for kk, w in sweep.items():
+        x = xs[(FORMATS["sweep_m"], kk)]
+        label = (f"K sweep K={kk} N={n} M={x.shape[0]} "
+                 f"s={FORMATS['sweep_sparsity']}")
+        got, dense = out[("sweep", kk, "auto")], out[("sweep", kk, "dense")]
+        if ops.ternary_gemm_plan(w, x.shape[0]).impl != "skip_db":
+            raise AssertionError(f"{label}: auto did not plan skip_db")
+        if not torch.equal(got, dense):
+            raise AssertionError(f"{label}: skip_db != dense bitwise")
+        err = check_close(label, got, skip_plain(x, w))
+        w_eff = _effective(w)
+        iters = 10
+        row = {"k": kk, "n": n, "m": x.shape[0],
+               "sparsity": FORMATS["sweep_sparsity"],
+               "occupancy": w.occupancy(), "max_abs_err": err,
+               "skip_db_ms": cuda_ms(lambda: ops.ternary_gemm(x, w), iters,
+                                     flush),
+               "dense_ms": cuda_ms(lambda: ops.ternary_gemm(
+                   x, w, impl="dense"), iters, flush),
+               "library_ms": cuda_ms(lambda: torch.matmul(x, w_eff), iters,
+                                     flush)}
+        row["bound_ms"], row["bound_by"] = tiled_bound(x, w, x.shape[0])
+        rows["k_sweep"].append(row)
+        print(f"{label}: skip_db==dense; " + json.dumps(row), flush=True)
+
+    for s, w in planes.items():
+        for m in FORMATS["ms"]:
+            x = xs[(m, k)]
+            label = f"bitplane s={s} M={m} K={k} N={n}"
+            if ops.ternary_gemm_plan(w, m).impl != "bitplane":
+                raise AssertionError(f"{label}: auto did not plan bitplane")
+            got = out[("bitplane", s, m, "auto")]
+            fact = out[("bitplane", s, m, "factorized")]
+            args = (x, w.plus, w.minus, w.scale)
+            err = check_close(label, got,
+                              bitplane_lib.ternary_gemm_bitplane_ref(*args))
+            err_f = check_close(f"{label} factorized", fact,
+                                bitplane_lib.ternary_gemm_bitplane_ref(
+                                    *args, factorized=True))
+            check_close(f"{label} factorized vs plain mode", fact, got)
+            w_eff = _effective(w)
+            iters = 20
+            row = {"sparsity": s, "m": m, "k": k, "n": n,
+                   "max_abs_err": max(err, err_f),
+                   "ms": cuda_ms(lambda: ops.ternary_gemm(x, w), iters,
+                                 flush),
+                   "factorized_ms": cuda_ms(lambda: ops.ternary_gemm(
+                       x, w, impl="bitplane_factorized"), iters, flush),
+                   "plain_ms": cuda_ms(
+                       lambda: bitplane_lib.ternary_gemm_bitplane_ref(*args),
+                       5, flush),
+                   "library_ms": cuda_ms(lambda: torch.matmul(x, w_eff),
+                                         iters, flush)}
+            nbytes = (m * k * 2 + 2 * w.plus.numel() + n * 4 + m * n * 2)
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes,
+                                                        2.0 * m * w.nnz)
+            rows["ternary_gemm_bitplane"].append(row)
+            print(f"{label}: " + json.dumps(row), flush=True)
+
+    ref = (x_b3.float() @ base3.materialize(torch.float32, with_scale=True)
+           ).to(torch.bfloat16)
+    err = check_close("base3", out["base3"], ref)
+    print(f"base3 M={bm} K={bk} N={bn}: no kernel (ref in repro too); its "
+          f"plain ref row ran on the card, max_abs_err {err}", flush=True)
+    print(f"gemm_formats took {time.perf_counter() - t0:.1f}s", flush=True)
+    return rows, launches
+
+
 def main() -> int:
+    start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -529,6 +811,13 @@ def main() -> int:
     runs = {"dense": launches}
     runs.update(paged_phases(cfg, params, prompts, gens, max_len,
                              dense_outs))
+    del params
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    format_rows, format_launches = gemm_formats_phase(flush)
+    del flush
+    k_sweep = format_rows.pop("k_sweep")
+    shapes.update(format_rows)
 
     meta = {
         "ternary_gemm": ("src/repro_torch/kernels/csrc/ternary_gemm.cu",
@@ -538,16 +827,27 @@ def main() -> int:
         "paged_decode_attention": (
             "src/repro_torch/kernels/csrc/paged_attention.cu",
             "src/repro/paging/kernels.py:189"),
+        "ternary_gemm_skip": (
+            "src/repro_torch/kernels/csrc/ternary_gemm_skip.cu",
+            "src/repro/kernels/ternary_gemm.py:251"),
+        "ternary_gemm_skip_db": (
+            "src/repro_torch/kernels/csrc/ternary_gemm_skip.cu",
+            "src/repro/kernels/ternary_gemm.py:413"),
+        "ternary_gemm_bitplane": (
+            "src/repro_torch/kernels/csrc/ternary_gemm_bitplane.cu",
+            "src/repro/kernels/ternary_gemm_bitplane.py:85"),
     }
     kernels = []
     for name, rows in shapes.items():
         total = {key: sum(r[key] for r in rows)
                  for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
-        kernels.append({
+        own_runs = ({"gemm_formats": format_launches} if name in format_rows
+                    else runs)
+        entry = {
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
-            "launches": sum(run[name] for run in runs.values()),
-            "runs": {label: run[name] for label, run in runs.items()},
+            "launches": sum(run[name] for run in own_runs.values()),
+            "runs": {label: run[name] for label, run in own_runs.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"],
@@ -555,7 +855,11 @@ def main() -> int:
             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": total["library_ms"],
             "shapes": rows,
-        })
+        }
+        if name == "ternary_gemm_skip_db":
+            entry["k_sweep"] = k_sweep
+        kernels.append(entry)
+    print(f"chip_smoke took {time.perf_counter() - start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,21 +8,26 @@ with every array leaf converted to numpy): ``{"embed": {"table"},
 ``block{j}`` leaf is stacked ``(n_groups, ...)`` over the layers
 ``g * period + j``. A packed linear arrives as ``{"w_packed": {"packed"
 (uint32 words), "scale", "bias", "shape"}}``; a latent one as ``{"w"}``.
-The port never imports ``repro``: turning ``repro``'s containers into
-those dicts is the caller's business.
+A node may also be a port container already (``weight_from_numpy``
+builds one of any registered format from a ``repro`` container's leaves
+and static fields); it is moved to the device and, inside a stacked
+block, its leaves are sliced per layer like every other leaf. The port never imports ``repro``: turning
+``repro``'s containers into those dicts or leaves is the caller's business.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.weights import Dense2Bit
+from repro_torch.core.weights import FORMATS, Dense2Bit, TernaryWeight
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "weight_from_numpy"]
 
 _PACKED_KEYS = {"packed", "scale", "bias", "shape"}
 
@@ -37,9 +42,33 @@ def _tensor(arr, i: Optional[int], device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
+def weight_from_numpy(format_name: str, leaves: dict, shape, *,
+                      device="cuda", **aux) -> TernaryWeight:
+    """The port's ``format_name`` container from a ``repro`` container's
+    array leaves as numpy (``packed`` / ``kt_indices`` / ``kt_counts`` /
+    ``plus`` / ``minus``, ``scale``, ``bias``; a missing or ``None`` scale
+    or bias stays ``None``) and its static fields (``shape`` and, as
+    ``aux``, ``tile_k``, ``tile_n``, ``nnz``, ``occupied_tiles``). uint32
+    words become the int32 view of the same bits."""
+    if format_name not in FORMATS:
+        raise ValueError(f"unknown ternary format {format_name!r}; "
+                         f"registered: {sorted(FORMATS)}")
+    cls = FORMATS[format_name]
+    dev = resolve_device(device)
+    kw = {f: (None if leaves.get(f) is None
+              else _tensor(leaves[f], None, dev)) for f in cls._leaves}
+    return cls(**kw, shape=tuple(int(d) for d in shape), **aux)
+
+
 def _convert(node, i: Optional[int], device):
     if node is None:
         return None
+    if isinstance(node, TernaryWeight):
+        if i is not None:
+            node = dataclasses.replace(node, **{
+                f: getattr(node, f)[i] for f in node._leaves
+                if getattr(node, f) is not None})
+        return node.to(device)
     if isinstance(node, dict):
         if set(node) == _PACKED_KEYS:
             return Dense2Bit.from_packed(

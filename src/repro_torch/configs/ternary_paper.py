@@ -17,3 +17,8 @@ CONFIG = ModelConfig(
     ternary_min_dim=512,
     fsdp=False,
 )
+
+# The paper's microbenchmark parameter grid (Figs 6-11)
+PAPER_SPARSITIES = (0.5, 0.25, 0.125, 0.0625)
+PAPER_K_RANGE = (1024, 2048, 4096, 8192, 16384)
+PAPER_BLOCK_SIZE = 4096

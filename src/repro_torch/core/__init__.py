@@ -1,1 +1,8 @@
 """Formats, quantization and weight containers of the port."""
+from repro_torch.core import formats, quantize, weights
+from repro_torch.core.weights import (Base3, Bitplane, Dense2Bit,
+                                      TernaryWeight, Tiled, pack,
+                                      register_format)
+
+__all__ = ["formats", "quantize", "weights", "TernaryWeight", "Dense2Bit",
+           "Tiled", "Bitplane", "Base3", "pack", "register_format"]

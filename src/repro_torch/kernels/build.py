@@ -24,7 +24,10 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = {"ternary_gemm": "ternary_gemm.cu", "fused_mlp": "fused_mlp.cu",
+SOURCES = {"ternary_gemm": "ternary_gemm.cu",
+           "ternary_gemm_skip": "ternary_gemm_skip.cu",
+           "ternary_gemm_bitplane": "ternary_gemm_bitplane.cu",
+           "fused_mlp": "fused_mlp.cu",
            "paged_attention": "paged_attention.cu"}
 HEADERS = ("ternary_tiles.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -103,8 +103,8 @@ fused_mlp_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ wi,
     }
     for (int t = 0; t < nk1; ++t) {
       ternary::load_act_tile<BM>(xs, x, m0, t * BK, M, K, K);
-      ternary::decode_weight_tile<BN>(wsa, wi, t * BKW, f0 + s, kw1, FF);
-      if (gated) ternary::decode_weight_tile<BN>(wsb, wg, t * BKW, f0 + s, kw1, FF);
+      ternary::decode_weight_tile<BN>(wsa, wi, t * BKW, f0 + s, kw1, FF, FF);
+      if (gated) ternary::decode_weight_tile<BN>(wsb, wg, t * BKW, f0 + s, kw1, FF, FF);
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
@@ -163,7 +163,7 @@ fused_mlp_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ wi,
 #pragma unroll
     for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[j], 0.0f);
     for (int t = 0; t < nk2; ++t) {
-      ternary::decode_weight_tile<BN>(wsa, wo, (f0 + t * BK) / 16, n0, kw2, N);
+      ternary::decode_weight_tile<BN>(wsa, wo, (f0 + t * BK) / 16, n0, kw2, N, N);
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {

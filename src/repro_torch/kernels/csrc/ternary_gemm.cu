@@ -24,11 +24,8 @@
 // are later work.
 #include "ternary_tiles.cuh"
 
-using namespace nvcuda;
-using ternary::APAD;
 using ternary::BK;
 using ternary::BKW;
-using ternary::CPAD;
 using ternary::bf16;
 
 template <int BM, int BN, int WARPS_M, int WARPS_N>
@@ -36,104 +33,63 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
 ternary_gemm_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ w,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias, bf16* __restrict__ y,
-                    int M, int K, int N, int kw, int fuse_prelu,
+                    int M, int K, int N, int kw, int ldw, int fuse_prelu,
                     float prelu_alpha) {
-  constexpr int FM = BM / (16 * WARPS_M);
-  constexpr int FN = BN / (16 * WARPS_N);
-  constexpr int XS = BM * (BK + APAD);   // bf16 elements
-  constexpr int WS = BK * (BN + APAD);   // bf16 elements
-  constexpr int CS = BM * (BN + CPAD);   // f32 elements
-  constexpr int MAIN_BYTES = (XS + WS) * 2;
-  constexpr int SMEM = MAIN_BYTES > CS * 4 ? MAIN_BYTES : CS * 4;
+  using T = ternary::TileShape<BM, BN, WARPS_M, WARPS_N>;
+  constexpr int MAIN_BYTES = (T::XS + T::WS) * 2;
+  constexpr int SMEM = MAIN_BYTES > T::CS * 4 ? MAIN_BYTES : T::CS * 4;
   __shared__ __align__(128) unsigned char smem[SMEM];
   bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* ws = xs + XS;
+  bf16* ws = xs + T::XS;
   float* cs = reinterpret_cast<float*>(smem);   // reused after the K loop
 
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int warp = threadIdx.x / 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
+  ternary::Acc acc[T::FM][T::FN];
+  ternary::zero_acc(acc);
   const int nk = (K + BK - 1) / BK;
   for (int t = 0; t < nk; ++t) {
     ternary::load_act_tile<BM>(xs, x, m0, t * BK, M, K, K);
-    ternary::decode_weight_tile<BN>(ws, w, t * BKW, n0, kw, N);
+    ternary::decode_weight_tile<BN>(ws, w, t * BKW, n0, kw, N, ldw);
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], xs + (wm * FM * 16 + i * 16) * (BK + APAD) + kk,
-                               BK + APAD);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], ws + kk * (BN + APAD) + wn * FN * 16 + j * 16,
-                               BN + APAD);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
+    ternary::mma_tile<BN>(acc, xs, ws, wm, wn, BK);
     __syncthreads();
   }
-
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(
-          cs + (wm * FM * 16 + i * 16) * (BN + CPAD) + wn * FN * 16 + j * 16,
-          acc[i][j], BN + CPAD, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
-    const int r = i / BN, c = i % BN;
-    const int gr = m0 + r, gc = n0 + c;
-    if (gr < M && gc < N) {
-      float v = cs[r * (BN + CPAD) + c];
-      if (scale != nullptr) v *= scale[gc];
-      if (bias != nullptr) v += bias[gc];
-      if (fuse_prelu && !(v >= 0.0f)) v *= prelu_alpha;
-      y[(size_t)gr * N + gc] = __float2bfloat16(v);
-    }
-  }
+  ternary::store_epilogue<BM, BN, T::FM, T::FN, false>(
+      acc, cs, wm, wn, m0, n0, M, N, scale, bias, fuse_prelu, prelu_alpha, y);
 }
 
 template <int BM, int BN, int WARPS_M, int WARPS_N>
 static int launch(const void* x, const void* w, const void* scale,
                   const void* bias, void* y, int M, int K, int N, int kw,
-                  int fuse_prelu, float prelu_alpha, cudaStream_t stream) {
+                  int ldw, int fuse_prelu, float prelu_alpha,
+                  cudaStream_t stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   ternary_gemm_kernel<BM, BN, WARPS_M, WARPS_N>
       <<<grid, WARPS_M * WARPS_N * 32, 0, stream>>>(
           static_cast<const bf16*>(x), static_cast<const uint32_t*>(w),
           static_cast<const float*>(scale), static_cast<const float*>(bias),
-          static_cast<bf16*>(y), M, K, N, kw, fuse_prelu, prelu_alpha);
+          static_cast<bf16*>(y), M, K, N, kw, ldw, fuse_prelu, prelu_alpha);
   return (int)cudaGetLastError();
 }
 
-// variant 0: decode tile (BM 16, BN 64, 4 warps);
+// w is (kw, ldw) words of which the first N columns are read (ldw > N for
+// a tile-padded pack). variant 0: decode tile (BM 16, BN 64, 4 warps);
 // variant 1: prefill tile (BM 64, BN 128, 8 warps).
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int ternary_gemm_bf16(const void* x, const void* w,
                                  const void* scale, const void* bias, void* y,
-                                 int M, int K, int N, int kw, int fuse_prelu,
-                                 float prelu_alpha, int variant,
-                                 void* stream) {
+                                 int M, int K, int N, int kw, int ldw,
+                                 int fuse_prelu, float prelu_alpha,
+                                 int variant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 0)
-    return launch<16, 64, 1, 4>(x, w, scale, bias, y, M, K, N, kw, fuse_prelu,
-                                prelu_alpha, s);
+    return launch<16, 64, 1, 4>(x, w, scale, bias, y, M, K, N, kw, ldw,
+                                fuse_prelu, prelu_alpha, s);
   if (variant == 1)
-    return launch<64, 128, 2, 4>(x, w, scale, bias, y, M, K, N, kw, fuse_prelu,
-                                 prelu_alpha, s);
+    return launch<64, 128, 2, 4>(x, w, scale, bias, y, M, K, N, kw, ldw,
+                                 fuse_prelu, prelu_alpha, s);
   return (int)cudaErrorInvalidValue;
 }

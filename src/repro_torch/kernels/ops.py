@@ -1,29 +1,63 @@
-"""Public ops of the port: ``ternary_gemm``, ``fused_mlp`` and
-``paged_decode_attention``, plus the serving-phase tag (``serving_phase``
-/ ``current_phase``).
+"""Public ops of the port: ``ternary_gemm`` through a kernel registry and
+planner, ``fused_mlp``, ``paged_decode_attention``, and the serving-phase
+tag (``serving_phase`` / ``current_phase``).
 
-Dispatch is by the device the activations lie on: a CUDA tensor launches
-the hand-written kernel (or the wrapper raises), a CPU tensor takes the
-plain PyTorch version. Of ``repro``'s registry only the ``dense2bit`` rows
-are ported so far. Tile shapes are fixed per serving phase (the kernels'
-``VARIANTS``); outside a phase scope, M <= 16 counts as decode-shaped.
+``ternary_gemm(x, w)`` takes a ``repro_torch.core.weights`` container and
+runs in two stages, as ``repro``'s does:
+
+1. **plan** — ``ternary_gemm_plan`` consults the registry: each lowering
+   registers ``(format, impl)`` with a priority and a predicate over
+   pack-time metadata, and ``impl="auto"`` picks the highest-priority row
+   that admits the weight (so the skipping kernels only at or below
+   ``SKIP_OCCUPANCY_CUTOFF`` tile occupancy). The result is an
+   inspectable ``GemmPlan``. Planning reads host-side metadata only.
+2. **lower** — the row's lowering runs. Dispatch is by the device the
+   activations lie on: on a CUDA tensor a kernel row launches its
+   hand-written kernel (or its wrapper raises; it never falls back), on a
+   CPU tensor it runs the kernel's plain PyTorch version. ``ref`` rows run
+   the plain versions wherever the tensors lie.
+
+Rows (priority), as ``repro`` registers them:
+
+* ``dense2bit``: ``dense`` 10 (B1), ``ref``;
+* ``tiled``:     ``skip_db`` 12 (B3) and ``skip`` 10 (B2), both only at
+                 ``occupancy() <= 0.875``; ``dense`` 5 (B1 on the padded
+                 words); ``ref``;
+* ``bitplane``:  ``bitplane`` 10 and ``bitplane_factorized`` 5 (B7), ``ref``;
+* ``base3``:     ``ref`` 10 — no kernel, as in ``repro`` (XLA there even on
+                 a TPU), so its plain version runs on the card too.
+
+There is no autotuner yet. Block shapes come from the kernels' fixed
+per-phase tiles (``ternary_gemm.TILES``, ``SKIP_BLOCK_M``); the skip rows
+take ``block_n``/``block_k`` from the pack's ``tile_n``/``tile_k``.
+Outside a phase scope, M <= 16 counts as decode-shaped.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import formats, weights
 from repro_torch.core.weights import Dense2Bit
 from repro_torch.kernels import fused_mlp as fused_lib
+from repro_torch.kernels import ref
 from repro_torch.kernels import ternary_gemm as gemm_lib
+from repro_torch.kernels import ternary_gemm_bitplane as bitplane_lib
 
-__all__ = ["ternary_gemm", "fused_mlp", "paged_decode_attention",
-           "serving_phase", "current_phase", "SERVING_PHASES"]
+__all__ = ["ternary_gemm", "ternary_gemm_plan", "GemmPlan", "KernelImpl",
+           "register_kernel", "kernel_registry", "SKIP_OCCUPANCY_CUTOFF",
+           "fused_mlp", "paged_decode_attention", "serving_phase",
+           "current_phase", "SERVING_PHASES"]
 
 SERVING_PHASES = ("prefill", "decode")
+
+# Above this occupied-tile fraction the skip walk saves too little;
+# "auto" takes the dense kernel (repro's constant).
+SKIP_OCCUPANCY_CUTOFF = 0.875
 
 _SERVING_PHASE: contextvars.ContextVar[Optional[str]] = \
     contextvars.ContextVar("repro_torch_serving_phase", default=None)
@@ -47,44 +81,367 @@ def current_phase() -> Optional[str]:
     return _SERVING_PHASE.get()
 
 
-def _phase(m: int) -> str:
-    phase = current_phase()
-    if phase is None:
-        phase = "decode" if m <= 16 else "prefill"
-    return phase
+def _phase(m: int, phase: Optional[str] = "__current__") -> str:
+    """The phase whose tiles an M-row op takes: the given one (by default
+    the ambient scope's), else decode-shaped for M <= 16."""
+    if phase == "__current__":
+        phase = current_phase()
+    return phase or ("decode" if m <= 16 else "prefill")
 
+
+# ---------------------------------------------------------------------------
+# The kernel registry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """Inspectable dispatch decision for one ternary GEMM, produced by
+    ``ternary_gemm_plan`` and consumed by the row's lowering. ``block_*``
+    are ``None`` for ``ref`` rows."""
+
+    format: str
+    impl: str
+    m: int
+    k: int
+    n: int
+    block_m: Optional[int]
+    block_n: Optional[int]
+    block_k: Optional[int]
+    phase: Optional[str]
+    occupancy: float
+    fuse_prelu: bool = False
+    prelu_alpha: float = 0.25
+
+    def traffic(self) -> Dict[str, float]:
+        """Modeled operations and device-memory bytes of one pass, from the
+        plan's blocks and the pack-time occupancy (``repro``'s formula):
+        the skip rows scale the K steps by the occupied-tile fraction."""
+        skipping = self.impl in ("skip", "skip_db")
+        occ = self.occupancy if skipping else 1.0
+        bm = self.block_m or min(128, max(8, 1 << (self.m - 1).bit_length()))
+        bn = self.block_n or 128
+        bk = self.block_k or 256
+        mp = -(-self.m // bm) * bm
+        npad = -(-self.n // bn) * bn
+        kp = -(-self.k // bk) * bk
+        m_tiles, n_tiles = mp // bm, npad // bn
+        k_steps = max(1, round((kp // bk) * occ))
+        flops = 2.0 * mp * npad * (k_steps * bk)
+        x_bytes = m_tiles * n_tiles * k_steps * bm * bk * 2
+        w_bytes = (m_tiles * n_tiles * k_steps
+                   * (bk // formats.K_PER_WORD) * bn * 4)
+        out_bytes = mp * npad * 2
+        return {"flops": flops,
+                "bytes": float(x_bytes + w_bytes + out_bytes)}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelImpl:
+    """One registered lowering ``(format, impl)``: ``predicate(w, m,
+    phase)`` gates ``impl="auto"`` (highest admissible ``priority`` wins),
+    ``plan_blocks(w, m, phase, bm, bn, bk)`` resolves the block shape,
+    ``lower(plan, x, w, scale, bias)`` runs."""
+
+    format: str
+    impl: str
+    priority: int
+    predicate: Callable[[weights.TernaryWeight, int, Optional[str]], bool]
+    plan_blocks: Callable
+    lower: Callable
+
+
+_KERNELS: Dict[Tuple[str, str], KernelImpl] = {}
+
+
+def register_kernel(fmt: str, impl: str, *, priority: int = 0,
+                    predicate: Optional[Callable] = None,
+                    plan_blocks: Optional[Callable] = None):
+    """Decorator registering the lowering ``fn(plan, x, w, scale, bias)``
+    for ``(format, impl)``; dispatch, ``impl="auto"`` and
+    ``ternary_gemm_plan`` pick it up with no call-site change."""
+
+    def deco(fn):
+        _KERNELS[(fmt, impl)] = KernelImpl(
+            format=fmt, impl=impl, priority=priority,
+            predicate=predicate or (lambda w, m, phase: True),
+            plan_blocks=plan_blocks or (lambda w, m, phase, bm, bn, bk:
+                                        (bm, bn, bk)),
+            lower=fn)
+        return fn
+
+    return deco
+
+
+def kernel_registry() -> Dict[Tuple[str, str], KernelImpl]:
+    """Snapshot of the registered ``(format, impl) -> KernelImpl`` table."""
+    return dict(_KERNELS)
+
+
+# --- block planning ---------------------------------------------------------
+
+def _blocks_fixed_tiles(w, m, phase, bm, bn, bk):
+    """B1's and B7's tiles: the phase's (block_m, block_n) unless the
+    caller names one of the kernel's tiles; block_k is the kernel's 64."""
+    if bk is not None and bk != gemm_lib.BLOCK_K:
+        raise ValueError(f"block_k={bk}: this kernel steps K by "
+                         f"{gemm_lib.BLOCK_K} only")
+    if bm is None and bn is None:
+        return (*gemm_lib.TILES[gemm_lib.VARIANTS[_phase(m, phase)]],
+                gemm_lib.BLOCK_K)
+    for tbm, tbn in gemm_lib.TILES.values():
+        if bm in (None, tbm) and bn in (None, tbn):
+            return tbm, tbn, gemm_lib.BLOCK_K
+    raise ValueError(f"(block_m, block_n)=({bm}, {bn}) is not one of this "
+                     f"kernel's tiles {sorted(gemm_lib.TILES.values())}")
+
+
+def _blocks_skip_impl(impl):
+    def plan(w, m, phase, bm, bn, bk):
+        # pack-time tile shapes dictate the kernel's K/N blocks
+        if bn is not None and bn != w.tile_n:
+            raise ValueError(f"impl={impl!r}: block_n={bn} must equal the "
+                             f"pack's tile_n={w.tile_n}")
+        if bk is not None and bk != w.tile_k:
+            raise ValueError(f"impl={impl!r}: block_k={bk} must equal the "
+                             f"pack's tile_k={w.tile_k}")
+        if bm is None:
+            bm = gemm_lib.SKIP_BLOCK_M[_phase(m, phase)]
+        elif bm not in gemm_lib.SKIP_BLOCK_M.values():
+            raise ValueError(f"impl={impl!r}: block_m={bm} must be one of "
+                             f"{sorted(gemm_lib.SKIP_BLOCK_M.values())}")
+        return bm, w.tile_n, w.tile_k
+    return plan
+
+
+def _no_blocks(w, m, phase, bm, bn, bk):
+    return None, None, None
+
+
+def _require_2d(w, *leaves):
+    for leaf in leaves:
+        if leaf.ndim != 2:
+            raise ValueError(
+                f"{w.format_name} weight has stacked leaves "
+                f"{tuple(leaf.shape)}; pass one layer's 2-D weight")
+
+
+def _variant(plan: GemmPlan) -> int:
+    return next(v for v, tile in gemm_lib.TILES.items()
+                if tile == (plan.block_m, plan.block_n))
+
+
+def _prelu(plan: GemmPlan) -> Optional[float]:
+    return plan.prelu_alpha if plan.fuse_prelu else None
+
+
+# --- 2-bit rows (dense2bit, tiled) -------------------------------------------
+
+@register_kernel("dense2bit", "dense", priority=10,
+                 plan_blocks=_blocks_fixed_tiles)
+@register_kernel("tiled", "dense", priority=5,
+                 plan_blocks=_blocks_fixed_tiles)
+def _lower_dense(plan, x, w, scale, bias):
+    # B1 reads the first n word columns in place (a tiled pack is N-padded)
+    _require_2d(w, w.packed)
+    if x.is_cuda:
+        return gemm_lib.ternary_gemm_cuda(
+            x.contiguous(), w.packed, scale, bias, n=w.n,
+            fuse_prelu=plan.fuse_prelu, prelu_alpha=plan.prelu_alpha,
+            variant=_variant(plan))
+    return gemm_lib.ternary_gemm_ref(x, w.packed[:, :w.n], scale, bias,
+                                     fuse_prelu=plan.fuse_prelu,
+                                     prelu_alpha=plan.prelu_alpha)
+
+
+@register_kernel("dense2bit", "ref", plan_blocks=_no_blocks)
+@register_kernel("tiled", "ref", plan_blocks=_no_blocks)
+def _lower_2bit_ref(plan, x, w, scale, bias):
+    _require_2d(w, w.packed)
+    return ref.packed2bit_matmul(x, w.packed[:, :w.n], w.k, scale, bias,
+                                 _prelu(plan))
+
+
+def _lower_skip_common(plan, x, w, scale, bias, db):
+    args = (w.packed, w.kt_indices, w.kt_counts, scale, bias)
+    kw = dict(n=w.n, tile_k=w.tile_k, tile_n=w.tile_n,
+              fuse_prelu=plan.fuse_prelu, prelu_alpha=plan.prelu_alpha)
+    if x.is_cuda:
+        return gemm_lib.ternary_gemm_skip_cuda(
+            x.contiguous(), *args, block_m=plan.block_m, db=db, **kw)
+    return gemm_lib.ternary_gemm_skip_ref(x, *args, **kw)
+
+
+@register_kernel("tiled", "skip_db", priority=12,
+                 predicate=lambda w, m, phase:
+                     w.occupancy() <= SKIP_OCCUPANCY_CUTOFF,
+                 plan_blocks=_blocks_skip_impl("skip_db"))
+def _lower_skip_db(plan, x, w, scale, bias):
+    # B2's walk with a two-stage cp.async pipeline; bitwise equal to skip
+    # and dense on the card
+    return _lower_skip_common(plan, x, w, scale, bias, db=True)
+
+
+@register_kernel("tiled", "skip", priority=10,
+                 predicate=lambda w, m, phase:
+                     w.occupancy() <= SKIP_OCCUPANCY_CUTOFF,
+                 plan_blocks=_blocks_skip_impl("skip"))
+def _lower_skip(plan, x, w, scale, bias):
+    return _lower_skip_common(plan, x, w, scale, bias, db=False)
+
+
+# --- bitplane rows ------------------------------------------------------------
+
+def _lower_bitplane_common(plan, x, w, scale, bias, factorized):
+    _require_2d(w, w.plus)
+    kw = dict(factorized=factorized, fuse_prelu=plan.fuse_prelu,
+              prelu_alpha=plan.prelu_alpha)
+    if x.is_cuda:
+        return bitplane_lib.ternary_gemm_bitplane_cuda(
+            x.contiguous(), w.plus, w.minus, scale, bias,
+            variant=_variant(plan), **kw)
+    return bitplane_lib.ternary_gemm_bitplane_ref(x, w.plus, w.minus, scale,
+                                                  bias, **kw)
+
+
+@register_kernel("bitplane", "bitplane", priority=10,
+                 plan_blocks=_blocks_fixed_tiles)
+def _lower_bitplane(plan, x, w, scale, bias):
+    return _lower_bitplane_common(plan, x, w, scale, bias, factorized=False)
+
+
+@register_kernel("bitplane", "bitplane_factorized", priority=5,
+                 plan_blocks=_blocks_fixed_tiles)
+def _lower_bitplane_fact(plan, x, w, scale, bias):
+    return _lower_bitplane_common(plan, x, w, scale, bias, factorized=True)
+
+
+@register_kernel("bitplane", "ref", plan_blocks=_no_blocks)
+def _lower_bitplane_ref(plan, x, w, scale, bias):
+    _require_2d(w, w.plus)
+    return ref.bitplane_matmul(x, w.plus, w.minus, w.k, scale, bias,
+                               _prelu(plan))
+
+
+# --- base3 (the paper's value compression; no kernel) -------------------------
+
+@register_kernel("base3", "ref", priority=10, plan_blocks=_no_blocks)
+def _lower_base3_ref(plan, x, w, scale, bias):
+    _require_2d(w, w.packed)
+    return ref.base3_matmul(x, w.packed, w.k, scale, bias, _prelu(plan))
+
+
+# ---------------------------------------------------------------------------
+# The planner
+# ---------------------------------------------------------------------------
+
+def _coerce_weight(w: Any) -> weights.TernaryWeight:
+    """Accept only typed containers; name the container a raw operand
+    belongs in (``repro``'s hints)."""
+    if isinstance(w, weights.TernaryWeight):
+        return w
+    if isinstance(w, formats.TiledTernary):
+        hint = "weights.Tiled.from_tiled(w) or re-pack via weights.pack"
+    elif isinstance(w, (tuple, list)) and len(w) == 2:
+        hint = "weights.Bitplane.from_planes(plus, minus, k=K)"
+    elif getattr(w, "ndim", 0) == 2:
+        hint = "weights.Dense2Bit.from_packed(w, k=K)"
+    else:
+        hint = "repro_torch.core.weights.pack(w, format)"
+    raise TypeError(
+        f"ternary_gemm does not accept raw weight operands (got "
+        f"{type(w).__name__}). Pack into a typed container: {hint}.")
+
+
+def _validate_k(w: weights.TernaryWeight, x: torch.Tensor,
+                k: Optional[int]) -> None:
+    if k is not None and k != w.k:
+        raise ValueError(
+            f"k={k} does not match the {w.format_name} weight's logical "
+            f"K={w.k} (shape {w.shape})")
+    if x.ndim != 2 or x.shape[1] != w.k:
+        raise ValueError(
+            f"x {tuple(x.shape)} does not match the {w.format_name} "
+            f"weight's logical K={w.k} (shape {w.shape})")
+
+
+def ternary_gemm_plan(w: Any, m: int, *, k: Optional[int] = None,
+                      impl: str = "auto",
+                      phase: Optional[str] = "__current__",
+                      block_m: Optional[int] = None,
+                      block_n: Optional[int] = None,
+                      block_k: Optional[int] = None,
+                      fuse_prelu: bool = False,
+                      prelu_alpha: float = 0.25) -> GemmPlan:
+    """Plan (but do not run) a ternary GEMM of M rows. ``phase`` defaults
+    to the ambient ``serving_phase`` scope; ``k``, if given, is checked
+    against the container. Reads only host-side pack-time metadata."""
+    w = _coerce_weight(w)
+    if k is not None and k != w.k:
+        raise ValueError(
+            f"k={k} does not match the {w.format_name} weight's logical "
+            f"K={w.k} (shape {w.shape})")
+    if phase == "__current__":
+        phase = current_phase()
+    elif phase is not None and phase not in SERVING_PHASES:
+        raise ValueError(f"phase must be one of {SERVING_PHASES} or None, "
+                         f"got {phase!r}")
+    fmt = w.format_name
+    if impl == "auto":
+        # ties keep registration order (repro's stable sort)
+        cands = sorted((ki for ki in _KERNELS.values() if ki.format == fmt),
+                       key=lambda ki: -ki.priority)
+        if not cands:
+            raise ValueError(f"no kernel registered for format {fmt!r}")
+        chosen = next((ki for ki in cands if ki.predicate(w, m, phase)),
+                      cands[-1])
+    else:
+        chosen = _KERNELS.get((fmt, impl))
+        if chosen is None:
+            avail = sorted(i for f, i in _KERNELS if f == fmt)
+            raise ValueError(f"no impl {impl!r} registered for format "
+                             f"{fmt!r}; available: {avail}")
+    bm, bn, bk = chosen.plan_blocks(w, m, phase, block_m, block_n, block_k)
+    return GemmPlan(format=fmt, impl=chosen.impl, m=m, k=w.k, n=w.n,
+                    block_m=bm, block_n=bn, block_k=bk, phase=phase,
+                    occupancy=w.occupancy(), fuse_prelu=fuse_prelu,
+                    prelu_alpha=prelu_alpha)
+
+
+def ternary_gemm(x: torch.Tensor, w: Any,
+                 scale: Optional[torch.Tensor] = None,
+                 bias: Optional[torch.Tensor] = None, *,
+                 k: Optional[int] = None, block_m: Optional[int] = None,
+                 block_n: Optional[int] = None, block_k: Optional[int] = None,
+                 fuse_prelu: bool = False, prelu_alpha: float = 0.25,
+                 impl: str = "auto") -> torch.Tensor:
+    """Y = X @ decode(w) * scale + bias (+PReLU) for x (M, K). ``w`` is a
+    ``TernaryWeight`` (raw operands raise ``TypeError``); ``scale`` and
+    ``bias`` default to the container's own. ``impl`` names a registered
+    row ("auto" plans by format, occupancy and phase); ``block_*`` must
+    agree with the row's kernel tiles."""
+    w = _coerce_weight(w)
+    _validate_k(w, x, k)
+    scale = w.scale if scale is None else scale
+    bias = w.bias if bias is None else bias
+    plan = ternary_gemm_plan(w, x.shape[0], impl=impl, block_m=block_m,
+                             block_n=block_n, block_k=block_k,
+                             fuse_prelu=fuse_prelu, prelu_alpha=prelu_alpha)
+    return _KERNELS[(plan.format, plan.impl)].lower(plan, x, w, scale, bias)
+
+
+# ---------------------------------------------------------------------------
+# Fused MLP and paged attention
+# ---------------------------------------------------------------------------
 
 def _container(w, what: str) -> Dense2Bit:
     if not isinstance(w, Dense2Bit):
         raise TypeError(f"{what} must be a Dense2Bit container (the only "
-                        f"format ported so far), got {type(w).__name__}")
+                        f"format the fused kernel takes so far), got "
+                        f"{type(w).__name__}")
     if w.packed.ndim != 2:
         raise ValueError(f"{what} has stacked words {tuple(w.packed.shape)};"
                          f" pass one layer's 2-D words")
     return w
-
-
-def ternary_gemm(x: torch.Tensor, w: Dense2Bit,
-                 scale: Optional[torch.Tensor] = None,
-                 bias: Optional[torch.Tensor] = None, *,
-                 fuse_prelu: bool = False,
-                 prelu_alpha: float = 0.25) -> torch.Tensor:
-    """Y = X @ decode(w) * scale + bias (+PReLU) for x (M, K). ``scale`` and
-    ``bias`` default to the container's own."""
-    w = _container(w, "w")
-    if x.ndim != 2 or x.shape[1] != w.k:
-        raise ValueError(f"x {tuple(x.shape)} does not match the weight's "
-                         f"logical K={w.k} (shape {w.shape})")
-    scale = w.scale if scale is None else scale
-    bias = w.bias if bias is None else bias
-    if x.is_cuda:
-        return gemm_lib.ternary_gemm_cuda(
-            x.contiguous(), w.packed, scale, bias, fuse_prelu=fuse_prelu,
-            prelu_alpha=prelu_alpha,
-            variant=gemm_lib.VARIANTS[_phase(x.shape[0])])
-    return gemm_lib.ternary_gemm_ref(x, w.packed, scale, bias,
-                                     fuse_prelu=fuse_prelu,
-                                     prelu_alpha=prelu_alpha)
 
 
 def fused_mlp(x: torch.Tensor, w_in: Dense2Bit, w_out: Dense2Bit,

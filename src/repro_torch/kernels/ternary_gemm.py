@@ -1,11 +1,19 @@
-"""Packed 2-bit ternary GEMM: the wrapper of the hand-written CUDA kernel
-(``csrc/ternary_gemm.cu``, which replaces ``repro``'s
-``ternary_gemm_pallas``) and its plain PyTorch version.
+"""Packed 2-bit ternary GEMM: the wrappers of the hand-written CUDA kernels
+and their plain PyTorch versions.
 
-Both compute ``Y = X @ decode(W) * scale + bias (+ PReLU)`` with f32
-accumulation and the f32 epilogue rounding once, at the cast to ``x.dtype``.
-The plain version decodes to f32 and multiplies in f32; it serves CPU
-tensors and the comparisons, never a CUDA tensor on the serving path.
+* ``ternary_gemm_cuda`` -> ``csrc/ternary_gemm.cu`` (B1, replaces
+  ``repro``'s ``ternary_gemm_pallas``): every K step of every output tile.
+* ``ternary_gemm_skip_cuda`` -> ``csrc/ternary_gemm_skip.cu`` (B2 and, with
+  ``db=True``, B3; they replace ``ternary_gemm_skip_pallas`` and
+  ``ternary_gemm_skip_db_pallas``): the K walk of each N-tile visits only
+  its occupied K-tiles, in ascending order.
+
+All compute ``Y = X @ decode(W) * scale + bias (+ PReLU)`` with f32
+accumulation and the f32 epilogue rounding once, at the cast to
+``x.dtype``. B2 and B3 run B1's 16-deep MMA chunks in B1's order, minus the
+chunks of empty tiles, so the three agree bit for bit on the card. The
+plain versions decode to f32 and multiply in f32; they serve CPU tensors
+and the comparisons, never a CUDA tensor on a kernel row.
 """
 from __future__ import annotations
 
@@ -16,13 +24,31 @@ from typing import Optional
 import torch
 
 from repro_torch.core import formats
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
-__all__ = ["ternary_gemm_ref", "ternary_gemm_cuda", "VARIANTS"]
+__all__ = ["ternary_gemm_ref", "ternary_gemm_cuda", "ternary_gemm_skip_ref",
+           "ternary_gemm_skip_cuda", "VARIANTS", "TILES", "BLOCK_K",
+           "SKIP_BLOCK_M", "skip_block_n"]
 
-# tile shape of the kernel per serving phase (see csrc/ternary_gemm.cu):
-# decode GEMVs take the narrow 16 x 64 tile, prefill the 64 x 128 tile
+# tile shape of B1 per serving phase (see csrc/ternary_gemm.cu): decode
+# GEMVs take the narrow 16 x 64 tile, prefill the 64 x 128 tile; both step
+# K by 64
 VARIANTS = {"decode": 0, "prefill": 1}
+TILES = {0: (16, 64), 1: (64, 128)}           # variant -> (block_m, block_n)
+BLOCK_K = 64
+# rows per block of B2/B3 per serving phase; their block_n is the largest
+# of 128, 64, 32, 16 dividing the pack's tile_n (skip_block_n)
+SKIP_BLOCK_M = {"decode": 16, "prefill": 64}
+
+
+def skip_block_n(tile_n: int) -> int:
+    """Columns per block of B2/B3 for a pack's ``tile_n``: each block
+    stays inside one N-tile, so its width divides ``tile_n``."""
+    for bn in (128, 64, 32, 16):
+        if tile_n % bn == 0:
+            return bn
+    raise ValueError(f"tile_n must be a positive multiple of 16, got "
+                     f"{tile_n}")
 
 
 def ternary_gemm_ref(x: torch.Tensor, words: torch.Tensor,
@@ -32,24 +58,28 @@ def ternary_gemm_ref(x: torch.Tensor, words: torch.Tensor,
                      prelu_alpha: float = 0.25) -> torch.Tensor:
     """Plain version: x (M, K), words (>= ceil(K/16), N) int32 -> (M, N) in
     x.dtype. Decode to f32, f32 matmul, f32 epilogue, one cast."""
-    t = formats.decode_2bit(words, x.shape[1], torch.float32)
-    y = x.float() @ t
-    if scale is not None:
-        y = y * scale.float()
-    if bias is not None:
-        y = y + bias.float()
-    if fuse_prelu:
-        y = torch.where(y >= 0, y, prelu_alpha * y)
-    return y.to(x.dtype)
+    return ref.packed2bit_matmul(x, words, x.shape[1], scale, bias,
+                                 prelu_alpha if fuse_prelu else None)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("ternary_gemm")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ternary_gemm_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i,
+    lib.ternary_gemm_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                       ctypes.c_float, i, p]
     lib.ternary_gemm_bf16.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _skip_lib() -> ctypes.CDLL:
+    lib = build.load("ternary_gemm_skip")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ternary_gemm_skip_bf16.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                           i, i, i, i, i, ctypes.c_float, i,
+                                           i, i, p]
+    lib.ternary_gemm_skip_bf16.restype = ctypes.c_int
     return lib
 
 
@@ -68,18 +98,10 @@ def _ptr(v: Optional[torch.Tensor]):
     return None if v is None else v.data_ptr()
 
 
-def ternary_gemm_cuda(x: torch.Tensor, words: torch.Tensor,
-                      scale: Optional[torch.Tensor] = None,
-                      bias: Optional[torch.Tensor] = None, *,
-                      fuse_prelu: bool = False, prelu_alpha: float = 0.25,
-                      variant: int = 1) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream. x (M, K) bf16 and
-    words (>= ceil(K/16), N) int32 must be contiguous CUDA tensors on one
-    device; scale/bias, when given, (N,) float32. Returns (M, N) bf16.
-    Raises on anything the kernel does not take, and on a failed launch."""
+def _check_x_words(name: str, x: torch.Tensor, words: torch.Tensor) -> None:
     if not x.is_cuda:
-        raise ValueError("ternary_gemm_cuda needs a CUDA tensor; CPU tensors "
-                         "take ternary_gemm_ref")
+        raise ValueError(f"{name} needs a CUDA tensor; CPU tensors take the "
+                         f"plain version")
     if x.dtype != torch.bfloat16 or x.ndim != 2 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous 2-D bfloat16 tensor, got "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -88,11 +110,29 @@ def ternary_gemm_cuda(x: torch.Tensor, words: torch.Tensor,
         raise ValueError(f"words must be a contiguous 2-D int32 tensor on "
                          f"{x.device}, got {words.dtype} "
                          f"{tuple(words.shape)} on {words.device}")
+    if words.shape[0] * formats.K_PER_WORD < x.shape[1]:
+        raise ValueError(f"words cover K={words.shape[0] * formats.K_PER_WORD}"
+                         f" < x's K={x.shape[1]}")
+
+
+def ternary_gemm_cuda(x: torch.Tensor, words: torch.Tensor,
+                      scale: Optional[torch.Tensor] = None,
+                      bias: Optional[torch.Tensor] = None, *,
+                      n: Optional[int] = None, fuse_prelu: bool = False,
+                      prelu_alpha: float = 0.25,
+                      variant: int = 1) -> torch.Tensor:
+    """Launch B1 on the current stream. x (M, K) bf16 and words
+    (>= ceil(K/16), ldw) int32 must be contiguous CUDA tensors on one
+    device; the output has the first ``n`` (default ldw) word columns, so a
+    tile-padded pack runs without a copy. scale/bias, when given, (n,)
+    float32. Returns (M, n) bf16. Raises on anything the kernel does not
+    take, and on a failed launch."""
+    _check_x_words("ternary_gemm_cuda", x, words)
     m, k = x.shape
-    kw, n = words.shape
-    if kw * formats.K_PER_WORD < k:
-        raise ValueError(f"words cover K={kw * formats.K_PER_WORD} < x's "
-                         f"K={k}")
+    kw, ldw = words.shape
+    n = ldw if n is None else n
+    if not 0 <= n <= ldw:
+        raise ValueError(f"n={n} outside the words' {ldw} columns")
     if variant not in VARIANTS.values():
         raise ValueError(f"unknown tile variant {variant}")
     _check_vec("scale", scale, n, x.device)
@@ -103,8 +143,8 @@ def ternary_gemm_cuda(x: torch.Tensor, words: torch.Tensor,
     with torch.cuda.device(x.device):
         err = _lib().ternary_gemm_bf16(
             x.data_ptr(), words.data_ptr(), _ptr(scale), _ptr(bias),
-            y.data_ptr(), m, k, n, kw, int(fuse_prelu), prelu_alpha, variant,
-            torch.cuda.current_stream().cuda_stream)
+            y.data_ptr(), m, k, n, kw, ldw, int(fuse_prelu), prelu_alpha,
+            variant, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ternary_gemm kernel launch failed: "
                            f"cudaError {err}")
@@ -113,3 +153,94 @@ def ternary_gemm_cuda(x: torch.Tensor, words: torch.Tensor,
 
 
 ternary_gemm_cuda.launches = 0
+
+
+def ternary_gemm_skip_ref(x: torch.Tensor, words: torch.Tensor,
+                          kt_indices: torch.Tensor, kt_counts: torch.Tensor,
+                          scale: Optional[torch.Tensor] = None,
+                          bias: Optional[torch.Tensor] = None, *, n: int,
+                          tile_k: int, tile_n: int, fuse_prelu: bool = False,
+                          prelu_alpha: float = 0.25) -> torch.Tensor:
+    """Plain version of B2/B3: x (M, K); words (Kp/16, Np) int32 of a
+    tile-padded pack; for N-tile j, multiply only the decoded tiles
+    ``kt_indices[j, :kt_counts[j]]`` into its columns (a wrong occupancy
+    list gives a wrong answer here too). f32 matmuls and epilogue, one
+    cast; the first ``n`` columns."""
+    m, k = x.shape
+    kp = words.shape[0] * formats.K_PER_WORD
+    xf = torch.zeros((m, kp), dtype=torch.float32, device=x.device)
+    xf[:, :k] = x.float()
+    y = torch.zeros((m, words.shape[1]), dtype=torch.float32, device=x.device)
+    tkw = tile_k // formats.K_PER_WORD
+    for j, (row, cnt) in enumerate(zip(kt_indices.tolist(),
+                                       kt_counts.tolist())):
+        cols = slice(j * tile_n, (j + 1) * tile_n)
+        for kt in row[:cnt]:
+            t = formats.decode_2bit(words[kt * tkw:(kt + 1) * tkw, cols],
+                                    tile_k, torch.float32)
+            y[:, cols] += xf[:, kt * tile_k:(kt + 1) * tile_k] @ t
+    return ref._epilogue(y[:, :n], scale, bias,
+                         prelu_alpha if fuse_prelu else None).to(x.dtype)
+
+
+def ternary_gemm_skip_cuda(x: torch.Tensor, words: torch.Tensor,
+                           kt_indices: torch.Tensor, kt_counts: torch.Tensor,
+                           scale: Optional[torch.Tensor] = None,
+                           bias: Optional[torch.Tensor] = None, *, n: int,
+                           tile_k: int, tile_n: int, fuse_prelu: bool = False,
+                           prelu_alpha: float = 0.25, block_m: int = 64,
+                           db: bool = False) -> torch.Tensor:
+    """Launch B2 (``db=False``) or B3 (``db=True``) on the current stream.
+    x (M, K) bf16, words (Kp/16, Np) int32 of a pack with (tile_k, tile_n)
+    tiles (multiples of 16), kt_indices (Np/tile_n, max_occ) and kt_counts
+    (Np/tile_n,) int32, all contiguous on one CUDA device; scale/bias (n,)
+    float32. ``block_m`` is 16 or 64. Returns (M, n) bf16. Raises on
+    anything the kernel does not take, and on a failed launch. Launches
+    are counted in ``.launches`` (B2) and ``.launches_db`` (B3)."""
+    _check_x_words("ternary_gemm_skip_cuda", x, words)
+    m, k = x.shape
+    kw, ldw = words.shape
+    if (tile_k <= 0 or tile_k % formats.K_PER_WORD or tile_n <= 0
+            or tile_n % 16):
+        raise ValueError(f"tile_k and tile_n must be positive multiples of "
+                         f"16, got ({tile_k}, {tile_n})")
+    if (kw * formats.K_PER_WORD) % tile_k or ldw % tile_n:
+        raise ValueError(f"words {tuple(words.shape)} are not padded to "
+                         f"whole ({tile_k}, {tile_n}) tiles")
+    if not 0 <= n <= ldw:
+        raise ValueError(f"n={n} outside the words' {ldw} columns")
+    n_ntiles = ldw // tile_n
+    for name, t, ndim in (("kt_indices", kt_indices, 2),
+                          ("kt_counts", kt_counts, 1)):
+        if (t.device != x.device or t.dtype != torch.int32 or t.ndim != ndim
+                or t.shape[0] != n_ntiles or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {ndim}-D int32 "
+                             f"tensor with {n_ntiles} rows on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if block_m not in SKIP_BLOCK_M.values():
+        raise ValueError(f"block_m must be one of "
+                         f"{sorted(SKIP_BLOCK_M.values())}, got {block_m}")
+    _check_vec("scale", scale, n, x.device)
+    _check_vec("bias", bias, n, x.device)
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    if m == 0 or n == 0:
+        return y
+    with torch.cuda.device(x.device):
+        err = _skip_lib().ternary_gemm_skip_bf16(
+            x.data_ptr(), words.data_ptr(), kt_indices.data_ptr(),
+            kt_counts.data_ptr(), _ptr(scale), _ptr(bias), y.data_ptr(), m, k,
+            n, kw, ldw, tile_k, tile_n, kt_indices.shape[1], int(fuse_prelu),
+            prelu_alpha, block_m, skip_block_n(tile_n), int(db),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ternary_gemm_skip kernel launch failed: "
+                           f"cudaError {err}")
+    if db:
+        ternary_gemm_skip_cuda.launches_db += 1
+    else:
+        ternary_gemm_skip_cuda.launches += 1
+    return y
+
+
+ternary_gemm_skip_cuda.launches = 0
+ternary_gemm_skip_cuda.launches_db = 0

@@ -101,5 +101,5 @@ def test_dense2bit_from_packed_and_materialize():
                                t * scale.numpy()[None], rtol=0, atol=0)
     with pytest.raises(ValueError):
         weights.Dense2Bit.from_packed(words, k=49)
-    with pytest.raises(ValueError):
-        weights.pack(torch.zeros(4, 4), "tiled")
+    with pytest.raises(ValueError, match="unknown ternary format"):
+        weights.pack(torch.zeros(4, 4), "tcsc")

@@ -7,17 +7,21 @@ a card. Run them on the card with
 
 Tolerance: bf16 outputs of f32 sums taken in another order than the plain
 version's may round one bf16 ulp (2^-8) the other way; the fused block
-rounds h on the way and paged attention rounds p, so all are held to
-|d| <= 1e-2*|ref| + 1e-2*max|ref|.
+rounds h on the way, paged attention rounds p and the bitplane kernel
+rounds before its bias, so all are held to |d| <= 1e-2*|ref| +
+1e-2*max|ref|. The tile-skipping kernels (B2, B3) run the dense kernel's
+(B1) MMA chunks in its order, so the three are held equal bit for bit.
 This file imports no JAX, so it runs where only PyTorch is installed.
 """
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import weights
+from repro_torch.core import formats, weights
 from repro_torch.kernels import fused_mlp as fused_lib
 from repro_torch.kernels import ops
 from repro_torch.kernels import ternary_gemm as gemm_lib
+from repro_torch.kernels import ternary_gemm_bitplane as bitplane_lib
 from repro_torch.paging import Int8Pages
 from repro_torch.paging import kernels as paged_lib
 
@@ -203,3 +207,138 @@ def test_paged_attention_wrapper_counts_launches_and_refuses(cuda):
     out = cuda_fn(q, kp, vp, table, bad)
     torch.cuda.synchronize()
     assert bool(out[0].isnan().all()) and bool(out[1].isfinite().all())
+
+
+TILES = [(32, 16), (64, 32), (128, 128), (256, 128), (512, 32)]
+
+
+def _tiled(seed, k, n, tile_k, tile_n, sparsity, device="cuda"):
+    """A tile-structured pack of logical (k, n), drawn on the padded
+    shape and cut (so the last tiles are ragged)."""
+    rng = np.random.default_rng(seed)
+    kp, npad = -(-k // tile_k) * tile_k, -(-n // tile_n) * tile_n
+    t = formats.random_tile_ternary(rng, kp, npad, tile_k, tile_n,
+                                    sparsity)[:k, :n]
+    scale = torch.from_numpy(rng.random(n).astype(np.float32) + 0.5)
+    return weights.pack(torch.from_numpy(t).to(device), "tiled",
+                        scale=scale.to(device), tile_k=tile_k, tile_n=tile_n)
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("mkn", [(8, 1024, 256), (5, 200, 33),
+                                 (70, 1000, 300), (3, 203, 40)])
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+def test_skip_kernels_equal_dense_and_match_plain(cuda, tile, mkn, phase):
+    m, k, n = mkn
+    w = _tiled(k + n, k, n, *tile, 0.125)
+    g = _gen(m + k)
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    bias = torch.randn(n, generator=g, device=cuda)
+    for kw in (dict(), dict(bias=bias, fuse_prelu=True)):
+        with ops.serving_phase(phase):
+            ys = {impl: ops.ternary_gemm(x, w, impl=impl, **kw)
+                  for impl in ("skip", "skip_db", "dense")}
+        ref = gemm_lib.ternary_gemm_skip_ref(
+            x, w.packed, w.kt_indices, w.kt_counts, w.scale, kw.get("bias"),
+            n=n, tile_k=w.tile_k, tile_n=w.tile_n,
+            fuse_prelu=kw.get("fuse_prelu", False))
+        torch.cuda.synchronize()
+        assert ys["skip"].shape == (m, n)
+        assert torch.equal(ys["skip"], ys["dense"])
+        assert torch.equal(ys["skip_db"], ys["dense"])
+        _close(ys["skip"], ref)
+
+
+def test_skip_kernels_empty_columns_and_all_zero(cuda):
+    """An N-tile with no occupied tile writes only its epilogue (bias);
+    an all-zero pack gives exact zeros."""
+    t = torch.zeros(256, 96, dtype=torch.int8)
+    t[:64, :32] = 1
+    w = weights.pack(t.to(cuda), "tiled", tile_k=64, tile_n=32)
+    assert w.kt_counts.tolist() == [1, 0, 0]
+    x = torch.randn(9, 256, generator=_gen(3), device=cuda).to(torch.bfloat16)
+    bias = torch.randn(96, generator=_gen(4), device=cuda)
+    for impl in ("skip", "skip_db"):
+        y = ops.ternary_gemm(x, w, bias=bias, impl=impl)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ops.ternary_gemm(x, w, bias=bias, impl="dense"))
+        assert torch.equal(y[:, 32:], bias[32:].to(torch.bfloat16).expand(9, 64))
+    zero = weights.pack(torch.zeros(128, 64, dtype=torch.int8, device=cuda),
+                        "tiled", tile_k=32, tile_n=16)
+    x = torch.randn(4, 128, generator=_gen(5), device=cuda).to(torch.bfloat16)
+    assert not bool(ops.ternary_gemm(x, zero, impl="skip_db").any())
+
+
+@pytest.mark.parametrize("mkn", [(8, 1024, 1024), (5, 37, 19),
+                                 (70, 200, 130), (64, 512, 256)])
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+@pytest.mark.parametrize("epilogue", ["scale", "scale_bias_prelu"])
+def test_bitplane_kernel_matches_plain(cuda, mkn, phase, epilogue):
+    m, k, n = mkn
+    rng = np.random.default_rng(m + k + n)
+    t = torch.from_numpy(formats.random_ternary(rng, k, n, 0.25)).to(cuda)
+    g = _gen(m * 3 + n)
+    bias = (torch.randn(n, generator=g, device=cuda)
+            if epilogue != "scale" else None)
+    prelu = epilogue == "scale_bias_prelu"
+    w = weights.Bitplane.from_dense(
+        t, scale=torch.rand(n, generator=g, device=cuda) + 0.5, bias=bias)
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    ys = {}
+    for impl, fact in (("bitplane", False), ("bitplane_factorized", True)):
+        with ops.serving_phase(phase):
+            ys[impl] = ops.ternary_gemm(x, w, fuse_prelu=prelu, impl=impl)
+        ref = bitplane_lib.ternary_gemm_bitplane_ref(
+            x, w.plus, w.minus, w.scale, bias, factorized=fact,
+            fuse_prelu=prelu)
+        torch.cuda.synchronize()
+        assert ys[impl].dtype == torch.bfloat16 and ys[impl].shape == (m, n)
+        _close(ys[impl], ref)
+    _close(ys["bitplane_factorized"], ys["bitplane"])
+
+
+def test_new_wrappers_count_launches_and_refuse_bad_inputs(cuda):
+    w = _tiled(1, 128, 64, 32, 16, 0.25)
+    x = torch.randn(4, 128, generator=_gen(6), device=cuda).to(torch.bfloat16)
+    skip = gemm_lib.ternary_gemm_skip_cuda
+    before = (skip.launches, skip.launches_db)
+    ops.ternary_gemm(x, w, impl="skip")
+    ops.ternary_gemm(x, w, impl="skip_db")
+    assert (skip.launches, skip.launches_db) == (before[0] + 1,
+                                                before[1] + 1)
+    args = (w.packed, w.kt_indices, w.kt_counts)
+    kw = dict(n=64, tile_k=32, tile_n=16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        skip(x.float(), *args, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        skip(torch.randn(128, 4, device=cuda).to(torch.bfloat16).t(), *args,
+             **kw)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        skip(x, *args, n=64, tile_k=24, tile_n=16)
+    with pytest.raises(ValueError, match="whole"):
+        skip(x, *args, n=64, tile_k=48, tile_n=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        skip(x.cpu(), *args, **kw)
+    with pytest.raises(ValueError, match="kt_counts"):
+        skip(x, w.packed, w.kt_indices, w.kt_counts.long(), **kw)
+    with pytest.raises(ValueError, match="block_m"):
+        skip(x, *args, block_m=32, **kw)
+    assert (skip.launches, skip.launches_db) == (before[0] + 1,
+                                                before[1] + 1)
+    bp = weights.pack(torch.randn(128, 64, device=cuda), "bitplane")
+    before = bitplane_lib.ternary_gemm_bitplane_cuda.launches
+    ops.ternary_gemm(x, bp)
+    assert bitplane_lib.ternary_gemm_bitplane_cuda.launches == before + 1
+    cuda_fn = bitplane_lib.ternary_gemm_bitplane_cuda
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_fn(x.float(), bp.plus, bp.minus)
+    with pytest.raises(ValueError, match="uint8"):
+        cuda_fn(x, bp.plus.int(), bp.minus)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fn(x.cpu(), bp.plus, bp.minus)
+    with pytest.raises(ValueError, match="cover"):
+        cuda_fn(x, bp.plus[:8], bp.minus[:8])
+    # base3 has no kernel: its plain version runs on the card
+    b3 = weights.pack(torch.randn(128, 64, device=cuda), "base3")
+    y = ops.ternary_gemm(x, b3)
+    assert y.is_cuda and y.shape == (4, 64)

@@ -40,6 +40,12 @@ def test_the_checks_cover_the_paging_modules():
             "paging/prefix.py", "paging/quant.py"} <= names
 
 
+def test_the_checks_cover_the_sparse_format_modules():
+    names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
+    assert {"core/formats.py", "core/weights.py", "kernels/ref.py",
+            "kernels/ternary_gemm_bitplane.py"} <= names
+
+
 def test_the_ast_check_catches_a_forbidden_import(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import os\nfrom repro.core import formats\n"
