@@ -14,6 +14,19 @@ through the tile-skipping kernels (B2, B3) and the dense one (B1), a K
 sweep over the paper's K range, ``bitplane`` packs through B7 in both
 modes, and one ``base3`` pack through its plain ``ref`` row (it has no
 kernel, in ``repro`` neither).
+Then the training slice: ``flash_kernel`` holds B6 (flash attention)
+against its plain version at ``repro``'s test shapes and the evaluation's
+(B*H 128, S 1024, hd 64); ``gradients`` holds the kernel rows' gradients
+(B1, B3, B7 in both modes, B4: the autograd Functions around the kernels)
+against the plain rows'; ``train_step_check`` holds the card's first
+full-width train step against the CPU's on the same weights and batch,
+both in float32; ``train`` trains full-width ``ternary-paper``
+with QAT through ``repro_torch.launch.train`` (24 steps, checkpoints every
+8), resumes it to step 32 from its checkpoint, and survives one injected
+failure under ``TrainSupervisor``; ``eval`` runs ``examples/
+train_ternary_lm.py``'s evaluation on the trained state: the QAT model's
+loss on a held-out batch with the plain blockwise attention and with B6,
+and the packed model's with B1 + B4 + B6.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -45,19 +58,45 @@ order, minus chunks of empty tiles), each kernel against its plain version
 within the kernel bound above, and B7's factorized mode against its
 plain mode within the same bound.
 
+The kernel checks run B1 and B4 at every M their paths give them:
+serving decode (8) and prefill (1024) and the evaluation's forward (8192).
+Each is timed through ``ops`` (``ms``) and through its wrapper called
+directly (``kernel_ms``, no dispatch).
+
+In ``train_step_check`` the loss and grad norm agree within 1e-3
+relative, and every AdamW moment within 1e-3 of its leaf's max (the same
+sums in another order through 12 layers), except at weights on the
+straight-through mask's edge (|w| within an ulp of 2 mean|w|, a mean the
+two devices sum in another order), whose gradient is 0 on one side: at
+most 1e-6 of the elements. Parameters agree within 1e-3 of their leaf's
+max except where |g| is below 1e-4 of its leaf's largest or 0 on one side,
+held to 2.01 lr (AdamW's first step is about lr * sign(g)).
+
+In ``gradients`` each kernel row's (gx, gscale, gbias) and the fused
+block's (gx, gscales) agree with the plain row's within the kernel bound
+(the same cotangent through both; the products are the same, summed in
+another order). In ``eval`` the QAT loss under B6 agrees with the plain
+blockwise attention's within 1e-2 (bf16 attention outputs through twelve
+layers, the mean of 8192 cross-entropies), and the packed model's loss
+with the QAT model's within 0.05, the example's own assertion.
+
 Output: progress lines, each serving run's metrics JSON, one
 ``{"kernels": ...}`` JSON line (each kernel's launches summed over the
-runs that use it — the serving runs for B1, B4 and B5, the gemm_formats
-run for B2, B3 and B7 — with the per-run counts under ``runs``, and its
-error and times summed over the shapes its path gives it, with the
-per-shape detail under ``shapes``), the card's name and power limit as
-nvidia-smi prints them, and the final ``{"ok": true, "device": ...}`` line.
+runs that use it — the serving, train and eval runs for B1, B4, B5 and B6,
+the gemm_formats run for B2, B3 and B7 — with the per-run counts under
+``runs``, and its error and times summed over the shapes its path gives
+it, with the per-shape detail under ``shapes``; B6's path gives it the
+evaluation's shape only, its other shapes are checks), the card's name and
+power limit as nvidia-smi prints them, and the final ``{"ok": true,
+"device": ...}`` line.
 """
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -84,14 +123,30 @@ PRESSURE = dict(requests=16, slots=8, prompt_len=120, prefix_len=64,
 # paged attention at the serving shape: 8 rows of up to 193 tokens in
 # 13 pages of 16 each, 16 heads (no GQA in ternary-paper), hd 64
 PAGED = dict(b=8, h=16, kv=16, hd=64, t=13, max_len=193)
-GEMM_SHAPES = [(m, k, n) for m in (8, 1024)
+# B1's and B4's shapes: serving decode (M 8) and prefill (M 1024), and the
+# evaluation's full-sequence forward (M = batch 8 x seq 1024 = 8192): the
+# attention projections and the MLPs at N 1024, the lm head at N 32768
+GEMM_SHAPES = [(m, k, n) for m in (8, 1024, 8192)
                for k, n in ((1024, 1024), (1024, 32768))]
-MLP_SHAPES = [(m, 1024, 4096, 1024) for m in (8, 1024)]
+MLP_SHAPES = [(m, 1024, 4096, 1024) for m in (8, 1024, 8192)]
 # the paper-size sparse-GEMM surface (benchmarks/kernel_bench.py's
 # sparsity_skip acceptance shape and tile)
 FORMATS = dict(k=4096, n=4096, tile_k=256, tile_n=128, ms=(8, 1024),
                bitplane_sparsities=(0.5, 0.0625), sweep_m=1024,
                sweep_sparsity=0.125, base3=(8, 1024, 1024))
+# B6: repro's tests/test_flash_kernel.py shapes (causal and full), then the
+# evaluation's: B 8 x H 16 at S 1024, hd 64, causal
+FLASH_CHECKS = [(4, 128, 64), (2, 257, 64), (8, 96, 128)]
+FLASH_EVAL = (128, 1024, 64)
+# training: full-width ternary-paper (12 layers, d 1024, 16 x 64 heads, ff
+# 4096, vocab 32768), batch 8 x seq 512, 24 steps with checkpoints every 8,
+# resumed to 32; the supervisor run fails once at step 3 of 4
+TRAIN = dict(batch=8, seq=512, steps=24, resume_to=32, ckpt_every=8,
+             lr=3e-3, sup_steps=4, sup_every=2, fail_at=3)
+EVAL = dict(batch=8, seq=1024, step=10_000, qat_tol=1e-2, packed_tol=0.05)
+# the card's first full-width train step against the CPU's, both float32:
+# the same sums in another order through 12 layers
+STEP_CHECK = dict(batch=2, seq=256, rtol=1e-3, max_flip_share=1e-6)
 
 
 def card_line() -> str:
@@ -157,6 +212,9 @@ def kernel_phase(flush):
     def phase(m):
         return "decode" if m <= 16 else "prefill"
 
+    def iters_for(m):
+        return 20 if m <= 1024 else 5
+
     results = {"ternary_gemm": [], "fused_mlp": []}
     for m, k, n in GEMM_SHAPES:
         w = packed(k, n)
@@ -167,10 +225,16 @@ def kernel_phase(flush):
             err = check_close(f"ternary_gemm M={m} K={k} N={n}", got, ref)
             w_eff = w.materialize(torch.float32, with_scale=True).to(
                 torch.bfloat16)
-            iters = 20
+            iters = iters_for(m)
+            variant = gemm_lib.VARIANTS[phase(m)]
             row = {
                 "m": m, "k": k, "n": n, "max_abs_err": err,
                 "ms": cuda_ms(lambda: ops.ternary_gemm(x, w), iters, flush),
+                # the wrapper called directly, without ops' dispatch: the
+                # gap to "ms" is host time that the launch waits for
+                "kernel_ms": cuda_ms(lambda: gemm_lib.ternary_gemm_cuda(
+                    x, w.packed, w.scale, w.bias, n=w.n, variant=variant),
+                    iters, flush),
                 "plain_ms": cuda_ms(lambda: gemm_lib.ternary_gemm_ref(
                     x, w.packed, w.scale), iters, flush),
                 "library_ms": cuda_ms(lambda: torch.matmul(x, w_eff), iters,
@@ -194,11 +258,15 @@ def kernel_phase(flush):
                               ref)
             ei, eg, eo = (c.materialize(torch.float32, with_scale=True).to(
                 torch.bfloat16) for c in (wi, wg, wo))
-            iters = 20
+            iters = iters_for(m)
+            variant, ff_chunk = fused_lib.VARIANTS[phase(m)]
             row = {
                 "m": m, "k": k, "ff": ff, "n": n, "max_abs_err": err,
                 "ms": cuda_ms(lambda: ops.fused_mlp(x, wi, wo, wg), iters,
                               flush),
+                "kernel_ms": cuda_ms(lambda: fused_lib.fused_mlp_cuda(
+                    x, *plain_args[1:], variant=variant, ff_chunk=ff_chunk),
+                    iters, flush),
                 "plain_ms": cuda_ms(lambda: fused_lib.fused_mlp_ref(
                     *plain_args), iters, flush),
                 # cuBLAS chain over pre-decoded, pre-scaled bf16 weights
@@ -285,11 +353,13 @@ def paged_kernel_phase(flush):
 
 def _counters():
     """Kernel name -> (wrapper, attribute holding its launch count)."""
+    from repro_torch.kernels import flash_attention as flash_lib
     from repro_torch.kernels import fused_mlp as fused_lib
     from repro_torch.kernels import ternary_gemm as gemm_lib
     from repro_torch.kernels import ternary_gemm_bitplane as bitplane_lib
     from repro_torch.paging import kernels as paged_lib
     return {"ternary_gemm": (gemm_lib.ternary_gemm_cuda, "launches"),
+            "flash_attention": (flash_lib.flash_attention_cuda, "launches"),
             "fused_mlp": (fused_lib.fused_mlp_cuda, "launches"),
             "paged_decode_attention": (
                 paged_lib.paged_decode_attention_cuda, "launches"),
@@ -770,6 +840,367 @@ def gemm_formats_phase(flush):
     return rows, launches
 
 
+def flash_kernel_phase(flush):
+    """B6 against its plain version at repro's test shapes (causal and
+    full) and at the evaluation's shape; each timed beside SDPA on the
+    same bf16 (1, B*H, S, hd) tensors. Returns the evaluation shape's row
+    and the check rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash_lib
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    cases = [(shape, causal) for shape in FLASH_CHECKS
+             for causal in (True, False)] + [(FLASH_EVAL, True)]
+    rows = []
+    for (bh, s, hd), causal in cases:
+        q, k, v = (torch.randn(bh, s, hd, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        label = f"flash_attention BH={bh} S={s} hd={hd} causal={causal}"
+        err = check_close(label, flash_lib.flash_attention_cuda(
+            q, k, v, causal=causal), flash_lib.flash_attention_ref(
+                q, k, v, causal=causal))
+        iters = 20
+        q4, k4, v4 = (t[None] for t in (q, k, v))
+        row = {"bh": bh, "s": s, "hd": hd, "causal": causal,
+               "on_path": (bh, s, hd) == FLASH_EVAL, "max_abs_err": err,
+               "ms": cuda_ms(lambda: flash_lib.flash_attention_cuda(
+                   q, k, v, causal=causal), iters, flush),
+               "plain_ms": cuda_ms(lambda: flash_lib.flash_attention_ref(
+                   q, k, v, causal=causal), iters, flush),
+               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4, is_causal=causal), iters, flush)}
+        # q, k, v read once and o written once; QK^T and PV over the
+        # causal half (or the whole square)
+        nbytes = 4 * bh * s * hd * 2
+        ops_needed = (2.0 if causal else 4.0) * bh * s * s * hd
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_needed)
+        rows.append(row)
+        print(f"{label}: " + json.dumps(row), flush=True)
+    return rows
+
+
+def _grads_agree(label, make_y, leaves, cot):
+    """The kernel row's gradients (``make_y("kernel")``) against the
+    plain row's (``make_y("plain")``) for one cotangent."""
+    import torch
+    got_y = make_y("kernel")
+    if got_y.grad_fn is None:
+        raise AssertionError(f"{label}: the kernel row's output has no "
+                             f"grad_fn (the gradient would be lost)")
+    got = torch.autograd.grad(got_y, leaves, cot)
+    ref = torch.autograd.grad(make_y("plain"), leaves, cot)
+    errs = [check_close(f"{label} grad {i}", g, r)
+            for i, (g, r) in enumerate(zip(got, ref))]
+    print(f"gradients {label}: (gx, gscale[, gbias]) agree, max |d| "
+          f"{[round(e, 6) for e in errs]}", flush=True)
+
+
+def gradients_phase():
+    """The kernel rows' gradients against the plain rows': B1 on dense2bit
+    packs at M 8 and 1024 (K = N = 1024, scale and bias, and PReLU at M 8),
+    B3 on a tiled s 1/8 pack, B7 in both modes, B4 at M 8."""
+    import numpy as np
+    import torch
+    from repro_torch.core import formats, weights
+    from repro_torch.kernels import fused_mlp as fused_lib
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    k = n = 1024
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def gemm_case(label, w, m, plan_impl, prelu=False):
+        x = randn(m, k).to(torch.bfloat16).requires_grad_()
+        scale = w.scale.clone().requires_grad_()
+        bias = randn(n).requires_grad_()
+        cot = randn(m, n).to(torch.bfloat16)
+        if ops.ternary_gemm_plan(w, m).impl != plan_impl:
+            raise AssertionError(f"{label}: auto did not plan {plan_impl}")
+        _grads_agree(label, lambda row: ops.ternary_gemm(
+            x, w, scale, bias, fuse_prelu=prelu,
+            impl="auto" if row == "kernel" else "ref"),
+            [x, scale, bias], cot)
+
+    dense = weights.pack(randn(k, n) / k ** 0.5)
+    gemm_case("B1 dense2bit M=8", dense, 8, "dense")
+    gemm_case("B1 dense2bit M=1024", dense, 1024, "dense")
+    gemm_case("B1 dense2bit M=8 PReLU", dense, 8, "dense", prelu=True)
+    tiled = _tiled_pack(SEED, k, n, 0.125, torch.rand(
+        n, generator=gen, device="cuda") + 0.5)
+    gemm_case("B3 tiled s=1/8 M=8", tiled, 8, "skip_db")
+    planes = weights.Bitplane.from_dense(
+        torch.from_numpy(formats.random_ternary(
+            np.random.default_rng(SEED + 8), k, n, 0.25)).cuda(),
+        scale=torch.rand(n, generator=gen, device="cuda") + 0.5)
+    for impl in ("bitplane", "bitplane_factorized"):
+        x = randn(8, k).to(torch.bfloat16).requires_grad_()
+        scale = planes.scale.clone().requires_grad_()
+        cot = randn(8, n).to(torch.bfloat16)
+        _grads_agree(f"B7 {impl} M=8", lambda row, i=impl: ops.ternary_gemm(
+            x, planes, scale, impl=i if row == "kernel" else "ref"),
+            [x, scale], cot)
+
+    wi, wg = (weights.pack(randn(k, 4096) / k ** 0.5) for _ in range(2))
+    wo = weights.pack(randn(4096, n) / 64)
+    x = randn(8, k).to(torch.bfloat16).requires_grad_()
+    vecs = [wi.scale.requires_grad_(), wg.scale.requires_grad_(),
+            wo.scale.requires_grad_()]
+    cot = randn(8, n).to(torch.bfloat16)
+    _grads_agree("B4 fused_mlp M=8", lambda row: ops.fused_mlp(
+        x, wi, wo, wg) if row == "kernel" else fused_lib.fused_mlp_ref(
+            x, wi.packed, wo.packed, wg.packed, wi.scale, None, wg.scale,
+            None, wo.scale, None), [x] + vecs, cot)
+
+
+def _leaf_pairs(got, ref, prefix=""):
+    """(path, got leaf, ref leaf) over two trees of one structure."""
+    if isinstance(ref, dict):
+        for k in ref:
+            yield from _leaf_pairs(got[k], ref[k], f"{prefix}/{k}")
+    elif isinstance(ref, list):
+        for i, r in enumerate(ref):
+            yield from _leaf_pairs(got[i], r, f"{prefix}/{i}")
+    else:
+        yield prefix, got, ref
+
+
+def train_step_check():
+    """The card's first full-width train step against the CPU's on the same
+    weights and batch, both in float32 (TF32 off): loss, grad norm, every
+    AdamW moment and every parameter. Returns the readings."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = dataclasses.replace(get_config("ternary-paper"), dtype="float32")
+    b, s, lr = STEP_CHECK["batch"], STEP_CHECK["seq"], TRAIN["lr"]
+    _, data, cpu_step, cpu_init = train.build(cfg, b, s, lr, TRAIN["steps"],
+                                              "cpu")
+    _, _, card_step, _ = train.build(cfg, b, s, lr, TRAIN["steps"], "cuda")
+    state = cpu_init(SEED)
+    card_params = _tree_to(state["params"], "cuda")
+    card_opt = _tree_to(state["opt"], "cuda")
+    batch = data.sharded_batch(0)
+    t0 = time.perf_counter()
+    params, opt, met = cpu_step(state["params"], state["opt"], batch)
+    cpu_s = time.perf_counter() - t0
+    del state
+    gparams, gopt, gmet = card_step(card_params, card_opt,
+                                    _tree_to(batch, "cuda"))
+    torch.cuda.synchronize()
+    step_lr = float(met["lr"])
+    out = {"batch": b, "seq": s, "cpu_step_s": cpu_s,
+           "loss_cpu": float(met["loss"]), "loss_card": float(gmet["loss"]),
+           "grad_norm_cpu": float(met["grad_norm"]),
+           "grad_norm_card": float(gmet["grad_norm"]), "lr": step_lr}
+    for key in ("loss", "grad_norm"):
+        ref, got = out[f"{key}_cpu"], out[f"{key}_card"]
+        out[f"{key}_rel_err"] = abs(got - ref) / abs(ref)
+        if out[f"{key}_rel_err"] > STEP_CHECK["rtol"]:
+            raise AssertionError(f"train step check: the card's {key} {got} "
+                                 f"differs from the CPU's {ref}")
+
+    # A weight whose |w| lies within an ulp of its column's 2 mean|w| (the
+    # straight-through mask's edge, a mean the two devices sum in another
+    # order) gets its gradient on one side and 0 on the other: those
+    # elements are counted, and must be few, instead of held to rtol
+    flips = {path: (g.cpu() == 0) != (r == 0)
+             for path, g, r in _leaf_pairs(gopt["m"], opt["m"])}
+    n_elems = sum(int(f.numel()) for f in flips.values())
+    out["mask_edge_flips"] = sum(int(f.sum()) for f in flips.values())
+    if out["mask_edge_flips"] > STEP_CHECK["max_flip_share"] * n_elems:
+        raise AssertionError(f"train step check: {out['mask_edge_flips']} "
+                             f"gradients are 0 on one side only")
+
+    def worst(tree_got, tree_ref, loose, loose_bound=0.0):
+        """max over leaves of max|d| / max|ref| off ``loose``; on it each
+        element is held to ``loose_bound``."""
+        top = 0.0
+        for path, g, r in _leaf_pairs(tree_got, tree_ref):
+            g, r = g.float().cpu(), r.float()
+            d = (g - r).abs()
+            mask = loose[path]
+            if loose_bound > 0 and bool((d[mask] > loose_bound).any()):
+                raise AssertionError(f"train step check: {path} moved "
+                                     f"more than two steps apart")
+            d = torch.where(mask, torch.zeros_like(d), d)
+            rel = float(d.max()) / max(float(r.abs().max()), 1e-30)
+            if rel > STEP_CHECK["rtol"]:
+                i = int(d.flatten().argmax())
+                raise AssertionError(
+                    f"train step check: {path} differs by {rel:.3g} of its "
+                    f"max ({int((d > STEP_CHECK['rtol'] * r.abs().max()).sum())}"
+                    f" elements; worst card {float(g.flatten()[i])}, CPU "
+                    f"{float(r.flatten()[i])})")
+            top = max(top, rel)
+        return top
+
+    out["m_rel_err"] = worst(gopt["m"], opt["m"], flips)
+    out["v_rel_err"] = worst(gopt["v"], opt["v"], flips)
+    # Parameters: AdamW's first step moves each by lr * g / (|g| + eps),
+    # about lr * sign(g), so where |g| is below 1e-4 of its leaf's largest
+    # (25x the moments' disagreement measured on the card) the two signs
+    # may differ; there, and where g is 0 on one side, each element is held
+    # to 2.01 lr, the most two such steps (plus the decay's share) differ by
+    loose = {path: flips[path] | ((r > 0) & (r < 1e-8 * r.max()))
+             for path, _, r in _leaf_pairs(opt["v"], opt["v"])}
+    out["params_held_to_2lr"] = sum(int(m.sum()) for m in loose.values())
+    out["params_rel_err"] = worst(gparams, params, loose, 2.01 * step_lr)
+    print("train step check, card vs CPU, full width in float32: "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def train_phase(ckpt_root):
+    """Full-width ternary-paper QAT through the training CLI: 24 steps
+    with checkpoints every 8, then a second invocation to 32 steps that
+    must resume at 24; then a TrainSupervisor run that fails once. The
+    launch counters are zeroed before and read after the CLI runs.
+    Returns (trained params from the step-32 checkpoint, launches,
+    summary)."""
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.checkpoint.convert import params_from_numpy
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = get_config("ternary-paper")
+    ckpt_dir = str(Path(ckpt_root) / "train")
+    args = ["--arch", "ternary-paper", "--batch", str(TRAIN["batch"]),
+            "--seq", str(TRAIN["seq"]), "--lr", str(TRAIN["lr"]),
+            "--ckpt-every", str(TRAIN["ckpt_every"]), "--ckpt-dir",
+            ckpt_dir, "--log-every", str(TRAIN["ckpt_every"])]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    first = train.main(args + ["--steps", str(TRAIN["steps"])])
+    t1 = time.perf_counter()
+    second = train.main(args + ["--steps", str(TRAIN["resume_to"])])
+    t2 = time.perf_counter()
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train: full-width {cfg.name} QAT, batch {TRAIN['batch']} x seq "
+          f"{TRAIN['seq']}: {first['steps']} steps in {t1 - t0:.1f}s "
+          f"({first['mean_step_s']:.4f}s a step), loss "
+          f"{first['first_loss']:.4f} -> {first['last_loss']:.4f}; resumed "
+          f"run: {second['steps']} steps in {t2 - t1:.1f}s, loss "
+          f"{second['last_loss']:.4f}; peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {json.dumps(launches)}", flush=True)
+    if not first["last_loss"] < first["first_loss"]:
+        raise AssertionError(f"training did not lower the loss: {first}")
+    want = TRAIN["resume_to"] - TRAIN["steps"]
+    if second["steps"] != want:
+        raise AssertionError(f"the second run did {second['steps']} steps, "
+                             f"not {want}: it did not resume at step "
+                             f"{TRAIN['steps']}")
+
+    failed = []
+
+    def injector(step):
+        if step == TRAIN["fail_at"] and not failed:
+            failed.append(step)
+            raise RuntimeError("injected failure")
+
+    sup, _ = train.make_supervisor(
+        cfg, batch=TRAIN["batch"], seq=TRAIN["seq"], lr=TRAIN["lr"],
+        steps=TRAIN["sup_steps"], ckpt_dir=str(Path(ckpt_root) / "sup"),
+        ckpt_every=TRAIN["sup_every"], device="cuda")
+    _, history = sup.run(TRAIN["sup_steps"], failure_injector=injector)
+    steps_run = [s for s, _ in history]
+    print(f"train: supervisor with one injected failure at step "
+          f"{TRAIN['fail_at']}: restarts {sup.restarts}, steps run "
+          f"{steps_run}", flush=True)
+    if sup.restarts != 1 or steps_run[-1] != TRAIN["sup_steps"] - 1:
+        raise AssertionError(f"the supervisor did not restart once and "
+                             f"finish: restarts {sup.restarts}, steps "
+                             f"{steps_run}")
+    shutil.rmtree(Path(ckpt_root) / "sup")
+
+    step, flat = ckpt.restore(ckpt_dir)
+    if step != TRAIN["resume_to"]:
+        raise AssertionError(f"newest checkpoint is step {step}")
+    params = params_from_numpy(ckpt.unflatten(flat)["params"], cfg, "cuda")
+    summary = {"steps": first["steps"], "resumed_steps": second["steps"],
+               "first_loss": first["first_loss"],
+               "last_loss": second["last_loss"],
+               "mean_step_s": first["mean_step_s"],
+               "resumed_mean_step_s": second["mean_step_s"],
+               "peak_memory_bytes": peak,
+               "supervisor_restarts": sup.restarts,
+               "stragglers": first["stragglers"] + second["stragglers"]}
+    return cfg, params, launches, summary
+
+
+def eval_phase(cfg, params):
+    """examples/train_ternary_lm.py's evaluation on the trained state: a
+    held-out batch (step 10 000) at batch 8 x seq 1024, the QAT model's
+    loss with the plain blockwise attention and with B6, then the packed
+    model's (B1 + B4 + B6). Counters zeroed before, read after; B6 must
+    launch once per layer per "pallas" forward."""
+    import dataclasses
+    import torch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import LM
+    from repro_torch.models.layers import pack_params
+
+    batch = SyntheticLM(cfg, EVAL["batch"], EVAL["seq"]).sharded_batch(
+        EVAL["step"], device="cuda")
+    flash_cfg = dataclasses.replace(cfg, attn_impl="flash")
+    pallas_cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    packed_cfg = dataclasses.replace(pallas_cfg,
+                                     quantization="ternary_packed")
+    with torch.no_grad():
+        # information, not a gate: the untrained weights' loss (train.build's
+        # init from the same seed); 24-32 steps on this data need not lower
+        # a held-out loss
+        model = LM(flash_cfg, "cuda")
+        loss_init, _ = model.loss(model.init(torch.Generator(
+            device="cuda").manual_seed(SEED)), batch)
+    t0 = time.perf_counter()
+    _zero_counts()
+    with torch.no_grad():
+        loss_flash, _ = LM(flash_cfg, "cuda").loss(params, batch)
+        per_forward = [_read_counts()["flash_attention"]]
+        loss_qat, _ = LM(pallas_cfg, "cuda").loss(params, batch)
+        per_forward.append(_read_counts()["flash_attention"]
+                           - per_forward[0])
+        packed = pack_params(params, cfg)
+        loss_packed, _ = LM(packed_cfg, "cuda").loss(packed, batch)
+        torch.cuda.synchronize()
+    launches = _read_counts()
+    per_forward.append(launches["flash_attention"] - sum(per_forward))
+    out = {"loss_init": float(loss_init),
+           "loss_qat_flash": float(loss_flash), "loss_qat": float(loss_qat),
+           "loss_packed": float(loss_packed),
+           "b6_launches_per_forward": per_forward,
+           "seconds": time.perf_counter() - t0}
+    print(f"eval: {json.dumps(out)}; launches {json.dumps(launches)}",
+          flush=True)
+    for name, v in out.items():
+        if name.startswith("loss") and not torch.isfinite(
+                torch.tensor(v)):
+            raise AssertionError(f"eval: {name} is not finite")
+    if abs(out["loss_qat"] - out["loss_qat_flash"]) > EVAL["qat_tol"]:
+        raise AssertionError(f"eval: B6's QAT loss differs from the plain "
+                             f"attention's by more than {EVAL['qat_tol']}")
+    if not abs(out["loss_packed"] - out["loss_qat"]) < EVAL["packed_tol"]:
+        raise AssertionError(f"eval: the packed loss differs from the QAT "
+                             f"loss by {EVAL['packed_tol']} or more")
+    layers = cfg.num_layers
+    if per_forward != [0, layers, layers]:
+        raise AssertionError(f"eval: B6 launched {per_forward} times in the "
+                             f"flash/pallas/packed forwards, expected "
+                             f"[0, {layers}, {layers}]")
+    if launches["fused_mlp"] != layers or launches["ternary_gemm"] <= 0:
+        raise AssertionError(f"eval: the packed forward did not go through "
+                             f"B1 and B4 ({launches})")
+    return out, launches
+
+
 def main() -> int:
     start = time.perf_counter()
     import torch
@@ -815,9 +1246,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     format_rows, format_launches = gemm_formats_phase(flush)
-    del flush
     k_sweep = format_rows.pop("k_sweep")
     shapes.update(format_rows)
+    shapes["flash_attention"] = flash_kernel_phase(flush)
+    del flush
+    torch.cuda.empty_cache()
+    gradients_phase()
+    step_check = train_step_check()
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        cfg, params, runs["train"], train_summary = train_phase(ckpt_root)
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    eval_out, runs["eval"] = eval_phase(cfg, params)
+    del params
+    print("train/eval summary: " + json.dumps(
+        {"train_step_check": step_check, "train": train_summary,
+         "eval": eval_out}), flush=True)
 
     meta = {
         "ternary_gemm": ("src/repro_torch/kernels/csrc/ternary_gemm.cu",
@@ -836,10 +1281,14 @@ def main() -> int:
         "ternary_gemm_bitplane": (
             "src/repro_torch/kernels/csrc/ternary_gemm_bitplane.cu",
             "src/repro/kernels/ternary_gemm_bitplane.py:85"),
+        "flash_attention": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:83"),
     }
     kernels = []
     for name, rows in shapes.items():
-        total = {key: sum(r[key] for r in rows)
+        path_rows = [r for r in rows if r.get("on_path", True)]
+        total = {key: sum(r[key] for r in path_rows)
                  for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
         own_runs = ({"gemm_formats": format_launches} if name in format_rows
                     else runs)
@@ -852,7 +1301,8 @@ def main() -> int:
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"],
             # the kind of bound of the shape that dominates the summed bound
-            "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+            "bound_by": max(path_rows,
+                            key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": total["library_ms"],
             "shapes": rows,
         }

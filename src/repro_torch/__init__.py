@@ -2,16 +2,19 @@
 
 The package mirrors ``repro``'s module names (``configs``, ``core``,
 ``kernels``, ``models``, ``serving``, ``obs``, ``data``, ``launch``,
-``checkpoint``) so each counterpart is easy to find. It imports ``torch``
-and numpy only: nothing of JAX and nothing of ``repro``.
+``checkpoint``, ``optim``, ``distributed``) so each counterpart is easy to
+find. It imports ``torch`` and numpy only: nothing of JAX and nothing of
+``repro``.
 
 So far the port serves the packed dense ``ternary-paper`` decoder over the
-dense and the paged KV cache, and runs the paper's sparse-GEMM surface
+dense and the paged KV cache, runs the paper's sparse-GEMM surface
 (``pack(w, "dense2bit" | "tiled" | "bitplane" | "base3")`` then
-``ternary_gemm(x, wc)`` through the kernel registry), on hand-written CUDA
-kernels under ``kernels/csrc/``. Entry points run on ``device="cuda"``
-unless the caller asks for ``"cpu"``, where every kernel wrapper takes its
-plain PyTorch version instead.
+``ternary_gemm(x, wc)`` through the kernel registry), and trains the
+decoder with ternary QAT under checkpoint/restart supervision
+(``launch.train``), on hand-written CUDA kernels under ``kernels/csrc/``.
+Entry points run on ``device="cuda"`` unless the caller asks for
+``"cpu"``, where every kernel wrapper takes its plain PyTorch version
+instead.
 
 The top-level names below are those ``repro`` exports; they load lazily.
 """

@@ -1,6 +1,10 @@
-"""Weight bridge: ``repro``'s parameter tree, as nested dicts of numpy
-arrays, into the port's per-layer parameters — so both packages compute
-the same function from the same weights.
+"""Weight and training-state bridge between ``repro``'s layout and the
+port's, so both packages compute the same function from the same weights
+and a checkpoint of either restores in the other.
+
+``params_from_numpy`` turns ``repro``'s parameter tree into the port's
+per-layer parameters and ``params_to_numpy`` goes back; the
+``opt_state_*`` pair does the same for AdamW's ``{"m", "v", "step"}``.
 
 Input layout (what ``repro``'s ``LM.init`` + ``layers.pack_params`` give,
 with every array leaf converted to numpy): ``{"embed": {"table"},
@@ -13,6 +17,13 @@ builds one of any registered format from a ``repro`` container's leaves
 and static fields); it is moved to the device and, inside a stacked
 block, its leaves are sliced per layer like every other leaf. The port never imports ``repro``: turning
 ``repro``'s containers into those dicts or leaves is the caller's business.
+Leaves may also be torch tensors (what ``checkpoint.restore`` gives).
+
+``params_to_numpy`` writes the port's latent parameters in that layout with
+one stacked group (``block0``, leading axis over all layers: the port runs
+one kind of block, so its period is 1). numpy has no bfloat16, so a
+bfloat16 leaf stays a CPU tensor there; ``checkpoint.save`` stores it as
+``repro`` does.
 """
 from __future__ import annotations
 
@@ -27,12 +38,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.weights import FORMATS, Dense2Bit, TernaryWeight
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_numpy", "weight_from_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "weight_from_numpy",
+           "opt_state_from_numpy", "opt_state_to_numpy"]
 
 _PACKED_KEYS = {"packed", "scale", "bias", "shape"}
 
 
 def _tensor(arr, i: Optional[int], device) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return (arr if i is None else arr[i]).contiguous().clone().to(device)
     a = np.asarray(arr)
     if i is not None:
         a = a[i]
@@ -97,3 +111,56 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     if "unembed" in tree:
         out["unembed"] = _convert(tree["unembed"], None, dev)
     return out
+
+
+def _numpy(t: torch.Tensor):
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _stack(layers):
+    """Per-layer trees of tensors -> one tree of (L, ...) stacks."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([lay[k] for lay in layers]) for k in first}
+    if not isinstance(first, torch.Tensor):
+        raise TypeError(f"params_to_numpy takes latent parameters; got a "
+                        f"{type(first).__name__} leaf")
+    return _numpy(torch.stack([t.detach() for t in layers]))
+
+
+def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
+    """The port's latent parameters -> ``repro``'s tree (numpy leaves,
+    ``block0`` stacked over the layers); ``params_from_numpy`` inverts it."""
+    if len(params["layers"]) != cfg.num_layers:
+        raise ValueError(f"{len(params['layers'])} layers for a "
+                         f"{cfg.num_layers}-layer config")
+
+    def leaves(node):
+        if isinstance(node, dict):
+            return {k: leaves(v) for k, v in node.items()}
+        return _numpy(node)
+
+    out = {"embed": leaves(params["embed"]),
+           "block0": _stack(params["layers"]),
+           "final_norm": leaves(params["final_norm"])}
+    if "unembed" in params:
+        out["unembed"] = leaves(params["unembed"])
+    return out
+
+
+def opt_state_to_numpy(state: dict, cfg: ModelConfig) -> dict:
+    """AdamW's ``{"m", "v", "step"}`` in ``repro``'s layout."""
+    return {"m": params_to_numpy(state["m"], cfg),
+            "v": params_to_numpy(state["v"], cfg),
+            "step": np.asarray(int(state["step"]), dtype=np.int32)}
+
+
+def opt_state_from_numpy(tree: dict, cfg: ModelConfig,
+                         device="cuda") -> dict:
+    """``repro``'s AdamW state -> the port's, on ``device``."""
+    dev = resolve_device(device)
+    return {"m": params_from_numpy(tree["m"], cfg, dev),
+            "v": params_from_numpy(tree["v"], cfg, dev),
+            "step": torch.tensor(int(tree["step"]), dtype=torch.int32,
+                                 device=dev)}

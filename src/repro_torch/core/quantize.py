@@ -1,13 +1,14 @@
-"""Ternary quantization: TWN-style absmean thresholding (the port's copy of
-``repro.core.quantize.ternarize``; the straight-through estimator waits for
-the training path is ported)."""
+"""Ternary quantization: TWN-style absmean thresholding and its
+straight-through estimator for QAT (the port's copy of
+``repro.core.quantize``'s ``ternarize``, ``ste_ternarize`` and
+``effective_weight``)."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
 
-__all__ = ["ternarize"]
+__all__ = ["ternarize", "ste_ternarize", "effective_weight"]
 
 
 def ternarize(w: torch.Tensor, threshold_factor: float = 0.7,
@@ -28,3 +29,37 @@ def ternarize(w: torch.Tensor, threshold_factor: float = 0.7,
     denom = mask.sum(dim=dims, keepdim=True).clamp_min(1)
     alpha = (absw * mask).sum(dim=dims, keepdim=True) / denom
     return t.to(torch.int8), alpha.float()
+
+
+class _SteTernarize(torch.autograd.Function):
+    """Forward: the effective ternary weight α·T in ``w.dtype``. Backward:
+    straight through, masked to |w| <= 2·(mean|w| per column + 1e-8), as
+    ``repro``'s ``_ste_bwd``."""
+
+    @staticmethod
+    def forward(ctx, w, threshold_factor):
+        ctx.save_for_backward(w)
+        t, alpha = ternarize(w, threshold_factor)
+        return t.to(w.dtype) * alpha.to(w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        scale = w.abs().mean(dim=0, keepdim=True) + 1e-8
+        passthrough = (w.abs() <= 2.0 * scale).to(g.dtype)
+        return g * passthrough, None
+
+
+def ste_ternarize(w: torch.Tensor,
+                  threshold_factor: float = 0.7) -> torch.Tensor:
+    """QAT weight of a 2-D (K, N) latent: ternary forward, straight-through
+    backward (see ``_SteTernarize``)."""
+    return _SteTernarize.apply(w, threshold_factor)
+
+
+def effective_weight(w: torch.Tensor, quantization: str,
+                     threshold_factor: float = 0.7) -> torch.Tensor:
+    """Forward weight under a quantization mode: 'none' | 'ternary'."""
+    if quantization == "ternary":
+        return ste_ternarize(w, threshold_factor)
+    return w

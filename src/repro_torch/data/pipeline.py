@@ -1,15 +1,17 @@
-"""Deterministic synthetic token streams (numpy only) — the port's copy of
+"""Deterministic synthetic token streams — the port's copy of
 ``repro.data.pipeline.SyntheticLM`` for the decoder families it serves.
 
 Per-sequence affine recurrences ``x_{t+1} = (a*x_t + b) mod V`` plus
 noise; a batch is a pure function of (seed, step), so both packages draw
-the same prompts from the same seed.
+the same prompts and training batches from the same seed, and a restarted
+trainer regenerates any step without pipeline state.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 
@@ -45,3 +47,13 @@ class SyntheticLM:
         x[flip] = rng.integers(0, v, size=int(flip.sum()))
         return {"tokens": x[:, :-1].astype(np.int32),
                 "targets": x[:, 1:].astype(np.int32)}
+
+    def sharded_batch(self, step: int, mesh=None,
+                      device="cpu") -> Dict[str, torch.Tensor]:
+        """The global batch of ``step`` as tensors on ``device``. A mesh
+        (data-parallel sharding) is not ported yet."""
+        if mesh is not None:
+            raise NotImplementedError("sharded batches wait for the "
+                                      "data-parallel trainer (ROADMAP A14)")
+        return {k: torch.from_numpy(a).to(device)
+                for k, a in self.global_batch(step).items()}

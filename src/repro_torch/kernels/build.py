@@ -28,7 +28,8 @@ SOURCES = {"ternary_gemm": "ternary_gemm.cu",
            "ternary_gemm_skip": "ternary_gemm_skip.cu",
            "ternary_gemm_bitplane": "ternary_gemm_bitplane.cu",
            "fused_mlp": "fused_mlp.cu",
-           "paged_attention": "paged_attention.cu"}
+           "paged_attention": "paged_attention.cu",
+           "flash_attention": "flash_attention.cu"}
 HEADERS = ("ternary_tiles.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

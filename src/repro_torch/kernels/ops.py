@@ -17,6 +17,15 @@ runs in two stages, as ``repro``'s does:
    CPU tensor it runs the kernel's plain PyTorch version. ``ref`` rows run
    the plain versions wherever the tensors lie.
 
+Gradients. A kernel row on a CUDA tensor runs through
+``_PackedGemm`` (and ``fused_mlp`` through ``_FusedMlp``), whose forward
+launches the kernel and whose backward is ``repro``'s ``custom_vjp``
+formula in plain PyTorch: ``gx = (g * s) @ T^T``, ``gscale = sum_m g *
+(x @ T)``, ``gbias = sum_m g``, PReLU's slope applied to ``g`` first; the
+words and occupancy lists get none. ``repro`` computes these backwards in
+XLA, outside its Pallas kernels, so ``torch.matmul`` is their port. The
+plain versions on CPU tensors differentiate through their own torch ops.
+
 Rows (priority), as ``repro`` registers them:
 
 * ``dense2bit``: ``dense`` 10 (B1), ``ref``;
@@ -234,6 +243,55 @@ def _prelu(plan: GemmPlan) -> Optional[float]:
     return plan.prelu_alpha if plan.fuse_prelu else None
 
 
+# --- gradients of the kernel rows --------------------------------------------
+
+class _PackedGemm(torch.autograd.Function):
+    """``y = launch(x, scale, bias)`` — a kernel computing ``epilogue(x @ T
+    * scale + bias)``, PReLU last when ``prelu_alpha`` is set — with the
+    backward of ``repro``'s ``_gemm_2bit`` / ``_gemm_bitplane`` VJPs.
+    ``decode(dtype)`` gives the (K, N) {-1, 0, +1} matrix T."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, launch, decode, prelu_alpha):
+        y = launch(x, scale, bias)
+        ctx.decode, ctx.prelu_alpha = decode, prelu_alpha
+        ctx.save_for_backward(x, scale, bias,
+                              y if prelu_alpha is not None else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias, y = ctx.saved_tensors
+        if ctx.prelu_alpha is not None:
+            g = torch.where(y >= 0, g, ctx.prelu_alpha * g)
+        gbias = gscale = None
+        if bias is not None and ctx.needs_input_grad[2]:
+            gbias = g.float().sum(0).to(bias.dtype)
+        t = ctx.decode(x.dtype).float()
+        if scale is not None:
+            if ctx.needs_input_grad[1]:
+                gscale = (g.float() * (x.float() @ t)).sum(0).to(scale.dtype)
+            g = g * scale.to(g.dtype)
+        gx = (g.float() @ t.T).to(x.dtype) if ctx.needs_input_grad[0] \
+            else None
+        return gx, gscale, gbias, None, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _kernel_row(x, w, scale, bias, prelu_alpha, launch):
+    """Run a kernel row's ``launch(x, scale, bias)`` with its gradient. When
+    no input needs one (serving), launch directly: ``Function.apply``
+    costs ~10 µs of host time a call and would build no graph anyway."""
+    if not _needs_grad(x, scale, bias):
+        return launch(x, scale, bias)
+    return _PackedGemm.apply(x, scale, bias, launch, w.materialize,
+                             prelu_alpha)
+
+
 # --- 2-bit rows (dense2bit, tiled) -------------------------------------------
 
 @register_kernel("dense2bit", "dense", priority=10,
@@ -244,10 +302,11 @@ def _lower_dense(plan, x, w, scale, bias):
     # B1 reads the first n word columns in place (a tiled pack is N-padded)
     _require_2d(w, w.packed)
     if x.is_cuda:
-        return gemm_lib.ternary_gemm_cuda(
-            x.contiguous(), w.packed, scale, bias, n=w.n,
-            fuse_prelu=plan.fuse_prelu, prelu_alpha=plan.prelu_alpha,
-            variant=_variant(plan))
+        return _kernel_row(
+            x.contiguous(), w, scale, bias, _prelu(plan),
+            lambda x, s, b: gemm_lib.ternary_gemm_cuda(
+                x, w.packed, s, b, n=w.n, fuse_prelu=plan.fuse_prelu,
+                prelu_alpha=plan.prelu_alpha, variant=_variant(plan)))
     return gemm_lib.ternary_gemm_ref(x, w.packed[:, :w.n], scale, bias,
                                      fuse_prelu=plan.fuse_prelu,
                                      prelu_alpha=plan.prelu_alpha)
@@ -266,8 +325,10 @@ def _lower_skip_common(plan, x, w, scale, bias, db):
     kw = dict(n=w.n, tile_k=w.tile_k, tile_n=w.tile_n,
               fuse_prelu=plan.fuse_prelu, prelu_alpha=plan.prelu_alpha)
     if x.is_cuda:
-        return gemm_lib.ternary_gemm_skip_cuda(
-            x.contiguous(), *args, block_m=plan.block_m, db=db, **kw)
+        return _kernel_row(
+            x.contiguous(), w, scale, bias, _prelu(plan),
+            lambda x, s, b: gemm_lib.ternary_gemm_skip_cuda(
+                x, *args[:3], s, b, block_m=plan.block_m, db=db, **kw))
     return gemm_lib.ternary_gemm_skip_ref(x, *args, **kw)
 
 
@@ -296,9 +357,10 @@ def _lower_bitplane_common(plan, x, w, scale, bias, factorized):
     kw = dict(factorized=factorized, fuse_prelu=plan.fuse_prelu,
               prelu_alpha=plan.prelu_alpha)
     if x.is_cuda:
-        return bitplane_lib.ternary_gemm_bitplane_cuda(
-            x.contiguous(), w.plus, w.minus, scale, bias,
-            variant=_variant(plan), **kw)
+        return _kernel_row(
+            x.contiguous(), w, scale, bias, _prelu(plan),
+            lambda x, s, b: bitplane_lib.ternary_gemm_bitplane_cuda(
+                x, w.plus, w.minus, s, b, variant=_variant(plan), **kw))
     return bitplane_lib.ternary_gemm_bitplane_ref(x, w.plus, w.minus, scale,
                                                   bias, **kw)
 
@@ -463,15 +525,84 @@ def fused_mlp(x: torch.Tensor, w_in: Dense2Bit, w_out: Dense2Bit,
         raise ValueError(f"x {tuple(x.shape)} does not match the up "
                          f"projection's K={w_in.k}")
     g = w_gate
-    args = (x.contiguous(), w_in.packed, w_out.packed,
-            None if g is None else g.packed, w_in.scale, w_in.bias,
-            None if g is None else g.scale, None if g is None else g.bias,
-            w_out.scale, w_out.bias)
+    words = (w_in.packed, w_out.packed, None if g is None else g.packed)
     if x.is_cuda:
         variant, ff_chunk = fused_lib.VARIANTS[_phase(x.shape[0])]
-        return fused_lib.fused_mlp_cuda(*args, activation=activation,
-                                        variant=variant, ff_chunk=ff_chunk)
-    return fused_lib.fused_mlp_ref(*args, activation=activation)
+        return _fused_row(
+            x.contiguous(), w_in, w_out, w_gate, activation,
+            lambda x, *vecs: fused_lib.fused_mlp_cuda(
+                x, *words, *vecs, activation=activation, variant=variant,
+                ff_chunk=ff_chunk))
+    vecs = (w_in.scale, w_in.bias, None if g is None else g.scale,
+            None if g is None else g.bias, w_out.scale, w_out.bias)
+    return fused_lib.fused_mlp_ref(x, *words, *vecs, activation=activation)
+
+
+def _fused_row(x, w_in, w_out, w_gate, activation, launch):
+    """Run the fused kernel's ``launch(x, si, bi, sg, bg, so, bo)`` with
+    its gradient (``_FusedMlp``), or directly when none is needed."""
+    g = w_gate
+    vecs = (w_in.scale, w_in.bias, None if g is None else g.scale,
+            None if g is None else g.bias, w_out.scale, w_out.bias)
+    if not _needs_grad(x, *vecs):
+        return launch(x, *vecs)
+
+    def decode(dtype):
+        return tuple(None if c is None else c.materialize(dtype)
+                     for c in (w_in, w_gate, w_out))
+
+    return _FusedMlp.apply(x, launch, decode, activation, *vecs)
+
+
+class _FusedMlp(torch.autograd.Function):
+    """The fused kernel's forward with the backward of ``repro``'s
+    ``_fused_2bit`` VJP: the gradient of the decoded float chain
+    ``epi(x @ Ti) [* act(epi(x @ Tg))] -> h in x.dtype -> epi(h @ To)``
+    (f32 products and epilogues), taken by autograd on a recomputation.
+    The six vectors are (si, bi, sg, bg, so, bo); ``None`` where absent."""
+
+    @staticmethod
+    def forward(ctx, x, launch, decode, activation, *vecs):
+        ctx.decode, ctx.activation = decode, activation
+        ctx.save_for_backward(x, *vecs)
+        return launch(x, *vecs)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = ctx.saved_tensors                # x, then the vectors
+        ti, tg, to = ctx.decode(inputs[0].dtype)
+        needs = ctx.needs_input_grad[:1] + ctx.needs_input_grad[4:]
+        wanted = [i for i, (t, need) in enumerate(zip(inputs, needs))
+                  if t is not None and need]
+        leaves = [None if t is None else t.detach().requires_grad_(i in wanted)
+                  for i, t in enumerate(inputs)]
+        with torch.enable_grad():
+            y = _fused_chain(leaves[0], ti, tg, to, *leaves[1:],
+                             activation=ctx.activation)
+            grads = torch.autograd.grad(y, [leaves[i] for i in wanted], g)
+        out = [None] * 7
+        for i, gr in zip(wanted, grads):
+            out[i] = gr
+        return (out[0], None, None, None, *out[1:])
+
+
+def _fused_chain(x, ti, tg, to, si, bi, sg, bg, so, bo, *, activation):
+    """The float chain ``repro``'s fused-MLP VJP differentiates."""
+    def epi(y, s, b):
+        if s is not None:
+            y = y * s.reshape(1, -1).to(y.dtype)
+        if b is not None:
+            y = y + b.reshape(1, -1).to(y.dtype)
+        return y
+
+    yi = epi(x.float() @ ti.float(), si, bi)
+    if tg is not None:
+        h = fused_lib._act(activation, epi(x.float() @ tg.float(), sg, bg)) \
+            * yi
+    else:
+        h = fused_lib._act(activation, yi)
+    h = h.to(x.dtype)
+    return epi(h.float() @ to.float(), so, bo).to(x.dtype)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,

@@ -1,7 +1,9 @@
-"""GQA attention of the port for the serving path: ``naive_attention``,
-prefill-into-cache and per-slot decode over a dense ``(B, S, KV, hd)``
-("bshd") cache, and one-token decode over a paged cache — the
-counterparts of ``repro.models.attention``.
+"""GQA attention of the port: full-sequence attention with no cache
+(training and evaluation: ``flash_attention``, the blockwise version,
+B6 through ``kernels.flash_attention``, or ``naive_attention``, by
+``cfg.attn_impl``), prefill-into-cache and per-slot decode over a dense
+``(B, S, KV, hd)`` ("bshd") cache, and one-token decode over a paged cache
+— the counterparts of ``repro.models.attention``.
 
 ``repro``'s attend-the-view rule carries over: prefill rounds K/V to the
 cache dtype, writes them, and attends the full ``max_len``-wide written
@@ -16,8 +18,10 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as flash_lib
 from repro_torch.kernels import ops
 from repro_torch.models.layers import linear_apply, linear_init, rope
 from repro_torch.paging.quant import Int8Pages, quantize_rows
@@ -32,6 +36,60 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
             "k": linear_init(gen, cfg, d, kv * hd),
             "v": linear_init(gen, cfg, d, kv * hd),
             "o": linear_init(gen, cfg, h * hd, d)}
+
+
+def flash_attention(q, k, v, *, causal: bool, block_q: int,
+                    block_kv: int) -> torch.Tensor:
+    """Blockwise attention, differentiable (``repro``'s XLA
+    ``flash_attention`` without sliding windows): q (B, Sq, H, hd), k/v
+    (B, Skv, KV, hd) -> (B, Sq, H, hd). Per query block an online softmax
+    over the KV blocks it can see (causality shortens the walk), scores
+    and statistics in f32, p rounded to v's dtype before the PV product."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    bq, bkv = min(block_q, sq), min(block_kv, skv)
+    pad_q, pad_kv = (-sq) % bq, (-skv) % bkv
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_kv:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_kv))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
+    nkv = (skv + pad_kv) // bkv
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    outs = []
+    for i in range((sq + pad_q) // bq):
+        q_blk = q[:, i * bq:(i + 1) * bq].reshape(b, bq, kvh, g, hd).float()
+        q_lo = i * bq
+        hi_blk = nkv if not causal else max(
+            1, min(nkv, -(-min(q_lo + bq, skv) // bkv)))
+        q_pos = q_lo + torch.arange(bq, device=dev)
+        m = torch.full((b, kvh, g, bq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, kvh, g, bq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, kvh, g, bq, hd), dtype=torch.float32,
+                          device=dev)
+        for j in range(hi_blk):
+            kc, vc = (t[:, j * bkv:(j + 1) * bkv] for t in (k, v))
+            k_pos = j * bkv + torch.arange(bkv, device=dev)
+            s = torch.einsum("bqkgd,bskd->bkgqs", q_blk, kc.float()) * scale
+            mask = (k_pos < skv)[None, :].expand(bq, bkv)
+            if causal:
+                mask = mask & (q_pos[:, None] >= k_pos[None, :])
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(vc.dtype).float(),
+                              vc.float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        o = acc / l.clamp_min(1e-30)[..., None]
+        outs.append(o.reshape(b, h, bq, hd).transpose(1, 2).to(q.dtype))
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return out[:, :sq]
 
 
 def naive_attention(q, k, v, *, causal: bool, window: int = 0,
@@ -69,12 +127,17 @@ def naive_attention(q, k, v, *, causal: bool, window: int = 0,
 
 
 def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-               positions: torch.Tensor, cache: dict,
+               positions: torch.Tensor, cache: Optional[dict] = None,
                cache_pos: Optional[torch.Tensor] = None,
                block_table: Optional[torch.Tensor] = None,
-               ) -> Tuple[torch.Tensor, dict]:
-    """One attention layer over a dense bshd cache or a paged cache.
+               ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """One attention layer over the full sequence, a dense bshd cache or a
+    paged cache.
 
+    * no cache (training, evaluation): x (B, S, d), causal attention over
+      the S tokens by ``cfg.attn_impl`` — ``"pallas"``: K/V repeated to H
+      heads and B6 on (B*H, S, hd); ``"flash"``: the blockwise version;
+      otherwise ``naive_attention``. Returns (y, None);
     * prefill (``cache_pos is None``): x (B, S, d); K/V of all S tokens are
       written at positions 0..S-1 and the layer attends the cache view;
     * decode: x (B, 1, d) and ``cache_pos`` an int tensor, scalar or (B,)
@@ -95,6 +158,10 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.rope_theta:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+
+    if cache is None:
+        o = _full_sequence(q, k, v, cfg)
+        return linear_apply(params["o"], o.reshape(*lead, h * hd), cfg), None
 
     if "k_pages" in cache:
         if cache_pos is None or block_table is None:
@@ -128,6 +195,31 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                             kv_valid_len=cache_pos + 1)
     y = linear_apply(params["o"], o.reshape(*lead, h * hd), cfg)
     return y, {"k": k_c, "v": v_c}
+
+
+def _full_sequence(q, k, v, cfg: ModelConfig) -> torch.Tensor:
+    """Causal attention of (B, S, H, hd) q over its own K/V (``repro``'s
+    no-cache branch, ``attention.py:433-466``)."""
+    h = q.shape[2]
+    if cfg.attn_impl == "pallas":
+        if k.shape[2] < h:
+            k = k.repeat_interleave(h // k.shape[2], dim=2)
+            v = v.repeat_interleave(h // v.shape[2], dim=2)
+        b, s, _, hd = q.shape
+
+        def heads(t):
+            return t.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+
+        o = flash_lib.flash_attention(
+            heads(q), heads(k), heads(v), causal=True,
+            block_q=min(cfg.attn_block_q, 512),
+            block_kv=min(cfg.attn_block_kv, 512))
+        return o.reshape(b, h, s, hd).transpose(1, 2)
+    if cfg.attn_impl == "flash":
+        return flash_attention(q, k, v, causal=True,
+                               block_q=cfg.attn_block_q,
+                               block_kv=cfg.attn_block_kv)
+    return naive_attention(q, k, v, causal=True)
 
 
 def _paged_decode(q, k, v, cache: dict, cache_pos: torch.Tensor,

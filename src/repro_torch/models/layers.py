@@ -61,9 +61,7 @@ def linear_apply(params: dict, x: torch.Tensor,
     else:
         w = params["w"]
         if cfg.quantization == "ternary" and _is_ternary(cfg, *w.shape):
-            # forward of repro's straight-through ternarization
-            t, alpha = quantize.ternarize(w, cfg.ternary_threshold)
-            w = t.to(w.dtype) * alpha.to(w.dtype)
+            w = quantize.ste_ternarize(w, cfg.ternary_threshold)
         y = x @ w.to(x.dtype)
     if "b" in params:
         y = y + params["b"].to(y.dtype)

@@ -3,6 +3,7 @@ over per-layer parameter dicts where ``repro`` scans stacked ones.
 
     m = LM(cfg, device="cuda")
     params = m.init(torch.Generator(device="cuda").manual_seed(0))
+    loss, metrics = m.loss(params, {"tokens": toks, "targets": tgts})
     cache, logits = m.prefill(params, {"tokens": toks}, max_len)
     logits, cache = m.decode_step(params, cache, next_tokens)
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 from typing import Dict, List
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -75,13 +77,24 @@ class LM:
             x = x + layers.mlp_apply(bp["ffn"], h2, cfg)
         return x, new_cache
 
-    def _run_stack(self, params, x, *, positions, caches, cache_pos,
-                   block_table=None):
+    def _run_stack(self, params, x, *, positions, caches=None,
+                   cache_pos=None, block_table=None):
+        """``caches=None`` runs the full-sequence (training) stack; each
+        block is then recomputed in the backward when ``cfg.remat ==
+        "full"`` and a gradient is being taken — as ``repro`` remats only
+        where there is a backward pass."""
+        remat = (caches is None and self.cfg.remat == "full"
+                 and torch.is_grad_enabled())
         new_caches = []
-        for bp, c in zip(params["layers"], caches):
-            x, nc = self._apply_block(bp, x, positions=positions, cache=c,
-                                      cache_pos=cache_pos,
-                                      block_table=block_table)
+        for i, bp in enumerate(params["layers"]):
+            kw = dict(positions=positions,
+                      cache=None if caches is None else caches[i],
+                      cache_pos=cache_pos, block_table=block_table)
+            if remat:
+                x, nc = torch_checkpoint.checkpoint(
+                    self._apply_block, bp, x, use_reentrant=False, **kw)
+            else:
+                x, nc = self._apply_block(bp, x, **kw)
             new_caches.append(nc)
         return x, new_caches
 
@@ -89,6 +102,41 @@ class LM:
         if self.cfg.tie_embeddings:
             return x @ params["embed"]["table"].to(x.dtype).T
         return layers.unembed_apply(params["unembed"], x, self.cfg)
+
+    # ------------------------------------------------------------------
+    def forward(self, params, batch):
+        """Full-sequence forward -> (hidden (B, S, D), n_frontend = 0,
+        aux = 0.0 f32): the attention-only stack has no frontend and no
+        auxiliary loss."""
+        cfg = self.cfg
+        x = layers.embed_apply(params["embed"], batch["tokens"], cfg)
+        positions = torch.arange(x.shape[1], device=x.device).expand(
+            x.shape[0], -1)
+        x, _ = self._run_stack(params, x, positions=positions)
+        x = layers.norm_apply(params["final_norm"], x, cfg)
+        return x, 0, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss(self, params, batch):
+        """Causal-LM cross-entropy, chunked over the sequence when
+        ``cfg.logits_chunk`` divides it -> (loss, {"loss", "ce", "aux"})."""
+        cfg = self.cfg
+        x, n_front, aux = self.forward(params, batch)
+        x = x[:, n_front:]
+        targets = batch["targets"].long()
+
+        def ce_of(xc, tc):
+            logits = self._logits(params, xc).float()
+            gold = logits.gather(-1, tc[..., None])[..., 0]
+            return torch.logsumexp(logits, dim=-1) - gold
+
+        chunk = cfg.logits_chunk
+        if chunk and x.shape[1] % chunk == 0:
+            ce = torch.cat([ce_of(x[:, i:i + chunk], targets[:, i:i + chunk])
+                            for i in range(0, x.shape[1], chunk)], dim=1)
+        else:
+            ce = ce_of(x, targets)
+        loss = ce.mean() + 0.01 * aux
+        return loss, {"loss": loss, "ce": ce.mean(), "aux": aux}
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:

@@ -342,3 +342,179 @@ def test_new_wrappers_count_launches_and_refuse_bad_inputs(cuda):
     b3 = weights.pack(torch.randn(128, 64, device=cuda), "base3")
     y = ops.ternary_gemm(x, b3)
     assert y.is_cuda and y.shape == (4, 64)
+
+
+FLASH_SHAPES = [(4, 128, 64), (2, 257, 64), (8, 96, 128), (128, 1024, 64),
+                (3, 1, 64), (2, 65, 128)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,s,hd", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda, bh, s, hd, causal):
+    g = _gen(bh + s + hd)
+    q, k, v = (torch.randn(bh, s, hd, generator=g, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    from repro_torch.kernels import flash_attention as fa
+    before = fa.flash_attention_cuda.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    ref = fa.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _close(got, ref)
+
+
+def test_flash_attention_kernel_queries_and_keys_of_other_lengths(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    g = _gen(11)
+    q = torch.randn(2, 70, 64, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(2, 150, 64, generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    for causal in (True, False):
+        got = fa.flash_attention_cuda(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        _close(got, fa.flash_attention_ref(q, k, v, causal=causal))
+
+
+def test_flash_attention_wrapper_refuses_bad_inputs(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn(2, 64, 64, device=cuda).to(torch.bfloat16)
+    before = fa.flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention_cuda(q.float(), q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        h = torch.zeros(2, 64, 96, device=cuda, dtype=torch.bfloat16)
+        fa.flash_attention_cuda(h, h, h)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_cuda(q.transpose(0, 1), q, q)
+    with pytest.raises(ValueError, match="aligned"):
+        odd = torch.zeros(2 * 64 * 64 + 1, device=cuda,
+                          dtype=torch.bfloat16)[1:].view(2, 64, 64)
+        fa.flash_attention_cuda(odd, q, q)
+    assert fa.flash_attention_cuda.launches == before
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention(q.requires_grad_(), q, q).sum().backward()
+
+
+def _grad_close(got, ref):
+    for g, r in zip(got, ref):
+        _close(g, r)
+
+
+def _row_grads(y_fn, leaves, cot):
+    y = y_fn()
+    assert y.grad_fn is not None
+    return torch.autograd.grad(y, leaves, cot)
+
+
+@pytest.mark.parametrize("case", ["dense2bit_m8", "dense2bit_m1024",
+                                  "dense2bit_prelu", "tiled_skip",
+                                  "tiled_skip_db", "bitplane",
+                                  "bitplane_factorized"])
+def test_kernel_rows_gradients_match_plain_rows(cuda, case):
+    g = _gen(len(case))
+    m = 1024 if case == "dense2bit_m1024" else 8
+    k = n = 1024
+    if case.startswith("tiled"):
+        w = _tiled(7, k, n, 256, 128, 0.125)
+        impl = case[len("tiled_"):]
+    elif case.startswith("bitplane"):
+        rng = np.random.default_rng(8)
+        w = weights.Bitplane.from_dense(
+            torch.from_numpy(formats.random_ternary(rng, k, n, 0.25)).to(cuda),
+            scale=torch.rand(n, generator=g, device=cuda) + 0.5)
+        impl = case
+    else:
+        w = weights.pack(torch.randn(k, n, generator=g, device=cuda) / 32)
+        impl = "dense"
+    prelu = case == "dense2bit_prelu"
+    x = torch.randn(m, k, generator=g, device=cuda).to(
+        torch.bfloat16).requires_grad_()
+    scale = w.scale.clone().requires_grad_()
+    bias = torch.randn(n, generator=g, device=cuda).requires_grad_()
+    cot = torch.randn(m, n, generator=g, device=cuda).to(torch.bfloat16)
+    leaves = [x, scale, bias]
+
+    def run(row):
+        return lambda: ops.ternary_gemm(x, w, scale, bias, fuse_prelu=prelu,
+                                        impl=row)
+    _grad_close(_row_grads(run(impl), leaves, cot),
+                _row_grads(run("ref"), leaves, cot))
+
+
+def test_fused_mlp_kernel_gradients_match_plain(cuda):
+    g = _gen(21)
+    k, ff, n, m = 1024, 4096, 1024, 8
+    wi, wg = (weights.pack(torch.randn(k, ff, generator=g, device=cuda))
+              for _ in range(2))
+    wo = weights.pack(torch.randn(ff, n, generator=g, device=cuda))
+    x = torch.randn(m, k, generator=g, device=cuda).to(
+        torch.bfloat16).requires_grad_()
+    vecs = [wi.scale, wg.scale, wo.scale]
+    for v in vecs:
+        v.requires_grad_()
+    cot = torch.randn(m, n, generator=g, device=cuda).to(torch.bfloat16)
+    leaves = [x] + vecs
+    got = _row_grads(lambda: ops.fused_mlp(x, wi, wo, wg), leaves, cot)
+    ref = _row_grads(lambda: fused_lib.fused_mlp_ref(
+        x, wi.packed, wo.packed, wg.packed, wi.scale, None, wg.scale, None,
+        wo.scale, None), leaves, cot)
+    _grad_close(got, ref)
+
+
+def test_full_width_train_steps_on_the_card(cuda):
+    """Full-width ternary-paper QAT (12 layers, d 1024): the card's first
+    step in float32 against the CPU's on the same weights and batch (loss
+    and grad norm within 1e-3 relative, every AdamW moment within 1e-3 of
+    its leaf's max: the same sums in another order through 12 layers; at
+    most 1e-6 of the elements on the straight-through mask's edge apart),
+    then three bf16 steps with finite losses and gradient norms."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    cfg = get_config("ternary-paper")
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    _, data, cpu_step, cpu_init = train.build(f32, 1, 128, lr=3e-3,
+                                              total_steps=3, device="cpu")
+    _, _, card_step, _ = train.build(f32, 1, 128, lr=3e-3, total_steps=3,
+                                     device="cuda")
+    state = cpu_init(0)
+    to_card = (lambda t: t.to(cuda))
+    batch = data.sharded_batch(0)
+    gp, gopt, gmet = card_step(tree_map(to_card, state["params"]),
+                               tree_map(to_card, state["opt"]),
+                               tree_map(to_card, batch))
+    _, opt, met = cpu_step(state["params"], state["opt"], batch)
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(gmet[key]), float(met[key]),
+                                   rtol=1e-3)
+    # a weight on the straight-through mask's edge (|w| within an ulp of 2
+    # mean|w|, a mean the devices sum in another order) has its gradient
+    # on one side only: such elements are few and left out
+    n_edge = n_all = 0
+    for key in ("m", "v"):
+        for got, ref in zip(tree_leaves(gopt[key]), tree_leaves(opt[key])):
+            got = got.cpu()
+            edge = (got == 0) != (ref == 0)
+            n_edge, n_all = n_edge + int(edge.sum()), n_all + edge.numel()
+            d = float(torch.where(edge, 0.0, (got - ref).abs()).max())
+            assert d <= 1e-3 * max(float(ref.abs().max()), 1e-30)
+    assert n_edge <= 1e-6 * n_all
+    del state, gp, gopt, opt
+
+    _, data, train_step, init_state = train.build(cfg, 4, 256, lr=3e-3,
+                                                  total_steps=3,
+                                                  device="cuda")
+    state = init_state(0)
+    params, opt = state["params"], state["opt"]
+    before = params["layers"][5]["ffn"]["gate"]["w"].clone()
+    for step in range(3):
+        params, opt, met = train_step(params, opt,
+                                      data.sharded_batch(step, device="cuda"))
+        assert np.isfinite(float(met["loss"]))
+        assert float(met["grad_norm"]) > 0
+    assert int(opt["step"]) == 3
+    assert not torch.equal(params["layers"][5]["ffn"]["gate"]["w"], before)
+    assert isinstance(data, SyntheticLM)

@@ -46,6 +46,16 @@ def test_the_checks_cover_the_sparse_format_modules():
             "kernels/ternary_gemm_bitplane.py"} <= names
 
 
+def test_the_checks_cover_the_training_modules():
+    names = {p.relative_to(PORT).as_posix() for p in FILES
+             if PORT in p.parents}
+    assert {"core/quantize.py", "kernels/flash_attention.py",
+            "optim/optimizers.py", "optim/schedules.py", "launch/steps.py",
+            "launch/train.py", "checkpoint/checkpoint.py",
+            "checkpoint/convert.py", "distributed/fault_tolerance.py",
+            "obs/metrics.py", "data/pipeline.py"} <= names
+
+
 def test_the_ast_check_catches_a_forbidden_import(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import os\nfrom repro.core import formats\n"
