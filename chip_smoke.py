@@ -61,7 +61,9 @@ plain mode within the same bound.
 The kernel checks run B1 and B4 at every M their paths give them:
 serving decode (8) and prefill (1024) and the evaluation's forward (8192).
 Each is timed through ``ops`` (``ms``) and through its wrapper called
-directly (``kernel_ms``, no dispatch).
+directly (``kernel_ms``, no dispatch). Then each is checked once, untimed,
+at ragged shapes across its tiles' edges (M 1, 17, 1000; K and N 1000;
+ff 2000), rows marked ``"on_path": false``.
 
 In ``train_step_check`` the loss and grad norm agree within 1e-3
 relative, and every AdamW moment within 1e-3 of its leaf's max (the same
@@ -129,6 +131,11 @@ PAGED = dict(b=8, h=16, kv=16, hd=64, t=13, max_len=193)
 GEMM_SHAPES = [(m, k, n) for m in (8, 1024, 8192)
                for k, n in ((1024, 1024), (1024, 32768))]
 MLP_SHAPES = [(m, 1024, 4096, 1024) for m in (8, 1024, 8192)]
+# ragged shapes across B1's and B4's tile edges (M 1, 17, 1000 against
+# 16- and 128-row / 16- and 64-row tiles; K and N 1000, ff 2000 off the
+# 32-, 64- and 128-column tiles and strips), each checked once, not timed
+RAGGED_GEMM = [(m, 1000, 1000) for m in (1, 17, 1000)]
+RAGGED_MLP = [(m, 1000, 2000, 1000) for m in (1, 17, 1000)]
 # the paper-size sparse-GEMM surface (benchmarks/kernel_bench.py's
 # sparsity_skip acceptance shape and tile)
 FORMATS = dict(k=4096, n=4096, tile_k=256, tile_n=128, ms=(8, 1024),
@@ -193,6 +200,29 @@ def check_close(name: str, got, ref) -> float:
     return float(err.max())
 
 
+def sass_summary(build):
+    """The tensor-core and fused multiply-add opcodes of B1's and B2/B3's
+    libraries (cuobjdump -sass): B2 == B3 == B1 bit for bit needs the same
+    MMA instruction in both (HMMA.16816.F32.BF16, 16-deep chunks) and no
+    FFMA contracting an epilogue's scale and bias. Information; equal3 in
+    gemm_formats is the check."""
+    import collections
+    import re
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in ("ternary_gemm", "ternary_gemm_skip"):
+        lib = build._lib_path(name)
+        try:
+            sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+        except (OSError, subprocess.CalledProcessError) as e:
+            print(f"  {name}: no SASS ({e})", flush=True)
+            continue
+        ops = collections.Counter(re.findall(r"\b(HMMA\.[0-9A-Z.]+|FFMA)\b",
+                                             sass))
+        print(f"  {name} SASS: {dict(sorted(ops.items()))}", flush=True)
+
+
 def kernel_phase(flush):
     """Each kernel against its plain version at the serving shapes."""
     import torch
@@ -245,6 +275,18 @@ def kernel_phase(flush):
         results["ternary_gemm"].append(row)
         print(f"ternary_gemm M={m} K={k} N={n}: " + json.dumps(row),
               flush=True)
+    for m, k, n in RAGGED_GEMM:
+        w = packed(k, n)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        with ops.serving_phase(phase(m)):
+            got = ops.ternary_gemm(x, w)
+        err = check_close(f"ternary_gemm M={m} K={k} N={n}", got,
+                          gemm_lib.ternary_gemm_ref(x, w.packed, w.scale))
+        results["ternary_gemm"].append({"m": m, "k": k, "n": n,
+                                        "max_abs_err": err,
+                                        "on_path": False})
+        print(f"ternary_gemm M={m} K={k} N={n}: agrees, max_abs_err {err}",
+              flush=True)
 
     for m, k, ff, n in MLP_SHAPES:
         wi, wg, wo = packed(k, ff), packed(k, ff), packed(ff, n)
@@ -281,6 +323,19 @@ def kernel_phase(flush):
         results["fused_mlp"].append(row)
         print(f"fused_mlp M={m} K={k} ff={ff} N={n}: " + json.dumps(row),
               flush=True)
+    for m, k, ff, n in RAGGED_MLP:
+        wi, wg, wo = packed(k, ff), packed(k, ff), packed(ff, n)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        with ops.serving_phase(phase(m)):
+            got = ops.fused_mlp(x, wi, wo, wg)
+        err = check_close(f"fused_mlp M={m} K={k} ff={ff} N={n}", got,
+                          fused_lib.fused_mlp_ref(
+                              x, wi.packed, wo.packed, wg.packed, wi.scale,
+                              None, wg.scale, None, wo.scale, None))
+        results["fused_mlp"].append({"m": m, "k": k, "ff": ff, "n": n,
+                                     "max_abs_err": err, "on_path": False})
+        print(f"fused_mlp M={m} K={k} ff={ff} N={n}: agrees, max_abs_err "
+              f"{err}", flush=True)
     return results
 
 
@@ -1230,8 +1285,12 @@ def main() -> int:
         log = (build.BUILD_DIR / f"{name}.log")
         if log.exists():
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "entry function" in line:
+                    entry = line.split("'")[1]
+                    print(f"  {name}: {entry}", flush=True)
+                elif "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}", flush=True)
+    sass_summary(build)
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     shapes = kernel_phase(flush)

@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""A/B of the port's B1 (ternary GEMM) and B4 (fused MLP) kernels between
+checkouts, on one CUDA card, in turns.
+
+    python3 scripts/torch_kernel_ab.py --tree OLD --tree . --tree . \\
+        --tree OLD [--split .] [--out chiprun_out/kernel_ab.json]
+
+Each ``--tree`` is the root of a checkout (its ``chip_smoke.py`` and
+``src/``). For each, in the order given, a fresh process builds that
+tree's kernels and runs its ``chip_smoke.kernel_phase``: every B1 and B4
+shape of the main path checked against its plain version and timed with
+CUDA events, L2 flushed before each launch. Naming the parent and the
+change in turns (parent, change, change, parent) shows the card's drift
+beside the change's effect. Prints one line per shape with each run's
+kernel ms (the wrapper called directly) and writes all rows as JSON.
+With ``--split TREE`` it also profiles B4 in TREE at the main path's
+shapes (``torch.profiler``, L2 flushed before each call) and prints the
+device time of each of its two launches, the fused kernel and the
+fixed-order reduce pass over the chunks' f32 partials. Needs one CUDA
+device and nvcc; imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+RUN = r"""
+import json, sys
+sys.path.insert(0, "src")
+sys.path.insert(0, ".")
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke
+from repro_torch.kernels import build
+build.build(["ternary_gemm", "fused_mlp"])
+flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+rows = chip_smoke.kernel_phase(flush)
+print("AB_ROWS " + json.dumps(rows), flush=True)
+"""
+
+SPLIT = r"""
+import json, sys
+sys.path.insert(0, "src")
+sys.path.insert(0, ".")
+import torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke
+from repro_torch.core import weights
+from repro_torch.kernels import ops
+gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
+flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+out = {}
+for m, k, ff, n in chip_smoke.MLP_SHAPES:
+    wi, wg, wo = (weights.pack(torch.randn(a, b, generator=gen,
+                                           device="cuda") / a ** 0.5)
+                  for a, b in ((k, ff), (k, ff), (ff, n)))
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    phase = "decode" if m <= 16 else "prefill"
+    iters = 20 if m <= 1024 else 5
+    with ops.serving_phase(phase):
+        for _ in range(3):
+            ops.fused_mlp(x, wi, wo, wg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush.zero_()
+                ops.fused_mlp(x, wi, wo, wg)
+            torch.cuda.synchronize()
+    times = {}
+    for ev in prof.key_averages():
+        if "fused_mlp" in ev.key:
+            name = "reduce" if "reduce" in ev.key else "fused"
+            dev_us = getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0.0))
+            times[name] = dev_us / iters / 1e3
+    out[f"m={m}"] = times
+print("SPLIT " + json.dumps(out), flush=True)
+"""
+
+
+def shape_key(name: str, row: dict) -> str:
+    dims = ("m", "k", "ff", "n") if name == "fused_mlp" else ("m", "k", "n")
+    return name + " " + " ".join(f"{d}={row[d]}" for d in dims)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", action="append", required=True,
+                    help="checkout root; repeat, in the order to run")
+    ap.add_argument("--out", default="chiprun_out/kernel_ab.json")
+    ap.add_argument("--split", metavar="TREE",
+                    help="profile B4's two launches in this checkout")
+    args = ap.parse_args()
+    runs = []
+    for i, tree in enumerate(args.tree):
+        root = Path(tree).resolve()
+        proc = subprocess.run([sys.executable, "-c", RUN], cwd=root,
+                              capture_output=True, text=True)
+        line = next((ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("AB_ROWS ")), None)
+        if proc.returncode != 0 or line is None:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"run {i} ({tree}) failed: exit "
+                             f"{proc.returncode}")
+        rows = json.loads(line[len("AB_ROWS "):])
+        runs.append({"tree": tree, "rows": rows})
+        print(f"run {i}: {tree} done", flush=True)
+    table = {}
+    for i, run in enumerate(runs):
+        for name in ("ternary_gemm", "fused_mlp"):
+            for row in run["rows"][name]:
+                if row.get("on_path", True):
+                    table.setdefault(shape_key(name, row), []).append(
+                        {"run": i, "kernel_ms": row["kernel_ms"],
+                         "ms": row["ms"], "library_ms": row["library_ms"],
+                         "plain_ms": row["plain_ms"],
+                         "bound_ms": row["bound_ms"],
+                         "max_abs_err": row["max_abs_err"]})
+    for key, cells in table.items():
+        print(key + ": kernel_ms " + " / ".join(
+            f"{c['kernel_ms']:.5g}" for c in cells) + "; library_ms "
+            + " / ".join(f"{c['library_ms']:.5g}" for c in cells)
+            + f"; bound_ms {cells[0]['bound_ms']:.3g}", flush=True)
+    split = None
+    if args.split:
+        proc = subprocess.run([sys.executable, "-c", SPLIT],
+                              cwd=Path(args.split).resolve(),
+                              capture_output=True, text=True)
+        line = next((ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("SPLIT ")), None)
+        if proc.returncode != 0 or line is None:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"--split failed: exit {proc.returncode}")
+        split = json.loads(line[len("SPLIT "):])
+        for shape, times in split.items():
+            print(f"fused_mlp {shape}: device ms per call "
+                  + json.dumps(times), flush=True)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"trees": args.tree, "runs": runs,
+                               "table": table, "b4_split_ms": split},
+                              indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

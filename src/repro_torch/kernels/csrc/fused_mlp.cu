@@ -7,39 +7,43 @@
 //
 // What bounds it on the H100: at decode (M = 8) the block streams three
 // 2-bit weight matrices (3 x 1024 x 4096 x 2 bits = 3 MiB) and is
-// byte-bound; at prefill (M = 1024+) it is operation-bound,
-// 2*M*ff*(2K + N) bf16 tensor-core work. The (M, ff) hidden activation is
-// the traffic the fusion exists to remove, so h never goes to device
-// memory: each block keeps its (BM x FC) slice of h in dynamic shared
-// memory.
+// byte-bound, so what it pays is latency and how many blocks share the
+// stream; at prefill and evaluation (M 1024, 8192) it is operation-bound,
+// 2*M*ff*(2K + N) bf16 tensor-core work, beside which the decode of the
+// 2-bit words is ALU and shared-memory work. The (M, ff) hidden activation
+// is the traffic the fusion exists to remove, so h never goes to device
+// memory: each block keeps its (BM x FC) slice of h in shared memory.
 //
-// Design: a (bm, 4096) bf16 h tile does not fit one block's shared memory
-// (128 KiB already at bm = 16, and one block per row tile would leave
-// decode, M = 8, on a single SM). So ff is split over blocks: block
-// (c, r) computes the hidden slice h[rows r, ff chunk c] (up and gate
-// projections, rounded to bf16 exactly where the plain chain rounds: yi and
-// yg after their epilogues, act(yg), then the product) into shared memory,
-// and multiplies it by the chunk's rows of Wo into an f32 partial
-// down-projection in device memory. A second, fixed-order pass sums the
-// chunks' partials and applies the down epilogue (so, bo, cast) — the sum
-// order never depends on scheduling. Partials are (chunks, M, N) f32:
-// 1 MiB at decode, 16 MiB at the prefill shape. The MMAs are WMMA
-// 16x16x16 bf16 with f32 accumulators over weight tiles decoded into
-// shared memory, as in ternary_gemm.cu. The h slice plus the staging tiles
-// exceed the 48 KB static limit at the prefill tile, so the launch raises
-// the kernel's dynamic shared memory limit with cudaFuncSetAttribute.
+// Design: block (c, r) owns ff chunk c (FC columns) of row tile r. Stage 1
+// computes h[rows r, chunk c] strip by strip (BNS columns a strip), the up
+// and gate projections from one A fragment and two decoded B fragments,
+// and rounds to bf16 exactly where the plain chain rounds: yi and yg after
+// their epilogues, act(yg), then the product. Stage 2 multiplies the h
+// slice (ldmatrix from shared memory) by the chunk's rows of Wo, strip by
+// strip, into an f32 partial down-projection in device memory. Both
+// stages are one flattened sequence of 64-deep steps through one ring of
+// cp.async stages (x tile and the Wi/Wg words, or the Wo words), so Wo's
+// first words are in flight while stage 1 ends. The B fragments are
+// decoded in registers from the packed words (ternary_tiles.cuh's
+// register-decode loop, the same as ternary_gemm.cu). A second, fixed-order
+// pass sums the chunks' partials and applies the down epilogue (so, bo,
+// cast), so the sum order never depends on scheduling; partials are
+// (chunks, M, N) f32.
+// Two tiles, the fastest of the candidates timed on the H100 (PERF.md §6):
+// decode (M <= 16) is BM 16 with 8 warps of 16 x 8 and 64-column strips,
+// 8 stages, FC 64 (64 blocks at ff 4096); prefill and evaluation take BM
+// 64 with 8 warps (2 x 4) of 32 x 32 and 128-column strips, 3 stages, and
+// FC up to 512, narrowed by the wrapper's plan until the grid holds two
+// blocks an SM (256 at M 1024, 512 at M 8192). At FC 1024 the h slice
+// (129 KB) left one block an SM and ran 1.2x slower at M 8192; 64-row
+// warp tiles and 128-row blocks were slower too.
 #include "ternary_tiles.cuh"
 
-using namespace nvcuda;
 using ternary::APAD;
 using ternary::BK;
 using ternary::BKW;
-using ternary::CPAD;
+using ternary::XLD;
 using ternary::bf16;
-
-constexpr int BN = 128;       // ff strip (stage 1) and N strip (stage 2)
-constexpr int WARPS_N = 4;    // each warp owns a 16 x 32 slice of a strip
-constexpr int FN = BN / (16 * WARPS_N);
 
 __device__ __forceinline__ float activate(float v, int act) {
   if (act == 0) return v / (1.0f + expf(-v));   // silu
@@ -51,147 +55,163 @@ __host__ __device__ constexpr int round_up(int v, int m) {
   return (v + m - 1) / m * m;
 }
 
-// Dynamic shared memory bytes for one block: the h slice, then a staging
-// region shared by the main-loop tiles and the accumulator stages.
-__host__ __device__ constexpr int h_bytes(int bm, int fc) {
-  return round_up(bm * (fc + APAD) * 2, 128);
-}
-__host__ __device__ constexpr int stage_bytes(int bm) {
-  return (bm * (BK + APAD) + 2 * BK * (BN + APAD)) * 2 >
-                 2 * bm * (BN + CPAD) * 4
-             ? (bm * (BK + APAD) + 2 * BK * (BN + APAD)) * 2
-             : 2 * bm * (BN + CPAD) * 4;
+// Shared memory of one block: the nibble table, the h slice (row stride
+// FC + APAD), then the ring.
+template <int BM, int BNS, int STAGES, int NT>
+struct MlpSmem {
+  static constexpr int LUT = 128;
+  static constexpr int X = BM * XLD * 2;
+  static constexpr int STAGE = X + NT * BKW * BNS * 4;
+  static constexpr int RING = STAGES * STAGE;
+  __host__ __device__ static constexpr int h_bytes(int fc) {
+    return round_up(BM * (fc + APAD) * 2, 128);
+  }
+  __host__ __device__ static constexpr int bytes(int fc) {
+    return LUT + h_bytes(fc) + RING;
+  }
+};
+
+// h of one hidden column gf from its up (yi) and gate (yg) accumulators,
+// rounded as the plain chain rounds; zero past ff.
+__device__ __forceinline__ float hidden(float yi, float yg, int gf, int FF,
+                                        bool gated,
+                                        const float* __restrict__ si,
+                                        const float* __restrict__ bi,
+                                        const float* __restrict__ sg,
+                                        const float* __restrict__ bg,
+                                        int act) {
+  if (gf >= FF) return 0.0f;
+  yi = ternary::round_bf16(ternary::epilogue_f32(yi, gf, si, bi, 0, 0.0f));
+  if (!gated) return activate(yi, act);
+  yg = ternary::round_bf16(ternary::epilogue_f32(yg, gf, sg, bg, 0, 0.0f));
+  return ternary::round_bf16(activate(yg, act)) * yi;
 }
 
-template <int BM>
-__global__ void __launch_bounds__((BM / 16) * WARPS_N * 32)
+template <int BM, int WARPS_M, int WARPS_N, int FN, int STAGES, bool GATED>
+__global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
 fused_mlp_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ wi,
                  const uint32_t* __restrict__ wg,
                  const uint32_t* __restrict__ wo,
                  const float* __restrict__ si, const float* __restrict__ bi,
                  const float* __restrict__ sg, const float* __restrict__ bg,
                  float* __restrict__ partial, int M, int K, int FF, int N,
-                 int kw1, int kw2, int FC, int act) {
+                 int kw1, int kw2, int FC, int act, int vec) {
+  constexpr int NT = GATED ? 2 : 1;
+  constexpr int FM = BM / (16 * WARPS_M);
+  constexpr int BNS = WARPS_N * FN * 8;        // strip width
+  static_assert(FM * 16 * WARPS_M == BM, "BM must split into 16-row frags");
+  using S = MlpSmem<BM, BNS, STAGES, NT>;
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int XS = BM * (BK + APAD);
-  constexpr int WS = BK * (BN + APAD);
-  constexpr int CS = BM * (BN + CPAD);
+  uint32_t* lut = reinterpret_cast<uint32_t*>(smem);
+  bf16* hs = reinterpret_cast<bf16*>(smem + S::LUT);
+  unsigned char* ring = smem + S::LUT + S::h_bytes(FC);
   const int HLD = FC + APAD;
-  bf16* hs = reinterpret_cast<bf16*>(smem);
-  unsigned char* stage = smem + h_bytes(BM, FC);
-  bf16* xs = reinterpret_cast<bf16*>(stage);
-  bf16* wsa = xs + XS;              // Wi tile (stage 1), Wo tile (stage 2)
-  bf16* wsb = wsa + WS;             // Wg tile (stage 1)
-  float* csa = reinterpret_cast<float*>(stage);   // reused after K loops
-  float* csb = csa + CS;
 
+  const int chunk = blockIdx.x, f0 = chunk * FC;
   const int m0 = blockIdx.y * BM;
-  const int chunk = blockIdx.x;
-  const int f0 = chunk * FC;
   const int warp = threadIdx.x / 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const bool gated = wg != nullptr;
-  const int nk1 = (K + BK - 1) / BK;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nk1 = (K + BK - 1) / BK;            // stage 1: K steps a strip
+  const int nk2 = FC / BK;                      // stage 2: K steps a strip
+  const int steps1 = (FC / BNS) * nk1;
+  const int steps = steps1 + ((N + BNS - 1) / BNS) * nk2;
 
-  // ---- stage 1: h[:, f0:f0+FC] = act(x@Wg) * (x@Wi), kept in smem ----
-  for (int s = 0; s < FC; s += BN) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_i[FN], acc_g[FN];
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::fill_fragment(acc_i[j], 0.0f);
-      wmma::fill_fragment(acc_g[j], 0.0f);
+  auto xs = [&](int s) { return reinterpret_cast<bf16*>(ring + s * S::STAGE); };
+  auto ws = [&](int s) {
+    return reinterpret_cast<uint32_t*>(ring + s * S::STAGE + S::X);
+  };
+  auto load = [&](int step) {
+    const int s = step % STAGES;
+    if (step < steps1) {
+      const int c0 = f0 + (step / nk1) * BNS, kt = step % nk1;
+      ternary::ring_stage_x<BM>(xs(s), x, m0, kt * BK, M, K, vec);
+      ternary::ring_stage_words<BNS>(ws(s), wi, kt * BKW, c0, kw1, FF, FF,
+                                     vec);
+      if (GATED)
+        ternary::ring_stage_words<BNS>(ws(s) + BKW * BNS, wg, kt * BKW, c0,
+                                       kw1, FF, FF, vec);
+    } else {
+      const int s2 = step - steps1;
+      ternary::ring_stage_words<BNS>(ws(s), wo, f0 / 16 + (s2 % nk2) * BKW,
+                                     (s2 / nk2) * BNS, kw2, N, N, vec);
     }
-    for (int t = 0; t < nk1; ++t) {
-      ternary::load_act_tile<BM>(xs, x, m0, t * BK, M, K, K);
-      ternary::decode_weight_tile<BN>(wsa, wi, t * BKW, f0 + s, kw1, FF, FF);
-      if (gated) ternary::decode_weight_tile<BN>(wsb, wg, t * BKW, f0 + s, kw1, FF, FF);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, xs + (wm * 16) * (BK + APAD) + kk, BK + APAD);
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          const int col = wn * FN * 16 + j * 16;
-          wmma::load_matrix_sync(b, wsa + kk * (BN + APAD) + col, BN + APAD);
-          wmma::mma_sync(acc_i[j], a, b, acc_i[j]);
-          if (gated) {
-            wmma::load_matrix_sync(b, wsb + kk * (BN + APAD) + col, BN + APAD);
-            wmma::mma_sync(acc_g[j], a, b, acc_g[j]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      const int off = (wm * 16) * (BN + CPAD) + wn * FN * 16 + j * 16;
-      wmma::store_matrix_sync(csa + off, acc_i[j], BN + CPAD, wmma::mem_row_major);
-      if (gated)
-        wmma::store_matrix_sync(csb + off, acc_g[j], BN + CPAD, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
-      const int r = i / BN, c = i % BN;
-      const int gf = f0 + s + c;
-      float h = 0.0f;                      // columns past ff stay zero
-      if (gf < FF) {
-        float yi = csa[r * (BN + CPAD) + c];
-        if (si != nullptr) yi *= si[gf];
-        if (bi != nullptr) yi += bi[gf];
-        yi = ternary::round_bf16(yi);
-        if (gated) {
-          float yg = csb[r * (BN + CPAD) + c];
-          if (sg != nullptr) yg *= sg[gf];
-          if (bg != nullptr) yg += bg[gf];
-          yg = ternary::round_bf16(yg);
-          h = ternary::round_bf16(activate(yg, act)) * yi;
-        } else {
-          h = activate(yi, act);
-        }
-      }
-      hs[r * HLD + s + c] = __float2bfloat16(h);
-    }
-    __syncthreads();
-  }
+  };
 
-  // ---- stage 2: partial[chunk] = h[:, chunk] @ Wo[chunk rows, :] ----
-  const int nk2 = FC / BK;
-  for (int n0 = 0; n0 < N; n0 += BN) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FN];
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[j], 0.0f);
-    for (int t = 0; t < nk2; ++t) {
-      ternary::decode_weight_tile<BN>(wsa, wo, (f0 + t * BK) / 16, n0, kw2, N, N);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, hs + (wm * 16) * HLD + t * BK + kk, HLD);
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, wsa + kk * (BN + APAD) + wn * FN * 16 + j * 16,
-                                 BN + APAD);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(csa + (wm * 16) * (BN + CPAD) + wn * FN * 16 + j * 16,
-                              acc[j], BN + CPAD, wmma::mem_row_major);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * BN; i += blockDim.x) {
-      const int r = i / BN, c = i % BN;
-      const int gr = m0 + r, gc = n0 + c;
-      if (gr < M && gc < N)
-        partial[((size_t)chunk * M + gr) * N + gc] = csa[r * (BN + CPAD) + c];
-    }
-    __syncthreads();
+  ternary::fill_nibble_lut(lut);
+  float acc[NT][FM][FN][4];
+  ternary::zero_frags(acc);
+  float(&acc0)[1][FM][FN][4] =
+      *reinterpret_cast<float(*)[1][FM][FN][4]>(&acc[0]);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(s);
+    ternary::cp_async_commit();
   }
+  for (int step = 0; step < steps; ++step) {
+    ternary::cp_async_wait<STAGES - 2>();
+    __syncthreads();    // step's stage (and h, at stage 2) visible to all
+    if (step + STAGES - 1 < steps) load(step + STAGES - 1);
+    ternary::cp_async_commit();
+    const int s = step % STAGES;
+    if (step < steps1) {
+      // ---- stage 1: strip f of h = act(x@Wg) * (x@Wi), into smem ----
+      ternary::mma_step_2bit<FM, FN, BNS, NT>(
+          acc, xs(s) + wm * FM * 16 * XLD, XLD, ws(s) + wn * FN * 8, BKW,
+          lut);
+      if (step % nk1 == nk1 - 1) {
+        const int cl0 = (step / nk1) * BNS + wn * FN * 8;
+#pragma unroll
+        for (int i = 0; i < FM; ++i)
+#pragma unroll
+          for (int j = 0; j < FN; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = wm * FM * 16 + i * 16 + h * 8 + g;
+              const int cl = cl0 + j * 8 + 2 * t;
+              const float h0 = hidden(acc[0][i][j][2 * h],
+                                      acc[NT - 1][i][j][2 * h], f0 + cl, FF,
+                                      GATED, si, bi, sg, bg, act);
+              const float h1 = hidden(acc[0][i][j][2 * h + 1],
+                                      acc[NT - 1][i][j][2 * h + 1],
+                                      f0 + cl + 1, FF, GATED, si, bi, sg, bg,
+                                      act);
+              *reinterpret_cast<__nv_bfloat162*>(hs + r * HLD + cl) =
+                  __floats2bfloat162_rn(h0, h1);
+            }
+        ternary::zero_frags(acc);
+      }
+    } else {
+      // ---- stage 2: strip of partial[chunk] = h[:, chunk] @ Wo[chunk] ----
+      const int s2 = step - steps1, kt = s2 % nk2;
+      ternary::mma_step_2bit<FM, FN, BNS, 1>(
+          acc0, hs + wm * FM * 16 * HLD + kt * BK, HLD, ws(s) + wn * FN * 8,
+          BKW, lut);
+      if (kt == nk2 - 1) {
+        const int c0 = (s2 / nk2) * BNS + wn * FN * 8;
+#pragma unroll
+        for (int i = 0; i < FM; ++i)
+#pragma unroll
+          for (int j = 0; j < FN; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int gr = m0 + wm * FM * 16 + i * 16 + h * 8 + g;
+              const int gc = c0 + j * 8 + 2 * t;
+              if (gr >= M || gc >= N) continue;
+              float* p = partial + ((size_t)chunk * M + gr) * N + gc;
+              if (gc + 1 < N && (N & 1) == 0) {
+                *reinterpret_cast<float2*>(p) =
+                    make_float2(acc[0][i][j][2 * h], acc[0][i][j][2 * h + 1]);
+              } else {
+                p[0] = acc[0][i][j][2 * h];
+                if (gc + 1 < N) p[1] = acc[0][i][j][2 * h + 1];
+              }
+            }
+        ternary::zero_frags(acc);
+      }
+    }
+  }
+  ternary::cp_async_wait<0>();
 }
 
 // Fixed-order sum of the chunks' partial down-projections + the f32
@@ -206,37 +226,62 @@ __global__ void fused_mlp_reduce_kernel(const float* __restrict__ partial,
   if (idx >= total) return;
   float acc = 0.0f;
   for (int c = 0; c < chunks; ++c) acc += partial[(size_t)c * total + idx];
-  const int n = (int)(idx % N);
-  if (so != nullptr) acc *= so[n];
-  if (bo != nullptr) acc += bo[n];
-  y[idx] = __float2bfloat16(acc);
+  y[idx] = __float2bfloat16(
+      ternary::epilogue_f32(acc, (int)(idx % N), so, bo, 0, 0.0f));
 }
 
-template <int BM>
+template <int BM, int WARPS_M, int WARPS_N, int FN, int STAGES, bool GATED>
 static int launch(const void* x, const void* wi, const void* wg,
                   const void* wo, const void* si, const void* bi,
                   const void* sg, const void* bg, void* partial, int M, int K,
-                  int FF, int N, int kw1, int kw2, int FC, int act,
+                  int FF, int N, int kw1, int kw2, int FC, int act, int vec,
                   cudaStream_t stream) {
-  const int smem = h_bytes(BM, FC) + stage_bytes(BM);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int chunks = (FF + FC - 1) / FC;
-  dim3 grid(chunks, (M + BM - 1) / BM);
-  fused_mlp_kernel<BM><<<grid, (BM / 16) * WARPS_N * 32, smem, stream>>>(
+  constexpr int BNS = WARPS_N * FN * 8;
+  using S = MlpSmem<BM, BNS, STAGES, GATED ? 2 : 1>;
+  if (FC <= 0 || FC % BNS != 0 || FC % BK != 0)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = fused_mlp_kernel<BM, WARPS_M, WARPS_N, FN, STAGES, GATED>;
+  const int smem = S::bytes(FC);
+  static int smem_set = 0;     // the kernel's dynamic smem limit so far
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  dim3 grid((FF + FC - 1) / FC, (M + BM - 1) / BM);
+  kernel<<<grid, WARPS_M * WARPS_N * 32, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const uint32_t*>(wi),
       static_cast<const uint32_t*>(wg), static_cast<const uint32_t*>(wo),
       static_cast<const float*>(si), static_cast<const float*>(bi),
       static_cast<const float*>(sg), static_cast<const float*>(bg),
-      static_cast<float*>(partial), M, K, FF, N, kw1, kw2, FC, act);
+      static_cast<float*>(partial), M, K, FF, N, kw1, kw2, FC, act, vec);
   return (int)cudaGetLastError();
 }
 
-// variant 0: decode tile (BM 16, 4 warps); variant 1: prefill tile (BM 32,
-// 8 warps). FC (ff columns per block) must be a positive multiple of 128;
-// ``partial`` holds ceil(FF / FC) * M * N floats. act: 0 silu, 1 relu,
-// 2 none. Returns the cudaError_t of the launches (0 = success).
+template <bool GATED>
+static int launch_variant(int variant, const void* x, const void* wi,
+                          const void* wg, const void* wo, const void* si,
+                          const void* bi, const void* sg, const void* bg,
+                          void* partial, int M, int K, int FF, int N, int kw1,
+                          int kw2, int FC, int act, int vec,
+                          cudaStream_t s) {
+  if (variant == 0)
+    return launch<16, 1, 8, 1, 8, GATED>(x, wi, wg, wo, si, bi, sg, bg,
+                                         partial, M, K, FF, N, kw1, kw2, FC,
+                                         act, vec, s);
+  if (variant == 1)
+    return launch<64, 2, 4, 4, 3, GATED>(x, wi, wg, wo, si, bi, sg, bg,
+                                         partial, M, K, FF, N, kw1, kw2, FC,
+                                         act, vec, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// variant 0: decode tile (BM 16, 8 warps, 64-column strips, FC a multiple
+// of 64); variant 1: prefill tile (BM 64, 8 warps, 128-column strips, FC a
+// multiple of 128). ``partial`` holds ceil(FF / FC) * M * N floats. act: 0
+// silu, 1 relu, 2 none. Returns the cudaError_t of the launches (0 =
+// success).
 extern "C" int fused_mlp_bf16(const void* x, const void* wi, const void* wg,
                               const void* wo, const void* si, const void* bi,
                               const void* sg, const void* bg, const void* so,
@@ -244,16 +289,19 @@ extern "C" int fused_mlp_bf16(const void* x, const void* wi, const void* wg,
                               int K, int FF, int N, int kw1, int kw2, int FC,
                               int act, int variant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (FC <= 0 || FC % BN != 0) return (int)cudaErrorInvalidValue;
-  int err;
-  if (variant == 0)
-    err = launch<16>(x, wi, wg, wo, si, bi, sg, bg, partial, M, K, FF, N, kw1,
-                     kw2, FC, act, s);
-  else if (variant == 1)
-    err = launch<32>(x, wi, wg, wo, si, bi, sg, bg, partial, M, K, FF, N, kw1,
-                     kw2, FC, act, s);
-  else
-    return (int)cudaErrorInvalidValue;
+  const int vec = (K % 8 == 0) && (FF % 4 == 0) && (N % 4 == 0) &&
+                  (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(wi) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(wg) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(wo) % 16 == 0);
+  const int err =
+      wg != nullptr
+          ? launch_variant<true>(variant, x, wi, wg, wo, si, bi, sg, bg,
+                                 partial, M, K, FF, N, kw1, kw2, FC, act, vec,
+                                 s)
+          : launch_variant<false>(variant, x, wi, wg, wo, si, bi, sg, bg,
+                                  partial, M, K, FF, N, kw1, kw2, FC, act,
+                                  vec, s);
   if (err != 0) return err;
   const int chunks = (FF + FC - 1) / FC;
   const size_t total = (size_t)M * N;

@@ -6,78 +6,121 @@
 //
 // What bounds it on the H100: at decode (M = slots, 8) the product is a
 // GEMV and the card can only stream the 2-bit weights (a 1024x1024 layer is
-// 256 KiB, ~0.08 us at 3.35 TB/s), so launch latency and the few blocks a
-// small N gives are what this kernel pays. At prefill (M = group x prompt,
-// 1024+) it is operation-bound: 2*M*N*K bf16 tensor-core work.
+// 256 KiB, ~0.08 us at 3.35 TB/s), so what it pays is latency: the launch,
+// the dependent chain of 16-deep MMA chunks of each output, and how many
+// loads a block keeps in flight. At prefill and evaluation (M 1024, 8192)
+// it is operation-bound, 2*M*N*K bf16 tensor-core work, and the decode of
+// the 2-bit words is ALU and shared-memory work beside the MMAs.
 //
-// Design: one block per (BM x BN) output tile, looping over K in BK = 64
-// steps. Each step stages the activation tile and the (BK/16 x BN) word
-// tile, decodes the words to a bf16 +1/0/-1 tile in shared memory with
-// (c & 1) - ((c >> 1) & 1), and runs WMMA 16x16x16 bf16 MMAs with f32
-// accumulators (tensor cores via mma.sync). The f32 epilogue (scale, then
-// bias, then optional PReLU, then the cast) runs once per tile from a
-// shared-memory stage, so it rounds exactly where the plain version does.
-// Weights stay 2-bit in device memory: decode happens on chip. Two fixed
-// tile shapes: a narrow decode tile (BM 16, BN 64) so a GEMV still spreads
-// over N/64 blocks, and a prefill tile (BM 64, BN 128) that reuses each
-// decoded weight tile across 64 rows. wgmma, TMA and a multistage pipeline
-// are later work.
+// Design (the helpers are ternary_tiles.cuh's register-decode loop):
+//  - no decoded weight tile: each lane turns the packed word of its column
+//    into its mma.sync B fragment in registers with a 16-entry nibble
+//    table, and each decoded fragment feeds all FM 16-row A fragments of
+//    the warp (4 at prefill: a 64 x 32 warp tile);
+//  - a ring of STAGES cp.async stages, one 64-deep K step each, holds the
+//    x tile (16-byte copies, ldmatrix.x4 for the A fragments) and the raw
+//    words; K % 8 != 0 fills the same stages with plain loads;
+//  - the epilogue runs from the accumulators (scale, then bias, then PReLU
+//    in f32, one cast, bf16x2 stores);
+//  - no split-K: every output element adds its K chunks in ascending order
+//    into one f32 accumulator through HMMA.16816, as B2 and B3 do, so the
+//    three agree bit for bit.
+// Two tiles, each the fastest of the candidates timed on the H100 (PERF.md
+// §6): decode (M <= 16) is BM 16 x BN 64 with 4 warps of 16 x 16 and 8
+// stages (7 steps, 448 of K, in flight; rows 8-15 of the A fragment are
+// zero at M 8): BN 32 gave the lm head's 1024 blocks two waves, and 16
+// stages gained nothing. Prefill and evaluation take BM 64 x BN 128 with 4
+// warps of 64 x 32 and 4 stages (45 KB of shared memory): 128-row tiles and 64 x 64 warp tiles were slower. wgmma
+// and TMA would change the accumulation and come to B1, B2 and B3
+// together.
 #include "ternary_tiles.cuh"
 
 using ternary::BK;
 using ternary::BKW;
+using ternary::XLD;
 using ternary::bf16;
 
-template <int BM, int BN, int WARPS_M, int WARPS_N>
+template <int BM, int BN, int STAGES>
+struct GemmSmem {
+  static constexpr int LUT = 128;                          // bytes
+  static constexpr int X = BM * XLD * 2;                   // bytes a stage
+  static constexpr int W = BKW * BN * 4;
+  static constexpr int STAGE = X + W;
+  static constexpr int BYTES = LUT + STAGES * STAGE;
+};
+
+template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
 ternary_gemm_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ w,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias, bf16* __restrict__ y,
                     int M, int K, int N, int kw, int ldw, int fuse_prelu,
-                    float prelu_alpha) {
-  using T = ternary::TileShape<BM, BN, WARPS_M, WARPS_N>;
-  constexpr int MAIN_BYTES = (T::XS + T::WS) * 2;
-  constexpr int SMEM = MAIN_BYTES > T::CS * 4 ? MAIN_BYTES : T::CS * 4;
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* ws = xs + T::XS;
-  float* cs = reinterpret_cast<float*>(smem);   // reused after the K loop
+                    float prelu_alpha, int vec) {
+  constexpr int FM = BM / (16 * WARPS_M);
+  constexpr int FN = BN / (8 * WARPS_N);
+  static_assert(FM * 16 * WARPS_M == BM && FN * 8 * WARPS_N == BN,
+                "tile does not split into 16 x 8 fragments per warp");
+  using S = GemmSmem<BM, BN, STAGES>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint32_t* lut = reinterpret_cast<uint32_t*>(smem);
+  unsigned char* ring = smem + S::LUT;
 
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int warp = threadIdx.x / 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-
-  ternary::Acc acc[T::FM][T::FN];
-  ternary::zero_acc(acc);
   const int nk = (K + BK - 1) / BK;
-  for (int t = 0; t < nk; ++t) {
-    ternary::load_act_tile<BM>(xs, x, m0, t * BK, M, K, K);
-    ternary::decode_weight_tile<BN>(ws, w, t * BKW, n0, kw, N, ldw);
-    __syncthreads();
-    ternary::mma_tile<BN>(acc, xs, ws, wm, wn, BK);
-    __syncthreads();
+
+  auto xs = [&](int s) { return reinterpret_cast<bf16*>(ring + s * S::STAGE); };
+  auto ws = [&](int s) {
+    return reinterpret_cast<uint32_t*>(ring + s * S::STAGE + S::X);
+  };
+  auto load = [&](int step) {
+    const int s = step % STAGES;
+    ternary::ring_stage_x<BM>(xs(s), x, m0, step * BK, M, K, vec);
+    ternary::ring_stage_words<BN>(ws(s), w, step * BKW, n0, kw, ldw, ldw, vec);
+  };
+
+  ternary::fill_nibble_lut(lut);
+  float acc[1][FM][FN][4];
+  ternary::zero_frags(acc);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    ternary::cp_async_commit();
   }
-  ternary::store_epilogue<BM, BN, T::FM, T::FN, false>(
-      acc, cs, wm, wn, m0, n0, M, N, scale, bias, fuse_prelu, prelu_alpha, y);
+  for (int step = 0; step < nk; ++step) {
+    ternary::cp_async_wait<STAGES - 2>();
+    __syncthreads();      // step's stage landed; step - 1's slot is free
+    if (step + STAGES - 1 < nk) load(step + STAGES - 1);
+    ternary::cp_async_commit();
+    const int s = step % STAGES;
+    ternary::mma_step_2bit<FM, FN, BN, 1>(
+        acc, xs(s) + wm * FM * 16 * XLD, XLD, ws(s) + wn * FN * 8, BKW, lut);
+  }
+  ternary::cp_async_wait<0>();
+  ternary::store_frags_epilogue<FM, FN>(acc[0], m0 + wm * FM * 16,
+                                        n0 + wn * FN * 8, M, N, scale, bias,
+                                        fuse_prelu, prelu_alpha, y);
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N>
+template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
 static int launch(const void* x, const void* w, const void* scale,
                   const void* bias, void* y, int M, int K, int N, int kw,
-                  int ldw, int fuse_prelu, float prelu_alpha,
+                  int ldw, int fuse_prelu, float prelu_alpha, int vec,
                   cudaStream_t stream) {
+  constexpr int SMEM = GemmSmem<BM, BN, STAGES>::BYTES;
+  static_assert(SMEM <= 48 * 1024, "above 48 KB needs cudaFuncSetAttribute");
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  ternary_gemm_kernel<BM, BN, WARPS_M, WARPS_N>
-      <<<grid, WARPS_M * WARPS_N * 32, 0, stream>>>(
-          static_cast<const bf16*>(x), static_cast<const uint32_t*>(w),
-          static_cast<const float*>(scale), static_cast<const float*>(bias),
-          static_cast<bf16*>(y), M, K, N, kw, ldw, fuse_prelu, prelu_alpha);
+  ternary_gemm_kernel<BM, BN, WARPS_M, WARPS_N, STAGES>
+      <<<grid, WARPS_M * WARPS_N * 32, SMEM, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const uint32_t*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<bf16*>(y), M, K, N, kw, ldw, fuse_prelu, prelu_alpha, vec);
   return (int)cudaGetLastError();
 }
 
 // w is (kw, ldw) words of which the first N columns are read (ldw > N for
-// a tile-padded pack). variant 0: decode tile (BM 16, BN 64, 4 warps);
-// variant 1: prefill tile (BM 64, BN 128, 8 warps).
+// a tile-padded pack). variant 0: decode tile (BM 16, BN 64, 4 warps, 8
+// stages); variant 1: prefill tile (BM 64, BN 128, 4 warps, 4 stages).
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int ternary_gemm_bf16(const void* x, const void* w,
                                  const void* scale, const void* bias, void* y,
@@ -85,11 +128,14 @@ extern "C" int ternary_gemm_bf16(const void* x, const void* w,
                                  int fuse_prelu, float prelu_alpha,
                                  int variant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = (K % 8 == 0) && (ldw % 4 == 0) &&
+                  (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(w) % 16 == 0);
   if (variant == 0)
-    return launch<16, 64, 1, 4>(x, w, scale, bias, y, M, K, N, kw, ldw,
-                                fuse_prelu, prelu_alpha, s);
+    return launch<16, 64, 1, 4, 8>(x, w, scale, bias, y, M, K, N, kw, ldw,
+                                   fuse_prelu, prelu_alpha, vec, s);
   if (variant == 1)
-    return launch<64, 128, 2, 4>(x, w, scale, bias, y, M, K, N, kw, ldw,
-                                 fuse_prelu, prelu_alpha, s);
+    return launch<64, 128, 1, 4, 4>(x, w, scale, bias, y, M, K, N, kw, ldw,
+                                    fuse_prelu, prelu_alpha, vec, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -30,9 +30,13 @@ __all__ = ["ternary_gemm_ref", "ternary_gemm_cuda", "ternary_gemm_skip_ref",
            "ternary_gemm_skip_cuda", "VARIANTS", "TILES", "BLOCK_K",
            "SKIP_BLOCK_M", "skip_block_n"]
 
-# tile shape of B1 per serving phase (see csrc/ternary_gemm.cu): decode
-# GEMVs take the narrow 16 x 64 tile, prefill the 64 x 128 tile; both step
-# K by 64
+# tile shape of B1 per serving phase (see csrc/ternary_gemm.cu), the
+# fastest of the candidates timed on the H100: decode GEMVs (M <= 16) take
+# the 16 x 64 tile (4 warps, 8 cp.async stages in flight), prefill and
+# evaluation the 64 x 128 tile (4 warps of 64 x 32, each decoded B
+# fragment feeding four MMAs; 4 stages); both step K by 64. B7
+# (ternary_gemm_bitplane.cu) has tiles of the same shapes and takes its
+# variant from this table too.
 VARIANTS = {"decode": 0, "prefill": 1}
 TILES = {0: (16, 64), 1: (64, 128)}           # variant -> (block_m, block_n)
 BLOCK_K = 64

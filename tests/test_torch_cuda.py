@@ -51,8 +51,15 @@ def _gen(seed):
 
 
 @pytest.mark.parametrize("phase", ["decode", "prefill"])
+# the serving shape, then shapes across B1's tile edges (decode 16 x 32,
+# prefill 128 x 128, K steps of 64): M 1, 16, 17, 129; N off the tile
+# widths; K % 64 != 0 with K % 8 == 0 (cp.async stages) and K % 8 != 0
+# (plain-load stages)
 @pytest.mark.parametrize("mkn", [(8, 1024, 1024), (5, 37, 19),
-                                 (70, 200, 130), (1, 16, 1), (33, 64, 257)])
+                                 (70, 200, 130), (1, 16, 1), (33, 64, 257),
+                                 (16, 1000, 1000), (17, 1000, 100),
+                                 (129, 1000, 1000), (129, 37, 300),
+                                 (1, 520, 33), (1000, 1000, 1000)])
 @pytest.mark.parametrize("epilogue", ["scale", "scale_bias_prelu"])
 def test_ternary_gemm_kernel_matches_plain(cuda, phase, mkn, epilogue):
     m, k, n = mkn
@@ -71,9 +78,34 @@ def test_ternary_gemm_kernel_matches_plain(cuda, phase, mkn, epilogue):
     _close(got, ref)
 
 
+@pytest.mark.parametrize("mkn", [(8, 300, 100), (129, 1000, 200)])
+def test_ternary_gemm_kernel_reads_padded_words(cuda, mkn):
+    """A tile-padded pack (ldw > n, kw > K/16) through B1 in place: only
+    the first n columns come out, equal to the plain version on the
+    cut words; both B1 tiles agree bit for bit."""
+    m, k, n = mkn
+    w = _tiled(m + n, k, n, 256, 128, 0.5)
+    assert w.packed.shape[1] > n and w.packed.shape[0] * 16 > k
+    x = torch.randn(m, k, generator=_gen(m), device=cuda).to(torch.bfloat16)
+    ys = {}
+    for phase in ("decode", "prefill"):
+        with ops.serving_phase(phase):
+            ys[phase] = ops.ternary_gemm(x, w, impl="dense")
+    ref = gemm_lib.ternary_gemm_ref(x, w.packed[:, :n].contiguous(), w.scale)
+    torch.cuda.synchronize()
+    assert ys["prefill"].shape == (m, n)
+    assert torch.equal(ys["decode"], ys["prefill"])
+    _close(ys["prefill"], ref)
+
+
 @pytest.mark.parametrize("phase", ["decode", "prefill"])
+# the serving shape, then shapes across B4's tile edges (decode 16 rows,
+# prefill 64, strips of 64 / 128 columns, K steps of 64): M 1, 16, 17,
+# 129; ff and N off the strips; K % 8 != 0 (plain-load stages)
 @pytest.mark.parametrize("mkfn", [(8, 1024, 4096, 1024), (5, 40, 200, 24),
-                                  (37, 96, 128, 70), (64, 256, 1100, 128)])
+                                  (37, 96, 128, 70), (64, 256, 1100, 128),
+                                  (1, 1024, 4096, 1024), (16, 1000, 1100, 1000),
+                                  (17, 37, 200, 70), (129, 520, 640, 130)])
 @pytest.mark.parametrize("variant", ["gated_silu", "gated_bias",
                                      "relu_ungated"])
 def test_fused_mlp_kernel_matches_plain(cuda, phase, mkfn, variant):
@@ -226,7 +258,9 @@ def _tiled(seed, k, n, tile_k, tile_n, sparsity, device="cuda"):
 
 @pytest.mark.parametrize("tile", TILES)
 @pytest.mark.parametrize("mkn", [(8, 1024, 256), (5, 200, 33),
-                                 (70, 1000, 300), (3, 203, 40)])
+                                 (70, 1000, 300), (3, 203, 40),
+                                 (16, 520, 130), (129, 1000, 300),
+                                 (17, 37, 100)])
 @pytest.mark.parametrize("phase", ["decode", "prefill"])
 def test_skip_kernels_equal_dense_and_match_plain(cuda, tile, mkn, phase):
     m, k, n = mkn

@@ -115,8 +115,9 @@ def test_auto_switches_at_the_occupancy_cutoff():
         assert rops.ternary_gemm_plan(ref_w, 8).impl == want
 
 
-@pytest.mark.parametrize("phase,tile", [("decode", (16, 64)),
-                                        ("prefill", (64, 128))])
+@pytest.mark.parametrize("phase,tile", [
+    (phase, gemm_lib.TILES[gemm_lib.VARIANTS[phase]])
+    for phase in ("decode", "prefill")])
 def test_dense2bit_plan_keeps_the_serving_tiles(phase, tile):
     w = CONTAINERS["dense2bit"][0]
     with ops.serving_phase(phase):
@@ -124,8 +125,10 @@ def test_dense2bit_plan_keeps_the_serving_tiles(phase, tile):
     assert (plan.impl, plan.phase) == ("dense", phase)
     assert (plan.block_m, plan.block_n, plan.block_k) == (*tile, 64)
     # outside a phase scope M <= 16 is decode-shaped
+    decode, prefill = (gemm_lib.TILES[gemm_lib.VARIANTS[p]]
+                       for p in ("decode", "prefill"))
     assert (ops.ternary_gemm_plan(w, 16).block_m,
-            ops.ternary_gemm_plan(w, 17).block_m) == (16, 64)
+            ops.ternary_gemm_plan(w, 17).block_m) == (decode[0], prefill[0])
 
 
 def test_plan_errors_match_repro():
