@@ -7,13 +7,21 @@ dense slot cache, then over the paged cache with bf16 pages and with int8
 pages under page pressure (prefix sharing, copy-on-write, deferrals and
 preemptions), and compares the card's logits with the CPU's plain path and
 the paged decode step's logits with the dense one's on the same weights.
+Before serving, B4's rows are held independent of M (the first M rows of
+one 8192-row X give the same bits as X alone, M 1 to 8192, gated and
+ungated). After it, ``mlp_formats`` drives MLP blocks of other formats at
+ternary-paper's MLP width through ``layers.mlp_apply``: ``tiled`` packs
+with padded words through B4, ``bitplane`` packs through the chain (B7),
+and a full-width prefill of the served model with its MLPs re-packed as
+``tiled`` against the dense2bit model's greedy tokens.
 Then the ``gemm_formats`` phase drives the paper's sparse-GEMM surface
 (``weights.pack`` + ``ops.ternary_gemm``) at the paper's sizes: ``tiled``
 packs of 4096 x 4096 with 256 x 128 tiles over the paper's sparsities
 through the tile-skipping kernels (B2, B3) and the dense one (B1), a K
 sweep over the paper's K range, ``bitplane`` packs through B7 in both
 modes, and one ``base3`` pack through its plain ``ref`` row (it has no
-kernel, in ``repro`` neither).
+kernel, in ``repro`` neither); then B2 at tiles that end inside a 64-deep
+step and B7 in both modes at ragged shapes, against their plain versions.
 Then the training slice: ``flash_kernel`` holds B6 (flash attention)
 against its plain version at ``repro``'s test shapes and the evaluation's
 (B*H 128, S 1024, hd 64); ``gradients`` holds the kernel rows' gradients
@@ -52,6 +60,11 @@ width, tests/test_torch_paging.py holds that under 2e-2, and the card's
 own rounding gets the 5e-2 above on top. Greedy tokens follow the same
 near-tie rule.
 
+In ``mlp_formats`` each block agrees with the plain chain within the
+kernel bound, and the tiled-MLP model's last-position logits with the
+dense2bit model's within 5e-2*max|logit| under the greedy near-tie rule
+(B4 reads the same matrices either way, so they are expected equal).
+
 In ``gemm_formats`` B2, B3 and B1 on the same tiled pack are held equal
 with ``torch.equal`` (the skipping kernels run B1's MMA chunks in B1's
 order, minus chunks of empty tiles), each kernel against its plain version
@@ -84,9 +97,9 @@ with the QAT model's within 0.05, the example's own assertion.
 
 Output: progress lines, each serving run's metrics JSON, one
 ``{"kernels": ...}`` JSON line (each kernel's launches summed over the
-runs that use it — the serving, train and eval runs for B1, B4, B5 and B6,
-the gemm_formats run for B2, B3 and B7 — with the per-run counts under
-``runs``, and its error and times summed over the shapes its path gives
+path runs — serving dense, paged bf16 and int8, mlp_formats,
+gemm_formats, train and eval — with the per-run counts under ``runs``,
+and its error and times summed over the shapes its path gives
 it, with the per-shape detail under ``shapes``; B6's path gives it the
 evaluation's shape only, its other shapes are checks), the card's name and
 power limit as nvidia-smi prints them, and the final ``{"ok": true,
@@ -136,6 +149,21 @@ MLP_SHAPES = [(m, 1024, 4096, 1024) for m in (8, 1024, 8192)]
 # 32-, 64- and 128-column tiles and strips), each checked once, not timed
 RAGGED_GEMM = [(m, 1000, 1000) for m in (1, 17, 1000)]
 RAGGED_MLP = [(m, 1000, 2000, 1000) for m in (1, 17, 1000)]
+# B4's rows must not depend on M: the first M rows of one X at
+# ternary-paper's MLP width, through the decode and the prefill tile
+ROWS_CHECK = dict(m=8192, k=1024, ff=4096, n=1024,
+                  ms=(1, 8, 16, 17, 1024, 8192))
+# MLPs of other formats at ternary-paper's MLP width: tiled packs (tile_n
+# 96 does not divide ff or N, so the words are padded: B4 reads them with
+# a row stride above the width) run fused, bitplane packs the chain (B7)
+MLP_FORMATS = dict(k=1024, ff=4096, n=1024, ms=(8, 1024), tile_k=256,
+                   tile_n=96, prompts=8)
+# ragged shapes of the redesigned B2 and B7 (K % 8 != 0, odd N, M 1, 17,
+# 1000) and B2's tiles whose tile_k is not a multiple of 64 or tile_n of
+# 32; checked once against their plain versions, not timed
+RAGGED_FORMATS = dict(shapes=[(1, 1001, 97), (17, 999, 131),
+                              (1000, 1003, 301)],
+                      tiles=[(48, 16), (80, 48)], sparsity=0.25)
 # the paper-size sparse-GEMM surface (benchmarks/kernel_bench.py's
 # sparsity_skip acceptance shape and tile)
 FORMATS = dict(k=4096, n=4096, tile_k=256, tile_n=128, ms=(8, 1024),
@@ -301,14 +329,13 @@ def kernel_phase(flush):
             ei, eg, eo = (c.materialize(torch.float32, with_scale=True).to(
                 torch.bfloat16) for c in (wi, wg, wo))
             iters = iters_for(m)
-            variant, ff_chunk = fused_lib.VARIANTS[phase(m)]
+            variant = fused_lib.VARIANTS[phase(m)]
             row = {
                 "m": m, "k": k, "ff": ff, "n": n, "max_abs_err": err,
                 "ms": cuda_ms(lambda: ops.fused_mlp(x, wi, wo, wg), iters,
                               flush),
                 "kernel_ms": cuda_ms(lambda: fused_lib.fused_mlp_cuda(
-                    x, *plain_args[1:], variant=variant, ff_chunk=ff_chunk),
-                    iters, flush),
+                    x, *plain_args[1:], variant=variant), iters, flush),
                 "plain_ms": cuda_ms(lambda: fused_lib.fused_mlp_ref(
                     *plain_args), iters, flush),
                 # cuBLAS chain over pre-decoded, pre-scaled bf16 weights
@@ -337,6 +364,38 @@ def kernel_phase(flush):
         print(f"fused_mlp M={m} K={k} ff={ff} N={n}: agrees, max_abs_err "
               f"{err}", flush=True)
     return results
+
+
+def row_independence_check():
+    """B4's output for a row does not depend on how many rows share the
+    call: X of ROWS_CHECK["m"] rows at ternary-paper's MLP width through
+    ops.fused_mlp (the decode tile for M <= 16, the prefill tile above),
+    B4(X[:M]) == B4(X)[:M] under torch.equal for each M, gated and not."""
+    import torch
+    from repro_torch.core import weights
+    from repro_torch.kernels import fused_mlp as fused_lib
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    k, ff, n = ROWS_CHECK["k"], ROWS_CHECK["ff"], ROWS_CHECK["n"]
+    wi, wg, wo = (weights.pack(torch.randn(a, b, generator=gen,
+                                           device="cuda") / a ** 0.5)
+                  for a, b in ((k, ff), (k, ff), (ff, n)))
+    x = torch.randn(ROWS_CHECK["m"], k, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    for gate in (wg, None):
+        full = ops.fused_mlp(x, wi, wo, gate)
+        for m in ROWS_CHECK["ms"]:
+            got = ops.fused_mlp(x[:m].contiguous(), wi, wo, gate)
+            if not torch.equal(got, full[:m]):
+                d = float((got.float() - full[:m].float()).abs().max())
+                raise AssertionError(
+                    f"B4 rows depend on M: gated={gate is not None} M={m} "
+                    f"differs from the first {m} rows of M="
+                    f"{ROWS_CHECK['m']} (max |d| = {d})")
+    print(f"B4 row independence: B4(X[:M]) == B4(X)[:M] bitwise for M in "
+          f"{list(ROWS_CHECK['ms'])}, gated and ungated (chunk width "
+          f"{fused_lib.chunk_width(ff)} at every M)", flush=True)
 
 
 def paged_kernel_phase(flush):
@@ -650,6 +709,108 @@ def paged_phases(cfg, params, prompts, gens, max_len, dense_outs):
     return runs
 
 
+def _repack_mlps(params, fmt, **opts):
+    """A copy of a packed model's param tree whose MLP projections are
+    re-packed as ``fmt`` (the same ternary matrices, scales and biases)."""
+    import torch
+    from repro_torch.core import weights
+    layers = []
+    for layer in params["layers"]:
+        ffn = {name: {"w_packed": weights.pack(
+            p["w_packed"].materialize(torch.float32).to(torch.int8), fmt,
+            scale=p["w_packed"].scale, bias=p["w_packed"].bias, **opts)}
+            for name, p in layer["ffn"].items()}
+        layers.append({**layer, "ffn": ffn})
+    return {**params, "layers": layers}
+
+
+def mlp_formats_phase(cfg, params, prompts, max_len):
+    """MLP blocks of other formats at ternary-paper's full MLP width, the
+    path ``layers.mlp_apply`` takes on the card: tiled packs (padded
+    words) fused through B4, bitplane packs through the chain (B7), each
+    at M 8 and 1024 against the plain chain (``impl="ref"`` rows on the
+    card); then one full-width prefill of the served model with its MLPs
+    re-packed as tiled, whose greedy tokens must be the dense2bit model's
+    (near-tie rule). Counters zeroed before, read after."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import weights
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.models.layers import mlp_apply
+
+    mf = MLP_FORMATS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    tiles = dict(tile_k=mf["tile_k"], tile_n=mf["tile_n"])
+
+    def block(fmt, **opts):
+        return {name: {"w_packed": weights.pack(
+            torch.randn(a, b, generator=gen, device="cuda") / a ** 0.5, fmt,
+            **opts)} for name, (a, b) in (
+                ("in", (mf["k"], mf["ff"])), ("gate", (mf["k"], mf["ff"])),
+                ("out", (mf["ff"], mf["n"])))}
+
+    def plain_chain(x, blk):
+        w = {name: p["w_packed"] for name, p in blk.items()}
+        h = F.silu(ops.ternary_gemm(x, w["gate"], impl="ref")) \
+            * ops.ternary_gemm(x, w["in"], impl="ref")
+        return ops.ternary_gemm(h, w["out"], impl="ref")
+
+    blocks = {"tiled": block("tiled", **tiles), "bitplane": block("bitplane")}
+    pad = blocks["tiled"]["in"]["w_packed"].packed.shape[1]
+    xs = {m: torch.randn(1, m, mf["k"], generator=gen, device="cuda").to(
+        torch.bfloat16) for m in mf["ms"]}
+    toks = torch.as_tensor(prompts[:mf["prompts"]], device="cuda")
+    tiled_params = _repack_mlps(params, "tiled", **tiles)
+    model = LM(cfg, "cuda")
+
+    _zero_counts()
+    out = {}
+    with torch.no_grad():
+        for fmt, blk in blocks.items():
+            for m, x in xs.items():
+                out[(fmt, m)] = mlp_apply(blk, x, cfg)
+        with ops.serving_phase("prefill"):
+            _, dense_logits = model.prefill(params, {"tokens": toks}, max_len)
+            _, tiled_logits = model.prefill(tiled_params, {"tokens": toks},
+                                            max_len)
+        torch.cuda.synchronize()
+    launches = _read_counts()
+    print(f"mlp_formats launches: {json.dumps(launches)}", flush=True)
+    want_b4 = 2 + 2 * cfg.num_layers
+    if launches["fused_mlp"] != want_b4:
+        raise AssertionError(f"mlp_formats: B4 launched "
+                             f"{launches['fused_mlp']} times, expected "
+                             f"{want_b4} (two tiled blocks, then one per "
+                             f"layer in each prefill)")
+    if launches["ternary_gemm_bitplane"] != 3 * len(mf["ms"]):
+        raise AssertionError(f"mlp_formats: B7 launched "
+                             f"{launches['ternary_gemm_bitplane']} times, "
+                             f"expected {3 * len(mf['ms'])} (the bitplane "
+                             f"chain's three GEMMs per block)")
+    rows = []
+    for (fmt, m), y in out.items():
+        x2 = xs[m].reshape(m, mf["k"])
+        err = check_close(f"{fmt} MLP block M={m}", y.reshape(m, mf["n"]),
+                          plain_chain(x2, blocks[fmt]))
+        route = (f"B4 fused, words {pad} wide" if fmt == "tiled"
+                 else "chain (B7)")
+        rows.append({"format": fmt, "m": m, "route": route,
+                     "max_abs_err": err})
+        print(f"{fmt} MLP block M={m} K={mf['k']} ff={mf['ff']} "
+              f"N={mf['n']}: {route}, agrees with the plain chain, "
+              f"max_abs_err {err}", flush=True)
+    agree = _compare_logits(
+        f"full-width prefill, tiled MLPs vs dense2bit MLPs "
+        f"({toks.shape[0]} prompts)", dense_logits[:, -1],
+        tiled_logits[:, -1], LOGIT_TOL)
+    print(f"tiled-MLP model: logits bitwise equal to the dense2bit "
+          f"model's: {bool(torch.equal(dense_logits, tiled_logits))} "
+          f"(information); greedy tokens agree on {agree}/{toks.shape[0]}",
+          flush=True)
+    return rows, launches
+
+
 def _tiled_pack(rng_seed, k, n, sparsity, scale):
     """A tile-structured ``tiled`` pack drawn as kernel_bench draws it,
     packed on the card."""
@@ -798,6 +959,15 @@ def gemm_formats_phase(flush):
             times = {impl: cuda_ms(lambda i=impl: ops.ternary_gemm(
                 x, w, impl=i), iters, flush)
                 for impl in ("skip", "skip_db", "dense")}
+            # the wrappers called directly (no dispatch): kernel time alone
+            bm = gemm_lib.SKIP_BLOCK_M["decode" if m <= 16 else "prefill"]
+            kernel = {db: cuda_ms(lambda d=db: gemm_lib.ternary_gemm_skip_cuda(
+                x, w.packed, w.kt_indices, w.kt_counts, w.scale, n=w.n,
+                tile_k=w.tile_k, tile_n=w.tile_n, block_m=bm, db=d), iters,
+                flush) for db in (False, True)}
+            dense_kernel_ms = cuda_ms(lambda: gemm_lib.ternary_gemm_cuda(
+                x, w.packed, w.scale, n=w.n, variant=gemm_lib.VARIANTS[
+                    "decode" if m <= 16 else "prefill"]), iters, flush)
             plain_ms = cuda_ms(lambda: skip_plain(x, w), 5, flush)
             library_ms = cuda_ms(lambda: torch.matmul(x, w_eff), iters,
                                  flush)
@@ -808,12 +978,14 @@ def gemm_formats_phase(flush):
                       "tiles": {"occupied": w.occupied_tiles,
                                 "visited": w.visited_tiles(),
                                 "total": w.total_tiles()},
-                      "dense_ms": times["dense"], "plain_ms": plain_ms,
+                      "dense_ms": times["dense"],
+                      "dense_kernel_ms": dense_kernel_ms, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "dense_equal": True}
-            for name, impl in (("ternary_gemm_skip", "skip"),
-                               ("ternary_gemm_skip_db", "skip_db")):
+            for name, impl, db in (("ternary_gemm_skip", "skip", False),
+                                   ("ternary_gemm_skip_db", "skip_db", True)):
                 rows[name].append({**common, "ms": times[impl],
+                                   "kernel_ms": kernel[db],
                                    "max_abs_err": errs[impl]})
             print(f"{label}: auto={plan} skip==skip_db==dense; "
                   + json.dumps({**common, "skip_ms": times["skip"],
@@ -869,12 +1041,22 @@ def gemm_formats_phase(flush):
             check_close(f"{label} factorized vs plain mode", fact, got)
             w_eff = _effective(w)
             iters = 20
+            variant = gemm_lib.VARIANTS["decode" if m <= 16 else "prefill"]
             row = {"sparsity": s, "m": m, "k": k, "n": n,
                    "max_abs_err": max(err, err_f),
                    "ms": cuda_ms(lambda: ops.ternary_gemm(x, w), iters,
                                  flush),
                    "factorized_ms": cuda_ms(lambda: ops.ternary_gemm(
                        x, w, impl="bitplane_factorized"), iters, flush),
+                   # the wrapper called directly: kernel time alone
+                   "kernel_ms": cuda_ms(
+                       lambda: bitplane_lib.ternary_gemm_bitplane_cuda(
+                           x, w.plus, w.minus, w.scale, variant=variant),
+                       iters, flush),
+                   "factorized_kernel_ms": cuda_ms(
+                       lambda: bitplane_lib.ternary_gemm_bitplane_cuda(
+                           x, w.plus, w.minus, w.scale, factorized=True,
+                           variant=variant), iters, flush),
                    "plain_ms": cuda_ms(
                        lambda: bitplane_lib.ternary_gemm_bitplane_ref(*args),
                        5, flush),
@@ -886,6 +1068,8 @@ def gemm_formats_phase(flush):
             rows["ternary_gemm_bitplane"].append(row)
             print(f"{label}: " + json.dumps(row), flush=True)
 
+    ragged_formats(rows)
+
     ref = (x_b3.float() @ base3.materialize(torch.float32, with_scale=True)
            ).to(torch.bfloat16)
     err = check_close("base3", out["base3"], ref)
@@ -893,6 +1077,76 @@ def gemm_formats_phase(flush):
           f"plain ref row ran on the card, max_abs_err {err}", flush=True)
     print(f"gemm_formats took {time.perf_counter() - t0:.1f}s", flush=True)
     return rows, launches
+
+
+def ragged_formats(rows):
+    """B2 (== B3 == B1 bitwise) at tiles whose tile_k is not a multiple of
+    64 or tile_n of 32, and B7 in both modes, at ragged shapes (K % 8 != 0,
+    odd N, M 1, 17, 1000), each against its plain version; rows marked
+    ``"on_path": false``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import formats, weights
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_gemm as gemm_lib
+    from repro_torch.kernels import ternary_gemm_bitplane as bitplane_lib
+
+    rf = RAGGED_FORMATS
+    rng = np.random.default_rng(SEED + 11)
+
+    def cuda(a):
+        return torch.from_numpy(a).cuda()
+
+    for m, k, n in rf["shapes"]:
+        x = cuda(rng.standard_normal((m, k)).astype(np.float32)).to(
+            torch.bfloat16)
+        scale = cuda(rng.random(n).astype(np.float32) + 0.5)
+        bias = cuda(rng.standard_normal(n).astype(np.float32))
+        for tk, tn in rf["tiles"]:
+            kp, npad = -(-k // tk) * tk, -(-n // tn) * tn
+            t = formats.random_tile_ternary(rng, kp, npad, tk, tn,
+                                            rf["sparsity"])[:k, :n]
+            w = weights.pack(cuda(t), "tiled", scale=scale, tile_k=tk,
+                             tile_n=tn)
+            err = 0.0
+            for kw in (dict(), dict(bias=bias, fuse_prelu=True)):
+                ys = {impl: ops.ternary_gemm(x, w, impl=impl, **kw)
+                      for impl in ("skip", "skip_db", "dense")}
+                label = (f"ragged tiled M={m} K={k} N={n} tile ({tk}, {tn})"
+                         f"{' bias+PReLU' if kw else ''}")
+                for impl in ("skip", "skip_db"):
+                    if not torch.equal(ys[impl], ys["dense"]):
+                        raise AssertionError(f"{label}: {impl} != dense "
+                                             f"bitwise")
+                err = max(err, check_close(
+                    label, ys["skip"], gemm_lib.ternary_gemm_skip_ref(
+                        x, w.packed, w.kt_indices, w.kt_counts, w.scale,
+                        kw.get("bias"), n=n, tile_k=tk, tile_n=tn,
+                        fuse_prelu=kw.get("fuse_prelu", False))))
+            rows["ternary_gemm_skip"].append(
+                {"m": m, "k": k, "n": n, "tile": [tk, tn],
+                 "occupancy": w.occupancy(), "max_abs_err": err,
+                 "dense_equal": True, "on_path": False})
+            print(f"ragged tiled M={m} K={k} N={n} tile ({tk}, {tn}): "
+                  f"skip==skip_db==dense, max_abs_err {err}", flush=True)
+        planes = weights.Bitplane.from_dense(
+            cuda(formats.random_ternary(rng, k, n, 0.25)), scale=scale,
+            bias=bias)
+        err = 0.0
+        for fact in (False, True):
+            impl = "bitplane_factorized" if fact else "bitplane"
+            for prelu in (False, True):
+                got = ops.ternary_gemm(x, planes, fuse_prelu=prelu,
+                                       impl=impl)
+                err = max(err, check_close(
+                    f"ragged bitplane {impl} M={m} K={k} N={n}", got,
+                    bitplane_lib.ternary_gemm_bitplane_ref(
+                        x, planes.plus, planes.minus, scale, bias,
+                        factorized=fact, fuse_prelu=prelu)))
+        rows["ternary_gemm_bitplane"].append(
+            {"m": m, "k": k, "n": n, "max_abs_err": err, "on_path": False})
+        print(f"ragged bitplane M={m} K={k} N={n}: both modes agree, "
+              f"max_abs_err {err}", flush=True)
 
 
 def flash_kernel_phase(flush):
@@ -1296,15 +1550,19 @@ def main() -> int:
     shapes = kernel_phase(flush)
     shapes["paged_decode_attention"] = paged_kernel_phase(flush)
     del flush
+    row_independence_check()
+    torch.cuda.empty_cache()
     cfg, params, prompts, gens, max_len, dense_outs, launches = serve_phase()
     model_phase(cfg, params, prompts, max_len)
     runs = {"dense": launches}
     runs.update(paged_phases(cfg, params, prompts, gens, max_len,
                              dense_outs))
+    mlp_rows, runs["mlp_formats"] = mlp_formats_phase(cfg, params, prompts,
+                                                      max_len)
     del params
     torch.cuda.empty_cache()
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-    format_rows, format_launches = gemm_formats_phase(flush)
+    format_rows, runs["gemm_formats"] = gemm_formats_phase(flush)
     k_sweep = format_rows.pop("k_sweep")
     shapes.update(format_rows)
     shapes["flash_attention"] = flash_kernel_phase(flush)
@@ -1349,13 +1607,11 @@ def main() -> int:
         path_rows = [r for r in rows if r.get("on_path", True)]
         total = {key: sum(r[key] for r in path_rows)
                  for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
-        own_runs = ({"gemm_formats": format_launches} if name in format_rows
-                    else runs)
         entry = {
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
-            "launches": sum(run[name] for run in own_runs.values()),
-            "runs": {label: run[name] for label, run in own_runs.items()},
+            "launches": sum(run[name] for run in runs.values()),
+            "runs": {label: run[name] for label, run in runs.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"],
@@ -1367,6 +1623,8 @@ def main() -> int:
         }
         if name == "ternary_gemm_skip_db":
             entry["k_sweep"] = k_sweep
+        if name == "fused_mlp":
+            entry["mlp_formats"] = mlp_rows
         kernels.append(entry)
     print(f"chip_smoke took {time.perf_counter() - start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""A/B of the port's B1 (ternary GEMM) and B4 (fused MLP) kernels between
-checkouts, on one CUDA card, in turns.
+"""A/B of the port's ternary kernels between checkouts, on one CUDA card, in
+turns: B1 (ternary GEMM) and B4 (fused MLP) at the main path's shapes, and
+B2, B3 and B7 (tile-skipping and bitplane GEMMs) with B1 and cuBLAS on the
+same packs at the paper's sizes.
 
     python3 scripts/torch_kernel_ab.py --tree OLD --tree . --tree . \\
         --tree OLD [--split .] [--out chiprun_out/kernel_ab.json]
 
 Each ``--tree`` is the root of a checkout (its ``chip_smoke.py`` and
 ``src/``). For each, in the order given, a fresh process builds that
-tree's kernels and runs its ``chip_smoke.kernel_phase``: every B1 and B4
-shape of the main path checked against its plain version and timed with
-CUDA events, L2 flushed before each launch. Naming the parent and the
-change in turns (parent, change, change, parent) shows the card's drift
-beside the change's effect. Prints one line per shape with each run's
-kernel ms (the wrapper called directly) and writes all rows as JSON.
+tree's kernels and runs its ``chip_smoke.kernel_phase`` (every B1 and B4
+shape of the main path) and its ``chip_smoke.gemm_formats_phase`` (tiled
+packs through B2, B3 and B1, the K sweep, bitplane packs through B7 in
+both modes), each shape checked against its plain version and timed
+with CUDA events, L2 flushed before each launch. Naming the parent and
+the change in turns (parent, change, change, parent) shows the card's
+drift beside the change's effect. Prints one line per shape with each
+run's kernel ms (B1 and B4: the wrapper called directly; B2, B3, B7:
+through ``ops``) beside B1's on the same pack and the library call's, and
+writes all rows as JSON.
 With ``--split TREE`` it also profiles B4 in TREE at the main path's
 shapes (``torch.profiler``, L2 flushed before each call) and prints the
 device time of each of its two launches, the fused kernel and the
@@ -35,9 +41,11 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 import chip_smoke
 from repro_torch.kernels import build
-build.build(["ternary_gemm", "fused_mlp"])
+build.build(["ternary_gemm", "ternary_gemm_skip", "ternary_gemm_bitplane",
+             "fused_mlp"])
 flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
 rows = chip_smoke.kernel_phase(flush)
+rows.update(chip_smoke.gemm_formats_phase(flush)[0])
 print("AB_ROWS " + json.dumps(rows), flush=True)
 """
 
@@ -81,8 +89,24 @@ print("SPLIT " + json.dumps(out), flush=True)
 """
 
 
+# per kernel: the time keys of its rows (the first is the kernel's own;
+# a checkout older than a key prints "-" for it)
+TIMES = {"ternary_gemm": ("kernel_ms",), "fused_mlp": ("kernel_ms",),
+         "ternary_gemm_skip": ("ms", "kernel_ms", "dense_ms"),
+         "ternary_gemm_skip_db": ("ms", "kernel_ms", "dense_ms"),
+         "ternary_gemm_bitplane": ("ms", "factorized_ms", "kernel_ms",
+                                   "factorized_kernel_ms"),
+         "k_sweep": ("skip_db_ms", "dense_ms")}
+
+
+def fmt_ms(v) -> str:
+    return "-" if v is None else f"{v:.5g}"
+
+
 def shape_key(name: str, row: dict) -> str:
     dims = ("m", "k", "ff", "n") if name == "fused_mlp" else ("m", "k", "n")
+    if "sparsity" in row:
+        dims = ("sparsity",) + dims
     return name + " " + " ".join(f"{d}={row[d]}" for d in dims)
 
 
@@ -110,20 +134,19 @@ def main() -> int:
         print(f"run {i}: {tree} done", flush=True)
     table = {}
     for i, run in enumerate(runs):
-        for name in ("ternary_gemm", "fused_mlp"):
-            for row in run["rows"][name]:
+        for name, keys in TIMES.items():
+            for row in run["rows"].get(name, []):
                 if row.get("on_path", True):
                     table.setdefault(shape_key(name, row), []).append(
-                        {"run": i, "kernel_ms": row["kernel_ms"],
-                         "ms": row["ms"], "library_ms": row["library_ms"],
-                         "plain_ms": row["plain_ms"],
-                         "bound_ms": row["bound_ms"],
-                         "max_abs_err": row["max_abs_err"]})
+                        {"run": i, **{k: row.get(k) for k in keys + (
+                            "library_ms", "plain_ms", "bound_ms",
+                            "max_abs_err")}})
     for key, cells in table.items():
-        print(key + ": kernel_ms " + " / ".join(
-            f"{c['kernel_ms']:.5g}" for c in cells) + "; library_ms "
-            + " / ".join(f"{c['library_ms']:.5g}" for c in cells)
-            + f"; bound_ms {cells[0]['bound_ms']:.3g}", flush=True)
+        keys = TIMES[key.split(" ")[0]] + ("library_ms",)
+        print(key + ": " + "; ".join(
+            k + " " + " / ".join(fmt_ms(c[k]) for c in cells)
+            for k in keys) + f"; bound_ms {cells[0]['bound_ms']:.3g}",
+            flush=True)
     split = None
     if args.split:
         proc = subprocess.run([sys.executable, "-c", SPLIT],

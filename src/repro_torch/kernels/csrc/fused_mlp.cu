@@ -14,30 +14,46 @@
 // is the traffic the fusion exists to remove, so h never goes to device
 // memory: each block keeps its (BM x FC) slice of h in shared memory.
 //
-// Design: block (c, r) owns ff chunk c (FC columns) of row tile r. Stage 1
-// computes h[rows r, chunk c] strip by strip (BNS columns a strip), the up
+// Design: an ff chunk of FC columns is owned by a cluster of CL blocks
+// (Hopper thread-block clusters) per row tile; rank q of the cluster
+// computes columns [q * FC / CL, (q + 1) * FC / CL) of the chunk's h.
+// Stage 1 computes that slice strip by strip (BNS columns a strip), the up
 // and gate projections from one A fragment and two decoded B fragments,
 // and rounds to bf16 exactly where the plain chain rounds: yi and yg after
-// their epilogues, act(yg), then the product. Stage 2 multiplies the h
-// slice (ldmatrix from shared memory) by the chunk's rows of Wo, strip by
-// strip, into an f32 partial down-projection in device memory. Both
-// stages are one flattened sequence of 64-deep steps through one ring of
-// cp.async stages (x tile and the Wi/Wg words, or the Wo words), so Wo's
-// first words are in flight while stage 1 ends. The B fragments are
-// decoded in registers from the packed words (ternary_tiles.cuh's
-// register-decode loop, the same as ternary_gemm.cu). A second, fixed-order
-// pass sums the chunks' partials and applies the down epilogue (so, bo,
-// cast), so the sum order never depends on scheduling; partials are
-// (chunks, M, N) f32.
-// Two tiles, the fastest of the candidates timed on the H100 (PERF.md §6):
-// decode (M <= 16) is BM 16 with 8 warps of 16 x 8 and 64-column strips,
-// 8 stages, FC 64 (64 blocks at ff 4096); prefill and evaluation take BM
-// 64 with 8 warps (2 x 4) of 32 x 32 and 128-column strips, 3 stages, and
-// FC up to 512, narrowed by the wrapper's plan until the grid holds two
-// blocks an SM (256 at M 1024, 512 at M 8192). At FC 1024 the h slice
+// their epilogues, act(yg), then the product. With CL > 1 the cluster then
+// exchanges slices through distributed shared memory (barrier, 16-byte
+// reads of the peers' slices, barrier at exit), so every block holds the
+// chunk's whole (BM x FC) h. Stage 2 multiplies it (ldmatrix from shared
+// memory) by the chunk's rows of Wo for the down projection's strips q,
+// q + CL, ... into an f32 partial in device memory. Both stages are one
+// flattened sequence of 64-deep steps through one ring of cp.async
+// stages (x tile and the Wi/Wg words, or the Wo words), so Wo's first
+// words are in flight while stage 1 ends. The B fragments are decoded in
+// registers from the packed words (ternary_tiles.cuh's register-decode
+// loop, the same as ternary_gemm.cu). A second, fixed-order pass sums the
+// chunks' partials and applies the down epilogue (so, bo, cast), so the
+// sum order never depends on scheduling; partials are (chunks, M, N) f32.
+//
+// Row independence: FC comes from the widths alone (fused_mlp.launch_plan,
+// 512 at ff 4096), both tiles accumulate each element's K chunks and its
+// FC-deep down-projection chunk in ascending 16-deep HMMAs from zero, and
+// the reduce pass adds the same ff / FC partials in the same order, so a
+// row's output does not depend on M or on the tile. CL only spreads a
+// chunk over more SMs (the wrapper raises it while the grid is short of
+// the card): it moves no sum.
+//
+// Words are read in place with a row stride per matrix (ldw_i, ldw_g,
+// ldw_o >= the logical widths), so a tile-padded `tiled` pack runs with
+// no copy; x past K and h past ff are zero, so padded rows add nothing.
+// Two tiles, the fastest of the candidates timed on the H100 (PERF.md
+// §6): decode (M <= 16) is BM 16 with 8 warps of 16 x 8 and 64-column
+// strips, 8 stages; prefill and evaluation take BM 64 with 8 warps (2 x 4)
+// of 32 x 32 and 128-column strips, 3 stages. At FC 1024 the h slice
 // (129 KB) left one block an SM and ran 1.2x slower at M 8192; 64-row
 // warp tiles and 128-row blocks were slower too.
 #include "ternary_tiles.cuh"
+
+#include <cooperative_groups.h>
 
 using ternary::APAD;
 using ternary::BK;
@@ -87,6 +103,29 @@ __device__ __forceinline__ float hidden(float yi, float yg, int gf, int FF,
   return ternary::round_bf16(activate(yg, act)) * yi;
 }
 
+// Cluster exchange of the h slices (cluster size CL > 1): after the
+// barrier every peer's slice of hw columns is final; copy it into the same
+// columns here. The kernel's barrier at exit keeps each block's h alive
+// while its peers read it.
+template <int BM>
+__device__ __forceinline__ void exchange_h(bf16* hs, int HLD, int hw,
+                                           int rank, int CL) {
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  cluster.sync();
+  constexpr int V = 8;                          // bf16 per 16-byte copy
+  const int per_row = hw / V;
+  for (int q = 0; q < CL; ++q) {
+    if (q == rank) continue;
+    const bf16* peer = cluster.map_shared_rank(hs, q);
+    for (int i = threadIdx.x; i < BM * per_row; i += blockDim.x) {
+      const int r = i / per_row, c = q * hw + (i % per_row) * V;
+      *reinterpret_cast<uint4*>(hs + r * HLD + c) =
+          *reinterpret_cast<const uint4*>(peer + r * HLD + c);
+    }
+  }
+}
+
 template <int BM, int WARPS_M, int WARPS_N, int FN, int STAGES, bool GATED>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
 fused_mlp_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ wi,
@@ -95,7 +134,8 @@ fused_mlp_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ wi,
                  const float* __restrict__ si, const float* __restrict__ bi,
                  const float* __restrict__ sg, const float* __restrict__ bg,
                  float* __restrict__ partial, int M, int K, int FF, int N,
-                 int kw1, int kw2, int FC, int act, int vec) {
+                 int kw1, int kw2, int ldw_i, int ldw_g, int ldw_o, int FC,
+                 int CL, int act, int vec) {
   constexpr int NT = GATED ? 2 : 1;
   constexpr int FM = BM / (16 * WARPS_M);
   constexpr int BNS = WARPS_N * FN * 8;        // strip width
@@ -107,7 +147,9 @@ fused_mlp_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ wi,
   unsigned char* ring = smem + S::LUT + S::h_bytes(FC);
   const int HLD = FC + APAD;
 
-  const int chunk = blockIdx.x, f0 = chunk * FC;
+  const int chunk = blockIdx.x / CL, f0 = chunk * FC;
+  const int rank = blockIdx.x % CL;             // == the cluster block rank
+  const int hw = FC / CL, hbase = rank * hw;    // this block's h columns
   const int m0 = blockIdx.y * BM;
   const int warp = threadIdx.x / 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
@@ -115,8 +157,10 @@ fused_mlp_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ wi,
   const int g = lane >> 2, t = lane & 3;
   const int nk1 = (K + BK - 1) / BK;            // stage 1: K steps a strip
   const int nk2 = FC / BK;                      // stage 2: K steps a strip
-  const int steps1 = (FC / BNS) * nk1;
-  const int steps = steps1 + ((N + BNS - 1) / BNS) * nk2;
+  const int steps1 = (hw / BNS) * nk1;
+  const int nstrips = (N + BNS - 1) / BNS;      // down-projection strips
+  const int mine = rank < nstrips ? (nstrips - rank + CL - 1) / CL : 0;
+  const int steps = steps1 + mine * nk2;
 
   auto xs = [&](int s) { return reinterpret_cast<bf16*>(ring + s * S::STAGE); };
   auto ws = [&](int s) {
@@ -125,17 +169,18 @@ fused_mlp_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ wi,
   auto load = [&](int step) {
     const int s = step % STAGES;
     if (step < steps1) {
-      const int c0 = f0 + (step / nk1) * BNS, kt = step % nk1;
-      ternary::ring_stage_x<BM>(xs(s), x, m0, kt * BK, M, K, vec);
-      ternary::ring_stage_words<BNS>(ws(s), wi, kt * BKW, c0, kw1, FF, FF,
-                                     vec);
+      const int c0 = f0 + hbase + (step / nk1) * BNS, kt = step % nk1;
+      ternary::ring_stage_x<BM>(xs(s), x, m0, kt * BK, M, K, K, vec);
+      ternary::ring_stage_words<BNS>(ws(s), wi, kt * BKW, c0, kw1, ldw_i,
+                                     ldw_i, vec);
       if (GATED)
         ternary::ring_stage_words<BNS>(ws(s) + BKW * BNS, wg, kt * BKW, c0,
-                                       kw1, FF, FF, vec);
+                                       kw1, ldw_g, ldw_g, vec);
     } else {
       const int s2 = step - steps1;
       ternary::ring_stage_words<BNS>(ws(s), wo, f0 / 16 + (s2 % nk2) * BKW,
-                                     (s2 / nk2) * BNS, kw2, N, N, vec);
+                                     (rank + (s2 / nk2) * CL) * BNS, kw2,
+                                     ldw_o, ldw_o, vec);
     }
   };
 
@@ -149,6 +194,7 @@ fused_mlp_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ wi,
     ternary::cp_async_commit();
   }
   for (int step = 0; step < steps; ++step) {
+    if (CL > 1 && step == steps1) exchange_h<BM>(hs, HLD, hw, rank, CL);
     ternary::cp_async_wait<STAGES - 2>();
     __syncthreads();    // step's stage (and h, at stage 2) visible to all
     if (step + STAGES - 1 < steps) load(step + STAGES - 1);
@@ -160,7 +206,7 @@ fused_mlp_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ wi,
           acc, xs(s) + wm * FM * 16 * XLD, XLD, ws(s) + wn * FN * 8, BKW,
           lut);
       if (step % nk1 == nk1 - 1) {
-        const int cl0 = (step / nk1) * BNS + wn * FN * 8;
+        const int cl0 = hbase + (step / nk1) * BNS + wn * FN * 8;
 #pragma unroll
         for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -188,7 +234,7 @@ fused_mlp_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ wi,
           acc0, hs + wm * FM * 16 * HLD + kt * BK, HLD, ws(s) + wn * FN * 8,
           BKW, lut);
       if (kt == nk2 - 1) {
-        const int c0 = (s2 / nk2) * BNS + wn * FN * 8;
+        const int c0 = (rank + (s2 / nk2) * CL) * BNS + wn * FN * 8;
 #pragma unroll
         for (int i = 0; i < FM; ++i)
 #pragma unroll
@@ -212,6 +258,12 @@ fused_mlp_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ wi,
     }
   }
   ternary::cp_async_wait<0>();
+  if (CL > 1) {
+    // a block with no strip of the output still meets its peers at the
+    // exchange's barrier, then at the exit's
+    if (steps == steps1) cooperative_groups::this_cluster().sync();
+    cooperative_groups::this_cluster().sync();
+  }
 }
 
 // Fixed-order sum of the chunks' partial down-projections + the f32
@@ -234,11 +286,12 @@ template <int BM, int WARPS_M, int WARPS_N, int FN, int STAGES, bool GATED>
 static int launch(const void* x, const void* wi, const void* wg,
                   const void* wo, const void* si, const void* bi,
                   const void* sg, const void* bg, void* partial, int M, int K,
-                  int FF, int N, int kw1, int kw2, int FC, int act, int vec,
+                  int FF, int N, int kw1, int kw2, int ldw_i, int ldw_g,
+                  int ldw_o, int FC, int CL, int act, int vec,
                   cudaStream_t stream) {
   constexpr int BNS = WARPS_N * FN * 8;
   using S = MlpSmem<BM, BNS, STAGES, GATED ? 2 : 1>;
-  if (FC <= 0 || FC % BNS != 0 || FC % BK != 0)
+  if (FC <= 0 || FC % BK != 0 || CL < 1 || CL > 8 || FC % (CL * BNS) != 0)
     return (int)cudaErrorInvalidValue;
   auto kernel = fused_mlp_kernel<BM, WARPS_M, WARPS_N, FN, STAGES, GATED>;
   const int smem = S::bytes(FC);
@@ -249,13 +302,26 @@ static int launch(const void* x, const void* wi, const void* wg,
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
-  dim3 grid((FF + FC - 1) / FC, (M + BM - 1) / BM);
-  kernel<<<grid, WARPS_M * WARPS_N * 32, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const uint32_t*>(wi),
-      static_cast<const uint32_t*>(wg), static_cast<const uint32_t*>(wo),
-      static_cast<const float*>(si), static_cast<const float*>(bi),
-      static_cast<const float*>(sg), static_cast<const float*>(bg),
-      static_cast<float*>(partial), M, K, FF, N, kw1, kw2, FC, act, vec);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((FF + FC - 1) / FC) * CL, (M + BM - 1) / BM);
+  cfg.blockDim = dim3(WARPS_M * WARPS_N * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const bf16*>(x),
+      static_cast<const uint32_t*>(wi), static_cast<const uint32_t*>(wg),
+      static_cast<const uint32_t*>(wo), static_cast<const float*>(si),
+      static_cast<const float*>(bi), static_cast<const float*>(sg),
+      static_cast<const float*>(bg), static_cast<float*>(partial), M, K, FF,
+      N, kw1, kw2, ldw_i, ldw_g, ldw_o, FC, CL, act, vec);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -264,32 +330,34 @@ static int launch_variant(int variant, const void* x, const void* wi,
                           const void* wg, const void* wo, const void* si,
                           const void* bi, const void* sg, const void* bg,
                           void* partial, int M, int K, int FF, int N, int kw1,
-                          int kw2, int FC, int act, int vec,
-                          cudaStream_t s) {
-  if (variant == 0)
-    return launch<16, 1, 8, 1, 8, GATED>(x, wi, wg, wo, si, bi, sg, bg,
-                                         partial, M, K, FF, N, kw1, kw2, FC,
-                                         act, vec, s);
-  if (variant == 1)
-    return launch<64, 2, 4, 4, 3, GATED>(x, wi, wg, wo, si, bi, sg, bg,
-                                         partial, M, K, FF, N, kw1, kw2, FC,
-                                         act, vec, s);
+                          int kw2, int ldw_i, int ldw_g, int ldw_o, int FC,
+                          int CL, int act, int vec, cudaStream_t s) {
+#define MLP_ARGS x, wi, wg, wo, si, bi, sg, bg, partial, M, K, FF, N, kw1, \
+                 kw2, ldw_i, ldw_g, ldw_o, FC, CL, act, vec, s
+  if (variant == 0) return launch<16, 1, 8, 1, 8, GATED>(MLP_ARGS);
+  if (variant == 1) return launch<64, 2, 4, 4, 3, GATED>(MLP_ARGS);
+#undef MLP_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
-// variant 0: decode tile (BM 16, 8 warps, 64-column strips, FC a multiple
-// of 64); variant 1: prefill tile (BM 64, 8 warps, 128-column strips, FC a
-// multiple of 128). ``partial`` holds ceil(FF / FC) * M * N floats. act: 0
-// silu, 1 relu, 2 none. Returns the cudaError_t of the launches (0 =
-// success).
+// x (M, K) bf16; wi, wg (kw1, ldw_i / ldw_g) and wo (kw2, ldw_o) int32
+// words of which the first FF (wi, wg) and N (wo) columns are read.
+// variant 0: decode tile (BM 16, 8 warps, 64-column strips); variant 1:
+// prefill tile (BM 64, 8 warps, 128-column strips). FC (a multiple of 64)
+// hidden columns a chunk, each chunk spread over a cluster of CL blocks
+// (1 to 8, FC a multiple of CL strips). ``partial`` holds ceil(FF / FC) *
+// M * N floats. act: 0 silu, 1 relu, 2 none. Returns the cudaError_t of
+// the launches (0 = success).
 extern "C" int fused_mlp_bf16(const void* x, const void* wi, const void* wg,
                               const void* wo, const void* si, const void* bi,
                               const void* sg, const void* bg, const void* so,
                               const void* bo, void* partial, void* y, int M,
-                              int K, int FF, int N, int kw1, int kw2, int FC,
+                              int K, int FF, int N, int kw1, int kw2,
+                              int ldw_i, int ldw_g, int ldw_o, int FC, int CL,
                               int act, int variant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vec = (K % 8 == 0) && (FF % 4 == 0) && (N % 4 == 0) &&
+  const int vec = (K % 8 == 0) && (ldw_i % 4 == 0) && (ldw_g % 4 == 0) &&
+                  (ldw_o % 4 == 0) &&
                   (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                   (reinterpret_cast<uintptr_t>(wi) % 16 == 0) &&
                   (reinterpret_cast<uintptr_t>(wg) % 16 == 0) &&
@@ -297,11 +365,11 @@ extern "C" int fused_mlp_bf16(const void* x, const void* wi, const void* wg,
   const int err =
       wg != nullptr
           ? launch_variant<true>(variant, x, wi, wg, wo, si, bi, sg, bg,
-                                 partial, M, K, FF, N, kw1, kw2, FC, act, vec,
-                                 s)
+                                 partial, M, K, FF, N, kw1, kw2, ldw_i, ldw_g,
+                                 ldw_o, FC, CL, act, vec, s)
           : launch_variant<false>(variant, x, wi, wg, wo, si, bi, sg, bg,
-                                  partial, M, K, FF, N, kw1, kw2, FC, act,
-                                  vec, s);
+                                  partial, M, K, FF, N, kw1, kw2, ldw_i,
+                                  ldw_g, ldw_o, FC, CL, act, vec, s);
   if (err != 0) return err;
   const int chunks = (FF + FC - 1) / FC;
   const size_t total = (size_t)M * N;

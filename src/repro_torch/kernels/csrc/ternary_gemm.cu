@@ -76,7 +76,7 @@ ternary_gemm_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ w,
   };
   auto load = [&](int step) {
     const int s = step % STAGES;
-    ternary::ring_stage_x<BM>(xs(s), x, m0, step * BK, M, K, vec);
+    ternary::ring_stage_x<BM>(xs(s), x, m0, step * BK, M, K, K, vec);
     ternary::ring_stage_words<BN>(ws(s), w, step * BKW, n0, kw, ldw, ldw, vec);
   };
 

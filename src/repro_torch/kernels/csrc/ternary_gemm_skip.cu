@@ -4,9 +4,9 @@
 // nonzero weight.
 //
 // Replaces two TPU kernels of repro/kernels/ternary_gemm.py:
-//   skip    (DB = false): ternary_gemm_skip_pallas    (_skip_kernel; the
+//   skip    (B2, db = 0): ternary_gemm_skip_pallas    (_skip_kernel; the
 //                         pallas_call at line 325);
-//   skip_db (DB = true):  ternary_gemm_skip_db_pallas (_skip_db_kernel; the
+//   skip_db (B3, db = 1): ternary_gemm_skip_db_pallas (_skip_db_kernel; the
 //                         pallas_call at line 496).
 //
 // The weight is a tile-padded (Kp/16, Np) word matrix plus its pack-time
@@ -20,31 +20,58 @@
 // tile_k * tile_n per occupied tile on the tensor cores, so the work falls
 // with the occupied fraction of the tiles.
 //
-// Design: one block per (BM rows x BN columns) of one N-tile (BN divides
+// Both: one block per (BM rows x BN columns) of one N-tile (BN divides
 // tile_n, so several blocks share an N-tile's list). The block reads its
 // N-tile's count and walks the list; each occupied tile is processed in
 // BK = 64 deep steps (the last one shorter when tile_k is not a multiple
-// of 64), each step staging the x slice and the word rows, decoding the
-// words to a bf16 +1/0/-1 tile in shared memory and running the same
-// 16-deep WMMA chunks (ternary::mma_tile) and the same epilogue
-// (ternary::store_epilogue) as ternary_gemm.cu. Every output element
-// therefore sees the same K chunks in the same ascending order as the
-// dense kernel, minus chunks whose products are all exact zeros, and the
-// two agree bit for bit.
+// of 64), step s of the walk being step s % chunks of the list's tile
+// s / chunks. Every output element therefore sees the same 16-deep K
+// chunks in the same ascending order as the dense kernel (ternary_gemm.cu,
+// B1), through the same HMMA.16816, minus chunks whose products are all
+// exact zeros, and the three agree bit for bit.
 //
-// DB adds a two-stage pipeline: the x slice and raw words of step s + 1
-// are copied into the other stage with cp.async before step s is decoded
-// and multiplied. Staging by 64-deep steps, not whole tiles, keeps shared
-// memory at ~40 KB whatever tile_k is (a whole 512-deep x tile would be
-// 64 KB per stage at BM 64). The 16-byte copies need x rows 16-byte
-// aligned (K % 8 == 0); otherwise the same stages are filled with plain
-// loads. wgmma, TMA and deeper pipelines are later work.
+// B2 (ternary_gemm_skip_kernel) runs B1's register-decode loop
+// (ternary_tiles.cuh) over the walk: a ring of STAGES cp.async stages
+// prefetches steps s + 1 ... s + STAGES - 1 of the list, each stage the x
+// slice (columns bounded by the tile's end, row stride K) and the raw
+// words (rows bounded by the tile's end, row stride ldw); each lane turns
+// the word of its column into its mma.sync B fragment with the nibble
+// table, and the epilogue runs from the accumulators. A step at a tile's
+// end never reads the next tile's words: it stages zeros past the tile's
+// end and runs its four chunks, the extra ones adding exact zeros (as B1
+// adds the chunks of an empty tile). Tiles are B1's per phase: decode (bm 16) 16 rows with 8
+// stages, prefill (bm 64) 64 rows with 4 warps of 64 rows and 4 stages;
+// bn 16, 32, 64 or 128 (the wrapper takes 64 at decode, as B1 does).
+//
+// B3 (ternary_gemm_skip_db_kernel) keeps the older WMMA loop: each step
+// decodes its words into a bf16 +1/0/-1 tile in shared memory and runs
+// the 16-deep WMMA chunks (ternary::mma_tile) and the smem epilogue
+// (ternary::store_epilogue), with a two-stage pipeline: the x slice and
+// raw words of step s + 1 are copied into the other stage with cp.async
+// before step s is decoded and multiplied. Staging by 64-deep steps keeps
+// shared memory at ~40 KB whatever tile_k is.
+//
+// The 16-byte copies need x rows 16-byte aligned (K % 8 == 0) and ldw % 4
+// == 0; otherwise the same stages are filled with plain loads. wgmma and
+// TMA are later work.
 #include "ternary_tiles.cuh"
 
 using ternary::APAD;
 using ternary::BK;
 using ternary::BKW;
+using ternary::XLD;
 using ternary::bf16;
+
+// B2's shared memory: the nibble table, then STAGES stages of (x slice,
+// raw words).
+template <int BM, int BN, int STAGES>
+struct RingSmem {
+  static constexpr int LUT = 128;                          // bytes
+  static constexpr int X = BM * XLD * 2;                   // bytes a stage
+  static constexpr int W = BKW * BN * 4;
+  static constexpr int STAGE = X + W;
+  static constexpr int BYTES = LUT + STAGES * STAGE;
+};
 
 // Fill one stage for step (kbase, kend, wend): x slice (BM x BK) with row
 // stride BK + APAD, zero past row M and column kend; raw words (BKW x BN)
@@ -85,7 +112,19 @@ __device__ __forceinline__ void stage_async(bf16* xs, uint32_t* wr,
   ternary::cp_async_commit();
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, bool DB>
+// step s of an N-tile's walk -> (first K row, one past its last row, one
+// past its last word row), the last two clipped to the end of its tile
+__device__ __forceinline__ void step_k(const int* idx, int chunks, int tile_k,
+                                       int K, int kw, int s, int& kbase,
+                                       int& kend, int& wend) {
+  const int k0 = idx[s / chunks] * tile_k;
+  kbase = k0 + (s % chunks) * BK;
+  kend = min(K, k0 + tile_k);
+  wend = min(kw, (k0 + tile_k) / 16);
+}
+
+// B2: the register-decode ring over the block's occupied steps.
+template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
 ternary_gemm_skip_kernel(const bf16* __restrict__ x,
                          const uint32_t* __restrict__ w,
@@ -96,9 +135,79 @@ ternary_gemm_skip_kernel(const bf16* __restrict__ x,
                          int M, int K, int N, int kw, int ldw, int tile_k,
                          int tile_n, int max_occ, int fuse_prelu,
                          float prelu_alpha, int vec) {
+  constexpr int FM = BM / (16 * WARPS_M);
+  constexpr int FN = BN / (8 * WARPS_N);
+  static_assert(FM * 16 * WARPS_M == BM && FN * 8 * WARPS_N == BN,
+                "tile does not split into 16 x 8 fragments per warp");
+  using S = RingSmem<BM, BN, STAGES>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint32_t* lut = reinterpret_cast<uint32_t*>(smem);
+  unsigned char* ring = smem + S::LUT;
+
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int warp = threadIdx.x / 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int* idx = kt_indices + (size_t)(n0 / tile_n) * max_occ;
+  const int chunks = (tile_k + BK - 1) / BK;    // BK steps per tile
+  const int steps = kt_counts[n0 / tile_n] * chunks;
+
+  auto xs = [&](int s) { return reinterpret_cast<bf16*>(ring + s * S::STAGE); };
+  auto ws = [&](int s) {
+    return reinterpret_cast<uint32_t*>(ring + s * S::STAGE + S::X);
+  };
+  // Steps load in order, so the next one's (list entry, chunk) is a
+  // running pair. A step at a tile's end stages zeros past it (x past
+  // kend, words past wend), so every step runs all BKW chunks: the extra
+  // ones add exact zeros, as B1's chunks of an empty tile do.
+  int lt = 0, lc = 0;
+  auto load = [&](int step) {
+    const int k0 = idx[lt] * tile_k;
+    const int kbase = k0 + lc * BK;
+    const int kend = min(K, k0 + tile_k), wend = min(kw, (k0 + tile_k) / 16);
+    if (++lc == chunks) lc = 0, ++lt;
+    const int s = step % STAGES;
+    ternary::ring_stage_x<BM>(xs(s), x, m0, kbase, M, kend, K, vec);
+    ternary::ring_stage_words<BN>(ws(s), w, kbase / 16, n0, wend, ldw, ldw,
+                                  vec);
+  };
+
+  ternary::fill_nibble_lut(lut);
+  float acc[1][FM][FN][4];
+  ternary::zero_frags(acc);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(s);
+    ternary::cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    ternary::cp_async_wait<STAGES - 2>();
+    __syncthreads();      // step's stage landed; step - 1's slot is free
+    if (step + STAGES - 1 < steps) load(step + STAGES - 1);
+    ternary::cp_async_commit();
+    const int s = step % STAGES;
+    ternary::mma_step_2bit<FM, FN, BN, 1>(
+        acc, xs(s) + wm * FM * 16 * XLD, XLD, ws(s) + wn * FN * 8, BKW, lut);
+  }
+  ternary::cp_async_wait<0>();
+  ternary::store_frags_epilogue<FM, FN>(acc[0], m0 + wm * FM * 16,
+                                        n0 + wn * FN * 8, M, N, scale, bias,
+                                        fuse_prelu, prelu_alpha, y);
+}
+
+// B3: the two-stage WMMA walk.
+template <int BM, int BN, int WARPS_M, int WARPS_N>
+__global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
+ternary_gemm_skip_db_kernel(const bf16* __restrict__ x,
+                            const uint32_t* __restrict__ w,
+                            const int* __restrict__ kt_indices,
+                            const int* __restrict__ kt_counts,
+                            const float* __restrict__ scale,
+                            const float* __restrict__ bias,
+                            bf16* __restrict__ y, int M, int K, int N, int kw,
+                            int ldw, int tile_k, int tile_n, int max_occ,
+                            int fuse_prelu, float prelu_alpha, int vec) {
   using T = ternary::TileShape<BM, BN, WARPS_M, WARPS_N>;
-  constexpr int STAGES = DB ? 2 : 1;
-  constexpr int WR = DB ? BKW * BN : 0;              // raw words per stage
+  constexpr int STAGES = 2;
+  constexpr int WR = BKW * BN;                       // raw words per stage
   constexpr int MAIN_BYTES = STAGES * (T::XS * 2 + WR * 4) + T::WS * 2;
   constexpr int SMEM = MAIN_BYTES > T::CS * 4 ? MAIN_BYTES : T::CS * 4;
   __shared__ __align__(128) unsigned char smem[SMEM];
@@ -115,69 +224,66 @@ ternary_gemm_skip_kernel(const bf16* __restrict__ x,
   const int chunks = (tile_k + BK - 1) / BK;    // BK steps per tile
   const int steps = kt_counts[j] * chunks;
 
-  // step s -> (first K row, one past its last row, one past its last word
-  // row), all clipped to the end of its tile
-  auto step_k = [&](int s, int& kbase, int& kend, int& wend) {
-    const int k0 = idx[s / chunks] * tile_k;
-    kbase = k0 + (s % chunks) * BK;
-    kend = min(K, k0 + tile_k);
-    wend = min(kw, (k0 + tile_k) / 16);
-  };
-
   ternary::Acc acc[T::FM][T::FN];
   ternary::zero_acc(acc);
-  if (DB) {
-    if (steps > 0) {
+  if (steps > 0) {
+    int kbase, kend, wend;
+    step_k(idx, chunks, tile_k, K, kw, 0, kbase, kend, wend);
+    stage_async<BM, BN>(xs, wr, x, w, m0, n0, kbase, kend, wend, M, K, ldw,
+                        vec);
+  }
+  for (int s = 0; s < steps; ++s) {
+    const int cur = s & 1;
+    if (s + 1 < steps) {            // next step's copies go out first
       int kbase, kend, wend;
-      step_k(0, kbase, kend, wend);
-      stage_async<BM, BN>(xs, wr, x, w, m0, n0, kbase, kend, wend, M, K, ldw,
-                          vec);
+      step_k(idx, chunks, tile_k, K, kw, s + 1, kbase, kend, wend);
+      stage_async<BM, BN>(xs + (cur ^ 1) * T::XS, wr + (cur ^ 1) * WR, x, w,
+                          m0, n0, kbase, kend, wend, M, K, ldw, vec);
+      ternary::cp_async_wait<1>();
+    } else {
+      ternary::cp_async_wait<0>();
     }
-    for (int s = 0; s < steps; ++s) {
-      const int cur = s & 1;
-      if (s + 1 < steps) {            // next step's copies go out first
-        int kbase, kend, wend;
-        step_k(s + 1, kbase, kend, wend);
-        stage_async<BM, BN>(xs + (cur ^ 1) * T::XS, wr + (cur ^ 1) * WR, x, w,
-                            m0, n0, kbase, kend, wend, M, K, ldw, vec);
-        ternary::cp_async_wait<1>();
-      } else {
-        ternary::cp_async_wait<0>();
-      }
-      __syncthreads();
-      int kbase, kend, wend;
-      step_k(s, kbase, kend, wend);
-      const int rows = min(BKW, wend - kbase / 16);   // word rows of the step
-      ternary::decode_weight_tile<BN>(ws, wr + cur * WR, 0, 0, rows, BN, BN);
-      __syncthreads();
-      ternary::mma_tile<BN>(acc, xs + cur * T::XS, ws, wm, wn,
-                            min(BK, kend - kbase + 15) / 16 * 16);
-      __syncthreads();                // the stage is refilled at s + 2
-    }
-  } else {
-    for (int s = 0; s < steps; ++s) {
-      int kbase, kend, wend;
-      step_k(s, kbase, kend, wend);
-      ternary::load_act_tile<BM>(xs, x, m0, kbase, M, kend, K);
-      ternary::decode_weight_tile<BN>(ws, w, kbase / 16, n0, wend, N, ldw);
-      __syncthreads();
-      ternary::mma_tile<BN>(acc, xs, ws, wm, wn,
-                            min(BK, kend - kbase + 15) / 16 * 16);
-      __syncthreads();
-    }
+    __syncthreads();
+    int kbase, kend, wend;
+    step_k(idx, chunks, tile_k, K, kw, s, kbase, kend, wend);
+    const int rows = min(BKW, wend - kbase / 16);   // word rows of the step
+    ternary::decode_weight_tile<BN>(ws, wr + cur * WR, 0, 0, rows, BN, BN);
+    __syncthreads();
+    ternary::mma_tile<BN>(acc, xs + cur * T::XS, ws, wm, wn,
+                          min(BK, kend - kbase + 15) / 16 * 16);
+    __syncthreads();                // the stage is refilled at s + 2
   }
   ternary::store_epilogue<BM, BN, T::FM, T::FN, false>(
       acc, cs, wm, wn, m0, n0, M, N, scale, bias, fuse_prelu, prelu_alpha, y);
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, bool DB>
-static int launch(const void* x, const void* w, const void* idx,
-                  const void* cnt, const void* scale, const void* bias,
-                  void* y, int M, int K, int N, int kw, int ldw, int tile_k,
-                  int tile_n, int max_occ, int fuse_prelu, float prelu_alpha,
-                  int vec, cudaStream_t stream) {
+template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
+static int launch_ring(const void* x, const void* w, const void* idx,
+                       const void* cnt, const void* scale, const void* bias,
+                       void* y, int M, int K, int N, int kw, int ldw,
+                       int tile_k, int tile_n, int max_occ, int fuse_prelu,
+                       float prelu_alpha, int vec, cudaStream_t stream) {
+  constexpr int SMEM = RingSmem<BM, BN, STAGES>::BYTES;
+  static_assert(SMEM <= 48 * 1024, "above 48 KB needs cudaFuncSetAttribute");
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  ternary_gemm_skip_kernel<BM, BN, WARPS_M, WARPS_N, DB>
+  ternary_gemm_skip_kernel<BM, BN, WARPS_M, WARPS_N, STAGES>
+      <<<grid, WARPS_M * WARPS_N * 32, SMEM, stream>>>(
+          static_cast<const bf16*>(x), static_cast<const uint32_t*>(w),
+          static_cast<const int*>(idx), static_cast<const int*>(cnt),
+          static_cast<const float*>(scale), static_cast<const float*>(bias),
+          static_cast<bf16*>(y), M, K, N, kw, ldw, tile_k, tile_n, max_occ,
+          fuse_prelu, prelu_alpha, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int BM, int BN, int WARPS_M, int WARPS_N>
+static int launch_db(const void* x, const void* w, const void* idx,
+                     const void* cnt, const void* scale, const void* bias,
+                     void* y, int M, int K, int N, int kw, int ldw,
+                     int tile_k, int tile_n, int max_occ, int fuse_prelu,
+                     float prelu_alpha, int vec, cudaStream_t stream) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  ternary_gemm_skip_db_kernel<BM, BN, WARPS_M, WARPS_N>
       <<<grid, WARPS_M * WARPS_N * 32, 0, stream>>>(
           static_cast<const bf16*>(x), static_cast<const uint32_t*>(w),
           static_cast<const int*>(idx), static_cast<const int*>(cnt),
@@ -187,17 +293,41 @@ static int launch(const void* x, const void* w, const void* idx,
   return (int)cudaGetLastError();
 }
 
-template <int BM, int WARPS_M, bool DB>
-static int launch_bn(int bn, const void* x, const void* w, const void* idx,
-                     const void* cnt, const void* scale, const void* bias,
-                     void* y, int M, int K, int N, int kw, int ldw,
-                     int tile_k, int tile_n, int max_occ, int fuse_prelu,
-                     float prelu_alpha, int vec, cudaStream_t s) {
+// B2's tiles: decode (bm 16) 8 stages, prefill (bm 64) 4 stages, one warp
+// row; up to 4 warps across bn, each 16 or (bn 128) 32 columns wide.
+template <int BM, int STAGES>
+static int launch_ring_bn(int bn, const void* x, const void* w,
+                          const void* idx, const void* cnt, const void* scale,
+                          const void* bias, void* y, int M, int K, int N,
+                          int kw, int ldw, int tile_k, int tile_n,
+                          int max_occ, int fuse_prelu, float prelu_alpha,
+                          int vec, cudaStream_t s) {
+#define SKIP_LAUNCH(BN_, WN_)                                              \
+  return launch_ring<BM, BN_, 1, WN_, STAGES>(                             \
+      x, w, idx, cnt, scale, bias, y, M, K, N, kw, ldw, tile_k, tile_n,    \
+      max_occ, fuse_prelu, prelu_alpha, vec, s)
+  switch (bn) {
+    case 16: SKIP_LAUNCH(16, 1);
+    case 32: SKIP_LAUNCH(32, 2);
+    case 64: SKIP_LAUNCH(64, 4);
+    case 128: SKIP_LAUNCH(128, 4);
+  }
+#undef SKIP_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// B3's tiles.
+template <int BM, int WARPS_M>
+static int launch_db_bn(int bn, const void* x, const void* w, const void* idx,
+                        const void* cnt, const void* scale, const void* bias,
+                        void* y, int M, int K, int N, int kw, int ldw,
+                        int tile_k, int tile_n, int max_occ, int fuse_prelu,
+                        float prelu_alpha, int vec, cudaStream_t s) {
 #define SKIP_LAUNCH(BN_, WN_)                                                 \
-  return launch<BM, BN_, WARPS_M, WN_, DB>(x, w, idx, cnt, scale, bias, y, M, \
-                                           K, N, kw, ldw, tile_k, tile_n,     \
-                                           max_occ, fuse_prelu, prelu_alpha,  \
-                                           vec, s)
+  return launch_db<BM, BN_, WARPS_M, WN_>(x, w, idx, cnt, scale, bias, y, M, \
+                                          K, N, kw, ldw, tile_k, tile_n,     \
+                                          max_occ, fuse_prelu, prelu_alpha,  \
+                                          vec, s)
   switch (bn) {
     case 16: SKIP_LAUNCH(16, 1);
     case 32: SKIP_LAUNCH(32, 2);
@@ -233,11 +363,11 @@ extern "C" int ternary_gemm_skip_bf16(const void* x, const void* w,
   bn, x, w, kt_indices, kt_counts, scale, bias, y, M, K, N, kw, ldw,       \
       tile_k, tile_n, max_occ, fuse_prelu, prelu_alpha, vec, s
   if (bm == 16)
-    return db ? launch_bn<16, 1, true>(SKIP_ARGS)
-              : launch_bn<16, 1, false>(SKIP_ARGS);
+    return db ? launch_db_bn<16, 1>(SKIP_ARGS)
+              : launch_ring_bn<16, 8>(SKIP_ARGS);
   if (bm == 64)
-    return db ? launch_bn<64, 2, true>(SKIP_ARGS)
-              : launch_bn<64, 2, false>(SKIP_ARGS);
+    return db ? launch_db_bn<64, 2>(SKIP_ARGS)
+              : launch_ring_bn<64, 4>(SKIP_ARGS);
 #undef SKIP_ARGS
   return (int)cudaErrorInvalidValue;
 }

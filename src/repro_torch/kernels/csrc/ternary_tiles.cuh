@@ -1,7 +1,8 @@
 // Shared tile helpers of the hand-written ternary kernels (ternary_gemm.cu,
 // ternary_gemm_skip.cu, ternary_gemm_bitplane.cu, fused_mlp.cu):
 // zero-filled activation tiles, the 2-bit code decode into a bf16
-// shared-memory tile that WMMA reads, and cp.async wrappers.
+// shared-memory tile that WMMA reads (B3 only), cp.async wrappers, and the
+// register-decode loop at the end (B1, B2, B4; B7 with its own table).
 //
 // Packed weights are (kw, n) 32-bit words with row stride ldw >= n (a
 // tile-padded pack has ldw > n); bits [2r, 2r+2) of
@@ -183,7 +184,8 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// The register-decode main loop of ternary_gemm.cu and fused_mlp.cu.
+// The register-decode main loop of ternary_gemm.cu (B1),
+// ternary_gemm_skip.cu (B2) and fused_mlp.cu (B4).
 //
 // mma.sync m16n8k16 (row.col, bf16 in, f32 accumulate) takes its B operand
 // as two 32-bit registers per lane: lane (g = lane / 4, t = lane % 4)
@@ -196,8 +198,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // fragment feeds every 16-row A fragment of the warp. Each output element
 // still starts from a zero f32 accumulator and adds its 16-deep chunks in
 // ascending K through one HMMA.16816 each, which is what the WMMA
-// 16x16x16 fragments of mma_tile lower to, so B2 and B3 (mma_tile) agree
-// with B1 (this loop) bit for bit.
+// 16x16x16 fragments of mma_tile lower to, so B3 (mma_tile) agrees with B1
+// and B2 (this loop) bit for bit.
 //
 // Activations and raw words reach shared memory through a ring of cp.async
 // stages, one BK-deep step per stage (ring_stage_x / ring_stage_words);
@@ -246,22 +248,25 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // Stage x rows [r0, r0 + ROWS) and columns [k0, k0 + BK) of the row-major
-// (M, K) bf16 matrix into dst (row stride XLD), zero past row M and column
-// K. vec: 16-byte cp.async copies (K % 8 == 0, x 16-byte aligned);
-// otherwise plain loads (load_act_tile), visible after __syncthreads.
+// bf16 matrix x (M rows, row stride ldx) into dst (row stride XLD), zero
+// past row M and column kend (<= ldx; a tile-skipping step stops at its
+// tile's end). vec: 16-byte cp.async copies (ldx and kend multiples of 8,
+// x 16-byte aligned); otherwise plain loads (load_act_tile), visible
+// after __syncthreads.
 template <int ROWS>
 __device__ __forceinline__ void ring_stage_x(bf16* dst, const bf16* x, int r0,
-                                             int k0, int M, int K, bool vec) {
+                                             int k0, int M, int kend, int ldx,
+                                             bool vec) {
   if (!vec) {
-    load_act_tile<ROWS>(dst, x, r0, k0, M, K, K);
+    load_act_tile<ROWS>(dst, x, r0, k0, M, kend, ldx);
     return;
   }
   constexpr int G = BK / 8;      // 16-byte groups per row
   for (int i = threadIdx.x; i < ROWS * G; i += blockDim.x) {
     const int r = i / G, c = (i % G) * 8;
     const int gr = r0 + r, gc = k0 + c;
-    const bool ok = gr < M && gc < K;
-    cp_async16(dst + r * XLD + c, ok ? x + (size_t)gr * K + gc : x,
+    const bool ok = gr < M && gc < kend;
+    cp_async16(dst + r * XLD + c, ok ? x + (size_t)gr * ldx + gc : x,
                ok ? 16 : 0);
   }
 }
@@ -348,11 +353,27 @@ __device__ __forceinline__ float epilogue_f32(float v, int c,
   return v;
 }
 
+// The bf16-tail epilogue of the bitplane kernel (store_epilogue's
+// BF16_TAIL): scale in f32 and a cast, then bias and PReLU on bf16 values,
+// each rounded on its own. Returns a value that is already bf16.
+__device__ __forceinline__ float epilogue_bf16(float v, int c,
+                                              const float* __restrict__ scale,
+                                              const float* __restrict__ bias,
+                                              int fuse_prelu, float alpha) {
+  if (scale != nullptr) v = __fmul_rn(v, scale[c]);
+  v = round_bf16(v);
+  if (bias != nullptr) v = round_bf16(__fadd_rn(v, round_bf16(bias[c])));
+  if (fuse_prelu && !(v >= 0.0f))
+    v = round_bf16(__fmul_rn(round_bf16(alpha), v));
+  return v;
+}
+
 // Write this warp's FM x FN fragments, whose first element is (r0, c0) of
 // the row-major (M, N) bf16 output, straight from the accumulators:
-// epilogue_f32 and one cast per element, bf16x2 stores where two columns
-// fit (N even), masked at the M and N edges.
-template <int FM, int FN>
+// epilogue_f32 (or, BF16_TAIL, epilogue_bf16) and one cast per element,
+// bf16x2 stores where two columns fit (N even), masked at the M and N
+// edges.
+template <int FM, int FN, bool BF16_TAIL = false>
 __device__ __forceinline__ void store_frags_epilogue(
     const float (&acc)[FM][FN][4], int r0, int c0, int M, int N,
     const float* __restrict__ scale, const float* __restrict__ bias,
@@ -367,12 +388,16 @@ __device__ __forceinline__ void store_frags_epilogue(
       for (int h = 0; h < 2; ++h) {
         const int gr = r0 + i * 16 + h * 8 + g, gc = c0 + j * 8 + 2 * t;
         if (gr >= M || gc >= N) continue;
-        const float v0 = epilogue_f32(acc[i][j][2 * h], gc, scale, bias,
-                                      fuse_prelu, alpha);
+        const float v0 = BF16_TAIL
+            ? epilogue_bf16(acc[i][j][2 * h], gc, scale, bias, fuse_prelu, alpha)
+            : epilogue_f32(acc[i][j][2 * h], gc, scale, bias, fuse_prelu, alpha);
         bf16* out = y + (size_t)gr * N + gc;
         if (gc + 1 < N) {
-          const float v1 = epilogue_f32(acc[i][j][2 * h + 1], gc + 1, scale,
-                                        bias, fuse_prelu, alpha);
+          const float v1 = BF16_TAIL
+              ? epilogue_bf16(acc[i][j][2 * h + 1], gc + 1, scale, bias,
+                              fuse_prelu, alpha)
+              : epilogue_f32(acc[i][j][2 * h + 1], gc + 1, scale, bias,
+                             fuse_prelu, alpha);
           if ((N & 1) == 0) {
             *reinterpret_cast<__nv_bfloat162*>(out) =
                 __floats2bfloat162_rn(v0, v1);

@@ -6,7 +6,10 @@ Both compute ``act(x @ Wg * sg + bg) * (x @ Wi * si + bi) @ Wo * so + bo``
 (gate optional) and round where ``repro``'s chain rounds: ``yi`` and ``yg``
 to ``x.dtype`` after their epilogues, then ``act(yg)``, then the product,
 so ``h`` is held in ``x.dtype``. The plain version is literally the chain
-of plain GEMMs; the kernel keeps ``h`` in shared memory.
+of plain GEMMs; the kernel keeps ``h`` in shared memory and sums the down
+projection in f32 partials of ``chunk_width(ff)`` hidden columns, added in
+a fixed order, so its output for a row does not depend on how many rows
+share the call.
 """
 from __future__ import annotations
 
@@ -23,60 +26,67 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ternary_gemm import (_check_vec, _ptr,
                                               ternary_gemm_ref)
 
-__all__ = ["ACTIVATIONS", "VARIANTS", "BLOCK_M", "STRIP", "FusedPlan",
-           "launch_plan", "fused_mlp_ref", "fused_mlp_cuda"]
+__all__ = ["ACTIVATIONS", "VARIANTS", "BLOCK_M", "STRIP", "MAX_CHUNK",
+           "MAX_CLUSTER", "FusedPlan", "chunk_width", "launch_plan",
+           "fused_mlp_ref", "fused_mlp_cuda"]
 
 ACTIVATIONS = ("silu", "relu", "none")
 
-# (tile variant, most ff columns per block) per serving phase
-# (csrc/fused_mlp.cu), the fastest of the candidates timed on the H100:
-# decode takes 16-row tiles and 64-column ff chunks (64 blocks share ff
-# 4096); prefill and evaluation take 64-row tiles and chunks of up to 512
-# columns, halved by launch_plan until the grid holds two blocks an SM
-# (256 at M 1024, 512 at M 8192 on 132 SMs)
-VARIANTS = {"decode": (0, 64), "prefill": (1, 512)}
+# tile variant per serving phase (csrc/fused_mlp.cu), the fastest of the
+# candidates timed on the H100: decode takes 16-row tiles and 64-column
+# strips, prefill and evaluation 64-row tiles and 128-column strips
+VARIANTS = {"decode": 0, "prefill": 1}
 BLOCK_M = {0: 16, 1: 64}          # variant -> rows per block
 STRIP = {0: 64, 1: 128}           # variant -> ff / N columns per strip
+MAX_CHUNK = 512                   # the widest ff chunk (h slice) a block holds
+MAX_CLUSTER = 8                   # blocks sharing a chunk (portable cluster)
 BLOCKS_PER_SM = 2                 # the prefill tile's residency at FC <= 512
+
+
+def chunk_width(ff: int) -> int:
+    """FC, the ff columns whose down-projection products one f32 partial
+    sums: ff rounded up to whole 128-column strips (so both variants'
+    strips divide it), at most ``MAX_CHUNK``. It depends on the widths
+    alone, so a row's sum is grouped the same way whatever M and tile."""
+    return min(MAX_CHUNK, max(128, -(-ff // 128) * 128))
 
 
 @dataclasses.dataclass(frozen=True)
 class FusedPlan:
-    """One launch of B4: ``fc`` ff columns per block, ``chunks`` of them,
-    a (chunks, row tiles) grid, the (chunks, M, N) f32 partials."""
+    """One launch of B4: ``chunks`` ff chunks of ``fc`` columns, each
+    spread over a cluster of ``cluster`` blocks per row tile, a
+    (chunks x cluster, row tiles) grid, the (chunks, M, N) f32 partials."""
 
     variant: int
     fc: int
     chunks: int
+    cluster: int
     grid: Tuple[int, int]
     partial_numel: int
 
 
-def launch_plan(m: int, ff: int, n: int, variant: int, ff_chunk: int,
+def launch_plan(m: int, ff: int, n: int, variant: int,
                 sm_count: int) -> FusedPlan:
-    """The chunk width of one launch: at most ``ff_chunk`` (a multiple of
-    the variant's strip) and ff rounded up to a strip, halved (in whole
-    strips) while the grid holds fewer blocks than 7/8 of ``BLOCKS_PER_SM``
-    x ``sm_count``: more chunks fill the card, fewer keep the partials
-    small. Raises when the tile is unknown; a chunk whose h slice does
-    not fit in shared memory fails at the launch."""
+    """The chunk width comes from ``chunk_width(ff)``; the cluster size
+    doubles (up to ``MAX_CLUSTER``, each block keeping whole strips of
+    the chunk) while the grid holds fewer blocks than 7/8 of
+    ``BLOCKS_PER_SM`` x ``sm_count``. The cluster spreads a chunk's work
+    over more SMs and moves no sum. Raises when the tile is unknown."""
     if variant not in BLOCK_M:
         raise ValueError(f"unknown tile variant {variant}")
     strip = STRIP[variant]
-    if ff_chunk <= 0 or ff_chunk % strip:
-        raise ValueError(f"bad tile: variant={variant} takes ff_chunk a "
-                         f"positive multiple of {strip}, got {ff_chunk}")
-    m_tiles = -(-m // BLOCK_M[variant])
-    fc = min(ff_chunk, max(strip, -(-ff // strip) * strip))
-    wave = BLOCKS_PER_SM * sm_count
-    while m_tiles * -(-ff // fc) < wave - wave // 8:
-        half = max(strip, fc // 2 // strip * strip)
-        if half == fc:
-            break
-        fc = half
+    fc = chunk_width(ff)
     chunks = -(-ff // fc)
-    return FusedPlan(variant=variant, fc=fc, chunks=chunks,
-                     grid=(chunks, m_tiles), partial_numel=chunks * m * n)
+    m_tiles = -(-m // BLOCK_M[variant])
+    wave = BLOCKS_PER_SM * sm_count
+    cluster = 1
+    while (chunks * cluster * m_tiles < wave - wave // 8
+           and cluster * 2 <= MAX_CLUSTER
+           and fc % (cluster * 2 * strip) == 0):
+        cluster *= 2
+    return FusedPlan(variant=variant, fc=fc, chunks=chunks, cluster=cluster,
+                     grid=(chunks * cluster, m_tiles),
+                     partial_numel=chunks * m * n)
 
 
 @functools.cache
@@ -112,7 +122,7 @@ def fused_mlp_ref(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = build.load("fused_mlp")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_mlp_bf16.argtypes = [p] * 12 + [i] * 9 + [p]
+    lib.fused_mlp_bf16.argtypes = [p] * 12 + [i] * 13 + [p]
     lib.fused_mlp_bf16.restype = ctypes.c_int
     return lib
 
@@ -128,14 +138,16 @@ def _check_words(name: str, w: torch.Tensor, device: torch.device) -> None:
 def fused_mlp_cuda(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
                    wg: Optional[torch.Tensor] = None,
                    si=None, bi=None, sg=None, bg=None, so=None, bo=None, *,
+                   ff: Optional[int] = None, n: Optional[int] = None,
                    activation: str = "silu",
-                   variant: int = 1, ff_chunk: int = 512) -> torch.Tensor:
+                   variant: int = 1) -> torch.Tensor:
     """Launch the fused kernel (and its fixed-order partial-sum pass) on the
-    current stream. x (M, K) bf16; words int32 as in ``fused_mlp_ref``;
-    the six vectors float32. ``ff_chunk`` is the most hidden columns one
-    block keeps in shared memory (a multiple of the variant's strip,
-    ``STRIP``); ``launch_plan`` narrows it to fill the card. Returns (M,
-    N) bf16."""
+    current stream. x (M, K) bf16; words int32 as in ``fused_mlp_ref``,
+    read in place: the first ``ff`` (default wi's width) columns of wi and
+    wg and the first ``n`` (default wo's width) of wo, so a tile-padded
+    pack runs without a copy; the six vectors float32. ``launch_plan``
+    fixes the chunk width from ff and spreads it to fill the card. Returns
+    (M, n) bf16."""
     if not x.is_cuda:
         raise ValueError("fused_mlp_cuda needs a CUDA tensor; CPU tensors "
                          "take fused_mlp_ref")
@@ -143,26 +155,24 @@ def fused_mlp_cuda(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
         raise ValueError(f"x must be a contiguous 2-D bfloat16 tensor, got "
                          f"{x.dtype} {tuple(x.shape)}")
     dev = x.device
-    _check_words("wi", wi, dev)
-    _check_words("wo", wo, dev)
-    if wg is not None:
-        _check_words("wg", wg, dev)
-        if wg.shape != wi.shape:
-            raise ValueError(f"gate words {tuple(wg.shape)} must match the "
-                             f"up projection's {tuple(wi.shape)}")
     m, k = x.shape
-    kw1, ff = wi.shape
-    kw2, n = wo.shape
-    if kw1 * formats.K_PER_WORD < k or kw2 * formats.K_PER_WORD < ff:
-        raise ValueError(f"packed words too short: wi covers K="
-                         f"{kw1 * formats.K_PER_WORD} for x's K={k}, wo "
-                         f"covers {kw2 * formats.K_PER_WORD} for ff={ff}")
+    ff = wi.shape[1] if ff is None else ff
+    n = wo.shape[1] if n is None else n
+    for name, w, rows, cols in (("wi", wi, k, ff), ("wg", wg, k, ff),
+                                ("wo", wo, ff, n)):
+        if w is None:
+            continue
+        _check_words(name, w, dev)
+        if (w.shape[0] * formats.K_PER_WORD < rows or not 0 <= cols
+                or w.shape[1] < cols):
+            raise ValueError(f"{name} words {tuple(w.shape)} do not cover "
+                             f"({rows}, {cols})")
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation must be one of {ACTIVATIONS}")
     for name, v, width in (("si", si, ff), ("bi", bi, ff), ("sg", sg, ff),
                            ("bg", bg, ff), ("so", so, n), ("bo", bo, n)):
         _check_vec(name, v, width, dev)
-    plan = launch_plan(m, ff, n, variant, ff_chunk,
+    plan = launch_plan(m, ff, n, variant,
                        _sm_count(dev.index if dev.index is not None
                                  else torch.cuda.current_device()))
     y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
@@ -170,11 +180,15 @@ def fused_mlp_cuda(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
         return y
     partial = torch.empty((plan.chunks, m, n), dtype=torch.float32,
                           device=dev)
+    # word rows past K (ff) meet zero x (h) columns: read only those needed
+    kw1, kw2 = -(-k // formats.K_PER_WORD), -(-ff // formats.K_PER_WORD)
     with torch.cuda.device(dev):
         err = _lib().fused_mlp_bf16(
             x.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(), _ptr(si),
             _ptr(bi), _ptr(sg), _ptr(bg), _ptr(so), _ptr(bo),
-            partial.data_ptr(), y.data_ptr(), m, k, ff, n, kw1, kw2, plan.fc,
+            partial.data_ptr(), y.data_ptr(), m, k, ff, n, kw1, kw2,
+            wi.shape[1], wi.shape[1] if wg is None else wg.shape[1],
+            wo.shape[1], plan.fc, plan.cluster,
             ACTIVATIONS.index(activation), variant,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -51,7 +51,6 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import formats, weights
-from repro_torch.core.weights import Dense2Bit
 from repro_torch.kernels import fused_mlp as fused_lib
 from repro_torch.kernels import ref
 from repro_torch.kernels import ternary_gemm as gemm_lib
@@ -59,8 +58,8 @@ from repro_torch.kernels import ternary_gemm_bitplane as bitplane_lib
 
 __all__ = ["ternary_gemm", "ternary_gemm_plan", "GemmPlan", "KernelImpl",
            "register_kernel", "kernel_registry", "SKIP_OCCUPANCY_CUTOFF",
-           "fused_mlp", "paged_decode_attention", "serving_phase",
-           "current_phase", "SERVING_PHASES"]
+           "FUSED_FORMATS", "fused_mlp", "paged_decode_attention",
+           "serving_phase", "current_phase", "SERVING_PHASES"]
 
 SERVING_PHASES = ("prefill", "decode")
 
@@ -495,26 +494,51 @@ def ternary_gemm(x: torch.Tensor, w: Any,
 # Fused MLP and paged attention
 # ---------------------------------------------------------------------------
 
-def _container(w, what: str) -> Dense2Bit:
-    if not isinstance(w, Dense2Bit):
-        raise TypeError(f"{what} must be a Dense2Bit container (the only "
-                        f"format the fused kernel takes so far), got "
-                        f"{type(w).__name__}")
-    if w.packed.ndim != 2:
-        raise ValueError(f"{what} has stacked words {tuple(w.packed.shape)};"
-                         f" pass one layer's 2-D words")
-    return w
+# The formats B4 reads in place (repro's _FUSED_FORMATS); every other
+# format, and stacked leaves, take the chain of ternary_gemm calls.
+FUSED_FORMATS = ("dense2bit", "tiled")
 
 
-def fused_mlp(x: torch.Tensor, w_in: Dense2Bit, w_out: Dense2Bit,
-              w_gate: Optional[Dense2Bit] = None, *,
-              activation: str = "silu") -> torch.Tensor:
-    """Fused ternary MLP block ``act(x @ Wg) * (x @ Wi) @ Wo`` (gate
-    optional), each projection's scale and bias from its container."""
-    w_in = _container(w_in, "w_in")
-    w_out = _container(w_out, "w_out")
+def _fusable(w_in, w_out, w_gate, m: int) -> bool:
+    """``repro``'s fused-row predicate: every projection a 2-D pack of a
+    fused format, and a gate of the up projection's shape whose own plan
+    resolves the up projection's K/N blocks."""
+    for w in (w_in, w_out) + (() if w_gate is None else (w_gate,)):
+        if w.format_name not in FUSED_FORMATS or w.packed.ndim != 2:
+            return False
     if w_gate is not None:
-        w_gate = _container(w_gate, "w_gate")
+        if (w_gate.k, w_gate.n) != (w_in.k, w_in.n):
+            return False
+        up = ternary_gemm_plan(w_in, m)
+        gate = ternary_gemm_plan(w_gate, m)
+        if (up.block_n, up.block_k) != (gate.block_n, gate.block_k):
+            return False
+    return True
+
+
+def _lower_fused_chain(x, w_in, w_out, w_gate, activation):
+    """The literal chain of ``ternary_gemm`` calls (``repro``'s
+    ``_lower_fused_chain``): each projection rounds to ``x.dtype``, then
+    the activation and the product in ``x.dtype``, then the down
+    projection. On the card each GEMM launches its format's kernel."""
+    yi = ternary_gemm(x, w_in)
+    if w_gate is not None:
+        h = fused_lib._act(activation, ternary_gemm(x, w_gate)) * yi
+    else:
+        h = fused_lib._act(activation, yi)
+    return ternary_gemm(h, w_out)
+
+
+def fused_mlp(x: torch.Tensor, w_in: Any, w_out: Any, w_gate: Any = None,
+              *, activation: str = "silu") -> torch.Tensor:
+    """Fused ternary MLP block ``act(x @ Wg) * (x @ Wi) @ Wo`` (gate
+    optional), each projection's scale and bias from its container.
+    ``dense2bit`` and ``tiled`` packs run fused (B4 on the card, reading
+    the words in place; its plain version on the CPU); every other format
+    runs the chain of ``ternary_gemm`` calls, as in ``repro``."""
+    w_in, w_out = _coerce_weight(w_in), _coerce_weight(w_out)
+    if w_gate is not None:
+        w_gate = _coerce_weight(w_gate)
         if w_gate.shape != w_in.shape:
             raise ValueError(f"gate shape {w_gate.shape} must match the up "
                              f"projection's {w_in.shape}")
@@ -524,15 +548,23 @@ def fused_mlp(x: torch.Tensor, w_in: Dense2Bit, w_out: Dense2Bit,
     if x.ndim != 2 or x.shape[1] != w_in.k:
         raise ValueError(f"x {tuple(x.shape)} does not match the up "
                          f"projection's K={w_in.k}")
+    if activation not in fused_lib.ACTIVATIONS:
+        raise ValueError(f"activation must be one of "
+                         f"{fused_lib.ACTIVATIONS}, got {activation!r}")
+    if not _fusable(w_in, w_out, w_gate, x.shape[0]):
+        return _lower_fused_chain(x, w_in, w_out, w_gate, activation)
     g = w_gate
-    words = (w_in.packed, w_out.packed, None if g is None else g.packed)
+    ff, n = w_in.n, w_out.n
     if x.is_cuda:
-        variant, ff_chunk = fused_lib.VARIANTS[_phase(x.shape[0])]
+        words = (w_in.packed, w_out.packed, None if g is None else g.packed)
+        variant = fused_lib.VARIANTS[_phase(x.shape[0])]
         return _fused_row(
             x.contiguous(), w_in, w_out, w_gate, activation,
             lambda x, *vecs: fused_lib.fused_mlp_cuda(
-                x, *words, *vecs, activation=activation, variant=variant,
-                ff_chunk=ff_chunk))
+                x, *words, *vecs, ff=ff, n=n, activation=activation,
+                variant=variant))
+    words = (w_in.packed[:, :ff], w_out.packed[:, :n],
+             None if g is None else g.packed[:, :ff])
     vecs = (w_in.scale, w_in.bias, None if g is None else g.scale,
             None if g is None else g.bias, w_out.scale, w_out.bias)
     return fused_lib.fused_mlp_ref(x, *words, *vecs, activation=activation)

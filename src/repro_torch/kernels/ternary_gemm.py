@@ -6,7 +6,8 @@ and their plain PyTorch versions.
 * ``ternary_gemm_skip_cuda`` -> ``csrc/ternary_gemm_skip.cu`` (B2 and, with
   ``db=True``, B3; they replace ``ternary_gemm_skip_pallas`` and
   ``ternary_gemm_skip_db_pallas``): the K walk of each N-tile visits only
-  its occupied K-tiles, in ascending order.
+  its occupied K-tiles, in ascending order; B2 on B1's register-decode
+  ring, B3 on its WMMA loop.
 
 All compute ``Y = X @ decode(W) * scale + bias (+ PReLU)`` with f32
 accumulation and the f32 epilogue rounding once, at the cast to
@@ -41,15 +42,17 @@ VARIANTS = {"decode": 0, "prefill": 1}
 TILES = {0: (16, 64), 1: (64, 128)}           # variant -> (block_m, block_n)
 BLOCK_K = 64
 # rows per block of B2/B3 per serving phase; their block_n is the largest
-# of 128, 64, 32, 16 dividing the pack's tile_n (skip_block_n)
+# of 128, 64, 32, 16 dividing the pack's tile_n (skip_block_n), at most 64
+# for B2 at decode (B1's decode width)
 SKIP_BLOCK_M = {"decode": 16, "prefill": 64}
 
 
-def skip_block_n(tile_n: int) -> int:
+def skip_block_n(tile_n: int, widest: int = 128) -> int:
     """Columns per block of B2/B3 for a pack's ``tile_n``: each block
-    stays inside one N-tile, so its width divides ``tile_n``."""
+    stays inside one N-tile, so its width divides ``tile_n``; at most
+    ``widest``."""
     for bn in (128, 64, 32, 16):
-        if tile_n % bn == 0:
+        if bn <= widest and tile_n % bn == 0:
             return bn
     raise ValueError(f"tile_n must be a positive multiple of 16, got "
                      f"{tile_n}")
@@ -226,6 +229,7 @@ def ternary_gemm_skip_cuda(x: torch.Tensor, words: torch.Tensor,
                          f"{sorted(SKIP_BLOCK_M.values())}, got {block_m}")
     _check_vec("scale", scale, n, x.device)
     _check_vec("bias", bias, n, x.device)
+    bn = skip_block_n(tile_n, 64 if block_m == 16 and not db else 128)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0 or n == 0:
         return y
@@ -234,7 +238,7 @@ def ternary_gemm_skip_cuda(x: torch.Tensor, words: torch.Tensor,
             x.data_ptr(), words.data_ptr(), kt_indices.data_ptr(),
             kt_counts.data_ptr(), _ptr(scale), _ptr(bias), y.data_ptr(), m, k,
             n, kw, ldw, tile_k, tile_n, kt_indices.shape[1], int(fuse_prelu),
-            prelu_alpha, block_m, skip_block_n(tile_n), int(db),
+            prelu_alpha, block_m, bn, int(db),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ternary_gemm_skip kernel launch failed: "

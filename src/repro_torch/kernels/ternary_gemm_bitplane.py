@@ -3,7 +3,8 @@
 ``ternary_gemm_bitplane``) and its plain PyTorch version.
 
 Both compute ``Y = X @ (P - M)``, or with ``factorized`` ``(X @ P) - (X @
-M)`` combined on the f32 accumulator, then round where ``repro``'s
+M)`` combined on the f32 accumulators after the K loop, then round where
+``repro``'s
 bitplane lowering rounds: ``scale`` in f32 and a cast to ``x.dtype``
 (inside its Pallas kernel), then ``bias`` cast to ``x.dtype`` and added,
 then PReLU with ``prelu_alpha`` in ``x.dtype`` (after it). The plain
@@ -23,7 +24,37 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ternary_gemm import (VARIANTS, _check_vec,
                                               _ptr)
 
-__all__ = ["ternary_gemm_bitplane_ref", "ternary_gemm_bitplane_cuda"]
+__all__ = ["ternary_gemm_bitplane_ref", "ternary_gemm_bitplane_cuda",
+           "PLANE_LUT", "fragment_byte_rows", "fragment_index"]
+
+_BF16 = {0: 0x0000, 1: 0x3F80, -1: 0xBF80}
+
+
+def _plane_pair(v: int) -> int:
+    lo = (v & 1) - ((v >> 2) & 1)
+    hi = ((v >> 1) & 1) - ((v >> 3) & 1)
+    return _BF16[lo] | (_BF16[hi] << 16)
+
+
+# B7's register decode (csrc/ternary_gemm_bitplane.cu, kPlaneLut): a
+# fragment register holds two K rows of one column; its index v = p_lo |
+# p_hi << 1 | m_lo << 2 | m_hi << 3 (the rows' plus and minus bits) picks
+# the bf16x2 pair (p_lo - m_lo, p_hi - m_hi), low half first. Entries 0-3
+# are one plane's 0/1 pairs (the factorized mode's fragments).
+PLANE_LUT = tuple(_plane_pair(v) for v in range(16))
+
+
+def fragment_byte_rows(kk: int) -> tuple:
+    """The plane byte rows (of a 64-deep step's 8) that 16-deep chunk
+    ``kk`` reads: register b[0] from the first, b[1] from the second."""
+    return 2 * kk, 2 * kk + 1
+
+
+def fragment_index(p, m, t):
+    """The table index of lane quad position ``t`` (lane % 4) from the
+    plus and minus bytes ``p``, ``m`` of its column and byte row: bits 2t
+    and 2t + 1 of each (ints or integer arrays)."""
+    return ((p >> (2 * t)) & 3) | (((m >> (2 * t)) & 3) << 2)
 
 
 def ternary_gemm_bitplane_ref(x: torch.Tensor, plus: torch.Tensor,

@@ -133,6 +133,48 @@ def test_fused_mlp_kernel_matches_plain(cuda, phase, mkfn, variant):
     _close(got, ref)
 
 
+@pytest.mark.parametrize("gated", [True, False])
+def test_fused_mlp_rows_do_not_depend_on_m(cuda, gated):
+    """A row's output is the same bits whatever M shares the call: the
+    chunk width comes from the widths, both tiles add in one order."""
+    k, ff, n = 256, 1100, 200
+    g = _gen(ff)
+    wi, wg, wo = (weights.pack(torch.randn(a, b, generator=g, device=cuda))
+                  for a, b in ((k, ff), (k, ff), (ff, n)))
+    x = torch.randn(300, k, generator=g, device=cuda).to(torch.bfloat16)
+    gate = wg if gated else None
+    full = ops.fused_mlp(x, wi, wo, gate)
+    for m in (1, 8, 16, 17, 129, 300):
+        assert torch.equal(ops.fused_mlp(x[:m].contiguous(), wi, wo, gate),
+                           full[:m]), m
+
+
+@pytest.mark.parametrize("fmt", ["tiled", "bitplane", "base3"])
+@pytest.mark.parametrize("m", [8, 129])
+def test_mlp_blocks_of_every_format(cuda, fmt, m):
+    """tiled packs (words padded past ff and N) run B4 in place, bitplane
+    packs the chain through B7, base3 packs the chain of plain rows; each
+    against the plain chain."""
+    k, ff, n = 200, 520, 130
+    g = _gen(m + ff)
+    opts = dict(tile_k=64, tile_n=48) if fmt == "tiled" else {}
+    wi, wg, wo = (weights.pack(torch.randn(a, b, generator=g, device=cuda),
+                               fmt, **opts)
+                  for a, b in ((k, ff), (k, ff), (ff, n)))
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    b4 = fused_lib.fused_mlp_cuda.launches
+    b7 = bitplane_lib.ternary_gemm_bitplane_cuda.launches
+    got = ops.fused_mlp(x, wi, wo, wg)
+    torch.cuda.synchronize()
+    assert fused_lib.fused_mlp_cuda.launches - b4 == (fmt == "tiled")
+    assert bitplane_lib.ternary_gemm_bitplane_cuda.launches - b7 == \
+        (3 if fmt == "bitplane" else 0)
+    h = torch.nn.functional.silu(ops.ternary_gemm(x, wg, impl="ref")) \
+        * ops.ternary_gemm(x, wi, impl="ref")
+    assert got.shape == (m, n)
+    _close(got, ops.ternary_gemm(h, wo, impl="ref"))
+
+
 def test_wrappers_count_launches_and_refuse_bad_inputs(cuda):
     w = weights.pack(torch.randn(64, 32, device=cuda))
     x = torch.randn(4, 64, device=cuda).to(torch.bfloat16)
@@ -241,7 +283,10 @@ def test_paged_attention_wrapper_counts_launches_and_refuses(cuda):
     assert bool(out[0].isnan().all()) and bool(out[1].isfinite().all())
 
 
-TILES = [(32, 16), (64, 32), (128, 128), (256, 128), (512, 32)]
+# tile_k 48 and 80 end inside a 64-deep step; tile_n 48 takes 16-wide
+# blocks
+TILES = [(32, 16), (64, 32), (128, 128), (256, 128), (512, 32), (48, 16),
+         (80, 48)]
 
 
 def _tiled(seed, k, n, tile_k, tile_n, sparsity, device="cuda"):
@@ -260,7 +305,8 @@ def _tiled(seed, k, n, tile_k, tile_n, sparsity, device="cuda"):
 @pytest.mark.parametrize("mkn", [(8, 1024, 256), (5, 200, 33),
                                  (70, 1000, 300), (3, 203, 40),
                                  (16, 520, 130), (129, 1000, 300),
-                                 (17, 37, 100)])
+                                 (17, 37, 100), (1, 1001, 97),
+                                 (1000, 1003, 301)])
 @pytest.mark.parametrize("phase", ["decode", "prefill"])
 def test_skip_kernels_equal_dense_and_match_plain(cuda, tile, mkn, phase):
     m, k, n = mkn
@@ -304,7 +350,9 @@ def test_skip_kernels_empty_columns_and_all_zero(cuda):
 
 
 @pytest.mark.parametrize("mkn", [(8, 1024, 1024), (5, 37, 19),
-                                 (70, 200, 130), (64, 512, 256)])
+                                 (70, 200, 130), (64, 512, 256),
+                                 (1, 1003, 77), (17, 1001, 131),
+                                 (1000, 999, 301)])
 @pytest.mark.parametrize("phase", ["decode", "prefill"])
 @pytest.mark.parametrize("epilogue", ["scale", "scale_bias_prelu"])
 def test_bitplane_kernel_matches_plain(cuda, mkn, phase, epilogue):

@@ -1,7 +1,7 @@
 """The pure-Python launch planning of B1 and B4, which the CPU reaches: B1's
-phase -> tile choice, B4's chunk width, chunk count, grid and
-partial-buffer size per phase. The kernels themselves run only on the card
-(tests/test_torch_cuda.py)."""
+phase -> tile choice, B4's chunk width (from the widths alone), cluster
+size, chunk count, grid and partial-buffer size per phase. The kernels
+themselves run only on the card (tests/test_torch_cuda.py)."""
 import pytest
 import torch
 
@@ -35,41 +35,55 @@ def test_b1_tile_follows_the_phase(m, phase):
             gemm_lib.TILES[gemm_lib.VARIANTS[other]]
 
 
-@pytest.mark.parametrize("m,phase,fc,grid", [
-    (1, "decode", 64, (64, 1)), (8, "decode", 64, (64, 1)),
-    (16, "decode", 64, (64, 1)), (17, "prefill", 128, (32, 1)),
-    (129, "prefill", 128, (32, 3)), (1024, "prefill", 256, (16, 16)),
-    (8192, "prefill", 512, (8, 128))])
-def test_b4_plan_per_phase(m, phase, fc, grid):
-    """ff 4096, N 1024 on 132 SMs: the chunk is halved until the grid
-    holds 7/8 of two blocks an SM (or reaches one strip); partials are
-    (chunks, M, N) f32."""
-    variant, ff_chunk = fused_lib.VARIANTS[phase]
-    plan = fused_lib.launch_plan(m, 4096, 1024, variant, ff_chunk, H100_SMS)
-    assert (plan.fc, plan.grid) == (fc, grid)
-    assert plan.chunks == 4096 // fc == grid[0]
+@pytest.mark.parametrize("m,phase,cluster,grid", [
+    (1, "decode", 8, (64, 1)), (8, "decode", 8, (64, 1)),
+    (16, "decode", 8, (64, 1)), (17, "prefill", 4, (32, 1)),
+    (129, "prefill", 4, (32, 3)), (1024, "prefill", 2, (16, 16)),
+    (8192, "prefill", 1, (8, 128))])
+def test_b4_plan_per_phase(m, phase, cluster, grid):
+    """ff 4096, N 1024 on 132 SMs: every M and tile sums the down
+    projection in 512-column chunks; the cluster doubles until the grid
+    holds 7/8 of two blocks an SM (or each block keeps one strip);
+    partials are (chunks, M, N) f32."""
+    variant = fused_lib.VARIANTS[phase]
+    plan = fused_lib.launch_plan(m, 4096, 1024, variant, H100_SMS)
+    assert (plan.fc, plan.cluster, plan.grid) == (512, cluster, grid)
+    assert plan.chunks == 8 == grid[0] // cluster
     assert plan.partial_numel == plan.chunks * m * 1024
 
 
+@pytest.mark.parametrize("variant", sorted(fused_lib.BLOCK_M))
+@pytest.mark.parametrize("sms", [114, 132])
+def test_b4_chunk_width_ignores_m_and_the_card(variant, sms):
+    """The chunk width, so every row's grouping of its down-projection
+    sum, is the same for every M, tile and SM count; both tiles' strips
+    divide it."""
+    for ff in (200, 1100, 4096):
+        fcs = {fused_lib.launch_plan(m, ff, 1024, variant, sms).fc
+               for m in (1, 8, 16, 17, 129, 1024, 8192)}
+        fc = fused_lib.chunk_width(ff)
+        assert fcs == {fc}
+        assert all(fc % s == 0 for s in fused_lib.STRIP.values())
+
+
 def test_b4_plan_ragged_ff_and_limits():
-    # ff 200 and 1100 round up to whole strips
-    plan = fused_lib.launch_plan(5, 200, 24, 1, 512, H100_SMS)
-    assert (plan.fc, plan.chunks, plan.grid) == (128, 2, (2, 1))
-    assert plan.partial_numel == 2 * 5 * 24
-    plan = fused_lib.launch_plan(3, 1100, 70, 0, 64, H100_SMS)
-    assert (plan.fc, plan.chunks) == (64, 18)
+    # ff 200 and 1100 round up to whole 128-column strips, at most 512
+    plan = fused_lib.launch_plan(5, 200, 24, 1, H100_SMS)
+    assert (plan.fc, plan.chunks, plan.cluster, plan.grid) == \
+        (256, 1, 2, (2, 1))
+    assert plan.partial_numel == 1 * 5 * 24
+    plan = fused_lib.launch_plan(3, 1100, 70, 0, H100_SMS)
+    assert (plan.fc, plan.chunks, plan.cluster) == (512, 3, 8)
     # a chunk wider than ff shrinks to ff's strips; M 0 still plans
-    assert fused_lib.launch_plan(128, 300, 8, 1, 512, 1).fc == 384
-    assert fused_lib.launch_plan(0, 4096, 8, 1, 512, H100_SMS).fc == 128
-    with pytest.raises(ValueError, match="multiple of 128"):
-        fused_lib.launch_plan(8, 4096, 1024, 1, 96, H100_SMS)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        fused_lib.launch_plan(8, 4096, 1024, 0, 0, H100_SMS)
+    assert fused_lib.launch_plan(128, 300, 8, 1, 1).fc == 384
+    assert fused_lib.launch_plan(0, 4096, 8, 1, H100_SMS).fc == 512
+    assert fused_lib.chunk_width(1) == 128
     with pytest.raises(ValueError, match="variant"):
-        fused_lib.launch_plan(8, 4096, 1024, 2, 128, H100_SMS)
+        fused_lib.launch_plan(8, 4096, 1024, 2, H100_SMS)
 
 
 def test_b4_plan_fills_more_sms_on_a_larger_card():
-    small = fused_lib.launch_plan(1024, 4096, 1024, 1, 512, 16)
-    large = fused_lib.launch_plan(1024, 4096, 1024, 1, 512, H100_SMS)
-    assert small.fc == 512 and large.fc == 256
+    small = fused_lib.launch_plan(1024, 4096, 1024, 1, 16)
+    large = fused_lib.launch_plan(1024, 4096, 1024, 1, H100_SMS)
+    assert small.fc == large.fc == 512
+    assert (small.cluster, large.cluster) == (1, 2)
