@@ -7,6 +7,9 @@ dense slot cache, then over the paged cache with bf16 pages and with int8
 pages under page pressure (prefix sharing, copy-on-write, deferrals and
 preemptions), and compares the card's logits with the CPU's plain path and
 the paged decode step's logits with the dense one's on the same weights.
+B5 (paged decode attention) is also held at long rows (the training
+slice's 513 to 1024 tokens, off the path), and at both shapes B5 on a
+subset of the rows must give those rows' bits among all rows.
 Before serving, B4's rows are held independent of M (the first M rows of
 one 8192-row X give the same bits as X alone, M 1 to 8192, gated and
 ungated). After it, ``mlp_formats`` drives MLP blocks of other formats at
@@ -18,10 +21,11 @@ Then the ``gemm_formats`` phase drives the paper's sparse-GEMM surface
 (``weights.pack`` + ``ops.ternary_gemm``) at the paper's sizes: ``tiled``
 packs of 4096 x 4096 with 256 x 128 tiles over the paper's sparsities
 through the tile-skipping kernels (B2, B3) and the dense one (B1), a K
-sweep over the paper's K range, ``bitplane`` packs through B7 in both
-modes, and one ``base3`` pack through its plain ``ref`` row (it has no
-kernel, in ``repro`` neither); then B2 at tiles that end inside a 64-deep
-step and B7 in both modes at ragged shapes, against their plain versions.
+sweep over the paper's K range (B3, B2 and B1 again), ``bitplane`` packs
+through B7 in both modes, and one ``base3`` pack through its plain
+``ref`` row (it has no kernel, in ``repro`` neither); then B2 and B3 at
+tiles that end inside a 64-deep step and B7 in both modes at ragged
+shapes, against their plain versions.
 Then the training slice: ``flash_kernel`` holds B6 (flash attention)
 against its plain version at ``repro``'s test shapes and the evaluation's
 (B*H 128, S 1024, hd 64); ``gradients`` holds the kernel rows' gradients
@@ -101,7 +105,13 @@ path runs — serving dense, paged bf16 and int8, mlp_formats,
 gemm_formats, train and eval — with the per-run counts under ``runs``,
 and its error and times summed over the shapes its path gives
 it, with the per-shape detail under ``shapes``; B6's path gives it the
-evaluation's shape only, its other shapes are checks), the card's name and
+evaluation's shape only, its other shapes are checks). Every time is the
+mean of CUDA-event readings, each after an L2 flush, of a call as a
+caller makes it, so the host's enqueue time that the flush does not
+cover counts; B2, B3 and B5 also give ``device_ms``, the same calls with
+the card kept busy while the host enqueues them, their device time
+alone, and ``host_ms``, the host's time to issue one call. Then the
+card's name and
 power limit as nvidia-smi prints them, and the final ``{"ok": true,
 "device": ...}`` line.
 """
@@ -121,6 +131,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12           # f32 outside the tensor cores
+SLACK_CYCLES = 500_000          # ~0.3 ms of spinning (cuda_ms's spin)
 KERNEL_RTOL = 1e-2
 LOGIT_TOL = 5e-2
 INT8_LOGIT_TOL = 7e-2
@@ -138,6 +149,9 @@ PRESSURE = dict(requests=16, slots=8, prompt_len=120, prefix_len=64,
 # paged attention at the serving shape: 8 rows of up to 193 tokens in
 # 13 pages of 16 each, 16 heads (no GQA in ternary-paper), hd 64
 PAGED = dict(b=8, h=16, kv=16, hd=64, t=13, max_len=193)
+# B5 off the path, at long rows: the training slice's sequence lengths
+# (512 to 1024) in 64 pages of 16, where a row's split matters
+PAGED_LONG = dict(b=8, h=16, kv=16, hd=64, t=64, min_len=513, max_len=1024)
 # B1's and B4's shapes: serving decode (M 8) and prefill (M 1024), and the
 # evaluation's full-sequence forward (M = batch 8 x seq 1024 = 8192): the
 # attention projections and the MLPs at N 1024, the lm head at N 32768
@@ -158,11 +172,13 @@ ROWS_CHECK = dict(m=8192, k=1024, ff=4096, n=1024,
 # a row stride above the width) run fused, bitplane packs the chain (B7)
 MLP_FORMATS = dict(k=1024, ff=4096, n=1024, ms=(8, 1024), tile_k=256,
                    tile_n=96, prompts=8)
-# ragged shapes of the redesigned B2 and B7 (K % 8 != 0, odd N, M 1, 17,
-# 1000) and B2's tiles whose tile_k is not a multiple of 64 or tile_n of
-# 32; checked once against their plain versions, not timed
+# ragged shapes of the redesigned B2, B3 and B7 (K % 8 != 0, odd N, M 1,
+# 17, 1000; then K 1000 and 1024, whose rows B3's tensor copies take) and
+# tiles whose tile_k is not a multiple of 64 or tile_n of 32; checked once
+# against their plain versions, not timed
 RAGGED_FORMATS = dict(shapes=[(1, 1001, 97), (17, 999, 131),
-                              (1000, 1003, 301)],
+                              (1000, 1003, 301), (17, 1000, 131),
+                              (1000, 1024, 301)],
                       tiles=[(48, 16), (80, 48)], sparsity=0.25)
 # the paper-size sparse-GEMM surface (benchmarks/kernel_bench.py's
 # sparsity_skip acceptance shape and tile)
@@ -191,10 +207,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, flush) -> float:
+def cuda_ms(fn, iters: int, flush, *, spin: bool = False) -> float:
     """Mean CUDA-event time of ``fn`` over ``iters`` launches, each after a
     write of ``flush`` (larger than the 50 MB L2), so weights come from
-    device memory as they do when a model's layers take turns."""
+    device memory as they do when a model's layers take turns. The host's
+    time to enqueue ``fn`` beyond what is left of the write shows as idle
+    card time in the reading, as it does for a caller. With ``spin``, the
+    card spins ``SLACK_CYCLES`` after the write, so the host's time is
+    hidden and the reading is the card's time alone (``device_ms``)."""
     import torch
     for _ in range(3):
         fn()
@@ -203,11 +223,29 @@ def cuda_ms(fn, iters: int, flush) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        if spin:
+            torch.cuda._sleep(SLACK_CYCLES)
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def host_ms(fn, iters: int) -> float:
+    """Mean host time to issue one call of ``fn``, calls back to back with
+    no synchronization between them: what a call costs the host, whatever
+    the card does meanwhile."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
@@ -398,24 +436,16 @@ def row_independence_check():
           f"{fused_lib.chunk_width(ff)} at every M)", flush=True)
 
 
-def paged_kernel_phase(flush):
-    """B5 against its plain version at the serving shape, bf16 and int8
-    pages: ragged lengths from the seeded generator, each row's pages
-    distinct, table entries past each length garbage."""
+def _paged_inputs(gen, shape, lengths):
+    """q and f32 K/V pages for B5, and a table whose entries past each
+    length are garbage ids (never read), each row's pages distinct."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import ops
-    from repro_torch.paging import Int8Pages
-    from repro_torch.paging import kernels as paged_lib
-
-    b, h, kv, hd, t = (PAGED[k] for k in ("b", "h", "kv", "hd", "t"))
-    ps, n_pages = PAGE_SIZE, PAGED["b"] * PAGED["t"] + 1
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    b, h, kv, hd, t = (shape[k] for k in ("b", "h", "kv", "hd", "t"))
+    ps, n_pages = PAGE_SIZE, b * t + 1
     q = torch.randn(b, h, hd, generator=gen, device="cuda").to(torch.bfloat16)
     k = torch.randn(n_pages, ps, kv, hd, generator=gen, device="cuda")
     v = torch.randn(n_pages, ps, kv, hd, generator=gen, device="cuda")
-    lengths = torch.randint(1, PAGED["max_len"] + 1, (b,), generator=gen,
-                            device="cuda", dtype=torch.int32)
+    lengths = lengths()
     table = torch.randint(0, n_pages, (b, t), generator=gen, device="cuda",
                           dtype=torch.int32)
     perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
@@ -423,45 +453,89 @@ def paged_kernel_phase(flush):
     for row, n in enumerate(lengths.tolist()):
         used = -(-n // ps)
         table[row, :used] = perm[row * t:row * t + used]
-    valid = int(lengths.sum())
-    pos = torch.arange(t * ps, device="cuda")
-    mask = (pos < lengths[:, None])[:, None, None, :]       # (B, 1, 1, S)
+    return q, k, v, lengths, table
+
+
+def paged_kernel_phase(flush):
+    """B5 against its plain version at the serving shape and, off the
+    path, at the long rows (PAGED_LONG), bf16 and int8 pages: ragged
+    lengths from the seeded generator, each row's pages distinct, table
+    entries past each length garbage. At each, B5 on subsets of the rows
+    (1, 3 and all 8, permuted) must equal B5 on all rows, bit for bit."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.paging import Int8Pages
+    from repro_torch.paging import kernels as paged_lib
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    serving = _paged_inputs(gen, PAGED, lambda: torch.randint(
+        1, PAGED["max_len"] + 1, (PAGED["b"],), generator=gen, device="cuda",
+        dtype=torch.int32))
+    gen_long = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    long_rows = _paged_inputs(gen_long, PAGED_LONG, lambda: torch.randint(
+        PAGED_LONG["min_len"], PAGED_LONG["max_len"] + 1, (PAGED_LONG["b"],),
+        generator=gen_long, device="cuda", dtype=torch.int32))
     rows = []
-    for label in ("bf16", "int8"):
-        if label == "int8":
-            kp, vp = Int8Pages.quantize(k), Int8Pages.quantize(v)
-        else:
-            kp, vp = k.to(torch.bfloat16), v.to(torch.bfloat16)
-        args = (q, kp, vp, table, lengths)
-        got = ops.paged_decode_attention(*args)
-        ref = paged_lib.paged_decode_attention_ref(*args)
-        err = check_close(f"paged_decode_attention {label} pages", got, ref)
-        # yardstick: SDPA over K/V gathered (and dequantized) beforehand
-        ks, vs = (paged_lib.gather_pages(pg, table, torch.bfloat16)
-                  .transpose(1, 2).contiguous() for pg in (kp, vp))
-        qs = q[:, :, None]
-        iters = 50
-        row = {
-            "pages": label, "b": b, "h": h, "kv": kv, "hd": hd, "ps": ps,
-            "t": t, "valid_tokens": valid, "max_abs_err": err,
-            "ms": cuda_ms(lambda: ops.paged_decode_attention(*args), iters,
-                          flush),
-            "plain_ms": cuda_ms(
-                lambda: paged_lib.paged_decode_attention_ref(*args), iters,
-                flush),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask), iters, flush),
-        }
-        # K and V of the valid tokens read once (+ their scales), q and o,
-        # the table and the lengths
-        per_token = 2 * kv * (hd + 4 if label == "int8" else 2 * hd)
-        nbytes = valid * per_token + 2 * b * h * hd * 2 + b * t * 4 + b * 4
-        ops_needed = 4.0 * valid * h * hd             # q.k and p.v, f32
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_needed,
-                                                    F32_OPS_PER_S)
-        rows.append(row)
-        print(f"paged_decode_attention {label} pages: " + json.dumps(row),
-              flush=True)
+    for name, shape, (q, k, v, lengths, table) in (
+            ("serving", PAGED, serving), ("long", PAGED_LONG, long_rows)):
+        b, h, kv, hd, t = (shape[key] for key in ("b", "h", "kv", "hd", "t"))
+        valid = int(lengths.sum())
+        pos = torch.arange(t * PAGE_SIZE, device="cuda")
+        mask = (pos < lengths[:, None])[:, None, None, :]   # (B, 1, 1, S)
+        for label in ("bf16", "int8"):
+            if label == "int8":
+                kp, vp = Int8Pages.quantize(k), Int8Pages.quantize(v)
+            else:
+                kp, vp = k.to(torch.bfloat16), v.to(torch.bfloat16)
+            args = (q, kp, vp, table, lengths)
+            what = f"paged_decode_attention {name} {label} pages"
+            got = ops.paged_decode_attention(*args)
+            ref = paged_lib.paged_decode_attention_ref(*args)
+            err = check_close(what, got, ref)
+            for subset in ([3], [0, 5, 7], [6, 1, 4, 0, 7, 2, 5, 3]):
+                idx = torch.tensor(subset, device="cuda")
+                part = paged_lib.paged_decode_attention_cuda(
+                    q[idx].contiguous(), kp, vp, table[idx].contiguous(),
+                    lengths[idx].contiguous())
+                if not torch.equal(part, got[idx]):
+                    raise AssertionError(f"{what}: rows {subset} alone "
+                                         f"differ from the same rows among "
+                                         f"all {b}")
+            # yardstick: SDPA over K/V gathered (and dequantized) beforehand
+            ks, vs = (paged_lib.gather_pages(pg, table, torch.bfloat16)
+                      .transpose(1, 2).contiguous() for pg in (kp, vp))
+            qs = q[:, :, None]
+            iters = 50
+            row = {
+                "shape": name, "pages": label, "b": b, "h": h, "kv": kv,
+                "hd": hd, "ps": PAGE_SIZE, "t": t, "valid_tokens": valid,
+                "split": paged_lib.split_plan(t, PAGE_SIZE).splits,
+                "max_abs_err": err, "subsets_equal": True,
+                "ms": cuda_ms(lambda: ops.paged_decode_attention(*args),
+                              iters, flush),
+                "device_ms": cuda_ms(
+                    lambda: ops.paged_decode_attention(*args), iters, flush,
+                    spin=True),
+                "host_ms": host_ms(
+                    lambda: ops.paged_decode_attention(*args), 100),
+                "plain_ms": cuda_ms(
+                    lambda: paged_lib.paged_decode_attention_ref(*args),
+                    iters, flush),
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask), iters, flush),
+            }
+            if name != "serving":
+                row["on_path"] = False
+            # K and V of the valid tokens read once (+ their scales), q and
+            # o, the table and the lengths
+            per_token = 2 * kv * (hd + 4 if label == "int8" else 2 * hd)
+            nbytes = valid * per_token + 2 * b * h * hd * 2 + b * t * 4 + b * 4
+            ops_needed = 4.0 * valid * h * hd             # q.k and p.v, f32
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_needed,
+                                                        F32_OPS_PER_S)
+            rows.append(row)
+            print(f"{what}: subsets equal; " + json.dumps(row), flush=True)
     return rows
 
 
@@ -896,7 +970,8 @@ def gemm_formats_phase(flush):
     for kk, w in sweep.items():
         x = xs[(FORMATS["sweep_m"], kk)]
         out[("sweep", kk, "auto")] = ops.ternary_gemm(x, w)
-        out[("sweep", kk, "dense")] = ops.ternary_gemm(x, w, impl="dense")
+        for impl in ("skip", "dense"):
+            out[("sweep", kk, impl)] = ops.ternary_gemm(x, w, impl=impl)
     for s, w in planes.items():
         for m in FORMATS["ms"]:
             x = xs[(m, k)]
@@ -959,6 +1034,13 @@ def gemm_formats_phase(flush):
             times = {impl: cuda_ms(lambda i=impl: ops.ternary_gemm(
                 x, w, impl=i), iters, flush)
                 for impl in ("skip", "skip_db", "dense")}
+            # the same calls with the host's enqueue time hidden, and the
+            # host's time to issue one
+            device = {impl: cuda_ms(lambda i=impl: ops.ternary_gemm(
+                x, w, impl=i), iters, flush, spin=True)
+                for impl in ("skip", "skip_db")}
+            host = {impl: host_ms(lambda i=impl: ops.ternary_gemm(
+                x, w, impl=i), 100) for impl in ("skip", "skip_db")}
             # the wrappers called directly (no dispatch): kernel time alone
             bm = gemm_lib.SKIP_BLOCK_M["decode" if m <= 16 else "prefill"]
             kernel = {db: cuda_ms(lambda d=db: gemm_lib.ternary_gemm_skip_cuda(
@@ -985,6 +1067,8 @@ def gemm_formats_phase(flush):
             for name, impl, db in (("ternary_gemm_skip", "skip", False),
                                    ("ternary_gemm_skip_db", "skip_db", True)):
                 rows[name].append({**common, "ms": times[impl],
+                                   "device_ms": device[impl],
+                                   "host_ms": host[impl],
                                    "kernel_ms": kernel[db],
                                    "max_abs_err": errs[impl]})
             print(f"{label}: auto={plan} skip==skip_db==dense; "
@@ -1003,11 +1087,11 @@ def gemm_formats_phase(flush):
         x = xs[(FORMATS["sweep_m"], kk)]
         label = (f"K sweep K={kk} N={n} M={x.shape[0]} "
                  f"s={FORMATS['sweep_sparsity']}")
-        got, dense = out[("sweep", kk, "auto")], out[("sweep", kk, "dense")]
+        got = out[("sweep", kk, "auto")]
         if ops.ternary_gemm_plan(w, x.shape[0]).impl != "skip_db":
             raise AssertionError(f"{label}: auto did not plan skip_db")
-        if not torch.equal(got, dense):
-            raise AssertionError(f"{label}: skip_db != dense bitwise")
+        equal3(label, {"skip_db": got, "skip": out[("sweep", kk, "skip")],
+                       "dense": out[("sweep", kk, "dense")]})
         err = check_close(label, got, skip_plain(x, w))
         w_eff = _effective(w)
         iters = 10
@@ -1016,13 +1100,20 @@ def gemm_formats_phase(flush):
                "occupancy": w.occupancy(), "max_abs_err": err,
                "skip_db_ms": cuda_ms(lambda: ops.ternary_gemm(x, w), iters,
                                      flush),
+               "skip_ms": cuda_ms(lambda: ops.ternary_gemm(
+                   x, w, impl="skip"), iters, flush),
+               "skip_db_device_ms": cuda_ms(lambda: ops.ternary_gemm(x, w),
+                                            iters, flush, spin=True),
+               "skip_device_ms": cuda_ms(lambda: ops.ternary_gemm(
+                   x, w, impl="skip"), iters, flush, spin=True),
                "dense_ms": cuda_ms(lambda: ops.ternary_gemm(
                    x, w, impl="dense"), iters, flush),
                "library_ms": cuda_ms(lambda: torch.matmul(x, w_eff), iters,
                                      flush)}
         row["bound_ms"], row["bound_by"] = tiled_bound(x, w, x.shape[0])
         rows["k_sweep"].append(row)
-        print(f"{label}: skip_db==dense; " + json.dumps(row), flush=True)
+        print(f"{label}: skip_db==skip==dense; " + json.dumps(row),
+              flush=True)
 
     for s, w in planes.items():
         for m in FORMATS["ms"]:
@@ -1080,10 +1171,13 @@ def gemm_formats_phase(flush):
 
 
 def ragged_formats(rows):
-    """B2 (== B3 == B1 bitwise) at tiles whose tile_k is not a multiple of
-    64 or tile_n of 32, and B7 in both modes, at ragged shapes (K % 8 != 0,
-    odd N, M 1, 17, 1000), each against its plain version; rows marked
-    ``"on_path": false``."""
+    """B2 and B3 (== B1 bitwise) at tiles whose tile_k is not a multiple
+    of 64 or tile_n of 32, and B7 in both modes, at ragged shapes, each
+    against its plain version; rows marked ``"on_path": false``. Where
+    K % 8 != 0 (K 1001, 999, 1003) B3 and B2 fill their stages with plain
+    loads; where K % 8 == 0 (K 1000, 1024) B3's tensor copies fill them,
+    and a 64-deep step that runs past its tile's end lands the next
+    tile's words, which B3 must zero. Odd N; M 1, 17, 1000."""
     import numpy as np
     import torch
     from repro_torch.core import formats, weights
@@ -1123,10 +1217,11 @@ def ragged_formats(rows):
                         x, w.packed, w.kt_indices, w.kt_counts, w.scale,
                         kw.get("bias"), n=n, tile_k=tk, tile_n=tn,
                         fuse_prelu=kw.get("fuse_prelu", False))))
-            rows["ternary_gemm_skip"].append(
-                {"m": m, "k": k, "n": n, "tile": [tk, tn],
-                 "occupancy": w.occupancy(), "max_abs_err": err,
-                 "dense_equal": True, "on_path": False})
+            for name in ("ternary_gemm_skip", "ternary_gemm_skip_db"):
+                rows[name].append(
+                    {"m": m, "k": k, "n": n, "tile": [tk, tn],
+                     "occupancy": w.occupancy(), "max_abs_err": err,
+                     "dense_equal": True, "on_path": False})
             print(f"ragged tiled M={m} K={k} N={n} tile ({tk}, {tn}): "
                   f"skip==skip_db==dense, max_abs_err {err}", flush=True)
         planes = weights.Bitplane.from_dense(
@@ -1621,6 +1716,8 @@ def main() -> int:
             "library_ms": total["library_ms"],
             "shapes": rows,
         }
+        if all("device_ms" in r for r in path_rows):
+            entry["device_ms"] = sum(r["device_ms"] for r in path_rows)
         if name == "ternary_gemm_skip_db":
             entry["k_sweep"] = k_sweep
         if name == "fused_mlp":

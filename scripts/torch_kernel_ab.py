@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""A/B of the port's ternary kernels between checkouts, on one CUDA card, in
-turns: B1 (ternary GEMM) and B4 (fused MLP) at the main path's shapes, and
-B2, B3 and B7 (tile-skipping and bitplane GEMMs) with B1 and cuBLAS on the
-same packs at the paper's sizes.
+"""A/B of the port's kernels between checkouts, on one CUDA card, in turns:
+B1 (ternary GEMM) and B4 (fused MLP) at the main path's shapes, B2, B3 and
+B7 (tile-skipping and bitplane GEMMs) with B1 and cuBLAS on the same packs
+at the paper's sizes, and B5 (paged decode attention) at the serving shape
+and at long rows.
 
     python3 scripts/torch_kernel_ab.py --tree OLD --tree . --tree . \\
         --tree OLD [--split .] [--out chiprun_out/kernel_ab.json]
@@ -13,12 +14,23 @@ tree's kernels and runs its ``chip_smoke.kernel_phase`` (every B1 and B4
 shape of the main path) and its ``chip_smoke.gemm_formats_phase`` (tiled
 packs through B2, B3 and B1, the K sweep, bitplane packs through B7 in
 both modes), each shape checked against its plain version and timed
-with CUDA events, L2 flushed before each launch. Naming the parent and
-the change in turns (parent, change, change, parent) shows the card's
+with this checkout's ``chip_smoke.cuda_ms`` (CUDA events, L2 flushed
+before each launch), whichever tree runs. Then B5 through that
+tree's ``ops.paged_decode_attention`` on the same inputs in every tree
+(made by this checkout's ``chip_smoke._paged_inputs`` at its ``PAGED`` and
+``PAGED_LONG`` shapes, bf16 and int8 pages), beside SDPA on the gathered
+K/V. The tile-skipping packs (B2, B3, the K sweep) and B5 are timed
+twice: as a caller meets them, the host's enqueue time included where the
+flush does not cover it, and with the card kept busy while the host
+enqueues each call (``cuda_ms(spin=True)``, keys ending in ``_spin``),
+the card's time alone; and B3, B2 (s 1/8, M 8 and 1024) and B5 give the
+host's time to issue one call (``host_ms``, calls back to back with no
+synchronization). Naming the
+parent and the change in turns (parent, change, change, parent) shows the card's
 drift beside the change's effect. Prints one line per shape with each
-run's kernel ms (B1 and B4: the wrapper called directly; B2, B3, B7:
+run's kernel ms (B1 and B4: the wrapper called directly; B2, B3, B5, B7:
 through ``ops``) beside B1's on the same pack and the library call's, and
-writes all rows as JSON.
+writes all rows as JSON, with the card's name and power limit.
 With ``--split TREE`` it also profiles B4 in TREE at the main path's
 shapes (``torch.profiler``, L2 flushed before each call) and prints the
 device time of each of its two launches, the fused kernel and the
@@ -28,24 +40,89 @@ device and nvcc; imports no JAX.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
 from pathlib import Path
 
 RUN = r"""
-import json, sys
+import functools, json, sys
 sys.path.insert(0, "src")
 sys.path.insert(0, ".")
+import importlib.util
 import torch
+import torch.nn.functional as F
 torch.backends.cuda.matmul.allow_tf32 = False
 import chip_smoke
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops
+from repro_torch.paging import Int8Pages
+from repro_torch.paging import kernels as paged_lib
 build.build(["ternary_gemm", "ternary_gemm_skip", "ternary_gemm_bitplane",
-             "fused_mlp"])
+             "fused_mlp", "paged_attention"])
+# every tree is timed by the A/B checkout's cuda_ms, and B5 on its inputs
+spec = importlib.util.spec_from_file_location("ab_inputs", sys.argv[1])
+ab = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(ab)
+chip_smoke.cuda_ms = ab.cuda_ms
 flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
 rows = chip_smoke.kernel_phase(flush)
 rows.update(chip_smoke.gemm_formats_phase(flush)[0])
+# the same packs again, the card kept busy while the host enqueues each
+# call: the times become the card's alone, keys suffixed "_spin"
+chip_smoke.cuda_ms = functools.partial(ab.cuda_ms, spin=True)
+for name, spun in chip_smoke.gemm_formats_phase(flush)[0].items():
+    for row, spun_row in zip(rows[name], spun):
+        for key in {"ternary_gemm_skip": ("ms",),
+                    "ternary_gemm_skip_db": ("ms",),
+                    "k_sweep": ("skip_db_ms", "skip_ms")}.get(name, ()):
+            if key in spun_row:
+                row[key + "_spin"] = spun_row[key]
+# the host's time to issue one call of B3 and of B2 through ops
+scale = torch.rand(4096, generator=torch.Generator().manual_seed(1)) + 0.5
+w = ab._tiled_pack(0, 4096, 4096, 0.125, scale.cuda())
+for m in (8, 1024):
+    x = torch.randn(m, 4096, device="cuda").to(torch.bfloat16)
+    for name, impl in (("ternary_gemm_skip_db_host", "skip_db"),
+                       ("ternary_gemm_skip_host", "skip")):
+        rows.setdefault(name, []).append({
+            "sparsity": 0.125, "m": m, "k": 4096, "n": 4096,
+            "host_ms": ab.host_ms(
+                lambda: ops.ternary_gemm(x, w, impl=impl), 200)})
+rows["paged_decode_attention"] = []
+for name, shape, seed in (("serving", ab.PAGED, ab.SEED + 2),
+                          ("long", ab.PAGED_LONG, ab.SEED + 12)):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lo, hi = shape.get("min_len", 1), shape["max_len"]
+    q, k, v, lengths, table = ab._paged_inputs(
+        gen, shape, lambda: torch.randint(lo, hi + 1, (shape["b"],),
+                                          generator=gen, device="cuda",
+                                          dtype=torch.int32))
+    pos = torch.arange(shape["t"] * ab.PAGE_SIZE, device="cuda")
+    mask = (pos < lengths[:, None])[:, None, None, :]
+    for label in ("bf16", "int8"):
+        if label == "int8":
+            kp, vp = Int8Pages.quantize(k), Int8Pages.quantize(v)
+        else:
+            kp, vp = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        args = (q, kp, vp, table, lengths)
+        err = chip_smoke.check_close(
+            f"B5 {name} {label}", ops.paged_decode_attention(*args),
+            paged_lib.paged_decode_attention_ref(*args))
+        ks, vs = (paged_lib.gather_pages(pg, table, torch.bfloat16)
+                  .transpose(1, 2).contiguous() for pg in (kp, vp))
+        rows["paged_decode_attention"].append({
+            "shape": name, "pages": label, "max_abs_err": err,
+            "ms": ab.cuda_ms(lambda: ops.paged_decode_attention(*args), 100,
+                             flush),
+            "ms_spin": ab.cuda_ms(
+                lambda: ops.paged_decode_attention(*args), 100, flush,
+                spin=True),
+            "host_ms": ab.host_ms(
+                lambda: ops.paged_decode_attention(*args), 200),
+            "library_ms": ab.cuda_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], ks, vs, attn_mask=mask), 100, flush)})
 print("AB_ROWS " + json.dumps(rows), flush=True)
 """
 
@@ -92,11 +169,19 @@ print("SPLIT " + json.dumps(out), flush=True)
 # per kernel: the time keys of its rows (the first is the kernel's own;
 # a checkout older than a key prints "-" for it)
 TIMES = {"ternary_gemm": ("kernel_ms",), "fused_mlp": ("kernel_ms",),
-         "ternary_gemm_skip": ("ms", "kernel_ms", "dense_ms"),
-         "ternary_gemm_skip_db": ("ms", "kernel_ms", "dense_ms"),
+         "ternary_gemm_skip": ("ms", "ms_spin", "kernel_ms", "dense_ms"),
+         "ternary_gemm_skip_db": ("ms", "ms_spin", "kernel_ms", "dense_ms"),
          "ternary_gemm_bitplane": ("ms", "factorized_ms", "kernel_ms",
                                    "factorized_kernel_ms"),
-         "k_sweep": ("skip_db_ms", "dense_ms")}
+         "k_sweep": ("skip_db_ms", "skip_db_ms_spin", "skip_ms",
+                     "skip_ms_spin", "dense_ms"),
+         "ternary_gemm_skip_db_host": ("host_ms",),
+         "ternary_gemm_skip_host": ("host_ms",),
+         "paged_decode_attention": ("ms", "ms_spin", "host_ms")}
+
+
+# this checkout's chip_smoke.py, whose B5 inputs every tree is timed on
+INPUTS = Path(__file__).resolve().parent.parent / "chip_smoke.py"
 
 
 def fmt_ms(v) -> str:
@@ -104,6 +189,8 @@ def fmt_ms(v) -> str:
 
 
 def shape_key(name: str, row: dict) -> str:
+    if name == "paged_decode_attention":
+        return f"{name} {row['shape']} {row['pages']}"
     dims = ("m", "k", "ff", "n") if name == "fused_mlp" else ("m", "k", "n")
     if "sparsity" in row:
         dims = ("sparsity",) + dims
@@ -118,11 +205,16 @@ def main() -> int:
     ap.add_argument("--split", metavar="TREE",
                     help="profile B4's two launches in this checkout")
     args = ap.parse_args()
+    spec = importlib.util.spec_from_file_location("ab_inputs", INPUTS)
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    card = ab.card_line()
+    print(f"card: {card}", flush=True)
     runs = []
     for i, tree in enumerate(args.tree):
         root = Path(tree).resolve()
-        proc = subprocess.run([sys.executable, "-c", RUN], cwd=root,
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, "-c", RUN, str(INPUTS)],
+                              cwd=root, capture_output=True, text=True)
         line = next((ln for ln in proc.stdout.splitlines()
                      if ln.startswith("AB_ROWS ")), None)
         if proc.returncode != 0 or line is None:
@@ -145,7 +237,7 @@ def main() -> int:
         keys = TIMES[key.split(" ")[0]] + ("library_ms",)
         print(key + ": " + "; ".join(
             k + " " + " / ".join(fmt_ms(c[k]) for c in cells)
-            for k in keys) + f"; bound_ms {cells[0]['bound_ms']:.3g}",
+            for k in keys) + f"; bound_ms {fmt_ms(cells[0].get('bound_ms'))}",
             flush=True)
     split = None
     if args.split:
@@ -163,7 +255,7 @@ def main() -> int:
                   + json.dumps(times), flush=True)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps({"trees": args.tree, "runs": runs,
+    out.write_text(json.dumps({"card": card, "trees": args.tree, "runs": runs,
                                "table": table, "b4_split_ms": split},
                               indent=1))
     return 0

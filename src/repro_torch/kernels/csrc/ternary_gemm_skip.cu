@@ -18,7 +18,9 @@
 // occupied tiles only. At decode (M = 8) that is bytes: the occupied words
 // at 2 bits a weight. At prefill (M = 1024+) it is operations: 2 * M *
 // tile_k * tile_n per occupied tile on the tensor cores, so the work falls
-// with the occupied fraction of the tiles.
+// with the occupied fraction of the tiles. Neither kernel reaches either
+// bound: both issue mma.sync with a table lookup per B fragment, and the
+// time follows the occupied steps a block walks (PERF.md).
 //
 // Both: one block per (BM rows x BN columns) of one N-tile (BN divides
 // tile_n, so several blocks share an N-tile's list). The block reads its
@@ -28,35 +30,47 @@
 // s / chunks. Every output element therefore sees the same 16-deep K
 // chunks in the same ascending order as the dense kernel (ternary_gemm.cu,
 // B1), through the same HMMA.16816, minus chunks whose products are all
-// exact zeros, and the three agree bit for bit.
+// exact zeros, and the three agree bit for bit. Both run B1's register
+// decode: each lane turns the word of its column into its mma.sync B
+// fragment with the nibble table, and the epilogue runs from the
+// accumulators. Tiles per phase: decode (bm 16) 16 rows with 8 stages,
+// prefill (bm 64) 64 rows with 4 stages; one warp row of up to 4 warps
+// across bn 16, 32, 64 or 128 (the wrapper takes at most 64 at decode, as
+// B1 does). They differ in how a stage is filled.
 //
-// B2 (ternary_gemm_skip_kernel) runs B1's register-decode loop
-// (ternary_tiles.cuh) over the walk: a ring of STAGES cp.async stages
-// prefetches steps s + 1 ... s + STAGES - 1 of the list, each stage the x
-// slice (columns bounded by the tile's end, row stride K) and the raw
-// words (rows bounded by the tile's end, row stride ldw); each lane turns
-// the word of its column into its mma.sync B fragment with the nibble
-// table, and the epilogue runs from the accumulators. A step at a tile's
-// end never reads the next tile's words: it stages zeros past the tile's
-// end and runs its four chunks, the extra ones adding exact zeros (as B1
-// adds the chunks of an empty tile). Tiles are B1's per phase: decode (bm 16) 16 rows with 8
-// stages, prefill (bm 64) 64 rows with 4 warps of 64 rows and 4 stages;
-// bn 16, 32, 64 or 128 (the wrapper takes 64 at decode, as B1 does).
+// B2 (ternary_gemm_skip_kernel): every thread fills the ring with 16-byte
+// cp.async copies, the x slice with a padded row stride (XLD), and one
+// __syncthreads a step publishes a stage and frees the previous one. A
+// step at a tile's end stages zeros past it (x past kend, words past
+// wend) and runs its four chunks, the extra ones adding exact zeros.
 //
-// B3 (ternary_gemm_skip_db_kernel) keeps the older WMMA loop: each step
-// decodes its words into a bf16 +1/0/-1 tile in shared memory and runs
-// the 16-deep WMMA chunks (ternary::mma_tile) and the smem epilogue
-// (ternary::store_epilogue), with a two-stage pipeline: the x slice and
-// raw words of step s + 1 are copied into the other stage with cp.async
-// before step s is decoded and multiplied. Staging by 64-deep steps keeps
-// shared memory at ~40 KB whatever tile_k is.
+// B3 (ternary_gemm_skip_tma_kernel), the Pallas kernel's two DMAs a step
+// with their semaphores: a producer warp, beside the consumer warps, has
+// the Tensor Memory Accelerator copy each step's two boxes, (BM x 64) bf16
+// of x and (4 x BN) words, into a ring of stages; each stage has a "full"
+// mbarrier armed with the step's bytes (expect_tx) that the copies
+// complete, and an "empty" one on which each consumer warp arrives once it
+// has run the step. No thread of the block waits on another except
+// through those barriers: there is no __syncthreads in the loop. The x box
+// lands with 128-byte rows under the 128-byte swizzle (16-byte chunk c of
+// row r at chunk c ^ (r % 8)), and ldmatrix reads it through the same XOR,
+// so its eight rows fall in distinct banks. The copies zero-fill rows past
+// M and columns past K; a step that crosses its tile's end still lands the
+// next tile's words and x columns, so the consumers zero the word rows
+// past the tile's end in registers before the decode (the x columns there
+// meet zero weights and add exact zeros, as in B2). Generic stores never
+// precede the async proxy's writes to the same stage, so no proxy fence
+// is needed. A barrier wait over two minutes traps (mbar_wait).
 //
-// The 16-byte copies need x rows 16-byte aligned (K % 8 == 0) and ldw % 4
-// == 0; otherwise the same stages are filled with plain loads. wgmma and
-// TMA are later work.
+// The copies need x rows 16-byte aligned (K % 8 == 0), ldw % 4 == 0 and
+// 16-byte aligned bases; otherwise B2's threads, and B3's producer warp,
+// fill the same stages with plain loads (B3's still completing on the
+// stage's "full" barrier, one arrival a lane).
+#include <cuda.h>
+#include <string.h>
+
 #include "ternary_tiles.cuh"
 
-using ternary::APAD;
 using ternary::BK;
 using ternary::BKW;
 using ternary::XLD;
@@ -72,56 +86,6 @@ struct RingSmem {
   static constexpr int STAGE = X + W;
   static constexpr int BYTES = LUT + STAGES * STAGE;
 };
-
-// Fill one stage for step (kbase, kend, wend): x slice (BM x BK) with row
-// stride BK + APAD, zero past row M and column kend; raw words (BKW x BN)
-// with row stride BN, zero past word row wend. vec: 16-byte cp.async
-// copies (x rows 16-byte aligned, ldw % 4 == 0); otherwise plain loads.
-template <int BM, int BN>
-__device__ __forceinline__ void stage_async(bf16* xs, uint32_t* wr,
-                                            const bf16* x, const uint32_t* w,
-                                            int m0, int n0, int kbase,
-                                            int kend, int wend, int M, int K,
-                                            int ldw, bool vec) {
-  if (vec) {
-    constexpr int XG = BK / 8;    // 16-byte groups per x row
-    for (int i = threadIdx.x; i < BM * XG; i += blockDim.x) {
-      const int r = i / XG, g = i % XG;
-      const int gr = m0 + r, gc = kbase + g * 8;
-      const bool ok = gr < M && gc < kend;   // kend % 8 == 0 here
-      ternary::cp_async16(xs + r * (BK + APAD) + g * 8,
-                          ok ? x + (size_t)gr * K + gc : x, ok ? 16 : 0);
-    }
-    constexpr int WG = BN / 4;    // 16-byte groups per word row
-    for (int i = threadIdx.x; i < BKW * WG; i += blockDim.x) {
-      const int r = i / WG, g = i % WG;
-      const int gr = kbase / 16 + r;
-      const bool ok = gr < wend;
-      ternary::cp_async16(wr + r * BN + g * 4,
-                          ok ? w + (size_t)gr * ldw + n0 + g * 4 : w,
-                          ok ? 16 : 0);
-    }
-  } else {
-    ternary::load_act_tile<BM>(xs, x, m0, kbase, M, kend, K);
-    for (int i = threadIdx.x; i < BKW * BN; i += blockDim.x) {
-      const int r = i / BN, c = i % BN;
-      const int gr = kbase / 16 + r;
-      wr[i] = gr < wend ? w[(size_t)gr * ldw + n0 + c] : 0u;
-    }
-  }
-  ternary::cp_async_commit();
-}
-
-// step s of an N-tile's walk -> (first K row, one past its last row, one
-// past its last word row), the last two clipped to the end of its tile
-__device__ __forceinline__ void step_k(const int* idx, int chunks, int tile_k,
-                                       int K, int kw, int s, int& kbase,
-                                       int& kend, int& wend) {
-  const int k0 = idx[s / chunks] * tile_k;
-  kbase = k0 + (s % chunks) * BK;
-  kend = min(K, k0 + tile_k);
-  wend = min(kw, (k0 + tile_k) / 16);
-}
 
 // B2: the register-decode ring over the block's occupied steps.
 template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
@@ -193,68 +157,312 @@ ternary_gemm_skip_kernel(const bf16* __restrict__ x,
                                         fuse_prelu, prelu_alpha, y);
 }
 
-// B3: the two-stage WMMA walk.
-template <int BM, int BN, int WARPS_M, int WARPS_N>
-__global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
-ternary_gemm_skip_db_kernel(const bf16* __restrict__ x,
-                            const uint32_t* __restrict__ w,
-                            const int* __restrict__ kt_indices,
-                            const int* __restrict__ kt_counts,
-                            const float* __restrict__ scale,
-                            const float* __restrict__ bias,
-                            bf16* __restrict__ y, int M, int K, int N, int kw,
-                            int ldw, int tile_k, int tile_n, int max_occ,
-                            int fuse_prelu, float prelu_alpha, int vec) {
-  using T = ternary::TileShape<BM, BN, WARPS_M, WARPS_N>;
-  constexpr int STAGES = 2;
-  constexpr int WR = BKW * BN;                       // raw words per stage
-  constexpr int MAIN_BYTES = STAGES * (T::XS * 2 + WR * 4) + T::WS * 2;
-  constexpr int SMEM = MAIN_BYTES > T::CS * 4 ? MAIN_BYTES : T::CS * 4;
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  bf16* xs = reinterpret_cast<bf16*>(smem);                 // STAGES x XS
-  uint32_t* wr = reinterpret_cast<uint32_t*>(xs + STAGES * T::XS);
-  bf16* ws = reinterpret_cast<bf16*>(wr + STAGES * WR);    // decoded tile
-  float* cs = reinterpret_cast<float*>(smem);   // reused after the K loop
+// ---------------------------------------------------------------------------
+// B3: the TMA ring.
+
+namespace tma {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Make the initialized barriers visible to the other threads and to the
+// async proxy that completes them.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Arrive and add `bytes` to the transactions the current phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed. A wait
+// of two minutes, far beyond any stall of a correct kernel (a launch
+// takes microseconds; time slicing and preemption take milliseconds),
+// traps: a wrong parity or a lost copy then fails the launch with an
+// error instead of holding the card until the process is killed. A
+// debugger that halts the kernel for longer trips it too. This form of
+// the loop is also the fastest measured: without the guard, and with
+// __nanosleep or try_wait's suspend hint in its place, B3 took 1.2-1.3x
+// as long at decode (PERF.md).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint64_t t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (t0 == 0) {
+      t0 = now;
+    } else if (now - t0 > 120000000000ull) {   // two minutes, in ns
+      __trap();
+    }
+  }
+}
+
+// Copy box (c0, c1) (innermost coordinate first) of the tensor `map`
+// describes into dst; the copy completes its bytes on `bar`.
+__device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map,
+                                        int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in a box of 128-byte
+// rows under the 128-byte swizzle (the box 1024-byte aligned).
+__device__ __forceinline__ int swizzle128(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+}  // namespace tma
+
+// B3's shared memory, from a 1024-byte aligned base (the swizzle's
+// period): STAGES x boxes (BM x 128 bytes), STAGES word boxes (BKW x BN),
+// the nibble table, then the full and empty barriers.
+template <int BM, int BN, int STAGES>
+struct TmaSmem {
+  static constexpr int X = BM * BK * 2;       // bytes a stage
+  static constexpr int W = BKW * BN * 4;
+  static constexpr int W_OFF = STAGES * X;
+  static constexpr int LUT_OFF = W_OFF + STAGES * W;
+  static constexpr int BAR_OFF = LUT_OFF + 64;
+  static constexpr int BYTES = BAR_OFF + 2 * STAGES * 8;
+  static constexpr int ALLOC = BYTES + 1024;  // room to align the base
+  static_assert(X % 1024 == 0 && W % 128 == 0, "box alignment");
+};
+
+// acc += x box (swizzled) @ decode(word box) over this warp's FM x FN
+// fragments of 16 x 8; word rows from `wvalid` on (past the step's tile)
+// read as zero. K chunks run in ascending order, as mma_step_2bit's.
+template <int FM, int FN, int WLD>
+__device__ __forceinline__ void mma_step_swizzled(float (&acc)[FM][FN][4],
+                                                  const unsigned char* xs,
+                                                  const uint32_t* wt,
+                                                  int wvalid,
+                                                  const uint32_t* lut) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = lane & 15, half = lane >> 4;
+#pragma unroll
+  for (int kk = 0; kk < BKW; ++kk) {
+    uint32_t af[FM][4];
+#pragma unroll
+    for (int i = 0; i < FM; ++i)
+      ternary::ldmatrix_x4(af[i], reinterpret_cast<const bf16*>(
+          xs + tma::swizzle128(i * 16 + row, 2 * kk + half)));
+#pragma unroll
+    for (int j = 0; j < FN; ++j) {
+      uint32_t b[2];
+      const uint32_t wd = kk < wvalid ? wt[kk * WLD + j * 8 + g] : 0u;
+      ternary::decode_b_frag(b, wd, t, lut);
+#pragma unroll
+      for (int i = 0; i < FM; ++i) ternary::mma_16816(acc[i][j], af[i], b);
+    }
+  }
+}
+
+// One stage by plain loads (unaligned operands), by the producer warp's 32
+// lanes, in the TMA layout: x rows swizzled, zero past row M and column
+// kend; words zero past word row wend.
+template <int BM, int BN>
+__device__ __forceinline__ void stage_plain(unsigned char* xs, uint32_t* ws,
+                                            const bf16* x, const uint32_t* w,
+                                            int m0, int n0, int kbase,
+                                            int kend, int wend, int M, int K,
+                                            int ldw, int lane) {
+  for (int i = lane; i < BM * BK; i += 32) {
+    const int r = i / BK, c = i % BK;
+    const int gr = m0 + r, gc = kbase + c;
+    bf16 v = __float2bfloat16(0.0f);
+    if (gr < M && gc < kend) v = x[(size_t)gr * K + gc];
+    *reinterpret_cast<bf16*>(xs + tma::swizzle128(r, c / 8) + (c % 8) * 2) = v;
+  }
+  for (int i = lane; i < BKW * BN; i += 32) {
+    const int r = i / BN, c = i % BN;
+    const int gr = kbase / 16 + r;
+    ws[i] = gr < wend ? w[(size_t)gr * ldw + n0 + c] : 0u;
+  }
+}
+
+// B3: WARPS_N consumer warps (one warp row, FN fragments of 16 x 8 each
+// across BN) and one producer warp.
+template <int BM, int BN, int WARPS_N, int STAGES>
+__global__ void __launch_bounds__((WARPS_N + 1) * 32)
+ternary_gemm_skip_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                             const __grid_constant__ CUtensorMap wmap,
+                             const bf16* __restrict__ x,
+                             const uint32_t* __restrict__ w,
+                             const int* __restrict__ kt_indices,
+                             const int* __restrict__ kt_counts,
+                             const float* __restrict__ scale,
+                             const float* __restrict__ bias,
+                             bf16* __restrict__ y, int M, int K, int N,
+                             int kw, int ldw, int tile_k, int tile_n,
+                             int max_occ, int fuse_prelu, float prelu_alpha,
+                             int use_tma) {
+  constexpr int FM = BM / 16;
+  constexpr int FN = BN / (8 * WARPS_N);
+  static_assert(FM * 16 == BM && FN * 8 * WARPS_N == BN,
+                "tile does not split into 16 x 8 fragments per warp");
+  using S = TmaSmem<BM, BN, STAGES>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (tma::smem_addr(smem_raw) & 1023)) & 1023);
+  uint32_t* lut = reinterpret_cast<uint32_t*>(smem + S::LUT_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  auto xs = [&](int s) { return smem + s * S::X; };
+  auto ws = [&](int s) {
+    return reinterpret_cast<uint32_t*>(smem + S::W_OFF + s * S::W);
+  };
 
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int j = n0 / tile_n;                    // this block's N-tile
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int* idx = kt_indices + (size_t)j * max_occ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int* idx = kt_indices + (size_t)(n0 / tile_n) * max_occ;
   const int chunks = (tile_k + BK - 1) / BK;    // BK steps per tile
-  const int steps = kt_counts[j] * chunks;
+  const int steps = kt_counts[n0 / tile_n] * chunks;
 
-  ternary::Acc acc[T::FM][T::FN];
-  ternary::zero_acc(acc);
-  if (steps > 0) {
-    int kbase, kend, wend;
-    step_k(idx, chunks, tile_k, K, kw, 0, kbase, kend, wend);
-    stage_async<BM, BN>(xs, wr, x, w, m0, n0, kbase, kend, wend, M, K, ldw,
-                        vec);
-  }
-  for (int s = 0; s < steps; ++s) {
-    const int cur = s & 1;
-    if (s + 1 < steps) {            // next step's copies go out first
-      int kbase, kend, wend;
-      step_k(idx, chunks, tile_k, K, kw, s + 1, kbase, kend, wend);
-      stage_async<BM, BN>(xs + (cur ^ 1) * T::XS, wr + (cur ^ 1) * WR, x, w,
-                          m0, n0, kbase, kend, wend, M, K, ldw, vec);
-      ternary::cp_async_wait<1>();
+  // The producer issues the steps in order; (lt, lc) is the next step's
+  // (list entry, chunk).
+  int lt = 0, lc = 0;
+  auto issue = [&](int step) {
+    const int s = step % STAGES;
+    const int k0 = idx[lt] * tile_k;
+    const int kbase = k0 + lc * BK;
+    if (++lc == chunks) lc = 0, ++lt;
+    // a stage's r-th use waits for phase r of its barriers (parity r & 1);
+    // a fresh barrier counts the phase of parity 1 as completed
+    tma::mbar_wait(empty + s, ((step / STAGES) & 1) ^ 1);
+    if (use_tma) {
+      tma::mbar_arrive_expect_tx(full + s, S::X + S::W);
+      tma::load_2d(xs(s), &xmap, kbase, m0, full + s);
+      tma::load_2d(ws(s), &wmap, n0, kbase / 16, full + s);
     } else {
-      ternary::cp_async_wait<0>();
+      stage_plain<BM, BN>(xs(s), ws(s), x, w, m0, n0, kbase,
+                          min(K, k0 + tile_k), min(kw, (k0 + tile_k) / 16),
+                          M, K, ldw, lane);
+      tma::mbar_arrive(full + s);
     }
-    __syncthreads();
-    int kbase, kend, wend;
-    step_k(idx, chunks, tile_k, K, kw, s, kbase, kend, wend);
-    const int rows = min(BKW, wend - kbase / 16);   // word rows of the step
-    ternary::decode_weight_tile<BN>(ws, wr + cur * WR, 0, 0, rows, BN, BN);
-    __syncthreads();
-    ternary::mma_tile<BN>(acc, xs + cur * T::XS, ws, wm, wn,
-                          min(BK, kend - kbase + 15) / 16 * 16);
-    __syncthreads();                // the stage is refilled at s + 2
+  };
+
+  // The producer's lane 0 sets up the barriers and, with the TMA, has the
+  // first ring's copies in flight before the block's one barrier.
+  const bool producer = warp == WARPS_N;
+  int step = 0;
+  if (producer && lane == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      tma::mbar_init(full + s, use_tma ? 1 : 32);
+      tma::mbar_init(empty + s, WARPS_N);
+    }
+    tma::mbar_init_fence();
+    if (use_tma)
+      for (; step < min(STAGES, steps); ++step) issue(step);
   }
-  ternary::store_epilogue<BM, BN, T::FM, T::FN, false>(
-      acc, cs, wm, wn, m0, n0, M, N, scale, bias, fuse_prelu, prelu_alpha, y);
+  ternary::fill_nibble_lut(lut);
+  __syncthreads();      // the last block-wide barrier
+  if (producer) {
+    if (use_tma && lane != 0) return;
+    for (; step < steps; ++step) issue(step);
+    return;
+  }
+
+  float acc[1][FM][FN][4];
+  ternary::zero_frags(acc);
+  const bool whole = tile_k % BK == 0;   // no step crosses its tile's end
+  for (step = 0; step < steps; ++step) {
+    const int s = step % STAGES;
+    // word rows of this step inside its tile (the box may run past it)
+    int wvalid = BKW;
+    if (!whole) {
+      const int k0 = idx[lt] * tile_k;
+      wvalid = min(kw, (k0 + tile_k) / 16) - (k0 + lc * BK) / 16;
+      if (++lc == chunks) lc = 0, ++lt;
+    }
+    tma::mbar_wait(full + s, (step / STAGES) & 1);
+    mma_step_swizzled<FM, FN, BN>(acc[0], xs(s), ws(s) + warp * FN * 8,
+                                  wvalid, lut);
+    __syncwarp();
+    if (lane == 0) tma::mbar_arrive(empty + s);
+  }
+  ternary::store_frags_epilogue<FM, FN>(acc[0], m0, n0 + warp * FN * 8, M, N,
+                                        scale, bias, fuse_prelu, prelu_alpha,
+                                        y);
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The map of a row-major (rows, cols) matrix with row stride ld elements
+// of esize bytes, read in boxes of (box_rows x box_cols); out-of-bounds
+// elements of a box read as zero.
+static bool encode_2d(CUtensorMap* map, CUtensorMapDataType dtype,
+                      const void* base, int rows, int cols, int ld, int esize,
+                      int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, dtype, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
@@ -276,58 +484,60 @@ static int launch_ring(const void* x, const void* w, const void* idx,
   return (int)cudaGetLastError();
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N>
-static int launch_db(const void* x, const void* w, const void* idx,
-                     const void* cnt, const void* scale, const void* bias,
-                     void* y, int M, int K, int N, int kw, int ldw,
-                     int tile_k, int tile_n, int max_occ, int fuse_prelu,
-                     float prelu_alpha, int vec, cudaStream_t stream) {
+template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
+static int launch_tma(const void* x, const void* w, const void* idx,
+                      const void* cnt, const void* scale, const void* bias,
+                      void* y, int M, int K, int N, int kw, int ldw,
+                      int tile_k, int tile_n, int max_occ, int fuse_prelu,
+                      float prelu_alpha, int vec, cudaStream_t stream) {
+  static_assert(WARPS_M == 1, "B3 runs one warp row");
+  using S = TmaSmem<BM, BN, STAGES>;
+  CUtensorMap xmap, wmap;
+  memset(&xmap, 0, sizeof(xmap));
+  memset(&wmap, 0, sizeof(wmap));
+  if (vec &&
+      !(encode_2d(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, K, 2, BM,
+                  BK, CU_TENSOR_MAP_SWIZZLE_128B) &&
+        encode_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT32, w, kw, ldw, ldw, 4,
+                  BKW, BN, CU_TENSOR_MAP_SWIZZLE_NONE)))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = ternary_gemm_skip_tma_kernel<BM, BN, WARPS_N, STAGES>;
+  if (S::ALLOC > 48 * 1024) {
+    static bool raised = false;
+    if (!raised) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::ALLOC);
+      if (err != cudaSuccess) return (int)err;
+      raised = true;
+    }
+  }
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  ternary_gemm_skip_db_kernel<BM, BN, WARPS_M, WARPS_N>
-      <<<grid, WARPS_M * WARPS_N * 32, 0, stream>>>(
-          static_cast<const bf16*>(x), static_cast<const uint32_t*>(w),
-          static_cast<const int*>(idx), static_cast<const int*>(cnt),
-          static_cast<const float*>(scale), static_cast<const float*>(bias),
-          static_cast<bf16*>(y), M, K, N, kw, ldw, tile_k, tile_n, max_occ,
-          fuse_prelu, prelu_alpha, vec);
+  kernel<<<grid, (WARPS_N + 1) * 32, S::ALLOC, stream>>>(
+      xmap, wmap, static_cast<const bf16*>(x),
+      static_cast<const uint32_t*>(w), static_cast<const int*>(idx),
+      static_cast<const int*>(cnt), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<bf16*>(y), M, K, N, kw,
+      ldw, tile_k, tile_n, max_occ, fuse_prelu, prelu_alpha, vec);
   return (int)cudaGetLastError();
 }
 
-// B2's tiles: decode (bm 16) 8 stages, prefill (bm 64) 4 stages, one warp
-// row; up to 4 warps across bn, each 16 or (bn 128) 32 columns wide.
-template <int BM, int STAGES>
-static int launch_ring_bn(int bn, const void* x, const void* w,
-                          const void* idx, const void* cnt, const void* scale,
-                          const void* bias, void* y, int M, int K, int N,
-                          int kw, int ldw, int tile_k, int tile_n,
-                          int max_occ, int fuse_prelu, float prelu_alpha,
-                          int vec, cudaStream_t s) {
-#define SKIP_LAUNCH(BN_, WN_)                                              \
-  return launch_ring<BM, BN_, 1, WN_, STAGES>(                             \
-      x, w, idx, cnt, scale, bias, y, M, K, N, kw, ldw, tile_k, tile_n,    \
-      max_occ, fuse_prelu, prelu_alpha, vec, s)
-  switch (bn) {
-    case 16: SKIP_LAUNCH(16, 1);
-    case 32: SKIP_LAUNCH(32, 2);
-    case 64: SKIP_LAUNCH(64, 4);
-    case 128: SKIP_LAUNCH(128, 4);
-  }
-#undef SKIP_LAUNCH
-  return (int)cudaErrorInvalidValue;
-}
-
-// B3's tiles.
-template <int BM, int WARPS_M>
-static int launch_db_bn(int bn, const void* x, const void* w, const void* idx,
-                        const void* cnt, const void* scale, const void* bias,
-                        void* y, int M, int K, int N, int kw, int ldw,
-                        int tile_k, int tile_n, int max_occ, int fuse_prelu,
-                        float prelu_alpha, int vec, cudaStream_t s) {
+// The tiles of both: one warp row; up to 4 warps across bn, each 16 or
+// (bn 128) 32 columns wide. DB selects B3.
+template <int BM, int STAGES, bool DB>
+static int launch_bn(int bn, const void* x, const void* w, const void* idx,
+                     const void* cnt, const void* scale, const void* bias,
+                     void* y, int M, int K, int N, int kw, int ldw,
+                     int tile_k, int tile_n, int max_occ, int fuse_prelu,
+                     float prelu_alpha, int vec, cudaStream_t s) {
 #define SKIP_LAUNCH(BN_, WN_)                                                 \
-  return launch_db<BM, BN_, WARPS_M, WN_>(x, w, idx, cnt, scale, bias, y, M, \
-                                          K, N, kw, ldw, tile_k, tile_n,     \
-                                          max_occ, fuse_prelu, prelu_alpha,  \
-                                          vec, s)
+  if constexpr (DB)                                                           \
+    return launch_tma<BM, BN_, 1, WN_, STAGES>(                               \
+        x, w, idx, cnt, scale, bias, y, M, K, N, kw, ldw, tile_k, tile_n,     \
+        max_occ, fuse_prelu, prelu_alpha, vec, s);                            \
+  else                                                                        \
+    return launch_ring<BM, BN_, 1, WN_, STAGES>(                              \
+        x, w, idx, cnt, scale, bias, y, M, K, N, kw, ldw, tile_k, tile_n,     \
+        max_occ, fuse_prelu, prelu_alpha, vec, s)
   switch (bn) {
     case 16: SKIP_LAUNCH(16, 1);
     case 32: SKIP_LAUNCH(32, 2);
@@ -341,9 +551,9 @@ static int launch_db_bn(int bn, const void* x, const void* w, const void* idx,
 // x (M, K) bf16; w (kw, ldw) words, ldw a multiple of tile_n; kt_indices
 // (ldw / tile_n, max_occ) and kt_counts (ldw / tile_n,) int32; y (M, N)
 // bf16. tile_k and tile_n are multiples of 16; bn (16, 32, 64 or 128)
-// divides tile_n; bm is 16 (4 warps at most) or 64 (8 warps at most);
-// db selects the cp.async two-stage variant. Returns the cudaError_t of
-// the launch (0 = success).
+// divides tile_n; bm is 16 or 64; db selects B3 (the TMA ring) over B2
+// (the cp.async ring). Returns the cudaError_t of the launch (0 =
+// success).
 extern "C" int ternary_gemm_skip_bf16(const void* x, const void* w,
                                       const void* kt_indices,
                                       const void* kt_counts,
@@ -363,11 +573,11 @@ extern "C" int ternary_gemm_skip_bf16(const void* x, const void* w,
   bn, x, w, kt_indices, kt_counts, scale, bias, y, M, K, N, kw, ldw,       \
       tile_k, tile_n, max_occ, fuse_prelu, prelu_alpha, vec, s
   if (bm == 16)
-    return db ? launch_db_bn<16, 1>(SKIP_ARGS)
-              : launch_ring_bn<16, 8>(SKIP_ARGS);
+    return db ? launch_bn<16, 8, true>(SKIP_ARGS)
+              : launch_bn<16, 8, false>(SKIP_ARGS);
   if (bm == 64)
-    return db ? launch_db_bn<64, 2>(SKIP_ARGS)
-              : launch_ring_bn<64, 4>(SKIP_ARGS);
+    return db ? launch_bn<64, 4, true>(SKIP_ARGS)
+              : launch_bn<64, 4, false>(SKIP_ARGS);
 #undef SKIP_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -336,8 +336,8 @@ def _lower_skip_common(plan, x, w, scale, bias, db):
                      w.occupancy() <= SKIP_OCCUPANCY_CUTOFF,
                  plan_blocks=_blocks_skip_impl("skip_db"))
 def _lower_skip_db(plan, x, w, scale, bias):
-    # B2's walk with a two-stage cp.async pipeline; bitwise equal to skip
-    # and dense on the card
+    # B2's walk with its stages copied by the TMA under mbarriers; bitwise
+    # equal to skip and dense on the card
     return _lower_skip_common(plan, x, w, scale, bias, db=True)
 
 

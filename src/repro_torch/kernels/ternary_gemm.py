@@ -6,8 +6,9 @@ and their plain PyTorch versions.
 * ``ternary_gemm_skip_cuda`` -> ``csrc/ternary_gemm_skip.cu`` (B2 and, with
   ``db=True``, B3; they replace ``ternary_gemm_skip_pallas`` and
   ``ternary_gemm_skip_db_pallas``): the K walk of each N-tile visits only
-  its occupied K-tiles, in ascending order; B2 on B1's register-decode
-  ring, B3 on its WMMA loop.
+  its occupied K-tiles, in ascending order, through B1's register decode;
+  B2's stages filled by ``cp.async``, B3's by the Tensor Memory
+  Accelerator (TMA) under ``mbarrier``s.
 
 All compute ``Y = X @ decode(W) * scale + bias (+ PReLU)`` with f32
 accumulation and the f32 epilogue rounding once, at the cast to
@@ -43,7 +44,7 @@ TILES = {0: (16, 64), 1: (64, 128)}           # variant -> (block_m, block_n)
 BLOCK_K = 64
 # rows per block of B2/B3 per serving phase; their block_n is the largest
 # of 128, 64, 32, 16 dividing the pack's tile_n (skip_block_n), at most 64
-# for B2 at decode (B1's decode width)
+# at decode (B1's decode width)
 SKIP_BLOCK_M = {"decode": 16, "prefill": 64}
 
 
@@ -229,7 +230,7 @@ def ternary_gemm_skip_cuda(x: torch.Tensor, words: torch.Tensor,
                          f"{sorted(SKIP_BLOCK_M.values())}, got {block_m}")
     _check_vec("scale", scale, n, x.device)
     _check_vec("bias", bias, n, x.device)
-    bn = skip_block_n(tile_n, 64 if block_m == 16 and not db else 128)
+    bn = skip_block_n(tile_n, 64 if block_m == 16 else 128)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0 or n == 0:
         return y

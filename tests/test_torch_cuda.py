@@ -251,6 +251,18 @@ def test_paged_attention_serving_shape_and_large_smem(cuda):
     assert paged_lib.smem_bytes(8, 64, 96, 16) > 48 * 1024
 
 
+def test_paged_attention_bf16_head_dim_of_whole_16_byte_pieces(cuda):
+    """bf16 pages need hd % 8 only (a row is copied 16 bytes at a time);
+    int8 codes need hd % 16, and the wrapper says so."""
+    inputs = _paged_inputs(_gen(5), 3, 4, 2, 40, 4, 3, 10, [1, 7, 12], False)
+    _close(ops.paged_decode_attention(*inputs),
+           paged_lib.paged_decode_attention_ref(*inputs))
+    q8, kp8, vp8, table, lens = _paged_inputs(_gen(6), 3, 4, 2, 40, 4, 3, 10,
+                                              [1, 7, 12], True)
+    with pytest.raises(ValueError, match="multiple of 16 with int8"):
+        paged_lib.paged_decode_attention_cuda(q8, kp8, vp8, table, lens)
+
+
 def test_paged_attention_wrapper_counts_launches_and_refuses(cuda):
     g = _gen(1)
     q, kp, vp, table, lens = _paged_inputs(g, 2, 4, 2, 32, 4, 3, 7, [5, 12],
@@ -281,6 +293,104 @@ def test_paged_attention_wrapper_counts_launches_and_refuses(cuda):
     out = cuda_fn(q, kp, vp, table, bad)
     torch.cuda.synchronize()
     assert bool(out[0].isnan().all()) and bool(out[1].isfinite().all())
+
+
+# B5's shapes: the serving shape (B 8, 16 heads, hd 64, 13 pages of 16)
+# and the long rows of the training slice's sequence lengths (64 pages,
+# lengths in [513, 1024])
+PAGED_SHAPES = {"serving": (13, 1, 193), "long": (64, 513, 1024)}
+
+
+def _paged_shape(name, int8, seed):
+    t, lo, hi = PAGED_SHAPES[name]
+    g = _gen(seed)
+    lengths = torch.randint(lo, hi + 1, (8,), generator=g,
+                            device="cuda").tolist()
+    return _paged_inputs(g, 8, 16, 16, 64, 16, t, 8 * t + 1, lengths, int8)
+
+
+@pytest.mark.parametrize("shape", sorted(PAGED_SHAPES))
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_attention_rows_do_not_depend_on_the_batch(cuda, shape, int8):
+    """B5 on a subset of the rows gives, bit for bit, what it gives those
+    rows among all eight: a row's split comes from the table width alone."""
+    q, kp, vp, table, lens = _paged_shape(shape, int8, 17)
+    full = ops.paged_decode_attention(q, kp, vp, table, lens)
+    for rows in ([5], [0, 3, 6], list(range(8))[::-1]):
+        idx = torch.tensor(rows, device=cuda)
+        part = ops.paged_decode_attention(q[idx].contiguous(), kp, vp,
+                                          table[idx].contiguous(),
+                                          lens[idx].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[idx]), rows
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("window", [0, 300])
+def test_paged_attention_long_rows(cuda, int8, window):
+    inputs = _paged_shape("long", int8, 23)
+    got = ops.paged_decode_attention(*inputs, window=window)
+    ref = paged_lib.paged_decode_attention_ref(*inputs, window=window)
+    torch.cuda.synchronize()
+    _close(got, ref)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_attention_bad_rows_give_nan(cuda, int8):
+    """A length past the table, and a table entry out of range in the
+    last share of a long row, give NaN for that row only; the other rows
+    keep their bits."""
+    q, kp, vp, table, lens = _paged_shape("long", int8, 29)
+    good = ops.paged_decode_attention(q, kp, vp, table, lens)
+    lens_bad, table_bad = lens.clone(), table.clone()
+    lens_bad[1] = 64 * 16 + 1
+    table_bad[4, (int(lens[4]) - 1) // 16] = kp.shape[0]
+    got = ops.paged_decode_attention(q, kp, vp, table_bad, lens_bad)
+    torch.cuda.synchronize()
+    assert bool(got[1].isnan().all()) and bool(got[4].isnan().all())
+    keep = [0, 2, 3, 5, 6, 7]
+    assert torch.equal(got[keep], good[keep])
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary (the TMA and cp.async copies need 16)."""
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    off = 4 // t.element_size()
+    out = flat[off:off + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+@pytest.mark.parametrize("operand", ["x", "words"])
+def test_skip_kernels_equal_dense_with_unaligned_operands(cuda, phase,
+                                                          operand):
+    """B3 (and B2) fill their stages with plain loads when an operand is
+    not 16-byte aligned: still B1's bits, with and without bias+PReLU."""
+    m, k, n = (8, 1024, 256) if phase == "decode" else (70, 1000, 300)
+    w = _tiled(k + 3 * n, k, n, 80, 48, 0.25)
+    g = _gen(k + 5)
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    bias = torch.randn(n, generator=g, device=cuda)
+    words = w.packed
+    if operand == "x":
+        x = _misaligned(x)
+    else:
+        words = _misaligned(words)
+    bm = gemm_lib.SKIP_BLOCK_M[phase]
+    for kw in (dict(), dict(bias=bias, fuse_prelu=True)):
+        ys = {db: gemm_lib.ternary_gemm_skip_cuda(
+            x, words, w.kt_indices, w.kt_counts, w.scale, kw.get("bias"),
+            n=n, tile_k=w.tile_k, tile_n=w.tile_n,
+            fuse_prelu=kw.get("fuse_prelu", False), block_m=bm, db=db)
+            for db in (False, True)}
+        with ops.serving_phase(phase):
+            dense = ops.ternary_gemm(x.contiguous(), w, impl="dense", **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(ys[True], ys[False])
+        assert torch.equal(ys[True], dense)
 
 
 # tile_k 48 and 80 end inside a 64-deep step; tile_n 48 takes 16-wide

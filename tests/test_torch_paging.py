@@ -43,6 +43,7 @@ from repro_torch.models.attention import naive_attention
 from repro_torch.paging import (Int8Pages, PagePool, PrefixCache, page_keys,
                                 tree_nbytes)
 from repro_torch.paging import quant
+from repro_torch.paging import kernels as paged_lib
 from repro_torch.paging.kernels import (gather_pages,
                                         paged_decode_attention_ref)
 from repro_torch.serving import ContinuousScheduler
@@ -331,6 +332,76 @@ def test_paged_plain_is_naive_attention_on_the_gathered_view(kv_dtype):
     ref = naive_attention(q[:, None], ks, vs, causal=False,
                           q_offset=lengths - 1, kv_valid_len=lengths)[:, 0]
     assert torch.equal(out, ref)
+
+
+# (table width, page size, window) -> (splits, tokens, chunk, buffers): the
+# serving shape (13 pages of 16), the long rows (64 pages), a window, one
+# page, a table past the cluster size
+@pytest.mark.parametrize("geom,plan", [
+    ((13, 16, 0), (4, 52, 52, 2)), ((64, 16, 0), (4, 256, 64, 4)),
+    ((64, 16, 300), (4, 76, 64, 4)), ((1, 4, 0), (1, 4, 4, 2)),
+    ((13, 16, 5), (1, 8, 8, 2)), ((512, 16, 0), (4, 2048, 64, 4))])
+def test_split_plan_comes_from_table_page_and_window(geom, plan):
+    """B5's split of every row: from the most tokens a row can attend
+    alone, so it cannot change with the batch or the lengths (the
+    wrapper's launch takes nothing else), and it covers that span."""
+    got = paged_lib.split_plan(*geom)
+    assert (got.splits, got.tokens, got.chunk, got.buffers) == plan
+    t, ps, window = geom
+    span = min(t * ps, window) if window else t * ps
+    assert got.splits * got.tokens >= span
+    assert got.tokens % 4 == 0 and got.chunk % 4 == 0
+    assert paged_lib.launch_plan(16, 16, 64, t, ps, window=window) == got
+    assert paged_lib.launch_plan(16, 4, 64, t, ps, window=window,
+                                 quant=True) == got
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(heads=6, kv_heads=4), "kv heads"),
+    (dict(head_dim=40, quant=True), "multiple of 16 with int8"),
+    (dict(head_dim=8, quant=True), "multiple of 16 with int8"),
+    (dict(head_dim=12), "multiple of 8 with bf16"),
+    (dict(head_dim=0), "multiple of 8 with bf16"),
+    (dict(window=-1), "window")])
+def test_launch_plan_refuses_what_the_kernel_does_not_take(bad, match):
+    args = {**dict(heads=16, kv_heads=16, head_dim=64, table_width=13,
+                   page_size=16, window=0, quant=False), **bad}
+    with pytest.raises(ValueError, match=match):
+        paged_lib.launch_plan(**args)
+
+
+@pytest.mark.parametrize("head_dim,quant", [(8, False), (40, False),
+                                            (16, True), (48, True)])
+def test_launch_plan_takes_rows_of_whole_16_byte_pieces(head_dim, quant):
+    """A row of hd bf16 values or hd int8 codes that splits into 16-byte
+    copies is taken, with the same split as any other head width."""
+    assert (paged_lib.launch_plan(4, 2, head_dim, 13, 16, quant=quant)
+            == paged_lib.split_plan(13, 16))
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_cpu_tensors_take_the_plain_version(kv_dtype):
+    """The kernel's wrapper refuses CPU tensors; the registry gives them
+    the plain version, bit for bit."""
+    ours, _ = _attention_inputs(5, 4, 2, 8, kv_dtype)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_lib.paged_decode_attention_cuda(*ours)
+    assert torch.equal(ops.paged_decode_attention(*ours, window=3),
+                       paged_decode_attention_ref(*ours, window=3))
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_plain_rows_do_not_depend_on_the_batch(kv_dtype):
+    """The plain version, which the kernel is held against, gives a row
+    the same bits alone or in a batch, as the kernel must."""
+    (q, kp, vp, table, lengths), _ = _attention_inputs(9, 4, 2, 8, kv_dtype)
+    q = q.to(torch.bfloat16)
+    full = paged_decode_attention_ref(q, kp, vp, table, lengths)
+    for rows in ([1], [2, 0]):
+        idx = torch.tensor(rows)
+        part = paged_decode_attention_ref(q[idx], kp, vp, table[idx],
+                                          lengths[idx])
+        assert torch.equal(part, full[idx])
 
 
 # ---------------------------------------------------------------------------

@@ -321,3 +321,23 @@ def test_new_cuda_wrappers_refuse_cpu_tensors():
                                             (96, 32), (128, 128), (192, 64)])
 def test_skip_kernel_block_width_divides_the_tile(tile_n, block_n):
     assert gemm_lib.skip_block_n(tile_n) == block_n
+
+
+# tiles that end inside a 64-deep step (B3's copies land the next tile's
+# words there) and K % 8 != 0 (its stages then take plain loads)
+@pytest.mark.parametrize("tile,mkn", [((48, 16), (5, 203, 40)),
+                                      ((80, 48), (3, 1001, 97)),
+                                      ((80, 48), (17, 999, 131))])
+def test_skip_db_at_ragged_tiles_matches_repro_pallas_interpret(tile, mkn):
+    m, k, n = mkn
+    t = _tile_matrix(3, k, n, *tile, 0.25)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    scale, bias, _ = _epilogue_operands(rng, n, "scale_bias_prelu")
+    got_w, ref_w = _pair("tiled", t, scale, bias, tile_k=tile[0],
+                         tile_n=tile[1])
+    want = rops.ternary_gemm(jnp.asarray(x), ref_w, fuse_prelu=True,
+                             impl="skip_db", interpret=True)
+    got = ops.ternary_gemm(torch.from_numpy(x), got_w, fuse_prelu=True,
+                           impl="skip_db")
+    _close(got, want, 1e-4)
