@@ -27,8 +27,13 @@ through B7 in both modes, and one ``base3`` pack through its plain
 tiles that end inside a 64-deep step and B7 in both modes at ragged
 shapes, against their plain versions.
 Then the training slice: ``flash_kernel`` holds B6 (flash attention)
-against its plain version at ``repro``'s test shapes and the evaluation's
-(B*H 128, S 1024, hd 64); ``gradients`` holds the kernel rows' gradients
+against its plain version at ``repro``'s test shapes, hd 128 at S 1024
+and the evaluation's (B*H 128, S 1024, hd 64), times it beside each of
+SDPA's backends and times the layout copies of ``_full_sequence``, then
+checks it at ragged and unequal lengths and at the head edge; the phase
+fails when B6's library has no HGMMA (wgmma) in its SASS, or when ptxas
+spilled its registers or serialized its wgmmas; ``gradients`` holds the
+kernel rows' gradients
 (B1, B3, B7 in both modes, B4: the autograd Functions around the kernels)
 against the plain rows'; ``train_step_check`` holds the card's first
 full-width train step against the CPU's on the same weights and batch,
@@ -108,9 +113,10 @@ it, with the per-shape detail under ``shapes``; B6's path gives it the
 evaluation's shape only, its other shapes are checks). Every time is the
 mean of CUDA-event readings, each after an L2 flush, of a call as a
 caller makes it, so the host's enqueue time that the flush does not
-cover counts; B2, B3 and B5 also give ``device_ms``, the same calls with
-the card kept busy while the host enqueues them, their device time
-alone, and ``host_ms``, the host's time to issue one call. Then the
+cover counts; B2, B3, B5 and B6 also give ``device_ms``, the same calls
+with the card kept busy while the host enqueues them, their device time
+alone, and ``host_ms``, the host's time to issue one call; B6 also
+``ops_ms``, through ``flash_attention(...)``. Then the
 card's name and
 power limit as nvidia-smi prints them, and the final ``{"ok": true,
 "device": ...}`` line.
@@ -185,10 +191,23 @@ RAGGED_FORMATS = dict(shapes=[(1, 1001, 97), (17, 999, 131),
 FORMATS = dict(k=4096, n=4096, tile_k=256, tile_n=128, ms=(8, 1024),
                bitplane_sparsities=(0.5, 0.0625), sweep_m=1024,
                sweep_sparsity=0.125, base3=(8, 1024, 1024))
-# B6: repro's tests/test_flash_kernel.py shapes (causal and full), then the
-# evaluation's: B 8 x H 16 at S 1024, hd 64, causal
-FLASH_CHECKS = [(4, 128, 64), (2, 257, 64), (8, 96, 128)]
+# B6: repro's tests/test_flash_kernel.py shapes and hd 128 at S 1024 (causal
+# and full), then the evaluation's: B 8 x H 16 at S 1024, hd 64, causal
+FLASH_CHECKS = [(4, 128, 64), (2, 257, 64), (8, 96, 128), (16, 1024, 128)]
 FLASH_EVAL = (128, 1024, 64)
+# checked once, causal and full, not timed: ragged query lengths across the
+# 128-row tiles, Sq != Skv both ways, BH 1 (bh, sq, skv, hd)
+FLASH_RAGGED = [(2, 127, 127, 64), (2, 129, 129, 128), (2, 255, 255, 64),
+                (1, 1000, 1000, 64), (1, 1000, 1000, 128), (3, 129, 1000, 64),
+                (3, 1000, 129, 128), (1, 1, 1, 64)]
+# the head edge: odd heads' K and V hold 1e4, and the even heads must match
+# the plain version over their own rows (a box that read past its head's
+# last row would bring the next head's 1e4 in) (bh, s, hd)
+FLASH_EDGE = [(4, 200, 64), (4, 1000, 128)]
+# SDPA's backends timed as B6's yardstick (torch.nn.attention.SDPBackend)
+SDPA_BACKENDS = {"flash": "FLASH_ATTENTION",
+                 "efficient": "EFFICIENT_ATTENTION",
+                 "cudnn": "CUDNN_ATTENTION"}
 # training: full-width ternary-paper (12 layers, d 1024, 16 x 64 heads, ff
 # 4096, vocab 32768), batch 8 x seq 512, 24 steps with checkpoints every 8,
 # resumed to 32; the supervisor run fails once at step 3 of 4
@@ -266,27 +285,50 @@ def check_close(name: str, got, ref) -> float:
     return float(err.max())
 
 
-def sass_summary(build):
-    """The tensor-core and fused multiply-add opcodes of B1's and B2/B3's
-    libraries (cuobjdump -sass): B2 == B3 == B1 bit for bit needs the same
-    MMA instruction in both (HMMA.16816.F32.BF16, 16-deep chunks) and no
-    FFMA contracting an epilogue's scale and bias. Information; equal3 in
-    gemm_formats is the check."""
+def sass_counts(build, name: str, pattern: str):
+    """Opcodes of ``name``'s library (cuobjdump -sass) matching
+    ``pattern``, counted; None when cuobjdump cannot read it."""
     import collections
     import re
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([cuobjdump, "-sass", str(build._lib_path(name))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+    except (OSError, subprocess.CalledProcessError) as e:
+        print(f"  {name}: no SASS ({e})", flush=True)
+        return None
+    return dict(sorted(collections.Counter(re.findall(pattern, sass))
+                       .items()))
+
+
+def sass_summary(build):
+    """The tensor-core and fused multiply-add opcodes of B1's and B2/B3's
+    libraries: B2 == B3 == B1 bit for bit needs the same MMA instruction
+    in both (HMMA.16816.F32.BF16, 16-deep chunks) and no FFMA contracting
+    an epilogue's scale and bias. Information; equal3 in gemm_formats is
+    the check."""
     for name in ("ternary_gemm", "ternary_gemm_skip"):
-        lib = build._lib_path(name)
-        try:
-            sass = subprocess.run([cuobjdump, "-sass", str(lib)],
-                                  capture_output=True, text=True,
-                                  check=True).stdout
-        except (OSError, subprocess.CalledProcessError) as e:
-            print(f"  {name}: no SASS ({e})", flush=True)
-            continue
-        ops = collections.Counter(re.findall(r"\b(HMMA\.[0-9A-Z.]+|FFMA)\b",
-                                             sass))
-        print(f"  {name} SASS: {dict(sorted(ops.items()))}", flush=True)
+        ops = sass_counts(build, name, r"\b(HMMA\.[0-9A-Z.]+|FFMA)\b")
+        if ops is not None:
+            print(f"  {name} SASS: {ops}", flush=True)
+
+
+def ptxas_report(build, name: str):
+    """Registers and spill bytes of each kernel in ``name``'s build log
+    (nvcc -Xptxas -v), by mangled entry name."""
+    import re
+    out, entry = {}, None
+    for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+        if "entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[entry] = {"spill_stores": int(st), "spill_loads": int(ld)}
+        elif entry and "Used" in line and "registers" in line:
+            out[entry]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                    line).group(1))
+    return out
 
 
 def kernel_phase(flush):
@@ -1244,43 +1286,161 @@ def ragged_formats(rows):
               f"max_abs_err {err}", flush=True)
 
 
-def flash_kernel_phase(flush):
-    """B6 against its plain version at repro's test shapes (causal and
-    full) and at the evaluation's shape; each timed beside SDPA on the
-    same bf16 (1, B*H, S, hd) tensors. Returns the evaluation shape's row
-    and the check rows."""
+def _sdpa_ms(q4, k4, v4, causal, iters, flush):
+    """SDPA's time under each backend this torch offers (None where the
+    backend is missing or refuses the inputs)."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for name, attr in SDPA_BACKENDS.items():
+        out[name] = None
+        backend = getattr(SDPBackend, attr, None)
+        if backend is None:
+            continue
+        with sdpa_kernel(backend):
+            try:
+                F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                print(f"  SDPA {name}: not run ({str(e).splitlines()[0]})",
+                      flush=True)
+                continue
+            out[name] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal), iters, flush)
+    return out
+
+
+def _layout_copies(flush):
+    """``models.attention._full_sequence`` at the evaluation's shape (B 8,
+    S 1024, H 16, hd 64, causal, attn_impl "pallas"): the whole call (q, k
+    and v copied to (B*H, S, hd), then B6) and the three copies alone."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    bh, s, hd = FLASH_EVAL
+    h = get_config("ternary-paper").num_heads
+    cfg = dataclasses.replace(get_config("ternary-paper"), attn_impl="pallas")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    q, k, v = (torch.randn(bh // h, s, h, hd, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+
+    def copies():
+        return [t.transpose(1, 2).reshape(bh, s, hd).contiguous()
+                for t in (q, k, v)]
+
+    with torch.no_grad():
+        return {"b": bh // h, "s": s, "h": h, "hd": hd,
+                "full_sequence_ms": cuda_ms(
+                    lambda: attention._full_sequence(q, k, v, cfg), 20,
+                    flush),
+                "copies_ms": cuda_ms(copies, 20, flush)}
+
+
+def flash_kernel_phase(flush, build):
+    """B6 against its plain version at repro's test shapes, hd 128 at S
+    1024 (causal and full) and the evaluation's shape, each timed beside
+    SDPA's backends on the same bf16 (1, B*H, S, hd) tensors; then checked
+    once at ragged and unequal lengths and at the head edge. The
+    evaluation's row also carries the kernel's registers and spills, its
+    HGMMA count and the layout copies' cost in ``_full_sequence``. No
+    HGMMA, a spill or a wgmma that ptxas serialized fails the phase.
+    Returns the rows."""
+    import torch
     from repro_torch.kernels import flash_attention as flash_lib
 
+    hgmma = sass_counts(build, "flash_attention",
+                        r"\b(HGMMA\.[0-9A-Za-z.]+)")
+    print(f"  flash_attention SASS: {hgmma}", flush=True)
+    if not hgmma:
+        raise AssertionError("flash_attention: no HGMMA (wgmma) in the "
+                             "SASS of its library")
+    # ptxas's two known hazards for B6: spilled registers (a spilled build
+    # gave wrong results) and wgmmas it serialized (C7520, C7512)
+    log = (build.BUILD_DIR / "flash_attention.log").read_text()
+    serialized = [line.strip() for line in log.splitlines()
+                  if "C7520" in line or "C7512" in line]
+    report = ptxas_report(build, "flash_attention")
+    spilled = {entry: info for entry, info in report.items()
+               if info["spill_stores"] or info["spill_loads"]}
+    if serialized or spilled or len(report) != len(flash_lib.TILES):
+        raise AssertionError(f"flash_attention: ptxas serialized wgmmas "
+                             f"({serialized}), spilled ({spilled}) or built "
+                             f"{len(report)} kernels, not "
+                             f"{len(flash_lib.TILES)}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+
+    def qkv(bh, sq, skv, hd):
+        return (torch.randn(bh, n, hd, generator=gen, device="cuda")
+                .to(torch.bfloat16) for n in (sq, skv, skv))
+
     cases = [(shape, causal) for shape in FLASH_CHECKS
              for causal in (True, False)] + [(FLASH_EVAL, True)]
     rows = []
     for (bh, s, hd), causal in cases:
-        q, k, v = (torch.randn(bh, s, hd, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
+        q, k, v = qkv(bh, s, s, hd)
         label = f"flash_attention BH={bh} S={s} hd={hd} causal={causal}"
         err = check_close(label, flash_lib.flash_attention_cuda(
             q, k, v, causal=causal), flash_lib.flash_attention_ref(
                 q, k, v, causal=causal))
         iters = 20
-        q4, k4, v4 = (t[None] for t in (q, k, v))
+        sdpa = _sdpa_ms(q[None], k[None], v[None], causal, iters, flush)
+        fastest = min((n for n in sdpa if sdpa[n] is not None),
+                      key=sdpa.get)
         row = {"bh": bh, "s": s, "hd": hd, "causal": causal,
                "on_path": (bh, s, hd) == FLASH_EVAL, "max_abs_err": err,
                "ms": cuda_ms(lambda: flash_lib.flash_attention_cuda(
                    q, k, v, causal=causal), iters, flush),
+               "device_ms": cuda_ms(lambda: flash_lib.flash_attention_cuda(
+                   q, k, v, causal=causal), iters, flush, spin=True),
+               "host_ms": host_ms(lambda: flash_lib.flash_attention_cuda(
+                   q, k, v, causal=causal), 100),
+               "ops_ms": cuda_ms(lambda: flash_lib.flash_attention(
+                   q, k, v, causal=causal), iters, flush),
                "plain_ms": cuda_ms(lambda: flash_lib.flash_attention_ref(
                    q, k, v, causal=causal), iters, flush),
-               "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                   q4, k4, v4, is_causal=causal), iters, flush)}
+               "library_ms": sdpa[fastest], "library": f"sdpa {fastest}",
+               "sdpa_ms": sdpa}
         # q, k, v read once and o written once; QK^T and PV over the
         # causal half (or the whole square)
         nbytes = 4 * bh * s * hd * 2
         ops_needed = (2.0 if causal else 4.0) * bh * s * s * hd
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_needed)
+        if row["on_path"]:
+            plan = flash_lib.launch_plan(bh, s, s, hd, causal)
+            row["plan"] = {"block_m": plan.block_m, "block_n": plan.block_n,
+                           "stages": plan.stages,
+                           "blocks_per_sm": plan.blocks_per_sm,
+                           "smem_bytes": plan.smem_bytes}
+            # the launched tile's registers and spills (nvcc -Xptxas -v)
+            tag = (f"flash_attention_kernelILi{hd}ELi{plan.block_n}ELi"
+                   f"{plan.stages}ELi{plan.blocks_per_sm}E")
+            row["ptxas"] = next(info for entry, info in report.items()
+                                if tag in entry)
+            row["hgmma"] = hgmma
+            row["layout"] = _layout_copies(flush)
         rows.append(row)
         print(f"{label}: " + json.dumps(row), flush=True)
+    for bh, sq, skv, hd in FLASH_RAGGED:
+        q, k, v = qkv(bh, sq, skv, hd)
+        for causal in (True, False):
+            label = (f"flash_attention BH={bh} Sq={sq} Skv={skv} hd={hd} "
+                     f"causal={causal}")
+            err = check_close(label, flash_lib.flash_attention_cuda(
+                q, k, v, causal=causal), flash_lib.flash_attention_ref(
+                    q, k, v, causal=causal))
+            print(f"{label}: max_abs_err {err}", flush=True)
+    for bh, s, hd in FLASH_EDGE:
+        q, k, v = qkv(bh, s, s, hd)
+        k[1::2], v[1::2] = 1e4, 1e4
+        for causal in (True, False):
+            label = f"flash_attention head edge BH={bh} S={s} hd={hd} " \
+                    f"causal={causal}"
+            got = flash_lib.flash_attention_cuda(q, k, v, causal=causal)
+            err = check_close(label, got[0::2], flash_lib.flash_attention_ref(
+                q[0::2], k[0::2], v[0::2], causal=causal))
+            print(f"{label}: max_abs_err {err}", flush=True)
     return rows
 
 
@@ -1660,7 +1820,7 @@ def main() -> int:
     format_rows, runs["gemm_formats"] = gemm_formats_phase(flush)
     k_sweep = format_rows.pop("k_sweep")
     shapes.update(format_rows)
-    shapes["flash_attention"] = flash_kernel_phase(flush)
+    shapes["flash_attention"] = flash_kernel_phase(flush, build)
     del flush
     torch.cuda.empty_cache()
     gradients_phase()

@@ -2,8 +2,8 @@
 """A/B of the port's kernels between checkouts, on one CUDA card, in turns:
 B1 (ternary GEMM) and B4 (fused MLP) at the main path's shapes, B2, B3 and
 B7 (tile-skipping and bitplane GEMMs) with B1 and cuBLAS on the same packs
-at the paper's sizes, and B5 (paged decode attention) at the serving shape
-and at long rows.
+at the paper's sizes, B5 (paged decode attention) at the serving shape
+and at long rows, and B6 (flash attention) at chip_smoke.py's B6 shapes.
 
     python3 scripts/torch_kernel_ab.py --tree OLD --tree . --tree . \\
         --tree OLD [--split .] [--out chiprun_out/kernel_ab.json]
@@ -19,16 +19,20 @@ before each launch), whichever tree runs. Then B5 through that
 tree's ``ops.paged_decode_attention`` on the same inputs in every tree
 (made by this checkout's ``chip_smoke._paged_inputs`` at its ``PAGED`` and
 ``PAGED_LONG`` shapes, bf16 and int8 pages), beside SDPA on the gathered
-K/V. The tile-skipping packs (B2, B3, the K sweep) and B5 are timed
+K/V, and B6 through that tree's ``flash_attention_cuda`` at this
+checkout's ``FLASH_CHECKS`` (causal and full) and ``FLASH_EVAL`` beside
+SDPA. The tile-skipping packs (B2, B3, the K sweep), B5 and B6 are timed
 twice: as a caller meets them, the host's enqueue time included where the
 flush does not cover it, and with the card kept busy while the host
 enqueues each call (``cuda_ms(spin=True)``, keys ending in ``_spin``),
-the card's time alone; and B3, B2 (s 1/8, M 8 and 1024) and B5 give the
-host's time to issue one call (``host_ms``, calls back to back with no
-synchronization). Naming the
+the card's time alone; and B3, B2 (s 1/8, M 8 and 1024), B5 and B6
+give the host's time to issue one call (``host_ms``, calls back to back
+with no synchronization). Each tree also counts every opcode of its
+B2/B3 library (``cuobjdump -sass``); the counts are compared across
+trees. Naming the
 parent and the change in turns (parent, change, change, parent) shows the card's
 drift beside the change's effect. Prints one line per shape with each
-run's kernel ms (B1 and B4: the wrapper called directly; B2, B3, B5, B7:
+run's kernel ms (B1, B4 and B6: the wrapper called directly; B2, B3, B5, B7:
 through ``ops``) beside B1's on the same pack and the library call's, and
 writes all rows as JSON, with the card's name and power limit.
 With ``--split TREE`` it also profiles B4 in TREE at the main path's
@@ -59,7 +63,7 @@ from repro_torch.kernels import build, ops
 from repro_torch.paging import Int8Pages
 from repro_torch.paging import kernels as paged_lib
 build.build(["ternary_gemm", "ternary_gemm_skip", "ternary_gemm_bitplane",
-             "fused_mlp", "paged_attention"])
+             "fused_mlp", "paged_attention", "flash_attention"])
 # every tree is timed by the A/B checkout's cuda_ms, and B5 on its inputs
 spec = importlib.util.spec_from_file_location("ab_inputs", sys.argv[1])
 ab = importlib.util.module_from_spec(spec)
@@ -123,6 +127,30 @@ for name, shape, seed in (("serving", ab.PAGED, ab.SEED + 2),
             "library_ms": ab.cuda_ms(
                 lambda: F.scaled_dot_product_attention(
                     q[:, :, None], ks, vs, attn_mask=mask), 100, flush)})
+# B6 at this checkout's chip_smoke.py B6 shapes, through the tree's wrapper
+from repro_torch.kernels import flash_attention as flash_lib
+rows["flash_attention"] = []
+gen = torch.Generator(device="cuda").manual_seed(ab.SEED + 6)
+for (bh, s, hd), causal in [(shape, c) for shape in ab.FLASH_CHECKS
+                            for c in (True, False)] + [(ab.FLASH_EVAL, True)]:
+    q, k, v = (torch.randn(bh, s, hd, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    call = functools.partial(flash_lib.flash_attention_cuda, q, k, v,
+                             causal=causal)
+    err = chip_smoke.check_close(f"B6 BH={bh} S={s} hd={hd}", call(),
+                                 flash_lib.flash_attention_ref(
+                                     q, k, v, causal=causal))
+    rows["flash_attention"].append({
+        "bh": bh, "s": s, "hd": hd, "causal": causal, "max_abs_err": err,
+        "ms": ab.cuda_ms(call, 50, flush),
+        "ms_spin": ab.cuda_ms(call, 50, flush, spin=True),
+        "host_ms": ab.host_ms(call, 200),
+        "library_ms": ab.cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=causal), 50, flush)})
+# every opcode of B2/B3's library, counted (cuobjdump -sass)
+rows["sass_ternary_gemm_skip"] = ab.sass_counts(
+    build, "ternary_gemm_skip",
+    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)")
 print("AB_ROWS " + json.dumps(rows), flush=True)
 """
 
@@ -177,7 +205,8 @@ TIMES = {"ternary_gemm": ("kernel_ms",), "fused_mlp": ("kernel_ms",),
                      "skip_ms_spin", "dense_ms"),
          "ternary_gemm_skip_db_host": ("host_ms",),
          "ternary_gemm_skip_host": ("host_ms",),
-         "paged_decode_attention": ("ms", "ms_spin", "host_ms")}
+         "paged_decode_attention": ("ms", "ms_spin", "host_ms"),
+         "flash_attention": ("ms", "ms_spin", "host_ms")}
 
 
 # this checkout's chip_smoke.py, whose B5 inputs every tree is timed on
@@ -191,6 +220,9 @@ def fmt_ms(v) -> str:
 def shape_key(name: str, row: dict) -> str:
     if name == "paged_decode_attention":
         return f"{name} {row['shape']} {row['pages']}"
+    if name == "flash_attention":
+        return (f"{name} bh={row['bh']} s={row['s']} hd={row['hd']} "
+                f"causal={row['causal']}")
     dims = ("m", "k", "ff", "n") if name == "fused_mlp" else ("m", "k", "n")
     if "sparsity" in row:
         dims = ("sparsity",) + dims
@@ -239,6 +271,18 @@ def main() -> int:
             k + " " + " / ".join(fmt_ms(c[k]) for c in cells)
             for k in keys) + f"; bound_ms {fmt_ms(cells[0].get('bound_ms'))}",
             flush=True)
+    sass = [run["rows"].get("sass_ternary_gemm_skip") for run in runs]
+    if None in sass:
+        print("B2/B3 SASS opcode counts: a tree's library could not be "
+              "read", flush=True)
+    else:
+        print("B2/B3 SASS opcode counts equal in every tree: "
+              f"{all(c == sass[0] for c in sass)} "
+              f"({sum(sass[0].values())} instructions in run 0)", flush=True)
+        for op in sorted(set().union(*sass)):
+            counts = [c.get(op, 0) for c in sass]
+            if len(set(counts)) > 1:
+                print(f"  {op}: {counts}", flush=True)
     split = None
     if args.split:
         proc = subprocess.run([sys.executable, "-c", SPLIT],

@@ -30,7 +30,7 @@ SOURCES = {"ternary_gemm": "ternary_gemm.cu",
            "fused_mlp": "fused_mlp.cu",
            "paged_attention": "paged_attention.cu",
            "flash_attention": "flash_attention.cu"}
-HEADERS = ("ternary_tiles.cuh",)
+HEADERS = ("ternary_tiles.cuh", "tma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

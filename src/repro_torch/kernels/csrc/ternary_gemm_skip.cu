@@ -70,6 +70,7 @@
 #include <string.h>
 
 #include "ternary_tiles.cuh"
+#include "tma.cuh"
 
 using ternary::BK;
 using ternary::BKW;
@@ -159,93 +160,6 @@ ternary_gemm_skip_kernel(const bf16* __restrict__ x,
 
 // ---------------------------------------------------------------------------
 // B3: the TMA ring.
-
-namespace tma {
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// Make the initialized barriers visible to the other threads and to the
-// async proxy that completes them.
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// Arrive and add `bytes` to the transactions the current phase waits for.
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed. A wait
-// of two minutes, far beyond any stall of a correct kernel (a launch
-// takes microseconds; time slicing and preemption take milliseconds),
-// traps: a wrong parity or a lost copy then fails the launch with an
-// error instead of holding the card until the process is killed. A
-// debugger that halts the kernel for longer trips it too. This form of
-// the loop is also the fastest measured: without the guard, and with
-// __nanosleep or try_wait's suspend hint in its place, B3 took 1.2-1.3x
-// as long at decode (PERF.md).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint64_t t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    uint64_t now;
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-    if (t0 == 0) {
-      t0 = now;
-    } else if (now - t0 > 120000000000ull) {   // two minutes, in ns
-      __trap();
-    }
-  }
-}
-
-// Copy box (c0, c1) (innermost coordinate first) of the tensor `map`
-// describes into dst; the copy completes its bytes on `bar`.
-__device__ __forceinline__ void load_2d(void* dst, const CUtensorMap* map,
-                                        int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Byte offset of 16-byte chunk `chunk` of row `row` in a box of 128-byte
-// rows under the 128-byte swizzle (the box 1024-byte aligned).
-__device__ __forceinline__ int swizzle128(int row, int chunk) {
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
-}
-
-}  // namespace tma
 
 // B3's shared memory, from a 1024-byte aligned base (the swizzle's
 // period): STAGES x boxes (BM x 128 bytes), STAGES word boxes (BKW x BN),
@@ -420,50 +334,6 @@ ternary_gemm_skip_tma_kernel(const __grid_constant__ CUtensorMap xmap,
                                         y);
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no -lcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// The map of a row-major (rows, cols) matrix with row stride ld elements
-// of esize bytes, read in boxes of (box_rows x box_cols); out-of-bounds
-// elements of a box read as zero.
-static bool encode_2d(CUtensorMap* map, CUtensorMapDataType dtype,
-                      const void* base, int rows, int cols, int ld, int esize,
-                      int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * esize};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, dtype, 2, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
 static int launch_ring(const void* x, const void* w, const void* idx,

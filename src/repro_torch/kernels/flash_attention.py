@@ -18,18 +18,82 @@ Like ``repro``'s Pallas kernel, this op has no gradient: ``repro`` gives
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["NEG_INF", "HEAD_DIMS", "flash_attention",
-           "flash_attention_ref", "flash_attention_cuda"]
+__all__ = ["NEG_INF", "HEAD_DIMS", "BLOCK_M", "CONSUMER_WARPGROUPS",
+           "THREADS", "BOX_COLS", "TILES", "FlashPlan", "launch_plan",
+           "flash_attention", "flash_attention_ref", "flash_attention_cuda"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)           # the kernel's compiled head widths
+
+# The launch of csrc/flash_attention.cu (its constants of the same names):
+# 128 query rows a block, 64 to each of two consumer warpgroups, plus one
+# producer warp; per head dim its FLASH_TILES entry (K/V tile, ring
+# stages, blocks an SM), copied in boxes of 64 columns (128-byte rows).
+BLOCK_M = 128
+CONSUMER_WARPGROUPS = 2
+THREADS = (CONSUMER_WARPGROUPS * 4 + 1) * 32
+BOX_COLS = 64
+# hd -> (keys a tile, stages, blocks an SM)
+TILES = {64: (64, 3, 2), 128: (128, 2, 1)}
+MAX_GRID_Y = 65_535
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """One launch of B6: a (BH, query tiles) grid of ``threads``-thread
+    blocks, ``block_m`` query rows and ``block_n``-key K/V tiles through a
+    ring of ``stages``, ``smem_bytes`` of dynamic shared memory each."""
+
+    hd: int
+    sq: int
+    skv: int
+    causal: bool
+    block_m: int
+    block_n: int
+    stages: int
+    blocks_per_sm: int
+    grid: Tuple[int, int]
+    threads: int
+    smem_bytes: int
+
+    def q_tile(self, block_y: int) -> int:
+        """First query row of the tile that blocks ``(*, block_y)`` run:
+        the last tile first (the kernel's heavy-first order)."""
+        return (self.grid[1] - 1 - block_y) * self.block_m
+
+    def kv_tiles(self, block_y: int) -> int:
+        """K/V tiles the block loads: causal tiles stop at the tile's last
+        row."""
+        q0 = self.q_tile(block_y)
+        end = min(self.skv, q0 + self.block_m) if self.causal else self.skv
+        return -(-end // self.block_n)
+
+
+def launch_plan(bh: int, sq: int, skv: int, hd: int,
+                causal: bool) -> FlashPlan:
+    """The launch ``flash_attention_cuda`` makes for these shapes, with the
+    head dim's ``TILES`` entry. Shared memory: the q tile, ``stages`` K and
+    V tiles, 1 + 3 x stages barriers and 1024 bytes to align the base.
+    Raises for a head dim the kernel was not built for."""
+    if hd not in TILES:
+        raise ValueError(f"head dim {hd} not one of the kernel's {HEAD_DIMS}")
+    bn, stages, blocks = TILES[hd]
+    smem = (BLOCK_M * hd * 2 + 2 * stages * bn * hd * 2
+            + (1 + 3 * stages) * 8 + 1024)
+    return FlashPlan(hd=hd, sq=sq, skv=skv, causal=bool(causal),
+                     block_m=BLOCK_M, block_n=bn, stages=stages,
+                     blocks_per_sm=blocks,
+                     grid=(bh, -(-sq // BLOCK_M)), threads=THREADS,
+                     smem_bytes=smem)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,10 +130,11 @@ def _lib() -> ctypes.CDLL:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True) -> torch.Tensor:
-    """Launch B6 on the current stream. q (BH, Sq, hd), k and v (BH, Skv,
-    hd): contiguous, 16-byte aligned bfloat16 CUDA tensors on one device,
-    hd in ``HEAD_DIMS``. Returns (BH, Sq, hd) bf16. Raises on anything the
-    kernel does not take, and on a failed launch."""
+    """Launch B6 on the current stream as ``launch_plan`` says. q (BH, Sq,
+    hd), k and v (BH, Skv, hd): contiguous, 16-byte aligned bfloat16 CUDA
+    tensors on one device, hd in ``HEAD_DIMS``. Returns (BH, Sq, hd)
+    bf16. Raises on anything the kernel does not take, and on a failed
+    launch."""
     if not q.is_cuda:
         raise ValueError("flash_attention_cuda needs CUDA tensors; CPU "
                          "tensors take flash_attention_ref")
@@ -91,16 +156,27 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o
     if skv == 0:
         raise ValueError("attention over an empty key sequence")
+    plan = launch_plan(bh, sq, skv, hd, causal)
+    if plan.grid[1] > MAX_GRID_Y:
+        raise ValueError(f"{sq} query rows need {plan.grid[1]} query tiles, "
+                         f"more than the grid's {MAX_GRID_Y}")
+    _launch(q, k, v, o, plan)
+    flash_attention_cuda.launches += 1
+    return o
+
+
+def _launch(q, k, v, o, plan: FlashPlan) -> None:
+    """Launch the kernel on checked tensors as ``plan`` says; raises when
+    the launch fails."""
     with torch.cuda.device(q.device):
         err = _lib().flash_attention_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, sq,
-            skv, hd, int(causal), 1.0 / math.sqrt(hd),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            plan.grid[0], plan.sq, plan.skv, plan.hd, int(plan.causal),
+            1.0 / math.sqrt(plan.hd),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {err}")
-    flash_attention_cuda.launches += 1
-    return o
 
 
 flash_attention_cuda.launches = 0
@@ -131,6 +207,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     A CUDA tensor launches B6 (or its wrapper raises), a CPU tensor takes
     the plain version. ``block_q``/``block_kv`` are ``repro``'s Pallas
     block sizes; they change no result, and the CUDA kernel keeps its own
-    64 x 64 tiles."""
+    tiles (``launch_plan``)."""
     del block_q, block_kv
     return _NoVjp.apply(q, k, v, causal)

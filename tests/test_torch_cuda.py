@@ -568,6 +568,47 @@ def test_flash_attention_kernel_queries_and_keys_of_other_lengths(cuda):
         _close(got, fa.flash_attention_ref(q, k, v, causal=causal))
 
 
+# ragged query lengths across the 128-row query tiles and the K/V tiles,
+# Sq != Skv both ways, hd 128 at S 1024, BH 1 (bh, sq, skv, hd)
+FLASH_RAGGED = [(2, 127, 127, 64), (2, 129, 129, 64), (2, 255, 255, 128),
+                (2, 1000, 1000, 64), (1, 1000, 1000, 128), (3, 129, 1000, 64),
+                (3, 1000, 129, 128), (2, 1, 300, 64), (2, 300, 1, 128),
+                (16, 1024, 1024, 128), (1, 1024, 1024, 64), (1, 1, 1, 128)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,sq,skv,hd", FLASH_RAGGED)
+def test_flash_attention_kernel_ragged_and_unequal_lengths(cuda, bh, sq, skv,
+                                                           hd, causal):
+    from repro_torch.kernels import flash_attention as fa
+    g = _gen(bh + sq + 3 * skv + hd)
+    q = torch.randn(bh, sq, hd, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(bh, skv, hd, generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape
+    _close(got, fa.flash_attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,hd", [(100, 64), (200, 64), (1000, 64),
+                                  (129, 128), (1000, 128)])
+def test_flash_attention_kernel_stays_inside_its_head(cuda, s, hd, causal):
+    """Odd heads' K and V hold 1e4: a copy box that ran past an even
+    head's last row would bring them into its softmax and its output."""
+    from repro_torch.kernels import flash_attention as fa
+    g = _gen(s + hd)
+    q, k, v = (torch.randn(4, s, hd, generator=g, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    k[1::2] = 1e4
+    v[1::2] = 1e4
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    _close(got[0::2], fa.flash_attention_ref(q[0::2], k[0::2], v[0::2],
+                                             causal=causal))
+
+
 def test_flash_attention_wrapper_refuses_bad_inputs(cuda):
     from repro_torch.kernels import flash_attention as fa
     q = torch.randn(2, 64, 64, device=cuda).to(torch.bfloat16)

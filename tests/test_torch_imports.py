@@ -1,5 +1,6 @@
-"""The port stands alone: no module under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or anything of ``repro``; every module
+"""The port stands alone: no module under ``src/repro_torch/``, not
+``chip_smoke.py`` and not ``scripts/torch_kernel_ab.py`` imports ``jax``
+or anything of ``repro``; every module
 imports on a machine without a GPU, nvcc or triton."""
 import ast
 import importlib
@@ -9,7 +10,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                     ROOT / "scripts" / "torch_kernel_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -64,7 +66,7 @@ def test_the_ast_check_catches_a_forbidden_import(tmp_path):
                                                                 "repro"]
 
 
-@pytest.mark.parametrize("path", [p for p in FILES if p.parent != ROOT],
+@pytest.mark.parametrize("path", [p for p in FILES if PORT in p.parents],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_every_module_imports_without_a_gpu(path):
     rel = path.relative_to(ROOT / "src").with_suffix("")
