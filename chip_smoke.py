@@ -45,6 +45,25 @@ train_ternary_lm.py``'s evaluation on the trained state: the QAT model's
 loss on a held-out batch with the plain blockwise attention and with B6,
 and the packed model's with B1 + B4 + B6.
 
+The serving runs replay the decode step as a CUDA graph, the engine's
+default on the card. ``decode_graph`` then drains each serving workload
+(dense, paged bf16, paged int8 under pressure) twice in one process, with
+the decode step run eagerly and through the graph: the token streams, the
+``"cache"`` metrics and the B1/B4/B5 launches (per run and per decode
+step) must be equal and one decode step's logits bitwise equal; it prints
+tok/s, TPOT p50 and the decode step's wall time (the engine's
+``decode_step`` trace spans) of both. ``trace`` exports the dense graph
+run's ``Tracer``, validates it with the port's ``validate_events`` and
+checks one ``decode_step`` span per decode step and every request's track
+from ``submit`` to ``done``. ``profiler`` takes five ``torch.profiler``
+traces (a dense decode step eager and graphed, a paged bf16 decode step
+graphed, a prefill at M 1024, a QAT train step at the train phase's
+shape) and prints each one's host wall, device busy time (the union of
+its device intervals), idle share, kernel count, top device ops and the
+host ops under the longest idle gaps (the profiler's own cost inflates
+the eager steps' host time, so each is also timed without it); a trace
+with no device events fails.
+
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 Needs one CUDA device and nvcc (PATH or /usr/local/cuda/bin). Exits
@@ -104,8 +123,9 @@ blockwise attention's within 1e-2 (bf16 attention outputs through twelve
 layers, the mean of 8192 cross-entropies), and the packed model's loss
 with the QAT model's within 0.05, the example's own assertion.
 
-Output: progress lines, each serving run's metrics JSON, one
-``{"kernels": ...}`` JSON line (each kernel's launches summed over the
+Output: progress lines, each serving run's metrics JSON, a ``serving
+host/device summary`` JSON line (decode_graph's readings, the trace's
+spans, the profiles), one ``{"kernels": ...}`` JSON line (each kernel's launches summed over the
 path runs — serving dense, paged bf16 and int8, mlp_formats,
 gemm_formats, train and eval — with the per-run counts under ``runs``,
 and its error and times summed over the shapes its path gives
@@ -217,6 +237,14 @@ EVAL = dict(batch=8, seq=1024, step=10_000, qat_tol=1e-2, packed_tol=0.05)
 # the card's first full-width train step against the CPU's, both float32:
 # the same sums in another order through 12 layers
 STEP_CHECK = dict(batch=2, seq=256, rtol=1e-3, max_flip_share=1e-6)
+# decode_graph: each serving workload drained eagerly and through the
+# captured decode step in one process; the kernels counted per decode step
+GRAPH_KERNELS = ("ternary_gemm", "fused_mlp", "paged_decode_attention")
+# profiler: the longest gaps between device work, and the device ops, shown
+PROFILE = dict(gaps=3, top_ops=5, unprofiled_iters=20)
+# the port's kernels among the device ops, by their CUDA function names
+PORT_KERNEL_NAMES = ("ternary_gemm", "fused_mlp", "paged_attention",
+                     "flash_attention", "bitplane")
 
 
 def card_line() -> str:
@@ -583,22 +611,8 @@ def paged_kernel_phase(flush):
 
 def _counters():
     """Kernel name -> (wrapper, attribute holding its launch count)."""
-    from repro_torch.kernels import flash_attention as flash_lib
-    from repro_torch.kernels import fused_mlp as fused_lib
-    from repro_torch.kernels import ternary_gemm as gemm_lib
-    from repro_torch.kernels import ternary_gemm_bitplane as bitplane_lib
-    from repro_torch.paging import kernels as paged_lib
-    return {"ternary_gemm": (gemm_lib.ternary_gemm_cuda, "launches"),
-            "flash_attention": (flash_lib.flash_attention_cuda, "launches"),
-            "fused_mlp": (fused_lib.fused_mlp_cuda, "launches"),
-            "paged_decode_attention": (
-                paged_lib.paged_decode_attention_cuda, "launches"),
-            "ternary_gemm_skip": (gemm_lib.ternary_gemm_skip_cuda,
-                                  "launches"),
-            "ternary_gemm_skip_db": (gemm_lib.ternary_gemm_skip_cuda,
-                                     "launches_db"),
-            "ternary_gemm_bitplane": (
-                bitplane_lib.ternary_gemm_bitplane_cuda, "launches")}
+    from repro_torch.kernels import graphs
+    return graphs.launch_counters()
 
 
 def _zero_counts():
@@ -617,11 +631,8 @@ def serve_run(label, cfg, params, prompts, gens, max_len, **engine_kw):
     after. Checks every request drained with its full budget of in-range
     token ids."""
     from repro_torch.launch import serve
-    from repro_torch.serving import ContinuousScheduler
 
-    engine = ContinuousScheduler(cfg, max_slots=SERVE["slots"],
-                                 max_len=max_len, device="cuda", **engine_kw)
-    engine.load(params)
+    engine = _engine(cfg, params, max_len, True, **engine_kw)
     _zero_counts()
     outs, metrics = serve.run_continuous(engine, prompts, gens)
     launches = _read_counts()
@@ -793,14 +804,14 @@ def pressure_workload(cfg):
     return prompts, gens
 
 
-def paged_phases(cfg, params, prompts, gens, max_len, dense_outs):
+def paged_phases(cfg, params, workloads, dense_outs):
     """Paged serving with bf16 pages on the dense run's workload, then with
     int8 pages under pressure; each followed by the one-step logit check
     against the dense cache. Returns the per-run launch counts."""
     import numpy as np
-    outs, _, bf16_launches = serve_run(
-        "paged bf16", cfg, params, prompts, gens, max_len, cache="paged",
-        page_size=PAGE_SIZE)
+    prompts, gens, max_len, kw = workloads["paged_bf16"]
+    outs, _, bf16_launches = serve_run("paged bf16", cfg, params, prompts,
+                                       gens, max_len, **kw)
     same = sum(np.array_equal(a, b) for a, b in zip(outs, dense_outs))
     print(f"paged bf16: {same}/{len(outs)} token streams equal the dense "
           f"run's (information, not a gate)", flush=True)
@@ -808,12 +819,10 @@ def paged_phases(cfg, params, prompts, gens, max_len, dense_outs):
     paged_step_check("paged bf16 vs dense, one decode step", cfg, params,
                      prompts[:SERVE["slots"]], max_len, None, LOGIT_TOL)
 
-    p_prompts, p_gens = pressure_workload(cfg)
-    p_max_len = PRESSURE["prompt_len"] + max(PRESSURE["gen_lens"]) + 1
+    p_prompts, p_gens, p_max_len, kw = workloads["paged_int8"]
     _, pm, runs["paged_int8"] = serve_run(
         "paged int8 under pressure", cfg, params, p_prompts, p_gens,
-        p_max_len, cache="paged", page_size=PAGE_SIZE,
-        n_pages=PRESSURE["n_pages"], kv_dtype="int8")
+        p_max_len, **kw)
     cache = pm["cache"]
     if not (cache["prefix"]["hits"] > 0 and cache["cow_copies"] > 0
             and cache["deferrals"] + cache["preemptions"] > 0):
@@ -823,6 +832,344 @@ def paged_phases(cfg, params, prompts, gens, max_len, dense_outs):
                      p_prompts[:SERVE["slots"]], p_max_len, "int8",
                      INT8_LOGIT_TOL)
     return runs
+
+
+def serving_workloads(cfg, prompts, gens, max_len):
+    """The three serving workloads (the dense run's prompts and budgets,
+    then the int8 pressure run's): label -> (prompts, budgets, max_len,
+    engine keywords)."""
+    p_prompts, p_gens = pressure_workload(cfg)
+    p_max_len = PRESSURE["prompt_len"] + max(PRESSURE["gen_lens"]) + 1
+    return {
+        "dense": (prompts, gens, max_len, {}),
+        "paged_bf16": (prompts, gens, max_len,
+                       dict(cache="paged", page_size=PAGE_SIZE)),
+        "paged_int8": (p_prompts, p_gens, p_max_len,
+                       dict(cache="paged", page_size=PAGE_SIZE,
+                            n_pages=PRESSURE["n_pages"], kv_dtype="int8")),
+    }
+
+
+def _engine(cfg, params, max_len, graph, tracer=None, **engine_kw):
+    from repro_torch.serving import ContinuousScheduler
+    engine = ContinuousScheduler(cfg, max_slots=SERVE["slots"],
+                                 max_len=max_len, device="cuda",
+                                 tracer=tracer, cuda_graph=graph,
+                                 **engine_kw)
+    engine.load(params)
+    return engine
+
+
+def _decode_only_step(engine):
+    """Step ``engine`` until a step decodes without admitting (so no
+    prefill launches land in it); returns that step's launches."""
+    import torch
+    while True:
+        p0 = engine.prefill_steps
+        _zero_counts()
+        engine.step()
+        torch.cuda.synchronize()
+        if engine.prefill_steps == p0 and engine.last_logits is not None:
+            return _read_counts()
+
+
+def span_summary(events):
+    """Complete spans by name: count, total, p50 and p90 in ms."""
+    import numpy as np
+    by_name = {}
+    for e in events:
+        if e["ph"] == "X":
+            by_name.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    return {name: {"n": len(d), "total_ms": float(np.sum(d)),
+                   "p50_ms": float(np.percentile(d, 50)),
+                   "p90_ms": float(np.percentile(d, 90))}
+            for name, d in sorted(by_name.items())}
+
+
+def decode_graph_phase(cfg, params, workloads):
+    """Each serving workload twice in this process, with the decode step
+    run eagerly and replayed as a CUDA graph: equal token streams, equal
+    cache metrics, equal B1/B4/B5 launches (per run and per decode step),
+    and one decode step's logits bitwise equal. Prints tok/s, TPOT p50 and
+    the decode step's wall time (the engine's decode_step spans) of both.
+    Returns label -> path -> readings, and the graph runs' tracers."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.obs import Tracer
+
+    out, tracers = {}, {}
+    for label, (prompts, gens, max_len, kw) in workloads.items():
+        runs = {}
+        for path in ("eager", "graph"):
+            tracer = Tracer()
+            engine = _engine(cfg, params, max_len, path == "graph", tracer,
+                             **kw)
+            _zero_counts()
+            outs, metrics = serve.run_continuous(engine, prompts, gens)
+            launches = _read_counts()
+            spans = span_summary(tracer.to_dict()["traceEvents"])
+            runs[path] = dict(outs=outs, metrics=metrics, launches=launches)
+            out.setdefault(label, {})[path] = {
+                "tok_per_s": metrics["tok_per_s"],
+                "tpot_p50_ms": metrics["latency"]["tpot_s"]["p50"] * 1e3,
+                "decode_step_p50_ms": spans["decode_step"]["p50_ms"],
+                "decode_step_mean_ms": (spans["decode_step"]["total_ms"]
+                                        / spans["decode_step"]["n"]),
+                "decode_steps": metrics["decode_steps"],
+                "wall_s": metrics["wall_s"],
+                "launches": {k: launches[k] for k in GRAPH_KERNELS}}
+            if path == "graph":
+                tracers[label] = (tracer, metrics)
+            del engine
+        eager, graph = runs["eager"], runs["graph"]
+        for i, (a, b) in enumerate(zip(eager["outs"], graph["outs"])):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"decode_graph {label}: request {i}'s "
+                                     f"tokens differ between eager and graph")
+        if eager["metrics"]["cache"] != graph["metrics"]["cache"]:
+            raise AssertionError(
+                f"decode_graph {label}: cache metrics differ: eager "
+                f"{eager['metrics']['cache']}, graph "
+                f"{graph['metrics']['cache']}")
+        for k in GRAPH_KERNELS:
+            if eager["launches"][k] != graph["launches"][k]:
+                raise AssertionError(
+                    f"decode_graph {label}: {k} launched "
+                    f"{eager['launches'][k]} times eagerly, "
+                    f"{graph['launches'][k]} through the graph")
+
+        # one decode-only step of fresh engines on the same requests
+        steps = {}
+        for path in ("eager", "graph"):
+            engine = _engine(cfg, params, max_len, path == "graph", **kw)
+            for p, g in zip(prompts, gens):
+                engine.submit(p, g)
+            per_step = _decode_only_step(engine)
+            steps[path] = (engine.last_logits.clone(),
+                           {k: per_step[k] for k in GRAPH_KERNELS})
+            del engine
+        (le, ce), (lg, cg) = steps["eager"], steps["graph"]
+        if ce != cg:
+            raise AssertionError(f"decode_graph {label}: launches per "
+                                 f"decode step differ: eager {ce}, graph {cg}")
+        if not torch.equal(le, lg):
+            diff = float((le.float() - lg.float()).abs().max())
+            raise AssertionError(f"decode_graph {label}: one step's logits "
+                                 f"differ between eager and graph, max |d| "
+                                 f"{diff}")
+        out[label]["per_decode_step_launches"] = cg
+        print(f"decode_graph {label}: streams, cache metrics and launches "
+              f"equal, one step's logits bitwise equal; "
+              + json.dumps(out[label]), flush=True)
+    return out, tracers
+
+
+def trace_check(tracer, metrics):
+    """The dense graph run's trace: export, validate with the port's
+    validate_events, one decode_step span per decode step, every
+    request's track from submit to done; print the spans by name."""
+    from repro_torch.obs import load_trace, validate_events
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        path = str(Path(d) / "dense.json")
+        n_events = tracer.export(path)
+        events = load_trace(path)["traceEvents"]
+    validate_events(events)
+    spans = span_summary([e for e in events if e.get("tid") == 0])
+    if spans["decode_step"]["n"] != metrics["decode_steps"]:
+        raise AssertionError(f"trace: {spans['decode_step']['n']} "
+                             f"decode_step spans for "
+                             f"{metrics['decode_steps']} decode steps")
+    tracks = {}
+    for e in events:
+        if e["ph"] != "M" and e.get("tid", 0) > 0:
+            tracks.setdefault(e["tid"], []).append(e["name"])
+    if len(tracks) != metrics["drained"] or tracer.dropped:
+        raise AssertionError(f"trace: {len(tracks)} request tracks for "
+                             f"{metrics['drained']} requests, "
+                             f"{tracer.dropped} events dropped")
+    for tid, names in tracks.items():
+        if names[0] != "submit" or names[-1] != "done":
+            raise AssertionError(f"trace: request track {tid} runs "
+                                 f"{names[0]} .. {names[-1]}")
+    print(f"trace: dense graph run, {n_events} events, valid; engine spans "
+          f"{json.dumps(spans)}", flush=True)
+    return spans
+
+
+def _union(intervals):
+    """Merge (start, end) intervals; returns the sorted disjoint list."""
+    merged = []
+    for lo, hi in sorted(intervals):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    return merged
+
+
+def profile_once(label, fn, unprofiled=None):
+    """A ``torch.profiler`` trace (CPU and CUDA activities) of ``fn()``
+    followed by a synchronize, after one warm-up step of the profiler
+    (its buffers are set up there, not in the traced step): host wall,
+    device busy (the union of the device's kernel and copy intervals in
+    the step), idle share, kernel count, the device time of the port's
+    kernels and of the rest, the device ops that take the most time, and
+    the host ops the longest idle gaps sit under.
+    ``unprofiled()`` returns the same work's wall time without the
+    profiler, the wall ``idle_share_unprofiled`` divides by. Fails on a
+    trace with no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
+
+    window_name = "chip_smoke_window"
+
+    def annotation(e):
+        return (getattr(e, "is_user_annotation", False)
+                or e.name == window_name or e.name.startswith("ProfilerStep"))
+
+    def run():
+        with record_function(window_name):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e6
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        run()
+        prof.step()
+        wall_us = run()
+    events = prof.events()
+    window = next(e for e in events if e.name == window_name
+                  and e.device_type == DeviceType.CPU)
+    w_lo, w_hi = window.time_range.start, window.time_range.end
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not annotation(e)]
+    if not device:
+        raise AssertionError(f"profile {label}: the trace holds no device "
+                             f"events")
+    busy = _union((max(e.time_range.start, w_lo), min(e.time_range.end, w_hi))
+                  for e in device if e.time_range.end > w_lo
+                  and e.time_range.start < w_hi)
+    busy_us = sum(hi - lo for lo, hi in busy)
+    kernels = [e for e in device
+               if not e.name.startswith(("Memcpy", "Memset"))]
+    by_name = {}
+    for e in device:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    ours = sum(t for name, (_, t) in by_name.items()
+               if any(k in name for k in PORT_KERNEL_NAMES))
+    edges = [w_lo] + [x for iv in busy for x in iv] + [w_hi]
+    gaps = sorted(((edges[i + 1] - edges[i], edges[i], edges[i + 1])
+                   for i in range(0, len(edges), 2)), reverse=True)
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and not annotation(e)]
+    gap_rows = []
+    for length, lo, hi in gaps[:PROFILE["gaps"]]:
+        mid = (lo + hi) / 2
+        under = sorted((e for e in host
+                        if e.time_range.start <= mid <= e.time_range.end),
+                       key=lambda e: e.time_range.start)
+        gap_rows.append({"us": round(length, 1),
+                         "under": [e.name for e in under][-3:] or
+                         ["(no op: Python between ops)"]})
+    window_us = w_hi - w_lo
+    row = {"host_wall_us": round(wall_us, 1),
+           "device_busy_us": round(busy_us, 1),
+           "idle_share": round(1.0 - busy_us / window_us, 4),
+           "window_us": round(window_us, 1),
+           "kernels": len(kernels),
+           "port_kernels_us": round(ours, 1),
+           "other_device_us": round(sum(t for _, t in by_name.values())
+                                    - ours, 1),
+           "top_device_ops": [{"name": name[:80], "n": n,
+                               "us": round(t, 1)}
+                              for name, (n, t) in top[:PROFILE["top_ops"]]],
+           "longest_gaps": gap_rows}
+    if unprofiled is not None:
+        wall = unprofiled() * 1e6
+        row["unprofiled_wall_us"] = round(wall, 1)
+        row["idle_share_unprofiled"] = round(1.0 - busy_us / wall, 4)
+    print(f"profile {label}: " + json.dumps(row), flush=True)
+    return row
+
+
+def _mean_wall(fn, iters):
+    """Mean host wall time of ``fn()`` followed by a synchronize."""
+    import torch
+    t = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter() - t0)
+    return sum(t) / len(t)
+
+
+def profiler_phase(cfg, params, workloads):
+    """Five ``torch.profiler`` traces: one dense decode step eager, one
+    dense and one paged bf16 decode step through the graph, one prefill at
+    M = slots x prompt (1024), one QAT train step at the train phase's
+    shape. Each decode step is one ``engine.step()`` with every slot live
+    and no admission."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import LM
+
+    rows = {}
+    for label, wl, graph in (("decode dense eager", "dense", False),
+                             ("decode dense graph", "dense", True),
+                             ("decode paged bf16 graph", "paged_bf16", True)):
+        prompts, gens, max_len, kw = workloads[wl]
+        engine = _engine(cfg, params, max_len, graph, **kw)
+        for p in prompts[:SERVE["slots"]]:
+            engine.submit(p, max_len - len(p))
+        _decode_only_step(engine)
+        rows[label] = profile_once(
+            label, engine.step,
+            lambda: _mean_wall(engine.step, PROFILE["unprofiled_iters"]))
+        del engine
+
+    prompts, _, max_len, _ = workloads["dense"]
+    model = LM(cfg, "cuda")
+    toks = torch.as_tensor(prompts[:SERVE["slots"]], device="cuda")
+
+    def prefill():
+        with torch.no_grad(), ops.serving_phase("prefill"):
+            _, logits = model.prefill(params, {"tokens": toks}, max_len)
+            logits[:, -1].argmax(-1).cpu()
+
+    prefill()
+    label = f"prefill M {toks.numel()}"
+    rows[label] = profile_once(label, prefill, lambda: _mean_wall(prefill, 5))
+
+    tcfg = get_config("ternary-paper")
+    _, data, step, init = train.build(tcfg, TRAIN["batch"], TRAIN["seq"],
+                                      TRAIN["lr"], TRAIN["steps"], "cuda")
+    state = init(SEED)
+    batch = _tree_to(data.sharded_batch(0), "cuda")
+    holder = [state["params"], state["opt"]]
+
+    def train_step():
+        holder[0], holder[1], met = step(holder[0], holder[1], batch)
+        float(met["loss"])
+
+    train_step()
+    label = f"train step {TRAIN['batch']} x {TRAIN['seq']}"
+    rows[label] = profile_once(label, train_step,
+                               lambda: _mean_wall(train_step, 3))
+    del state, holder, batch
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _repack_mlps(params, fmt, **opts):
@@ -1810,8 +2157,15 @@ def main() -> int:
     cfg, params, prompts, gens, max_len, dense_outs, launches = serve_phase()
     model_phase(cfg, params, prompts, max_len)
     runs = {"dense": launches}
-    runs.update(paged_phases(cfg, params, prompts, gens, max_len,
-                             dense_outs))
+    workloads = serving_workloads(cfg, prompts, gens, max_len)
+    runs.update(paged_phases(cfg, params, workloads, dense_outs))
+    graph_rows, tracers = decode_graph_phase(cfg, params, workloads)
+    trace_spans = trace_check(*tracers["dense"])
+    del tracers
+    profile_rows = profiler_phase(cfg, params, workloads)
+    print("serving host/device summary: " + json.dumps(
+        {"decode_graph": graph_rows, "trace_spans": trace_spans,
+         "profiles": profile_rows}), flush=True)
     mlp_rows, runs["mlp_formats"] = mlp_formats_phase(cfg, params, prompts,
                                                       max_len)
     del params

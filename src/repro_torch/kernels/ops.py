@@ -1,6 +1,7 @@
 """Public ops of the port: ``ternary_gemm`` through a kernel registry and
-planner, ``fused_mlp``, ``paged_decode_attention``, and the serving-phase
-tag (``serving_phase`` / ``current_phase``).
+planner, ``fused_mlp``, ``paged_decode_attention``, the serving-phase
+tag (``serving_phase`` / ``current_phase``) and the timing probe
+(``kernel_probe``).
 
 ``ternary_gemm(x, w)`` takes a ``repro_torch.core.weights`` container and
 runs in two stages, as ``repro``'s does:
@@ -40,6 +41,13 @@ There is no autotuner yet. Block shapes come from the kernels' fixed
 per-phase tiles (``ternary_gemm.TILES``, ``SKIP_BLOCK_M``); the skip rows
 take ``block_n``/``block_k`` from the pack's ``tile_n``/``tile_k``.
 Outside a phase scope, M <= 16 counts as decode-shaped.
+
+``kernel_probe(cb)`` times each eager ``ternary_gemm`` / ``fused_mlp``
+dispatch in its scope and calls ``cb(plan, seconds)``: with CUDA events
+on the card, with the host clock on the CPU. A dispatch while the stream
+is being captured into a CUDA graph is not timed (nothing runs then), as
+``repro``'s probe skips dispatch under jit tracing. The plans carry no
+modelled roofline yet (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -55,11 +63,13 @@ from repro_torch.kernels import fused_mlp as fused_lib
 from repro_torch.kernels import ref
 from repro_torch.kernels import ternary_gemm as gemm_lib
 from repro_torch.kernels import ternary_gemm_bitplane as bitplane_lib
+from repro_torch.obs import clock as obs_clock
 
 __all__ = ["ternary_gemm", "ternary_gemm_plan", "GemmPlan", "KernelImpl",
            "register_kernel", "kernel_registry", "SKIP_OCCUPANCY_CUTOFF",
-           "FUSED_FORMATS", "fused_mlp", "paged_decode_attention",
-           "serving_phase", "current_phase", "SERVING_PHASES"]
+           "FUSED_FORMATS", "FusedMlpPlan", "fused_mlp",
+           "paged_decode_attention", "serving_phase", "current_phase",
+           "SERVING_PHASES", "kernel_probe"]
 
 SERVING_PHASES = ("prefill", "decode")
 
@@ -87,6 +97,50 @@ def serving_phase(phase: Optional[str]):
 
 def current_phase() -> Optional[str]:
     return _SERVING_PHASE.get()
+
+
+_KERNEL_PROBE: contextvars.ContextVar[Optional[Callable]] = \
+    contextvars.ContextVar("repro_torch_kernel_probe", default=None)
+
+
+@contextlib.contextmanager
+def kernel_probe(cb: Callable[[Any, float], None]):
+    """``with kernel_probe(lambda plan, dt: ...):`` times every eager
+    ``ternary_gemm`` / ``fused_mlp`` dispatch in the scope."""
+    token = _KERNEL_PROBE.set(cb)
+    try:
+        yield
+    finally:
+        _KERNEL_PROBE.reset(token)
+
+
+def _capturing() -> bool:
+    """Whether the current CUDA stream is being captured into a graph."""
+    try:
+        return torch.cuda.is_current_stream_capturing()
+    except RuntimeError:      # a build without CUDA: nothing can capture
+        return False
+
+
+def _probe_dispatch(probe: Callable, plan, tag: str, x: torch.Tensor,
+                    lower: Callable):
+    """Run ``lower()`` timed (CUDA events on the card, the host clock on
+    the CPU) inside a profiler range named ``tag``; report to ``probe``."""
+    with torch.profiler.record_function(tag):
+        if x.is_cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            y = lower()
+            end.record()
+            end.synchronize()
+            dt = start.elapsed_time(end) / 1e3
+        else:
+            t0 = obs_clock.now()
+            y = lower()
+            dt = obs_clock.now() - t0
+    probe(plan, dt)
+    return y
 
 
 def _phase(m: int, phase: Optional[str] = "__current__") -> str:
@@ -487,7 +541,14 @@ def ternary_gemm(x: torch.Tensor, w: Any,
     plan = ternary_gemm_plan(w, x.shape[0], impl=impl, block_m=block_m,
                              block_n=block_n, block_k=block_k,
                              fuse_prelu=fuse_prelu, prelu_alpha=prelu_alpha)
-    return _KERNELS[(plan.format, plan.impl)].lower(plan, x, w, scale, bias)
+    lower = _KERNELS[(plan.format, plan.impl)].lower
+    probe = _KERNEL_PROBE.get()
+    if probe is not None and not _capturing():
+        return _probe_dispatch(
+            probe, plan, f"ternary_gemm[{plan.format}/{plan.impl} "
+            f"m={plan.m} k={plan.k} n={plan.n}]", x,
+            lambda: lower(plan, x, w, scale, bias))
+    return lower(plan, x, w, scale, bias)
 
 
 # ---------------------------------------------------------------------------
@@ -497,6 +558,24 @@ def ternary_gemm(x: torch.Tensor, w: Any,
 # The formats B4 reads in place (repro's _FUSED_FORMATS); every other
 # format, and stacked leaves, take the chain of ternary_gemm calls.
 FUSED_FORMATS = ("dense2bit", "tiled")
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedMlpPlan:
+    """What ``fused_mlp`` dispatched, as the probe reports it: ``impl``
+    ``"fused"`` (B4, or its plain version on the CPU) or ``"chain"`` (one
+    ``ternary_gemm`` per projection); field names as in ``repro``'s plan."""
+
+    impl: str
+    format_up: str
+    format_down: str
+    m: int
+    k: int
+    ff: int
+    n: int
+    gated: bool
+    activation: str
+    phase: Optional[str]
 
 
 def _fusable(w_in, w_out, w_gate, m: int) -> bool:
@@ -551,7 +630,23 @@ def fused_mlp(x: torch.Tensor, w_in: Any, w_out: Any, w_gate: Any = None,
     if activation not in fused_lib.ACTIVATIONS:
         raise ValueError(f"activation must be one of "
                          f"{fused_lib.ACTIVATIONS}, got {activation!r}")
-    if not _fusable(w_in, w_out, w_gate, x.shape[0]):
+    fused = _fusable(w_in, w_out, w_gate, x.shape[0])
+    probe = _KERNEL_PROBE.get()
+    if probe is not None and not _capturing():
+        plan = FusedMlpPlan(
+            impl="fused" if fused else "chain", format_up=w_in.format_name,
+            format_down=w_out.format_name, m=x.shape[0], k=w_in.k,
+            ff=w_in.n, n=w_out.n, gated=w_gate is not None,
+            activation=activation, phase=current_phase())
+        return _probe_dispatch(
+            probe, plan, f"fused_mlp[{plan.impl} m={plan.m} k={plan.k} "
+            f"ff={plan.ff}]", x,
+            lambda: _lower_fused(x, w_in, w_out, w_gate, activation, fused))
+    return _lower_fused(x, w_in, w_out, w_gate, activation, fused)
+
+
+def _lower_fused(x, w_in, w_out, w_gate, activation, fused):
+    if not fused:
         return _lower_fused_chain(x, w_in, w_out, w_gate, activation)
     g = w_gate
     ff, n = w_in.n, w_out.n

@@ -6,12 +6,17 @@ Usage:
       --packed --requests 16 --slots 8 --prompt-len 128 --gen-lens 32,64
   ... --cache paged --page-size 16 [--kv-dtype int8 --pages N]
   ... --device cpu --reduced --ternary-min-dim 64   # plain PyTorch path
+  ... --trace run.json [--trace-buffer N]   # Chrome trace-event JSON
+
+Read a trace with ``python scripts/trace_report.py run.json`` or load it at
+https://ui.perfetto.dev.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import sys
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -23,6 +28,7 @@ from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.models import LM
 from repro_torch.models.layers import pack_params
+from repro_torch.obs import Tracer
 from repro_torch.serving import ContinuousScheduler
 
 
@@ -100,6 +106,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--ternary-min-dim", type=int, default=0,
                     help=">0: override cfg.ternary_min_dim (reduced configs "
                          "need ~64 for --packed to convert anything)")
+    ap.add_argument("--trace", default="",
+                    help="write a Perfetto-loadable Chrome trace-event JSON "
+                         "of the run: per-request lifecycle tracks, prefill "
+                         "and decode-step spans, per-step scheduler "
+                         "counters; analyse with scripts/trace_report.py")
+    ap.add_argument("--trace-buffer", type=int, default=65536,
+                    help="--trace: ring capacity in events; the oldest "
+                         "events drop first and the file records how many")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
@@ -114,14 +128,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     prompts, gens = build_workload(cfg, args.requests, args.prompt_len,
                                    gen_lens, seed=args.seed)
     cfg, params = build_params(cfg, args.seed, device, args.packed)
+    tracer = Tracer(capacity=args.trace_buffer) if args.trace else None
     engine = ContinuousScheduler(cfg, max_slots=args.slots, max_len=max_len,
                                  cache=args.cache, page_size=args.page_size,
                                  n_pages=args.pages,
                                  kv_dtype=args.kv_dtype or None,
                                  prefix_cache=not args.no_prefix_cache,
-                                 device=device)
+                                 device=device, tracer=tracer)
     engine.load(params)
     _, metrics = run_continuous(engine, prompts, gens)
+    if tracer is not None:
+        n_ev = tracer.export(args.trace)
+        print(f"# trace: {args.trace} ({n_ev} events, {tracer.dropped} "
+              f"dropped)", file=sys.stderr)
     print(json.dumps(metrics))
     return metrics
 

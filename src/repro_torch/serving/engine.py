@@ -12,9 +12,27 @@ decode garbage at a position clamped to ``max_len - 1``, into rows the
 next insert overwrites, or into the paged pool's trash page); **evict**
 requests at their budget or EOS. Prefill runs under
 ``ops.serving_phase("prefill")``, decode under ``"decode"``, which picks
-the kernels' tile shapes. Positions and tokens stay on the device between
-steps; the host reads the (max_slots,) next tokens each step and pushes its
-mirrors (and the block table) only after they change.
+the kernels' tile shapes.
+
+The decode step is device-resident, as ``repro``'s jitted decode with the
+cache donated is: positions, tokens and (paged) the block table are static
+device buffers that the step reads and updates in place, the greedy argmax
+runs inside it, and the host reads only the (max_slots,) next tokens each
+step. Host mirrors are copied into the buffers only after admit, evict or
+a page change. On the card ``load()`` captures the step into a CUDA graph
+(one per engine: its shape is fixed by ``max_slots``, as ``repro``'s decode
+compiles once) and each step replays it; on the CPU the same step runs
+eagerly. Prefill stays eager: its shape changes with every admission
+group.
+
+Counters (``total_drained``, ``prefill_steps``, ``decode_steps``,
+``preemptions``, ``deferrals``) live in a ``MetricsRegistry``
+(``engine.metrics``) behind attributes of those names, beside the
+step-time EWMA (``step_time_s``) and ``straggler_steps``. With a
+``tracer`` (``obs.trace.Tracer``) the engine records each request's life
+on its own track and its prefill and decode-step spans and per-step
+counters on the scheduler track, as ``repro``'s does; ``tracer=None``
+costs one attribute test per site.
 """
 from __future__ import annotations
 
@@ -25,27 +43,43 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import graphs, ops
 from repro_torch.models import LM
 from repro_torch.obs import clock as obs_clock
-from repro_torch.obs.metrics import RunningStat, percentiles
+from repro_torch.obs.metrics import MetricsRegistry, RunningStat, percentiles
 from repro_torch.paging import PagePool
 from repro_torch.serving.queue import Request, RequestQueue
 from repro_torch.serving.slots import SlotPool
 
+# a step this many times slower than the step-time EWMA is a straggler
+# (repro's factor: serving steps vary legitimately, prefill against decode)
+_STRAGGLER_FACTOR = 8.0
+
 
 class ContinuousScheduler:
+    """The scheduler of the module docstring. ``tracer``: an
+    ``obs.trace.Tracer``, or None for none. ``cuda_graph=False`` runs the
+    decode step eagerly on the card: it exists only for the same-process
+    A/B against the graph, and no CLI flag sets it. On the CPU the step
+    always runs eagerly."""
+
     def __init__(self, cfg: ModelConfig, max_slots: int, max_len: int,
                  eos_id: Optional[int] = None, *, cache: str = "dense",
                  page_size: int = 16, n_pages: int = 0,
                  kv_dtype: Optional[str] = None, prefix_cache: bool = True,
-                 device="cuda"):
+                 device="cuda", tracer=None, cuda_graph: bool = True):
         if cache not in ("dense", "paged"):
             raise ValueError(f"cache must be 'dense' or 'paged', got "
                              f"{cache!r}")
         self.cfg = cfg
         self.cache_mode = cache
         self.device = resolve_device(device)
+        self.metrics = MetricsRegistry()
+        self._step_time = self.metrics.ewma("step_time_s", alpha=0.3)
+        self.tracer = tracer
+        self._trace_pid = tracer.new_pid("engine") if tracer is not None else 0
+        if tracer is not None:
+            tracer.thread_name(self._trace_pid, 0, "scheduler")
         self.model = LM(cfg, self.device)
         self.max_slots = max_slots
         self.max_len = max_len
@@ -57,32 +91,48 @@ class ContinuousScheduler:
                                  page_size=page_size, n_pages=n_pages,
                                  kv_dtype=kv_dtype,
                                  prefix_cache=prefix_cache)
-            self._dev_table = torch.tensor(self.pool.table,
-                                           device=self.device)
-            self.pool.table_dirty = False
+            self._dev_table = torch.zeros(self.pool.table.shape,
+                                          dtype=torch.int32,
+                                          device=self.device)
         else:
             self.pool = SlotPool(self.model, max_slots, max_len)
         self._live: Dict[int, Request] = {}          # slot -> request
         self._pos = np.zeros(max_slots, np.int32)    # host mirrors
         self._tok = np.zeros(max_slots, np.int32)
+        # static device buffers: the decode step updates them in place and
+        # host pushes copy into them, so a captured graph's pointers hold
         self._dev_pos = torch.zeros(max_slots, dtype=torch.int32,
                                     device=self.device)
         self._dev_tok = torch.zeros(max_slots, dtype=torch.int32,
                                     device=self.device)
-        self._dirty = False
+        self._dirty = True
+        self.cuda_graph = cuda_graph
+        self._graph: Optional[graphs.CapturedStep] = None
+        # the logits (max_slots, V) of the latest decode step; under the
+        # graph, the graph's own output tensor, rewritten by each replay
+        self.last_logits: Optional[torch.Tensor] = None
         self._finished: List[Request] = []
-        self.total_drained = 0
-        self.prefill_steps = 0
-        self.decode_steps = 0
-        self.preemptions = 0
-        self.deferrals = 0
         self._depth_stat = RunningStat("queue_depth")
         self._live_stat = RunningStat("live_slots")
 
     # ------------------------------------------------------------------
     def load(self, params) -> None:
-        """Install params (already on this engine's device)."""
+        """Install params (already on this engine's device; they must
+        outlive the engine, whose graph reads them in place). On the card,
+        capture the decode step into a CUDA graph, after eager warm-up
+        steps on the free slots: their writes land where free slots'
+        garbage always lands (rows the next insert overwrites, or the paged
+        pool's trash page). A failed capture raises."""
+        if self._live:
+            raise RuntimeError("load() while requests are live")
         self.params = params
+        self._graph = None
+        if self.device.type == "cuda" and self.cuda_graph:
+            self._dirty = True
+            self._push_host_state()
+            with ops.serving_phase("decode"):
+                self._graph = graphs.CapturedStep(self._decode_step)
+            self._dirty = True        # the warm-up moved pos and tok
 
     @torch.no_grad()
     def _prefill(self, toks: torch.Tensor):
@@ -96,7 +146,10 @@ class ContinuousScheduler:
         return cache["layers"], logits[:, -1].argmax(dim=-1).to(torch.int32)
 
     @torch.no_grad()
-    def _decode(self):
+    def _decode_step(self) -> None:
+        """One token for every slot on the static buffers: reads pos, tok
+        (and the block table), writes the caches in place, then pos + 1 and
+        the next tokens into pos and tok. The CUDA graph captures this."""
         cache = {"layers": self.pool.layers,
                  "pos": torch.clamp(self._dev_pos, max=self.max_len - 1)}
         if self.cache_mode == "paged":
@@ -105,16 +158,57 @@ class ContinuousScheduler:
             cache["block_table"] = self._dev_table
         logits, new_cache = self.model.decode_step(self.params, cache,
                                                    self._dev_tok[:, None])
-        self.pool.layers = new_cache["layers"]
-        self._dev_pos = new_cache["pos"]
-        self._dev_tok = logits[:, 0].argmax(dim=-1).to(torch.int32)
+        self.last_logits = logits[:, 0]
+        self._dev_tok.copy_(self.last_logits.argmax(dim=-1))
+        self._dev_pos.copy_(new_cache["pos"])
+
+    def _push_host_state(self) -> None:
+        """Copy the host mirrors (after admit / evict) and the block table
+        (after a page change) into the static buffers. The copies block, so
+        a mirror the next step mutates is never read mid-copy."""
+        if self._dirty:
+            self._dev_pos.copy_(torch.from_numpy(self._pos))
+            self._dev_tok.copy_(torch.from_numpy(self._tok))
+            self._dirty = False
+        if self.cache_mode == "paged" and self.pool.table_dirty:
+            self._dev_table.copy_(torch.from_numpy(self.pool.table))
+            self.pool.table_dirty = False
 
     def submit(self, prompt: np.ndarray, max_new: int) -> Request:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size + max_new > self.max_len:
             raise ValueError(f"prompt {prompt.size} + gen {max_new} exceeds "
                              f"max_len {self.max_len}")
-        return self.queue.submit(prompt, max_new, eos_id=self.eos_id)
+        req = self.queue.submit(prompt, max_new, eos_id=self.eos_id)
+        tr = self.tracer
+        if tr is not None:
+            tr.thread_name(self._trace_pid, req.rid + 1, f"req {req.rid}")
+            tr.instant("submit", t=req.submit_t, cat="request",
+                       pid=self._trace_pid, tid=req.rid + 1,
+                       args={"rid": req.rid, "prompt_len": req.prompt_len,
+                             "max_new": max_new, "slo": None})
+        return req
+
+    # ------------------------------------------------------------------
+    # tracing helpers; hot paths guard with `if self.tracer is not None`
+    def _trace_first_token(self, req: Request) -> None:
+        """The request's TTFT parts, from the stamps ``Request.metrics()``
+        reads: queue_wait (submit -> admit) and prefill (admit -> first
+        token)."""
+        tr, pid, tid = self.tracer, self._trace_pid, req.rid + 1
+        tr.complete("queue_wait", req.submit_t, req.admit_t,
+                    cat="request", pid=pid, tid=tid, args={"rid": req.rid})
+        tr.complete("prefill", req.admit_t, req.first_token_t,
+                    cat="request", pid=pid, tid=tid, args={"rid": req.rid})
+        tr.instant("first_token", t=req.first_token_t, cat="request",
+                   pid=pid, tid=tid, args={"rid": req.rid})
+
+    def _trace_req(self, req: Request, name: str,
+                   t: Optional[float] = None, **extra) -> None:
+        tr = self.tracer
+        if tr is not None:
+            tr.instant(name, t=t, cat="request", pid=self._trace_pid,
+                       tid=req.rid + 1, args={"rid": req.rid, **extra})
 
     # ------------------------------------------------------------------
     def _prefill_group(self, group) -> None:
@@ -129,6 +223,15 @@ class ContinuousScheduler:
             req_layers, toks_dev = self._prefill(
                 torch.as_tensor(prompts, device=self.device))
         self.prefill_steps += 1
+        tr = self.tracer
+        if tr is not None:
+            # the token read is the sync point, so the span ends there
+            toks_dev = toks_dev.cpu()
+            tr.complete("prefill", t_admit, obs_clock.now(), cat="kernel",
+                        pid=self._trace_pid,
+                        args={"batch": len(group),
+                              "prompt_len": int(prompts.shape[1]),
+                              "m": int(prompts.size)})
         if self.cache_mode == "paged":
             self.pool.insert([a for _, _, a in group], req_layers)
         else:
@@ -144,6 +247,8 @@ class ContinuousScheduler:
             self._tok[slot] = tok
             self._live[slot] = req
             self._dirty = True
+            if tr is not None:
+                self._trace_first_token(req)
             if req.done:
                 self._evict(slot)
 
@@ -156,6 +261,7 @@ class ContinuousScheduler:
             adm = self.pool.admit(self.queue.peek().prompt)
             if adm is None:
                 self.deferrals += 1
+                self._trace_req(self.queue.peek(), "defer")
                 return
             group = [(self.queue.pop(), adm.slot, adm)]
             plen = group[0][0].prompt_len
@@ -208,6 +314,15 @@ class ContinuousScheduler:
         req.done_t = obs_clock.now()
         self._finished.append(req)
         self.total_drained += 1
+        if self.tracer is not None and req.first_token_t is not None:
+            # the decode phase as one span: its length over (gen_len - 1)
+            # tokens is Request.tpot_s
+            self.tracer.complete(
+                "decode", req.first_token_t, req.done_t, cat="request",
+                pid=self._trace_pid, tid=req.rid + 1,
+                args={"rid": req.rid, "tokens": len(req.tokens)})
+            self._trace_req(req, "done", t=req.done_t,
+                            tokens=len(req.tokens))
 
     def _preempt(self, slot: int) -> None:
         """Paged OOM recovery: release the slot's pages and replay the
@@ -219,6 +334,7 @@ class ContinuousScheduler:
         req.admit_t = None            # re-stamped at the retry admission
         self.queue.push_front(req)
         self.preemptions += 1
+        self._trace_req(req, "preempt", slot=slot)
 
     def _grow_paged(self, horizon: int = 1) -> None:
         """Before each paged decode step, make every live row's next
@@ -242,6 +358,7 @@ class ContinuousScheduler:
     def step(self) -> None:
         """One iteration: admit (+ prefill), grow pages, decode every slot,
         evict."""
+        t_step = obs_clock.now()
         self._depth_stat.push(self.queue.depth())
         self._admit()
         if self.cache_mode == "paged":
@@ -249,19 +366,22 @@ class ContinuousScheduler:
         if not self._live:
             return
         self._live_stat.push(len(self._live))
-        if self._dirty:
-            # copies: on the CPU as_tensor would alias the host mirrors
-            self._dev_pos = torch.tensor(self._pos, device=self.device)
-            self._dev_tok = torch.tensor(self._tok, device=self.device)
-            self._dirty = False
+        self._push_host_state()
+        t_decode = obs_clock.now()
         with ops.serving_phase("decode"):
-            if self.cache_mode == "paged" and self.pool.table_dirty:
-                self._dev_table = torch.tensor(self.pool.table,
-                                               device=self.device)
-                self.pool.table_dirty = False
-            self._decode()
+            if self._graph is not None:
+                self._graph.replay()
+            else:
+                self._decode_step()
         self.decode_steps += 1
         toks = self._dev_tok.cpu().numpy()
+        tr = self.tracer
+        if tr is not None:
+            # the token read is the sync point: the span covers the step's
+            # dispatch (or replay) and its run on the device
+            tr.complete("decode_step", t_decode, obs_clock.now(),
+                        cat="kernel", pid=self._trace_pid,
+                        args={"live": len(self._live), "m": self.max_slots})
         for slot in list(self._live):
             req = self._live[slot]
             req.tokens.append(int(toks[slot]))
@@ -269,19 +389,52 @@ class ContinuousScheduler:
             self._tok[slot] = toks[slot]
             if req.done:
                 self._evict(slot)
+        self._note_step_time(t_step)
+
+    def _note_step_time(self, t0: float) -> None:
+        """Feed the step-time EWMA, count stragglers, and emit the per-step
+        counters on the scheduler track."""
+        dt = obs_clock.now() - t0
+        prev = self._step_time.value
+        self._step_time.update(dt)
+        straggler = prev is not None and dt > _STRAGGLER_FACTOR * prev
+        if straggler:
+            self.metrics.counter("straggler_steps").inc()
+        tr = self.tracer
+        if tr is None:
+            return
+        if straggler:
+            tr.instant("straggler_step", pid=self._trace_pid,
+                       args={"dt_s": round(dt, 6), "ewma_s": round(prev, 6)})
+        # the port has no chunked prefill, so nothing is ever mid-prefill
+        tr.counter("sched", {"queue_depth": self.queue.depth(),
+                             "live_slots": len(self._live),
+                             "prefilling": 0}, pid=self._trace_pid)
+        util = {"step_ms": round(dt * 1e3, 3)}
+        if self.cache_mode == "paged":
+            util["free_page_frac"] = round(
+                self.pool.n_free_pages / self.pool.usable_pages, 4)
+        tr.counter("util", util, pid=self._trace_pid)
 
     # ------------------------------------------------------------------
     def has_work(self) -> bool:
         return bool(self.queue) or bool(self._live)
 
-    def run(self) -> Dict[str, Any]:
-        """Drain the queue completely; return the metrics dict."""
+    def begin_metrics(self) -> Dict[str, Any]:
+        """Snapshot the cumulative counters and reset the windowed stats.
+        ``run()`` calls this first; a caller that steps the engine itself
+        calls it before its loop and ``collect_metrics`` after, for the
+        same JSON ``run()`` gives."""
         if self.params is None:
             raise RuntimeError("load(params) first")
-        t0 = obs_clock.now()
-        n0, p0, d0 = self.total_drained, self.prefill_steps, self.decode_steps
         self._depth_stat = RunningStat("queue_depth")
         self._live_stat = RunningStat("live_slots")
+        return {"t0": obs_clock.now(), "n0": self.total_drained,
+                "p0": self.prefill_steps, "d0": self.decode_steps}
+
+    def run(self) -> Dict[str, Any]:
+        """Drain the queue completely; return the metrics dict."""
+        snap = self.begin_metrics()
         budget = (self.queue.depth() + len(self._live)) * self.max_len + 1
         if self.cache_mode == "paged":
             # preempt-and-replay re-runs requests; each replay costs at most
@@ -296,8 +449,15 @@ class ContinuousScheduler:
         if self.total_drained != self.queue.submitted:
             raise RuntimeError(f"drained {self.total_drained} requests but "
                                f"{self.queue.submitted} were submitted")
-        wall = obs_clock.now() - t0
-        done = self._finished[n0:]
+        return self.collect_metrics(snap)
+
+    def collect_metrics(self, snap: Dict[str, Any]) -> Dict[str, Any]:
+        """The metrics JSON of the span since ``begin_metrics``: ``repro``'s
+        keys and shapes, with ``mesh``, ``spec`` and ``sched`` None (those
+        features are not ported), and without ``faults`` and
+        ``planned_gemms``."""
+        wall = obs_clock.now() - snap["t0"]
+        done = self._finished[snap["n0"]:]
         gen = sum(len(r.tokens) for r in done)
         ttfts = [r.ttft_s for r in done if r.ttft_s is not None]
         cache = {"mode": self.cache_mode, "nbytes": int(self.pool.nbytes)}
@@ -309,7 +469,9 @@ class ContinuousScheduler:
             "engine": "continuous",
             "max_slots": self.max_slots,
             "max_len": self.max_len,
+            "mesh": None,
             "cache": cache,
+            "spec": None,
             "concurrency": {"peak": self._live_stat.peak,
                             "mean": round(self._live_stat.mean, 3)},
             "per_request": [r.metrics() for r in done],
@@ -318,8 +480,8 @@ class ContinuousScheduler:
             "generated_tokens": gen,
             "wall_s": round(wall, 4),
             "tok_per_s": round(gen / wall, 2) if wall > 0 else None,
-            "prefill_steps": self.prefill_steps - p0,
-            "decode_steps": self.decode_steps - d0,
+            "prefill_steps": self.prefill_steps - snap["p0"],
+            "decode_steps": self.decode_steps - snap["d0"],
             "ttft_s": {"mean": float(np.mean(ttfts)) if ttfts else None,
                        "max": float(np.max(ttfts)) if ttfts else None},
             "latency": {
@@ -329,6 +491,29 @@ class ContinuousScheduler:
                 "tpot_s": percentiles(r.tpot_s for r in done),
                 "e2e_s": percentiles(r.latency_s for r in done),
             },
+            "sched": None,
             "queue_depth": {"max": self._depth_stat.peak,
                             "mean": self._depth_stat.mean},
         }
+
+
+# The scheduler's counters live in its MetricsRegistry behind these
+# attribute names (repro's idiom: `eng.total_drained += 1` reads and
+# writes the registry), so `engine.metrics.snapshot()` holds them all.
+_ENGINE_COUNTERS = ("total_drained", "prefill_steps", "decode_steps",
+                    "preemptions", "deferrals")
+
+
+def _counter_property(name: str) -> property:
+    def _get(self):
+        return self.metrics.counter(name).value
+
+    def _set(self, v):
+        self.metrics.counter(name).value = int(v)
+
+    return property(_get, _set, doc=f"registry-backed counter {name!r}")
+
+
+for _cname in _ENGINE_COUNTERS:
+    setattr(ContinuousScheduler, _cname, _counter_property(_cname))
+del _cname

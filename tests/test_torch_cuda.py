@@ -751,3 +751,53 @@ def test_full_width_train_steps_on_the_card(cuda):
     assert int(opt["step"]) == 3
     assert not torch.equal(params["layers"][5]["ffn"]["gate"]["w"], before)
     assert isinstance(data, SyntheticLM)
+
+
+@pytest.mark.parametrize("cache", [{}, {"cache": "paged", "page_size": 8},
+                                   {"cache": "paged", "page_size": 8,
+                                    "kv_dtype": "int8", "n_pages": 12}])
+def test_decode_graph_matches_eager_decode(cuda, cache):
+    """A reduced packed model served with the decode step replayed as a
+    CUDA graph and run eagerly: equal token streams and cache metrics,
+    B1/B4/B5 launches equal (B5 once a layer per replay), and the logits
+    of a step bitwise equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import graphs
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousScheduler
+
+    cfg = get_config("ternary-paper", reduced=True, num_layers=2,
+                     ternary_min_dim=64)
+    cfg, params = serve.build_params(cfg, 0, "cuda", packed=True)
+    prompts, gens = serve.build_workload(cfg, 6, 16, (4, 12), seed=0)
+    runs = {}
+    for graph in (False, True):
+        eng = ContinuousScheduler(cfg, max_slots=3, max_len=29,
+                                  device="cuda", cuda_graph=graph, **cache)
+        eng.load(params)
+        before = graphs.read_launches()
+        outs, m = serve.run_continuous(eng, prompts, gens)
+        after = graphs.read_launches()
+        runs[graph] = (outs, m, {k: after[k] - before[k] for k in after})
+        if graph:
+            per = eng._graph.launches_per_replay
+            assert per["paged_decode_attention"] == (
+                cfg.num_layers if cache else 0)
+            assert per["ternary_gemm"] > 0 and per["fused_mlp"] > 0
+    (eo, em, el), (go, gm, gl) = runs[False], runs[True]
+    for a, b in zip(eo, go):
+        np.testing.assert_array_equal(a, b)
+    assert em["cache"] == gm["cache"]
+    assert el == gl
+
+    logits = []
+    for graph in (False, True):
+        eng = ContinuousScheduler(cfg, max_slots=3, max_len=29,
+                                  device="cuda", cuda_graph=graph, **cache)
+        eng.load(params)
+        for p, g in zip(prompts[:3], gens[:3]):
+            eng.submit(p, g)
+        eng.step()
+        eng.step()
+        logits.append(eng.last_logits.clone())
+    assert torch.equal(*logits)

@@ -72,3 +72,11 @@ def test_every_module_imports_without_a_gpu(path):
     rel = path.relative_to(ROOT / "src").with_suffix("")
     name = ".".join(p for p in rel.parts if p != "__init__")
     importlib.import_module(name)
+
+
+def test_the_checks_cover_the_obs_and_graph_modules():
+    names = {p.relative_to(PORT).as_posix() for p in FILES
+             if PORT in p.parents}
+    assert {"obs/__init__.py", "obs/clock.py", "obs/metrics.py",
+            "obs/trace.py", "kernels/graphs.py",
+            "serving/engine.py"} <= names
