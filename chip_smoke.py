@@ -64,6 +64,27 @@ host ops under the longest idle gaps (the profiler's own cost inflates
 the eager steps' host time, so each is also timed without it); a trace
 with no device events fails.
 
+``chunked`` serves the three workloads again with chunked prefill (32
+prompt tokens a request a step, SLO admission; every window shape (8
+slots, 2^i) captured as a CUDA graph at load()): (a) dense and paged
+bf16 streams equal the whole-prompt runs' or part at a near tie, and
+go on near-greedily (a prefill of the prompt and the chunked stream,
+teacher-forced: both streams' tokens at the split and every later
+chunked token within LOGIT_TOL, absolute, of the top logit), int8 pages
+give equal streams at chunk sizes 32 and 16, every prompt token is
+committed, and each decode step and each window replay launches B1 49,
+B4 12 and, paged, B5 12; (b) the chunked dense run eagerly and through
+the graphs in one process: equal streams, sched metrics and launches,
+and one window's logits bitwise; (c) B1 and B4 at the widest window's M (256)
+under the "chunk" phase, and B5 at its 256 flattened rows (lengths pos +
+j + 1) against its plain version and against 256 one-row calls,
+bitwise; (d) open loop: one seeded Poisson schedule (8 req/s) and one
+bursty one through a whole-prompt engine and a chunked one, TTFT, TPOT
+and queue wait p50/p99 by SLO class, violations, windows, prefills and
+the step-time EWMA; (e) one 8 x 32 window under the profiler, eager and
+graphed; (f) the graphed chunked run's trace through validate_events
+and scripts/trace_report.py.
+
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 Needs one CUDA device and nvcc (PATH or /usr/local/cuda/bin). Exits
@@ -126,8 +147,9 @@ with the QAT model's within 0.05, the example's own assertion.
 Output: progress lines, each serving run's metrics JSON, a ``serving
 host/device summary`` JSON line (decode_graph's readings, the trace's
 spans, the profiles), one ``{"kernels": ...}`` JSON line (each kernel's launches summed over the
-path runs — serving dense, paged bf16 and int8, mlp_formats,
-gemm_formats, train and eval — with the per-run counts under ``runs``,
+path runs — serving dense, paged bf16 and int8, the chunked runs,
+mlp_formats, gemm_formats, train and eval — with the per-run counts
+under ``runs``,
 and its error and times summed over the shapes its path gives
 it, with the per-shape detail under ``shapes``; B6's path gives it the
 evaluation's shape only, its other shapes are checks). Every time is the
@@ -242,6 +264,26 @@ STEP_CHECK = dict(batch=2, seq=256, rtol=1e-3, max_flip_share=1e-6)
 GRAPH_KERNELS = ("ternary_gemm", "fused_mlp", "paged_decode_attention")
 # profiler: the longest gaps between device work, and the device ops, shown
 PROFILE = dict(gaps=3, top_ops=5, unprofiled_iters=20)
+# chunked: the three serving workloads again with chunked prefill, 32
+# prompt tokens a request a step (int8 pages also at 16: chunk-size
+# invariance); the window shapes (8 slots x S, S = 1 .. 32) are captured
+# at load(); each window replay launches B1 49 (4 projections x 12 layers
+# + the lm head), B4 12 and, paged, B5 12
+CHUNK = dict(tokens=32, int8_alt=16)
+# B5 on the widest window: 8 rows x S 32 = 256 flattened rows, row (b, j)
+# reading its slot's 13 pages up to pos[b] + j + 1 (the chunk offsets of
+# 128-token prompts)
+B5_WINDOW = dict(b=8, s=32, h=16, kv=16, hd=64, t=13,
+                 pos=(0, 32, 64, 96, 0, 32, 64, 96))
+# open loop: one seeded schedule each (Poisson at repro's serve default of
+# 8 req/s, then bursty in bursts of ~8 at the same mean rate), 48 requests
+# of 64, 128 or 512 prompt tokens and 32 or 64 output tokens, the default
+# interactive/batch classes half and half; driven through a whole-prompt
+# engine (SLO admission, chunk_tokens 0) and a chunked one (32), dense,
+# 8 slots, max_len 576 (512 + 64)
+OPEN_LOOP = dict(requests=48, rate=8.0, prompt_lens=(64, 128, 512),
+                 gen_lens=(32, 64), burst_size=8, slots=8, max_len=576,
+                 class_weights=(0.5, 0.5))
 # the port's kernels among the device ops, by their CUDA function names
 PORT_KERNEL_NAMES = ("ternary_gemm", "fused_mlp", "paged_attention",
                      "flash_attention", "bitplane")
@@ -359,62 +401,120 @@ def ptxas_report(build, name: str):
     return out
 
 
+def _packed_weight(gen, k, n):
+    """A dense2bit pack of latent weights as LM.init draws them: N(0, 1/k)."""
+    import torch
+    from repro_torch.core import weights
+    return weights.pack(torch.randn(k, n, generator=gen, device="cuda")
+                        / k ** 0.5)
+
+
+def _serving_phase(m):
+    return "decode" if m <= 16 else "prefill"
+
+
+def _iters_for(m):
+    return 20 if m <= 1024 else 5
+
+
+def gemm_row(gen, m, k, n, phase, flush):
+    """B1 through ops under ``phase`` against its plain version, timed:
+    through ops (``ms``), its wrapper alone (``kernel_ms``), the plain
+    version and cuBLAS on the decoded weights."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_gemm as gemm_lib
+
+    w = _packed_weight(gen, k, n)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    with ops.serving_phase(phase):
+        got = ops.ternary_gemm(x, w)
+        ref = gemm_lib.ternary_gemm_ref(x, w.packed, w.scale)
+        err = check_close(f"ternary_gemm M={m} K={k} N={n}", got, ref)
+        w_eff = w.materialize(torch.float32, with_scale=True).to(
+            torch.bfloat16)
+        iters = _iters_for(m)
+        variant = gemm_lib.VARIANTS[phase]
+        row = {
+            "m": m, "k": k, "n": n, "phase": phase, "max_abs_err": err,
+            "ms": cuda_ms(lambda: ops.ternary_gemm(x, w), iters, flush),
+            # the wrapper called directly, without ops' dispatch: the gap
+            # to "ms" is host time that the launch waits for
+            "kernel_ms": cuda_ms(lambda: gemm_lib.ternary_gemm_cuda(
+                x, w.packed, w.scale, w.bias, n=w.n, variant=variant),
+                iters, flush),
+            "plain_ms": cuda_ms(lambda: gemm_lib.ternary_gemm_ref(
+                x, w.packed, w.scale), iters, flush),
+            "library_ms": cuda_ms(lambda: torch.matmul(x, w_eff), iters,
+                                  flush),
+        }
+    nbytes = m * k * 2 + w.packed.numel() * 4 + n * 4 + m * n * 2
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * m * w.nnz)
+    print(f"ternary_gemm M={m} K={k} N={n} ({phase}): " + json.dumps(row),
+          flush=True)
+    return row
+
+
+def mlp_row(gen, m, k, ff, n, phase, flush):
+    """B4 through ops under ``phase`` against its plain version, timed as
+    ``gemm_row`` times B1 (the library: cuBLAS's SwiGLU chain)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_mlp as fused_lib
+    from repro_torch.kernels import ops
+
+    wi, wg, wo = (_packed_weight(gen, a, b)
+                  for a, b in ((k, ff), (k, ff), (ff, n)))
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    plain_args = (x, wi.packed, wo.packed, wg.packed, wi.scale, None,
+                  wg.scale, None, wo.scale, None)
+    with ops.serving_phase(phase):
+        got = ops.fused_mlp(x, wi, wo, wg)
+        ref = fused_lib.fused_mlp_ref(*plain_args)
+        err = check_close(f"fused_mlp M={m} K={k} ff={ff} N={n}", got, ref)
+        ei, eg, eo = (c.materialize(torch.float32, with_scale=True).to(
+            torch.bfloat16) for c in (wi, wg, wo))
+        iters = _iters_for(m)
+        variant = fused_lib.VARIANTS[phase]
+        row = {
+            "m": m, "k": k, "ff": ff, "n": n, "phase": phase,
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: ops.fused_mlp(x, wi, wo, wg), iters,
+                          flush),
+            "kernel_ms": cuda_ms(lambda: fused_lib.fused_mlp_cuda(
+                x, *plain_args[1:], variant=variant), iters, flush),
+            "plain_ms": cuda_ms(lambda: fused_lib.fused_mlp_ref(
+                *plain_args), iters, flush),
+            # cuBLAS chain over pre-decoded, pre-scaled bf16 weights
+            "library_ms": cuda_ms(
+                lambda: (F.silu(x @ eg) * (x @ ei)) @ eo, iters, flush),
+        }
+    nbytes = (m * k * 2 + (wi.packed.numel() + wg.packed.numel()
+                           + wo.packed.numel()) * 4
+              + (2 * ff + n) * 4 + m * n * 2)
+    ops_needed = 2.0 * m * (wi.nnz + wg.nnz + wo.nnz)
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_needed)
+    print(f"fused_mlp M={m} K={k} ff={ff} N={n} ({phase}): "
+          + json.dumps(row), flush=True)
+    return row
+
+
 def kernel_phase(flush):
     """Each kernel against its plain version at the serving shapes."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.core import weights
     from repro_torch.kernels import fused_mlp as fused_lib
     from repro_torch.kernels import ops
     from repro_torch.kernels import ternary_gemm as gemm_lib
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-
-    def packed(k, n):
-        # latent weights as LM.init draws them: N(0, 1/k)
-        return weights.pack(torch.randn(k, n, generator=gen, device="cuda")
-                            / k ** 0.5)
-
-    def phase(m):
-        return "decode" if m <= 16 else "prefill"
-
-    def iters_for(m):
-        return 20 if m <= 1024 else 5
-
     results = {"ternary_gemm": [], "fused_mlp": []}
     for m, k, n in GEMM_SHAPES:
-        w = packed(k, n)
-        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-        with ops.serving_phase(phase(m)):
-            got = ops.ternary_gemm(x, w)
-            ref = gemm_lib.ternary_gemm_ref(x, w.packed, w.scale)
-            err = check_close(f"ternary_gemm M={m} K={k} N={n}", got, ref)
-            w_eff = w.materialize(torch.float32, with_scale=True).to(
-                torch.bfloat16)
-            iters = iters_for(m)
-            variant = gemm_lib.VARIANTS[phase(m)]
-            row = {
-                "m": m, "k": k, "n": n, "max_abs_err": err,
-                "ms": cuda_ms(lambda: ops.ternary_gemm(x, w), iters, flush),
-                # the wrapper called directly, without ops' dispatch: the
-                # gap to "ms" is host time that the launch waits for
-                "kernel_ms": cuda_ms(lambda: gemm_lib.ternary_gemm_cuda(
-                    x, w.packed, w.scale, w.bias, n=w.n, variant=variant),
-                    iters, flush),
-                "plain_ms": cuda_ms(lambda: gemm_lib.ternary_gemm_ref(
-                    x, w.packed, w.scale), iters, flush),
-                "library_ms": cuda_ms(lambda: torch.matmul(x, w_eff), iters,
-                                      flush),
-            }
-        nbytes = m * k * 2 + w.packed.numel() * 4 + n * 4 + m * n * 2
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * m * w.nnz)
-        results["ternary_gemm"].append(row)
-        print(f"ternary_gemm M={m} K={k} N={n}: " + json.dumps(row),
-              flush=True)
+        results["ternary_gemm"].append(
+            gemm_row(gen, m, k, n, _serving_phase(m), flush))
     for m, k, n in RAGGED_GEMM:
-        w = packed(k, n)
+        w = _packed_weight(gen, k, n)
         x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-        with ops.serving_phase(phase(m)):
+        with ops.serving_phase(_serving_phase(m)):
             got = ops.ternary_gemm(x, w)
         err = check_close(f"ternary_gemm M={m} K={k} N={n}", got,
                           gemm_lib.ternary_gemm_ref(x, w.packed, w.scale))
@@ -425,43 +525,13 @@ def kernel_phase(flush):
               flush=True)
 
     for m, k, ff, n in MLP_SHAPES:
-        wi, wg, wo = packed(k, ff), packed(k, ff), packed(ff, n)
-        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-        plain_args = (x, wi.packed, wo.packed, wg.packed, wi.scale, None,
-                      wg.scale, None, wo.scale, None)
-        with ops.serving_phase(phase(m)):
-            got = ops.fused_mlp(x, wi, wo, wg)
-            ref = fused_lib.fused_mlp_ref(*plain_args)
-            err = check_close(f"fused_mlp M={m} K={k} ff={ff} N={n}", got,
-                              ref)
-            ei, eg, eo = (c.materialize(torch.float32, with_scale=True).to(
-                torch.bfloat16) for c in (wi, wg, wo))
-            iters = iters_for(m)
-            variant = fused_lib.VARIANTS[phase(m)]
-            row = {
-                "m": m, "k": k, "ff": ff, "n": n, "max_abs_err": err,
-                "ms": cuda_ms(lambda: ops.fused_mlp(x, wi, wo, wg), iters,
-                              flush),
-                "kernel_ms": cuda_ms(lambda: fused_lib.fused_mlp_cuda(
-                    x, *plain_args[1:], variant=variant), iters, flush),
-                "plain_ms": cuda_ms(lambda: fused_lib.fused_mlp_ref(
-                    *plain_args), iters, flush),
-                # cuBLAS chain over pre-decoded, pre-scaled bf16 weights
-                "library_ms": cuda_ms(
-                    lambda: (F.silu(x @ eg) * (x @ ei)) @ eo, iters, flush),
-            }
-        nbytes = (m * k * 2 + (wi.packed.numel() + wg.packed.numel()
-                               + wo.packed.numel()) * 4
-                  + (2 * ff + n) * 4 + m * n * 2)
-        ops_needed = 2.0 * m * (wi.nnz + wg.nnz + wo.nnz)
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_needed)
-        results["fused_mlp"].append(row)
-        print(f"fused_mlp M={m} K={k} ff={ff} N={n}: " + json.dumps(row),
-              flush=True)
+        results["fused_mlp"].append(
+            mlp_row(gen, m, k, ff, n, _serving_phase(m), flush))
     for m, k, ff, n in RAGGED_MLP:
-        wi, wg, wo = packed(k, ff), packed(k, ff), packed(ff, n)
+        wi, wg, wo = (_packed_weight(gen, a, b)
+                      for a, b in ((k, ff), (k, ff), (ff, n)))
         x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-        with ops.serving_phase(phase(m)):
+        with ops.serving_phase(_serving_phase(m)):
             got = ops.fused_mlp(x, wi, wo, wg)
         err = check_close(f"fused_mlp M={m} K={k} ff={ff} N={n}", got,
                           fused_lib.fused_mlp_ref(
@@ -526,6 +596,84 @@ def _paged_inputs(gen, shape, lengths):
     return q, k, v, lengths, table
 
 
+def paged_rows(name, shape, inputs, flush, *, subsets, on_path,
+               read_tokens=None):
+    """B5 through ops against its plain version, bf16 and int8 pages, on
+    ``inputs`` = (q, f32 K/V pages, lengths, table); B5 on each subset of
+    the rows must give those rows' bits among all rows; then timed (ops,
+    with the card kept busy, the host's enqueue time, the plain version, and
+    SDPA on K/V gathered beforehand). ``read_tokens``: the distinct tokens
+    whose K/V the bound counts as read once (default: every row's valid
+    tokens; a window's rows share theirs)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.paging import Int8Pages
+    from repro_torch.paging import kernels as paged_lib
+
+    q, k, v, lengths, table = inputs
+    b, h, hd = q.shape
+    kv, t = shape["kv"], table.shape[1]
+    valid = int(lengths.sum())
+    read = valid if read_tokens is None else read_tokens
+    pos = torch.arange(t * PAGE_SIZE, device="cuda")
+    mask = (pos < lengths[:, None])[:, None, None, :]       # (B, 1, 1, S)
+    rows = []
+    for label in ("bf16", "int8"):
+        if label == "int8":
+            kp, vp = Int8Pages.quantize(k), Int8Pages.quantize(v)
+        else:
+            kp, vp = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        args = (q, kp, vp, table, lengths)
+        what = f"paged_decode_attention {name} {label} pages"
+        got = ops.paged_decode_attention(*args)
+        ref = paged_lib.paged_decode_attention_ref(*args)
+        err = check_close(what, got, ref)
+        for subset in subsets:
+            idx = torch.tensor(subset, device="cuda")
+            part = paged_lib.paged_decode_attention_cuda(
+                q[idx].contiguous(), kp, vp, table[idx].contiguous(),
+                lengths[idx].contiguous())
+            if not torch.equal(part, got[idx]):
+                raise AssertionError(f"{what}: rows {subset} alone differ "
+                                     f"from the same rows among all {b}")
+        # yardstick: SDPA over K/V gathered (and dequantized) beforehand
+        ks, vs = (paged_lib.gather_pages(pg, table, torch.bfloat16)
+                  .transpose(1, 2).contiguous() for pg in (kp, vp))
+        qs = q[:, :, None]
+        iters = 50
+        row = {
+            "shape": name, "pages": label, "b": b, "h": h, "kv": kv,
+            "hd": hd, "ps": PAGE_SIZE, "t": t, "valid_tokens": valid,
+            "split": paged_lib.split_plan(t, PAGE_SIZE).splits,
+            "max_abs_err": err, "subsets_equal": True,
+            "ms": cuda_ms(lambda: ops.paged_decode_attention(*args),
+                          iters, flush),
+            "device_ms": cuda_ms(
+                lambda: ops.paged_decode_attention(*args), iters, flush,
+                spin=True),
+            "host_ms": host_ms(
+                lambda: ops.paged_decode_attention(*args), 100),
+            "plain_ms": cuda_ms(
+                lambda: paged_lib.paged_decode_attention_ref(*args),
+                iters, flush),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask), iters, flush),
+        }
+        if not on_path:
+            row["on_path"] = False
+        # K and V of the tokens read once (+ their scales), q and o, the
+        # table and the lengths
+        per_token = 2 * kv * (hd + 4 if label == "int8" else 2 * hd)
+        nbytes = read * per_token + 2 * b * h * hd * 2 + b * t * 4 + b * 4
+        ops_needed = 4.0 * valid * h * hd             # q.k and p.v, f32
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_needed,
+                                                    F32_OPS_PER_S)
+        rows.append(row)
+        print(f"{what}: subsets equal; " + json.dumps(row), flush=True)
+    return rows
+
+
 def paged_kernel_phase(flush):
     """B5 against its plain version at the serving shape and, off the
     path, at the long rows (PAGED_LONG), bf16 and int8 pages: ragged
@@ -533,10 +681,6 @@ def paged_kernel_phase(flush):
     entries past each length garbage. At each, B5 on subsets of the rows
     (1, 3 and all 8, permuted) must equal B5 on all rows, bit for bit."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import ops
-    from repro_torch.paging import Int8Pages
-    from repro_torch.paging import kernels as paged_lib
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     serving = _paged_inputs(gen, PAGED, lambda: torch.randint(
@@ -546,66 +690,12 @@ def paged_kernel_phase(flush):
     long_rows = _paged_inputs(gen_long, PAGED_LONG, lambda: torch.randint(
         PAGED_LONG["min_len"], PAGED_LONG["max_len"] + 1, (PAGED_LONG["b"],),
         generator=gen_long, device="cuda", dtype=torch.int32))
+    subsets = ([3], [0, 5, 7], [6, 1, 4, 0, 7, 2, 5, 3])
     rows = []
-    for name, shape, (q, k, v, lengths, table) in (
-            ("serving", PAGED, serving), ("long", PAGED_LONG, long_rows)):
-        b, h, kv, hd, t = (shape[key] for key in ("b", "h", "kv", "hd", "t"))
-        valid = int(lengths.sum())
-        pos = torch.arange(t * PAGE_SIZE, device="cuda")
-        mask = (pos < lengths[:, None])[:, None, None, :]   # (B, 1, 1, S)
-        for label in ("bf16", "int8"):
-            if label == "int8":
-                kp, vp = Int8Pages.quantize(k), Int8Pages.quantize(v)
-            else:
-                kp, vp = k.to(torch.bfloat16), v.to(torch.bfloat16)
-            args = (q, kp, vp, table, lengths)
-            what = f"paged_decode_attention {name} {label} pages"
-            got = ops.paged_decode_attention(*args)
-            ref = paged_lib.paged_decode_attention_ref(*args)
-            err = check_close(what, got, ref)
-            for subset in ([3], [0, 5, 7], [6, 1, 4, 0, 7, 2, 5, 3]):
-                idx = torch.tensor(subset, device="cuda")
-                part = paged_lib.paged_decode_attention_cuda(
-                    q[idx].contiguous(), kp, vp, table[idx].contiguous(),
-                    lengths[idx].contiguous())
-                if not torch.equal(part, got[idx]):
-                    raise AssertionError(f"{what}: rows {subset} alone "
-                                         f"differ from the same rows among "
-                                         f"all {b}")
-            # yardstick: SDPA over K/V gathered (and dequantized) beforehand
-            ks, vs = (paged_lib.gather_pages(pg, table, torch.bfloat16)
-                      .transpose(1, 2).contiguous() for pg in (kp, vp))
-            qs = q[:, :, None]
-            iters = 50
-            row = {
-                "shape": name, "pages": label, "b": b, "h": h, "kv": kv,
-                "hd": hd, "ps": PAGE_SIZE, "t": t, "valid_tokens": valid,
-                "split": paged_lib.split_plan(t, PAGE_SIZE).splits,
-                "max_abs_err": err, "subsets_equal": True,
-                "ms": cuda_ms(lambda: ops.paged_decode_attention(*args),
-                              iters, flush),
-                "device_ms": cuda_ms(
-                    lambda: ops.paged_decode_attention(*args), iters, flush,
-                    spin=True),
-                "host_ms": host_ms(
-                    lambda: ops.paged_decode_attention(*args), 100),
-                "plain_ms": cuda_ms(
-                    lambda: paged_lib.paged_decode_attention_ref(*args),
-                    iters, flush),
-                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, attn_mask=mask), iters, flush),
-            }
-            if name != "serving":
-                row["on_path"] = False
-            # K and V of the valid tokens read once (+ their scales), q and
-            # o, the table and the lengths
-            per_token = 2 * kv * (hd + 4 if label == "int8" else 2 * hd)
-            nbytes = valid * per_token + 2 * b * h * hd * 2 + b * t * 4 + b * 4
-            ops_needed = 4.0 * valid * h * hd             # q.k and p.v, f32
-            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_needed,
-                                                        F32_OPS_PER_S)
-            rows.append(row)
-            print(f"{what}: subsets equal; " + json.dumps(row), flush=True)
+    for name, shape, inputs in (("serving", PAGED, serving),
+                                ("long", PAGED_LONG, long_rows)):
+        rows += paged_rows(name, shape, inputs, flush, subsets=subsets,
+                           on_path=name == "serving")
     return rows
 
 
@@ -807,7 +897,8 @@ def pressure_workload(cfg):
 def paged_phases(cfg, params, workloads, dense_outs):
     """Paged serving with bf16 pages on the dense run's workload, then with
     int8 pages under pressure; each followed by the one-step logit check
-    against the dense cache. Returns the per-run launch counts."""
+    against the dense cache. Returns the per-run launch counts and the
+    bf16 run's token streams."""
     import numpy as np
     prompts, gens, max_len, kw = workloads["paged_bf16"]
     outs, _, bf16_launches = serve_run("paged bf16", cfg, params, prompts,
@@ -831,7 +922,7 @@ def paged_phases(cfg, params, workloads, dense_outs):
     paged_step_check("paged int8 vs dense, one decode step", cfg, params,
                      p_prompts[:SERVE["slots"]], p_max_len, "int8",
                      INT8_LOGIT_TOL)
-    return runs
+    return runs, outs
 
 
 def serving_workloads(cfg, prompts, gens, max_len):
@@ -965,36 +1056,426 @@ def decode_graph_phase(cfg, params, workloads):
     return out, tracers
 
 
-def trace_check(tracer, metrics):
-    """The dense graph run's trace: export, validate with the port's
-    validate_events, one decode_step span per decode step, every
-    request's track from submit to done; print the spans by name."""
+def trace_check(tracer, metrics, label="dense graph"):
+    """A graph run's trace: export, validate with the port's
+    validate_events and read with scripts/trace_report.py (run as a child
+    process: it reads the trace through the reference package, which this
+    script never imports); one decode_step span per decode step (and one
+    chunk_window span per window), every request's track from submit to
+    done; print the spans by name."""
     from repro_torch.obs import load_trace, validate_events
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
-        path = str(Path(d) / "dense.json")
+        path = str(Path(d) / "run.json")
         n_events = tracer.export(path)
         events = load_trace(path)["traceEvents"]
+        report = json.loads(subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "trace_report.py"),
+             path, "--json"], check=True, capture_output=True, text=True,
+            timeout=300).stdout)
     validate_events(events)
     spans = span_summary([e for e in events if e.get("tid") == 0])
-    if spans["decode_step"]["n"] != metrics["decode_steps"]:
-        raise AssertionError(f"trace: {spans['decode_step']['n']} "
-                             f"decode_step spans for "
-                             f"{metrics['decode_steps']} decode steps")
+    sched = metrics["sched"] or {}
+    for name, n in (("decode_step", metrics["decode_steps"]),
+                    ("chunk_window", sched.get("chunk_steps", 0))):
+        got = spans.get(name, {"n": 0})["n"]
+        if got != n or report["step_breakdown"].get(name, {"n": 0})["n"] != n:
+            raise AssertionError(f"trace {label}: {got} {name} spans for "
+                                 f"{n}")
+    if len(report["ttft_waterfall"]) != metrics["drained"]:
+        raise AssertionError(f"trace {label}: trace_report's waterfall has "
+                             f"{len(report['ttft_waterfall'])} requests")
     tracks = {}
     for e in events:
         if e["ph"] != "M" and e.get("tid", 0) > 0:
             tracks.setdefault(e["tid"], []).append(e["name"])
     if len(tracks) != metrics["drained"] or tracer.dropped:
-        raise AssertionError(f"trace: {len(tracks)} request tracks for "
-                             f"{metrics['drained']} requests, "
+        raise AssertionError(f"trace {label}: {len(tracks)} request tracks "
+                             f"for {metrics['drained']} requests, "
                              f"{tracer.dropped} events dropped")
     for tid, names in tracks.items():
-        if names[0] != "submit" or names[-1] != "done":
-            raise AssertionError(f"trace: request track {tid} runs "
-                                 f"{names[0]} .. {names[-1]}")
-    print(f"trace: dense graph run, {n_events} events, valid; engine spans "
-          f"{json.dumps(spans)}", flush=True)
+        if names[0] != "submit" or names[-1] != "done" or (
+                sched.get("chunked_prefill") and "admit" not in names):
+            raise AssertionError(f"trace {label}: request track {tid} runs "
+                                 f"{names}")
+    print(f"trace: {label} run, {n_events} events, valid, read by "
+          f"trace_report (busy {report['interleave']['busy_frac']:.4f}); "
+          f"engine spans {json.dumps(spans)}", flush=True)
     return spans
+
+
+def _split_check(what, cfg, params, prompt, ref, got):
+    """Where two greedy streams of one request part, and what ``got`` does
+    after: prefill the prompt and ``got``'s tokens (the card's prefill
+    path, teacher-forced) and read, at every position from the split on,
+    how far the token ``got`` chose lies below the prefill's top logit
+    (its lag). Fails unless both streams' tokens at the split and every
+    later token of ``got`` lag by at most LOGIT_TOL, an absolute bound
+    (near ties only)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+
+    j = int(np.nonzero(ref != got)[0][0])
+    seq = np.concatenate([prompt, got[:-1]]).astype(np.int32)
+    with torch.no_grad(), ops.serving_phase("prefill"):
+        _, logits = LM(cfg, "cuda").prefill(
+            params, {"tokens": torch.as_tensor(seq[None], device="cuda")},
+            len(seq), logits_from=len(prompt) - 1)
+    rows = logits[0].float()          # row t predicts got[t]
+    top = rows.max(dim=-1).values
+    idx = torch.as_tensor(got, dtype=torch.long, device=rows.device)
+    lag = (top - rows.gather(1, idx[:, None])[:, 0])[j:].cpu()
+    top2 = rows[j].topk(2).values
+    gap = float(top2[0] - top2[1])
+    ref_lag = float(top[j] - rows[j, int(ref[j])])
+    split = {"token": j, "gap": gap, "ref_lag": ref_lag,
+             "max_lag_after": float(lag.max()),
+             "tokens_after": int(len(lag)),
+             "off_argmax_after": int((lag > 0).sum())}
+    print(f"{what}: streams part at token {j}, top-2 gap {gap:.4g}, lags "
+          f"there {ref_lag:.4g} / {float(lag[0]):.4g}; {len(lag)} tokens "
+          f"from the split on, {split['off_argmax_after']} off the "
+          f"teacher-forced argmax, max lag {split['max_lag_after']:.4g} "
+          f"(bound {LOGIT_TOL})", flush=True)
+    if max(ref_lag, split["max_lag_after"]) > LOGIT_TOL:
+        raise AssertionError(f"{what}: from token {j} on a token lies more "
+                             f"than {LOGIT_TOL} below the top logit "
+                             f"({json.dumps(split)})")
+    return split
+
+
+def streams_or_near_ties(what, cfg, params, prompts, ref_outs, got_outs):
+    """Equal streams, or each split at a near tie and every later token a
+    near-greedy one (``_split_check``)."""
+    import numpy as np
+    splits = {}
+    for i, (p, a, b) in enumerate(zip(prompts, ref_outs, got_outs)):
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: request {i}: {len(b)} tokens "
+                                 f"against {len(a)}")
+        if not np.array_equal(a, b):
+            splits[i] = _split_check(f"{what} request {i}", cfg, params,
+                                     p, a, b)
+    print(f"{what}: {len(prompts) - len(splits)}/{len(prompts)} streams "
+          f"equal, {len(splits)} split at near ties", flush=True)
+    return splits
+
+
+def chunked_run(label, cfg, params, prompts, gens, max_len, chunk, *,
+                graph=True, tracer=None, **engine_kw):
+    """Drain one workload through a chunked engine on the card, the launch
+    counters set to 0 just before the run and read just after. Checks every
+    request drained with its budget of in-range tokens, no whole-prompt
+    prefill, the prompt tokens committed, every captured window's launches
+    (B1 49, B4 12, B5 12 paged) and the run's: each decode step and each
+    window launches those once."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import SchedConfig
+
+    engine = _engine(cfg, params, max_len, graph, tracer,
+                     sched=SchedConfig(chunk_tokens=chunk), **engine_kw)
+    paged = engine_kw.get("cache") == "paged"
+    per_step = {"ternary_gemm": 4 * cfg.num_layers + 1,
+                "fused_mlp": cfg.num_layers,
+                "paged_decode_attention": cfg.num_layers if paged else 0}
+    per_window = engine.chunker.launches_per_replay
+    if graph and not per_window:
+        raise AssertionError(f"{label}: no window was captured")
+    for width, counts in per_window.items():
+        if {k: counts[k] for k in per_step} != per_step:
+            raise AssertionError(f"{label}: the window of width {width} "
+                                 f"launches {counts}, expected {per_step}")
+    _zero_counts()
+    outs, metrics = serve.run_continuous(engine, prompts, gens)
+    launches = _read_counts()
+    sched = metrics["sched"]
+    brief = {k: v for k, v in metrics.items() if k != "per_request"}
+    print(f"{label} metrics: " + json.dumps(brief), flush=True)
+    print(f"{label} launches: {json.dumps(launches)}", flush=True)
+    if metrics["drained"] != len(gens) or metrics["prefill_steps"]:
+        raise AssertionError(f"{label}: drained {metrics['drained']} of "
+                             f"{len(gens)}, {metrics['prefill_steps']} "
+                             f"whole-prompt prefills")
+    for i, (toks, g) in enumerate(zip(outs, gens)):
+        if len(toks) != g or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{label}: request {i}: {len(toks)} tokens "
+                                 f"for a budget of {g}, or ids out of range")
+    prompt_tokens = sum(len(p) for p in prompts)
+    replays = metrics["cache"].get("preemptions", 0)
+    if (sched["chunk_tokens_committed"] < prompt_tokens
+            or (not replays
+                and sched["chunk_tokens_committed"] != prompt_tokens)):
+        raise AssertionError(f"{label}: {sched['chunk_tokens_committed']} "
+                             f"prompt tokens committed for {prompt_tokens} "
+                             f"({replays} preemptions)")
+    steps = metrics["decode_steps"] + sched["chunk_steps"]
+    want = {k: v * steps for k, v in per_step.items()}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"{label}: launched {launches}, expected "
+                             f"{want} ({metrics['decode_steps']} decode "
+                             f"steps + {sched['chunk_steps']} windows)")
+    return outs, metrics, launches, per_window
+
+
+def chunk_kernel_rows():
+    """B1 and B4 at the widest window's M (8 x 32 = 256) under the "chunk"
+    phase, and B5 at that window's 256 flattened rows (lengths pos + j +
+    1, each slot's table repeated 32 times) against its plain version and
+    against one-row calls, bit for bit; each timed as the serving shapes
+    are."""
+    import torch
+    from repro_torch.kernels import ops
+
+    w = B5_WINDOW
+    m = w["b"] * w["s"]
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    rows = {"ternary_gemm": [gemm_row(gen, m, k, n, "chunk", flush)
+                             for k, n in ((1024, 1024), (1024, 32768))],
+            "fused_mlp": [mlp_row(gen, m, 1024, 4096, 1024, "chunk", flush)]}
+    pos = torch.tensor(w["pos"], dtype=torch.int32, device="cuda")
+    q8, k, v, _, table8 = _paged_inputs(gen, w, lambda: pos + w["s"])
+    del q8
+    q = torch.randn(m, w["h"], w["hd"], generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    lengths = (pos[:, None] + torch.arange(1, w["s"] + 1, device="cuda",
+                                           dtype=torch.int32)).reshape(-1)
+    table = table8.repeat_interleave(w["s"], dim=0).contiguous()
+    with ops.serving_phase("chunk"):
+        rows["paged_decode_attention"] = paged_rows(
+            f"window {w['b']} x {w['s']}", w,
+            (q, k, v, lengths.contiguous(), table), flush,
+            subsets=[[i] for i in range(m)], on_path=True,
+            read_tokens=int((pos + w["s"]).sum()))
+    for row in rows["paged_decode_attention"]:
+        row["phase"] = "chunk"
+    del flush
+    return rows
+
+
+def chunked_closed_loop(cfg, params, workloads, whole_outs):
+    """(a) The serving workloads with chunked prefill: dense and paged
+    bf16 streams against the whole-prompt runs' (equal or split at near
+    ties), int8 pages at two chunk sizes against each other (equal).
+    Returns the runs' launches and readings."""
+    import numpy as np
+    runs, out = {}, {}
+    for label in ("dense", "paged_bf16", "paged_int8"):
+        prompts, gens, max_len, kw = workloads[label]
+        outs, metrics, runs[f"chunked_{label}"], per_window = chunked_run(
+            f"chunked {label}", cfg, params, prompts, gens, max_len,
+            CHUNK["tokens"], **kw)
+        out[label] = {"sched": metrics["sched"], "tok_per_s":
+                      metrics["tok_per_s"], "latency": metrics["latency"],
+                      "cache": metrics["cache"],
+                      "windows_captured": sorted(per_window)}
+        if label == "paged_int8":
+            alt, _, runs["chunked_paged_int8_c16"], _ = chunked_run(
+                f"chunked {label} at {CHUNK['int8_alt']}", cfg, params,
+                prompts, gens, max_len, CHUNK["int8_alt"], **kw)
+            for i, (a, b) in enumerate(zip(outs, alt)):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"chunked paged int8: request {i} "
+                                         f"differs between chunk sizes "
+                                         f"{CHUNK['tokens']} and "
+                                         f"{CHUNK['int8_alt']}")
+            print(f"chunked paged int8: streams equal at chunk sizes "
+                  f"{CHUNK['tokens']} and {CHUNK['int8_alt']}", flush=True)
+        else:
+            out[label]["splits"] = streams_or_near_ties(
+                f"chunked {label} vs whole-prompt", cfg, params, prompts,
+                whole_outs[label], outs)
+    return runs, out
+
+
+def chunk_graph_check(cfg, params, workloads):
+    """(b) The chunked dense workload eagerly and through the captured
+    windows in one process: equal streams, sched metrics and launches;
+    then one window (the first step of fresh engines) with bitwise equal
+    logits and equal launches. Returns both paths' readings and the graph
+    run's tracer."""
+    import numpy as np
+    import torch
+
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import SchedConfig
+
+    prompts, gens, max_len, kw = workloads["dense"]
+    runs, readings = {}, {}
+    for path in ("eager", "graph"):
+        tracer = Tracer()
+        outs, metrics, launches, _ = chunked_run(
+            f"chunked dense {path}", cfg, params, prompts, gens, max_len,
+            CHUNK["tokens"], graph=path == "graph", tracer=tracer, **kw)
+        spans = span_summary(tracer.to_dict()["traceEvents"])
+        runs[path] = (outs, metrics, launches, tracer)
+        readings[path] = {
+            "tok_per_s": metrics["tok_per_s"],
+            "ttft_p50_ms": metrics["latency"]["ttft_s"]["p50"] * 1e3,
+            "tpot_p50_ms": metrics["latency"]["tpot_s"]["p50"] * 1e3,
+            "chunk_window_p50_ms": spans["chunk_window"]["p50_ms"],
+            "decode_step_p50_ms": spans["decode_step"]["p50_ms"],
+            "chunk_steps": metrics["sched"]["chunk_steps"]}
+    (eo, em, el, _), (go, gm, gl, tracer) = runs["eager"], runs["graph"]
+    for i, (a, b) in enumerate(zip(eo, go)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"chunk graphs: request {i}'s tokens differ "
+                                 f"between eager and graph windows")
+    if em["sched"] != gm["sched"] or el != gl:
+        raise AssertionError(f"chunk graphs: eager {em['sched']} {el}, "
+                             f"graph {gm['sched']} {gl}")
+    windows = {}
+    for path in ("eager", "graph"):
+        engine = _engine(cfg, params, max_len, path == "graph",
+                         sched=SchedConfig(chunk_tokens=CHUNK["tokens"]),
+                         **kw)
+        for p, g in zip(prompts, gens):
+            engine.submit(p, g)
+        _zero_counts()
+        engine.step()                  # admission + the first window
+        torch.cuda.synchronize()
+        if engine.chunk_steps != 1 or engine.decode_steps:
+            raise AssertionError("chunk graphs: the first step ran no "
+                                 "window or also decoded")
+        windows[path] = (engine.chunker.last_logits.clone(), _read_counts())
+        del engine
+    (le, ce), (lg, cg) = windows["eager"], windows["graph"]
+    if ce != cg:
+        raise AssertionError(f"chunk graphs: one window launches {ce} "
+                             f"eagerly, {cg} through the graph")
+    if not torch.equal(le, lg):
+        diff = float((le.float() - lg.float()).abs().max())
+        raise AssertionError(f"chunk graphs: one window's logits differ, "
+                             f"max |d| {diff}")
+    readings["window_logits_shape"] = list(lg.shape)
+    print("chunk graphs: streams, sched metrics and launches equal, one "
+          "window's logits bitwise equal; " + json.dumps(readings),
+          flush=True)
+    return readings, (tracer, gm)
+
+
+def _class_latency(per_request, key):
+    from repro_torch.obs.metrics import percentiles
+    out = {}
+    for name in sorted({r["slo"] for r in per_request}, key=str):
+        p = percentiles(r[key] for r in per_request if r["slo"] == name)
+        out[str(name)] = (None if p is None else
+                          {"p50_ms": p["p50"] * 1e3, "p99_ms": p["p99"] * 1e3,
+                           "n": p["n"]})
+    return out
+
+
+def open_loop_phase(cfg, params):
+    """(d) One schedule each, Poisson and bursty, through a whole-prompt
+    engine (SLO admission) and a chunked one, dense: TTFT and TPOT
+    p50/p99 by class, SLO violations, queue wait, windows, prefills and
+    the step-time EWMA of each. Returns the readings and launches."""
+    import numpy as np
+    from repro_torch.serving import (SchedConfig, TrafficConfig,
+                                     make_schedule, run_open_loop)
+    from repro_torch.serving.sched import DEFAULT_SLO_CLASSES
+
+    ol = OPEN_LOOP
+    out, runs = {}, {}
+    for kind in ("poisson", "bursty"):
+        tc = TrafficConfig(kind=kind, rate=ol["rate"],
+                           n_requests=ol["requests"],
+                           prompt_lens=ol["prompt_lens"],
+                           gen_lens=ol["gen_lens"],
+                           burst_size=ol["burst_size"], seed=SEED)
+        schedule = make_schedule(tc, cfg.vocab_size,
+                                 classes=DEFAULT_SLO_CLASSES,
+                                 class_weights=ol["class_weights"])
+        streams = {}
+        for mode, chunk in (("whole", 0), ("chunked", CHUNK["tokens"])):
+            from repro_torch.serving import ContinuousScheduler
+            engine = ContinuousScheduler(
+                cfg, max_slots=ol["slots"], max_len=ol["max_len"],
+                device="cuda", sched=SchedConfig(chunk_tokens=chunk))
+            engine.load(params)
+            _zero_counts()
+            reqs, m = run_open_loop(engine, schedule)
+            runs[f"open_loop_{kind}_{mode}"] = _read_counts()
+            if m["drained"] != len(schedule) or any(
+                    len(r.tokens) != a.max_new
+                    for r, a in zip(reqs, schedule)):
+                raise AssertionError(f"open loop {kind} {mode}: drained "
+                                     f"{m['drained']} of {len(schedule)} "
+                                     f"or a budget unmet")
+            streams[mode] = [np.asarray(r.tokens) for r in reqs]
+            pr = m["per_request"]
+            row = {
+                "ttft": _class_latency(pr, "ttft_s"),
+                "tpot": _class_latency(pr, "tpot_s"),
+                "queue_wait": _class_latency(pr, "queue_wait_s"),
+                "slo": m["sched"]["slo"],
+                "chunk_steps": m["sched"]["chunk_steps"],
+                "prefill_steps": m["prefill_steps"],
+                "decode_steps": m["decode_steps"],
+                "step_time_ewma_ms": engine.metrics.snapshot()
+                ["step_time_s"] * 1e3,
+                "tok_per_s": m["tok_per_s"], "traffic": m["traffic"]}
+            out.setdefault(kind, {})[mode] = row
+            print(f"open loop {kind} {mode}: " + json.dumps(row), flush=True)
+            del engine
+        same = sum(np.array_equal(a, b) for a, b in
+                   zip(streams["whole"], streams["chunked"]))
+        out[kind]["equal_streams"] = same
+        print(f"open loop {kind}: {same}/{len(schedule)} streams equal "
+              f"between whole-prompt and chunked (information, not a gate)",
+              flush=True)
+    return out, runs
+
+
+def chunk_profile(cfg, params, workloads):
+    """(e) One window of 8 rows x 32 on a fresh dense chunked engine,
+    eager and through its captured graph, under the profiler."""
+    from repro_torch.serving import Request, SchedConfig
+
+    prompts, _, max_len, kw = workloads["dense"]
+    rows = {}
+    for graph in (False, True):
+        engine = _engine(cfg, params, max_len, graph,
+                         sched=SchedConfig(chunk_tokens=CHUNK["tokens"]),
+                         **kw)
+        jobs = [(slot, Request(rid=slot, prompt=prompts[slot], max_new=1),
+                 CHUNK["tokens"]) for slot in range(SERVE["slots"])]
+
+        def window():
+            engine.chunker.advance(engine.params, engine.pool, jobs,
+                                   engine._pos)
+
+        window()
+        label = (f"chunk window {SERVE['slots']} x {CHUNK['tokens']} "
+                 f"{'graph' if graph else 'eager'}")
+        rows[label] = profile_once(
+            label, window,
+            lambda: _mean_wall(window, PROFILE["unprofiled_iters"]))
+        del engine
+    return rows
+
+
+def chunked_phase(cfg, params, workloads, whole_outs):
+    """The chunked-prefill slice on the card: (a) closed loop, (b) eager
+    against graph windows, (c) the window shapes' kernel rows, (d) open
+    loop, (e) profile, (f) a traced chunked run. Returns the kernel rows,
+    the runs' launches and the readings."""
+    t0 = time.perf_counter()
+    runs, closed = chunked_closed_loop(cfg, params, workloads, whole_outs)
+    graph_rows, (tracer, metrics) = chunk_graph_check(cfg, params, workloads)
+    trace_spans = trace_check(tracer, metrics, "chunked dense graph")
+    del tracer
+    kernel_rows = chunk_kernel_rows()
+    open_loop, ol_runs = open_loop_phase(cfg, params)
+    runs.update(ol_runs)
+    profiles = chunk_profile(cfg, params, workloads)
+    summary = {"closed_loop": closed, "graphs": graph_rows,
+               "trace_spans": trace_spans, "open_loop": open_loop,
+               "profiles": profiles}
+    print(f"chunked took {time.perf_counter() - t0:.1f}s; summary: "
+          + json.dumps(summary), flush=True)
+    return kernel_rows, runs
 
 
 def _union(intervals):
@@ -2158,7 +2639,8 @@ def main() -> int:
     model_phase(cfg, params, prompts, max_len)
     runs = {"dense": launches}
     workloads = serving_workloads(cfg, prompts, gens, max_len)
-    runs.update(paged_phases(cfg, params, workloads, dense_outs))
+    paged_runs, bf16_outs = paged_phases(cfg, params, workloads, dense_outs)
+    runs.update(paged_runs)
     graph_rows, tracers = decode_graph_phase(cfg, params, workloads)
     trace_spans = trace_check(*tracers["dense"])
     del tracers
@@ -2166,6 +2648,12 @@ def main() -> int:
     print("serving host/device summary: " + json.dumps(
         {"decode_graph": graph_rows, "trace_spans": trace_spans,
          "profiles": profile_rows}), flush=True)
+    chunk_rows, chunk_runs = chunked_phase(
+        cfg, params, workloads,
+        {"dense": dense_outs, "paged_bf16": bf16_outs})
+    runs.update(chunk_runs)
+    for name, rows in chunk_rows.items():
+        shapes[name] += rows
     mlp_rows, runs["mlp_formats"] = mlp_formats_phase(cfg, params, prompts,
                                                       max_len)
     del params

@@ -7,6 +7,14 @@ launches the same kernels again on every replay without running the
 wrappers, so ``CapturedStep`` notes what the wrappers counted while the
 step was captured, leaves the warm-up and the capture itself out of the
 counts, and adds the noted launches on every replay.
+
+An engine captures several steps (the decode step and one chunked-prefill
+window a width); they share one memory pool (``pool``, from
+``torch.cuda.graph_pool_handle()``). That is safe only because the graphs
+never run concurrently and an output of one graph is read before any other
+graph of the pool replays: a graph captured later may place its
+temporaries in memory that holds an earlier graph's outputs, and the
+reverse. An output kept across another replay must be cloned first.
 """
 from __future__ import annotations
 
@@ -55,12 +63,13 @@ def _add_launches(delta: Dict[str, int]) -> None:
         setattr(fn, attr, getattr(fn, attr) + delta[name])
 
 
-def cuda_graph_capture(step: Callable[[], None]) -> Callable[[], None]:
+def cuda_graph_capture(step: Callable[[], None],
+                       pool=None) -> Callable[[], None]:
     """Run ``step`` ``WARMUP_STEPS`` times eagerly on a side stream, then
     capture one more call into a CUDA graph whose outputs come from the
-    graph's private memory pool. Returns the graph's ``replay``, which
-    launches on the caller's current stream. ``step`` is called last for
-    the capture."""
+    memory pool ``pool`` (a fresh private one when None). Returns the
+    graph's ``replay``, which launches on the caller's current stream.
+    ``step`` is called last for the capture."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -68,7 +77,7 @@ def cuda_graph_capture(step: Callable[[], None]) -> Callable[[], None]:
             step()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, pool=pool):
         step()
     return graph.replay
 

@@ -71,7 +71,9 @@ __all__ = ["ternary_gemm", "ternary_gemm_plan", "GemmPlan", "KernelImpl",
            "paged_decode_attention", "serving_phase", "current_phase",
            "SERVING_PHASES", "kernel_probe"]
 
-SERVING_PHASES = ("prefill", "decode")
+# prefill GEMMs are M = B*L, decode GEMVs M = slots, chunked-prefill
+# windows M = slots*S in between; each phase keys its own tiles
+SERVING_PHASES = ("prefill", "decode", "chunk")
 
 # Above this occupied-tile fraction the skip walk saves too little;
 # "auto" takes the dense kernel (repro's constant).

@@ -7,6 +7,9 @@ Usage:
   ... --cache paged --page-size 16 [--kv-dtype int8 --pages N]
   ... --device cpu --reduced --ternary-min-dim 64   # plain PyTorch path
   ... --trace run.json [--trace-buffer N]   # Chrome trace-event JSON
+  ... --chunked-prefill [--chunk-tokens 32 --step-token-budget N]
+  ... --slo-ttft-ms 500 --slo-tpot-ms 100  # the interactive class's targets
+  ... --traffic poisson|bursty --arrival-rate 8   # open-loop arrivals
 
 Read a trace with ``python scripts/trace_report.py run.json`` or load it at
 https://ui.perfetto.dev.
@@ -29,7 +32,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import LM
 from repro_torch.models.layers import pack_params
 from repro_torch.obs import Tracer
-from repro_torch.serving import ContinuousScheduler
+from repro_torch.serving import (ContinuousScheduler, SchedConfig, SLOClass,
+                                 TrafficConfig, make_schedule, run_open_loop)
 
 
 def build_workload(cfg, requests: int, prompt_len: int,
@@ -106,6 +110,32 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--ternary-min-dim", type=int, default=0,
                     help=">0: override cfg.ternary_min_dim (reduced configs "
                          "need ~64 for --packed to convert anything)")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="chunked prefill + SLO-aware admission: prompts "
+                         "stream in --chunk-tokens a step beside decode, "
+                         "so a long prompt never holds a whole step")
+    ap.add_argument("--chunk-tokens", type=int, default=32,
+                    help="--chunked-prefill: most prompt tokens one request "
+                         "prefills a step (windows round down to powers of "
+                         "two, one captured graph a width)")
+    ap.add_argument("--step-token-budget", type=int, default=0,
+                    help="--chunked-prefill: model-forward tokens a step, "
+                         "decode charged first (0: slots + chunk-tokens)")
+    ap.add_argument("--slo-ttft-ms", type=float, default=0.0,
+                    help=">0: the interactive class's TTFT objective; "
+                         "admission orders by (priority, deadline) and "
+                         "deadline-pressed prefills take more of a step")
+    ap.add_argument("--slo-tpot-ms", type=float, default=0.0,
+                    help=">0: the interactive class's TPOT objective; the "
+                         "prefill share halves when steps run over it")
+    ap.add_argument("--traffic", default="off",
+                    choices=("poisson", "bursty", "off"),
+                    help="drive the engine open-loop from a seeded arrival "
+                         "schedule instead of submit-all-then-drain; "
+                         "requests split 3:1 between the interactive and "
+                         "batch classes")
+    ap.add_argument("--arrival-rate", type=float, default=8.0,
+                    help="--traffic: mean offered load, requests a second")
     ap.add_argument("--trace", default="",
                     help="write a Perfetto-loadable Chrome trace-event JSON "
                          "of the run: per-request lifecycle tracks, prefill "
@@ -129,14 +159,44 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                                    gen_lens, seed=args.seed)
     cfg, params = build_params(cfg, args.seed, device, args.packed)
     tracer = Tracer(capacity=args.trace_buffer) if args.trace else None
+    # SLO classes: the interactive class carries the CLI's objectives,
+    # batch requests ride priority 1
+    slo_on = (args.chunked_prefill or args.slo_ttft_ms > 0
+              or args.slo_tpot_ms > 0 or args.traffic != "off")
+    interactive = SLOClass(
+        "interactive",
+        ttft_target_s=(args.slo_ttft_ms / 1e3 if args.slo_ttft_ms > 0
+                       else 0.5),
+        tpot_target_s=(args.slo_tpot_ms / 1e3 if args.slo_tpot_ms > 0
+                       else 0.1),
+        priority=0)
+    batch_cls = SLOClass("batch", priority=1)
+    sched = None
+    if slo_on:
+        sched = SchedConfig(
+            chunk_tokens=args.chunk_tokens if args.chunked_prefill else 0,
+            step_token_budget=args.step_token_budget)
     engine = ContinuousScheduler(cfg, max_slots=args.slots, max_len=max_len,
                                  cache=args.cache, page_size=args.page_size,
                                  n_pages=args.pages,
                                  kv_dtype=args.kv_dtype or None,
                                  prefix_cache=not args.no_prefix_cache,
-                                 device=device, tracer=tracer)
+                                 sched=sched, device=device, tracer=tracer)
     engine.load(params)
-    _, metrics = run_continuous(engine, prompts, gens)
+    if args.traffic != "off":
+        tc = TrafficConfig(kind=args.traffic, rate=args.arrival_rate,
+                           n_requests=args.requests,
+                           prompt_lens=(args.prompt_len,),
+                           gen_lens=tuple(gen_lens), seed=args.seed)
+        schedule = make_schedule(tc, cfg.vocab_size,
+                                 classes=(interactive, batch_cls),
+                                 class_weights=(0.75, 0.25))
+        _, metrics = run_open_loop(engine, schedule)
+    else:
+        slo = interactive if slo_on else None
+        for p, g in zip(prompts, gens):
+            engine.submit(p, g, slo=slo)
+        metrics = engine.run()
     if tracer is not None:
         n_ev = tracer.export(args.trace)
         print(f"# trace: {args.trace} ({n_ev} events, {tracer.dropped} "

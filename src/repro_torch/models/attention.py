@@ -9,6 +9,11 @@ B6 through ``kernels.flash_attention``, or ``naive_attention``, by
 cache dtype, writes them, and attends the full ``max_len``-wide written
 cache view with causal masking; decode scatters each slot's token K/V at
 its own position and attends the view with ``kv_valid_len = pos + 1``.
+A (B, S > 1) decode window (chunked prefill) scatters all S tokens' K/V
+at ``cache_pos[b] + j`` first and then attends: the dense view causally
+with each row's query offset, the paged pool through B5 over the (B*S)
+flattened rows with ``lengths = pos + j + 1`` — so token j of a window
+sees what the j-th of S one-token steps would.
 The cache tensors are updated in place (JAX returns new ones): the slot
 or page pool owns them and nothing else reads the old values.
 """
@@ -140,8 +145,9 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
       otherwise ``naive_attention``. Returns (y, None);
     * prefill (``cache_pos is None``): x (B, S, d); K/V of all S tokens are
       written at positions 0..S-1 and the layer attends the cache view;
-    * decode: x (B, 1, d) and ``cache_pos`` an int tensor, scalar or (B,)
-      (each slot at its own position);
+    * decode: x (B, S, d) and ``cache_pos`` an int tensor, scalar or (B,)
+      (each slot at its own position); S > 1 is a window whose token j
+      sits at ``cache_pos + j``, all below the cache's length;
     * paged decode: cache ``{"k_pages", "v_pages"}``, ``block_table``
       (B, T) int32 and ``cache_pos`` a (B,) vector; prefill never sees a
       paged cache (the page pool scatters prefilled rows into pages).
@@ -180,10 +186,18 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         k_c[:, :s] = k.to(k_c.dtype)
         v_c[:, :s] = v.to(v_c.dtype)
         o = naive_attention(q, k_c, v_c, causal=True)
+    elif k.shape[1] > 1:
+        # window: every token's K/V is stored before any query attends,
+        # and causality keeps token j off positions past cache_pos + j. A
+        # garbage row running past the cache's end stores its overflow at
+        # the last position, as the decode step clamps its garbage lanes
+        pos2d = _window_positions(cache_pos, k.shape[0],
+                                  k.shape[1]).clamp(max=k_c.shape[1] - 1)
+        rows = torch.arange(k.shape[0], device=k.device)[:, None]
+        k_c[rows, pos2d] = k.to(k_c.dtype)
+        v_c[rows, pos2d] = v.to(v_c.dtype)
+        o = naive_attention(q, k_c, v_c, causal=True, q_offset=cache_pos)
     else:
-        if k.shape[1] != 1:
-            raise NotImplementedError("multi-token decode windows are not "
-                                      "ported yet")
         if cache_pos.ndim:
             rows = torch.arange(k.shape[0], device=k.device)
             k_c[rows, cache_pos] = k[:, 0].to(k_c.dtype)
@@ -222,31 +236,56 @@ def _full_sequence(q, k, v, cfg: ModelConfig) -> torch.Tensor:
     return naive_attention(q, k, v, causal=True)
 
 
+def _window_positions(cache_pos: torch.Tensor, b: int,
+                      sq: int) -> torch.Tensor:
+    """(B, S) positions ``cache_pos[b] + j`` of a window's tokens, in
+    ``cache_pos``'s dtype."""
+    base = cache_pos[:, None] if cache_pos.ndim else cache_pos
+    steps = torch.arange(sq, dtype=cache_pos.dtype, device=cache_pos.device)
+    return (base + steps).expand(b, sq)
+
+
 def _paged_decode(q, k, v, cache: dict, cache_pos: torch.Tensor,
                   block_table: torch.Tensor, cfg: ModelConfig):
-    """One token per row: write its K/V (quantized first for int8 pages)
-    at ``block_table[row, pos // ps]``, offset ``pos % ps``, in place, then
+    """Write each token's K/V (quantized first for int8 pages) at
+    ``block_table[row, pos // ps]``, offset ``pos % ps``, in place, then
     attend the row's pages. Live rows write to pages they own alone (the
     pool copies shared pages on write first); free slots' table rows are
-    all zero, so their garbage writes land in the trash page 0."""
-    if k.shape[1] != 1:
-        raise NotImplementedError("multi-token decode windows are not "
-                                  "ported yet")
+    all zero, so their garbage writes land in the trash page 0. A window
+    (S > 1) writes all S tokens first, then runs B5 over the B*S rows,
+    row (b, j) reading ``block_table[b]`` up to ``pos[b] + j + 1``."""
     k_pages, v_pages = cache["k_pages"], cache["v_pages"]
     ps = k_pages.shape[1]
-    rows = torch.arange(k.shape[0], device=k.device)
-    pids = block_table[rows, cache_pos // ps]
-    offs = cache_pos % ps
-    for pages, tok in ((k_pages, k[:, 0]), (v_pages, v[:, 0])):
+    b, sq = k.shape[:2]
+    if sq == 1:
+        rows = torch.arange(b, device=k.device)
+        pids = block_table[rows, cache_pos // ps]
+        offs = cache_pos % ps
+        toks = (k[:, 0], v[:, 0])
+    else:
+        pos2d = _window_positions(cache_pos, b, sq)
+        rows = torch.arange(b, device=k.device)[:, None]
+        pids = block_table[rows, pos2d // ps]
+        offs = pos2d % ps
+        toks = (k, v)
+    for pages, tok in zip((k_pages, v_pages), toks):
         if isinstance(pages, Int8Pages):
             codes, scales = quantize_rows(tok)
             pages.codes[pids, offs] = codes
             pages.scales[pids, offs] = scales
         else:
             pages[pids, offs] = tok.to(pages.dtype)
-    o = ops.paged_decode_attention(q[:, 0], k_pages, v_pages, block_table,
-                                   cache_pos + 1, window=cfg.sliding_window)
-    return o[:, None]
+    if sq == 1:
+        o = ops.paged_decode_attention(q[:, 0], k_pages, v_pages,
+                                       block_table, cache_pos + 1,
+                                       window=cfg.sliding_window)
+        return o[:, None]
+    h, hd = q.shape[2:]
+    o = ops.paged_decode_attention(
+        q.reshape(b * sq, h, hd), k_pages, v_pages,
+        block_table.repeat_interleave(sq, dim=0),
+        (pos2d + 1).reshape(-1), window=cfg.sliding_window)
+    return o.reshape(b, sq, h, hd)
 
 
 def init_paged_kv_cache(cfg: ModelConfig, n_pages: int, page_size: int,

@@ -174,10 +174,11 @@ class LM:
         return pool_layers
 
     def prefill(self, params, batch, max_len: int,
-                cache_dtype=torch.bfloat16):
-        """Run the prompt, fill the caches, return (cache, last-position
-        logits (B, 1, V)). ``cache_dtype`` defaults to bf16 whatever the
-        config says, as ``repro``'s prefill does."""
+                cache_dtype=torch.bfloat16, logits_from: int = -1):
+        """Run the prompt, fill the caches, return (cache, logits of the
+        positions from ``logits_from`` on: by default the last, (B, 1,
+        V)). ``cache_dtype`` defaults to bf16 whatever the config says, as
+        ``repro``'s prefill does."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = layers.embed_apply(params["embed"], tokens, cfg)
@@ -188,24 +189,27 @@ class LM:
                                         caches=cache0["layers"],
                                         cache_pos=None)
         x = layers.norm_apply(params["final_norm"], x, cfg)
-        logits = self._logits(params, x[:, -1:])
+        logits = self._logits(params, x[:, logits_from:])
         cache = {"layers": new_caches,
                  "pos": torch.tensor(x.shape[1], dtype=torch.int32,
                                      device=x.device)}
         return cache, logits
 
     def decode_step(self, params, cache, tokens):
-        """tokens (B, 1) -> (logits (B, 1, V), cache). ``cache["pos"]`` is
-        a scalar or a (B,) vector of per-slot positions; the caches are
-        written in place. A ``cache["block_table"]`` entry switches the
-        attention layers to the paged cache."""
-        if tokens.shape[1] != 1:
-            raise NotImplementedError("verify windows (S > 1) are not "
-                                      "ported yet")
+        """tokens (B, S) -> (logits (B, S, V), cache). S is 1 for plain
+        decode; S > 1 is a window (a chunk of a prompt) whose tokens sit at
+        positions pos..pos+S-1, each position's logits those of the j-th of
+        S one-token steps. ``cache["pos"]`` is a scalar or a (B,) vector of
+        per-slot positions; the caches are written in place. A
+        ``cache["block_table"]`` entry switches the attention layers to the
+        paged cache."""
         cfg = self.cfg
         pos = cache["pos"]
+        sq = tokens.shape[1]
         x = layers.embed_apply(params["embed"], tokens, cfg)
         src = pos[:, None] if pos.ndim else pos
+        if sq > 1:
+            src = src + torch.arange(sq, dtype=pos.dtype, device=pos.device)
         positions = src.expand(tokens.shape)
         x, new_caches = self._run_stack(params, x, positions=positions,
                                         caches=cache["layers"],
@@ -213,4 +217,4 @@ class LM:
                                         block_table=cache.get("block_table"))
         x = layers.norm_apply(params["final_norm"], x, cfg)
         logits = self._logits(params, x)
-        return logits, dict(cache, layers=new_caches, pos=pos + 1)
+        return logits, dict(cache, layers=new_caches, pos=pos + sq)

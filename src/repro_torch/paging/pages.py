@@ -206,11 +206,19 @@ class PagePool:
     # ------------------------------------------------------------------
     # Admission / growth / release
     # ------------------------------------------------------------------
-    def admit(self, prompt: np.ndarray) -> Optional[Admission]:
+    def admit(self, prompt: np.ndarray, *,
+              use_prefix: bool = True) -> Optional[Admission]:
         """Reserve a slot and every page the prompt needs, reusing
         registered prefix pages. All-or-nothing: on failure every side
         effect is rolled back and ``None`` is returned (the engine
-        defers)."""
+        defers).
+
+        ``use_prefix=False`` skips prefix matching and registration for
+        this admission. Chunked prefill needs it: a registered page must
+        already hold its prompt content, but a chunked request writes its
+        pages over several steps, so registering them at admission would
+        let a whole-prompt admission share a page not yet written. Chunked
+        requests take private pages only."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         n_p = self.pages_needed(prompt.size)
         if n_p > self.pages_per_slot:
@@ -218,10 +226,11 @@ class PagePool:
                              f"pages; a slot holds {self.pages_per_slot}")
         if not self._free_slots:
             return None
+        prefix = self.prefix if use_prefix else None
         matched: List[int] = []
         keys: List[bytes] = []
-        if self.prefix is not None:
-            keys, matched = self.prefix.lookup(prompt)
+        if prefix is not None:
+            keys, matched = prefix.lookup(prompt)
             for pid in matched:          # pin before reclamation can run
                 self._refcount[pid] += 1
                 self._reclaimable.pop(pid, None)
@@ -232,9 +241,9 @@ class PagePool:
             return None
         for pid in fresh:
             self._refcount[pid] = 1
-        if self.prefix is not None:
+        if prefix is not None:
             for key, pid in zip(keys[len(matched):], fresh):
-                self.prefix.register(key, pid)
+                prefix.register(key, pid)
         slot = self._free_slots.pop()
         self._slot_live[slot] = True
         pids = matched + fresh

@@ -1,6 +1,21 @@
-"""Continuous-batching serving of the port over the dense slot pool."""
+"""Continuous-batching serving of the port: ``RequestQueue`` (FIFO
+admission, per-request metrics) -> ``ContinuousScheduler`` (interleaved
+prefill / decode / evict) -> ``SlotPool`` (dense slot rows) or the paged
+pool (``repro_torch.paging.PagePool``).
+
+Scheduling under SLOs: ``SchedConfig`` switches the engine to chunked
+prefill under a per-step token budget, with ``SLOClass``-driven priority
+and deadline admission (``SLOQueue``); ``TrafficConfig`` /
+``make_schedule`` / ``run_open_loop`` drive the engine from a seeded
+open-loop Poisson or bursty arrival schedule.
+"""
 from repro_torch.serving.engine import ContinuousScheduler
 from repro_torch.serving.queue import Request, RequestQueue
+from repro_torch.serving.sched import SchedConfig, SLOClass, SLOQueue
 from repro_torch.serving.slots import SlotPool
+from repro_torch.serving.traffic import (Arrival, TrafficConfig,
+                                         make_schedule, run_open_loop)
 
-__all__ = ["ContinuousScheduler", "Request", "RequestQueue", "SlotPool"]
+__all__ = ["ContinuousScheduler", "Request", "RequestQueue", "SlotPool",
+           "SchedConfig", "SLOClass", "SLOQueue",
+           "Arrival", "TrafficConfig", "make_schedule", "run_open_loop"]

@@ -1,7 +1,7 @@
 """Continuous-batching scheduler of the port over the dense slot pool or the
 paged KV pool — the counterpart of ``repro.serving.engine.
-ContinuousScheduler`` (speculative decoding, chunked prefill, fault
-handling and meshes are not ported yet).
+ContinuousScheduler`` (speculative decoding, fault handling and meshes are
+not ported yet).
 
 Each step: **admit** FIFO runs of equal-length prompts into free slots as
 one prefill (the last-position argmax is each request's first token);
@@ -25,17 +25,38 @@ compiles once) and each step replays it; on the CPU the same step runs
 eagerly. Prefill stays eager: its shape changes with every admission
 group.
 
+Chunked prefill and SLO admission (``sched=SchedConfig(...)``, as
+``repro``'s): ``admission="slo"`` orders the queue by (priority, TTFT
+deadline, submit order) through ``sched.SLOQueue``. With
+``chunk_tokens > 0`` a request is admitted the moment a slot (and, paged,
+its prompt's private pages) is free; its prompt then streams into the
+cache ``chunk_tokens`` at a time, each step's chunks packed into one
+(slots, S) window (``sched.ChunkRunner``) under the step's token budget
+(``sched.plan_chunks``: the decode batch is charged first). A request
+whose prompt completes takes its first token from the window and joins
+the decode batch in the same step. Mid-prefill slots ride the decode step
+as garbage lanes at ``pos = prefill_pos``: what they write there the next
+chunk overwrites before any query reads it. Likewise a slot without a
+chunk rides the window as a garbage row at its own write frontier (dense)
+or on the trash page (paged). On the card every window shape (slots,
+2^i) is captured as a CUDA graph at ``load()``, beside the decode step,
+all in one memory pool. With ``chunk_tokens=0`` the engine
+prefills whole prompts in SLO order.
+
 Counters (``total_drained``, ``prefill_steps``, ``decode_steps``,
-``preemptions``, ``deferrals``) live in a ``MetricsRegistry``
+``preemptions``, ``deferrals``, ``chunk_steps``,
+``chunk_tokens_committed``, ``prefill_completions``) live in a
+``MetricsRegistry``
 (``engine.metrics``) behind attributes of those names, beside the
 step-time EWMA (``step_time_s``) and ``straggler_steps``. With a
 ``tracer`` (``obs.trace.Tracer``) the engine records each request's life
-on its own track and its prefill and decode-step spans and per-step
-counters on the scheduler track, as ``repro``'s does; ``tracer=None``
-costs one attribute test per site.
+on its own track and its prefill, chunk-window and decode-step spans and
+per-step counters on the scheduler track, as ``repro``'s does;
+``tracer=None`` costs one attribute test per site.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -49,6 +70,8 @@ from repro_torch.obs import clock as obs_clock
 from repro_torch.obs.metrics import MetricsRegistry, RunningStat, percentiles
 from repro_torch.paging import PagePool
 from repro_torch.serving.queue import Request, RequestQueue
+from repro_torch.serving.sched import ChunkRunner, SchedConfig, SLOQueue
+from repro_torch.serving.sched.slo import plan_chunks
 from repro_torch.serving.slots import SlotPool
 
 # a step this many times slower than the step-time EWMA is a straggler
@@ -57,16 +80,18 @@ _STRAGGLER_FACTOR = 8.0
 
 
 class ContinuousScheduler:
-    """The scheduler of the module docstring. ``tracer``: an
-    ``obs.trace.Tracer``, or None for none. ``cuda_graph=False`` runs the
-    decode step eagerly on the card: it exists only for the same-process
-    A/B against the graph, and no CLI flag sets it. On the CPU the step
-    always runs eagerly."""
+    """The scheduler of the module docstring. ``sched``: a
+    ``SchedConfig``, or None for FIFO whole-prompt admission. ``tracer``:
+    an ``obs.trace.Tracer``, or None for none. ``cuda_graph=False`` runs
+    the decode step and the chunk windows eagerly on the card: it exists
+    only for the same-process A/B against the graphs, and no CLI flag sets
+    it. On the CPU both always run eagerly."""
 
     def __init__(self, cfg: ModelConfig, max_slots: int, max_len: int,
                  eos_id: Optional[int] = None, *, cache: str = "dense",
                  page_size: int = 16, n_pages: int = 0,
                  kv_dtype: Optional[str] = None, prefix_cache: bool = True,
+                 sched: Optional[SchedConfig] = None,
                  device="cuda", tracer=None, cuda_graph: bool = True):
         if cache not in ("dense", "paged"):
             raise ValueError(f"cache must be 'dense' or 'paged', got "
@@ -85,7 +110,10 @@ class ContinuousScheduler:
         self.max_len = max_len
         self.eos_id = eos_id
         self.params = None
-        self.queue = RequestQueue()
+        self.sched = sched
+        chunked = sched is not None and sched.chunked
+        self.queue = (SLOQueue() if sched is not None
+                      and sched.admission == "slo" else RequestQueue())
         if cache == "paged":
             self.pool = PagePool(self.model, max_slots, max_len,
                                  page_size=page_size, n_pages=n_pages,
@@ -96,6 +124,11 @@ class ContinuousScheduler:
                                           device=self.device)
         else:
             self.pool = SlotPool(self.model, max_slots, max_len)
+        self._chunker = (ChunkRunner(self.model, max_len,
+                                     paged=cache == "paged", rows=max_slots)
+                         if chunked else None)
+        self._prefills: Dict[int, Request] = {}      # slot -> mid-prefill
+        self._chunk_meta = None       # the last plan_chunks meta, traced
         self._live: Dict[int, Request] = {}          # slot -> request
         self._pos = np.zeros(max_slots, np.int32)    # host mirrors
         self._tok = np.zeros(max_slots, np.int32)
@@ -109,7 +142,8 @@ class ContinuousScheduler:
         self.cuda_graph = cuda_graph
         self._graph: Optional[graphs.CapturedStep] = None
         # the logits (max_slots, V) of the latest decode step; under the
-        # graph, the graph's own output tensor, rewritten by each replay
+        # graph, the graph's own output tensor, valid only until the next
+        # replay of any graph of the engine (clone it to keep it)
         self.last_logits: Optional[torch.Tensor] = None
         self._finished: List[Request] = []
         self._depth_stat = RunningStat("queue_depth")
@@ -118,21 +152,38 @@ class ContinuousScheduler:
     # ------------------------------------------------------------------
     def load(self, params) -> None:
         """Install params (already on this engine's device; they must
-        outlive the engine, whose graph reads them in place). On the card,
+        outlive the engine, whose graphs read them in place). On the card,
         capture the decode step into a CUDA graph, after eager warm-up
         steps on the free slots: their writes land where free slots'
         garbage always lands (rows the next insert overwrites, or the paged
-        pool's trash page). A failed capture raises."""
-        if self._live:
+        pool's trash page). Chunked, then run every window shape (slots,
+        2^i), 2^i <= min(step budget, max_len), once with garbage rows
+        only, capturing each on the card; the graphs share one memory pool
+        (``ChunkRunner.warmup``). A failed capture raises."""
+        if self._live or self._prefills:
             raise RuntimeError("load() while requests are live")
         self.params = params
         self._graph = None
-        if self.device.type == "cuda" and self.cuda_graph:
+        graphed = self.device.type == "cuda" and self.cuda_graph
+        mempool = torch.cuda.graph_pool_handle() if graphed else None
+        if graphed:
             self._dirty = True
             self._push_host_state()
             with ops.serving_phase("decode"):
-                self._graph = graphs.CapturedStep(self._decode_step)
+                self._graph = graphs.CapturedStep(
+                    self._decode_step, capture=functools.partial(
+                        graphs.cuda_graph_capture, pool=mempool))
             self._dirty = True        # the warm-up moved pos and tok
+        if self._chunker is not None:
+            smax = min(self.sched.budget_for(self.max_slots), self.max_len)
+            self._chunker.warmup(
+                params, self.pool, [1 << i for i in range(smax.bit_length())],
+                cuda_graph=graphed, graph_pool=mempool)
+
+    @property
+    def chunker(self) -> Optional[ChunkRunner]:
+        """The chunk-window runner (None unless chunked)."""
+        return self._chunker
 
     @torch.no_grad()
     def _prefill(self, toks: torch.Tensor):
@@ -174,19 +225,24 @@ class ContinuousScheduler:
             self._dev_table.copy_(torch.from_numpy(self.pool.table))
             self.pool.table_dirty = False
 
-    def submit(self, prompt: np.ndarray, max_new: int) -> Request:
+    def submit(self, prompt: np.ndarray, max_new: int, *, slo=None,
+               submit_t: Optional[float] = None) -> Request:
+        """Queue a request. ``slo``: its ``SLOClass`` (None: best effort);
+        ``submit_t``: the arrival to stamp (default now)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size + max_new > self.max_len:
             raise ValueError(f"prompt {prompt.size} + gen {max_new} exceeds "
                              f"max_len {self.max_len}")
-        req = self.queue.submit(prompt, max_new, eos_id=self.eos_id)
+        req = self.queue.submit(prompt, max_new, eos_id=self.eos_id,
+                                slo=slo, submit_t=submit_t)
         tr = self.tracer
         if tr is not None:
             tr.thread_name(self._trace_pid, req.rid + 1, f"req {req.rid}")
             tr.instant("submit", t=req.submit_t, cat="request",
                        pid=self._trace_pid, tid=req.rid + 1,
                        args={"rid": req.rid, "prompt_len": req.prompt_len,
-                             "max_new": max_new, "slo": None})
+                             "max_new": max_new,
+                             "slo": slo.name if slo is not None else None})
         return req
 
     # ------------------------------------------------------------------
@@ -199,7 +255,8 @@ class ContinuousScheduler:
         tr.complete("queue_wait", req.submit_t, req.admit_t,
                     cat="request", pid=pid, tid=tid, args={"rid": req.rid})
         tr.complete("prefill", req.admit_t, req.first_token_t,
-                    cat="request", pid=pid, tid=tid, args={"rid": req.rid})
+                    cat="request", pid=pid, tid=tid,
+                    args={"rid": req.rid, "chunks": req.chunks})
         tr.instant("first_token", t=req.first_token_t, cat="request",
                    pid=pid, tid=tid, args={"rid": req.rid})
 
@@ -252,12 +309,20 @@ class ContinuousScheduler:
             if req.done:
                 self._evict(slot)
 
-    def _admit_paged(self) -> None:
+    def _head_ready(self, now: float) -> bool:
+        """Admission gate: the queue holds a request past its
+        ``not_before``. A gated head stalls admission for this step rather
+        than being skipped."""
+        if self.queue.empty():
+            return False
+        return self.queue.peek().not_before <= now
+
+    def _admit_paged(self, now: float) -> None:
         """Admit a request only when the page pool covers its whole prompt
         (shared prefix pages, fresh pages, reclaimed cold prefix pages). A
         request the pool cannot place now *defers*: admission stops for
         this step and retries after evictions free pages."""
-        while not self.queue.empty() and self.pool.n_free:
+        while self._head_ready(now) and self.pool.n_free:
             adm = self.pool.admit(self.queue.peek().prompt)
             if adm is None:
                 self.deferrals += 1
@@ -266,7 +331,7 @@ class ContinuousScheduler:
             group = [(self.queue.pop(), adm.slot, adm)]
             plen = group[0][0].prompt_len
             deferred = False
-            while (not self.queue.empty() and self.pool.n_free
+            while (self._head_ready(now) and self.pool.n_free
                    and self.queue.peek().prompt_len == plen):
                 nxt = self.pool.admit(self.queue.peek().prompt)
                 if nxt is None:
@@ -278,26 +343,57 @@ class ContinuousScheduler:
             if deferred:     # already counted: no second attempt this step
                 return
 
+    def _admit_chunked(self, now: float) -> None:
+        """Chunked admission: grant a slot (and, paged, the prompt's pages,
+        private ones only: ``PagePool.admit(use_prefix=False)``) the moment
+        one is free; no forward runs here. The request enters
+        ``_prefills`` at ``prefill_pos`` 0 and streams its prompt in
+        through ``_run_chunks`` over the next steps."""
+        while self._head_ready(now) and self.pool.n_free:
+            req = self.queue.peek()
+            if self.cache_mode == "paged":
+                adm = self.pool.admit(req.prompt, use_prefix=False)
+                if adm is None:
+                    self.deferrals += 1
+                    self._trace_req(req, "defer")
+                    return
+                slot = adm.slot
+            else:
+                slot = self.pool.alloc()
+            self.queue.pop()
+            req.slot = slot
+            req.state = "live"
+            req.prefill_pos = 0
+            req.admit_t = obs_clock.now()
+            self._prefills[slot] = req
+            self._trace_req(req, "admit", t=req.admit_t, slot=slot)
+
     def _admit(self) -> None:
-        if self.cache_mode == "paged":
-            self._admit_paged()
+        now = obs_clock.now()
+        if self._chunker is not None:
+            self._admit_chunked(now)
             return
-        while not self.queue.empty() and self.pool.n_free:
-            # grouped admission: a FIFO run of equal-length prompts (up to
-            # the free-slot count) prefills as one batch
+        if self.cache_mode == "paged":
+            self._admit_paged(now)
+            return
+        while self._head_ready(now) and self.pool.n_free:
+            # grouped admission: a run of equal-length prompts in queue
+            # order (up to the free-slot count) prefills as one batch
             group = [self.queue.pop()]
             plen = group[0].prompt_len
-            while (len(group) < self.pool.n_free and not self.queue.empty()
+            while (len(group) < self.pool.n_free and self._head_ready(now)
                    and self.queue.peek().prompt_len == plen):
                 group.append(self.queue.pop())
             self._prefill_group(
                 [(req, self.pool.alloc(), None) for req in group])
 
     def _release_slot(self, slot: int) -> Request:
-        """Common tail of every live-slot exit: pop the request, return the
-        slot's cache (pages or dense row) to its pool, zero the host
-        mirrors."""
-        req = self._live.pop(slot)
+        """Common tail of every live-slot exit: pop the request (from the
+        decode batch or the mid-prefill set), return the slot's cache
+        (pages or dense row) to its pool, zero the host mirrors."""
+        req = self._live.pop(slot, None)
+        if req is None:
+            req = self._prefills.pop(slot)
         req.slot = None
         self._pos[slot] = 0
         self._tok[slot] = 0
@@ -327,11 +423,13 @@ class ContinuousScheduler:
     def _preempt(self, slot: int) -> None:
         """Paged OOM recovery: release the slot's pages and replay the
         request from its prompt later, re-queued at the head. Greedy decode
-        is deterministic, so the replay regenerates the same tokens."""
+        is deterministic, so the replay regenerates the same tokens (a
+        chunked replay restarts its prefill at position 0)."""
         req = self._release_slot(slot)
         req.tokens.clear()
         req.first_token_t = None
         req.admit_t = None            # re-stamped at the retry admission
+        req.prefill_pos = 0           # chunked prefill restarts from 0
         self.queue.push_front(req)
         self.preemptions += 1
         self._trace_req(req, "preempt", slot=slot)
@@ -350,22 +448,89 @@ class ContinuousScheduler:
                 if self.pool.ensure_append(slot, int(self._pos[slot]) + p):
                     p += 1
                     continue
-                victim = next(reversed(self._live))
+                # mid-prefill slots go first: they have produced no token,
+                # so their replay wastes the least work, and a decoding
+                # slot still outranks every prefill
+                victim = (next(reversed(self._prefills)) if self._prefills
+                          else next(reversed(self._live)))
                 self._preempt(victim)
                 if victim == slot:
                     break
 
+    def _run_chunks(self) -> None:
+        """Advance every mid-prefill slot by its planned chunk: budget the
+        step's residual tokens across ``_prefills`` (``plan_chunks``), run
+        one window, then commit. A request whose prompt completes reads its
+        first token at its last real window position and joins the decode
+        batch."""
+        if not self._prefills:
+            self._chunk_meta = None
+            return
+        tpots = [r.slo.tpot_target_s for r in self._live.values()
+                 if r.slo is not None
+                 and getattr(r.slo, "tpot_target_s", None) is not None]
+        jobs, meta = plan_chunks(
+            list(self._prefills.items()), cfg=self.sched,
+            budget=self.sched.budget_for(self.max_slots),
+            n_decode_tokens=len(self._live), max_len=self.max_len,
+            now=obs_clock.now(), step_s=self._step_time.value or 0.0,
+            tpot_floor=min(tpots) if tpots else None)
+        self._chunk_meta = meta
+        if not jobs:
+            return
+        t_window = obs_clock.now()
+        greedy = self._chunker.advance(self.params, self.pool, jobs,
+                                       self._pos)
+        self.chunk_steps += 1
+        now = obs_clock.now()
+        tr = self.tracer
+        if tr is not None:
+            # the greedy read in advance() is the sync point
+            tr.complete("chunk_window", t_window, now, cat="kernel",
+                        pid=self._trace_pid,
+                        args={"rows": len(jobs),
+                              "tokens": sum(c for _, _, c in jobs),
+                              "m": self.max_slots * meta["window"], **meta})
+        for i, (slot, req, c) in enumerate(jobs):
+            if tr is not None:
+                tr.complete("chunk", t_window, now, cat="request",
+                            pid=self._trace_pid, tid=req.rid + 1,
+                            args={"rid": req.rid, "tokens": c,
+                                  "pos": req.prefill_pos})
+            req.prefill_pos += c
+            req.chunks += 1
+            self.chunk_tokens_committed += c
+            # the slot's garbage decode lane follows the prefill frontier
+            self._pos[slot] = req.prefill_pos
+            self._dirty = True
+            if req.prefill_pos >= req.prompt_len:
+                tok = int(greedy[i, c - 1])
+                del self._prefills[slot]
+                self._live[slot] = req
+                req.tokens.append(tok)
+                req.first_token_t = now
+                self._tok[slot] = tok
+                self.prefill_completions += 1
+                if tr is not None:
+                    self._trace_first_token(req)
+                if req.done:             # max_new == 1 (or instant EOS)
+                    self._evict(slot)
+
     def step(self) -> None:
-        """One iteration: admit (+ prefill), grow pages, decode every slot,
-        evict."""
+        """One iteration: admit (+ prefill, or advance the chunked
+        prefills), grow pages, decode every slot, evict."""
         t_step = obs_clock.now()
         self._depth_stat.push(self.queue.depth())
         self._admit()
+        if self._chunker is not None:
+            self._run_chunks()
         if self.cache_mode == "paged":
             self._grow_paged(1)
         if not self._live:
+            if self._prefills:       # a chunk-only step did real work
+                self._note_step_time(t_step)
             return
-        self._live_stat.push(len(self._live))
+        self._live_stat.push(len(self._live) + len(self._prefills))
         self._push_host_state()
         t_decode = obs_clock.now()
         with ops.serving_phase("decode"):
@@ -406,19 +571,26 @@ class ContinuousScheduler:
         if straggler:
             tr.instant("straggler_step", pid=self._trace_pid,
                        args={"dt_s": round(dt, 6), "ewma_s": round(prev, 6)})
-        # the port has no chunked prefill, so nothing is ever mid-prefill
         tr.counter("sched", {"queue_depth": self.queue.depth(),
                              "live_slots": len(self._live),
-                             "prefilling": 0}, pid=self._trace_pid)
+                             "prefilling": len(self._prefills)},
+                   pid=self._trace_pid)
         util = {"step_ms": round(dt * 1e3, 3)}
         if self.cache_mode == "paged":
             util["free_page_frac"] = round(
                 self.pool.n_free_pages / self.pool.usable_pages, 4)
+        meta = self._chunk_meta
+        if meta is not None:
+            util["token_budget_util"] = round(min(1.0, (
+                meta["assigned"] + meta["decode_tokens"])
+                / max(meta["budget"], 1)), 4)
         tr.counter("util", util, pid=self._trace_pid)
 
     # ------------------------------------------------------------------
     def has_work(self) -> bool:
-        return bool(self.queue) or bool(self._live)
+        """Anything queued, mid-prefill or decoding: the loop condition of
+        an external loop (``serving.traffic.run_open_loop``)."""
+        return bool(self.queue) or bool(self._live) or bool(self._prefills)
 
     def begin_metrics(self) -> Dict[str, Any]:
         """Snapshot the cumulative counters and reset the windowed stats.
@@ -430,12 +602,19 @@ class ContinuousScheduler:
         self._depth_stat = RunningStat("queue_depth")
         self._live_stat = RunningStat("live_slots")
         return {"t0": obs_clock.now(), "n0": self.total_drained,
-                "p0": self.prefill_steps, "d0": self.decode_steps}
+                "p0": self.prefill_steps, "d0": self.decode_steps,
+                "c0": (self.chunk_steps, self.chunk_tokens_committed,
+                       self.prefill_completions)}
 
     def run(self) -> Dict[str, Any]:
         """Drain the queue completely; return the metrics dict."""
         snap = self.begin_metrics()
-        budget = (self.queue.depth() + len(self._live)) * self.max_len + 1
+        budget = (self.queue.depth() + len(self._live)
+                  + len(self._prefills)) * self.max_len + 1
+        if self._chunker is not None:
+            # chunked prefill spends up to prompt_len extra steps a request
+            # (the worst case: the one-token liveness trickle)
+            budget *= 2
         if self.cache_mode == "paged":
             # preempt-and-replay re-runs requests; each replay costs at most
             # max_len extra steps and the oldest-never-preempted rule bounds
@@ -451,12 +630,33 @@ class ContinuousScheduler:
                                f"{self.queue.submitted} were submitted")
         return self.collect_metrics(snap)
 
+    def _slo_report(self, done) -> Optional[Dict[str, Any]]:
+        """Per-class SLO violation counts over a span's finished requests
+        (objectives, not guarantees: this is the scoreboard)."""
+        classes: Dict[str, Dict[str, Any]] = {}
+        for r in done:
+            if r.slo is None:
+                continue
+            ttft_t = getattr(r.slo, "ttft_target_s", None)
+            tpot_t = getattr(r.slo, "tpot_target_s", None)
+            c = classes.setdefault(r.slo.name, {
+                "n": 0, "ttft_target_s": ttft_t, "tpot_target_s": tpot_t,
+                "ttft_violations": 0, "tpot_violations": 0})
+            c["n"] += 1
+            if ttft_t is not None and r.ttft_s is not None \
+                    and r.ttft_s > ttft_t:
+                c["ttft_violations"] += 1
+            if tpot_t is not None and r.tpot_s is not None \
+                    and r.tpot_s > tpot_t:
+                c["tpot_violations"] += 1
+        return classes or None
+
     def collect_metrics(self, snap: Dict[str, Any]) -> Dict[str, Any]:
         """The metrics JSON of the span since ``begin_metrics``: ``repro``'s
-        keys and shapes, with ``mesh``, ``spec`` and ``sched`` None (those
-        features are not ported), and without ``faults`` and
-        ``planned_gemms``."""
+        keys and shapes, with ``mesh`` and ``spec`` None (those features
+        are not ported), and without ``faults`` and ``planned_gemms``."""
         wall = obs_clock.now() - snap["t0"]
+        c0 = snap["c0"]
         done = self._finished[snap["n0"]:]
         gen = sum(len(r.tokens) for r in done)
         ttfts = [r.ttft_s for r in done if r.ttft_s is not None]
@@ -491,7 +691,17 @@ class ContinuousScheduler:
                 "tpot_s": percentiles(r.tpot_s for r in done),
                 "e2e_s": percentiles(r.latency_s for r in done),
             },
-            "sched": None,
+            "sched": (None if self.sched is None else {
+                "chunked_prefill": self._chunker is not None,
+                "chunk_tokens": self.sched.chunk_tokens,
+                "step_token_budget": self.sched.budget_for(self.max_slots),
+                "admission": self.sched.admission,
+                "chunk_steps": self.chunk_steps - c0[0],
+                "chunk_tokens_committed":
+                    self.chunk_tokens_committed - c0[1],
+                "prefill_completions": self.prefill_completions - c0[2],
+                "slo": self._slo_report(done),
+            }),
             "queue_depth": {"max": self._depth_stat.peak,
                             "mean": self._depth_stat.mean},
         }
@@ -501,7 +711,8 @@ class ContinuousScheduler:
 # attribute names (repro's idiom: `eng.total_drained += 1` reads and
 # writes the registry), so `engine.metrics.snapshot()` holds them all.
 _ENGINE_COUNTERS = ("total_drained", "prefill_steps", "decode_steps",
-                    "preemptions", "deferrals")
+                    "preemptions", "deferrals", "chunk_steps",
+                    "chunk_tokens_committed", "prefill_completions")
 
 
 def _counter_property(name: str) -> property:

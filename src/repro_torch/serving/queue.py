@@ -1,7 +1,14 @@
 """Request bookkeeping of the port's continuous-batching engine: one
 ``Request`` per user call and a FIFO ``RequestQueue`` (the counterparts of
-``repro.serving.queue`` without deadlines, retries and SLO classes, which
-are not ported yet). Timestamps come from ``repro_torch.obs.clock``.
+``repro.serving.queue``). Timestamps come from ``repro_torch.obs.clock``,
+the clock the SLO queue, the traffic harness and the tracer read too.
+
+A request carries its SLO class (``slo``, a ``serving.sched.SLOClass`` or
+None for best effort), the queue's enqueue counter (``seq``), the
+re-admission gate ``not_before`` and a deadline (``deadline_s``): what
+``sched.SLOQueue`` orders and expires by. Quarantine retries and their
+reason codes are not ported yet; ``requeue`` is their re-entry point at
+the tail. Chunked prefill advances ``prefill_pos`` and counts ``chunks``.
 """
 from __future__ import annotations
 
@@ -20,7 +27,15 @@ class Request:
     prompt: np.ndarray               # (prompt_len,) int32 token ids
     max_new: int                     # generation budget (tokens)
     eos_id: Optional[int] = None     # early-stop token (None: budget only)
+    deadline_s: Optional[float] = None   # wall-clock budget from submit
+    not_before: float = 0.0          # re-admission gate (retry backoff)
     state: str = "queued"            # queued | live | done
+
+    # the SLO class (duck-typed: ``priority``, ``ttft_target_s``,
+    # ``tpot_target_s``; None = best effort) and the queue's enqueue
+    # counter, re-stamped by ``requeue``
+    slo: Optional[object] = None
+    seq: int = 0
 
     tokens: List[int] = dataclasses.field(default_factory=list)
     slot: Optional[int] = None
@@ -28,6 +43,10 @@ class Request:
     admit_t: Optional[float] = None
     first_token_t: Optional[float] = None
     done_t: Optional[float] = None
+    # chunked prefill: prompt tokens committed so far, and the chunk
+    # windows this request rode in
+    prefill_pos: int = 0
+    chunks: int = 0
 
     @property
     def prompt_len(self) -> int:
@@ -39,6 +58,10 @@ class Request:
             return True
         return bool(self.tokens and self.eos_id is not None
                     and self.tokens[-1] == self.eos_id)
+
+    def expired(self, now: float) -> bool:
+        return (self.deadline_s is not None
+                and now - self.submit_t > self.deadline_s)
 
     @property
     def ttft_s(self) -> Optional[float]:
@@ -85,12 +108,15 @@ class Request:
             "tpot_s": self.tpot_s,
             "latency_s": self.latency_s,
             "state": self.state,
+            "chunks": self.chunks,
+            "slo": self.slo.name if self.slo is not None else None,
         }
 
 
 class RequestQueue:
     """FIFO admission queue; ``submit`` stamps the enqueue time so TTFT
-    includes the queue wait."""
+    includes the queue wait. Preemption replays re-enter at the head,
+    retries at the tail."""
 
     def __init__(self):
         self._q: Deque[Request] = collections.deque()
@@ -98,14 +124,23 @@ class RequestQueue:
         self.submitted = 0
 
     def submit(self, prompt: np.ndarray, max_new: int,
-               eos_id: Optional[int] = None) -> Request:
+               eos_id: Optional[int] = None,
+               deadline_s: Optional[float] = None,
+               slo: Optional[object] = None,
+               submit_t: Optional[float] = None) -> Request:
+        """``submit_t`` lets an open-loop harness stamp the arrival it
+        intended: a blocking engine step delays this call, and stamping it
+        late would hide the queueing delay TTFT measures."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
         req = Request(rid=self._next_rid, prompt=prompt, max_new=max_new,
-                      eos_id=eos_id, submit_t=obs_clock.now())
+                      eos_id=eos_id, deadline_s=deadline_s, slo=slo,
+                      seq=self.submitted,
+                      submit_t=(obs_clock.now() if submit_t is None
+                                else submit_t))
         self._next_rid += 1
         self.submitted += 1
         self._q.append(req)
@@ -116,6 +151,12 @@ class RequestQueue:
         ``submit_t`` and rid; ``submitted`` is not re-counted)."""
         req.state = "queued"
         self._q.appendleft(req)
+
+    def requeue(self, req: Request) -> None:
+        """Re-queue a request at the tail for a retry, behind the work
+        already waiting."""
+        req.state = "queued"
+        self._q.append(req)
 
     def pop(self) -> Request:
         if not self._q:
@@ -128,6 +169,19 @@ class RequestQueue:
 
     def empty(self) -> bool:
         return not self._q
+
+    def take_expired(self, now: float) -> List[Request]:
+        """Remove and return every queued request past its deadline, in
+        rid (submit) order; a replay keeps its rid, so the order holds
+        across ``push_front``."""
+        dead = {r.rid for r in self._q if r.expired(now)}
+        if not dead:
+            return []
+        expired = sorted((r for r in self._q if r.rid in dead),
+                         key=lambda r: r.rid)
+        self._q = collections.deque(
+            r for r in self._q if r.rid not in dead)
+        return expired
 
     def depth(self) -> int:
         return len(self._q)

@@ -801,3 +801,62 @@ def test_decode_graph_matches_eager_decode(cuda, cache):
         eng.step()
         logits.append(eng.last_logits.clone())
     assert torch.equal(*logits)
+
+
+@pytest.mark.parametrize("cache", [{}, {"cache": "paged", "page_size": 8},
+                                   {"cache": "paged", "page_size": 8,
+                                    "kv_dtype": "int8", "n_pages": 14}])
+def test_chunk_windows_graph_matches_eager(cuda, cache):
+    """A reduced packed model with chunked prefill, the windows replayed as
+    CUDA graphs (one a width, captured at load) and run eagerly: equal
+    streams, sched metrics and launches; every captured window launches B1
+    once a projection and for the lm head, B4 once a layer and, paged, B5
+    once a layer; one window's logits bitwise equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import graphs
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousScheduler, SchedConfig
+
+    cfg = get_config("ternary-paper", reduced=True, num_layers=2,
+                     ternary_min_dim=64)
+    cfg, params = serve.build_params(cfg, 0, "cuda", packed=True)
+    prompts, gens = serve.build_workload(cfg, 6, 16, (4, 12), seed=0)
+    sched = SchedConfig(chunk_tokens=4)
+    per_window = {"ternary_gemm": 4 * cfg.num_layers + 1,
+                  "fused_mlp": cfg.num_layers,
+                  "paged_decode_attention": cfg.num_layers if cache else 0}
+    runs = {}
+    for graph in (False, True):
+        eng = ContinuousScheduler(cfg, max_slots=3, max_len=29,
+                                  device="cuda", cuda_graph=graph,
+                                  sched=sched, **cache)
+        eng.load(params)
+        if graph:
+            assert eng.chunker.captured == (1, 2, 4)     # budget 3 + 4
+            for counts in eng.chunker.launches_per_replay.values():
+                assert {k: counts[k] for k in per_window} == per_window
+        before = graphs.read_launches()
+        outs, m = serve.run_continuous(eng, prompts, gens)
+        after = graphs.read_launches()
+        runs[graph] = (outs, m, {k: after[k] - before[k] for k in after})
+        steps = m["decode_steps"] + m["sched"]["chunk_steps"]
+        assert {k: runs[graph][2][k] for k in per_window} == {
+            k: v * steps for k, v in per_window.items()}
+    (eo, em, el), (go, gm, gl) = runs[False], runs[True]
+    for a, b in zip(eo, go):
+        np.testing.assert_array_equal(a, b)
+    assert em["sched"] == gm["sched"] and em["cache"] == gm["cache"]
+    assert el == gl
+
+    logits = []
+    for graph in (False, True):
+        eng = ContinuousScheduler(cfg, max_slots=3, max_len=29,
+                                  device="cuda", cuda_graph=graph,
+                                  sched=sched, **cache)
+        eng.load(params)
+        for p, g in zip(prompts[:3], gens[:3]):
+            eng.submit(p, g)
+        eng.step()
+        logits.append(eng.chunker.last_logits.clone())
+    assert torch.equal(*logits)
+
