@@ -85,6 +85,30 @@ the step-time EWMA; (e) one 8 x 32 window under the profiler, eager and
 graphed; (f) the graphed chunked run's trace through validate_events
 and scripts/trace_report.py.
 
+``faults`` drives the serving fault model, every decode step and window
+graphed: (a) dense, paged bf16 and chunked dense serving workloads under
+a pinned chaos schedule (NaN logits in one live slot at steps 4, 12, 30
+and 45; two page allocations failing at steps 3, 11 and 27, paged; up to
+4 retries): every request done, quarantines = injected NaNs = the
+requests' attempts, the pools reclaimed, launches per replay unchanged
+(B1 49, B4 12, B5 12 paged) and B5's (chunked: all three kernels') =
+those per decode step and window, the streams equal to this process's
+fault-free runs or split at near ties (``_split_check``: a replay may
+prefill in another admission group, so its eager prefill sums in another
+order); (b) no retries with NaN at every step: every request failed with
+``nan_logits``; (c) a 1 s deadline against steps slowed by 20 ms: the
+late requests failed with ``deadline``, queued or live, the others done;
+(d) NaN written into one slot's cache between two graph replays: the
+captured guard flags that slot alone; (e) the guarded decode step's p50
+(decode_graph), device busy and kernels (profiler), reported.
+``tcsc`` runs the paper's TCSC formats on the card (plain PyTorch: no TPU
+kernel computes them) at K = N = 4096, s 1/2 and 1/16, M 8 and 64: each
+format's arrays round-trip, each matmul agrees with the plain dense
+matmul within 1e-4 of max|ref| and with B1 within the kernel bound, and
+is timed beside B1, ``torch.matmul`` on the decoded weights and the plain
+dense matmul (``tcsc summary`` line; not kernels of the port, so not in
+the ``kernels`` line).
+
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 Needs one CUDA device and nvcc (PATH or /usr/local/cuda/bin). Exits
@@ -147,8 +171,9 @@ with the QAT model's within 0.05, the example's own assertion.
 Output: progress lines, each serving run's metrics JSON, a ``serving
 host/device summary`` JSON line (decode_graph's readings, the trace's
 spans, the profiles), one ``{"kernels": ...}`` JSON line (each kernel's launches summed over the
-path runs — serving dense, paged bf16 and int8, the chunked runs,
-mlp_formats, gemm_formats, train and eval — with the per-run counts
+path runs — serving dense, paged bf16 and int8, the chunked runs, the
+faults runs, mlp_formats, gemm_formats, train and eval — with the per-run
+counts
 under ``runs``,
 and its error and times summed over the shapes its path gives
 it, with the per-shape detail under ``shapes``; B6's path gives it the
@@ -284,6 +309,19 @@ B5_WINDOW = dict(b=8, s=32, h=16, kv=16, hd=64, t=13,
 OPEN_LOOP = dict(requests=48, rate=8.0, prompt_lens=(64, 128, 512),
                  gen_lens=(32, 64), burst_size=8, slots=8, max_len=576,
                  class_weights=(0.5, 0.5))
+# faults: the serving workloads under a pinned chaos schedule, graphed
+# (NaN logits in one live slot at these steps, two page allocations
+# failing at those, paged); as many retries as NaN steps, so every
+# request ends done. Then no retries (the first requests, NaN at every
+# step from 2), a deadline against slowed steps, and NaN written into one
+# slot's cache between two replays.
+FAULTS = dict(nan_at=(4, 12, 30, 45), oom_at=(3, 11, 27), oom_burst=2,
+              max_retries=4, fail_requests=4, deadline_s=1.0, slow_s=0.02,
+              poison_slot=3)
+# the paper's TCSC formats at the paper's size (plain PyTorch on the card;
+# M <= 64 keeps the (nnz, M) float32 gather at s 1/2 under 2.2 GB)
+TCSC_CHECK = dict(k=4096, n=4096, sparsities=(0.5, 0.0625), ms=(8, 64),
+                  block=1024, group=4, iters=10)
 # the port's kernels among the device ops, by their CUDA function names
 PORT_KERNEL_NAMES = ("ternary_gemm", "fused_mlp", "paged_attention",
                      "flash_attention", "bitplane")
@@ -1258,14 +1296,15 @@ def chunked_closed_loop(cfg, params, workloads, whole_outs):
     """(a) The serving workloads with chunked prefill: dense and paged
     bf16 streams against the whole-prompt runs' (equal or split at near
     ties), int8 pages at two chunk sizes against each other (equal).
-    Returns the runs' launches and readings."""
+    Returns the runs' launches, readings and token streams."""
     import numpy as np
-    runs, out = {}, {}
+    runs, out, streams = {}, {}, {}
     for label in ("dense", "paged_bf16", "paged_int8"):
         prompts, gens, max_len, kw = workloads[label]
         outs, metrics, runs[f"chunked_{label}"], per_window = chunked_run(
             f"chunked {label}", cfg, params, prompts, gens, max_len,
             CHUNK["tokens"], **kw)
+        streams[label] = outs
         out[label] = {"sched": metrics["sched"], "tok_per_s":
                       metrics["tok_per_s"], "latency": metrics["latency"],
                       "cache": metrics["cache"],
@@ -1286,7 +1325,7 @@ def chunked_closed_loop(cfg, params, workloads, whole_outs):
             out[label]["splits"] = streams_or_near_ties(
                 f"chunked {label} vs whole-prompt", cfg, params, prompts,
                 whole_outs[label], outs)
-    return runs, out
+    return runs, out, streams
 
 
 def chunk_graph_check(cfg, params, workloads):
@@ -1460,9 +1499,10 @@ def chunked_phase(cfg, params, workloads, whole_outs):
     """The chunked-prefill slice on the card: (a) closed loop, (b) eager
     against graph windows, (c) the window shapes' kernel rows, (d) open
     loop, (e) profile, (f) a traced chunked run. Returns the kernel rows,
-    the runs' launches and the readings."""
+    the runs' launches and the closed-loop runs' token streams."""
     t0 = time.perf_counter()
-    runs, closed = chunked_closed_loop(cfg, params, workloads, whole_outs)
+    runs, closed, streams = chunked_closed_loop(cfg, params, workloads,
+                                                whole_outs)
     graph_rows, (tracer, metrics) = chunk_graph_check(cfg, params, workloads)
     trace_spans = trace_check(tracer, metrics, "chunked dense graph")
     del tracer
@@ -1475,7 +1515,277 @@ def chunked_phase(cfg, params, workloads, whole_outs):
                "profiles": profiles}
     print(f"chunked took {time.perf_counter() - t0:.1f}s; summary: "
           + json.dumps(summary), flush=True)
-    return kernel_rows, runs
+    return kernel_rows, runs, streams
+
+
+def _per_step_launches(cfg, paged):
+    """B1, B4 and B5 launches of one decode step or window replay."""
+    return {"ternary_gemm": 4 * cfg.num_layers + 1,
+            "fused_mlp": cfg.num_layers,
+            "paged_decode_attention": cfg.num_layers if paged else 0}
+
+
+def faults_run(label, cfg, params, workload, ref_outs, chunk=0):
+    """One serving workload under the pinned chaos schedule (``FAULTS``),
+    graphed, the launch counters set to 0 just before the run and read
+    just after. Checks: every request done, quarantines = injected NaNs >
+    0 and = the requests' attempts, the page or slot pool fully reclaimed,
+    launches per replay unchanged (B1 49, B4 12, B5 12 paged) and B5's
+    launches = 12 per decode step and window, the streams equal to the
+    fault-free run's of this process or split at a near tie."""
+    import numpy as np
+    from repro_torch.serving import FaultConfig, ResilienceConfig, SchedConfig
+
+    prompts, gens, max_len, kw = workload
+    f = FAULTS
+    paged = kw.get("cache") == "paged"
+    extra = dict(sched=SchedConfig(chunk_tokens=chunk)) if chunk else {}
+    engine = _engine(cfg, params, max_len, True,
+                     faults=FaultConfig(nan_at=f["nan_at"],
+                                        oom_at=f["oom_at"],
+                                        oom_burst=f["oom_burst"]),
+                     resilience=ResilienceConfig(
+                         max_retries=f["max_retries"]), **extra, **kw)
+    per_step = _per_step_launches(cfg, paged)
+    replays = [engine._graph.launches_per_replay]
+    if chunk:
+        replays += list(engine.chunker.launches_per_replay.values())
+    for counts in replays:
+        if {k: counts[k] for k in per_step} != per_step:
+            raise AssertionError(f"faults {label}: a replay launches "
+                                 f"{counts}, expected {per_step}")
+    _zero_counts()
+    reqs = [engine.submit(p, g) for p, g in zip(prompts, gens)]
+    metrics = engine.run()
+    launches = _read_counts()
+    fm = metrics["faults"]
+    steps = metrics["decode_steps"] + (metrics["sched"]["chunk_steps"]
+                                       if chunk else 0)
+    print(f"faults {label}: faults {json.dumps(fm)}, cache "
+          f"{json.dumps(metrics['cache'])}, {steps} decode steps and "
+          f"windows, launches {json.dumps(launches)}", flush=True)
+    if any(r.state != "done" for r in reqs):
+        raise AssertionError(f"faults {label}: not every request is done: "
+                             f"{[(r.rid, r.state, r.fail_reason) for r in reqs]}")
+    if not (fm["quarantines"] == fm["injected"]["nan_logits"]
+            == sum(r.attempts for r in reqs) > 0):
+        raise AssertionError(f"faults {label}: quarantines "
+                             f"{fm['quarantines']}, injected NaNs "
+                             f"{fm['injected']['nan_logits']}, attempts "
+                             f"{sum(r.attempts for r in reqs)}")
+    if paged and fm["injected"]["page_oom"] != len(f["oom_at"]):
+        raise AssertionError(f"faults {label}: {fm['injected']} page OOMs")
+    if not (engine.pool.all_reclaimed if paged else engine.pool.all_free):
+        raise AssertionError(f"faults {label}: the pool is not reclaimed")
+    # whole-prompt prefill launches B1 and B4 too (not B5); a chunked run
+    # launches nothing but its decode steps and windows
+    want = {k: v * steps for k, v in per_step.items()
+            if chunk or k == "paged_decode_attention"}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"faults {label}: launched {launches}, "
+                             f"expected {want}")
+    outs = [np.asarray(r.tokens, np.int32) for r in reqs]
+    splits = streams_or_near_ties(f"faults {label} vs fault-free", cfg,
+                                  params, prompts, ref_outs, outs)
+    return launches, {"faults": fm, "decode_steps": metrics["decode_steps"],
+                      "attempts": [r.attempts for r in reqs],
+                      "cache": metrics["cache"], "splits": len(splits),
+                      "tok_per_s": metrics["tok_per_s"]}
+
+
+def faults_terminal_runs(cfg, params, workload):
+    """A NaN at every step from step 2 with no retries: every request ends
+    failed with nan_logits. Then every step slowed by FAULTS["slow_s"]
+    against a FAULTS["deadline_s"] deadline: the requests that cannot
+    finish in time end failed with "deadline", queued or live. Both
+    graphed dense, counters set to 0 before each and read after."""
+    from repro_torch.serving import FaultConfig, ResilienceConfig
+
+    prompts, gens, max_len, kw = workload
+    f = FAULTS
+    runs, out = {}, {}
+    n = f["fail_requests"]
+    engine = _engine(cfg, params, max_len, True,
+                     faults=FaultConfig(nan_at=tuple(range(2, 1000))),
+                     resilience=ResilienceConfig(max_retries=0), **kw)
+    _zero_counts()
+    reqs = [engine.submit(p, g) for p, g in zip(prompts[:n], gens[:n])]
+    fm = engine.run()["faults"]
+    runs["faults_no_retries"] = _read_counts()
+    if not (all(r.state == "failed" and r.fail_reason == "nan_logits"
+                for r in reqs)
+            and fm["failed_requests"] == fm["quarantines"] == n
+            and engine.pool.all_free):
+        raise AssertionError(f"faults, no retries: {fm}, "
+                             f"{[(r.state, r.fail_reason) for r in reqs]}")
+    out["no_retries"] = fm
+    print(f"faults, no retries: all {n} requests failed with nan_logits, "
+          f"slots reclaimed; {json.dumps(fm)}", flush=True)
+    del engine
+
+    engine = _engine(cfg, params, max_len, True,
+                     faults=FaultConfig(slow_at=tuple(range(1, 100_000)),
+                                        slow_s=f["slow_s"]),
+                     resilience=ResilienceConfig(deadline_s=f["deadline_s"]),
+                     **kw)
+    _zero_counts()
+    reqs = [engine.submit(p, g) for p, g in zip(prompts, gens)]
+    fm = engine.run()["faults"]
+    runs["faults_deadline"] = _read_counts()
+    late = [r for r in reqs if r.fail_reason == "deadline"]
+    done = [r for r in reqs if r.state == "done"]
+    if not (late and len(late) + len(done) == len(reqs)
+            and fm["degradations"]["deadline_cancellations"] == len(late)
+            and all(len(r.tokens) == g for r, g in zip(reqs, gens)
+                    if r.state == "done")
+            and engine.pool.all_free):
+        raise AssertionError(f"faults, deadline: {fm}, "
+                             f"{[(r.state, r.fail_reason) for r in reqs]}")
+    out["deadline"] = {"done": len(done), "deadline": len(late),
+                       "cancelled_live": sum(r.first_token_t is not None
+                                             for r in late), "faults": fm}
+    print(f"faults, deadline {f['deadline_s']} s at {f['slow_s']} s a step: "
+          + json.dumps(out["deadline"]), flush=True)
+    return runs, out
+
+
+def poison_check(cfg, params, workload):
+    """NaN written into one live slot's K (last layer, position 0) between
+    two replays of the captured decode step: the graph's guard flags that
+    slot alone, which is quarantined while the others commit."""
+    import torch
+    prompts, _, max_len, kw = workload
+    engine = _engine(cfg, params, max_len, True, **kw)
+    for p in prompts[:SERVE["slots"]]:
+        engine.submit(p, max_len - len(p))
+    _decode_only_step(engine)
+    victim = FAULTS["poison_slot"]
+    before = {s: len(r.tokens) for s, r in engine._live.items()}
+    engine.pool.layers[-1]["k"][victim, 0] = float("nan")
+    engine.step()
+    torch.cuda.synchronize()
+    ok = engine._dev_ok.cpu().tolist()
+    finite = torch.isfinite(engine.last_logits).all(dim=-1).cpu().tolist()
+    others = [s for s in before if s != victim]
+    if not (engine.quarantines == 1 and victim not in engine._live
+            and ok == [int(s != victim) for s in range(SERVE["slots"])]
+            and finite == [s != victim for s in range(SERVE["slots"])]
+            and all(len(engine._live[s].tokens) == before[s] + 1
+                    for s in others)):
+        raise AssertionError(f"poison: quarantines {engine.quarantines}, "
+                             f"guard {ok}, finite rows {finite}")
+    print(f"faults poison: NaN in slot {victim}'s cache flagged by the "
+          f"captured guard ({ok}), that slot alone quarantined", flush=True)
+    return {"slot": victim, "guard": ok}
+
+
+def faults_phase(cfg, params, workloads, ref_streams, graph_rows,
+                 profile_rows):
+    """The serving fault model on the card, graphed: dense, paged bf16 and
+    chunked dense under the pinned chaos schedule, the terminal runs (no
+    retries; deadlines), the cache-poison check, and the guarded decode
+    step's readings from decode_graph and the profiler. Returns the runs'
+    launches."""
+    t0 = time.perf_counter()
+    runs, summary = {}, {}
+    for label, wl, chunk in (("dense", "dense", 0),
+                             ("paged_bf16", "paged_bf16", 0),
+                             ("chunked_dense", "dense", CHUNK["tokens"])):
+        runs[f"faults_{label}"], summary[label] = faults_run(
+            label, cfg, params, workloads[wl], ref_streams[label], chunk)
+    term_runs, summary["terminal"] = faults_terminal_runs(
+        cfg, params, workloads["dense"])
+    runs.update(term_runs)
+    summary["poison"] = poison_check(cfg, params, workloads["dense"])
+    prof = profile_rows["decode dense graph"]
+    summary["guarded_step"] = {
+        "decode_step_p50_ms": graph_rows["dense"]["graph"][
+            "decode_step_p50_ms"],
+        "device_busy_us": prof["device_busy_us"],
+        "kernels": prof["kernels"],
+        "unprofiled_wall_us": prof.get("unprofiled_wall_us")}
+    print(f"faults took {time.perf_counter() - t0:.1f}s; summary: "
+          + json.dumps(summary), flush=True)
+    return runs
+
+
+def tcsc_phase(flush):
+    """The paper's TCSC formats on the card (plain PyTorch: no TPU kernel
+    computes them) at K = N = 4096, s 1/2 and 1/16, M 8 and 64: each
+    format's arrays round-trip to the matrix; each matmul (f32 in and
+    out) agrees with ``ternary_matmul_dense`` within 1e-4 of max|ref| and
+    with B1 through ``ops`` on the same bf16 inputs within the kernel
+    bound; each timed beside B1, ``torch.matmul`` on the decoded bf16
+    weights and the plain dense matmul. Returns the rows."""
+    import numpy as np
+    import torch
+    from repro_torch.core import formats, weights
+    from repro_torch.kernels import ops, ref
+
+    tc = TCSC_CHECK
+    k, n = tc["k"], tc["n"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    fns = {"tcsc": ref.tcsc_matmul, "blocked": ref.tcsc_matmul_blocked,
+           "interleaved": ref.tcsc_matmul_interleaved}
+    rows = []
+    for s in tc["sparsities"]:
+        w = torch.from_numpy(formats.random_ternary(
+            np.random.default_rng(SEED + 30), k, n, s)).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fmts = {"tcsc": formats.TCSC.from_dense(w),
+                "blocked": formats.BlockedTCSC.from_dense(w, tc["block"]),
+                "interleaved": formats.InterleavedTCSC.from_dense(
+                    w, tc["group"])}
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        for name, fmt in fmts.items():
+            if not torch.equal(fmt.to_dense(), w):
+                raise AssertionError(f"tcsc: {name} at s {s} does not "
+                                     f"round-trip")
+        nnz = int((w != 0).sum())
+        w32, w16 = w.float(), w.to(torch.bfloat16)
+        packed = weights.pack(w, "dense2bit",
+                              scale=torch.ones(n, device="cuda"))
+        for m in tc["ms"]:
+            x = torch.randn(m, k, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            x32 = x.float()
+            dense = ref.ternary_matmul_dense(x32, w32)
+            b1 = ops.ternary_gemm(x, packed)
+            common = {
+                "sparsity": s, "m": m, "k": k, "n": n, "nnz": nnz,
+                "b1_ms": cuda_ms(lambda: ops.ternary_gemm(x, packed),
+                                 tc["iters"], flush),
+                "library_ms": cuda_ms(lambda: torch.matmul(x, w16),
+                                      tc["iters"], flush),
+                "plain_ms": cuda_ms(
+                    lambda: ref.ternary_matmul_dense(x32, w32),
+                    tc["iters"], flush)}
+            for name, fn in fns.items():
+                fmt = fmts[name]
+                y = fn(x32, fmt)
+                scale = float(dense.abs().max())
+                err = float((y - dense).abs().max())
+                if not bool(torch.isfinite(y).all()) or err > 1e-4 * scale:
+                    raise AssertionError(f"tcsc {name} s {s} M {m}: max |d| "
+                                         f"{err} against the dense matmul "
+                                         f"(max |ref| {scale})")
+                err_b1 = check_close(f"B1 vs {name} s {s} M {m}", b1, y)
+                nbytes = m * k * 4 + fmt.nbytes() + m * n * 4
+                row = dict(common, format=name,
+                           ms=cuda_ms(lambda: fn(x32, fmt), tc["iters"],
+                                      flush),
+                           max_abs_err=err, max_abs_err_b1=err_b1,
+                           nbytes=fmt.nbytes(), build_s=build_s)
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    nbytes, float(m) * nnz, F32_OPS_PER_S)
+                rows.append(row)
+                print(f"tcsc {name} s {s} M {m}: " + json.dumps(row),
+                      flush=True)
+        del fmts, w, w32, w16, packed
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _union(intervals):
@@ -2648,10 +2958,14 @@ def main() -> int:
     print("serving host/device summary: " + json.dumps(
         {"decode_graph": graph_rows, "trace_spans": trace_spans,
          "profiles": profile_rows}), flush=True)
-    chunk_rows, chunk_runs = chunked_phase(
+    chunk_rows, chunk_runs, chunk_streams = chunked_phase(
         cfg, params, workloads,
         {"dense": dense_outs, "paged_bf16": bf16_outs})
     runs.update(chunk_runs)
+    runs.update(faults_phase(
+        cfg, params, workloads,
+        {"dense": dense_outs, "paged_bf16": bf16_outs,
+         "chunked_dense": chunk_streams["dense"]}, graph_rows, profile_rows))
     for name, rows in chunk_rows.items():
         shapes[name] += rows
     mlp_rows, runs["mlp_formats"] = mlp_formats_phase(cfg, params, prompts,
@@ -2662,6 +2976,7 @@ def main() -> int:
     format_rows, runs["gemm_formats"] = gemm_formats_phase(flush)
     k_sweep = format_rows.pop("k_sweep")
     shapes.update(format_rows)
+    print("tcsc summary: " + json.dumps(tcsc_phase(flush)), flush=True)
     shapes["flash_attention"] = flash_kernel_phase(flush, build)
     del flush
     torch.cuda.empty_cache()

@@ -1,6 +1,11 @@
-"""Ternary weight formats of the port: 2-bit words, tile-occupancy packs,
-bitplanes and base-3 bytes (the port's copy of ``repro.core.formats``; the
-TCSC baselines are not ported yet).
+"""Ternary weight formats of the port: the paper's TCSC baselines (``TCSC``,
+``BlockedTCSC``, ``InterleavedTCSC``), 2-bit words, tile-occupancy packs,
+bitplanes and base-3 bytes (the port's copy of ``repro.core.formats``).
+
+TCSC arrays are ``int32`` tensors on the weight's device, element for
+element ``repro``'s numpy arrays; the builders are vectorized (``nonzero``
+over the transposed sign masks lists entries column-major, each column's
+rows ascending: ``repro``'s per-column loop order).
 
 2-bit codes: 0 -> 0, 1 -> +1, 2 -> -1 (3 unused); ``decode(c) = (c & 1) -
 ((c >> 1) & 1)``. Sixteen consecutive K-entries share one 32-bit word: bits
@@ -26,7 +31,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["K_PER_WORD", "K_PER_BYTE", "pack_2bit", "decode_2bit",
+__all__ = ["TCSC", "BlockedTCSC", "InterleavedTCSC",
+           "K_PER_WORD", "K_PER_BYTE", "pack_2bit", "decode_2bit",
            "TiledTernary", "pack_bitplanes", "decode_bitplanes",
            "base3_lut", "pack_base3", "decode_base3", "random_ternary",
            "random_tile_ternary"]
@@ -92,6 +98,175 @@ def _pad_rows(w: torch.Tensor, mult: int) -> torch.Tensor:
                       device=w.device)
     out[..., :k, :] = w
     return out
+
+
+def _segments(counts: torch.Tensor, total: int) -> torch.Tensor:
+    """Segment id of every entry: ``i`` repeated ``counts[i]`` times
+    (``total`` entries, given so the card needs no sync)."""
+    ids = torch.arange(len(counts), dtype=torch.int32, device=counts.device)
+    return torch.repeat_interleave(ids, counts, output_size=total)
+
+
+def _starts(counts: torch.Tensor) -> torch.Tensor:
+    """(len + 1,) int32 exclusive prefix sum: the segments' offsets."""
+    out = torch.zeros(len(counts) + 1, dtype=torch.int64,
+                      device=counts.device)
+    out[1:] = torch.cumsum(counts, 0)
+    return out.to(torch.int32)
+
+
+def _column_entries(mask: torch.Tensor):
+    """Entries of a (K, N) bool mask, column-major, rows ascending: (rows
+    int32, columns int64, per-column counts int64)."""
+    col, row = torch.nonzero(mask.T, as_tuple=True)
+    counts = torch.bincount(col, minlength=mask.shape[1])
+    return row.to(torch.int32), col, counts
+
+
+# ---------------------------------------------------------------------------
+# TCSC -- the paper's baseline format
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TCSC:
+    """Ternary Compressed Sparse Column. Column j's +1 rows are
+    ``row_index_pos[col_start_pos[j]:col_start_pos[j+1]]``, its -1 rows
+    ``row_index_neg[col_start_neg[j]:col_start_neg[j+1]]``; the sign is
+    the array, no value array exists."""
+
+    col_start_pos: torch.Tensor  # (N+1,) int32
+    col_start_neg: torch.Tensor  # (N+1,) int32
+    row_index_pos: torch.Tensor  # (nnz_pos,) int32
+    row_index_neg: torch.Tensor  # (nnz_neg,) int32
+    shape: Tuple[int, int]       # (K, N)
+
+    @classmethod
+    def from_dense(cls, w) -> "TCSC":
+        """From a (K, N) ternary matrix (a tensor, or numpy for the CPU)."""
+        w = _as_tensor(w)
+        rows_p, _, counts_p = _column_entries(w > 0)
+        rows_n, _, counts_n = _column_entries(w < 0)
+        return cls(_starts(counts_p), _starts(counts_n), rows_p, rows_n,
+                   tuple(w.shape))
+
+    def segment_ids_pos(self) -> torch.Tensor:
+        return _segments(torch.diff(self.col_start_pos),
+                         len(self.row_index_pos))
+
+    def segment_ids_neg(self) -> torch.Tensor:
+        return _segments(torch.diff(self.col_start_neg),
+                         len(self.row_index_neg))
+
+    def to_dense(self) -> torch.Tensor:
+        w = torch.zeros(self.shape, dtype=torch.int8,
+                        device=self.row_index_pos.device)
+        w[self.row_index_pos.long(), self.segment_ids_pos().long()] = 1
+        w[self.row_index_neg.long(), self.segment_ids_neg().long()] = -1
+        return w
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (
+            self.col_start_pos, self.col_start_neg, self.row_index_pos,
+            self.row_index_neg))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BlockedTCSC:
+    """TCSC block by block along K (block size B): ``blocks[b]`` is the
+    TCSC of rows [b·B, (b+1)·B), its row indices relative to the block's
+    base, so each block's gather window is [0, B) (the paper's locality
+    property)."""
+
+    block_size: int
+    blocks: Tuple[TCSC, ...]
+    shape: Tuple[int, int]
+
+    @classmethod
+    def from_dense(cls, w, block_size: int = 4096) -> "BlockedTCSC":
+        w = _as_tensor(w)
+        k, n = w.shape
+        return cls(block_size,
+                   tuple(TCSC.from_dense(w[b0:b0 + block_size])
+                         for b0 in range(0, k, block_size)), (k, n))
+
+    def to_dense(self) -> torch.Tensor:
+        return torch.cat([b.to_dense() for b in self.blocks], dim=0)
+
+    def nbytes(self) -> int:
+        return sum(b.nbytes() for b in self.blocks)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class InterleavedTCSC:
+    """One index vector with the signs interleaved in groups of G. Each
+    column holds three segments: G +1 rows then G -1 rows, repeated while
+    both signs have G left; the remaining +1 rows; the remaining -1 rows.
+    ``col_segment_ptr`` (3N+1,) ends each column's three segments."""
+
+    group: int
+    all_indices: torch.Tensor      # (nnz,) int32
+    col_segment_ptr: torch.Tensor  # (3N+1,) int32
+    shape: Tuple[int, int]
+
+    @classmethod
+    def from_dense(cls, w, group: int = 4) -> "InterleavedTCSC":
+        w = _as_tensor(w)
+        rows_p, col_p, cnt_p = _column_entries(w > 0)
+        rows_n, col_n, cnt_n = _column_entries(w < 0)
+        dev = rows_p.device
+        base = _starts(cnt_p + cnt_n).long()          # each column's start
+        gg = torch.minimum(cnt_p, cnt_n) // group * group  # interleaved / 2
+        # rank of each entry among its column's entries of its sign
+        rank_p = (torch.arange(len(rows_p), device=dev)
+                  - _starts(cnt_p).long()[col_p])
+        rank_n = (torch.arange(len(rows_n), device=dev)
+                  - _starts(cnt_n).long()[col_n])
+        # a ranked entry inside the interleaved groups sits in group pair
+        # rank // G, first half (+1) or second half (-1); past them, in
+        # its sign's remainder segment
+        at_p = torch.where(
+            rank_p < gg[col_p],
+            2 * group * (rank_p // group) + rank_p % group,
+            gg[col_p] + rank_p)
+        at_n = torch.where(
+            rank_n < gg[col_n],
+            2 * group * (rank_n // group) + group + rank_n % group,
+            cnt_p[col_n] + rank_n)
+        idx = torch.empty(len(rows_p) + len(rows_n), dtype=torch.int32,
+                          device=dev)
+        idx[base[:-1][col_p] + at_p] = rows_p
+        idx[base[:-1][col_n] + at_n] = rows_n
+        ends = torch.stack([base[:-1] + 2 * gg, base[:-1] + gg + cnt_p,
+                            base[1:]], dim=1).reshape(-1)
+        ptr = torch.cat([base[:1], ends]).to(torch.int32)
+        return cls(group, idx, ptr, tuple(w.shape))
+
+    def segment_ids(self) -> torch.Tensor:
+        ptr = self.col_segment_ptr
+        return _segments(ptr[3::3] - ptr[:-1:3], len(self.all_indices))
+
+    def signs(self) -> torch.Tensor:
+        """+1/-1 (int8) of every entry of ``all_indices``, from its
+        segment and its place in the interleaved groups."""
+        ptr = self.col_segment_ptr
+        seg = _segments(torch.diff(ptr), len(self.all_indices)).long()
+        offset = (torch.arange(len(self.all_indices), device=ptr.device)
+                  - ptr.long()[seg])
+        kind = seg % 3
+        inter = torch.where((offset // self.group) % 2 == 0, 1, -1)
+        return torch.where(kind == 0, inter,
+                           torch.where(kind == 1, 1, -1)).to(torch.int8)
+
+    def to_dense(self) -> torch.Tensor:
+        w = torch.zeros(self.shape, dtype=torch.int8,
+                        device=self.all_indices.device)
+        w[self.all_indices.long(), self.segment_ids().long()] = self.signs()
+        return w
+
+    def nbytes(self) -> int:
+        return (self.all_indices.numel() * self.all_indices.element_size()
+                + self.col_segment_ptr.numel()
+                * self.col_segment_ptr.element_size())
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,14 @@
-"""Ternary quantization: TWN-style absmean thresholding and its
-straight-through estimator for QAT (the port's copy of
-``repro.core.quantize``'s ``ternarize``, ``ste_ternarize`` and
-``effective_weight``)."""
+"""Ternary quantization: TWN-style absmean thresholding, its exact-sparsity
+variant and the straight-through estimator for QAT (the port's copy of
+``repro.core.quantize``)."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
 
-__all__ = ["ternarize", "ste_ternarize", "effective_weight"]
+__all__ = ["ternarize", "ternarize_target_sparsity", "ste_ternarize",
+           "effective_weight"]
 
 
 def ternarize(w: torch.Tensor, threshold_factor: float = 0.7,
@@ -25,6 +25,48 @@ def ternarize(w: torch.Tensor, threshold_factor: float = 0.7,
     dims = (-2,) if per_channel else (-2, -1)
     delta = threshold_factor * absw.mean(dim=dims, keepdim=True)
     mask = absw > delta
+    t = torch.sign(w) * mask
+    denom = mask.sum(dim=dims, keepdim=True).clamp_min(1)
+    alpha = (absw * mask).sum(dim=dims, keepdim=True) / denom
+    return t.to(torch.int8), alpha.float()
+
+
+def _quantile(a: torch.Tensor, q: float, dim) -> torch.Tensor:
+    """``jax.numpy.quantile(a, q, axis=dim, keepdims=True)`` (linear
+    method) in float32, step for step: sort, position q·(n - 1) in float32,
+    then the two neighbours weighted by the position's fraction. (Per
+    tensor, ``torch.quantile`` refuses more than 2^24 elements; per channel
+    its interpolation rounds otherwise.)"""
+    if dim is None:
+        s, n = a.reshape(-1).sort().values, a.numel()
+        keep = (1,) * a.ndim
+    else:
+        s, n = a.sort(dim=dim).values, a.shape[dim]
+        keep = None
+    f32 = dict(dtype=torch.float32, device=a.device)
+    pos = torch.tensor(q, **f32) * torch.tensor(float(n), **f32).sub(1)
+    low, high = pos.floor(), pos.ceil()
+    hw = pos - low
+    lw = 1 - hw
+    lo, hi = (int(v.clamp(0, n - 1)) for v in (low, high))
+    if dim is None:
+        return (s[lo] * lw + s[hi] * hw).reshape(keep)
+    return (s.narrow(dim, lo, 1) * lw + s.narrow(dim, hi, 1) * hw)
+
+
+def ternarize_target_sparsity(w: torch.Tensor, sparsity: float,
+                              per_channel: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ternarize a (K, N) weight keeping a ``sparsity`` fraction of
+    nonzeros (the paper's convention: sparsity = nnz fraction): the
+    threshold is the (1 - sparsity) |W|-quantile per column (per channel)
+    or over the matrix; ``|W| >= threshold`` survives. Returns (T int8,
+    alpha f32 of shape (1, N) or (1, 1))."""
+    absw = w.abs()
+    dims = (0,) if per_channel else (0, 1)
+    delta = _quantile(absw.float(), 1.0 - sparsity,
+                      0 if per_channel else None)
+    mask = absw >= delta
     t = torch.sign(w) * mask
     denom = mask.sum(dim=dims, keepdim=True).clamp_min(1)
     alpha = (absw * mask).sum(dim=dims, keepdim=True) / denom

@@ -10,6 +10,7 @@ Usage:
   ... --chunked-prefill [--chunk-tokens 32 --step-token-budget N]
   ... --slo-ttft-ms 500 --slo-tpot-ms 100  # the interactive class's targets
   ... --traffic poisson|bursty --arrival-rate 8   # open-loop arrivals
+  ... --chaos [--deadline-s 2 --max-retries 2]    # seeded fault injection
 
 Read a trace with ``python scripts/trace_report.py run.json`` or load it at
 https://ui.perfetto.dev.
@@ -32,7 +33,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import LM
 from repro_torch.models.layers import pack_params
 from repro_torch.obs import Tracer
-from repro_torch.serving import (ContinuousScheduler, SchedConfig, SLOClass,
+from repro_torch.serving import (ContinuousScheduler, FaultConfig,
+                                 ResilienceConfig, SchedConfig, SLOClass,
                                  TrafficConfig, make_schedule, run_open_loop)
 
 
@@ -136,6 +138,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                          "batch classes")
     ap.add_argument("--arrival-rate", type=float, default=8.0,
                     help="--traffic: mean offered load, requests a second")
+    ap.add_argument("--chaos", action="store_true",
+                    help="arm the seeded fault injector (NaN logits, "
+                         "forced page OOM, slow steps at modest rates; "
+                         "seeded from --seed): quarantined requests replay "
+                         "to the tokens of a fault-free run")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help=">0: per-request wall-clock deadline; expired "
+                         "requests are cancelled (queued or live) and "
+                         "drain failed with reason 'deadline'")
+    ap.add_argument("--max-retries", type=int, default=2,
+                    help="quarantine replays a request may take before it "
+                         "ends failed (reason 'nan_logits')")
     ap.add_argument("--trace", default="",
                     help="write a Perfetto-loadable Chrome trace-event JSON "
                          "of the run: per-request lifecycle tracks, prefill "
@@ -171,6 +185,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                        else 0.1),
         priority=0)
     batch_cls = SLOClass("batch", priority=1)
+    faults = None
+    if args.chaos:
+        # repro's rates; the draft rate is drawn but inert without
+        # speculative decoding, which keeps the schedule repro's
+        faults = FaultConfig(seed=args.seed, nan_rate=0.05, oom_rate=0.05,
+                             slow_rate=0.02, slow_s=0.01,
+                             draft_fail_rate=0.05)
+    resilience = ResilienceConfig(
+        deadline_s=args.deadline_s if args.deadline_s > 0 else None,
+        max_retries=args.max_retries)
     sched = None
     if slo_on:
         sched = SchedConfig(
@@ -181,7 +205,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                                  n_pages=args.pages,
                                  kv_dtype=args.kv_dtype or None,
                                  prefix_cache=not args.no_prefix_cache,
-                                 sched=sched, device=device, tracer=tracer)
+                                 sched=sched, faults=faults,
+                                 resilience=resilience, device=device,
+                                 tracer=tracer)
     engine.load(params)
     if args.traffic != "off":
         tc = TrafficConfig(kind=args.traffic, rate=args.arrival_rate,

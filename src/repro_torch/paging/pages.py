@@ -28,8 +28,13 @@ The host ownership model is ``repro``'s, call for call:
 On the device, ``insert`` (prefilled rows into the prompt's pages) and the
 copy-on-write page copy are in-place index writes on the per-layer
 tensors, where ``repro`` returns new arrays; the port's layer list has no
-``n_groups`` axis. Speculative ``truncate`` and fault injection are not
-ported yet.
+``n_groups`` axis. Speculative ``truncate`` is not ported yet.
+
+Fault injection (``inject_alloc_failures``, armed by the engine's
+``FaultInjector``): while ``fault_alloc_failures`` is positive, each page
+allocation of at least one page fails as if the pool were dry and uses up
+one armed failure, through ``admit`` (the engine defers) and
+``ensure_append`` (the engine preempts) alike.
 """
 from __future__ import annotations
 
@@ -112,6 +117,8 @@ class PagePool:
         # ---- stats ----
         self.cow_count = 0
         self.pages_used_peak = 0
+        # armed injected allocation failures (see the module docstring)
+        self.fault_alloc_failures = 0
 
     # ------------------------------------------------------------------
     # Geometry / accounting
@@ -176,7 +183,17 @@ class PagePool:
         self.prefix.unregister_page(pid)
         return pid
 
+    def inject_alloc_failures(self, n: int) -> None:
+        """Arm ``n`` forced allocation failures (chaos testing, from
+        ``serving.faults.FaultInjector``)."""
+        if n < 0:
+            raise ValueError(f"n must be >= 0, got {n}")
+        self.fault_alloc_failures += n
+
     def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        if n > 0 and self.fault_alloc_failures > 0:     # injected OOM
+            self.fault_alloc_failures -= 1
+            return None
         out: List[int] = []
         while len(out) < n:
             if self._free_pages:

@@ -1,7 +1,7 @@
 """Continuous-batching scheduler of the port over the dense slot pool or the
 paged KV pool — the counterpart of ``repro.serving.engine.
-ContinuousScheduler`` (speculative decoding, fault handling and meshes are
-not ported yet).
+ContinuousScheduler`` (speculative decoding and meshes are not ported
+yet).
 
 Each step: **admit** FIFO runs of equal-length prompts into free slots as
 one prefill (the last-position argmax is each request's first token);
@@ -43,9 +43,26 @@ or on the trash page (paged). On the card every window shape (slots,
 all in one memory pool. With ``chunk_tokens=0`` the engine
 prefills whole prompts in SLO order.
 
+Fault tolerance (``repro``'s model; ``serving.faults``): the decode step
+and every chunk window compute a per-row guard, ``ok = all(isfinite(
+logits))``, inside the step (and so inside the captured graphs). A live
+slot whose row is not finite is *quarantined*: its uncommitted token is
+dropped, its slot and pages are released, and the request replays from
+its prompt (greedy decode makes the retry token-exact), up to its retry
+budget, after which it ends ``failed`` with reason ``"nan_logits"``.
+Requests past their deadline are cancelled wherever they are. A
+``FaultConfig`` arms the seeded injector: NaN logits in one live slot
+(through a static mask the decode step reads, all false but in the step
+a fault fires), armed page-allocation failures, slow steps. Admission
+pauses while the paged pool's free fraction is below
+``ResilienceConfig.admission_pause_frac``. The ``faults`` block of the
+metrics reports all of it.
+
 Counters (``total_drained``, ``prefill_steps``, ``decode_steps``,
 ``preemptions``, ``deferrals``, ``chunk_steps``,
-``chunk_tokens_committed``, ``prefill_completions``) live in a
+``chunk_tokens_committed``, ``prefill_completions``, ``quarantines``,
+``fault_retries``, ``failed_requests``, ``admission_pauses``,
+``deadline_cancels``, ``draft_fallbacks``) live in a
 ``MetricsRegistry``
 (``engine.metrics``) behind attributes of those names, beside the
 step-time EWMA (``step_time_s``) and ``straggler_steps``. With a
@@ -57,6 +74,8 @@ per-step counters on the scheduler track, as ``repro``'s does;
 from __future__ import annotations
 
 import functools
+import logging
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -69,10 +88,15 @@ from repro_torch.models import LM
 from repro_torch.obs import clock as obs_clock
 from repro_torch.obs.metrics import MetricsRegistry, RunningStat, percentiles
 from repro_torch.paging import PagePool
+from repro_torch.serving.faults import (FAIL_DEADLINE, FAIL_NUMERIC,
+                                        FaultConfig, FaultInjector,
+                                        ResilienceConfig)
 from repro_torch.serving.queue import Request, RequestQueue
 from repro_torch.serving.sched import ChunkRunner, SchedConfig, SLOQueue
 from repro_torch.serving.sched.slo import plan_chunks
 from repro_torch.serving.slots import SlotPool
+
+log = logging.getLogger("repro_torch.serving")
 
 # a step this many times slower than the step-time EWMA is a straggler
 # (repro's factor: serving steps vary legitimately, prefill against decode)
@@ -81,7 +105,9 @@ _STRAGGLER_FACTOR = 8.0
 
 class ContinuousScheduler:
     """The scheduler of the module docstring. ``sched``: a
-    ``SchedConfig``, or None for FIFO whole-prompt admission. ``tracer``:
+    ``SchedConfig``, or None for FIFO whole-prompt admission. ``faults``:
+    a ``FaultConfig`` arming the injector, or None. ``resilience``: the
+    ``ResilienceConfig`` (default: no deadline, 2 retries). ``tracer``:
     an ``obs.trace.Tracer``, or None for none. ``cuda_graph=False`` runs
     the decode step and the chunk windows eagerly on the card: it exists
     only for the same-process A/B against the graphs, and no CLI flag sets
@@ -92,6 +118,8 @@ class ContinuousScheduler:
                  page_size: int = 16, n_pages: int = 0,
                  kv_dtype: Optional[str] = None, prefix_cache: bool = True,
                  sched: Optional[SchedConfig] = None,
+                 faults: Optional[FaultConfig] = None,
+                 resilience: Optional[ResilienceConfig] = None,
                  device="cuda", tracer=None, cuda_graph: bool = True):
         if cache not in ("dense", "paged"):
             raise ValueError(f"cache must be 'dense' or 'paged', got "
@@ -133,10 +161,18 @@ class ContinuousScheduler:
         self._pos = np.zeros(max_slots, np.int32)    # host mirrors
         self._tok = np.zeros(max_slots, np.int32)
         # static device buffers: the decode step updates them in place and
-        # host pushes copy into them, so a captured graph's pointers hold
+        # host pushes copy into them, so a captured graph's pointers hold.
+        # _dev_out holds the step's outputs, read with one copy: row 0 the
+        # next tokens (_dev_tok, also the step's input), row 1 the guard
+        # (_dev_ok). _dev_nan is the injected-NaN mask, all false but in a
+        # step where a NaN fault fires.
         self._dev_pos = torch.zeros(max_slots, dtype=torch.int32,
                                     device=self.device)
-        self._dev_tok = torch.zeros(max_slots, dtype=torch.int32,
+        self._dev_out = torch.zeros((2, max_slots), dtype=torch.int32,
+                                    device=self.device)
+        self._dev_tok = self._dev_out[0]
+        self._dev_ok = self._dev_out[1]
+        self._dev_nan = torch.zeros(max_slots, dtype=torch.bool,
                                     device=self.device)
         self._dirty = True
         self.cuda_graph = cuda_graph
@@ -148,6 +184,15 @@ class ContinuousScheduler:
         self._finished: List[Request] = []
         self._depth_stat = RunningStat("queue_depth")
         self._live_stat = RunningStat("live_slots")
+        # fault tolerance
+        self.resilience = resilience or ResilienceConfig()
+        self.injector = FaultInjector(faults) if faults is not None else None
+        self._step_no = 0            # 1-based, every step() call counted
+        # requests submitted to this engine: the drain check's count.
+        # (SLOQueue.requeue raises queue.submitted to keep its seq stamps
+        # fresh, as repro's does, so that count is not the submissions.)
+        self.submitted = 0
+        self._any_deadline = self.resilience.deadline_s is not None
 
     # ------------------------------------------------------------------
     def load(self, params) -> None:
@@ -198,9 +243,12 @@ class ContinuousScheduler:
 
     @torch.no_grad()
     def _decode_step(self) -> None:
-        """One token for every slot on the static buffers: reads pos, tok
-        (and the block table), writes the caches in place, then pos + 1 and
-        the next tokens into pos and tok. The CUDA graph captures this."""
+        """One token for every slot on the static buffers: reads pos, tok,
+        the NaN mask (and the block table), writes the caches in place,
+        then pos + 1, the next tokens and each row's finite guard into pos,
+        tok and ok. The CUDA graph captures this. Rows the mask marks
+        become NaN ahead of the guard; an all-false mask leaves the logits
+        bitwise unchanged."""
         cache = {"layers": self.pool.layers,
                  "pos": torch.clamp(self._dev_pos, max=self.max_len - 1)}
         if self.cache_mode == "paged":
@@ -209,8 +257,10 @@ class ContinuousScheduler:
             cache["block_table"] = self._dev_table
         logits, new_cache = self.model.decode_step(self.params, cache,
                                                    self._dev_tok[:, None])
-        self.last_logits = logits[:, 0]
-        self._dev_tok.copy_(self.last_logits.argmax(dim=-1))
+        row = torch.where(self._dev_nan[:, None], float("nan"), logits[:, 0])
+        self.last_logits = row
+        self._dev_ok.copy_(torch.isfinite(row).all(dim=-1))
+        self._dev_tok.copy_(row.argmax(dim=-1))
         self._dev_pos.copy_(new_cache["pos"])
 
     def _push_host_state(self) -> None:
@@ -225,16 +275,28 @@ class ContinuousScheduler:
             self._dev_table.copy_(torch.from_numpy(self.pool.table))
             self.pool.table_dirty = False
 
-    def submit(self, prompt: np.ndarray, max_new: int, *, slo=None,
+    def submit(self, prompt: np.ndarray, max_new: int, *,
+               deadline_s: Optional[float] = None,
+               max_retries: Optional[int] = None, slo=None,
                submit_t: Optional[float] = None) -> Request:
-        """Queue a request. ``slo``: its ``SLOClass`` (None: best effort);
-        ``submit_t``: the arrival to stamp (default now)."""
+        """Queue a request. ``deadline_s``: its wall-clock budget from
+        submit (default ``resilience.deadline_s``); ``max_retries``: its
+        quarantine budget (default ``resilience.max_retries``); ``slo``:
+        its ``SLOClass`` (None: best effort); ``submit_t``: the arrival to
+        stamp (default now)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size + max_new > self.max_len:
             raise ValueError(f"prompt {prompt.size} + gen {max_new} exceeds "
                              f"max_len {self.max_len}")
+        if deadline_s is None:
+            deadline_s = self.resilience.deadline_s
+        if deadline_s is not None:
+            self._any_deadline = True
         req = self.queue.submit(prompt, max_new, eos_id=self.eos_id,
-                                slo=slo, submit_t=submit_t)
+                                deadline_s=deadline_s,
+                                max_retries=max_retries, slo=slo,
+                                submit_t=submit_t)
+        self.submitted += 1
         tr = self.tracer
         if tr is not None:
             tr.thread_name(self._trace_pid, req.rid + 1, f"req {req.rid}")
@@ -253,7 +315,8 @@ class ContinuousScheduler:
         token)."""
         tr, pid, tid = self.tracer, self._trace_pid, req.rid + 1
         tr.complete("queue_wait", req.submit_t, req.admit_t,
-                    cat="request", pid=pid, tid=tid, args={"rid": req.rid})
+                    cat="request", pid=pid, tid=tid,
+                    args={"rid": req.rid, "attempts": req.attempts})
         tr.complete("prefill", req.admit_t, req.first_token_t,
                     cat="request", pid=pid, tid=tid,
                     args={"rid": req.rid, "chunks": req.chunks})
@@ -317,6 +380,24 @@ class ContinuousScheduler:
             return False
         return self.queue.peek().not_before <= now
 
+    def _admission_paused(self) -> bool:
+        """Under page-pool pressure (free fraction below
+        ``admission_pause_frac``) pause admission while live requests
+        drain: shed load before a preempt-and-replay storm."""
+        frac = self.resilience.admission_pause_frac
+        if (not frac or self.cache_mode != "paged"
+                or not (self._live or self._prefills)
+                or self.queue.empty()):
+            return False
+        free = self.pool.n_free_pages / self.pool.usable_pages
+        if free < frac:
+            self.admission_pauses += 1
+            if self.tracer is not None:
+                self.tracer.instant("admission_pause", pid=self._trace_pid,
+                                    args={"free_page_frac": round(free, 4)})
+            return True
+        return False
+
     def _admit_paged(self, now: float) -> None:
         """Admit a request only when the page pool covers its whole prompt
         (shared prefix pages, fresh pages, reclaimed cold prefix pages). A
@@ -370,6 +451,8 @@ class ContinuousScheduler:
 
     def _admit(self) -> None:
         now = obs_clock.now()
+        if self._admission_paused():
+            return
         if self._chunker is not None:
             self._admit_chunked(now)
             return
@@ -420,19 +503,82 @@ class ContinuousScheduler:
             self._trace_req(req, "done", t=req.done_t,
                             tokens=len(req.tokens))
 
-    def _preempt(self, slot: int) -> None:
-        """Paged OOM recovery: release the slot's pages and replay the
-        request from its prompt later, re-queued at the head. Greedy decode
-        is deterministic, so the replay regenerates the same tokens (a
-        chunked replay restarts its prefill at position 0)."""
+    def _replay(self, slot: int) -> Request:
+        """Reset a live request for a replay from its prompt (preemption or
+        quarantine retry). Greedy decode is deterministic, so the replay
+        regenerates the same tokens (a chunked replay restarts its prefill
+        at position 0)."""
         req = self._release_slot(slot)
         req.tokens.clear()
         req.first_token_t = None
         req.admit_t = None            # re-stamped at the retry admission
         req.prefill_pos = 0           # chunked prefill restarts from 0
+        return req
+
+    def _preempt(self, slot: int) -> None:
+        """Paged OOM recovery: release the slot's pages and replay the
+        request later, re-queued at the head."""
+        req = self._replay(slot)
         self.queue.push_front(req)
         self.preemptions += 1
         self._trace_req(req, "preempt", slot=slot)
+
+    def _fail_live(self, slot: int, reason: str) -> None:
+        """Terminal failure of a request in a slot: the slot and its pages
+        are reclaimed as on eviction, and the request drains failed."""
+        self._fail(self._release_slot(slot), reason)
+
+    def _fail(self, req: Request, reason: str) -> None:
+        req.state = "failed"
+        req.fail_reason = reason
+        req.done_t = obs_clock.now()
+        self._finished.append(req)
+        self.total_drained += 1
+        self.failed_requests += 1
+        self._trace_req(req, "failed", t=req.done_t, reason=reason,
+                        attempts=req.attempts)
+        log.warning("request %d failed: %s (attempts=%d, %d tokens in)",
+                    req.rid, reason, req.attempts, len(req.tokens))
+
+    def _quarantine(self, slot: int) -> None:
+        """The slot's logits were not finite this step: drop its
+        uncommitted token and retry the request from its prompt, re-queued
+        at the tail after an exponential backoff, within its retry budget;
+        past the budget it fails. Other slots are untouched."""
+        req = self._live.get(slot) or self._prefills[slot]
+        self.quarantines += 1
+        req.attempts += 1
+        retries = (req.max_retries if req.max_retries is not None
+                   else self.resilience.max_retries)
+        if req.attempts > retries:
+            self._fail_live(slot, FAIL_NUMERIC)
+            return
+        self.fault_retries += 1
+        backoff = self.resilience.retry_backoff_s
+        req.not_before = (obs_clock.now()
+                          + backoff * (2 ** (req.attempts - 1))
+                          if backoff else 0.0)
+        self._trace_req(req, "quarantine", slot=slot,
+                        attempts=req.attempts)
+        self.queue.requeue(self._replay(slot))
+        log.warning("quarantined slot %d (request %d): non-finite logits; "
+                    "retry %d/%d", slot, req.rid, req.attempts, retries)
+
+    def _expire_deadlines(self) -> None:
+        """Cancel every request past its deadline: queued ones before they
+        cost a prefill, live and mid-prefill ones with their slot and
+        pages reclaimed."""
+        if not self._any_deadline:
+            return
+        now = obs_clock.now()
+        for req in self.queue.take_expired(now):
+            self._fail(req, FAIL_DEADLINE)
+            self.deadline_cancels += 1
+        for held in (self._live, self._prefills):
+            for slot in list(held):
+                if held[slot].expired(now):
+                    self._fail_live(slot, FAIL_DEADLINE)
+                    self.deadline_cancels += 1
 
     def _grow_paged(self, horizon: int = 1) -> None:
         """Before each paged decode step, make every live row's next
@@ -479,8 +625,8 @@ class ContinuousScheduler:
         if not jobs:
             return
         t_window = obs_clock.now()
-        greedy = self._chunker.advance(self.params, self.pool, jobs,
-                                       self._pos)
+        greedy, ok = self._chunker.advance(self.params, self.pool, jobs,
+                                           self._pos)
         self.chunk_steps += 1
         now = obs_clock.now()
         tr = self.tracer
@@ -492,6 +638,9 @@ class ContinuousScheduler:
                               "tokens": sum(c for _, _, c in jobs),
                               "m": self.max_slots * meta["window"], **meta})
         for i, (slot, req, c) in enumerate(jobs):
+            if not ok[i]:
+                self._quarantine(slot)
+                continue
             if tr is not None:
                 tr.complete("chunk", t_window, now, cat="request",
                             pid=self._trace_pid, tid=req.rid + 1,
@@ -516,10 +665,40 @@ class ContinuousScheduler:
                 if req.done:             # max_new == 1 (or instant EOS)
                     self._evict(slot)
 
+    def _plan_faults(self):
+        """Draw this step's faults and apply the ones outside the decode
+        step at once (the sleep, the armed page failures); the NaN fault
+        is returned for the decode step."""
+        if self.injector is None:
+            return None
+        f = self.injector.plan(self._step_no)
+        if f.slow:
+            self.injector.count("slow_step")
+            time.sleep(self.injector.cfg.slow_s)
+        if f.oom and self.cache_mode == "paged":
+            self.injector.count("page_oom")
+            self.pool.inject_alloc_failures(self.injector.cfg.oom_burst)
+        return f
+
+    def _nan_mask(self, faults) -> Optional[int]:
+        """Mark this step's NaN victim (a live slot, drawn by the
+        injector) in the static mask; returns it, or None when no NaN
+        fault fires (the mask stays all false)."""
+        if faults is None or not faults.nan or not self._live:
+            return None
+        victim = self.injector.choose_slot(list(self._live))
+        self._dev_nan[victim] = True
+        return victim
+
     def step(self) -> None:
-        """One iteration: admit (+ prefill, or advance the chunked
-        prefills), grow pages, decode every slot, evict."""
+        """One iteration: draw the faults, expire deadlines, admit (+
+        prefill, or advance the chunked prefills), grow pages, decode every
+        slot under the finite guard, then commit or quarantine each live
+        slot and evict."""
+        self._step_no += 1
         t_step = obs_clock.now()
+        faults = self._plan_faults()
+        self._expire_deadlines()
         self._depth_stat.push(self.queue.depth())
         self._admit()
         if self._chunker is not None:
@@ -532,6 +711,7 @@ class ContinuousScheduler:
             return
         self._live_stat.push(len(self._live) + len(self._prefills))
         self._push_host_state()
+        victim = self._nan_mask(faults)
         t_decode = obs_clock.now()
         with ops.serving_phase("decode"):
             if self._graph is not None:
@@ -539,7 +719,9 @@ class ContinuousScheduler:
             else:
                 self._decode_step()
         self.decode_steps += 1
-        toks = self._dev_tok.cpu().numpy()
+        toks, ok = self._read_step()
+        if victim is not None:
+            self._dev_nan.zero_()
         tr = self.tracer
         if tr is not None:
             # the token read is the sync point: the span covers the step's
@@ -549,12 +731,20 @@ class ContinuousScheduler:
                         args={"live": len(self._live), "m": self.max_slots})
         for slot in list(self._live):
             req = self._live[slot]
+            if not ok[slot]:
+                self._quarantine(slot)
+                continue
             req.tokens.append(int(toks[slot]))
             self._pos[slot] += 1
             self._tok[slot] = toks[slot]
             if req.done:
                 self._evict(slot)
         self._note_step_time(t_step)
+
+    def _read_step(self):
+        """The decode step's next tokens and guard, one device read."""
+        out = self._dev_out.cpu().numpy()
+        return out[0], out[1].astype(bool)
 
     def _note_step_time(self, t0: float) -> None:
         """Feed the step-time EWMA, count stragglers, and emit the per-step
@@ -604,7 +794,14 @@ class ContinuousScheduler:
         return {"t0": obs_clock.now(), "n0": self.total_drained,
                 "p0": self.prefill_steps, "d0": self.decode_steps,
                 "c0": (self.chunk_steps, self.chunk_tokens_committed,
-                       self.prefill_completions)}
+                       self.prefill_completions),
+                "f0": {"quarantines": self.quarantines,
+                       "retries": self.fault_retries,
+                       "failed": self.failed_requests,
+                       "pauses": self.admission_pauses,
+                       "deadline_cancels": self.deadline_cancels,
+                       "injected": (dict(self.injector.injected)
+                                    if self.injector else {})}}
 
     def run(self) -> Dict[str, Any]:
         """Drain the queue completely; return the metrics dict."""
@@ -620,14 +817,32 @@ class ContinuousScheduler:
             # max_len extra steps and the oldest-never-preempted rule bounds
             # the churn, so this is headroom, not an expected count
             budget *= 8
+        if self.injector is not None or self.resilience.max_retries > 0:
+            # a quarantine replays its request from the prompt, so each of
+            # the retries can cost another whole generation
+            budget *= 2 + self.resilience.max_retries
+        idle = 0
         while self.has_work():
             if budget <= 0:
                 raise RuntimeError("scheduler failed to make progress")
+            progress = (self.prefill_steps, self.decode_steps,
+                        self.chunk_steps, self.total_drained)
             self.step()
-            budget -= 1
-        if self.total_drained != self.queue.submitted:
+            if (self.prefill_steps, self.decode_steps, self.chunk_steps,
+                    self.total_drained) == progress:
+                # an idle tick: nothing live and the queue head inside its
+                # retry backoff (or deferred). Waiting costs no work, so it
+                # takes no budget; yield briefly instead.
+                idle += 1
+                if idle >= 1_000_000:
+                    raise RuntimeError("scheduler stuck on idle ticks")
+                time.sleep(5e-4)
+            else:
+                idle = 0
+                budget -= 1
+        if self.total_drained != self.submitted:
             raise RuntimeError(f"drained {self.total_drained} requests but "
-                               f"{self.queue.submitted} were submitted")
+                               f"{self.submitted} were submitted")
         return self.collect_metrics(snap)
 
     def _slo_report(self, done) -> Optional[Dict[str, Any]]:
@@ -654,9 +869,9 @@ class ContinuousScheduler:
     def collect_metrics(self, snap: Dict[str, Any]) -> Dict[str, Any]:
         """The metrics JSON of the span since ``begin_metrics``: ``repro``'s
         keys and shapes, with ``mesh`` and ``spec`` None (those features
-        are not ported), and without ``faults`` and ``planned_gemms``."""
+        are not ported), and without ``planned_gemms``."""
         wall = obs_clock.now() - snap["t0"]
-        c0 = snap["c0"]
+        c0, f0 = snap["c0"], snap["f0"]
         done = self._finished[snap["n0"]:]
         gen = sum(len(r.tokens) for r in done)
         ttfts = [r.ttft_s for r in done if r.ttft_s is not None]
@@ -704,6 +919,23 @@ class ContinuousScheduler:
             }),
             "queue_depth": {"max": self._depth_stat.peak,
                             "mean": self._depth_stat.mean},
+            "faults": {
+                "injected": {k: v - f0["injected"].get(k, 0)
+                             for k, v in (self.injector.injected.items()
+                                          if self.injector else ())},
+                "quarantines": self.quarantines - f0["quarantines"],
+                "retries": self.fault_retries - f0["retries"],
+                "failed_requests": self.failed_requests - f0["failed"],
+                "degradations": {
+                    # no speculative decoding yet, so it is never shed
+                    "spec_disabled": False,
+                    "spec_disables": 0,
+                    "admission_pauses": (self.admission_pauses
+                                         - f0["pauses"]),
+                    "deadline_cancellations": (self.deadline_cancels
+                                               - f0["deadline_cancels"]),
+                },
+            },
         }
 
 
@@ -712,7 +944,10 @@ class ContinuousScheduler:
 # writes the registry), so `engine.metrics.snapshot()` holds them all.
 _ENGINE_COUNTERS = ("total_drained", "prefill_steps", "decode_steps",
                     "preemptions", "deferrals", "chunk_steps",
-                    "chunk_tokens_committed", "prefill_completions")
+                    "chunk_tokens_committed", "prefill_completions",
+                    "quarantines", "fault_retries", "failed_requests",
+                    "admission_pauses", "deadline_cancels",
+                    "draft_fallbacks")
 
 
 def _counter_property(name: str) -> property:

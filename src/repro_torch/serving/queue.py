@@ -3,12 +3,18 @@
 ``repro.serving.queue``). Timestamps come from ``repro_torch.obs.clock``,
 the clock the SLO queue, the traffic harness and the tracer read too.
 
+Lifecycle: ``queued -> live -> done | failed``. A request re-enters
+``queued`` on preemption (paged OOM; ``push_front``, at the head) or on a
+quarantine retry (non-finite logits; ``requeue``, at the tail); both
+replay it from its prompt. ``failed`` is terminal and carries a reason
+code (``serving.faults.FAIL_*``); ``attempts`` counts the quarantines and
+``max_retries`` overrides the engine's retry budget.
+
 A request carries its SLO class (``slo``, a ``serving.sched.SLOClass`` or
 None for best effort), the queue's enqueue counter (``seq``), the
-re-admission gate ``not_before`` and a deadline (``deadline_s``): what
-``sched.SLOQueue`` orders and expires by. Quarantine retries and their
-reason codes are not ported yet; ``requeue`` is their re-entry point at
-the tail. Chunked prefill advances ``prefill_pos`` and counts ``chunks``.
+re-admission gate ``not_before`` (retry backoff) and a deadline
+(``deadline_s``): what ``sched.SLOQueue`` orders and expires by. Chunked
+prefill advances ``prefill_pos`` and counts ``chunks``.
 """
 from __future__ import annotations
 
@@ -28,8 +34,11 @@ class Request:
     max_new: int                     # generation budget (tokens)
     eos_id: Optional[int] = None     # early-stop token (None: budget only)
     deadline_s: Optional[float] = None   # wall-clock budget from submit
+    max_retries: Optional[int] = None    # None: the engine's budget
+    attempts: int = 0                    # quarantine replays so far
     not_before: float = 0.0          # re-admission gate (retry backoff)
-    state: str = "queued"            # queued | live | done
+    state: str = "queued"            # queued | live | done | failed
+    fail_reason: Optional[str] = None    # faults.FAIL_* when failed
 
     # the SLO class (duck-typed: ``priority``, ``ttft_target_s``,
     # ``tpot_target_s``; None = best effort) and the queue's enqueue
@@ -58,6 +67,10 @@ class Request:
             return True
         return bool(self.tokens and self.eos_id is not None
                     and self.tokens[-1] == self.eos_id)
+
+    @property
+    def terminal(self) -> bool:
+        return self.state in ("done", "failed")
 
     def expired(self, now: float) -> bool:
         return (self.deadline_s is not None
@@ -108,6 +121,8 @@ class Request:
             "tpot_s": self.tpot_s,
             "latency_s": self.latency_s,
             "state": self.state,
+            "fail_reason": self.fail_reason,
+            "attempts": self.attempts,
             "chunks": self.chunks,
             "slo": self.slo.name if self.slo is not None else None,
         }
@@ -126,6 +141,7 @@ class RequestQueue:
     def submit(self, prompt: np.ndarray, max_new: int,
                eos_id: Optional[int] = None,
                deadline_s: Optional[float] = None,
+               max_retries: Optional[int] = None,
                slo: Optional[object] = None,
                submit_t: Optional[float] = None) -> Request:
         """``submit_t`` lets an open-loop harness stamp the arrival it
@@ -137,7 +153,8 @@ class RequestQueue:
         if max_new < 1:
             raise ValueError(f"max_new must be >= 1, got {max_new}")
         req = Request(rid=self._next_rid, prompt=prompt, max_new=max_new,
-                      eos_id=eos_id, deadline_s=deadline_s, slo=slo,
+                      eos_id=eos_id, deadline_s=deadline_s,
+                      max_retries=max_retries, slo=slo,
                       seq=self.submitted,
                       submit_t=(obs_clock.now() if submit_t is None
                                 else submit_t))

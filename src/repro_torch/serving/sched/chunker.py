@@ -29,9 +29,13 @@ over static buffers (start positions, tokens, the padded table) that
 ``advance`` ``copy_``s the host's window into before a replay; the graphs
 share one memory pool. ``cuda_graph=False`` (and the
 CPU) run the same windows eagerly. The forward runs under
-``ops.serving_phase("chunk")``. Each row's finite-logits guard, which
-``repro`` returns for its quarantine, is not computed: quarantine is not
-ported yet.
+``ops.serving_phase("chunk")``.
+
+Each row's finite-logits guard, ``ok = isfinite(logits).all over (S, V)``
+as in ``repro``, is computed inside the window (so a captured graph holds
+it) and packed beside the greedy tokens into one (rows, S + 1) int32
+output, read back with one copy; the engine quarantines a job row whose
+``ok`` is false.
 """
 from __future__ import annotations
 
@@ -61,6 +65,8 @@ class ChunkRunner:
         self._toks: Dict[int, torch.Tensor] = {}
         self._table: Optional[torch.Tensor] = None   # paged: (rows, T)
         self._graphs: Dict[int, graphs.CapturedStep] = {}
+        # width -> ((rows, S + 1) int32: greedy tokens then the guard,
+        # (rows, S, V) logits), the window's outputs
         self._out: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         # the (rows, S, V) logits of the latest window: under the graphs,
         # a graph's own output, valid only until the next replay of any
@@ -77,13 +83,17 @@ class ChunkRunner:
     @torch.no_grad()
     def _forward(self, params, pool, s: int) -> None:
         """The window of width ``s`` on the static buffers, writing the
-        pool's caches in place; its greedy tokens and logits land in
-        ``_out[s]`` (under a graph, the graph's own output tensors)."""
+        pool's caches in place; its greedy tokens with each row's guard,
+        and its logits, land in ``_out[s]`` (under a graph, the graph's own
+        output tensors)."""
         cache = {"layers": pool.layers, "pos": self._pos}
         if self.paged:
             cache["block_table"] = self._table
         logits, _ = self.model.decode_step(params, cache, self._tokens(s))
-        self._out[s] = (logits.argmax(dim=-1).to(torch.int32), logits)
+        ok = torch.isfinite(logits).flatten(1).all(dim=1)
+        self._out[s] = (torch.cat([logits.argmax(dim=-1).to(torch.int32),
+                                   ok[:, None].to(torch.int32)], dim=1),
+                        logits)
 
     # ------------------------------------------------------------------
     def pack_window(self, jobs, frontier) -> Tuple[np.ndarray, np.ndarray]:
@@ -123,11 +133,13 @@ class ChunkRunner:
                     device=self.model.device)
             self._table.copy_(torch.from_numpy(self._pad_table(pool, slots)))
 
-    def advance(self, params, pool, jobs, frontier) -> np.ndarray:
+    def advance(self, params, pool, jobs, frontier,
+                ) -> Tuple[np.ndarray, np.ndarray]:
         """Run one window over ``pool`` (writing its caches in place) and
-        return the greedy tokens as a host array aligned with ``jobs``:
+        return ``(greedy, ok)`` as host arrays aligned with ``jobs``:
         ``greedy[i, j]`` is the argmax after job i's token j (a completing
-        row reads its first output token at its last real position).
+        row reads its first output token at its last real position);
+        ``ok[i]`` is False when job i's row holds a non-finite logit.
         ``frontier``: every slot's next write position (``pack_window``)."""
         pos, toks = self.pack_window(jobs, frontier)
         slots = [slot for slot, _, _ in jobs]
@@ -141,8 +153,9 @@ class ChunkRunner:
                 self._graphs[s].replay()
             else:
                 self._forward(params, pool, s)
-        greedy, self.last_logits = self._out[s]
-        return greedy.cpu().numpy()[slots]
+        out, self.last_logits = self._out[s]
+        out = out.cpu().numpy()[slots]
+        return out[:, :s], out[:, s].astype(bool)
 
     def warmup(self, params, pool, windows: Sequence[int], *,
                cuda_graph: bool = False, graph_pool=None) -> None:

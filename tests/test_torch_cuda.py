@@ -860,3 +860,78 @@ def test_chunk_windows_graph_matches_eager(cuda, cache):
         logits.append(eng.chunker.last_logits.clone())
     assert torch.equal(*logits)
 
+
+
+@pytest.mark.parametrize("cache", [{}, {"cache": "paged", "page_size": 8,
+                                        "prefix_cache": False}])
+def test_guarded_graph_flags_a_poisoned_slot(cuda, cache):
+    """A reduced packed model, the decode step replayed as a CUDA graph:
+    under a NaN fault schedule the graph's guard quarantines the chosen
+    slot and the streams equal the fault-free eager run's; NaN written
+    into one slot's cache between two replays is flagged in that slot
+    alone, eagerly and through the graph alike."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousScheduler, FaultConfig
+
+    cfg = get_config("ternary-paper", reduced=True, num_layers=2,
+                     ternary_min_dim=64)
+    cfg, params = serve.build_params(cfg, 0, "cuda", packed=True)
+    prompts, gens = serve.build_workload(cfg, 6, 16, (4, 12), seed=0)
+    ref = ContinuousScheduler(cfg, max_slots=3, max_len=29, device="cuda",
+                              cuda_graph=False, **cache)
+    ref.load(params)
+    want, _ = serve.run_continuous(ref, prompts, gens)
+    eng = ContinuousScheduler(cfg, max_slots=3, max_len=29, device="cuda",
+                              faults=FaultConfig(nan_at=(3, 6)), **cache)
+    eng.load(params)
+    got, m = serve.run_continuous(eng, prompts, gens)
+    assert m["faults"]["quarantines"] == 2
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+
+    flags = []
+    for graph in (False, True):
+        eng = ContinuousScheduler(cfg, max_slots=3, max_len=29,
+                                  device="cuda", cuda_graph=graph, **cache)
+        eng.load(params)
+        for p, g in zip(prompts[:3], gens[:3]):
+            eng.submit(p, 12)
+        eng.step()
+        layer = eng.pool.layers[-1]
+        if cache:
+            layer["k_pages"][eng.pool.slot_pages[1][0], 0] = float("nan")
+        else:
+            layer["k"][1, 0] = float("nan")
+        eng.step()
+        torch.cuda.synchronize()
+        assert eng.quarantines == 1 and 1 not in eng._live
+        flags.append(eng._dev_ok.cpu().tolist())
+    assert flags == [[1, 0, 1], [1, 0, 1]]
+
+
+@pytest.mark.parametrize("sparsity", [0.5, 0.0625])
+def test_tcsc_matmuls_on_the_card_match_the_cpu(cuda, sparsity):
+    """The TCSC formats built on the card equal the CPU's arrays; their
+    matmuls (float32, index_add_ in atomic order) agree with the CPU's
+    within 1e-4 of max|ref|, with alpha, bias and PReLU."""
+    from repro_torch.kernels import ref
+
+    w = formats.random_ternary(np.random.default_rng(0), 300, 200, sparsity)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((5, 300)).astype(np.float32))
+    alpha = torch.from_numpy(rng.uniform(0.5, 1.5, 200).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal(200).astype(np.float32))
+    builds = {"tcsc": (formats.TCSC.from_dense, ref.tcsc_matmul),
+              "blocked": (lambda t: formats.BlockedTCSC.from_dense(t, 64),
+                          ref.tcsc_matmul_blocked),
+              "interleaved": (formats.InterleavedTCSC.from_dense,
+                              ref.tcsc_matmul_interleaved)}
+    for name, (build, fn) in builds.items():
+        host = build(torch.from_numpy(w))
+        card = build(torch.from_numpy(w).to(cuda))
+        assert torch.equal(card.to_dense().cpu(), host.to_dense())
+        want = fn(x, host, alpha, bias, 0.25)
+        got = fn(x.to(cuda), card, alpha.to(cuda), bias.to(cuda), 0.25)
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale, name

@@ -38,6 +38,10 @@ class RebindingScheduler(ContinuousScheduler):
         self._dev_pos = new_cache["pos"]
         self._dev_tok = logits[:, 0].argmax(dim=-1).to(torch.int32)
 
+    def _read_step(self):
+        toks = self._dev_tok.numpy()
+        return toks, np.ones(toks.shape, bool)
+
     def _push_host_state(self):
         if self._dirty:
             self._dev_pos = torch.tensor(self._pos)

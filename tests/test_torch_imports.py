@@ -125,3 +125,11 @@ def test_the_checks_cover_the_scheduling_modules():
     assert {"serving/sched/__init__.py", "serving/sched/config.py",
             "serving/sched/slo.py", "serving/sched/chunker.py",
             "serving/traffic.py", "serving/queue.py"} <= names
+
+
+def test_the_checks_cover_the_fault_and_tcsc_modules():
+    names = {p.relative_to(PORT).as_posix() for p in FILES
+             if PORT in p.parents}
+    assert {"serving/faults.py", "serving/engine.py", "paging/pages.py",
+            "launch/serve.py", "core/formats.py", "core/quantize.py",
+            "kernels/ref.py"} <= names
