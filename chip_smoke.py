@@ -101,6 +101,26 @@ late requests failed with ``deadline``, queued or live, the others done;
 (d) NaN written into one slot's cache between two graph replays: the
 captured guard flags that slot alone; (e) the guarded decode step's p50
 (decode_graph), device busy and kernels (profiler), reported.
+
+``spec`` serves with speculative decoding, k 4, every draft round and
+verify window replayed from its CUDA graph (max_len + 4): the dense
+workload with a ``layer_skip`` draft (6 of 12 layers) and a
+``resparsify`` draft (nnz 0.125), paged bf16 and paged int8 under
+pressure with ``layer_skip``. Each run: the draft and verify replays'
+launches (a draft round B1 5 x (4 x 6 + 1) and B4 5 x 6, or 5 x 49 and 5
+x 12; a verify window B1 49, B4 12, B5 12 paged), every budget met, B5 12
+per round (paged), the pool reclaimed, the streams against the non-spec
+runs' of this process (equal or split at near ties, ``_split_check``),
+acceptance, mean accepted length, tok/s, TPOT p50, the draft and verify
+span p50 and ``rollback_page_reclaims`` beside the non-spec graphed
+run's tok/s and TPOT. Then one verify window against 5 graphed
+one-token steps from the same cache state (dense and paged bf16: max |d|,
+bitwise or not), op by op (B1 at the verify and the prefill tile, B4,
+the dense attention and B5 on 40 rows against 5 calls of 8; both tiles
+timed at M 40), draft faults at pinned steps (each a plain decode step,
+counted) and an acceptance floor no draft reaches (speculation off after
+4 rounds), one profiled round, and B1, B4 and B5 at the verify shape (M
+40; B5 over 40 rows bitwise against 40 one-row calls).
 ``tcsc`` runs the paper's TCSC formats on the card (plain PyTorch: no TPU
 kernel computes them) at K = N = 4096, s 1/2 and 1/16, M 8 and 64: each
 format's arrays round-trip, each matmul agrees with the plain dense
@@ -172,7 +192,8 @@ Output: progress lines, each serving run's metrics JSON, a ``serving
 host/device summary`` JSON line (decode_graph's readings, the trace's
 spans, the profiles), one ``{"kernels": ...}`` JSON line (each kernel's launches summed over the
 path runs — serving dense, paged bf16 and int8, the chunked runs, the
-faults runs, mlp_formats, gemm_formats, train and eval — with the per-run
+faults runs, the spec runs, mlp_formats, gemm_formats, train and eval —
+with the per-run
 counts
 under ``runs``,
 and its error and times summed over the shapes its path gives
@@ -318,6 +339,20 @@ OPEN_LOOP = dict(requests=48, rate=8.0, prompt_lens=(64, 128, 512),
 FAULTS = dict(nan_at=(4, 12, 30, 45), oom_at=(3, 11, 27), oom_burst=2,
               max_retries=4, fail_requests=4, deadline_s=1.0, slow_s=0.02,
               poison_slot=3)
+# spec: the serving workloads with speculative decoding, k 4 (repro's
+# default), every draft round and verify window graphed: dense with a
+# layer_skip draft (6 of 12 layers) and with a resparsify draft (nnz
+# 0.125), paged bf16 and paged int8 under pressure with layer_skip; max_len
+# grows by k. Then a run with failed draft rounds at these steps and one
+# with an acceptance floor no draft reaches (1.1, over 4 rounds); requests
+# of 60 tokens for the verify-vs-sequential check and the profiled round.
+SPEC = dict(k=4, draft_layers=6, draft_sparsity=0.125,
+            draft_fail_at=(3, 9, 20, 33), accept_floor=1.1, floor_window=4,
+            check_gen=60)
+# B5 over a verify window: 8 slots x 5 rows, each slot's 13 pages read up
+# to pos[b] + j + 1 (positions of 128-token prompts 0 to 56 tokens in)
+B5_VERIFY = dict(b=8, s=5, h=16, kv=16, hd=64, t=13,
+                 pos=(128, 136, 144, 152, 160, 168, 176, 184))
 # the paper's TCSC formats at the paper's size (plain PyTorch on the card;
 # M <= 64 keeps the (nnz, M) float32 gather at s 1/2 under 2.2 GB)
 TCSC_CHECK = dict(k=4096, n=4096, sparsities=(0.5, 0.0625), ms=(8, 64),
@@ -936,7 +971,7 @@ def paged_phases(cfg, params, workloads, dense_outs):
     """Paged serving with bf16 pages on the dense run's workload, then with
     int8 pages under pressure; each followed by the one-step logit check
     against the dense cache. Returns the per-run launch counts and the
-    bf16 run's token streams."""
+    bf16 and int8 runs' token streams."""
     import numpy as np
     prompts, gens, max_len, kw = workloads["paged_bf16"]
     outs, _, bf16_launches = serve_run("paged bf16", cfg, params, prompts,
@@ -949,7 +984,7 @@ def paged_phases(cfg, params, workloads, dense_outs):
                      prompts[:SERVE["slots"]], max_len, None, LOGIT_TOL)
 
     p_prompts, p_gens, p_max_len, kw = workloads["paged_int8"]
-    _, pm, runs["paged_int8"] = serve_run(
+    p_outs, pm, runs["paged_int8"] = serve_run(
         "paged int8 under pressure", cfg, params, p_prompts, p_gens,
         p_max_len, **kw)
     cache = pm["cache"]
@@ -960,7 +995,7 @@ def paged_phases(cfg, params, workloads, dense_outs):
     paged_step_check("paged int8 vs dense, one decode step", cfg, params,
                      p_prompts[:SERVE["slots"]], p_max_len, "int8",
                      INT8_LOGIT_TOL)
-    return runs, outs
+    return runs, outs, p_outs
 
 
 def serving_workloads(cfg, prompts, gens, max_len):
@@ -1707,6 +1742,381 @@ def faults_phase(cfg, params, workloads, ref_streams, graph_rows,
     print(f"faults took {time.perf_counter() - t0:.1f}s; summary: "
           + json.dumps(summary), flush=True)
     return runs
+
+
+def _spec_config(draft):
+    from repro_torch.spec import SpecConfig
+    return SpecConfig(draft=draft, k=SPEC["k"],
+                      draft_layers=SPEC["draft_layers"],
+                      draft_sparsity=SPEC["draft_sparsity"])
+
+
+def _draft_launches(cfg, draft):
+    """B1, B4 and B5 launches of one draft round: k+1 feeds (the re-sync
+    and k greedy ones) of the draft's layers and lm head."""
+    layers = (SPEC["draft_layers"] if draft == "layer_skip"
+              else cfg.num_layers)
+    return {"ternary_gemm": (SPEC["k"] + 1) * (4 * layers + 1),
+            "fused_mlp": (SPEC["k"] + 1) * layers,
+            "paged_decode_attention": 0}
+
+
+def spec_run(label, cfg, params, workload, draft, ref_outs, **extra):
+    """Drain one serving workload through a graphed spec engine (max_len +
+    k), traced, the launch counters set to 0 just before the run and read
+    just after. Checks the captured draft round's and verify window's
+    launches per replay, every request's budget of in-range tokens, B5 =
+    12 per round or decode step (paged; 0 dense), a paged pool fully
+    reclaimed, and the streams against ``ref_outs`` (the non-spec run's):
+    equal or split at near ties. Returns the launches, the readings and
+    the requests."""
+    import numpy as np
+    from repro_torch.obs import Tracer
+
+    prompts, gens, max_len, kw = workload
+    paged = kw.get("cache") == "paged"
+    tracer = Tracer()
+    engine = _engine(cfg, params, max_len + SPEC["k"], True, tracer,
+                     spec=_spec_config(draft), **kw, **extra)
+    per_replay = {name: g.launches_per_replay
+                  for name, g in engine.spec_graphs.items()}
+    want = {"draft": _draft_launches(cfg, draft),
+            "verify": _per_step_launches(cfg, paged)}
+    for name, counts in want.items():
+        got = {k: per_replay.get(name, {}).get(k) for k in counts}
+        if got != counts:
+            raise AssertionError(f"spec {label}: a {name} replay launches "
+                                 f"{got}, expected {counts}")
+    _zero_counts()
+    reqs = [engine.submit(p, g) for p, g in zip(prompts, gens)]
+    metrics = engine.run()
+    launches = _read_counts()
+    s = metrics["spec"]
+    brief = {k: v for k, v in s.items() if k != "per_request"}
+    outs = [np.asarray(r.tokens, np.int32) for r in reqs]
+    if metrics["drained"] != len(gens) or s["rounds"] <= 0:
+        raise AssertionError(f"spec {label}: drained {metrics['drained']} "
+                             f"of {len(gens)}, {s['rounds']} rounds")
+    for i, (toks, g) in enumerate(zip(outs, gens)):
+        if len(toks) != g or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"spec {label}: request {i}: {len(toks)} "
+                                 f"tokens for a budget of {g}, or ids out "
+                                 f"of range")
+    b5 = cfg.num_layers * metrics["decode_steps"] if paged else 0
+    if launches["paged_decode_attention"] != b5:
+        raise AssertionError(f"spec {label}: B5 launched "
+                             f"{launches['paged_decode_attention']} times, "
+                             f"expected {b5}")
+    if not (engine.pool.all_reclaimed if paged else engine.pool.all_free):
+        raise AssertionError(f"spec {label}: the pool is not reclaimed")
+    spans = span_summary(tracer.to_dict()["traceEvents"])
+    row = {"spec": brief, "decode_steps": metrics["decode_steps"],
+           "tok_per_s": metrics["tok_per_s"],
+           "tpot_p50_ms": metrics["latency"]["tpot_s"]["p50"] * 1e3,
+           "ttft_p50_ms": metrics["latency"]["ttft_s"]["p50"] * 1e3,
+           "wall_s": metrics["wall_s"], "cache": metrics["cache"],
+           "faults": metrics["faults"],
+           "launches_per_replay": per_replay,
+           "span_p50_ms": {n: spans[n]["p50_ms"]
+                           for n in ("draft", "verify", "decode_step")
+                           if n in spans}}
+    print(f"spec {label}: " + json.dumps(row), flush=True)
+    print(f"spec {label} launches: {json.dumps(launches)}", flush=True)
+    row["splits"] = len(streams_or_near_ties(
+        f"spec {label} vs non-spec", cfg, params, prompts, ref_outs, outs))
+    return launches, row, reqs
+
+
+def _live_spec_engine(cfg, params, workload):
+    """A graphed spec engine with the workload's first 8 prompts admitted
+    (budgets of SPEC["check_gen"] tokens) and one round run, its host
+    state pushed for the next round and, paged, that round's pages
+    grown."""
+    import torch
+    prompts, _, max_len, kw = workload
+    engine = _engine(cfg, params, max_len + SPEC["k"], True,
+                     spec=_spec_config("layer_skip"), **kw)
+    for p in prompts[:SERVE["slots"]]:
+        engine.submit(p, SPEC["check_gen"])
+    while engine.queue or engine.spec_rounds < 1:
+        engine.step()
+    if engine.cache_mode == "paged":
+        engine._grow_paged(1 + SPEC["k"])
+    engine._push_host_state()
+    torch.cuda.synchronize()
+    if len(engine._live) != SERVE["slots"]:
+        raise AssertionError("spec: a check request ended early")
+    return engine
+
+
+def _cache_tensors(layers):
+    from repro_torch.paging import Int8Pages
+    for layer in layers:
+        for t in layer.values():
+            if isinstance(t, Int8Pages):
+                yield t.codes
+                yield t.scales
+            else:
+                yield t
+
+
+def verify_vs_sequential(cfg, params, workload, label):
+    """One verify window's logits against k + 1 one-token steps from the
+    same cache state, both replayed from the engine's graphs: the draft
+    round fills the window, the verify graph runs it, the pool's caches
+    are restored, then the decode graph runs the window's tokens one at a
+    time. Returns max |d| and whether they are bitwise equal (and equal
+    greedy tokens) at each window position."""
+    import torch
+    engine = _live_spec_engine(cfg, params, workload)
+    engine._draft_graph.replay()
+    saved = [t.clone() for t in _cache_tensors(engine.pool.layers)]
+    window = engine._dev_win.clone()
+    pos = engine._dev_pos.clone()
+    engine._verify_graph.replay()
+    win = engine._verify_logits.clone()
+    for t, s in zip(_cache_tensors(engine.pool.layers), saved):
+        t.copy_(s)
+    seq = []
+    for j in range(SPEC["k"] + 1):
+        engine._dev_tok.copy_(window[:, j])
+        engine._dev_pos.copy_(pos + j)
+        engine._graph.replay()
+        seq.append(engine._step_logits.clone())
+    torch.cuda.synchronize()
+    seq = torch.stack(seq, dim=1)
+    per_pos = [{"bitwise": bool(torch.equal(win[:, j], seq[:, j])),
+                "max_abs": float((win[:, j].float() - seq[:, j].float())
+                                 .abs().max()),
+                "greedy_equal": int((win[:, j].argmax(-1)
+                                     == seq[:, j].argmax(-1)).sum())}
+               for j in range(SPEC["k"] + 1)]
+    out = {"bitwise": all(r["bitwise"] for r in per_pos),
+           "max_abs": max(r["max_abs"] for r in per_pos),
+           "max_logit": float(seq.float().abs().max()),
+           "positions": per_pos}
+    print(f"spec verify vs sequential, {label}: " + json.dumps(out),
+          flush=True)
+    if not bool(torch.isfinite(win).all()) or \
+            out["max_abs"] > LOGIT_TOL * out["max_logit"]:
+        raise AssertionError(f"spec verify vs sequential {label}: max |d| "
+                             f"{out['max_abs']}")
+    del engine
+    return out
+
+
+def verify_op_check():
+    """Which op of a verify window rounds otherwise than in the one-token
+    steps, on the card, op by op at the main path's widths: B1 (q/k/v/o
+    width and lm head) and B4 on 40 rows under "verify" against the same
+    rows as 5 calls of 8 under "decode", at the verify tile and at the
+    prefill tile (each timed at M 40); the dense attention (naive, cuBLAS)
+    over 5 query rows against 5 one-row calls; B5 over 40 rows against 5
+    calls of 8. Returns op -> bitwise, max |d| (and the tiles' times)."""
+    import torch
+    from repro_torch.kernels import fused_mlp as fused_lib
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_gemm as gemm_lib
+    from repro_torch.models.attention import naive_attention
+    from repro_torch.paging import kernels as paged_lib
+
+    b, s = SERVE["slots"], SPEC["k"] + 1
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    out = {}
+
+    def rows_check(name, fn40, fn8):
+        y40 = fn40().reshape(b, s, -1)
+        y8 = [fn8(j).reshape(b, -1) for j in range(s)]
+        out[name] = {
+            "bitwise": all(torch.equal(y40[:, j], y8[j]) for j in range(s)),
+            "max_abs": max(float((y40[:, j].float() - y8[j].float()).abs()
+                                 .max()) for j in range(s))}
+
+    for k, n in ((1024, 1024), (1024, 32768)):
+        w = _packed_weight(gen, k, n)
+        x = torch.randn(b, s, k, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        x40 = x.reshape(b * s, k)
+
+        def decode8(j, w=w, x=x):
+            return gemm_lib.ternary_gemm_cuda(
+                x[:, j].contiguous(), w.packed, w.scale, w.bias, n=w.n,
+                variant=gemm_lib.VARIANTS["decode"])
+        for tile, variant in (("verify", gemm_lib.VARIANTS["verify"]),
+                              ("prefill", gemm_lib.VARIANTS["prefill"])):
+            call = (lambda w=w, v=variant: gemm_lib.ternary_gemm_cuda(
+                x40, w.packed, w.scale, w.bias, n=w.n, variant=v))
+            rows_check(f"B1 K {k} N {n}, {tile} tile", call, decode8)
+            out[f"B1 K {k} N {n}, {tile} tile"]["ms"] = cuda_ms(call, 20,
+                                                               flush)
+    wi, wg, wo = (_packed_weight(gen, a, c)
+                  for a, c in ((1024, 4096), (1024, 4096), (4096, 1024)))
+    x = torch.randn(b, s, 1024, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    args = (wi.packed, wo.packed, wg.packed, wi.scale, None, wg.scale, None,
+            wo.scale, None)
+    for tile in ("verify", "prefill"):
+        call = (lambda v=fused_lib.VARIANTS[tile]: fused_lib.fused_mlp_cuda(
+            x.reshape(b * s, 1024), *args, variant=v))
+        rows_check(f"B4, {tile} tile", call,
+                   lambda j: fused_lib.fused_mlp_cuda(
+                       x[:, j].contiguous(), *args,
+                       variant=fused_lib.VARIANTS["decode"]))
+        out[f"B4, {tile} tile"]["ms"] = cuda_ms(call, 20, flush)
+    # dense attention: 16 heads of 64 over a 197-long bf16 cache view
+    pos = torch.tensor(B5_VERIFY["pos"], dtype=torch.int32, device="cuda")
+    q = torch.randn(b, s, 16, 64, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kc, vc = (torch.randn(b, 197, 16, 64, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    rows_check("dense attention (naive, cuBLAS)",
+               lambda: naive_attention(q, kc, vc, causal=True, q_offset=pos),
+               lambda j: naive_attention(q[:, j:j + 1], kc, vc, causal=False,
+                                         q_offset=pos + j,
+                                         kv_valid_len=pos + j + 1)[:, 0])
+    qp, kp, vp, _, table = _paged_inputs(gen, B5_VERIFY,
+                                         lambda: pos + s)
+    kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    q40 = torch.randn(b * s, 16, 64, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    lengths = (pos[:, None] + torch.arange(1, s + 1, device="cuda",
+                                           dtype=torch.int32))
+    rows_check("B5 (paged attention)",
+               lambda: ops.paged_decode_attention(
+                   q40, kp, vp, table.repeat_interleave(s, dim=0),
+                   lengths.reshape(-1)),
+               lambda j: ops.paged_decode_attention(
+                   q40.view(b, s, 16, 64)[:, j].contiguous(), kp, vp,
+                   table, lengths[:, j].contiguous()))
+    del flush
+    print("spec verify ops, 40 rows against 5 x 8: " + json.dumps(out),
+          flush=True)
+    return out
+
+
+def spec_kernel_rows():
+    """B1 at M 40 (q/k/v/o width and lm head) and B4 at M 40 under the
+    "verify" phase, and B5 over a verify window's 40 rows (lengths pos +
+    j + 1) against its plain version and 40 one-row calls, bit for bit;
+    each timed as the serving shapes are."""
+    import torch
+    from repro_torch.kernels import ops
+
+    w = B5_VERIFY
+    m = w["b"] * w["s"]
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    rows = {"ternary_gemm": [gemm_row(gen, m, k, n, "verify", flush)
+                             for k, n in ((1024, 1024), (1024, 32768))],
+            "fused_mlp": [mlp_row(gen, m, 1024, 4096, 1024, "verify",
+                                  flush)]}
+    pos = torch.tensor(w["pos"], dtype=torch.int32, device="cuda")
+    _, k, v, _, table8 = _paged_inputs(gen, w, lambda: pos + w["s"])
+    q = torch.randn(m, w["h"], w["hd"], generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    lengths = (pos[:, None] + torch.arange(1, w["s"] + 1, device="cuda",
+                                           dtype=torch.int32)).reshape(-1)
+    table = table8.repeat_interleave(w["s"], dim=0).contiguous()
+    with ops.serving_phase("verify"):
+        rows["paged_decode_attention"] = paged_rows(
+            f"verify {w['b']} x {w['s']}", w,
+            (q, k, v, lengths.contiguous(), table), flush,
+            subsets=[[i] for i in range(m)], on_path=True,
+            read_tokens=int((pos + w["s"]).sum()))
+    for row in rows["paged_decode_attention"]:
+        row["phase"] = "verify"
+    del flush
+    return rows
+
+
+def spec_fault_runs(cfg, params, workload, ref_outs):
+    """Dense layer_skip under draft faults at SPEC["draft_fail_at"] (each
+    a plain graphed decode step) and under an acceptance floor no draft
+    reaches: every request done, the fallbacks and the switch-off counted,
+    the streams within the rule. Returns the launches and readings."""
+    from repro_torch.serving import FaultConfig, ResilienceConfig
+
+    runs, out = {}, {}
+    runs["spec_draft_fail"], out["draft_fail"], reqs = spec_run(
+        "dense layer_skip, draft faults", cfg, params, workload,
+        "layer_skip", ref_outs,
+        faults=FaultConfig(draft_fail_at=SPEC["draft_fail_at"]))
+    fb = out["draft_fail"]["spec"]["draft_fallbacks"]
+    if fb != len(SPEC["draft_fail_at"]) or any(r.state != "done"
+                                               for r in reqs):
+        raise AssertionError(f"spec draft faults: {fb} fallbacks for "
+                             f"{len(SPEC['draft_fail_at'])} faults")
+    runs["spec_floor"], out["floor"], reqs = spec_run(
+        f"dense layer_skip, acceptance floor {SPEC['accept_floor']}", cfg,
+        params, workload, "layer_skip", ref_outs,
+        resilience=ResilienceConfig(spec_accept_floor=SPEC["accept_floor"],
+                                    spec_floor_window=SPEC["floor_window"]))
+    deg = out["floor"]["faults"]["degradations"]
+    if not (deg["spec_disabled"] and deg["spec_disables"] == 1
+            and out["floor"]["spec"]["rounds"] == SPEC["floor_window"]):
+        raise AssertionError(f"spec floor: {deg}, "
+                             f"{out['floor']['spec']['rounds']} rounds")
+    return runs, out
+
+
+def spec_phase(cfg, params, workloads, ref_streams, graph_rows):
+    """Speculative decoding on the card, every draft round and verify
+    window replayed from its CUDA graph: the serving workloads (dense with
+    layer_skip and resparsify drafts, paged bf16 and int8 under pressure
+    with layer_skip) against the non-spec runs' streams and numbers, the
+    verify window against one-token steps (dense, paged bf16) and op by
+    op, the fault runs, one profiled round and the kernels at the verify
+    shape. Returns the kernel rows and the runs' launches."""
+    import numpy as np
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    runs, summary, streams = {}, {"runs": {}}, {}
+    for label, wl, draft in (("dense", "dense", "layer_skip"),
+                             ("dense", "dense", "resparsify"),
+                             ("paged_bf16", "paged_bf16", "layer_skip"),
+                             ("paged_int8", "paged_int8", "layer_skip")):
+        t_build = time.perf_counter()
+        key = f"{label} {draft}"
+        runs[f"spec_{label}_{draft}"], row, reqs = spec_run(
+            key, cfg, params, workloads[wl], draft, ref_streams[wl])
+        streams[key] = [np.asarray(r.tokens) for r in reqs]
+        row["non_spec"] = {k: graph_rows[wl]["graph"][k]
+                           for k in ("tok_per_s", "tpot_p50_ms",
+                                     "decode_step_p50_ms", "decode_steps")}
+        row["phase_s"] = round(time.perf_counter() - t_build, 2)
+        summary["runs"][key] = row
+    # the dense cache is attended over its whole max_len-wide view: the
+    # non-spec engine at the spec runs' max_len tells a split the view's
+    # width makes from one the verify window makes
+    prompts, gens, max_len, _ = workloads["dense"]
+    wide, _ = serve.run_continuous(
+        _engine(cfg, params, max_len + SPEC["k"], True), prompts, gens)
+    summary["dense_equal_streams_of_16"] = {
+        f"non-spec at max_len {max_len + SPEC['k']} vs {max_len}": sum(
+            np.array_equal(a, b) for a, b in zip(wide, ref_streams["dense"])),
+        **{f"{key} vs non-spec at max_len {max_len + SPEC['k']}": sum(
+            np.array_equal(a, b) for a, b in zip(streams[key], wide))
+           for key in ("dense layer_skip", "dense resparsify")}}
+    print("spec dense streams: " + json.dumps(
+        summary["dense_equal_streams_of_16"]), flush=True)
+    summary["verify_vs_sequential"] = {
+        label: verify_vs_sequential(cfg, params, workloads[label], label)
+        for label in ("dense", "paged_bf16")}
+    summary["verify_ops"] = verify_op_check()
+    fault_runs, summary["faults"] = spec_fault_runs(
+        cfg, params, workloads["dense"], ref_streams["dense"])
+    runs.update(fault_runs)
+    engine = _live_spec_engine(cfg, params, workloads["dense"])
+    summary["profile"] = profile_once(
+        "spec round dense layer_skip graph", engine.step,
+        lambda: _mean_wall(engine.step, 4))
+    del engine
+    rows = spec_kernel_rows()
+    print(f"spec took {time.perf_counter() - t0:.1f}s; summary: "
+          + json.dumps(summary), flush=True)
+    return rows, runs
 
 
 def tcsc_phase(flush):
@@ -2949,7 +3359,8 @@ def main() -> int:
     model_phase(cfg, params, prompts, max_len)
     runs = {"dense": launches}
     workloads = serving_workloads(cfg, prompts, gens, max_len)
-    paged_runs, bf16_outs = paged_phases(cfg, params, workloads, dense_outs)
+    paged_runs, bf16_outs, int8_outs = paged_phases(cfg, params, workloads,
+                                                    dense_outs)
     runs.update(paged_runs)
     graph_rows, tracers = decode_graph_phase(cfg, params, workloads)
     trace_spans = trace_check(*tracers["dense"])
@@ -2967,6 +3378,13 @@ def main() -> int:
         {"dense": dense_outs, "paged_bf16": bf16_outs,
          "chunked_dense": chunk_streams["dense"]}, graph_rows, profile_rows))
     for name, rows in chunk_rows.items():
+        shapes[name] += rows
+    spec_rows, spec_runs = spec_phase(
+        cfg, params, workloads,
+        {"dense": dense_outs, "paged_bf16": bf16_outs,
+         "paged_int8": int8_outs}, graph_rows)
+    runs.update(spec_runs)
+    for name, rows in spec_rows.items():
         shapes[name] += rows
     mlp_rows, runs["mlp_formats"] = mlp_formats_phase(cfg, params, prompts,
                                                       max_len)

@@ -35,8 +35,9 @@ ACTIVATIONS = ("silu", "relu", "none")
 # tile variant per serving phase (csrc/fused_mlp.cu), the fastest of the
 # candidates timed on the H100: decode takes 16-row tiles and 64-column
 # strips, prefill and evaluation 64-row tiles and 128-column strips;
-# chunked-prefill windows (M = slots x S) take prefill's, as B1 does
-VARIANTS = {"decode": 0, "prefill": 1, "chunk": 1}
+# speculative verify windows (M = slots x (k+1)) take decode's and
+# chunked-prefill windows (M = slots x S) prefill's, as B1 does
+VARIANTS = {"decode": 0, "prefill": 1, "verify": 0, "chunk": 1}
 BLOCK_M = {0: 16, 1: 64}          # variant -> rows per block
 STRIP = {0: 64, 1: 128}           # variant -> ff / N columns per strip
 MAX_CHUNK = 512                   # the widest ff chunk (h slice) a block holds

@@ -71,9 +71,10 @@ __all__ = ["ternary_gemm", "ternary_gemm_plan", "GemmPlan", "KernelImpl",
            "paged_decode_attention", "serving_phase", "current_phase",
            "SERVING_PHASES", "kernel_probe"]
 
-# prefill GEMMs are M = B*L, decode GEMVs M = slots, chunked-prefill
-# windows M = slots*S in between; each phase keys its own tiles
-SERVING_PHASES = ("prefill", "decode", "chunk")
+# prefill GEMMs are M = B*L, decode GEMVs M = slots, speculative verify
+# windows M = slots*(k+1) and chunked-prefill windows M = slots*S in
+# between; each phase keys its own tiles
+SERVING_PHASES = ("prefill", "decode", "verify", "chunk")
 
 # Above this occupied-tile fraction the skip walk saves too little;
 # "auto" takes the dense kernel (repro's constant).

@@ -36,18 +36,21 @@ __all__ = ["ternary_gemm_ref", "ternary_gemm_cuda", "ternary_gemm_skip_ref",
 # fastest of the candidates timed on the H100: decode GEMVs (M <= 16) take
 # the 16 x 64 tile (4 warps, 8 cp.async stages in flight), prefill and
 # evaluation the 64 x 128 tile (4 warps of 64 x 32, each decoded B
-# fragment feeding four MMAs; 4 stages); both step K by 64. Chunked-prefill
+# fragment feeding four MMAs; 4 stages); both step K by 64. Speculative
+# verify windows (M = slots x (k+1), 40 at 8 slots and k 4) take the decode
+# tile, as repro's tuner starts the verify phase from decode's candidates,
+# so a verify row rounds as the one-token step's row does. Chunked-prefill
 # windows (M = slots x S, 8 to 256 at 8 slots, above the decode tile's 16
 # rows from S 4 on) take the prefill tile; they have no tuning of their
 # own. B7 (ternary_gemm_bitplane.cu) has tiles of the same shapes and takes
 # its variant from this table too.
-VARIANTS = {"decode": 0, "prefill": 1, "chunk": 1}
+VARIANTS = {"decode": 0, "prefill": 1, "verify": 0, "chunk": 1}
 TILES = {0: (16, 64), 1: (64, 128)}           # variant -> (block_m, block_n)
 BLOCK_K = 64
 # rows per block of B2/B3 per serving phase; their block_n is the largest
 # of 128, 64, 32, 16 dividing the pack's tile_n (skip_block_n), at most 64
 # at decode (B1's decode width)
-SKIP_BLOCK_M = {"decode": 16, "prefill": 64, "chunk": 64}
+SKIP_BLOCK_M = {"decode": 16, "prefill": 64, "verify": 16, "chunk": 64}
 
 
 def skip_block_n(tile_n: int, widest: int = 128) -> int:

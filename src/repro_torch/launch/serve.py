@@ -11,6 +11,8 @@ Usage:
   ... --slo-ttft-ms 500 --slo-tpot-ms 100  # the interactive class's targets
   ... --traffic poisson|bursty --arrival-rate 8   # open-loop arrivals
   ... --chaos [--deadline-s 2 --max-retries 2]    # seeded fault injection
+  ... --spec layer_skip|resparsify [--spec-k 4 --draft-layers N
+      --draft-sparsity 0.125]                     # speculative decoding
 
 Read a trace with ``python scripts/trace_report.py run.json`` or load it at
 https://ui.perfetto.dev.
@@ -36,6 +38,7 @@ from repro_torch.obs import Tracer
 from repro_torch.serving import (ContinuousScheduler, FaultConfig,
                                  ResilienceConfig, SchedConfig, SLOClass,
                                  TrafficConfig, make_schedule, run_open_loop)
+from repro_torch.spec import SpecConfig
 
 
 def build_workload(cfg, requests: int, prompt_len: int,
@@ -106,6 +109,21 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                          "(default: the config's cache dtype)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="--cache paged: no shared-prefix page reuse")
+    ap.add_argument("--spec", default="off",
+                    choices=("off", "resparsify", "layer_skip"),
+                    help="speculative decoding draft: resparsify = the "
+                         "packed weights re-ternarized at --draft-sparsity "
+                         "(needs --packed), layer_skip = a prefix of the "
+                         "layers + the shared lm head. The tokens stay "
+                         "those of --spec off")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="--spec: draft tokens proposed (and verified) a "
+                         "round; a slot emits 1..k+1 tokens a round")
+    ap.add_argument("--draft-sparsity", type=float, default=0.125,
+                    help="--spec resparsify: the draft's nnz fraction")
+    ap.add_argument("--draft-layers", type=int, default=0,
+                    help="--spec layer_skip: the draft's depth (0: half "
+                         "the layers)")
     ap.add_argument("--packed", action="store_true",
                     help="quantize+pack ternarizable projections into the "
                          "Dense2Bit serving format before load")
@@ -140,9 +158,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                     help="--traffic: mean offered load, requests a second")
     ap.add_argument("--chaos", action="store_true",
                     help="arm the seeded fault injector (NaN logits, "
-                         "forced page OOM, slow steps at modest rates; "
-                         "seeded from --seed): quarantined requests replay "
-                         "to the tokens of a fault-free run")
+                         "forced page OOM, slow steps, draft failures at "
+                         "modest rates; seeded from --seed): quarantined "
+                         "requests replay to the tokens of a fault-free "
+                         "run")
     ap.add_argument("--deadline-s", type=float, default=0.0,
                     help=">0: per-request wall-clock deadline; expired "
                          "requests are cancelled (queued or live) and "
@@ -168,7 +187,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                  if args.ternary_min_dim > 0 else {})
     cfg = get_config(args.arch, reduced=args.reduced, **overrides)
     gen_lens = [int(g) for g in args.gen_lens.split(",")]
-    max_len = args.prompt_len + max(gen_lens) + 1
+    spec_headroom = args.spec_k if args.spec != "off" else 0
+    max_len = args.prompt_len + max(gen_lens) + 1 + spec_headroom
     prompts, gens = build_workload(cfg, args.requests, args.prompt_len,
                                    gen_lens, seed=args.seed)
     cfg, params = build_params(cfg, args.seed, device, args.packed)
@@ -185,10 +205,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                        else 0.1),
         priority=0)
     batch_cls = SLOClass("batch", priority=1)
+    spec = None
+    if args.spec != "off":
+        spec = SpecConfig(draft=args.spec, k=args.spec_k,
+                          draft_sparsity=args.draft_sparsity,
+                          draft_layers=args.draft_layers)
     faults = None
     if args.chaos:
-        # repro's rates; the draft rate is drawn but inert without
-        # speculative decoding, which keeps the schedule repro's
+        # repro's rates (draft failures act on --spec runs only)
         faults = FaultConfig(seed=args.seed, nan_rate=0.05, oom_rate=0.05,
                              slow_rate=0.02, slow_s=0.01,
                              draft_fail_rate=0.05)
@@ -205,7 +229,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                                  n_pages=args.pages,
                                  kv_dtype=args.kv_dtype or None,
                                  prefix_cache=not args.no_prefix_cache,
-                                 sched=sched, faults=faults,
+                                 sched=sched, spec=spec, faults=faults,
                                  resilience=resilience, device=device,
                                  tracer=tracer)
     engine.load(params)

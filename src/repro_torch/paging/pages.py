@@ -28,7 +28,12 @@ The host ownership model is ``repro``'s, call for call:
 On the device, ``insert`` (prefilled rows into the prompt's pages) and the
 copy-on-write page copy are in-place index writes on the per-layer
 tensors, where ``repro`` returns new arrays; the port's layer list has no
-``n_groups`` axis. Speculative ``truncate`` is not ported yet.
+``n_groups`` axis.
+
+**Rollback** (``truncate``, speculative decoding): a verify window grows a
+slot's pages over all k+1 positions before acceptance is known; after the
+commit the slot's table drops the pages past its committed length, which
+go back to the free list at once.
 
 Fault injection (``inject_alloc_failures``, armed by the engine's
 ``FaultInjector``): while ``fault_alloc_failures`` is positive, each page
@@ -322,6 +327,29 @@ class PagePool:
         self.table_dirty = True
         self._slot_live[slot] = False
         self._free_slots.append(slot)
+
+    def truncate(self, slot: int, n_tokens: int) -> int:
+        """Speculative-decoding rollback: drop the slot's page references
+        past what ``n_tokens`` committed tokens need and return how many
+        pages went back to the pool, O(dropped).
+
+        Only decode-grown tail pages can drop: ``n_tokens`` is never below
+        the prompt length, so registered prompt pages stay in range, and a
+        dropped page is fresh or the private side of a copy on write
+        (refcount 1, unregistered), so ``_unref`` frees it at once. Shared
+        pages' refcounts are untouched."""
+        self._check_live(slot)
+        keep = max(self.pages_needed(n_tokens), 1)
+        pages = self.slot_pages[slot]
+        if keep >= len(pages):
+            return 0
+        dropped = pages[keep:]
+        del pages[keep:]
+        for pid in dropped:
+            self._unref(pid)
+        self.table[slot, keep:keep + len(dropped)] = 0
+        self.table_dirty = True
+        return len(dropped)
 
     # ------------------------------------------------------------------
     # Device writes: prefilled rows -> pages, copy-on-write

@@ -1,7 +1,6 @@
 """Continuous-batching scheduler of the port over the dense slot pool or the
 paged KV pool — the counterpart of ``repro.serving.engine.
-ContinuousScheduler`` (speculative decoding and meshes are not ported
-yet).
+ContinuousScheduler`` (meshes are not ported yet).
 
 Each step: **admit** FIFO runs of equal-length prompts into free slots as
 one prefill (the last-position argmax is each request's first token);
@@ -43,36 +42,57 @@ or on the trash page (paged). On the card every window shape (slots,
 all in one memory pool. With ``chunk_tokens=0`` the engine
 prefills whole prompts in SLO order.
 
-Fault tolerance (``repro``'s model; ``serving.faults``): the decode step
-and every chunk window compute a per-row guard, ``ok = all(isfinite(
-logits))``, inside the step (and so inside the captured graphs). A live
-slot whose row is not finite is *quarantined*: its uncommitted token is
-dropped, its slot and pages are released, and the request replays from
-its prompt (greedy decode makes the retry token-exact), up to its retry
-budget, after which it ends ``failed`` with reason ``"nan_logits"``.
-Requests past their deadline are cancelled wherever they are. A
-``FaultConfig`` arms the seeded injector: NaN logits in one live slot
-(through a static mask the decode step reads, all false but in the step
-a fault fires), armed page-allocation failures, slow steps. Admission
-pauses while the paged pool's free fraction is below
-``ResilienceConfig.admission_pause_frac``. The ``faults`` block of the
-metrics reports all of it.
+Speculative decoding (``spec=SpecConfig(...)``, ``repro_torch.spec``, as
+``repro``'s): each step's one-token decode becomes a round. The draft
+(a prefix of the layers, the weights re-packed sparser, or an external
+model) proposes k tokens a slot from its own dense cache (one re-sync
+feed, then k greedy feeds, under the ``"decode"`` phase) straight into
+the verify window's static buffer; the target runs the (slots, k+1)
+window in one forward under ``"verify"`` and computes greedy tokens,
+accepted counts and the guard on the device, read with one copy. The
+host commits each slot's accepted drafts and the bonus token (stopping at
+the budget or EOS), rolls the rejected tail back (dense: the position
+alone; paged: ``PagePool.truncate``) and quarantines a slot whose window
+is not finite. Paged growth covers the whole window (``_grow_paged(1 +
+k)``); ``submit`` reserves k positions of headroom. On the card
+``load()`` captures the draft round and the verify window as one CUDA
+graph each, in the decode step's memory pool, and a round replays both
+back to back. The draft's own cache is dense in both cache modes; whole-
+prompt admission and a completed chunked prefill prefill it (eagerly).
 
-Counters (``total_drained``, ``prefill_steps``, ``decode_steps``,
-``preemptions``, ``deferrals``, ``chunk_steps``,
-``chunk_tokens_committed``, ``prefill_completions``, ``quarantines``,
-``fault_retries``, ``failed_requests``, ``admission_pauses``,
-``deadline_cancels``, ``draft_fallbacks``) live in a
-``MetricsRegistry``
-(``engine.metrics``) behind attributes of those names, beside the
-step-time EWMA (``step_time_s``) and ``straggler_steps``. With a
-``tracer`` (``obs.trace.Tracer``) the engine records each request's life
-on its own track and its prefill, chunk-window and decode-step spans and
-per-step counters on the scheduler track, as ``repro``'s does;
-``tracer=None`` costs one attribute test per site.
+Fault tolerance (``repro``'s model; ``serving.faults``): the decode step,
+every chunk window and the verify window compute a per-row guard, ``ok =
+all(isfinite(logits))``, inside the step (and so inside the captured
+graphs). A live slot whose row is not finite is *quarantined*: its
+uncommitted tokens are dropped, its slot and pages are released, and the
+request replays from its prompt (greedy decode makes the retry
+token-exact), up to its retry budget, after which it ends ``failed`` with
+reason ``"nan_logits"``. Requests past their deadline are cancelled
+wherever they are. A ``FaultConfig`` arms the seeded injector: NaN logits
+in one live slot (through a static mask the decode step and the verify
+window read, all false but in the step a fault fires), armed
+page-allocation failures, slow steps, failed draft rounds (that step runs
+one plain graphed decode step instead and counts a ``draft_fallback``).
+The degradation ladder disables speculation for good once the mean
+acceptance over the last ``spec_floor_window`` rounds falls below
+``ResilienceConfig.spec_accept_floor``, and pauses admission while the
+paged pool's free fraction is below ``admission_pause_frac``. The
+``faults`` block of the metrics reports all of it, the ``spec`` block the
+rounds, proposals, acceptances and rollbacks.
+
+Counters (``_ENGINE_COUNTERS``: steps, preemptions, deferrals, chunk,
+spec and fault counts) live in a ``MetricsRegistry`` (``engine.metrics``)
+behind attributes of those names, beside the step-time EWMA
+(``step_time_s``) and ``straggler_steps``. With a ``tracer``
+(``obs.trace.Tracer``) the engine records each request's life on its own
+track and its prefill, chunk-window, decode-step, draft and verify spans
+(and ``draft_fallback`` / ``spec_disabled`` instants) and per-step
+counters on the scheduler track, as ``repro``'s does; ``tracer=None``
+costs one attribute test per site.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import logging
 import time
@@ -95,6 +115,9 @@ from repro_torch.serving.queue import Request, RequestQueue
 from repro_torch.serving.sched import ChunkRunner, SchedConfig, SLOQueue
 from repro_torch.serving.sched.slo import plan_chunks
 from repro_torch.serving.slots import SlotPool
+from repro_torch.spec import (build_draft, make_draft_round,
+                              make_verify_step, rollback_dense,
+                              rollback_paged)
 
 log = logging.getLogger("repro_torch.serving")
 
@@ -105,11 +128,13 @@ _STRAGGLER_FACTOR = 8.0
 
 class ContinuousScheduler:
     """The scheduler of the module docstring. ``sched``: a
-    ``SchedConfig``, or None for FIFO whole-prompt admission. ``faults``:
+    ``SchedConfig``, or None for FIFO whole-prompt admission. ``spec``: a
+    ``spec.SpecConfig``, or None for one-token decode. ``faults``:
     a ``FaultConfig`` arming the injector, or None. ``resilience``: the
     ``ResilienceConfig`` (default: no deadline, 2 retries). ``tracer``:
     an ``obs.trace.Tracer``, or None for none. ``cuda_graph=False`` runs
-    the decode step and the chunk windows eagerly on the card: it exists
+    the decode step, the chunk windows, the draft round and the verify
+    window eagerly on the card: it exists
     only for the same-process A/B against the graphs, and no CLI flag sets
     it. On the CPU both always run eagerly."""
 
@@ -117,13 +142,16 @@ class ContinuousScheduler:
                  eos_id: Optional[int] = None, *, cache: str = "dense",
                  page_size: int = 16, n_pages: int = 0,
                  kv_dtype: Optional[str] = None, prefix_cache: bool = True,
-                 sched: Optional[SchedConfig] = None,
+                 sched: Optional[SchedConfig] = None, spec=None,
                  faults: Optional[FaultConfig] = None,
                  resilience: Optional[ResilienceConfig] = None,
                  device="cuda", tracer=None, cuda_graph: bool = True):
         if cache not in ("dense", "paged"):
             raise ValueError(f"cache must be 'dense' or 'paged', got "
                              f"{cache!r}")
+        if spec is not None:
+            _check_spec(cfg, spec, max_len)
+        self.spec = spec
         self.cfg = cfg
         self.cache_mode = cache
         self.device = resolve_device(device)
@@ -174,13 +202,31 @@ class ContinuousScheduler:
         self._dev_ok = self._dev_out[1]
         self._dev_nan = torch.zeros(max_slots, dtype=torch.bool,
                                     device=self.device)
+        # speculative decoding: the second-newest committed token a slot
+        # (the draft round's re-sync feed) and the (slots, k+1) verify
+        # window the draft round writes
+        self._prev_tok = np.zeros(max_slots, np.int32)
+        self._dev_prev = torch.zeros(max_slots, dtype=torch.int32,
+                                     device=self.device)
+        self._dev_win = (torch.zeros((max_slots, spec.k + 1),
+                                     dtype=torch.int32, device=self.device)
+                         if spec is not None else None)
+        self._spec_out: Optional[torch.Tensor] = None
+        self._draft_graph: Optional[graphs.CapturedStep] = None
+        self._verify_graph: Optional[graphs.CapturedStep] = None
+        self.draft = None
+        self._draft_layers = None
         self._dirty = True
         self.cuda_graph = cuda_graph
         self._graph: Optional[graphs.CapturedStep] = None
-        # the logits (max_slots, V) of the latest decode step; under the
-        # graph, the graph's own output tensor, valid only until the next
-        # replay of any graph of the engine (clone it to keep it)
+        # the logits of the latest decode step (max_slots, V) or verify
+        # window (max_slots, k+1, V); under a graph, the graph's own output
+        # tensor, valid only until the next replay of any graph of the
+        # engine (clone it to keep it). _step_logits / _verify_logits: the
+        # output of the last call (or capture) of each step
         self.last_logits: Optional[torch.Tensor] = None
+        self._step_logits: Optional[torch.Tensor] = None
+        self._verify_logits: Optional[torch.Tensor] = None
         self._finished: List[Request] = []
         self._depth_stat = RunningStat("queue_depth")
         self._live_stat = RunningStat("live_slots")
@@ -193,6 +239,10 @@ class ContinuousScheduler:
         # fresh, as repro's does, so that count is not the submissions.)
         self.submitted = 0
         self._any_deadline = self.resilience.deadline_s is not None
+        # the degradation ladder's rolling acceptance, one entry a round
+        self.spec_disabled = False
+        self._accept_ring = collections.deque(
+            maxlen=max(self.resilience.spec_floor_window, 1))
 
     # ------------------------------------------------------------------
     def load(self, params) -> None:
@@ -201,26 +251,48 @@ class ContinuousScheduler:
         capture the decode step into a CUDA graph, after eager warm-up
         steps on the free slots: their writes land where free slots'
         garbage always lands (rows the next insert overwrites, or the paged
-        pool's trash page). Chunked, then run every window shape (slots,
-        2^i), 2^i <= min(step budget, max_len), once with garbage rows
-        only, capturing each on the card; the graphs share one memory pool
-        (``ChunkRunner.warmup``). A failed capture raises."""
+        pool's trash page). With ``spec``, build the draft and its dense
+        cache and capture the draft round and the verify window the same
+        way (their warm-ups write free slots' draft rows, free slots' rows
+        of the pool or the trash page). Chunked, then run every window
+        shape (slots, 2^i), 2^i <= min(step budget, max_len), once with
+        garbage rows only, capturing each on the card. All graphs share
+        one memory pool (``ChunkRunner.warmup``). A failed capture
+        raises."""
         if self._live or self._prefills:
             raise RuntimeError("load() while requests are live")
         self.params = params
-        self._graph = None
+        self._graph = self._draft_graph = self._verify_graph = None
+        if self.spec is not None:
+            self.draft = build_draft(self.spec, self.model, params)
+            self._draft_layers = self.draft.model.init_cache(
+                self.max_slots, self.max_len)["layers"]
+            self._draft_round = make_draft_round(self.draft, self.max_len,
+                                                 self.spec.k)
+            self._verify = make_verify_step(self.model, self.max_len,
+                                            self.spec.k)
         graphed = self.device.type == "cuda" and self.cuda_graph
         mempool = torch.cuda.graph_pool_handle() if graphed else None
         if graphed:
             self._dirty = True
             self._push_host_state()
+            capture = functools.partial(graphs.cuda_graph_capture,
+                                        pool=mempool)
             with ops.serving_phase("decode"):
-                self._graph = graphs.CapturedStep(
-                    self._decode_step, capture=functools.partial(
-                        graphs.cuda_graph_capture, pool=mempool))
+                self._graph = graphs.CapturedStep(self._decode_step,
+                                                  capture=capture)
+                if self.spec is not None:
+                    self._draft_graph = graphs.CapturedStep(
+                        self._draft_step, capture=capture)
+            if self.spec is not None:
+                with ops.serving_phase("verify"):
+                    self._verify_graph = graphs.CapturedStep(
+                        self._verify_step, capture=capture)
             self._dirty = True        # the warm-up moved pos and tok
         if self._chunker is not None:
-            smax = min(self.sched.budget_for(self.max_slots), self.max_len)
+            smax = min(self.sched.budget_for(
+                self.max_slots, self.spec.k if self.spec else 0),
+                self.max_len)
             self._chunker.warmup(
                 params, self.pool, [1 << i for i in range(smax.bit_length())],
                 cuda_graph=graphed, graph_pool=mempool)
@@ -229,6 +301,14 @@ class ContinuousScheduler:
     def chunker(self) -> Optional[ChunkRunner]:
         """The chunk-window runner (None unless chunked)."""
         return self._chunker
+
+    @property
+    def spec_graphs(self) -> Dict[str, graphs.CapturedStep]:
+        """The captured draft round and verify window (empty unless
+        graphed with ``spec``)."""
+        return {name: g for name, g in (("draft", self._draft_graph),
+                                        ("verify", self._verify_graph))
+                if g is not None}
 
     @torch.no_grad()
     def _prefill(self, toks: torch.Tensor):
@@ -258,18 +338,39 @@ class ContinuousScheduler:
         logits, new_cache = self.model.decode_step(self.params, cache,
                                                    self._dev_tok[:, None])
         row = torch.where(self._dev_nan[:, None], float("nan"), logits[:, 0])
-        self.last_logits = row
+        self._step_logits = row
         self._dev_ok.copy_(torch.isfinite(row).all(dim=-1))
         self._dev_tok.copy_(row.argmax(dim=-1))
         self._dev_pos.copy_(new_cache["pos"])
 
+    def _draft_step(self) -> None:
+        """The draft round on the static buffers: reads pos, the newest and
+        second-newest tokens, writes the draft's cache and the verify
+        window in place. The CUDA graph captures this."""
+        self._draft_round(self._draft_layers, self._dev_pos, self._dev_prev,
+                          self._dev_tok, self._dev_win)
+
+    def _verify_step(self) -> None:
+        """The verify window on the static buffers (pos, the window, the
+        NaN mask and, paged, the block table), writing the pool's caches
+        in place; its greedy tokens, accepted counts and guard land in
+        ``_spec_out``, its logits in ``_verify_logits`` (under the graph,
+        the graph's own outputs). The CUDA graph captures this."""
+        self._spec_out, self._verify_logits = self._verify(
+            self.params, self.pool.layers, self._dev_pos, self._dev_win,
+            self._dev_table if self.cache_mode == "paged" else None,
+            self._dev_nan)
+
     def _push_host_state(self) -> None:
-        """Copy the host mirrors (after admit / evict) and the block table
-        (after a page change) into the static buffers. The copies block, so
-        a mirror the next step mutates is never read mid-copy."""
+        """Copy the host mirrors (after admit / evict / a spec round) and
+        the block table (after a page change) into the static buffers. The
+        copies block, so a mirror the next step mutates is never read
+        mid-copy."""
         if self._dirty:
             self._dev_pos.copy_(torch.from_numpy(self._pos))
             self._dev_tok.copy_(torch.from_numpy(self._tok))
+            if self.spec is not None:
+                self._dev_prev.copy_(torch.from_numpy(self._prev_tok))
             self._dirty = False
         if self.cache_mode == "paged" and self.pool.table_dirty:
             self._dev_table.copy_(torch.from_numpy(self.pool.table))
@@ -285,9 +386,13 @@ class ContinuousScheduler:
         its ``SLOClass`` (None: best effort); ``submit_t``: the arrival to
         stamp (default now)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
-        if prompt.size + max_new > self.max_len:
-            raise ValueError(f"prompt {prompt.size} + gen {max_new} exceeds "
-                             f"max_len {self.max_len}")
+        # spec mode reserves k positions of headroom: the last emitted
+        # token's verify window writes up to position prompt + gen - 1 + k
+        headroom = self.spec.k if self.spec is not None else 0
+        if prompt.size + max_new + headroom > self.max_len:
+            raise ValueError(f"prompt {prompt.size} + gen {max_new} + spec "
+                             f"headroom {headroom} exceeds max_len "
+                             f"{self.max_len}")
         if deadline_s is None:
             deadline_s = self.resilience.deadline_s
         if deadline_s is not None:
@@ -356,6 +461,8 @@ class ContinuousScheduler:
             self.pool.insert([a for _, _, a in group], req_layers)
         else:
             self.pool.insert([s for _, s, _ in group], req_layers)
+        if self.spec is not None:
+            self._draft_prefill(prompts, [s for _, s, _ in group])
         toks = toks_dev.cpu().numpy()
         now = obs_clock.now()
         for (req, slot, _), tok in zip(group, toks):
@@ -365,12 +472,26 @@ class ContinuousScheduler:
             req.first_token_t = now
             self._pos[slot] = req.prompt_len
             self._tok[slot] = tok
+            self._prev_tok[slot] = req.prompt[-1]
             self._live[slot] = req
             self._dirty = True
             if tr is not None:
                 self._trace_first_token(req)
             if req.done:
                 self._evict(slot)
+
+    @torch.no_grad()
+    def _draft_prefill(self, prompts: np.ndarray, slots) -> None:
+        """The draft keeps its own dense cache of the same stream: prefill
+        the prompts (B, L) with the draft and write them into its rows
+        ``slots`` (whole rows, so a slot's old garbage goes)."""
+        dlm = self.draft.model
+        with ops.serving_phase("prefill"):
+            cache, _ = dlm.prefill(
+                self.draft.params,
+                {"tokens": torch.as_tensor(prompts, device=self.device)},
+                self.max_len)
+        dlm.insert_cache(self._draft_layers, cache["layers"], slots)
 
     def _head_ready(self, now: float) -> bool:
         """Admission gate: the queue holds a request past its
@@ -480,6 +601,7 @@ class ContinuousScheduler:
         req.slot = None
         self._pos[slot] = 0
         self._tok[slot] = 0
+        self._prev_tok[slot] = 0
         self._dirty = True
         if self.cache_mode == "paged":
             self.pool.release(slot)
@@ -513,6 +635,8 @@ class ContinuousScheduler:
         req.first_token_t = None
         req.admit_t = None            # re-stamped at the retry admission
         req.prefill_pos = 0           # chunked prefill restarts from 0
+        req.spec_proposed = 0         # a replay counts its drafts again
+        req.spec_accepted = 0
         return req
 
     def _preempt(self, slot: int) -> None:
@@ -608,17 +732,18 @@ class ContinuousScheduler:
         step's residual tokens across ``_prefills`` (``plan_chunks``), run
         one window, then commit. A request whose prompt completes reads its
         first token at its last real window position and joins the decode
-        batch."""
+        batch (spec: after a whole-prompt prefill of the draft's cache)."""
         if not self._prefills:
             self._chunk_meta = None
             return
+        k = self.spec.k if self._spec_active else 0
         tpots = [r.slo.tpot_target_s for r in self._live.values()
                  if r.slo is not None
                  and getattr(r.slo, "tpot_target_s", None) is not None]
         jobs, meta = plan_chunks(
             list(self._prefills.items()), cfg=self.sched,
-            budget=self.sched.budget_for(self.max_slots),
-            n_decode_tokens=len(self._live), max_len=self.max_len,
+            budget=self.sched.budget_for(self.max_slots, k),
+            n_decode_tokens=len(self._live) * (1 + k), max_len=self.max_len,
             now=obs_clock.now(), step_s=self._step_time.value or 0.0,
             tpot_floor=min(tpots) if tpots else None)
         self._chunk_meta = meta
@@ -659,16 +784,25 @@ class ContinuousScheduler:
                 req.tokens.append(tok)
                 req.first_token_t = now
                 self._tok[slot] = tok
+                self._prev_tok[slot] = req.prompt[-1]
                 self.prefill_completions += 1
                 if tr is not None:
                     self._trace_first_token(req)
                 if req.done:             # max_new == 1 (or instant EOS)
                     self._evict(slot)
+                elif self.spec is not None:
+                    # the draft's cache takes the whole prompt at once:
+                    # draft-sized, and not what the step's latency is
+                    self._draft_prefill(req.prompt[None], [slot])
+
+    @property
+    def _spec_active(self) -> bool:
+        return self.spec is not None and not self.spec_disabled
 
     def _plan_faults(self):
         """Draw this step's faults and apply the ones outside the decode
-        step at once (the sleep, the armed page failures); the NaN fault
-        is returned for the decode step."""
+        step at once (the sleep, the armed page failures); the NaN and
+        draft faults are returned for the decode step or spec round."""
         if self.injector is None:
             return None
         f = self.injector.plan(self._step_no)
@@ -693,8 +827,9 @@ class ContinuousScheduler:
     def step(self) -> None:
         """One iteration: draw the faults, expire deadlines, admit (+
         prefill, or advance the chunked prefills), grow pages, decode every
-        slot under the finite guard, then commit or quarantine each live
-        slot and evict."""
+        slot (or run the spec round: draft, verify, rollback) under the
+        finite guard, then commit or quarantine each live slot and
+        evict."""
         self._step_no += 1
         t_step = obs_clock.now()
         faults = self._plan_faults()
@@ -703,14 +838,30 @@ class ContinuousScheduler:
         self._admit()
         if self._chunker is not None:
             self._run_chunks()
+        # a draft fault (or the acceptance floor) turns this step into one
+        # plain decode step, whose growth horizon is 1
+        spec_active = self._spec_active
+        draft_down = (spec_active and faults is not None
+                      and faults.draft_fail)
+        if draft_down:
+            self.injector.count("draft_fail")
+            self.draft_fallbacks += 1
+            if self.tracer is not None:
+                self.tracer.instant("draft_fallback", pid=self._trace_pid,
+                                    args={"step": self._step_no})
         if self.cache_mode == "paged":
-            self._grow_paged(1)
+            self._grow_paged(1 + (self.spec.k
+                                  if spec_active and not draft_down else 0))
         if not self._live:
             if self._prefills:       # a chunk-only step did real work
                 self._note_step_time(t_step)
             return
         self._live_stat.push(len(self._live) + len(self._prefills))
         self._push_host_state()
+        if spec_active and not draft_down:
+            self._step_spec(faults)
+            self._note_step_time(t_step)
+            return
         victim = self._nan_mask(faults)
         t_decode = obs_clock.now()
         with ops.serving_phase("decode"):
@@ -718,6 +869,7 @@ class ContinuousScheduler:
                 self._graph.replay()
             else:
                 self._decode_step()
+        self.last_logits = self._step_logits
         self.decode_steps += 1
         toks, ok = self._read_step()
         if victim is not None:
@@ -734,12 +886,125 @@ class ContinuousScheduler:
             if not ok[slot]:
                 self._quarantine(slot)
                 continue
+            if self.spec is not None:
+                # keep the draft round's re-sync feed right across plain
+                # decode steps (spec.draft.make_draft_round)
+                self._prev_tok[slot] = self._tok[slot]
+                self._dirty = True
             req.tokens.append(int(toks[slot]))
             self._pos[slot] += 1
             self._tok[slot] = toks[slot]
             if req.done:
                 self._evict(slot)
         self._note_step_time(t_step)
+
+    def _step_spec(self, faults) -> None:
+        """One speculative round: draft k tokens a slot, verify the (slots,
+        k+1) window in one target forward, commit each slot's accepted
+        prefix and bonus token (up to its budget or EOS), roll the target
+        cache back past the rejected tail, and quarantine a slot whose
+        window is not finite. The draft round and the verify window run
+        back to back (two graph replays on the card); the host reads one
+        (slots, k+3) int32 tensor."""
+        k = self.spec.k
+        tr = self.tracer
+        t_draft = obs_clock.now()
+        with ops.serving_phase("decode"):        # draft GEMMs are M = slots
+            if self._draft_graph is not None:
+                self._draft_graph.replay()
+            else:
+                self._draft_step()
+        if tr is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            tr.complete("draft", t_draft, obs_clock.now(), cat="kernel",
+                        pid=self._trace_pid,
+                        args={"live": len(self._live), "k": k,
+                              "m": self.max_slots})
+        victim = self._nan_mask(faults)
+        t_verify = obs_clock.now()
+        with ops.serving_phase("verify"):
+            if self._verify_graph is not None:
+                self._verify_graph.replay()
+            else:
+                self._verify_step()
+        self.last_logits = self._verify_logits
+        self.decode_steps += 1
+        self.spec_rounds += 1
+        out = self._spec_out.cpu().numpy()
+        greedy, n_acc, ok = out[:, :k + 1], out[:, k + 1], out[:, k + 2]
+        if victim is not None:
+            self._dev_nan.zero_()
+        if tr is not None:
+            # the output read above is the sync point
+            tr.complete("verify", t_verify, obs_clock.now(), cat="kernel",
+                        pid=self._trace_pid,
+                        args={"live": len(self._live), "k": k,
+                              "m": self.max_slots * (k + 1)})
+        round_slots = round_accepted = 0
+        for slot in list(self._live):
+            req = self._live[slot]
+            if not ok[slot]:
+                # a corrupted window commits nothing; the replay from the
+                # prompt is token-exact, so the NaN never reaches the output
+                self._quarantine(slot)
+                continue
+            na = int(n_acc[slot])
+            round_slots += 1
+            round_accepted += na
+            self.spec_slot_rounds += 1
+            self.spec_proposed += k
+            self.spec_accepted += na
+            req.spec_proposed += k
+            req.spec_accepted += na
+            old_tok = int(self._tok[slot])
+            emitted = 0
+            for j in range(na + 1):               # accepted drafts + bonus
+                req.tokens.append(int(greedy[slot, j]))
+                emitted += 1
+                if req.done:                      # budget / EOS mid-window
+                    break
+            self.spec_emitted += emitted
+            self._pos[slot] += emitted
+            self._tok[slot] = greedy[slot, emitted - 1]
+            self._prev_tok[slot] = (greedy[slot, emitted - 2]
+                                    if emitted >= 2 else old_tok)
+            self._dirty = True
+            if req.done:
+                self._evict(slot)                 # release drops the pages
+            elif self.cache_mode == "paged":
+                self.spec_page_reclaims += rollback_paged(
+                    self.pool, slot, int(self._pos[slot]))
+            else:
+                rollback_dense(self.pool, slot, int(self._pos[slot]))
+        self._check_accept_floor(round_slots, round_accepted)
+
+    def _check_accept_floor(self, round_slots: int,
+                            round_accepted: int) -> None:
+        """Degradation rung 1: once the mean acceptance of the last
+        ``spec_floor_window`` rounds is below ``spec_accept_floor``, every
+        round costs a k+1 window for about one token, worse than plain
+        decode, so speculation is shed for the rest of the engine's
+        life."""
+        floor = self.resilience.spec_accept_floor
+        if floor <= 0.0 or not round_slots:
+            return
+        self._accept_ring.append(round_accepted
+                                 / (self.spec.k * round_slots))
+        if (len(self._accept_ring) < self._accept_ring.maxlen
+                or self.spec_disabled):
+            return
+        mean = sum(self._accept_ring) / len(self._accept_ring)
+        if mean < floor:
+            self.spec_disabled = True
+            self.spec_disables += 1
+            if self.tracer is not None:
+                self.tracer.instant("spec_disabled", pid=self._trace_pid,
+                                    args={"acceptance": round(mean, 4),
+                                          "floor": floor})
+            log.warning("spec decoding disabled: rolling acceptance %.3f "
+                        "< floor %.3f over %d rounds", mean, floor,
+                        self._accept_ring.maxlen)
 
     def _read_step(self):
         """The decode step's next tokens and guard, one device read."""
@@ -795,11 +1060,16 @@ class ContinuousScheduler:
                 "p0": self.prefill_steps, "d0": self.decode_steps,
                 "c0": (self.chunk_steps, self.chunk_tokens_committed,
                        self.prefill_completions),
+                "s0": (self.spec_rounds, self.spec_proposed,
+                       self.spec_accepted, self.spec_emitted,
+                       self.spec_page_reclaims, self.spec_slot_rounds),
                 "f0": {"quarantines": self.quarantines,
                        "retries": self.fault_retries,
                        "failed": self.failed_requests,
                        "pauses": self.admission_pauses,
                        "deadline_cancels": self.deadline_cancels,
+                       "spec_disables": self.spec_disables,
+                       "draft_fallbacks": self.draft_fallbacks,
                        "injected": (dict(self.injector.injected)
                                     if self.injector else {})}}
 
@@ -868,8 +1138,8 @@ class ContinuousScheduler:
 
     def collect_metrics(self, snap: Dict[str, Any]) -> Dict[str, Any]:
         """The metrics JSON of the span since ``begin_metrics``: ``repro``'s
-        keys and shapes, with ``mesh`` and ``spec`` None (those features
-        are not ported), and without ``planned_gemms``."""
+        keys and shapes, with ``mesh`` None (not ported), and without
+        ``planned_gemms``."""
         wall = obs_clock.now() - snap["t0"]
         c0, f0 = snap["c0"], snap["f0"]
         done = self._finished[snap["n0"]:]
@@ -886,7 +1156,7 @@ class ContinuousScheduler:
             "max_len": self.max_len,
             "mesh": None,
             "cache": cache,
-            "spec": None,
+            "spec": self._spec_metrics(snap, done),
             "concurrency": {"peak": self._live_stat.peak,
                             "mean": round(self._live_stat.mean, 3)},
             "per_request": [r.metrics() for r in done],
@@ -909,7 +1179,9 @@ class ContinuousScheduler:
             "sched": (None if self.sched is None else {
                 "chunked_prefill": self._chunker is not None,
                 "chunk_tokens": self.sched.chunk_tokens,
-                "step_token_budget": self.sched.budget_for(self.max_slots),
+                "step_token_budget": self.sched.budget_for(
+                    self.max_slots,
+                    self.spec.k if self.spec is not None else 0),
                 "admission": self.sched.admission,
                 "chunk_steps": self.chunk_steps - c0[0],
                 "chunk_tokens_committed":
@@ -927,9 +1199,9 @@ class ContinuousScheduler:
                 "retries": self.fault_retries - f0["retries"],
                 "failed_requests": self.failed_requests - f0["failed"],
                 "degradations": {
-                    # no speculative decoding yet, so it is never shed
-                    "spec_disabled": False,
-                    "spec_disables": 0,
+                    "spec_disabled": self.spec_disabled,
+                    "spec_disables": (self.spec_disables
+                                      - f0["spec_disables"]),
                     "admission_pauses": (self.admission_pauses
                                          - f0["pauses"]),
                     "deadline_cancellations": (self.deadline_cancels
@@ -939,15 +1211,77 @@ class ContinuousScheduler:
         }
 
 
+    def _spec_metrics(self, snap, done) -> Optional[Dict[str, Any]]:
+        """The ``spec`` block (None without ``spec``): rounds, draft tokens
+        proposed and accepted, emitted tokens per (slot, round), pages
+        reclaimed by rollback, fallbacks, and the per-request rates."""
+        if self.spec is None:
+            return None
+        s0 = snap["s0"]
+        proposed = self.spec_proposed - s0[1]
+        accepted = self.spec_accepted - s0[2]
+        emitted = self.spec_emitted - s0[3]
+        slot_rounds = self.spec_slot_rounds - s0[5]
+        return {
+            "draft": self.draft.name,
+            "k": self.spec.k,
+            "rounds": self.spec_rounds - s0[0],
+            "draft_tokens_proposed": proposed,
+            "draft_tokens_accepted": accepted,
+            "acceptance_rate": (round(accepted / proposed, 4)
+                                if proposed else None),
+            # tokens emitted per (slot, round): 1 (no draft accepted) to
+            # k+1 (the whole window and the bonus)
+            "mean_accepted_len": (round(emitted / slot_rounds, 3)
+                                  if slot_rounds else None),
+            "rollback_page_reclaims": self.spec_page_reclaims - s0[4],
+            "disabled": self.spec_disabled,
+            "draft_fallbacks": (self.draft_fallbacks
+                                - snap["f0"]["draft_fallbacks"]),
+            "per_request": [
+                {"rid": r.rid, "proposed": r.spec_proposed,
+                 "accepted": r.spec_accepted,
+                 "rate": (round(r.spec_accepted / r.spec_proposed, 4)
+                          if r.spec_proposed else None)}
+                for r in done],
+        }
+
+
+def _check_spec(cfg: ModelConfig, spec, max_len: int) -> None:
+    """``repro``'s checks of a speculative engine, ahead of the model's own
+    (the port's ``LM`` serves attention-only stacks and raises for the
+    rest)."""
+    if spec.k < 1:
+        raise ValueError(f"spec.k must be >= 1, got {spec.k}")
+    if max_len < spec.k + 2:
+        raise ValueError(f"max_len={max_len} leaves no room for a "
+                         f"k={spec.k} verify window")
+    if any(cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
+        raise ValueError("speculative decoding needs an attention-only "
+                         "stack: SSM recurrent state advanced past a "
+                         "rejected token cannot be rolled back by position "
+                         "bookkeeping")
+    if cfg.cache_layout == "opt":
+        raise ValueError("speculative decoding needs cache_layout='bshd' "
+                         "(the 'opt' delta-commit layout is one-token-only)")
+    if cfg.sliding_window:
+        raise ValueError("speculative decoding does not support rolling "
+                         "sliding-window caches: a rejected window write "
+                         "overwrites the oldest live entry, which rollback "
+                         "cannot restore")
+
+
 # The scheduler's counters live in its MetricsRegistry behind these
 # attribute names (repro's idiom: `eng.total_drained += 1` reads and
 # writes the registry), so `engine.metrics.snapshot()` holds them all.
 _ENGINE_COUNTERS = ("total_drained", "prefill_steps", "decode_steps",
-                    "preemptions", "deferrals", "chunk_steps",
+                    "preemptions", "deferrals", "spec_rounds",
+                    "spec_slot_rounds", "spec_proposed", "spec_accepted",
+                    "spec_emitted", "spec_page_reclaims", "chunk_steps",
                     "chunk_tokens_committed", "prefill_completions",
                     "quarantines", "fault_retries", "failed_requests",
                     "admission_pauses", "deadline_cancels",
-                    "draft_fallbacks")
+                    "spec_disables", "draft_fallbacks")
 
 
 def _counter_property(name: str) -> property:

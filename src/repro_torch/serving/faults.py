@@ -9,14 +9,14 @@ counterpart, numpy only): two config objects and one seeded injector.
   arm page-pool allocation failures, sleep, or fail a draft round.
   ``*_at`` tuples pin exact (1-based) steps; rates give soak runs a storm.
 * ``ResilienceConfig``: the engine's response: per-request deadlines, a
-  retry budget with exponential backoff for quarantined requests, and
+  retry budget with exponential backoff for quarantined requests, the
+  acceptance floor below which speculation is switched off, and
   admission pauses under page-pool pressure. Its defaults are inert.
 
-The port has no speculative decoding yet, so the draft fields
-(``draft_fail_rate``, ``draft_fail_at``, ``spec_accept_floor``,
-``spec_floor_window``) are accepted and do nothing, as in ``repro`` with
-``spec=None``; the draft uniform is still drawn, which keeps the draw
-order.
+The draft fields (``draft_fail_rate``, ``draft_fail_at``,
+``spec_accept_floor``, ``spec_floor_window``) act on a speculative engine
+(``ContinuousScheduler(spec=...)``) only, as in ``repro``; the draft
+uniform is drawn every step either way, which keeps the draw order.
 
 Failure semantics: every submitted request ends ``done`` or ``failed``
 with a reason code; a quarantined request replays from its prompt to the
@@ -49,7 +49,8 @@ class FaultConfig:
     (drawn from the same stream) inside the decode step, ahead of the
     finite guard; an OOM fault makes the next ``oom_burst`` page
     allocations fail (paged cache only); a slow fault sleeps ``slow_s``;
-    a draft fault needs speculative decoding, which the port lacks."""
+    a draft fault (speculative engines only) turns that step's round into
+    one plain decode step, counted in ``draft_fallbacks``."""
 
     seed: int = 0
     nan_rate: float = 0.0
@@ -76,8 +77,10 @@ class ResilienceConfig:
       ends ``failed`` with reason ``"nan_logits"``.
     * ``retry_backoff_s``: attempt n waits ``retry_backoff_s * 2**(n-1)``
       before re-admission; 0 retries at once.
-    * ``spec_accept_floor`` / ``spec_floor_window``: the speculative
-      auto-disable; inert without speculative decoding.
+    * ``spec_accept_floor`` / ``spec_floor_window``: a speculative
+      engine whose mean acceptance over the last ``spec_floor_window``
+      rounds falls below the floor switches speculation off for good
+      (``spec_disabled``); 0 never does.
     * ``admission_pause_frac``: paged cache; while the free-page fraction
       is below it and requests are live, admission pauses. 0 never does.
     """

@@ -56,6 +56,10 @@ class Request:
     # windows this request rode in
     prefill_pos: int = 0
     chunks: int = 0
+    # speculative decoding: draft tokens proposed and accepted (a replay
+    # counts them again from 0)
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
     @property
     def prompt_len(self) -> int:

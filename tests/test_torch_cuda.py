@@ -862,6 +862,68 @@ def test_chunk_windows_graph_matches_eager(cuda, cache):
 
 
 
+@pytest.mark.parametrize("cache", [{}, {"cache": "paged", "page_size": 8},
+                                   {"cache": "paged", "page_size": 8,
+                                    "kv_dtype": "int8", "n_pages": 14}])
+def test_spec_rounds_graph_match_eager(cuda, cache):
+    """A reduced packed model with speculative decoding (a 1-of-2-layer
+    draft, k 2), the draft round and the verify window replayed as CUDA
+    graphs and run eagerly: equal streams, spec blocks, cache metrics and
+    launches; a draft replay launches B1 (k+1) x 5 and B4 k+1, a verify
+    replay B1 9, B4 2 and, paged, B5 2; one round's verify logits bitwise
+    equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import graphs
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousScheduler
+    from repro_torch.spec import SpecConfig
+
+    cfg = get_config("ternary-paper", reduced=True, num_layers=2,
+                     ternary_min_dim=64)
+    cfg, params = serve.build_params(cfg, 0, "cuda", packed=True)
+    prompts, gens = serve.build_workload(cfg, 6, 16, (4, 12), seed=0)
+    spec = SpecConfig(draft="layer_skip", k=2, draft_layers=1)
+    want = {"draft": {"ternary_gemm": 3 * 5, "fused_mlp": 3,
+                      "paged_decode_attention": 0},
+            "verify": {"ternary_gemm": 9, "fused_mlp": 2,
+                       "paged_decode_attention": 2 if cache else 0}}
+    runs = {}
+    for graph in (False, True):
+        eng = ContinuousScheduler(cfg, max_slots=3, max_len=31,
+                                  device="cuda", cuda_graph=graph,
+                                  spec=spec, **cache)
+        eng.load(params)
+        if graph:
+            assert {name: {k: g.launches_per_replay[k] for k in want[name]}
+                    for name, g in eng.spec_graphs.items()} == want
+        before = graphs.read_launches()
+        outs, m = serve.run_continuous(eng, prompts, gens)
+        after = graphs.read_launches()
+        runs[graph] = (outs, m, {k: after[k] - before[k] for k in after})
+        if cache:
+            assert eng.pool.all_reclaimed
+    (eo, em, el), (go, gm, gl) = runs[False], runs[True]
+    for a, b in zip(eo, go):
+        np.testing.assert_array_equal(a, b)
+    assert em["spec"] == gm["spec"] and em["cache"] == gm["cache"]
+    assert gm["spec"]["rounds"] > 0
+    assert el == gl
+
+    logits = []
+    for graph in (False, True):
+        eng = ContinuousScheduler(cfg, max_slots=3, max_len=31,
+                                  device="cuda", cuda_graph=graph,
+                                  spec=spec, **cache)
+        eng.load(params)
+        for p, g in zip(prompts[:3], gens[:3]):
+            eng.submit(p, g)
+        eng.step()                   # admission and the first round
+        assert eng.spec_rounds == 1
+        logits.append(eng.last_logits.clone())
+    assert logits[0].shape == (3, 3, cfg.vocab_size)
+    assert torch.equal(*logits)
+
+
 @pytest.mark.parametrize("cache", [{}, {"cache": "paged", "page_size": 8,
                                         "prefix_cache": False}])
 def test_guarded_graph_flags_a_poisoned_slot(cuda, cache):

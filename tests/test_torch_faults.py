@@ -2,11 +2,12 @@
 
 * ``FaultInjector``'s schedules (``plan`` and ``choose_slot`` draws) are
   byte-equal to ``repro``'s over seeds and rates.
-* ``repro``'s ``tests/test_faults.py`` cases, but its two speculative ones
-  (the port has no speculative decoding), run on both packages: the guard
-  quarantines exactly the poisoned slot and the retry is token-exact,
-  deadlines cancel queued and live requests, an exhausted retry budget
-  fails the request, a forced page-OOM storm drains and reclaims, and
+* ``repro``'s ``tests/test_faults.py`` cases run on both packages: the
+  guard quarantines exactly the poisoned slot and the retry is
+  token-exact, deadlines cancel queued and live requests, an exhausted
+  retry budget fails the request, a forced page-OOM storm drains and
+  reclaims, an unreachable acceptance floor switches speculation off and
+  a failed draft round falls back to plain decode, both token-exact, and
   ``serve --chaos`` runs end to end.
 * The port's dense, paged and chunked engines under one seeded chaos
   schedule give ``repro``'s per-request states, fail reasons, attempts,
@@ -16,7 +17,9 @@
   results.
 * A real non-finite row (NaN written into one slot's cache) quarantines
   that slot only, in a decode step and in a chunk window, and the guard
-  leaves a fault-free step's logits bitwise unchanged.
+  leaves a fault-free step's logits bitwise unchanged. NaN left in a
+  released dense slot's V meets the next request in that slot as it does
+  in ``repro`` (ROADMAP C9).
 
 All comparisons are exact: greedy streams and counts, no tolerance.
 """
@@ -39,6 +42,7 @@ from repro.serving import FaultInjector as RFaultInjector
 from repro.serving import RequestQueue as RRequestQueue
 from repro.serving import ResilienceConfig as RResilienceConfig
 from repro.serving import SchedConfig as RSchedConfig
+from repro.spec import SpecConfig as RSpecConfig
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models import LM
@@ -48,6 +52,7 @@ from repro_torch.serving import (ContinuousScheduler, FaultConfig,
                                  FaultInjector, RequestQueue,
                                  ResilienceConfig, SchedConfig)
 from repro_torch.serving.faults import FAIL_DEADLINE, FAIL_NUMERIC
+from repro_torch.spec import SpecConfig
 
 from test_torch_model import _packed_pair
 
@@ -108,16 +113,16 @@ def _package(name):
         return types.SimpleNamespace(
             cfg=cfg, params=RLM(cfg).init(jax.random.PRNGKey(0)),
             engine=RScheduler, faults=RFaultConfig,
-            resilience=RResilienceConfig, sched=RSchedConfig, kw={},
-            paged={"paged_attn": "jax"}, clock=rclock, serve=rserve,
-            serve_args=[])
+            resilience=RResilienceConfig, sched=RSchedConfig,
+            spec=RSpecConfig, kw={}, paged={"paged_attn": "jax"},
+            clock=rclock, serve=rserve, serve_args=[])
     cfg = get_config("ternary-paper", reduced=True, num_layers=2)
     cfg, params = serve.build_params(cfg, 0, "cpu", packed=False)
     return types.SimpleNamespace(
         cfg=cfg, params=params, engine=ContinuousScheduler,
         faults=FaultConfig, resilience=ResilienceConfig, sched=SchedConfig,
-        kw={"device": "cpu"}, paged={}, clock=clock, serve=serve,
-        serve_args=["--device", "cpu"])
+        spec=SpecConfig, kw={"device": "cpu"}, paged={}, clock=clock,
+        serve=serve, serve_args=["--device", "cpu"])
 
 
 def _engine(pk, slots=3, max_len=32, **kw):
@@ -230,6 +235,43 @@ def test_paged_chaos_drains_token_exact_and_reclaims(pkg):
         assert r.state == "done" and list(r.tokens) == want, r.rid
     assert eng.pool.all_reclaimed
     assert eng.total_drained == eng.queue.submitted
+
+
+@PKGS
+def test_spec_auto_disable_degradation(pkg):
+    """Ladder rung 1: with an unreachable acceptance floor the engine
+    switches speculation off once the rolling window fills, finishes on
+    plain decode, and stays token-exact."""
+    pk = _package(pkg)
+    prompts = _workload(pk.cfg)
+    spec = pk.spec(k=2)
+    ref = _reference(pk, prompts, spec=spec)
+    eng = _engine(pk, spec=spec,
+                  resilience=pk.resilience(spec_accept_floor=1.1,
+                                           spec_floor_window=2))
+    reqs = [eng.submit(p, 8) for p in prompts]
+    m = eng.run()
+    deg = m["faults"]["degradations"]
+    assert deg["spec_disabled"] and deg["spec_disables"] == 1
+    assert m["spec"]["disabled"]
+    assert [list(r.tokens) for r in reqs] == ref
+
+
+@PKGS
+def test_spec_draft_fault_falls_back_token_exact(pkg):
+    """A draft fault turns that round into plain decode; the stream (and
+    the draft's re-sync bookkeeping) stays token-exact."""
+    pk = _package(pkg)
+    prompts = _workload(pk.cfg)
+    spec = pk.spec(k=2)
+    ref = _reference(pk, prompts, spec=spec, slots=2)
+    eng = _engine(pk, slots=2, spec=spec,
+                  faults=pk.faults(draft_fail_at=(2, 4), nan_at=(3,)))
+    reqs = [eng.submit(p, 8) for p in prompts]
+    m = eng.run()
+    assert m["spec"]["draft_fallbacks"] == 2
+    assert m["faults"]["injected"]["draft_fail"] == 2
+    assert [list(r.tokens) for r in reqs] == ref
 
 
 @pytest.mark.parametrize("queue", [RRequestQueue, RequestQueue])
@@ -571,3 +613,46 @@ def test_slo_admission_retry_drains(pair):
         outcomes[admission] = _outcome(reqs)
     assert eng.queue.submitted == len(prompts)      # FIFO: no restamps
     assert outcomes["slo"] == outcomes["fifo"]
+
+
+@pytest.mark.parametrize("chunk", [0, 3], ids=["whole_prompt", "chunked"])
+def test_nan_in_a_released_slots_v_meets_the_next_request_as_in_repro(
+        pair, chunk):
+    """ROADMAP C9, settled as repro's behaviour: NaN written into a
+    released dense slot's V (layer 0, position 14, past anything the next
+    request writes), then a request served into that slot. Whole-prompt
+    admission rewrites the row whole, so the request is clean; a chunked
+    one writes only its own positions, and attention multiplies the
+    masked NaN by a probability of 0, so every attempt is quarantined
+    until the request fails. Both packages give the same outcome."""
+    rcfg, rparams, pcfg, pparams = pair
+    prompts, _ = serve.build_workload(pcfg, 2, 6, (5,), seed=7)
+    outcomes = []
+    for pkg in ("repro", "port"):
+        if pkg == "repro":
+            eng = RScheduler(rcfg, max_slots=1, max_len=16, sched=(
+                RSchedConfig(chunk_tokens=chunk, admission="fifo")
+                if chunk else None))
+            eng.load(rparams)
+        else:
+            eng = ContinuousScheduler(
+                pcfg, max_slots=1, max_len=16, device="cpu",
+                sched=(SchedConfig(chunk_tokens=chunk, admission="fifo")
+                       if chunk else None))
+            eng.load(pparams)
+        eng.submit(prompts[0], 5)
+        eng.run()
+        if pkg == "repro":
+            cache = eng.pool.layers["cache0"]
+            cache["v"] = cache["v"].at[0, 0, 14].set(float("nan"))
+        else:
+            eng.pool.layers[0]["v"][0, 14] = float("nan")
+        req = eng.submit(prompts[1], 5)
+        m = eng.run()
+        outcomes.append((req.state, req.fail_reason, req.attempts,
+                         list(req.tokens), m["faults"]["quarantines"]))
+    assert outcomes[1] == outcomes[0]
+    if chunk:
+        assert outcomes[0][:3] == ("failed", FAIL_NUMERIC, 3)
+    else:
+        assert outcomes[0][0] == "done" and outcomes[0][4] == 0

@@ -127,6 +127,13 @@ def test_the_checks_cover_the_scheduling_modules():
             "serving/traffic.py", "serving/queue.py"} <= names
 
 
+def test_the_checks_cover_the_spec_modules():
+    names = {p.relative_to(PORT).as_posix() for p in FILES
+             if PORT in p.parents}
+    assert {"spec/__init__.py", "spec/draft.py", "spec/verify.py",
+            "spec/rollback.py"} <= names
+
+
 def test_the_checks_cover_the_fault_and_tcsc_modules():
     names = {p.relative_to(PORT).as_posix() for p in FILES
              if PORT in p.parents}

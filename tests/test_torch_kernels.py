@@ -165,8 +165,9 @@ def test_ops_validate_shapes_and_formats():
     with pytest.raises(ValueError, match="stacked"):
         ops.ternary_gemm(torch.zeros(2, 32), stacked)
     with pytest.raises(ValueError):
-        with ops.serving_phase("verify"):
+        with ops.serving_phase("nope"):
             pass
-    with ops.serving_phase("decode"):
-        assert ops.current_phase() == "decode"
+    for phase in ("decode", "verify"):
+        with ops.serving_phase(phase):
+            assert ops.current_phase() == phase
     assert ops.current_phase() is None

@@ -149,7 +149,12 @@ def test_plan_errors_match_repro():
     with pytest.raises(ValueError, match="tiles"):
         ops.ternary_gemm_plan(CONTAINERS["dense2bit"][0], 8, block_m=32)
     with pytest.raises(ValueError, match="phase"):
-        ops.ternary_gemm_plan(tiled, 8, phase="verify")
+        ops.ternary_gemm_plan(tiled, 8, phase="nope")
+    # "verify" is a serving phase, as in repro; it plans the decode tiles
+    assert ops.ternary_gemm_plan(tiled, 40, phase="verify").block_m == \
+        ops.ternary_gemm_plan(tiled, 40, phase="decode").block_m == 16
+    assert ops.ternary_gemm_plan(CONTAINERS["dense2bit"][0], 40,
+                                 phase="verify").block_n == 64
 
 
 def test_raw_operands_raise_type_error_like_repro():
