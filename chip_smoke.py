@@ -121,6 +121,29 @@ timed at M 40), draft faults at pinned steps (each a plain decode step,
 counted) and an acceptance floor no draft reaches (speculation off after
 4 rounds), one profiled round, and B1, B4 and B5 at the verify shape (M
 40; B5 over 40 rows bitwise against 40 one-row calls).
+``modes`` drives the serving modes of the registries and the static
+server: (a) the dense workload at max_len 208 (the paged pool's
+gathered width, 13 pages of 16) dense, paged bf16 under
+``paged_attn="jax"`` and under ``"auto"``, graphed: B5 launched 0 times
+under "jax" and 12 a decode step under "auto", the "jax" streams against
+the dense ones (equal, or near-tie splits), and one decode step after
+the same prefill on both caches with every attention call recorded: the
+prefill's and the step's logits bitwise or the first layer whose
+attention output differs (its inputs equal or not), and the decode
+attention over the dense cache's own K/V as pages, which must be
+bitwise; (b) ``ops.fused_mlp``'s rows "pallas" (one B4) and "chain"
+(three B1) at M 8 and 1024 within the kernel bound of each other, timed;
+(c) the static server at batch 8 on the dense workload (eager; B1 49 and
+B4 12 a forward) against the continuous engine's streams under the
+near-tie rule; (d) ``sliding_window=64`` (prompts of 128 roll the
+64-position cache) in bshd, opt and flat, each through the graphed
+engine (B1 49 and B4 12 a replay) and the static server, the bshd
+engine's streams the reference for the other five, the graphed decode
+step's p50 beside full attention's; (e) B5 with window 64 at the serving
+shape and over 40 verify rows, bf16 and int8 pages, bitwise equal to B5
+with no window over the same tokens copied into pages of their own, and
+within the kernel bound of its plain version (off the path: paged pools
+refuse sliding windows).
 ``tcsc`` runs the paper's TCSC formats on the card (plain PyTorch: no TPU
 kernel computes them) at K = N = 4096, s 1/2 and 1/16, M 8 and 64: each
 format's arrays round-trip, each matmul agrees with the plain dense
@@ -192,7 +215,8 @@ Output: progress lines, each serving run's metrics JSON, a ``serving
 host/device summary`` JSON line (decode_graph's readings, the trace's
 spans, the profiles), one ``{"kernels": ...}`` JSON line (each kernel's launches summed over the
 path runs — serving dense, paged bf16 and int8, the chunked runs, the
-faults runs, the spec runs, mlp_formats, gemm_formats, train and eval —
+faults runs, the spec runs, the modes runs, mlp_formats, gemm_formats,
+train and eval —
 with the per-run
 counts
 under ``runs``,
@@ -211,6 +235,7 @@ power limit as nvidia-smi prints them, and the final ``{"ok": true,
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -353,6 +378,10 @@ SPEC = dict(k=4, draft_layers=6, draft_sparsity=0.125,
 # to pos[b] + j + 1 (positions of 128-token prompts 0 to 56 tokens in)
 B5_VERIFY = dict(b=8, s=5, h=16, kv=16, hd=64, t=13,
                  pos=(128, 136, 144, 152, 160, 168, 176, 184))
+# the serving modes: the paged pool gathers ceil(193 / 16) * 16 = 208
+# positions a row, so the paged-vs-dense comparison runs both at 208; the
+# sliding window rolls prompts of 128 through a 64-position cache
+MODES = dict(paged_max_len=208, window=64)
 # the paper's TCSC formats at the paper's size (plain PyTorch on the card;
 # M <= 64 keeps the (nnz, M) float32 gather at s 1/2 under 2.2 GB)
 TCSC_CHECK = dict(k=4096, n=4096, sparsities=(0.5, 0.0625), ms=(8, 64),
@@ -813,8 +842,9 @@ def serve_run(label, cfg, params, prompts, gens, max_len, **engine_kw):
     for name in ("ternary_gemm", "fused_mlp"):
         if launches[name] <= 0:
             raise AssertionError(f"{label}: {name} kernel never launched")
-    paged = engine_kw.get("cache") == "paged"
-    want = cfg.num_layers * metrics["decode_steps"] if paged else 0
+    b5 = (engine_kw.get("cache") == "paged"
+          and engine.cfg.paged_attn_impl != "jax")
+    want = cfg.num_layers * metrics["decode_steps"] if b5 else 0
     if launches["paged_decode_attention"] != want:
         raise AssertionError(
             f"{label}: paged_decode_attention launched "
@@ -2119,6 +2149,419 @@ def spec_phase(cfg, params, workloads, ref_streams, graph_rows):
     return rows, runs
 
 
+# --- serving modes: the registries, the static server, SWA and layouts -------
+
+@contextlib.contextmanager
+def _recorded_attention():
+    """Record every ``naive_attention`` call of the dense attention layers
+    and of the ``"jax"`` paged row: (q, k, v, kv_valid_len, out), in call
+    order, on the card."""
+    from repro_torch.models import attention
+    from repro_torch.paging import kernels as paged_lib
+    calls, orig = [], attention.naive_attention
+
+    def recording(q, k, v, **kw):
+        out = orig(q, k, v, **kw)
+        calls.append((q.clone(), k.clone(), v.clone(),
+                      kw.get("kv_valid_len"), out.clone()))
+        return out
+
+    attention.naive_attention = paged_lib.naive_attention = recording
+    try:
+        yield calls
+    finally:
+        attention.naive_attention = paged_lib.naive_attention = orig
+
+
+def _first_differing_op(what, dense_calls, paged_calls, valid):
+    """Layer by layer, the first attention call whose output differs
+    between the dense and the paged run, and whether its inputs (q, and
+    K/V over the ``valid`` positions) were equal: equal inputs name the
+    attention op itself (cuBLAS over a view of another width or layout),
+    unequal ones an op before it."""
+    import torch
+    for layer, (d, p) in enumerate(zip(dense_calls, paged_calls)):
+        if torch.equal(d[4], p[4]):
+            continue
+        inputs = (torch.equal(d[0], p[0])
+                  and all(torch.equal(a[:, :valid], b[:, :valid])
+                          for a, b in zip(d[1:3], p[1:3])))
+        return {"layer": layer, "inputs_equal": inputs,
+                "width": [d[1].shape[1], p[1].shape[1]],
+                "max_abs": float((d[4].float() - p[4].float()).abs().max())}
+    return None
+
+
+def paged_jax_logits_check(cfg, params, prompts, max_len):
+    """The paged "jax" row against the dense cache on the card, op by op:
+    the same prompts prefilled into the dense cache (a max_len-wide view)
+    and into a bf16 paged pool (a page-aligned prompt-wide view, as the
+    engines prefill), then one decode step each from the same next tokens,
+    every attention call recorded. Reports the prefill's first-token
+    logits and the decode step's logits bitwise or not, the first
+    attention call that differs in each, and the decode attention op on
+    identical K/V (the dense cache's own rows copied into pages), which
+    must be bitwise."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+    from repro_torch.paging import PagePool
+
+    jcfg = dc.replace(cfg, paged_attn_impl="jax")
+    model = LM(jcfg, "cuda")
+    b, s = prompts.shape
+    toks = torch.as_tensor(prompts, device="cuda")
+    pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    out = {}
+    with torch.no_grad():
+        with _recorded_attention() as dcalls:
+            with ops.serving_phase("prefill"):
+                cache, dlog = model.prefill(params, {"tokens": toks},
+                                            max_len)
+            nxt = dlog[:, -1].argmax(-1).to(torch.int32)[:, None]
+            with ops.serving_phase("decode"):
+                dense, _ = model.decode_step(
+                    params, {"layers": cache["layers"], "pos": pos}, nxt)
+        pool = PagePool(model, b, max_len, page_size=PAGE_SIZE)
+        adms = [pool.admit(p) for p in prompts]
+        with _recorded_attention() as pcalls:
+            with ops.serving_phase("prefill"):
+                pcache, plog = model.prefill(
+                    params, {"tokens": toks}, -(-s // PAGE_SIZE) * PAGE_SIZE)
+            pool.insert(adms, pcache["layers"])
+            for a in adms:
+                if not pool.ensure_append(a.slot, s):
+                    raise AssertionError("a default-size pool ran dry")
+            table = torch.tensor(pool.table, device="cuda")
+            with ops.serving_phase("decode"):
+                paged, _ = model.decode_step(
+                    params, {"layers": pool.layers, "pos": pos,
+                             "block_table": table}, nxt)
+        n = cfg.num_layers
+        out["prefill_logits_bitwise"] = bool(torch.equal(dlog, plog))
+        out["prefill_first_diff"] = _first_differing_op(
+            "prefill", dcalls[:n], pcalls[:n], s)
+        out["decode_logits_bitwise"] = bool(torch.equal(dense, paged))
+        out["decode_max_abs"] = float((dense.float() - paged.float())
+                                      .abs().max())
+        out["decode_first_diff"] = _first_differing_op(
+            "decode", dcalls[n:], pcalls[n:], s + 1)
+        # the decode op alone: the dense cache's rows as pages
+        kc, vc = cache["layers"][0]["k"], cache["layers"][0]["v"]
+        t = max_len // PAGE_SIZE
+        kp, vp = (torch.cat([torch.zeros_like(c[:1, :PAGE_SIZE]),
+                             c.reshape(b * t, PAGE_SIZE, *c.shape[2:])])
+                  for c in (kc, vc))
+        tbl = (1 + torch.arange(b * t, device="cuda", dtype=torch.int32)
+               ).reshape(b, t)
+        q = dcalls[n][0][:, 0]
+        want = dcalls[n][4][:, 0]
+        got = ops.paged_decode_attention(q, kp, vp, tbl, pos + 1,
+                                         impl="jax")
+        out["decode_op_on_equal_kv_bitwise"] = bool(torch.equal(got, want))
+    print("paged jax vs dense at max_len "
+          f"{max_len}, op by op: " + json.dumps(out), flush=True)
+    if not out["decode_op_on_equal_kv_bitwise"]:
+        raise AssertionError("the jax paged row over the dense cache's own "
+                             "K/V differs from the dense decode attention")
+    if not out["decode_logits_bitwise"] and \
+            out["decode_max_abs"] > LOGIT_TOL * float(dense.abs().max()):
+        raise AssertionError(f"paged jax vs dense: decode logits differ by "
+                             f"{out['decode_max_abs']}")
+    return out
+
+
+def paged_jax_phase(cfg, params, workloads):
+    """Dense, paged bf16 under "jax" and under "auto" at max_len
+    ``MODES["paged_max_len"]`` (the pool's gathered width), graphed: the
+    "jax" streams against the dense ones (equal, or near-tie splits), B5
+    launched 0 times under "jax" and 12 a decode step under "auto"; then
+    the logits op by op. Returns the runs' launches and the readings."""
+    import numpy as np
+    prompts, gens, _, _ = workloads["dense"]
+    max_len = MODES["paged_max_len"]
+    runs, out = {}, {}
+    streams = {}
+    for label, kw in (("dense", {}),
+                      ("paged_jax", dict(cache="paged", page_size=PAGE_SIZE,
+                                         paged_attn="jax")),
+                      ("paged_auto", dict(cache="paged",
+                                          page_size=PAGE_SIZE))):
+        key = f"{label}_{max_len}"
+        streams[label], metrics, runs[key] = serve_run(
+            f"{label} at max_len {max_len}", cfg, params, prompts, gens,
+            max_len, **kw)
+        out[key] = {"tok_per_s": metrics["tok_per_s"],
+                    "decode_steps": metrics["decode_steps"],
+                    "b5_launches": runs[key]["paged_decode_attention"]}
+    out["jax_equal_dense_of_16"] = sum(
+        np.array_equal(a, b) for a, b in zip(streams["dense"],
+                                             streams["paged_jax"]))
+    out["auto_equal_dense_of_16"] = sum(
+        np.array_equal(a, b) for a, b in zip(streams["dense"],
+                                             streams["paged_auto"]))
+    out["jax_splits"] = streams_or_near_ties(
+        f"paged jax vs dense at max_len {max_len}", cfg, params, prompts,
+        streams["dense"], streams["paged_jax"])
+    out["ops"] = paged_jax_logits_check(cfg, params,
+                                        prompts[:SERVE["slots"]], max_len)
+    return runs, out
+
+
+def fused_registry_rows(flush):
+    """ops.fused_mlp's two rows at ternary-paper's MLP width, M 8 under
+    "decode" and M 1024 under "prefill": "pallas" (B4, one launch) within
+    check_close of "chain" (three B1 launches; B4 sums its f32 partials by
+    ff chunk, the chain each GEMM whole), both timed."""
+    import torch
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    wi, wg, wo = (_packed_weight(gen, a, c)
+                  for a, c in ((1024, 4096), (1024, 4096), (4096, 1024)))
+    rows, launches = [], {}
+    for m, phase in ((8, "decode"), (1024, "prefill")):
+        x = torch.randn(m, 1024, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        with ops.serving_phase(phase):
+            got = {}
+            for impl in ("pallas", "chain"):
+                _zero_counts()
+                got[impl] = ops.fused_mlp(x, wi, wo, wg, impl=impl)
+                torch.cuda.synchronize()
+                launches[f"{impl} M {m}"] = {
+                    k: v for k, v in _read_counts().items() if v}
+            err = check_close(f"fused_mlp pallas vs chain M={m}",
+                              got["pallas"], got["chain"])
+            row = {"m": m, "phase": phase, "max_abs_err": err,
+                   "bitwise": bool(torch.equal(got["pallas"],
+                                               got["chain"])),
+                   "pallas_ms": cuda_ms(lambda: ops.fused_mlp(
+                       x, wi, wo, wg, impl="pallas"), 20, flush),
+                   "chain_ms": cuda_ms(lambda: ops.fused_mlp(
+                       x, wi, wo, wg, impl="chain"), 20, flush)}
+        rows.append(row)
+    want = {"pallas M 8": {"fused_mlp": 1}, "chain M 8": {"ternary_gemm": 3},
+            "pallas M 1024": {"fused_mlp": 1},
+            "chain M 1024": {"ternary_gemm": 3}}
+    if launches != want:
+        raise AssertionError(f"fused rows launched {launches}, expected "
+                             f"{want}")
+    print("fused registry, pallas vs chain: " + json.dumps(rows), flush=True)
+    return rows
+
+
+def static_run(label, cfg, params, prompts, gens, max_len, ref_outs):
+    """The static server at batch SERVE["slots"] on the card, eager, the
+    launch counters zeroed just before and read just after: every forward
+    (a batch's prefill, each decode step) launches B1 4L+1 and B4 L; the
+    streams against ``ref_outs`` under the near-tie rule."""
+    from repro_torch.launch import serve
+    server = serve.BatchedServer(cfg, max_len, "cuda")
+    server.load(params)
+    _zero_counts()
+    outs, metrics = serve.run_static(server, prompts, gens, SERVE["slots"])
+    launches = _read_counts()
+    forwards = -(-len(prompts) // SERVE["slots"]) + metrics["decode_steps"]
+    want = {"ternary_gemm": (4 * cfg.num_layers + 1) * forwards,
+            "fused_mlp": cfg.num_layers * forwards,
+            "paged_decode_attention": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"static {label}: launched {launches}, "
+                             f"expected {want}")
+    print(f"static {label} metrics: " + json.dumps(metrics), flush=True)
+    splits = streams_or_near_ties(f"static {label}", cfg, params, prompts,
+                                  ref_outs, outs)
+    return outs, metrics, launches, splits
+
+
+def swa_phase(cfg, params, workloads, graph_rows):
+    """ternary-paper with sliding_window MODES["window"]: prompts of 128
+    roll the 64-position cache. bshd, opt and flat, each through the
+    graphed dense engine (B1 49 and B4 12 a replay; a run launches those
+    per decode step and per prefill) and the static server; the bshd
+    engine's streams are the reference for the other five (near-tie rule,
+    teacher-forced splits). Prints each graphed decode step's p50 beside
+    the full-attention one's."""
+    import dataclasses as dc
+    from repro_torch.launch import serve
+    from repro_torch.obs import Tracer
+
+    prompts, gens, max_len, _ = workloads["dense"]
+    runs, out, ref = {}, {}, None
+    per_step = {"ternary_gemm": 4 * cfg.num_layers + 1,
+                "fused_mlp": cfg.num_layers, "paged_decode_attention": 0}
+    for layout, over in (("bshd", {}), ("opt", {"cache_layout": "opt"}),
+                         ("flat", {"decode_cache_shard": "flat"})):
+        lcfg = dc.replace(cfg, sliding_window=MODES["window"], **over)
+        tracer = Tracer()
+        engine = _engine(lcfg, params, max_len, True, tracer)
+        replay = {k: engine._graph.launches_per_replay[k] for k in per_step}
+        if replay != per_step:
+            raise AssertionError(f"swa {layout}: a replay launches "
+                                 f"{replay}, expected {per_step}")
+        _zero_counts()
+        outs, metrics = serve.run_continuous(engine, prompts, gens)
+        launches = _read_counts()
+        forwards = metrics["decode_steps"] + metrics["prefill_steps"]
+        if any(launches[k] != v * forwards for k, v in per_step.items()):
+            raise AssertionError(f"swa {layout}: launched {launches} for "
+                                 f"{forwards} forwards")
+        runs[f"swa_{layout}"] = launches
+        spans = span_summary(tracer.to_dict()["traceEvents"])
+        row = {"tok_per_s": metrics["tok_per_s"],
+               "decode_step_p50_ms": spans["decode_step"]["p50_ms"],
+               "full_attention_decode_step_p50_ms":
+                   graph_rows["dense"]["graph"]["decode_step_p50_ms"],
+               "cache_nbytes": metrics["cache"]["nbytes"]}
+        del engine
+        if ref is None:
+            ref = outs
+        else:
+            row["engine_splits"] = streams_or_near_ties(
+                f"swa {layout} engine vs bshd", lcfg, params, prompts, ref,
+                outs)
+        _, smet, runs[f"swa_{layout}_static"], row["static_splits"] = \
+            static_run(f"swa {layout}", lcfg, params, prompts, gens,
+                       max_len, ref)
+        row["static_tok_per_s"] = smet["tok_per_s"]
+        out[layout] = row
+        print(f"swa {layout}: " + json.dumps(row), flush=True)
+    return runs, out
+
+
+def _window_pages(pages, table, lengths, window):
+    """Each row's last ``min(length, window)`` positions copied, in order,
+    into fresh pages of their own (page 0 a zero trash page; positions past
+    a row's count repeat its last one and are masked): (pages, table,
+    lengths) for the same tokens with no window."""
+    import torch
+    from repro_torch.paging import Int8Pages
+    b = table.shape[0]
+    t = -(-window // PAGE_SIZE)
+    lo = (lengths - window).clamp(min=0)
+    pos = torch.minimum(lo[:, None] + torch.arange(
+        t * PAGE_SIZE, device=table.device), lengths[:, None] - 1)
+    pids = table.gather(1, (pos // PAGE_SIZE).to(torch.int64))
+
+    def move(a):
+        rows = a[pids, pos % PAGE_SIZE].reshape(b * t, PAGE_SIZE,
+                                                *a.shape[2:])
+        return torch.cat([torch.zeros_like(rows[:1]), rows]).contiguous()
+
+    if isinstance(pages, Int8Pages):
+        moved = Int8Pages(move(pages.codes), move(pages.scales))
+    else:
+        moved = move(pages)
+    new_table = (1 + torch.arange(b * t, device=table.device,
+                                  dtype=torch.int32)).reshape(b, t)
+    return moved, new_table, (lengths - lo).to(torch.int32)
+
+
+def b5_window_rows(flush):
+    """B5 with window MODES["window"] at the serving shape (lengths 1 to
+    193) and over a verify window's 40 rows (lengths pos + j + 1), bf16
+    and int8 pages: bitwise equal to B5 with no window over the same
+    tokens copied into pages of their own (a row's share of its window
+    runs the same sums), and within the kernel bound of its plain version
+    (whose cuBLAS products sum in another order; max |d| reported). Paged
+    pools refuse sliding-window models, so only this check reaches B5's
+    window code on the card; the rows are off the path."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.paging import Int8Pages
+    from repro_torch.paging import kernels as paged_lib
+
+    window = MODES["window"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    serving = _paged_inputs(gen, PAGED, lambda: torch.randint(
+        1, PAGED["max_len"] + 1, (PAGED["b"],), generator=gen, device="cuda",
+        dtype=torch.int32))
+    w = B5_VERIFY
+    pos = torch.tensor(w["pos"], dtype=torch.int32, device="cuda")
+    _, k, v, _, table8 = _paged_inputs(gen, w, lambda: pos + w["s"])
+    m = w["b"] * w["s"]
+    q = torch.randn(m, w["h"], w["hd"], generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    lengths = (pos[:, None] + torch.arange(1, w["s"] + 1, device="cuda",
+                                           dtype=torch.int32)).reshape(-1)
+    verify = (q, k, v, lengths.contiguous(),
+              table8.repeat_interleave(w["s"], dim=0).contiguous())
+    rows = []
+    for name, (q, k, v, lens, table) in (("serving", serving),
+                                         (f"verify {m} rows", verify)):
+        for label in ("bf16", "int8"):
+            if label == "int8":
+                kp, vp = Int8Pages.quantize(k), Int8Pages.quantize(v)
+            else:
+                kp, vp = k.to(torch.bfloat16), v.to(torch.bfloat16)
+            args = (q, kp, vp, table, lens)
+            _zero_counts()
+            got = ops.paged_decode_attention(*args, window=window)
+            torch.cuda.synchronize()
+            if _read_counts()["paged_decode_attention"] != 1:
+                raise AssertionError("B5 with a window did not launch")
+            what = f"B5 window {window}, {name}, {label} pages"
+            kw, tw, lw = _window_pages(kp, table, lens, window)
+            vw = _window_pages(vp, table, lens, window)[0]
+            if paged_lib.split_plan(table.shape[1], PAGE_SIZE, window) != \
+                    paged_lib.split_plan(tw.shape[1], PAGE_SIZE):
+                raise AssertionError(f"{what}: the unwindowed copy plans "
+                                     f"another split")
+            own = ops.paged_decode_attention(q, kw, vw, tw, lw)
+            if not torch.equal(got, own):
+                d = float((got.float() - own.float()).abs().max())
+                raise AssertionError(f"{what}: differs from B5 with no "
+                                     f"window over the same tokens, max "
+                                     f"|d| {d}")
+            ref = paged_lib.paged_decode_attention_ref(*args, window=window)
+            err = check_close(what, got, ref)
+            row = {"shape": f"{name}, window {window}", "pages": label,
+                   "window": window, "max_abs_err": err,
+                   "equals_unwindowed_bitwise": True,
+                   "split": paged_lib.split_plan(table.shape[1], PAGE_SIZE,
+                                                 window).splits,
+                   "ms": cuda_ms(lambda: ops.paged_decode_attention(
+                       *args, window=window), 20, flush),
+                   "on_path": False}
+            rows.append(row)
+            print(f"{what}: " + json.dumps(row), flush=True)
+    return rows
+
+
+def modes_phase(cfg, params, workloads, dense_outs, graph_rows):
+    """The serving modes this slice adds, at full width on the card: the
+    paged "jax" row against the dense cache, the fused registry's rows,
+    the static server against the continuous engine, sliding-window caches
+    in three layouts, and B5 with a window. Returns the kernel rows and
+    the runs' launches."""
+    import torch
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    summary = {}
+    runs, summary["paged_jax"] = paged_jax_phase(cfg, params, workloads)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    summary["fused_rows"] = fused_registry_rows(flush)
+    prompts, gens, max_len, _ = workloads["dense"]
+    _, smet, runs["static"], splits = static_run(
+        "dense", cfg, params, prompts, gens, max_len, dense_outs)
+    summary["static"] = {"tok_per_s": smet["tok_per_s"],
+                         "continuous_tok_per_s":
+                             graph_rows["dense"]["graph"]["tok_per_s"],
+                         "splits": splits}
+    swa_runs, summary["swa"] = swa_phase(cfg, params, workloads, graph_rows)
+    runs.update(swa_runs)
+    rows = {"paged_decode_attention": b5_window_rows(flush)}
+    del flush
+    plans = ops.precompute_fused_plans(params, decode_ms=(SERVE["slots"],))
+    summary["fused_plans_decode"] = sorted({(p.impl, p.block_m, p.block_n1)
+                                            for p in plans.values()})
+    print(f"modes took {time.perf_counter() - t0:.1f}s; summary: "
+          + json.dumps(summary), flush=True)
+    return rows, runs
+
+
 def tcsc_phase(flush):
     """The paper's TCSC formats on the card (plain PyTorch: no TPU kernel
     computes them) at K = N = 4096, s 1/2 and 1/16, M 8 and 64: each
@@ -3385,6 +3828,11 @@ def main() -> int:
          "paged_int8": int8_outs}, graph_rows)
     runs.update(spec_runs)
     for name, rows in spec_rows.items():
+        shapes[name] += rows
+    mode_rows, mode_runs = modes_phase(cfg, params, workloads, dense_outs,
+                                       graph_rows)
+    runs.update(mode_runs)
+    for name, rows in mode_rows.items():
         shapes[name] += rows
     mlp_rows, runs["mlp_formats"] = mlp_formats_phase(cfg, params, prompts,
                                                       max_len)

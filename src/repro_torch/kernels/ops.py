@@ -1,7 +1,8 @@
 """Public ops of the port: ``ternary_gemm`` through a kernel registry and
-planner, ``fused_mlp``, ``paged_decode_attention``, the serving-phase
-tag (``serving_phase`` / ``current_phase``) and the timing probe
-(``kernel_probe``).
+planner, ``fused_mlp`` and ``paged_decode_attention`` through registries
+of their own, the plans an engine warms (``precompute_plans``,
+``precompute_fused_plans``), the serving-phase tag (``serving_phase`` /
+``current_phase``) and the timing probe (``kernel_probe``).
 
 ``ternary_gemm(x, w)`` takes a ``repro_torch.core.weights`` container and
 runs in two stages, as ``repro``'s does:
@@ -37,6 +38,17 @@ Rows (priority), as ``repro`` registers them:
 * ``base3``:     ``ref`` 10 — no kernel, as in ``repro`` (XLA there even on
                  a TPU), so its plain version runs on the card too.
 
+The fused-MLP registry has ``repro``'s two rows: ``"pallas"`` (priority
+10, B4, admitted by ``_fusable``: 2-D ``dense2bit``/``tiled`` packs whose
+gate plans the up projection's blocks) and ``"chain"`` (0, one
+``ternary_gemm`` per projection). The paged-attention registry has
+``"pallas"`` (20, B5, admitted when q lies on the card) and ``"jax"`` (10,
+the page gather and the dense decode's attention lines, B5's plain
+version); its rows register when ``repro_torch.paging.kernels`` is
+imported. On a CPU tensor every kernel row runs its plain version; a row
+named explicitly runs wherever the tensors lie, and nothing falls back to
+another row.
+
 There is no autotuner yet. Block shapes come from the kernels' fixed
 per-phase tiles (``ternary_gemm.TILES``, ``SKIP_BLOCK_M``); the skip rows
 take ``block_n``/``block_k`` from the pack's ``tile_n``/``tile_k``.
@@ -67,7 +79,10 @@ from repro_torch.obs import clock as obs_clock
 
 __all__ = ["ternary_gemm", "ternary_gemm_plan", "GemmPlan", "KernelImpl",
            "register_kernel", "kernel_registry", "SKIP_OCCUPANCY_CUTOFF",
-           "FUSED_FORMATS", "FusedMlpPlan", "fused_mlp",
+           "precompute_plans", "FUSED_FORMATS", "FusedMlpPlan", "FusedImpl",
+           "register_fused", "fused_registry", "fused_mlp_plan",
+           "fused_mlp", "precompute_fused_plans", "PagedAttnImpl",
+           "register_paged_attn", "paged_attention_registry",
            "paged_decode_attention", "serving_phase", "current_phase",
            "SERVING_PHASES", "kernel_probe"]
 
@@ -555,7 +570,54 @@ def ternary_gemm(x: torch.Tensor, w: Any,
 
 
 # ---------------------------------------------------------------------------
-# Fused MLP and paged attention
+# Plans warmed at engine build
+# ---------------------------------------------------------------------------
+
+def _phase_ms(prefill_ms, decode_ms, verify_ms, chunk_ms):
+    return (("prefill", prefill_ms), ("decode", decode_ms),
+            ("verify", verify_ms), ("chunk", chunk_ms))
+
+
+def _weight_leaves(node, path=()):
+    """``(path, TernaryWeight)`` in ``jax.tree_util``'s flatten order (dict
+    keys sorted, lists in order), so leaf indices match ``repro``'s on a
+    tree of the same shape."""
+    if isinstance(node, weights.TernaryWeight):
+        yield path, node
+    elif isinstance(node, dict):
+        for key in sorted(node):
+            yield from _weight_leaves(node[key], path + (key,))
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            yield from _weight_leaves(v, path + (i,))
+
+
+def precompute_plans(params, *, prefill_ms=(), decode_ms=(), verify_ms=(),
+                     chunk_ms=(), select: Optional[Callable] = None,
+                     impl: str = "auto", shard: Optional[Callable] = None,
+                     ) -> Dict[Tuple[Any, ...], GemmPlan]:
+    """Plan every (weight, M, phase) the serving loop will dispatch, keyed
+    ``(leaf index, m, phase)`` as ``repro``'s are. ``select(path, w)``
+    filters the containers (``path`` the tuple of dict keys and list
+    indices down to the leaf); ``impl`` should be the row the apply path
+    dispatches. ``shard`` (tensor-parallel plans) is not ported yet."""
+    if shard is not None:
+        raise NotImplementedError("tensor-parallel plans (shard=) are not "
+                                  "ported yet")
+    ws = [w for path, w in _weight_leaves(params)
+          if select is None or select(path, w)]
+    plans: Dict[Tuple[Any, ...], GemmPlan] = {}
+    for i, w in enumerate(ws):
+        for phase, ms in _phase_ms(prefill_ms, decode_ms, verify_ms,
+                                   chunk_ms):
+            for m in ms:
+                plans[(i, m, phase)] = ternary_gemm_plan(w, m, impl=impl,
+                                                         phase=phase)
+    return plans
+
+
+# ---------------------------------------------------------------------------
+# The fused-MLP registry
 # ---------------------------------------------------------------------------
 
 # The formats B4 reads in place (repro's _FUSED_FORMATS); every other
@@ -565,9 +627,14 @@ FUSED_FORMATS = ("dense2bit", "tiled")
 
 @dataclasses.dataclass(frozen=True)
 class FusedMlpPlan:
-    """What ``fused_mlp`` dispatched, as the probe reports it: ``impl``
-    ``"fused"`` (B4, or its plain version on the CPU) or ``"chain"`` (one
-    ``ternary_gemm`` per projection); field names as in ``repro``'s plan."""
+    """Dispatch decision for one fused MLP block (``repro``'s fields but
+    the TPU-only ``interpret`` and the tensor-parallel ones). ``impl`` is a
+    registered row: ``"pallas"`` (B4 on the card, its plain version on the
+    CPU) or ``"chain"`` (one ``ternary_gemm`` per projection). The
+    ``"pallas"`` row's blocks are B4's fixed tiles for the phase
+    (``fused_mlp.VARIANTS``): ``block_m`` rows, strips of ``block_n1`` ff
+    and ``block_n2`` output columns, K stepped by ``block_k1`` /
+    ``block_k2``; the chain's are ``None``, as in ``repro``."""
 
     impl: str
     format_up: str
@@ -578,94 +645,229 @@ class FusedMlpPlan:
     n: int
     gated: bool
     activation: str
+    block_m: Optional[int]
+    block_n1: Optional[int]
+    block_k1: Optional[int]
+    block_n2: Optional[int]
+    block_k2: Optional[int]
     phase: Optional[str]
+    occupancy_up: float
+    occupancy_down: float
 
 
-def _fusable(w_in, w_out, w_gate, m: int) -> bool:
+@dataclasses.dataclass(frozen=True)
+class FusedImpl:
+    """One registered fused-MLP lowering: ``predicate(w_in, w_out, w_gate,
+    m, phase)`` gates ``impl="auto"``, ``fn(plan, x, w_in, w_out,
+    w_gate)`` runs."""
+
+    impl: str
+    priority: int
+    predicate: Callable[..., bool]
+    fn: Callable
+
+
+_FUSED: Dict[str, FusedImpl] = {}
+
+
+def register_fused(impl: str, *, priority: int = 0,
+                   predicate: Optional[Callable] = None):
+    """Decorator registering a fused-MLP lowering under ``impl``; the
+    highest-priority admissible row wins ``impl="auto"``."""
+
+    def deco(fn):
+        _FUSED[impl] = FusedImpl(impl=impl, priority=priority,
+                                 predicate=predicate or (lambda *a: True),
+                                 fn=fn)
+        return fn
+
+    return deco
+
+
+def fused_registry() -> Dict[str, FusedImpl]:
+    """Snapshot of the registered fused-MLP rows."""
+    return dict(_FUSED)
+
+
+def _fusable(w_in, w_out, w_gate, m: int, phase: Optional[str]) -> bool:
     """``repro``'s fused-row predicate: every projection a 2-D pack of a
     fused format, and a gate of the up projection's shape whose own plan
-    resolves the up projection's K/N blocks."""
+    under ``phase`` resolves the up projection's K/N blocks."""
     for w in (w_in, w_out) + (() if w_gate is None else (w_gate,)):
         if w.format_name not in FUSED_FORMATS or w.packed.ndim != 2:
             return False
     if w_gate is not None:
         if (w_gate.k, w_gate.n) != (w_in.k, w_in.n):
             return False
-        up = ternary_gemm_plan(w_in, m)
-        gate = ternary_gemm_plan(w_gate, m)
+        up = ternary_gemm_plan(w_in, m, phase=phase)
+        gate = ternary_gemm_plan(w_gate, m, phase=phase)
         if (up.block_n, up.block_k) != (gate.block_n, gate.block_k):
             return False
     return True
 
 
-def _lower_fused_chain(x, w_in, w_out, w_gate, activation):
-    """The literal chain of ``ternary_gemm`` calls (``repro``'s
-    ``_lower_fused_chain``): each projection rounds to ``x.dtype``, then
-    the activation and the product in ``x.dtype``, then the down
-    projection. On the card each GEMM launches its format's kernel."""
-    yi = ternary_gemm(x, w_in)
-    if w_gate is not None:
-        h = fused_lib._act(activation, ternary_gemm(x, w_gate)) * yi
-    else:
-        h = fused_lib._act(activation, yi)
-    return ternary_gemm(h, w_out)
-
-
-def fused_mlp(x: torch.Tensor, w_in: Any, w_out: Any, w_gate: Any = None,
-              *, activation: str = "silu") -> torch.Tensor:
-    """Fused ternary MLP block ``act(x @ Wg) * (x @ Wi) @ Wo`` (gate
-    optional), each projection's scale and bias from its container.
-    ``dense2bit`` and ``tiled`` packs run fused (B4 on the card, reading
-    the words in place; its plain version on the CPU); every other format
-    runs the chain of ``ternary_gemm`` calls, as in ``repro``."""
+def _fused_operands(w_in, w_out, w_gate):
+    """Coerce the containers and check that they chain (``repro``'s
+    messages)."""
     w_in, w_out = _coerce_weight(w_in), _coerce_weight(w_out)
     if w_gate is not None:
         w_gate = _coerce_weight(w_gate)
-        if w_gate.shape != w_in.shape:
+        if (w_gate.k, w_gate.n) != (w_in.k, w_in.n):
             raise ValueError(f"gate shape {w_gate.shape} must match the up "
                              f"projection's {w_in.shape}")
     if w_out.k != w_in.n:
         raise ValueError(f"down projection expects K={w_in.n} (the up "
                          f"projection's N) but encodes K={w_out.k}")
-    if x.ndim != 2 or x.shape[1] != w_in.k:
-        raise ValueError(f"x {tuple(x.shape)} does not match the up "
-                         f"projection's K={w_in.k}")
+    return w_in, w_out, w_gate
+
+
+def fused_mlp_plan(w_in: Any, w_out: Any, w_gate: Any = None, *, m: int,
+                   impl: str = "auto", activation: str = "silu",
+                   phase: Optional[str] = "__current__",
+                   tp: int = 1) -> FusedMlpPlan:
+    """Plan (but do not run) a fused MLP block of M rows: ``impl="auto"``
+    takes the highest-priority row whose predicate admits the containers
+    under ``phase`` (by default the ambient scope's). ``tp > 1``
+    (tensor-parallel shards) is not ported yet and raises."""
+    if tp != 1:
+        raise NotImplementedError(f"tensor-parallel fused plans (tp={tp}) "
+                                  f"are not ported yet")
+    w_in, w_out, w_gate = _fused_operands(w_in, w_out, w_gate)
     if activation not in fused_lib.ACTIVATIONS:
         raise ValueError(f"activation must be one of "
                          f"{fused_lib.ACTIVATIONS}, got {activation!r}")
-    fused = _fusable(w_in, w_out, w_gate, x.shape[0])
-    probe = _KERNEL_PROBE.get()
-    if probe is not None and not _capturing():
-        plan = FusedMlpPlan(
-            impl="fused" if fused else "chain", format_up=w_in.format_name,
-            format_down=w_out.format_name, m=x.shape[0], k=w_in.k,
-            ff=w_in.n, n=w_out.n, gated=w_gate is not None,
-            activation=activation, phase=current_phase())
-        return _probe_dispatch(
-            probe, plan, f"fused_mlp[{plan.impl} m={plan.m} k={plan.k} "
-            f"ff={plan.ff}]", x,
-            lambda: _lower_fused(x, w_in, w_out, w_gate, activation, fused))
-    return _lower_fused(x, w_in, w_out, w_gate, activation, fused)
+    if phase == "__current__":
+        phase = current_phase()
+    if impl == "auto":
+        cands = sorted(_FUSED.values(), key=lambda fi: -fi.priority)
+        chosen = next((fi for fi in cands
+                       if fi.predicate(w_in, w_out, w_gate, m, phase)),
+                      cands[-1])
+    else:
+        chosen = _FUSED.get(impl)
+        if chosen is None:
+            raise ValueError(f"no fused-MLP impl {impl!r} registered; "
+                             f"available: {sorted(_FUSED)}")
+    bm = bn = bk = None
+    if chosen.impl == "pallas":
+        variant = fused_lib.VARIANTS[_phase(m, phase)]
+        bm, bn = fused_lib.BLOCK_M[variant], fused_lib.STRIP[variant]
+        bk = gemm_lib.BLOCK_K
+    return FusedMlpPlan(
+        impl=chosen.impl, format_up=w_in.format_name,
+        format_down=w_out.format_name, m=m, k=w_in.k, ff=w_in.n, n=w_out.n,
+        gated=w_gate is not None, activation=activation, block_m=bm,
+        block_n1=bn, block_k1=bk, block_n2=bn, block_k2=bk, phase=phase,
+        occupancy_up=w_in.occupancy(), occupancy_down=w_out.occupancy())
 
 
-def _lower_fused(x, w_in, w_out, w_gate, activation, fused):
-    if not fused:
-        return _lower_fused_chain(x, w_in, w_out, w_gate, activation)
+def _lower_fused_pallas(plan, x, w_in, w_out, w_gate):
+    """B4 on a CUDA tensor, reading the words in place; its plain version
+    (the chain of plain GEMMs) on a CPU tensor. Only 2-D packs of
+    ``FUSED_FORMATS`` reach it."""
     g = w_gate
     ff, n = w_in.n, w_out.n
     if x.is_cuda:
         words = (w_in.packed, w_out.packed, None if g is None else g.packed)
-        variant = fused_lib.VARIANTS[_phase(x.shape[0])]
+        variant = fused_lib.VARIANTS[_phase(x.shape[0], plan.phase)]
         return _fused_row(
-            x.contiguous(), w_in, w_out, w_gate, activation,
+            x.contiguous(), w_in, w_out, w_gate, plan.activation,
             lambda x, *vecs: fused_lib.fused_mlp_cuda(
-                x, *words, *vecs, ff=ff, n=n, activation=activation,
+                x, *words, *vecs, ff=ff, n=n, activation=plan.activation,
                 variant=variant))
     words = (w_in.packed[:, :ff], w_out.packed[:, :n],
              None if g is None else g.packed[:, :ff])
     vecs = (w_in.scale, w_in.bias, None if g is None else g.scale,
             None if g is None else g.bias, w_out.scale, w_out.bias)
-    return fused_lib.fused_mlp_ref(x, *words, *vecs, activation=activation)
+    return fused_lib.fused_mlp_ref(x, *words, *vecs,
+                                   activation=plan.activation)
+
+
+def _lower_fused_chain(plan, x, w_in, w_out, w_gate):
+    """The literal chain of ``ternary_gemm`` calls (``repro``'s
+    ``_lower_fused_chain``): each projection rounds to ``x.dtype``, then
+    the activation and the product in ``x.dtype``, then the down
+    projection. On the card each GEMM launches its format's kernel. It
+    covers every format B4 does not."""
+    yi = ternary_gemm(x, w_in)
+    if w_gate is not None:
+        h = fused_lib._act(plan.activation, ternary_gemm(x, w_gate)) * yi
+    else:
+        h = fused_lib._act(plan.activation, yi)
+    return ternary_gemm(h, w_out)
+
+
+register_fused("pallas", priority=10, predicate=_fusable)(
+    _lower_fused_pallas)
+register_fused("chain", priority=0)(_lower_fused_chain)
+
+
+def fused_mlp(x: torch.Tensor, w_in: Any, w_out: Any, w_gate: Any = None,
+              *, activation: str = "silu", impl: str = "auto"
+              ) -> torch.Tensor:
+    """Fused ternary MLP block ``act(x @ Wg) * (x @ Wi) @ Wo`` (gate
+    optional), each projection's scale and bias from its container.
+    ``impl`` names a registered row; ``"auto"`` fuses ``dense2bit`` and
+    ``tiled`` packs (``"pallas"``: B4 on the card, its plain version on the
+    CPU) and sends every other format to ``"chain"``, as in ``repro``."""
+    w_in, w_out, w_gate = _fused_operands(w_in, w_out, w_gate)
+    if x.ndim != 2 or x.shape[1] != w_in.k:
+        raise ValueError(f"x {tuple(x.shape)} does not match the up "
+                         f"projection's K={w_in.k}")
+    plan = fused_mlp_plan(w_in, w_out, w_gate, m=x.shape[0], impl=impl,
+                          activation=activation)
+    lower = _FUSED[plan.impl].fn
+    probe = _KERNEL_PROBE.get()
+    if probe is not None and not _capturing():
+        return _probe_dispatch(
+            probe, plan, f"fused_mlp[{plan.impl} m={plan.m} k={plan.k} "
+            f"ff={plan.ff}]", x,
+            lambda: lower(plan, x, w_in, w_out, w_gate))
+    return lower(plan, x, w_in, w_out, w_gate)
+
+
+def _mlp_containers(node):
+    """The packed (in, out, gate) of an MLP-shaped dict, or None."""
+    def packed(name):
+        p = node.get(name)
+        w = p.get("w_packed") if isinstance(p, dict) else None
+        return w if isinstance(w, weights.TernaryWeight) else None
+
+    wi, wo = packed("in"), packed("out")
+    if wi is None or wo is None or wo.k != wi.n:
+        return None
+    return wi, wo, packed("gate")
+
+
+def precompute_fused_plans(params, *, prefill_ms=(), decode_ms=(),
+                           verify_ms=(), chunk_ms=(), impl: str = "auto",
+                           tp: int = 1) -> Dict[Tuple[Any, ...], FusedMlpPlan]:
+    """Plan every MLP-shaped subtree (a dict with packed ``"in"`` /
+    ``"out"`` and optionally ``"gate"`` linears) at every (M, phase),
+    keyed ``(block index, m, phase)`` as ``repro``'s are; the blocks in
+    the order of a walk over dict values and list items."""
+    found = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            mlp = _mlp_containers(node)
+            if mlp is not None:
+                found.append(mlp)
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    walk(params)
+    plans: Dict[Tuple[Any, ...], FusedMlpPlan] = {}
+    for i, (wi, wo, wg) in enumerate(found):
+        for phase, ms in _phase_ms(prefill_ms, decode_ms, verify_ms,
+                                   chunk_ms):
+            for m in ms:
+                plans[(i, m, phase)] = fused_mlp_plan(
+                    wi, wo, wg, m=m, impl=impl, phase=phase, tp=tp)
+    return plans
 
 
 def _fused_row(x, w_in, w_out, w_gate, activation, launch):
@@ -735,20 +937,74 @@ def _fused_chain(x, ti, tg, to, si, bi, sg, bg, so, bo, *, activation):
     return epi(h.float() @ to.float(), so, bo).to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# The paged-attention registry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PagedAttnImpl:
+    """One registered paged decode-attention lowering:
+    ``predicate(q, k_pages, v_pages, block_table, lengths)`` gates
+    ``impl="auto"``, ``fn(q, k_pages, v_pages, block_table, lengths, *,
+    window)`` runs."""
+
+    impl: str
+    priority: int
+    predicate: Callable[..., bool]
+    fn: Callable
+
+
+_PAGED_ATTN: Dict[str, PagedAttnImpl] = {}
+
+
+def register_paged_attn(impl: str, *, priority: int = 0,
+                        predicate: Optional[Callable] = None):
+    """Decorator registering a paged decode-attention lowering under
+    ``impl``; the highest-priority admissible row wins ``impl="auto"``."""
+
+    def deco(fn):
+        _PAGED_ATTN[impl] = PagedAttnImpl(
+            impl=impl, priority=priority,
+            predicate=predicate or (lambda *a, **k: True), fn=fn)
+        return fn
+
+    return deco
+
+
+def _ensure_paged_impls() -> None:
+    # the rows register when repro_torch.paging.kernels is imported; it is
+    # imported here, lazily, so that this module stays importable without
+    # the paging package (which imports the models, which import this)
+    import repro_torch.paging.kernels  # noqa: F401
+
+
+def paged_attention_registry() -> Dict[str, PagedAttnImpl]:
+    """Snapshot of the registered paged-attention rows: ``"pallas"`` (B5)
+    and ``"jax"`` (the gather and the dense decode's attention lines)."""
+    _ensure_paged_impls()
+    return dict(_PAGED_ATTN)
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages, v_pages,
                            block_table: torch.Tensor, lengths: torch.Tensor,
-                           *, window: int = 0) -> torch.Tensor:
+                           *, window: int = 0,
+                           impl: str = "auto") -> torch.Tensor:
     """Decode attention over block-table-indexed KV pages: q (B, H, hd);
     k_pages/v_pages (P, ps, KV, hd) tensors or ``paging.Int8Pages``;
     block_table (B, T) int32; lengths (B,) int32 valid-token counts (the
-    current token included). Returns (B, H, hd) in q's dtype."""
-    # imported here: repro_torch.paging imports the models, which import
-    # this module
-    from repro_torch.paging import kernels as paged_lib
-    if q.is_cuda:
-        return paged_lib.paged_decode_attention_cuda(
-            q.contiguous(), k_pages, v_pages, block_table, lengths,
-            window=window)
-    return paged_lib.paged_decode_attention_ref(q, k_pages, v_pages,
-                                                block_table, lengths,
-                                                window=window)
+    current token included). Returns (B, H, hd) in q's dtype. ``impl``
+    names a registered row; ``"auto"`` takes B5 for q on the card and the
+    gather (``"jax"``) for q on the CPU."""
+    _ensure_paged_impls()
+    if impl == "auto":
+        cands = sorted(_PAGED_ATTN.values(), key=lambda pi: -pi.priority)
+        chosen = next((pi for pi in cands
+                       if pi.predicate(q, k_pages, v_pages, block_table,
+                                       lengths)), cands[-1])
+    else:
+        chosen = _PAGED_ATTN.get(impl)
+        if chosen is None:
+            raise ValueError(f"no paged-attention impl {impl!r} registered; "
+                             f"available: {sorted(_PAGED_ATTN)}")
+    return chosen.fn(q, k_pages, v_pages, block_table, lengths,
+                     window=window)

@@ -1,10 +1,14 @@
 """Serving CLI of the port: the continuous-batching engine over the dense
-slot pool or the paged KV pool, on the card by default.
+slot pool or the paged KV pool, on the card by default, or the static-batch
+server (``--static``) on the same workload for an A/B.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch ternary-paper \\
       --packed --requests 16 --slots 8 --prompt-len 128 --gen-lens 32,64
+  ... --static --batch 8                 # whole batches, the A/B reference
+  ... --max-len N --eos-id T             # cache capacity; stop on a token
   ... --cache paged --page-size 16 [--kv-dtype int8 --pages N]
+  ... --cache paged --paged-attn jax     # the gather lowering, not B5
   ... --device cpu --reduced --ternary-min-dim 64   # plain PyTorch path
   ... --trace run.json [--trace-buffer N]   # Chrome trace-event JSON
   ... --chunked-prefill [--chunk-tokens 32 --step-token-budget N]
@@ -32,7 +36,9 @@ from repro_torch.configs import get_config
 from repro_torch.core.weights import Dense2Bit
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import LM
+from repro_torch.obs import clock as obs_clock
 from repro_torch.models.layers import pack_params
 from repro_torch.obs import Tracer
 from repro_torch.serving import (ContinuousScheduler, FaultConfig,
@@ -61,6 +67,80 @@ def run_continuous(engine, prompts: np.ndarray, gens: Sequence[int],
     reqs = [engine.submit(p, g) for p, g in zip(prompts, gens)]
     metrics = engine.run()
     return [np.asarray(r.tokens, np.int32) for r in reqs], metrics
+
+
+class BatchedServer:
+    """Static-batch server (``repro``'s): one prefill and ``gen_len``
+    decode steps a batch through ``LM``, eagerly, the prefill under the
+    ``"prefill"`` phase and each decode step under ``"decode"`` (M =
+    batch, scalar positions)."""
+
+    def __init__(self, cfg, max_len: int, device="cuda"):
+        self.cfg = cfg
+        self.model = LM(cfg, device)
+        self.max_len = max_len
+        self.params = None
+
+    def load(self, params) -> None:
+        self.params = params
+
+    @torch.no_grad()
+    def generate(self, prompts: np.ndarray, gen_len: int) -> np.ndarray:
+        """(B, L) prompts -> (B, gen_len) greedy tokens: the prefill's
+        last-position argmax, then one token a decode step."""
+        toks = torch.as_tensor(np.asarray(prompts, np.int32),
+                               device=self.model.device)
+        with ops.serving_phase("prefill"):
+            cache, logits = self.model.prefill(self.params,
+                                               {"tokens": toks},
+                                               self.max_len)
+        tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+        out = []
+        with ops.serving_phase("decode"):
+            for _ in range(gen_len):
+                out.append(tok)
+                logits, cache = self.model.decode_step(self.params, cache,
+                                                       tok)
+                tok = logits.argmax(dim=-1).to(torch.int32)
+        return torch.cat(out, dim=1).cpu().numpy()
+
+
+def run_static(server: BatchedServer, prompts: np.ndarray,
+               gens: Sequence[int], batch: int,
+               ) -> Tuple[List[np.ndarray], Dict[str, Any]]:
+    """Static-batch A/B reference on the same workload (``repro``'s):
+    requests grouped in submit order, each batch decoding max(its budgets)
+    steps and each request keeping its own budget's prefix. A ragged final
+    batch is padded with copies of its last row and the padding dropped."""
+    n = len(prompts)
+    if n == 0 or n != len(gens):
+        raise ValueError(f"{n} prompts for {len(gens)} budgets")
+    outs: List[np.ndarray] = []
+    t0 = obs_clock.now()
+    n_decode = 0
+    for lo in range(0, n, batch):
+        chunk = prompts[lo:lo + batch]
+        budgets = list(gens[lo:lo + batch])
+        if len(chunk) < batch:
+            chunk = np.concatenate(
+                [chunk, np.repeat(chunk[-1:], batch - len(chunk), axis=0)])
+        gen = max(budgets)
+        toks = server.generate(chunk, gen)
+        n_decode += gen
+        outs.extend(toks[i, :g].astype(np.int32)
+                    for i, g in enumerate(budgets))
+    wall = obs_clock.now() - t0
+    useful = sum(len(o) for o in outs)
+    return outs, {
+        "engine": "static",
+        "batch": batch,
+        "submitted": n,
+        "drained": len(outs),
+        "generated_tokens": useful,
+        "wall_s": round(wall, 4),
+        "tok_per_s": round(useful / wall, 2) if wall > 0 else None,
+        "decode_steps": n_decode,
+    }
 
 
 def count_packed(params) -> int:
@@ -92,10 +172,20 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--arch", default="ternary-paper")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
-    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--slots", type=int, default=4,
+                    help="continuous mode: the cache pool's slots")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="--static: the static batch size")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-lens", default="32",
                     help="comma list; per-request budgets drawn uniformly")
+    ap.add_argument("--max-len", type=int, default=0,
+                    help="cache capacity (0: prompt + max(gen-lens) + 1, "
+                         "+ spec-k with --spec)")
+    ap.add_argument("--static", action="store_true",
+                    help="the static-batch server (whole batches, each "
+                         "finishing its budget before the next) on the same "
+                         "workload, the A/B reference")
     ap.add_argument("--cache", default="dense", choices=("dense", "paged"),
                     help="KV cache: dense slot rows, or the paged "
                          "block-table pool")
@@ -109,6 +199,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                          "(default: the config's cache dtype)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="--cache paged: no shared-prefix page reuse")
+    ap.add_argument("--paged-attn", default=None,
+                    choices=("auto", "jax", "pallas"),
+                    help="--cache paged: the decode-attention row (default: "
+                         "the config's paged_attn_impl; auto = B5 on the "
+                         "card, the gather on the CPU; jax = the gather and "
+                         "the dense decode's attention lines)")
+    ap.add_argument("--eos-id", type=int, default=-1,
+                    help=">=0: stop a request early on this token "
+                         "(continuous mode)")
     ap.add_argument("--spec", default="off",
                     choices=("off", "resparsify", "layer_skip"),
                     help="speculative decoding draft: resparsify = the "
@@ -188,10 +287,23 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     cfg = get_config(args.arch, reduced=args.reduced, **overrides)
     gen_lens = [int(g) for g in args.gen_lens.split(",")]
     spec_headroom = args.spec_k if args.spec != "off" else 0
-    max_len = args.prompt_len + max(gen_lens) + 1 + spec_headroom
+    max_len = args.max_len or (args.prompt_len + max(gen_lens) + 1
+                               + spec_headroom)
     prompts, gens = build_workload(cfg, args.requests, args.prompt_len,
                                    gen_lens, seed=args.seed)
     cfg, params = build_params(cfg, args.seed, device, args.packed)
+    if args.static:
+        if args.chunked_prefill or args.traffic != "off":
+            raise SystemExit("--chunked-prefill/--traffic drive the "
+                             "continuous engine; drop --static")
+        if args.trace:
+            raise SystemExit("--trace instruments the continuous engine; "
+                             "drop --static")
+        server = BatchedServer(cfg, max_len, device)
+        server.load(params)
+        _, metrics = run_static(server, prompts, gens, args.batch)
+        print(json.dumps(metrics))
+        return metrics
     tracer = Tracer(capacity=args.trace_buffer) if args.trace else None
     # SLO classes: the interactive class carries the CLI's objectives,
     # batch requests ride priority 1
@@ -225,10 +337,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             chunk_tokens=args.chunk_tokens if args.chunked_prefill else 0,
             step_token_budget=args.step_token_budget)
     engine = ContinuousScheduler(cfg, max_slots=args.slots, max_len=max_len,
+                                 eos_id=args.eos_id if args.eos_id >= 0
+                                 else None,
                                  cache=args.cache, page_size=args.page_size,
                                  n_pages=args.pages,
                                  kv_dtype=args.kv_dtype or None,
                                  prefix_cache=not args.no_prefix_cache,
+                                 paged_attn=args.paged_attn,
                                  sched=sched, spec=spec, faults=faults,
                                  resilience=resilience, device=device,
                                  tracer=tracer)

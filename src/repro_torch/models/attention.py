@@ -2,8 +2,14 @@
 (training and evaluation: ``flash_attention``, the blockwise version,
 B6 through ``kernels.flash_attention``, or ``naive_attention``, by
 ``cfg.attn_impl``), prefill-into-cache and per-slot decode over a dense
-``(B, S, KV, hd)`` ("bshd") cache, and one-token decode over a paged cache
-— the counterparts of ``repro.models.attention``.
+cache, and one-token decode over a paged cache — the counterparts of
+``repro.models.attention``. Dense caches come in ``repro``'s three
+layouts (``init_kv_cache``): ``bshd`` (B, S, KV, hd), ``flat`` (B, S,
+KV*hd) read through ``_cache_view``, and ``opt`` (K (B, KV, S, hd), V
+(B, KV, hd, S)), whose decode writes nothing in the layer
+(``delta_decode_attention``) and is committed by ``LM.decode_step``
+after the stack. A sliding-window model keeps a rolling cache of
+``min(max_len, window)`` positions: token p at slot ``p % cache_len``.
 
 ``repro``'s attend-the-view rule carries over: prefill rounds K/V to the
 cache dtype, writes them, and attends the full ``max_len``-wide written
@@ -44,12 +50,12 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 
 def flash_attention(q, k, v, *, causal: bool, block_q: int,
-                    block_kv: int) -> torch.Tensor:
+                    block_kv: int, window: int = 0) -> torch.Tensor:
     """Blockwise attention, differentiable (``repro``'s XLA
-    ``flash_attention`` without sliding windows): q (B, Sq, H, hd), k/v
-    (B, Skv, KV, hd) -> (B, Sq, H, hd). Per query block an online softmax
-    over the KV blocks it can see (causality shortens the walk), scores
-    and statistics in f32, p rounded to v's dtype before the PV product."""
+    ``flash_attention``): q (B, Sq, H, hd), k/v (B, Skv, KV, hd) -> (B, Sq,
+    H, hd). Per query block an online softmax over the KV blocks it can
+    see (causality and the sliding window shorten the walk), scores and
+    statistics in f32, p rounded to v's dtype before the PV product."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -69,19 +75,23 @@ def flash_attention(q, k, v, *, causal: bool, block_q: int,
         q_lo = i * bq
         hi_blk = nkv if not causal else max(
             1, min(nkv, -(-min(q_lo + bq, skv) // bkv)))
+        lo_blk = max(0, (q_lo - window) // bkv) if window else 0
+        hi_blk = max(hi_blk, lo_blk + 1)
         q_pos = q_lo + torch.arange(bq, device=dev)
         m = torch.full((b, kvh, g, bq), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((b, kvh, g, bq), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, kvh, g, bq, hd), dtype=torch.float32,
                           device=dev)
-        for j in range(hi_blk):
+        for j in range(lo_blk, hi_blk):
             kc, vc = (t[:, j * bkv:(j + 1) * bkv] for t in (k, v))
             k_pos = j * bkv + torch.arange(bkv, device=dev)
             s = torch.einsum("bqkgd,bskd->bkgqs", q_blk, kc.float()) * scale
             mask = (k_pos < skv)[None, :].expand(bq, bkv)
             if causal:
                 mask = mask & (q_pos[:, None] >= k_pos[None, :])
+            if window:
+                mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
             s = torch.where(mask, s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
@@ -136,25 +146,33 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                cache_pos: Optional[torch.Tensor] = None,
                block_table: Optional[torch.Tensor] = None,
                ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One attention layer over the full sequence, a dense bshd cache or a
-    paged cache.
+    """One attention layer over the full sequence, a dense cache or a paged
+    cache.
 
     * no cache (training, evaluation): x (B, S, d), causal attention over
-      the S tokens by ``cfg.attn_impl`` — ``"pallas"``: K/V repeated to H
-      heads and B6 on (B*H, S, hd); ``"flash"``: the blockwise version;
-      otherwise ``naive_attention``. Returns (y, None);
+      the S tokens by ``cfg.attn_impl`` — ``"pallas"`` (no window): K/V
+      repeated to H heads and B6 on (B*H, S, hd); ``"flash"``: the
+      blockwise version; otherwise ``naive_attention``. Returns (y, None);
     * prefill (``cache_pos is None``): x (B, S, d); K/V of all S tokens are
-      written at positions 0..S-1 and the layer attends the cache view;
+      written at positions 0..S-1 and the layer attends the cache view. A
+      rolling cache shorter than S keeps the last ``cache_len`` tokens at
+      their ``pos % cache_len`` slots, and an ``opt`` cache is written
+      whole; both attend the fresh (cache-rounded) K/V as the no-cache
+      branch does, with the window;
     * decode: x (B, S, d) and ``cache_pos`` an int tensor, scalar or (B,)
       (each slot at its own position); S > 1 is a window whose token j
-      sits at ``cache_pos + j``, all below the cache's length;
+      sits at ``cache_pos + j``, all below the cache's length (non-rolling
+      ``bshd``/``flat`` caches only: ``LM.decode_step`` unrolls the rest).
+      A rolling cache writes at ``pos % cache_len`` and attends
+      ``min(pos + 1, cache_len)`` slots; an ``opt`` cache is not written
+      here: the layer attends the stale cache plus its own token
+      (``delta_decode_attention``) and returns ``{"k_tok", "v_tok"}``, which
+      ``LM.decode_step`` commits after the stack;
     * paged decode: cache ``{"k_pages", "v_pages"}``, ``block_table``
-      (B, T) int32 and ``cache_pos`` a (B,) vector; prefill never sees a
-      paged cache (the page pool scatters prefilled rows into pages).
+      (B, T) int32 and ``cache_pos`` a (B,) vector, through the registry
+      row ``cfg.paged_attn_impl``; prefill never sees a paged cache (the
+      page pool scatters prefilled rows into pages).
     """
-    if cfg.sliding_window or cfg.cache_layout != "bshd":
-        raise NotImplementedError("the port serves full attention over the "
-                                  "bshd cache only")
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     h = cfg.num_heads + cfg.head_pad
     lead = x.shape[:-1]
@@ -177,45 +195,175 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         y = linear_apply(params["o"], o.reshape(*lead, h * hd), cfg)
         return y, cache
 
+    opt = cfg.cache_layout == "opt"
     k_c, v_c = cache["k"], cache["v"]
+    cache_len = k_c.shape[2] if opt else k_c.shape[1]
+    rolling = bool(cfg.sliding_window) and cache_len <= cfg.sliding_window
+    new_cache = cache
     if cache_pos is None:
-        s = k.shape[1]
-        if s > k_c.shape[1]:
-            raise ValueError(f"prompt of {s} tokens exceeds the cache's "
-                             f"{k_c.shape[1]} positions")
-        k_c[:, :s] = k.to(k_c.dtype)
-        v_c[:, :s] = v.to(v_c.dtype)
-        o = naive_attention(q, k_c, v_c, causal=True)
+        o = _prefill(q, k, v, k_c, v_c, cfg, opt, rolling)
     elif k.shape[1] > 1:
         # window: every token's K/V is stored before any query attends,
         # and causality keeps token j off positions past cache_pos + j. A
         # garbage row running past the cache's end stores its overflow at
         # the last position, as the decode step clamps its garbage lanes
+        if opt or rolling:
+            raise ValueError("a decode window needs a non-rolling bshd or "
+                             "flat cache; LM.decode_step unrolls the rest")
         pos2d = _window_positions(cache_pos, k.shape[0],
-                                  k.shape[1]).clamp(max=k_c.shape[1] - 1)
+                                  k.shape[1]).clamp(max=cache_len - 1)
         rows = torch.arange(k.shape[0], device=k.device)[:, None]
-        k_c[rows, pos2d] = k.to(k_c.dtype)
-        v_c[rows, pos2d] = v.to(v_c.dtype)
-        o = naive_attention(q, k_c, v_c, causal=True, q_offset=cache_pos)
+        k_c[rows, pos2d] = _store_view(k, k_c).to(k_c.dtype)
+        v_c[rows, pos2d] = _store_view(v, v_c).to(v_c.dtype)
+        o = naive_attention(q, _cache_view(k_c, cfg), _cache_view(v_c, cfg),
+                            causal=True, window=cfg.sliding_window,
+                            q_offset=cache_pos)
+    elif opt:
+        o = delta_decode_attention(
+            q, k_c, v_c, k.to(k_c.dtype), v.to(v_c.dtype),
+            cache_pos=cache_pos, rolling=rolling, window=cfg.sliding_window)
+        new_cache = {"k_tok": k.transpose(1, 2).to(k_c.dtype),
+                     "v_tok": v.permute(0, 2, 3, 1).to(v_c.dtype)}
     else:
-        if cache_pos.ndim:
+        slot = cache_pos % cache_len if rolling else cache_pos
+        tok_k, tok_v = _store_view(k, k_c)[:, 0], _store_view(v, v_c)[:, 0]
+        if slot.ndim:
             rows = torch.arange(k.shape[0], device=k.device)
-            k_c[rows, cache_pos] = k[:, 0].to(k_c.dtype)
-            v_c[rows, cache_pos] = v[:, 0].to(v_c.dtype)
+            k_c[rows, slot] = tok_k.to(k_c.dtype)
+            v_c[rows, slot] = tok_v.to(v_c.dtype)
         else:
-            k_c[:, cache_pos] = k[:, 0].to(k_c.dtype)
-            v_c[:, cache_pos] = v[:, 0].to(v_c.dtype)
-        o = naive_attention(q, k_c, v_c, causal=False, q_offset=cache_pos,
-                            kv_valid_len=cache_pos + 1)
+            k_c[:, slot] = tok_k.to(k_c.dtype)
+            v_c[:, slot] = tok_v.to(v_c.dtype)
+        if rolling:
+            # slot i holds position pos - ((pos - i) mod cache_len): every
+            # stored one lies inside the window, so the valid count alone
+            # masks (on the device: a captured step reads no host value)
+            valid, win = torch.clamp(cache_pos + 1, max=cache_len), 0
+        else:
+            valid, win = cache_pos + 1, cfg.sliding_window
+        o = naive_attention(q, _cache_view(k_c, cfg), _cache_view(v_c, cfg),
+                            causal=False, window=win, q_offset=cache_pos,
+                            kv_valid_len=valid)
     y = linear_apply(params["o"], o.reshape(*lead, h * hd), cfg)
-    return y, {"k": k_c, "v": v_c}
+    return y, new_cache
+
+
+def _prefill(q, k, v, k_c, v_c, cfg: ModelConfig, opt: bool,
+             rolling: bool) -> torch.Tensor:
+    """Write a prompt's K/V into a fresh cache in place and attend (see
+    ``attn_apply``). K/V are rounded to the cache dtype first, so what the
+    prompt attends is what later readers of those positions read."""
+    k = k.to(k_c.dtype).to(k.dtype)
+    v = v.to(v_c.dtype).to(v.dtype)
+    s = k.shape[1]
+    if opt:
+        ks, vs = k.transpose(1, 2), v.permute(0, 2, 3, 1)   # (B,KV,S,hd|hd,S)
+        cache_len, seq_k, seq_v = k_c.shape[2], 2, 3
+    else:
+        ks, vs = _store_view(k, k_c), _store_view(v, v_c)
+        cache_len, seq_k, seq_v = k_c.shape[1], 1, 1
+    if s > cache_len and not rolling:
+        raise ValueError(f"prompt of {s} tokens exceeds the cache's "
+                         f"{cache_len} positions")
+    if s > cache_len:
+        # a rolling cache keeps the last cache_len tokens, token p at slot
+        # p % cache_len, so a decode at pos = s writes the oldest one
+        shift = (s - cache_len) % cache_len
+        k_c.copy_(torch.roll(ks.narrow(seq_k, s - cache_len, cache_len),
+                             shift, dims=seq_k))
+        v_c.copy_(torch.roll(vs.narrow(seq_v, s - cache_len, cache_len),
+                             shift, dims=seq_v))
+        return _full_sequence(q, k, v, cfg)
+    k_c.narrow(seq_k, 0, s).copy_(ks)
+    v_c.narrow(seq_v, 0, s).copy_(vs)
+    if opt:
+        return _full_sequence(q, k, v, cfg)
+    # attend the written cache view (its full width, the stale tail masked
+    # as future), the reduction the decode and window readers of these
+    # positions run, never the blockwise or B6 kernels
+    return naive_attention(q, _cache_view(k_c, cfg), _cache_view(v_c, cfg),
+                           causal=True, window=cfg.sliding_window)
+
+
+def opt_decode_attention(q, k_cache, v_cache, *, kv_valid_len, window=0,
+                         q_offset=0) -> torch.Tensor:
+    """Decode attention on the ``opt`` layouts: q (B, 1, H, hd); k_cache
+    (B, KV, S, hd); v_cache (B, KV, hd, S); ``kv_valid_len`` / ``q_offset``
+    ints or 0-d tensors. Both products contract the minor dimension."""
+    b, sq, h, hd = q.shape
+    kvh, s = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, hd)
+    scores = torch.einsum("bqkgd,bksd->bkgqs", qg.float(),
+                          k_cache.float()) * (1.0 / math.sqrt(hd))
+    k_pos = torch.arange(s, device=q.device)
+    mask = k_pos < torch.as_tensor(kv_valid_len, device=q.device)
+    if window:
+        mask = mask & ((torch.as_tensor(q_offset, device=q.device) - k_pos)
+                       < window)
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bkgqs,bkds->bqkgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def delta_decode_attention(q, k_cache, v_cache, k_tok, v_tok, *,
+                           cache_pos: torch.Tensor, rolling: bool,
+                           window: int = 0) -> torch.Tensor:
+    """Decode attention without writing the cache: the stale ``opt`` cache
+    (the current position masked out) plus the fresh token's own term,
+    one softmax over both — what attending the written cache gives. q
+    (B, 1, H, hd); k_cache (B, KV, S, hd); v_cache (B, KV, hd, S); k_tok,
+    v_tok (B, 1, KV, hd); ``cache_pos`` a scalar or (B,) tensor."""
+    b, sq, h, hd = q.shape
+    kvh, s = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, hd).float()
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bqkgd,bksd->bkgqs", qg, k_cache.float()) * scale
+    cp = cache_pos.reshape(-1, 1)                  # (1, 1) or (B, 1)
+    idx = torch.arange(s, device=q.device)[None]  # (1, S)
+    if rolling:
+        mask = torch.where(cp >= s, idx != cp % s, idx < cp)
+    else:
+        mask = idx < cp
+        if window:
+            mask = mask & ((cp - idx) < window)
+    scores = torch.where(mask[:, None, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    self_score = torch.einsum("bqkgd,bqkd->bkgq", qg, k_tok.float()) * scale
+    m = torch.maximum(scores.amax(dim=-1), self_score)     # (B, KV, G, 1)
+    p_cache = torch.exp(scores - m[..., None])
+    p_self = torch.exp(self_score - m)
+    denom = p_cache.sum(dim=-1) + p_self
+    o = torch.einsum("bkgqs,bkds->bqkgd", p_cache.to(v_cache.dtype).float(),
+                     v_cache.float())
+    o = o + torch.einsum("bkgq,bqkd->bqkgd", p_self.to(q.dtype).float(),
+                         v_tok.float())
+    o = o / denom.permute(0, 3, 1, 2)[..., None]
+    return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _cache_view(c: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(B, S, KV*hd) ``flat`` storage -> the (B, S, KV, hd) compute view."""
+    if c.ndim == 3:
+        return c.view(c.shape[0], c.shape[1], cfg.num_kv_heads,
+                      cfg.head_dim)
+    return c
+
+
+def _store_view(t: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """(B, S, KV, hd) K or V -> the shape cache ``c`` stores a token in:
+    (B, S, KV*hd) for ``flat`` storage, unchanged for ``bshd``."""
+    return t.reshape(*t.shape[:2], *c.shape[2:])
 
 
 def _full_sequence(q, k, v, cfg: ModelConfig) -> torch.Tensor:
-    """Causal attention of (B, S, H, hd) q over its own K/V (``repro``'s
-    no-cache branch, ``attention.py:433-466``)."""
+    """Causal attention of (B, S, H, hd) q over its own K/V, with the
+    config's sliding window (``repro``'s no-cache branch,
+    ``attention.py:433-466``: B6 never takes a window)."""
     h = q.shape[2]
-    if cfg.attn_impl == "pallas":
+    window = cfg.sliding_window
+    if cfg.attn_impl == "pallas" and not window:
         if k.shape[2] < h:
             k = k.repeat_interleave(h // k.shape[2], dim=2)
             v = v.repeat_interleave(h // v.shape[2], dim=2)
@@ -230,10 +378,10 @@ def _full_sequence(q, k, v, cfg: ModelConfig) -> torch.Tensor:
             block_kv=min(cfg.attn_block_kv, 512))
         return o.reshape(b, h, s, hd).transpose(1, 2)
     if cfg.attn_impl == "flash":
-        return flash_attention(q, k, v, causal=True,
+        return flash_attention(q, k, v, causal=True, window=window,
                                block_q=cfg.attn_block_q,
                                block_kv=cfg.attn_block_kv)
-    return naive_attention(q, k, v, causal=True)
+    return naive_attention(q, k, v, causal=True, window=window)
 
 
 def _window_positions(cache_pos: torch.Tensor, b: int,
@@ -249,7 +397,8 @@ def _paged_decode(q, k, v, cache: dict, cache_pos: torch.Tensor,
                   block_table: torch.Tensor, cfg: ModelConfig):
     """Write each token's K/V (quantized first for int8 pages) at
     ``block_table[row, pos // ps]``, offset ``pos % ps``, in place, then
-    attend the row's pages. Live rows write to pages they own alone (the
+    attend the row's pages through the registry row
+    ``cfg.paged_attn_impl``. Live rows write to pages they own alone (the
     pool copies shared pages on write first); free slots' table rows are
     all zero, so their garbage writes land in the trash page 0. A window
     (S > 1) writes all S tokens first, then runs B5 over the B*S rows,
@@ -278,13 +427,15 @@ def _paged_decode(q, k, v, cache: dict, cache_pos: torch.Tensor,
     if sq == 1:
         o = ops.paged_decode_attention(q[:, 0], k_pages, v_pages,
                                        block_table, cache_pos + 1,
-                                       window=cfg.sliding_window)
+                                       window=cfg.sliding_window,
+                                       impl=cfg.paged_attn_impl)
         return o[:, None]
     h, hd = q.shape[2:]
     o = ops.paged_decode_attention(
         q.reshape(b * sq, h, hd), k_pages, v_pages,
         block_table.repeat_interleave(sq, dim=0),
-        (pos2d + 1).reshape(-1), window=cfg.sliding_window)
+        (pos2d + 1).reshape(-1), window=cfg.sliding_window,
+        impl=cfg.paged_attn_impl)
     return o.reshape(b, sq, h, hd)
 
 
@@ -306,6 +457,18 @@ def init_paged_kv_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, device="cpu") -> dict:
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    """One layer's dense cache. A sliding-window model keeps a rolling
+    cache of ``min(max_len, window)`` positions. Layouts
+    (``cfg.cache_layout`` / ``cfg.decode_cache_shard``): ``bshd`` K and V
+    (B, S, KV, hd); ``opt`` K (B, KV, S, hd) and V (B, KV, hd, S), the
+    products' contracted dimension minor; ``flat`` (B, S, KV*hd)."""
+    s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    if cfg.cache_layout == "opt":
+        k_shape, v_shape = (batch, kv, s, hd), (batch, kv, hd, s)
+    elif cfg.decode_cache_shard == "flat":
+        k_shape = v_shape = (batch, s, kv * hd)
+    else:
+        k_shape = v_shape = (batch, s, kv, hd)
+    return {"k": torch.zeros(k_shape, dtype=dtype, device=device),
+            "v": torch.zeros(v_shape, dtype=dtype, device=device)}

@@ -11,7 +11,9 @@ Parameter tree: ``{"embed": {"table"}, "layers": [{"norm1", "mixer": {q, k,
 v, o}, "norm2", "ffn": {in, gate, out}}, ...], "final_norm", "unembed"}``
 with ``{"w"}`` latent or ``{"w_packed": Dense2Bit}`` linears. Caches:
 ``{"layers": [{"k", "v"} per layer], "pos": int32 tensor}``, ``pos`` a
-scalar or a (B,) vector of per-slot positions; a paged cache holds
+scalar or a (B,) vector of per-slot positions, each layer's tensors in
+the config's layout (``attention.init_kv_cache``: ``bshd``, ``flat`` or
+``opt``, rolling when the model has a sliding window); a paged cache holds
 ``{"k_pages", "v_pages"}`` per layer (``init_paged_cache``) and decodes with
 a ``"block_table"`` entry beside ``"pos"``.
 """
@@ -195,17 +197,41 @@ class LM:
                                      device=x.device)}
         return cache, logits
 
+    def _decode_window_unrolled(self, cache) -> bool:
+        """Whether a (B, S > 1) window must run as S one-token steps: the
+        batched window (every token's K/V written, then attended causally)
+        equals one-token steps only where a write cannot clobber what an
+        earlier token of the window reads. Rolling sliding-window caches
+        (a wrapped write overwrites the oldest live entry) and the ``opt``
+        delta-commit layout unroll; paged pools refuse both."""
+        cfg = self.cfg
+        if cfg.cache_layout == "opt":
+            return True
+        if "block_table" in cache:
+            return False
+        if cfg.sliding_window:
+            return cache["layers"][0]["k"].shape[1] <= cfg.sliding_window
+        return False
+
     def decode_step(self, params, cache, tokens):
         """tokens (B, S) -> (logits (B, S, V), cache). S is 1 for plain
-        decode; S > 1 is a window (a chunk of a prompt) whose tokens sit at
-        positions pos..pos+S-1, each position's logits those of the j-th of
-        S one-token steps. ``cache["pos"]`` is a scalar or a (B,) vector of
-        per-slot positions; the caches are written in place. A
-        ``cache["block_table"]`` entry switches the attention layers to the
-        paged cache."""
+        decode; S > 1 is a window (a chunk of a prompt, a verify window)
+        whose tokens sit at positions pos..pos+S-1, each position's logits
+        those of the j-th of S one-token steps (rolling and ``opt`` caches
+        run exactly those steps). ``cache["pos"]`` is a scalar or a (B,)
+        vector of per-slot positions; the caches are written in place, an
+        ``opt`` cache after the stack (each layer's token at ``pos``, or
+        ``pos % cache_len`` when rolling). A ``cache["block_table"]`` entry
+        switches the attention layers to the paged cache."""
         cfg = self.cfg
         pos = cache["pos"]
         sq = tokens.shape[1]
+        if sq > 1 and self._decode_window_unrolled(cache):
+            lgs, cur = [], cache
+            for j in range(sq):
+                lg, cur = self.decode_step(params, cur, tokens[:, j:j + 1])
+                lgs.append(lg)
+            return torch.cat(lgs, dim=1), cur
         x = layers.embed_apply(params["embed"], tokens, cfg)
         src = pos[:, None] if pos.ndim else pos
         if sq > 1:
@@ -217,4 +243,23 @@ class LM:
                                         block_table=cache.get("block_table"))
         x = layers.norm_apply(params["final_norm"], x, cfg)
         logits = self._logits(params, x)
+        if cfg.cache_layout == "opt":
+            new_caches = self._commit_tokens(cache["layers"], new_caches,
+                                             pos)
         return logits, dict(cache, layers=new_caches, pos=pos + sq)
+
+    def _commit_tokens(self, layers, toks, pos):
+        """Write each ``opt`` layer's ``{"k_tok", "v_tok"}`` into its cache
+        in place at ``pos`` (``pos % cache_len`` when rolling), per row;
+        returns the layers."""
+        window = self.cfg.sliding_window
+        for layer, tok in zip(layers, toks):
+            k_c, v_c = layer["k"], layer["v"]
+            s_len = k_c.shape[2]
+            rolling = bool(window) and s_len <= window
+            slot = (pos % s_len if rolling else pos).reshape(-1).expand(
+                k_c.shape[0])
+            rows = torch.arange(k_c.shape[0], device=k_c.device)
+            k_c[rows, :, slot] = tok["k_tok"][:, :, 0]
+            v_c[rows, :, :, slot] = tok["v_tok"][..., 0]
+        return layers

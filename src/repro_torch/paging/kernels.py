@@ -15,9 +15,14 @@ the page size and the window alone, so a row's bits never depend on the
 batch or the other rows' lengths, and the host never reads ``lengths``.
 
 The plain version is the gather plus the port's ``naive_attention``, the
-same lines the dense decode runs, so on the CPU a paged step does the
-dense step's math over the gathered view. It serves CPU tensors and the
-comparisons, never a CUDA tensor on the serving path.
+same lines the dense decode runs, so a paged step does the dense step's
+math over the gathered view. Both register in ``ops``' paged-attention
+registry as ``repro``'s lowerings do: the kernel as ``"pallas"``
+(priority 20, admitted when q lies on the card; on a CPU tensor it runs
+the plain version) and the plain version as ``"jax"`` (priority 10). It
+serves CPU tensors and the comparisons, and meets a CUDA tensor on the
+serving path only when ``"jax"`` is named (``cfg.paged_attn_impl``, the
+engine's ``paged_attn=``).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from typing import Union
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ops import register_paged_attn
 from repro_torch.models.attention import naive_attention
 from repro_torch.paging.quant import Int8Pages, dequantize_rows
 
@@ -58,6 +64,7 @@ def gather_pages(pages: Pages, block_table: torch.Tensor,
     return seq.reshape(b, t * ps, kv, hd)
 
 
+@register_paged_attn("jax", priority=10)
 def paged_decode_attention_ref(q: torch.Tensor, k_pages: Pages,
                                v_pages: Pages, block_table: torch.Tensor,
                                lengths: torch.Tensor, *,
@@ -245,3 +252,18 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pages: Pages,
 
 
 paged_decode_attention_cuda.launches = 0
+
+
+@register_paged_attn("pallas", priority=20,
+                     predicate=lambda q, *a, **k: q.is_cuda)
+def _paged_pallas(q: torch.Tensor, k_pages: Pages, v_pages: Pages,
+                  block_table: torch.Tensor, lengths: torch.Tensor, *,
+                  window: int = 0) -> torch.Tensor:
+    """The ``"pallas"`` row: the kernel on a CUDA tensor, its plain version
+    on a CPU tensor."""
+    if q.is_cuda:
+        return paged_decode_attention_cuda(q.contiguous(), k_pages, v_pages,
+                                           block_table, lengths,
+                                           window=window)
+    return paged_decode_attention_ref(q, k_pages, v_pages, block_table,
+                                      lengths, window=window)

@@ -80,6 +80,17 @@ paged pool's free fraction is below ``admission_pause_frac``. The
 ``faults`` block of the metrics reports all of it, the ``spec`` block the
 rounds, proposals, acceptances and rollbacks.
 
+Caches and plans (``repro``'s): the dense cache takes every layout
+``init_kv_cache`` makes (``bshd``, ``flat``, ``opt``) and rolling
+sliding-window caches, all inside the captured decode step (the rolling
+slot ``pos % cache_len`` and the ``opt`` commit are device ops);
+speculative decoding, chunked prefill and the paged pool refuse the
+``opt`` layout and sliding windows with ``repro``'s messages.
+``paged_attn`` names the paged cache's decode-attention row (None:
+``cfg.paged_attn_impl``). ``load()`` fills ``gemm_plans`` and, on the card
+with the fused MLP on, ``fused_plans`` for every M the engine dispatches
+(``ops.precompute_plans`` / ``precompute_fused_plans``).
+
 Counters (``_ENGINE_COUNTERS``: steps, preemptions, deferrals, chunk,
 spec and fault counts) live in a ``MetricsRegistry`` (``engine.metrics``)
 behind attributes of those names, beside the step-time EWMA
@@ -93,6 +104,7 @@ costs one attribute test per site.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import functools
 import logging
 import time
@@ -132,9 +144,11 @@ class ContinuousScheduler:
     ``spec.SpecConfig``, or None for one-token decode. ``faults``:
     a ``FaultConfig`` arming the injector, or None. ``resilience``: the
     ``ResilienceConfig`` (default: no deadline, 2 retries). ``tracer``:
-    an ``obs.trace.Tracer``, or None for none. ``cuda_graph=False`` runs
-    the decode step, the chunk windows, the draft round and the verify
-    window eagerly on the card: it exists
+    an ``obs.trace.Tracer``, or None for none. ``paged_attn``: the paged
+    decode-attention row for this engine (None inherits
+    ``cfg.paged_attn_impl``; dense engines ignore it).
+    ``cuda_graph=False`` runs the decode step, the chunk windows, the
+    draft round and the verify window eagerly on the card: it exists
     only for the same-process A/B against the graphs, and no CLI flag sets
     it. On the CPU both always run eagerly."""
 
@@ -142,6 +156,7 @@ class ContinuousScheduler:
                  eos_id: Optional[int] = None, *, cache: str = "dense",
                  page_size: int = 16, n_pages: int = 0,
                  kv_dtype: Optional[str] = None, prefix_cache: bool = True,
+                 paged_attn: Optional[str] = None,
                  sched: Optional[SchedConfig] = None, spec=None,
                  faults: Optional[FaultConfig] = None,
                  resilience: Optional[ResilienceConfig] = None,
@@ -149,8 +164,16 @@ class ContinuousScheduler:
         if cache not in ("dense", "paged"):
             raise ValueError(f"cache must be 'dense' or 'paged', got "
                              f"{cache!r}")
+        # paged_attn=None inherits cfg.paged_attn_impl; an explicit value
+        # overrides it for this engine only (read when the step is traced
+        # or captured, so it is fixed before load())
+        if cache == "paged" and paged_attn is not None \
+                and paged_attn != cfg.paged_attn_impl:
+            cfg = dataclasses.replace(cfg, paged_attn_impl=paged_attn)
         if spec is not None:
             _check_spec(cfg, spec, max_len)
+        if sched is not None and sched.chunked:
+            _check_chunked(cfg)
         self.spec = spec
         self.cfg = cfg
         self.cache_mode = cache
@@ -228,6 +251,10 @@ class ContinuousScheduler:
         self._step_logits: Optional[torch.Tensor] = None
         self._verify_logits: Optional[torch.Tensor] = None
         self._finished: List[Request] = []
+        # the plans load() warms, keyed as repro's: (leaf, m, phase) and,
+        # for the draft's, ("draft", leaf, m, phase)
+        self.gemm_plans: Dict[tuple, ops.GemmPlan] = {}
+        self.fused_plans: Dict[tuple, ops.FusedMlpPlan] = {}
         self._depth_stat = RunningStat("queue_depth")
         self._live_stat = RunningStat("live_slots")
         # fault tolerance
@@ -263,6 +290,7 @@ class ContinuousScheduler:
             raise RuntimeError("load() while requests are live")
         self.params = params
         self._graph = self._draft_graph = self._verify_graph = None
+        self._plan(params)
         if self.spec is not None:
             self.draft = build_draft(self.spec, self.model, params)
             self._draft_layers = self.draft.model.init_cache(
@@ -271,6 +299,12 @@ class ContinuousScheduler:
                                                  self.spec.k)
             self._verify = make_verify_step(self.model, self.max_len,
                                             self.spec.k)
+            # the draft's own packed decodes plan under "decode" too
+            self.gemm_plans.update(
+                (("draft",) + key, plan) for key, plan in
+                ops.precompute_plans(self.draft.params,
+                                     decode_ms=(self.max_slots,),
+                                     select=_is_packed_linear).items())
         graphed = self.device.type == "cuda" and self.cuda_graph
         mempool = torch.cuda.graph_pool_handle() if graphed else None
         if graphed:
@@ -296,6 +330,31 @@ class ContinuousScheduler:
             self._chunker.warmup(
                 params, self.pool, [1 << i for i in range(smax.bit_length())],
                 cuda_graph=graphed, graph_pool=mempool)
+
+    def _plan(self, params) -> None:
+        """``repro``'s plan warm-up at load: every packed linear at every
+        power-of-two prefill M up to ``slots * max_len``, the decode M
+        (slots), the verify M (slots * (k + 1)) and the chunk windows' Ms;
+        the fused blocks at the same Ms when the fused path is on (the
+        card, ``cfg.fused_mlp`` not ``"off"``). No autotuner reads them
+        yet: they record what each dispatch will run."""
+        top = max(self.max_slots * self.max_len, 1)
+        prefill_ms = [1 << i for i in range((top - 1).bit_length() + 1)]
+        chunk_ms = ()
+        if self._chunker is not None:
+            ctop = min(max(self.max_slots * self.sched.budget_for(
+                self.max_slots, self.spec.k if self.spec else 0), 1), top)
+            chunk_ms = [1 << i for i in range((ctop - 1).bit_length() + 1)]
+        ms = dict(prefill_ms=prefill_ms, decode_ms=(self.max_slots,),
+                  verify_ms=((self.max_slots * (self.spec.k + 1),)
+                             if self.spec else ()),
+                  chunk_ms=chunk_ms)
+        self.gemm_plans = ops.precompute_plans(params,
+                                               select=_is_packed_linear,
+                                               **ms)
+        fused_on = self.device.type == "cuda" and self.cfg.fused_mlp != "off"
+        self.fused_plans = (ops.precompute_fused_plans(params, **ms)
+                            if fused_on else {})
 
     @property
     def chunker(self) -> Optional[ChunkRunner]:
@@ -1245,6 +1304,22 @@ class ContinuousScheduler:
                           if r.spec_proposed else None)}
                 for r in done],
         }
+
+
+def _is_packed_linear(path, w) -> bool:
+    """Only packed linears dispatch through ``ternary_gemm``."""
+    return bool(path) and path[-1] == "w_packed"
+
+
+def _check_chunked(cfg: ModelConfig) -> None:
+    """``repro``'s checks of a chunked-prefill engine."""
+    if cfg.cache_layout == "opt":
+        raise ValueError("chunked prefill needs cache_layout='bshd' (the "
+                         "'opt' delta-commit layout is one-token-only)")
+    if cfg.sliding_window:
+        raise ValueError("chunked prefill does not support rolling "
+                         "sliding-window caches: padded chunk-window writes "
+                         "would overwrite live rolled entries")
 
 
 def _check_spec(cfg: ModelConfig, spec, max_len: int) -> None:

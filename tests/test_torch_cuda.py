@@ -997,3 +997,130 @@ def test_tcsc_matmuls_on_the_card_match_the_cpu(cuda, sparsity):
         got = fn(x.to(cuda), card, alpha.to(cuda), bias.to(cuda), 0.25)
         scale = float(want.abs().max())
         assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale, name
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_rows_on_the_card(cuda, int8):
+    """"auto" and "pallas" launch B5 on CUDA tensors; "jax" launches
+    nothing and is the plain version itself, bitwise; with a window too."""
+    inputs = _paged_inputs(_gen(11), 6, 16, 16, 64, 16, 13, 80,
+                           [1, 16, 17, 31, 83, 208], int8)
+    for window in (0, 64):
+        ref = paged_lib.paged_decode_attention_ref(*inputs, window=window)
+        for impl, launched in (("auto", 1), ("pallas", 1), ("jax", 0)):
+            before = paged_lib.paged_decode_attention_cuda.launches
+            got = ops.paged_decode_attention(*inputs, window=window,
+                                             impl=impl)
+            torch.cuda.synchronize()
+            assert paged_lib.paged_decode_attention_cuda.launches == \
+                before + launched, impl
+            if impl == "jax":
+                assert torch.equal(got, ref)
+            else:
+                _close(got, ref)
+
+
+@pytest.mark.parametrize("m,phase", [(8, "decode"), (40, "verify"),
+                                     (1024, "prefill")])
+def test_fused_rows_on_the_card(cuda, m, phase):
+    """"auto" and "pallas" launch B4 once, "chain" three B1 and no B4;
+    the two agree within the kernel bound (B4 sums its f32 partials by ff
+    chunk)."""
+    g = _gen(m)
+    wi, wg, wo = (weights.pack(torch.randn(a, b, generator=g, device=cuda)
+                               / a ** 0.5)
+                  for a, b in ((1024, 4096), (1024, 4096), (4096, 1024)))
+    x = torch.randn(m, 1024, generator=g, device=cuda).to(torch.bfloat16)
+    out = {}
+    with ops.serving_phase(phase):
+        for impl, fused, gemms in (("auto", 1, 0), ("pallas", 1, 0),
+                                   ("chain", 0, 3)):
+            f0 = fused_lib.fused_mlp_cuda.launches
+            g0 = gemm_lib.ternary_gemm_cuda.launches
+            out[impl] = ops.fused_mlp(x, wi, wo, wg, impl=impl)
+            torch.cuda.synchronize()
+            assert (fused_lib.fused_mlp_cuda.launches - f0,
+                    gemm_lib.ternary_gemm_cuda.launches - g0) == \
+                (fused, gemms), impl
+    assert torch.equal(out["auto"], out["pallas"])
+    _close(out["pallas"], out["chain"])
+
+
+def test_cuda_tensors_reach_a_plain_version_only_when_named(cuda,
+                                                            monkeypatch):
+    """Serving on the card (dense and paged, graphed) never calls a plain
+    version; a paged engine given paged_attn="jax" calls that row (and
+    launches no B5) and serves every request."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousScheduler
+
+    def refuse(name):
+        def plain(*a, **k):
+            raise AssertionError(f"{name} met a CUDA tensor")
+        return plain
+
+    monkeypatch.setattr(gemm_lib, "ternary_gemm_ref",
+                        refuse("ternary_gemm_ref"))
+    monkeypatch.setattr(fused_lib, "fused_mlp_ref", refuse("fused_mlp_ref"))
+    monkeypatch.setattr(paged_lib, "paged_decode_attention_ref",
+                        refuse("paged_decode_attention_ref"))
+    jax_calls = []
+    row = ops.paged_attention_registry()["jax"]
+
+    def jax_row(*a, _fn=row.fn, **k):
+        jax_calls.append(1)
+        return _fn(*a, **k)
+
+    monkeypatch.setitem(ops._PAGED_ATTN, "jax",
+                        type(row)(row.impl, row.priority, row.predicate,
+                                  jax_row))
+    cfg = get_config("ternary-paper", reduced=True, num_layers=2,
+                     ternary_min_dim=64)
+    cfg, params = serve.build_params(cfg, 0, "cuda", packed=True)
+    prompts, gens = serve.build_workload(cfg, 4, 16, (4, 9), seed=0)
+    streams = {}
+    for label, kw in (("dense", {}),
+                      ("paged", dict(cache="paged", page_size=16)),
+                      ("paged_jax", dict(cache="paged", page_size=16,
+                                         paged_attn="jax"))):
+        eng = ContinuousScheduler(cfg, max_slots=2, max_len=26,
+                                  device="cuda", **kw)
+        eng.load(params)
+        b5 = paged_lib.paged_decode_attention_cuda.launches
+        streams[label], _ = serve.run_continuous(eng, prompts, gens)
+        launched = paged_lib.paged_decode_attention_cuda.launches - b5
+        assert (launched > 0) == (label == "paged"), label
+        assert bool(jax_calls) == (label == "paged_jax"), label
+    assert [len(t) for t in streams["paged_jax"]] == list(gens)
+
+
+@pytest.mark.parametrize("layout", [{}, {"cache_layout": "opt"},
+                                    {"decode_cache_shard": "flat"}])
+def test_sliding_window_layouts_graph_match_eager(cuda, layout):
+    """A rolling 8-position cache (prompts of 16 roll it) in bshd, opt and
+    flat: the captured decode step launches B1 4L+1 and B4 L a replay, and
+    graphed streams equal eager ones and the static server's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousScheduler
+
+    cfg = get_config("ternary-paper", reduced=True, num_layers=2,
+                     ternary_min_dim=64, sliding_window=8, **layout)
+    cfg, params = serve.build_params(cfg, 0, "cuda", packed=True)
+    prompts, gens = serve.build_workload(cfg, 5, 16, (4, 12), seed=0)
+    streams = {}
+    for graph in (False, True):
+        eng = ContinuousScheduler(cfg, max_slots=2, max_len=29,
+                                  device="cuda", cuda_graph=graph)
+        eng.load(params)
+        if graph:
+            per = eng._graph.launches_per_replay
+            assert (per["ternary_gemm"], per["fused_mlp"]) == (9, 2)
+        streams[graph], _ = serve.run_continuous(eng, prompts, gens)
+    server = serve.BatchedServer(cfg, 29, "cuda")
+    server.load(params)
+    static, _ = serve.run_static(server, prompts, gens, 2)
+    for a, b in zip(streams[False], streams[True]):
+        np.testing.assert_array_equal(a, b)
+    assert [len(s) for s in static] == list(gens)

@@ -18,6 +18,7 @@ skipping rows run) against ``repro``'s LM on the same ternary matrices,
 and the numpy model of B7's fragment decode against the plain plane
 decode.
 """
+import dataclasses
 import re
 from pathlib import Path
 
@@ -130,10 +131,11 @@ def test_fused_route_follows_repro(up, down, monkeypatch):
         rw[name], pw[name] = pair[0][name], pair[1][name]
     want = rops._fusable(rw["in"], rw["out"], rw["gate"], 4, None)
     assert want == (up in ops.FUSED_FORMATS and down in ops.FUSED_FORMATS)
-    assert ops._fusable(pw["in"], pw["out"], pw["gate"], 4) == want
+    assert ops._fusable(pw["in"], pw["out"], pw["gate"], 4, None) == want
     calls = []
-    monkeypatch.setattr(ops, "_lower_fused_chain",
-                        lambda *a: calls.append(a) or torch.zeros(4, 32))
+    row = ops._FUSED["chain"]
+    monkeypatch.setitem(ops._FUSED, "chain", dataclasses.replace(
+        row, fn=lambda *a: calls.append(a) or torch.zeros(4, 32)))
     ops.fused_mlp(torch.zeros(4, 64), pw["in"], pw["out"], pw["gate"])
     assert len(calls) == (0 if want else 1)
 
@@ -152,7 +154,7 @@ def test_fused_mlp_gate_with_other_tiles_takes_the_chain():
                               scale=torch.from_numpy(s), tile_k=64,
                               tile_n=32)
     assert not rops._fusable(rw["in"], rw["out"], rw["gate"], 4, None)
-    assert not ops._fusable(pw["in"], pw["out"], pw["gate"], 4)
+    assert not ops._fusable(pw["in"], pw["out"], pw["gate"], 4, None)
     x = rng.standard_normal((4, 64)).astype(np.float32)
     _close(ops.fused_mlp(torch.from_numpy(x), pw["in"], pw["out"],
                          pw["gate"]),
@@ -234,7 +236,7 @@ def test_tiled_mlp_block_fuses_like_the_dense_block():
     got = ops.fused_mlp(x, wi, wo, wg)
     dense = [weights.pack(c.materialize(torch.float32).to(torch.int8),
                           scale=c.scale, bias=c.bias) for c in (wi, wo, wg)]
-    chain = ops._lower_fused_chain(x, wi, wo, wg, "silu")
+    chain = ops.fused_mlp(x, wi, wo, wg, impl="chain")
     torch.testing.assert_close(got, chain, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got, ops.fused_mlp(x, *dense), rtol=0,
                                atol=0)

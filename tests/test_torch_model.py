@@ -50,16 +50,16 @@ def repro_tree_to_numpy(tree):
     return np.asarray(tree)
 
 
-def _configs(dtype, num_layers=4):
+def _configs(dtype, num_layers=4, **overrides):
     kw = dict(ternary_min_dim=64, dtype=dtype, cache_dtype=dtype,
-              num_layers=num_layers)
+              num_layers=num_layers, **overrides)
     rcfg = rget_config("ternary-paper", reduced=True, **kw)
     pcfg = get_config("ternary-paper", reduced=True, **kw)
     return rcfg, pcfg
 
 
-def _packed_pair(dtype, num_layers=4, seed=0):
-    rcfg, pcfg = _configs(dtype, num_layers)
+def _packed_pair(dtype, num_layers=4, seed=0, **overrides):
+    rcfg, pcfg = _configs(dtype, num_layers, **overrides)
     rparams = rlayers.pack_params(RLM(rcfg).init(jax.random.PRNGKey(seed)),
                                   rcfg)
     rcfg = dataclasses.replace(rcfg, quantization="ternary_packed")

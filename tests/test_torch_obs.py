@@ -206,7 +206,7 @@ def test_kernel_probe_times_each_eager_dispatch():
     assert all(dt > 0 for _, dt in seen)
     assert (seen[0][0].m, seen[0][0].impl) == (4, "dense")
     assert (seen[1][0].impl, seen[1][0].ff, seen[1][0].gated) == \
-        ("fused", 32, True)
+        ("pallas", 32, True)
     # outside the scope: no callback, the same result
     assert torch.equal(ops.ternary_gemm(x, pw), y1)
     assert len(seen) == 2
