@@ -144,6 +144,45 @@ shape and over 40 verify rows, bf16 and int8 pages, bitwise equal to B5
 with no window over the same tokens copied into pages of their own, and
 within the kernel bound of its plain version (off the path: paged pools
 refuse sliding windows).
+``families`` serves the MoE, SSM and hybrid families (``FAMILIES``; each
+config with ``quantization="ternary"``, drawn from the seed and packed
+layer by layer): jamba-v0.1-52b at full widths, one period of 8 layers
+(1 attention and 7 SSM mixers, 4 MoE and 4 MLP FFNs), over the dense
+cache and the paged pool with bf16 and with int8 pages; mamba2-130m
+whole (24 layers, tied embeddings), dense and paged (its pool holds SSM
+rows only); mixtral-8x22b at full widths, 2 layers, dense (paged pools
+refuse its sliding window); 16 requests at 8 slots, prompts of 128
+tokens. Each run drains with every budget of in-range tokens, B1
+launched, B4 iff the model has MLP layers and B5 once per attention
+layer and decode step (paged); the prefill's and one decode step's
+logits through the kernels lie within LOGIT_TOL of the plain path on the
+card (``ternary_kernel="xla"``: B1's plain row and the chain), end to
+end for jamba and mixtral, and for mamba2 with every block run on the
+plain path's input to it, each block's output within FORCED_LAYER_TOL of
+the plain one's (its 24 random SSM layers grow a bf16 ulp to ~0.1 of
+max|logit|); the free-running kernel path (nothing pinned or forced) lies
+within WITNESS_FACTOR times the distance of the plain path with its first
+block's input moved one bf16 ulp (the model's own growth), per-layer
+curves of both printed; one decode step is bitwise equal eager and
+graphed, with its launches counted (the dense one under the profiler:
+port kernels against the rest of the device time); mamba2's paged
+streams equal its dense ones exactly; jamba's are counted, and one
+decode step from the same prefill on both caches, MoE routing pinned, is
+held within LOGIT_TOL (bf16 pages) or INT8_LOGIT_TOL (int8 pages): MoE
+capacity is per step, so a teacher-forced prefill is not the decode's
+function and ``_split_check`` does not apply; the card time to decode
+every packed expert bank once is read. MoE routing is discrete (a gate
+an ulp away can swap the token an expert's capacity keeps), so every
+kernels-vs-plain and paged-vs-dense logit check of a MoE model replays
+the reference pass's routing decisions (``_routing``) and reports the
+unpinned distance beside it. Then B1 at each model's projections (SSM
+in/out, q, k/v, o, lm head), B4 at jamba's MLP (4096 -> 14336) and B5 at
+its GQA shape (32 heads over 8, hd 128, bf16 and int8 pages; the served
+rows and, off the path, rows of 1024-4096 tokens), at the decode M and
+the first prefill group's M, against their plain versions, timed (rows
+of the ``kernels`` line with ``"model"``); and a ``families summary:``
+line (tok/s, TPOT p50, decode-step p50, launches a step, the profile,
+bank decoding).
 ``tcsc`` runs the paper's TCSC formats on the card (plain PyTorch: no TPU
 kernel computes them) at K = N = 4096, s 1/2 and 1/16, M 8 and 64: each
 format's arrays round-trip, each matmul agrees with the plain dense
@@ -215,8 +254,8 @@ Output: progress lines, each serving run's metrics JSON, a ``serving
 host/device summary`` JSON line (decode_graph's readings, the trace's
 spans, the profiles), one ``{"kernels": ...}`` JSON line (each kernel's launches summed over the
 path runs — serving dense, paged bf16 and int8, the chunked runs, the
-faults runs, the spec runs, the modes runs, mlp_formats, gemm_formats,
-train and eval —
+faults runs, the spec runs, the modes runs, mlp_formats, the families
+runs, gemm_formats, train and eval —
 with the per-run
 counts
 under ``runs``,
@@ -387,6 +426,42 @@ MODES = dict(paged_max_len=208, window=64)
 TCSC_CHECK = dict(k=4096, n=4096, sparsities=(0.5, 0.0625), ms=(8, 64),
                   block=1024, group=4, iters=10)
 # the port's kernels among the device ops, by their CUDA function names
+# families: (config overrides, cache modes, workload, checks); each model
+# is get_config(name, quantization="ternary", **overrides), packed. Depth
+# is cut (jamba to one 8-layer period, mixtral to 2 of 56 layers) because
+# every MoE layer decodes its packed banks every step (~66 ms a layer on
+# the card), and init + pack at full depth would not fit the time limit.
+# layer_forced: the kernels-vs-plain logit gate runs each block on the
+# plain path's input (mamba2's 24 random SSM layers grow a bf16 ulp ~3x a
+# layer at first, to ~0.1 of max|logit| end to end)
+FAMILIES = {
+    "jamba-v0.1-52b": dict(overrides=dict(num_layers=8),
+                           caches=("dense", "paged_bf16", "paged_int8"),
+                           requests=16, slots=8, prompt_len=128,
+                           gen_lens=(16, 32), paged_exact=False,
+                           layer_forced=False),
+    "mamba2-130m": dict(overrides={}, caches=("dense", "paged_bf16"),
+                        requests=16, slots=8, prompt_len=128,
+                        gen_lens=(32, 64), paged_exact=True,
+                        layer_forced=True),
+    "mixtral-8x22b": dict(overrides=dict(num_layers=2), caches=("dense",),
+                          requests=16, slots=8, prompt_len=128,
+                          gen_lens=(16, 32), paged_exact=False,
+                          layer_forced=False),
+}
+# a layer-forced block's output through the kernels against the plain
+# path's on the same input: within two bf16 ulps of its max (each GEMM
+# output rounds at most one ulp the other way; sound runs read 0.0036)
+FORCED_LAYER_TOL = 2 ** -7
+# the free-running kernel path (nothing forced or pinned) against the plain
+# path may lie at most this many times as far as the plain path with its
+# first block's input moved one bf16 ulp (the witness of how far the model
+# itself carries one rounding), or within LOGIT_TOL; sound runs read 0.32
+# (mamba2) to 0.82 (jamba) of the witness
+WITNESS_FACTOR = 2.0
+# B5 at each family's GQA shape over long page tables too (off the path:
+# the served prompts are 128 tokens): rows of 1024 to 4096 tokens
+FAMILY_LONG_CONTEXT = (1024, 4096)
 PORT_KERNEL_NAMES = ("ternary_gemm", "fused_mlp", "paged_attention",
                      "flash_attention", "bitplane")
 
@@ -760,7 +835,8 @@ def paged_rows(name, shape, inputs, flush, *, subsets, on_path,
                 lambda: paged_lib.paged_decode_attention_ref(*args),
                 iters, flush),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask), iters, flush),
+                qs, ks, vs, attn_mask=mask, enable_gqa=h != kv), iters,
+                flush),
         }
         if not on_path:
             row["on_path"] = False
@@ -938,10 +1014,12 @@ def _compare_logits(what, ref, got, tol):
     return int(agree.sum())
 
 
-def paged_step_check(what, cfg, params, prompts, max_len, kv_dtype, tol):
+def paged_step_check(what, cfg, params, prompts, max_len, kv_dtype, tol,
+                     pin_routing=False):
     """Prefill the same prompts into the dense cache and into a paged pool
     on the card, run one decode step in each from the same next tokens,
-    and compare the logits."""
+    and compare the logits. ``pin_routing``: the paged pass replays the
+    dense pass's MoE routing decisions (``_routing``)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import LM
@@ -951,32 +1029,38 @@ def paged_step_check(what, cfg, params, prompts, max_len, kv_dtype, tol):
     b, s = prompts.shape
     toks = torch.as_tensor(prompts, device="cuda")
     pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    book = []
+    pin = _routing if pin_routing else (
+        lambda mode, book: contextlib.nullcontext())
     with torch.no_grad():
-        with ops.serving_phase("prefill"):
-            cache, logits = model.prefill(params, {"tokens": toks}, max_len)
-        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
-        with ops.serving_phase("decode"):
-            dense, _ = model.decode_step(
-                params, {"layers": cache["layers"], "pos": pos}, nxt)
+        with pin("record", book):
+            with ops.serving_phase("prefill"):
+                cache, logits = model.prefill(params, {"tokens": toks},
+                                              max_len)
+            nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+            with ops.serving_phase("decode"):
+                dense, _ = model.decode_step(
+                    params, {"layers": cache["layers"], "pos": pos}, nxt)
         del cache
         pool = PagePool(model, b, max_len, page_size=PAGE_SIZE,
                         kv_dtype=kv_dtype)
         adms = [pool.admit(p) for p in prompts]
         if [a.slot for a in adms] != list(range(b)):
             raise AssertionError("the pool's slots do not follow the rows")
-        with ops.serving_phase("prefill"):
-            pcache, _ = model.prefill(params, {"tokens": toks},
-                                      -(-s // PAGE_SIZE) * PAGE_SIZE)
-        pool.insert(adms, pcache["layers"])
-        del pcache
-        for a in adms:
-            if not pool.ensure_append(a.slot, s):
-                raise AssertionError("a default-size pool ran dry")
-        table = torch.tensor(pool.table, device="cuda")
-        with ops.serving_phase("decode"):
-            paged, _ = model.decode_step(
-                params, {"layers": pool.layers, "pos": pos,
-                         "block_table": table}, nxt)
+        with pin("replay", book):
+            with ops.serving_phase("prefill"):
+                pcache, _ = model.prefill(params, {"tokens": toks},
+                                          -(-s // PAGE_SIZE) * PAGE_SIZE)
+            pool.insert(adms, pcache["layers"])
+            del pcache
+            for a in adms:
+                if not pool.ensure_append(a.slot, s):
+                    raise AssertionError("a default-size pool ran dry")
+            table = torch.tensor(pool.table, device="cuda")
+            with ops.serving_phase("decode"):
+                paged, _ = model.decode_step(
+                    params, {"layers": pool.layers, "pos": pos,
+                             "block_table": table}, nxt)
     return _compare_logits(what, dense[:, 0], paged[:, 0], tol)
 
 
@@ -3756,6 +3840,495 @@ def eval_phase(cfg, params):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# families: the MoE, SSM and hybrid decoder families served on the card
+# ---------------------------------------------------------------------------
+
+def _family_engine(cfg, params, spec, graph, tracer=None, **engine_kw):
+    from repro_torch.serving import ContinuousScheduler
+    engine = ContinuousScheduler(cfg, max_slots=spec["slots"],
+                                 max_len=spec["max_len"], device="cuda",
+                                 tracer=tracer, cuda_graph=graph,
+                                 **engine_kw)
+    engine.load(params)
+    return engine
+
+
+def _family_cache_kw(mode):
+    return {"dense": {},
+            "paged_bf16": dict(cache="paged", page_size=PAGE_SIZE),
+            "paged_int8": dict(cache="paged", page_size=PAGE_SIZE,
+                               kv_dtype="int8")}[mode]
+
+
+def family_serve(name, cfg, params, spec, prompts, gens, mode):
+    """Drain the family's workload through the graphed engine over one
+    cache mode; the launch counters are set to 0 just before the run and
+    read just after. Checks every request's budget of in-range tokens, B1
+    launched, B4 launched iff the model has packed MLP layers, and B5 once
+    per attention layer and decode step (paged) or never (dense)."""
+    from repro_torch.launch import serve
+    from repro_torch.obs import Tracer
+
+    label = f"{name} {mode}"
+    tracer = Tracer()
+    engine = _family_engine(cfg, params, spec, True, tracer,
+                            **_family_cache_kw(mode))
+    _zero_counts()
+    outs, metrics = serve.run_continuous(engine, prompts, gens)
+    launches = _read_counts()
+    spans = span_summary(tracer.to_dict()["traceEvents"])
+    print(f"families {label} metrics: " + json.dumps(
+        {k: v for k, v in metrics.items() if k != "per_request"}),
+        flush=True)
+    print(f"families {label} launches: {json.dumps(launches)}", flush=True)
+    if metrics["drained"] != len(gens):
+        raise AssertionError(f"families {label}: drained "
+                             f"{metrics['drained']} of {len(gens)}")
+    for i, (toks, g) in enumerate(zip(outs, gens)):
+        if len(toks) != g or not ((toks >= 0)
+                                  & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"families {label}: request {i}: "
+                                 f"{len(toks)} tokens for a budget of {g}, "
+                                 f"or ids out of range")
+    n_attn = sum(k == "attn" for k, _ in engine.model.kinds)
+    n_mlp = sum(f == "mlp" for _, f in engine.model.kinds)
+    if launches["ternary_gemm"] <= 0:
+        raise AssertionError(f"families {label}: ternary_gemm never "
+                             f"launched")
+    if (launches["fused_mlp"] > 0) != (n_mlp > 0):
+        raise AssertionError(f"families {label}: fused_mlp launched "
+                             f"{launches['fused_mlp']} times for {n_mlp} "
+                             f"MLP layers")
+    want = n_attn * metrics["decode_steps"] if mode != "dense" else 0
+    if launches["paged_decode_attention"] != want:
+        raise AssertionError(
+            f"families {label}: paged_decode_attention launched "
+            f"{launches['paged_decode_attention']} times, expected {want}")
+    row = {"tok_per_s": metrics["tok_per_s"],
+           "tpot_p50_ms": metrics["latency"]["tpot_s"]["p50"] * 1e3,
+           "decode_step_p50_ms": spans["decode_step"]["p50_ms"],
+           "decode_steps": metrics["decode_steps"],
+           "prefill_p50_ms": spans["prefill"]["p50_ms"],
+           "wall_s": metrics["wall_s"],
+           "cache": metrics["cache"]}
+    del engine
+    return outs, launches, row
+
+
+def family_step_check(name, cfg, params, spec, prompts, gens, mode,
+                      profile=False):
+    """One decode-only step of a fresh eager engine and of a fresh graphed
+    one on the same requests: the logits bitwise equal and the launches
+    per step equal (B5 once per attention layer, paged). With
+    ``profile``, the graph's replay under the profiler (port kernels
+    against the rest of the device time)."""
+    import torch
+
+    steps, prof = {}, None
+    for path in ("eager", "graph"):
+        engine = _family_engine(cfg, params, spec, path == "graph",
+                                **_family_cache_kw(mode))
+        for p, g in zip(prompts, gens):
+            engine.submit(p, g)
+        per_step = _decode_only_step(engine)
+        steps[path] = (engine.last_logits.clone(),
+                       {k: per_step[k] for k in GRAPH_KERNELS})
+        if path == "graph" and profile:
+            prof = profile_once(f"families {name} {mode} graphed decode "
+                                f"step", engine._graph.replay,
+                                lambda: _mean_wall(engine._graph.replay, 5))
+        del engine
+    (le, ce), (lg, cg) = steps["eager"], steps["graph"]
+    if ce != cg:
+        raise AssertionError(f"families {name} {mode}: launches per decode "
+                             f"step differ: eager {ce}, graph {cg}")
+    if not torch.equal(le, lg):
+        raise AssertionError(
+            f"families {name} {mode}: one step's logits differ between "
+            f"eager and graph, max |d| "
+            f"{float((le.float() - lg.float()).abs().max())}")
+    n_attn = sum(k == "attn" for k, _ in cfg_kinds(cfg))
+    if mode != "dense" and cg["paged_decode_attention"] != n_attn:
+        raise AssertionError(f"families {name} {mode}: B5 launched "
+                             f"{cg['paged_decode_attention']} times a step "
+                             f"for {n_attn} attention layers")
+    print(f"families {name} {mode}: one step's logits bitwise equal eager "
+          f"and graphed; launches a step {json.dumps(cg)}", flush=True)
+    return cg, prof
+
+
+def cfg_kinds(cfg):
+    return [(cfg.layer_kind(i), cfg.layer_ffn(i))
+            for i in range(cfg.num_layers)]
+
+
+@contextlib.contextmanager
+def _routing(mode, book):
+    """Record (``"record"``) the index sets every MoE top-k returns (the
+    router's top-k and each expert's capacity top-C) into ``book``, or
+    replay them (``"replay"``): each call then takes the recorded indices
+    in call order, with its own values at them."""
+    from repro_torch.models import moe
+    orig = moe.top_k
+    calls = iter(list(book))
+
+    def top_k(a, k):
+        if mode == "record":
+            vals, idx = orig(a, k)
+            book.append(idx)
+            return vals, idx
+        idx = next(calls)
+        return a.gather(-1, idx), idx
+
+    moe.top_k = top_k
+    try:
+        yield book
+    finally:
+        moe.top_k = orig
+
+
+def _one_ulp(x, gen):
+    """``x`` with every element moved one ulp of its dtype, up or down as
+    drawn from ``gen`` (zeros move away from zero)."""
+    import torch
+    ity = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+           torch.float32: torch.int32}[x.dtype]
+    bits = x.contiguous().view(ity)
+    step = torch.randint(0, 2, bits.shape, generator=gen, device=x.device,
+                         dtype=ity) * 2 - 1
+    step = torch.where((bits & torch.iinfo(ity).max) == 0,
+                       torch.ones_like(step), step)
+    return (bits + step).view(x.dtype)
+
+
+@contextlib.contextmanager
+def _layer_inputs(mode, book, nudge=None):
+    """Record (``"record"``) every decoder block's input hidden state into
+    ``book["in"]``, or replay them (``"replay"``): each block then runs on
+    the recorded input, in call order (teacher forcing, layer by layer).
+    Every block's output is kept in ``book["out"]`` for the per-layer
+    distances. ``nudge`` = (generator, layers): recording, the first
+    block's input of every pass is moved one ulp (``_one_ulp``)."""
+    from repro_torch.models import transformer
+    orig = transformer.LM._apply_block
+    calls = iter(list(book["in"]))
+    count = [0]
+
+    def block(self, bp, x, kind, ffn, **kw):
+        if mode == "replay":
+            x = next(calls)
+        else:
+            if nudge is not None and count[0] % nudge[1] == 0:
+                x = _one_ulp(x, nudge[0])
+            count[0] += 1
+            book["in"].append(x.clone())
+        out = orig(self, bp, x, kind, ffn, **kw)
+        book["out"].append(out[0].float().clone())
+        return out
+
+    transformer.LM._apply_block = block
+    try:
+        yield book
+    finally:
+        transformer.LM._apply_block = orig
+
+
+def _layer_rel_d(got, ref):
+    """max|got - ref| / max|ref| of each recorded block output."""
+    return [float((g - r).abs().max() / r.abs().max())
+            for g, r in zip(got, ref)]
+
+
+def family_plain_check(name, cfg, params, prompts, max_len, forced):
+    """The prefill's last-position logits and one decode step's logits
+    through the kernels against the plain path on the card (the same
+    weights and inputs with ``ternary_kernel="xla"``: B1's plain row, the
+    MLP chain of plain GEMMs), within LOGIT_TOL. MoE routing is discrete:
+    a gate that moves by an ulp can swap which token an expert's capacity
+    keeps, and so move a whole expert's output; the kernel path therefore
+    replays the plain path's routing decisions (each top-k's indices, its
+    own gate values). With ``forced`` the kernel path also runs every
+    block on the plain path's input to it (teacher forcing layer by layer:
+    a model that amplifies an ulp at every layer is held at each layer's
+    own error), and every block's output must lie within FORCED_LAYER_TOL
+    of the plain one's. Then the free-running kernel path (nothing pinned
+    or forced) and a witness: the plain path with the first block's input
+    moved one bf16 ulp (``_one_ulp``), free-running too. The free path's
+    logits must lie within WITNESS_FACTOR times the witness's distance (or
+    LOGIT_TOL): what the model itself makes of one rounding bounds what
+    the kernels' roundings may do. Both per-layer distance curves over
+    the prefill's blocks are reported."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+
+    plain = dataclasses.replace(cfg, ternary_kernel="xla")
+    toks = torch.as_tensor(prompts, device="cuda")
+    b, s = prompts.shape
+    pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    out, routes, layers, nxt = {}, {}, {}, None
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    with torch.no_grad():
+        for label, c, mode in (("plain", plain, "record"),
+                               ("kernels", cfg, "replay"),
+                               ("free", cfg, "record"),
+                               ("witness", plain, "record")):
+            model = LM(c, "cuda")
+            route = routes["plain"] if mode == "replay" else []
+            replay = mode == "replay" and forced
+            book = {"in": layers["plain"]["in"] if replay else [], "out": []}
+            nudge = (gen, cfg.num_layers) if label == "witness" else None
+            force = _layer_inputs("replay" if replay else "record", book,
+                                  nudge)
+            with _routing(mode, route), force:
+                with ops.serving_phase("prefill"):
+                    cache, logits = model.prefill(params, {"tokens": toks},
+                                                  max_len)
+                if nxt is None:
+                    nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+                with ops.serving_phase("decode"):
+                    step, _ = model.decode_step(
+                        params, {"layers": cache["layers"], "pos": pos}, nxt)
+            routes.setdefault(label, route)
+            layers[label] = book
+            out[label] = (logits[:, -1].clone(), step[:, 0].clone())
+            del cache
+    ref = out["plain"]
+    how = "layer-forced, " if forced else ""
+    _compare_logits(f"families {name}: prefill, kernels vs plain path on "
+                    f"the card ({how}routing pinned)", ref[0],
+                    out["kernels"][0], LOGIT_TOL)
+    _compare_logits(f"families {name}: one decode step, kernels vs plain "
+                    f"path on the card ({how}routing pinned)", ref[1],
+                    out["kernels"][1], LOGIT_TOL)
+
+    def moved(label):
+        # index sets, not orders: an expert's kept tokens in another order
+        # compute the same thing
+        return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1)
+                       .sum()) for x, y in zip(routes["plain"],
+                                               routes[label]))
+
+    def max_d(label, i):
+        return float((out[label][i].float() - ref[i].float()).abs().max())
+
+    n = cfg.num_layers
+    scale = float(ref[0].float().abs().max())
+    report = {"gate": ("layer_forced" if forced else "end_to_end")
+              + ", routing pinned",
+              "routing_calls": len(routes["plain"]),
+              "routing_rows_differing_free": moved("free"),
+              "routing_rows_differing_witness": moved("witness"),
+              "free_prefill_max_d": max_d("free", 0),
+              "free_step_max_d": max_d("free", 1),
+              "witness_prefill_max_d": max_d("witness", 0),
+              "witness_step_max_d": max_d("witness", 1),
+              "max_logit": scale,
+              "free_layer_rel_d": _layer_rel_d(
+                  layers["free"]["out"][:n], layers["plain"]["out"][:n]),
+              "witness_layer_rel_d": _layer_rel_d(
+                  layers["witness"]["out"][:n], layers["plain"]["out"][:n])}
+    if forced:
+        per_layer = _layer_rel_d(layers["kernels"]["out"],
+                                 layers["plain"]["out"])
+        report["forced_layer_rel_d"] = per_layer[:n]
+        report["forced_layer_max_rel_d"] = max(per_layer)
+    print(f"families {name}: kernels vs plain, free-running, and the "
+          f"one-ulp witness: " + json.dumps(report), flush=True)
+    if forced and report["forced_layer_max_rel_d"] > FORCED_LAYER_TOL:
+        raise AssertionError(
+            f"families {name}: a layer-forced block's output through the "
+            f"kernels lies {report['forced_layer_max_rel_d']} of its max "
+            f"from the plain path's (bound {FORCED_LAYER_TOL})")
+    for i, what in enumerate(("prefill", "step")):
+        free, witness = max_d("free", i), max_d("witness", i)
+        bound = max(LOGIT_TOL * scale, WITNESS_FACTOR * witness)
+        if free > bound:
+            raise AssertionError(
+                f"families {name}: the free-running {what} logits through "
+                f"the kernels lie {free} from the plain path's, more than "
+                f"{WITNESS_FACTOR} x the one-ulp witness's {witness} and "
+                f"LOGIT_TOL x max|logit| ({LOGIT_TOL * scale})")
+    return report
+
+
+def bank_materialize_ms(params, flush):
+    """Card time to decode and scale every packed expert bank of the model
+    once (what each MoE layer does every call), summed over the layers."""
+    import torch
+    from repro_torch.core.weights import TernaryWeight
+    banks = [lay["ffn"][n] for lay in params["layers"]
+             for n in ("w_in", "w_gate", "w_out")
+             if isinstance(lay.get("ffn", {}).get(n), TernaryWeight)]
+    if not banks:
+        return None
+    per_layer = banks[:3]
+    ms = cuda_ms(lambda: [w.materialize(torch.bfloat16, with_scale=True)
+                          for w in per_layer], 5, flush)
+    return {"banks": len(banks), "ms_per_layer": ms,
+            "ms_per_step": ms * len(banks) / 3,
+            "bytes_per_layer": sum(w.n * w.k * w.packed.shape[0] * 2
+                                   for w in per_layer)}
+
+
+def family_kernel_rows(name, cfg, spec, flush):
+    """B1 at the model's packed projections, B4 at its MLP and B5 at its
+    attention (GQA, paged), each at the decode M (slots) and the first
+    prefill group's M (slots x prompt length), against their plain
+    versions, timed; rows ``"on_path": true`` with the model's name. B5
+    also over rows of FAMILY_LONG_CONTEXT tokens (``"on_path": false``)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    d, hd = cfg.d_model, cfg.head_dim
+    ms = (spec["slots"], spec["slots"] * spec["prompt_len"])
+    gemm = []
+    if any(k == "ssm" for k, _ in cfg_kinds(cfg)):
+        d_proj = 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state \
+            + cfg.ssm_heads
+        gemm += [("in_proj", d, d_proj), ("out_proj", cfg.d_inner, d)]
+    if any(k == "attn" for k, _ in cfg_kinds(cfg)):
+        gemm += [("q", d, cfg.num_heads * hd),
+                 ("k/v", d, cfg.num_kv_heads * hd),
+                 ("o", cfg.num_heads * hd, d)]
+    if not cfg.tie_embeddings:
+        gemm.append(("lm_head", d, cfg.padded_vocab()))
+    rows = {"ternary_gemm": [], "fused_mlp": [],
+            "paged_decode_attention": []}
+    for what, k, n in gemm:
+        for m in ms:
+            row = gemm_row(gen, m, k, n, _serving_phase(m), flush)
+            rows["ternary_gemm"].append(dict(row, model=name, proj=what))
+    if any(f == "mlp" for _, f in cfg_kinds(cfg)):
+        for m in ms:
+            row = mlp_row(gen, m, d, cfg.d_ff, d, _serving_phase(m), flush)
+            rows["fused_mlp"].append(dict(row, model=name))
+    if "paged_bf16" in spec["caches"] and any(k == "attn"
+                                              for k, _ in cfg_kinds(cfg)):
+        shape = dict(b=spec["slots"], h=cfg.num_heads, kv=cfg.num_kv_heads,
+                     hd=hd, t=-(-spec["max_len"] // PAGE_SIZE))
+        inputs = _paged_inputs(gen, shape, lambda: torch.randint(
+            spec["prompt_len"], spec["max_len"] + 1, (shape["b"],),
+            generator=gen, device="cuda", dtype=torch.int32))
+        subsets = ([shape["b"] - 1], list(range(shape["b"]))[::-2])
+        for row in paged_rows(f"{name} GQA", shape, inputs, flush,
+                              subsets=subsets, on_path=True):
+            rows["paged_decode_attention"].append(dict(row, model=name))
+        lo, hi = FAMILY_LONG_CONTEXT
+        shape = dict(shape, t=hi // PAGE_SIZE)
+        inputs = _paged_inputs(gen, shape, lambda: torch.randint(
+            lo, hi + 1, (shape["b"],), generator=gen, device="cuda",
+            dtype=torch.int32))
+        for row in paged_rows(f"{name} GQA {lo}-{hi} tokens", shape, inputs,
+                              flush, subsets=subsets, on_path=False):
+            rows["paged_decode_attention"].append(dict(row, model=name))
+    return rows
+
+
+def family_phase(name, spec, flush):
+    """One family's model at full widths (cut in depth where ``spec``
+    says), ternarized and packed layer by layer as it is drawn, served
+    over each cache mode of ``spec``; then the checks of ``families_phase``.
+    Returns (kernel rows, runs' launches, summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config(name, quantization="ternary", **spec["overrides"])
+    t0 = time.perf_counter()
+    cfg, params = serve.build_params(cfg, SEED, "cuda", packed=True)
+    torch.cuda.synchronize()
+    kinds = cfg_kinds(cfg)
+    print(f"families {name}: init+pack {cfg.num_layers} layers (d "
+          f"{cfg.d_model}, {sum(k == 'attn' for k, _ in kinds)} attention, "
+          f"{sum(k == 'ssm' for k, _ in kinds)} SSM, "
+          f"{sum(f == 'moe' for _, f in kinds)} MoE, "
+          f"{sum(f == 'mlp' for _, f in kinds)} MLP, vocab "
+          f"{cfg.vocab_size}): {serve.count_packed(params)} packed "
+          f"containers in {time.perf_counter() - t0:.2f}s, "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak",
+          flush=True)
+    prompts, gens = serve.build_workload(cfg, spec["requests"],
+                                         spec["prompt_len"],
+                                         spec["gen_lens"], seed=SEED)
+    spec = dict(spec, max_len=spec["prompt_len"] + max(spec["gen_lens"]) + 1)
+    outs, runs, summary = {}, {}, {}
+    summary["plain_check"] = family_plain_check(
+        name, cfg, params, prompts[:spec["slots"]], spec["max_len"],
+        spec["layer_forced"])
+    for mode in spec["caches"]:
+        outs[mode], runs[f"families {name} {mode}"], summary[mode] = \
+            family_serve(name, cfg, params, spec, prompts, gens, mode)
+        per_step, prof = family_step_check(
+            name, cfg, params, spec, prompts, gens, mode,
+            profile=mode == "dense")
+        summary[mode]["per_decode_step_launches"] = per_step
+        if prof is not None:
+            summary[mode]["decode_step_profile"] = prof
+    for mode in spec["caches"]:
+        if mode == "dense":
+            continue
+        same = sum(np.array_equal(a, b)
+                   for a, b in zip(outs["dense"], outs[mode]))
+        summary[mode]["streams_equal_dense"] = f"{same}/{len(gens)}"
+        print(f"families {name} {mode}: {same}/{len(gens)} streams equal "
+              f"the dense run's", flush=True)
+        if spec["paged_exact"]:
+            if same != len(gens):
+                raise AssertionError(f"families {name} {mode}: streams "
+                                     f"differ from the dense run's")
+            continue
+        # MoE capacity is per step (1 token an expert at 4 slots, more in a
+        # teacher-forced prefill), so the near-tie rule reads one decode
+        # step on both caches from the same prefill, routing pinned
+        int8 = mode == "paged_int8"
+        paged_step_check(f"families {name} {mode} vs dense, one decode "
+                         f"step, routing pinned", cfg, params,
+                         prompts[:spec["slots"]], spec["max_len"],
+                         "int8" if int8 else None,
+                         INT8_LOGIT_TOL if int8 else LOGIT_TOL,
+                         pin_routing=True)
+    summary["bank_materialize"] = bank_materialize_ms(params, flush)
+    del params
+    torch.cuda.empty_cache()
+    return family_kernel_rows(name, cfg, spec, flush), runs, summary
+
+
+def families_phase(flush):
+    """The MoE, SSM and hybrid families through the engine on the card
+    (FAMILIES): jamba-v0.1-52b at full widths, one period of 8 layers,
+    dense and paged with bf16 and int8 pages; mamba2-130m whole, dense
+    and paged (its pool holds SSM rows only); mixtral-8x22b at full widths,
+    2 layers, dense (paged pools refuse its sliding window). Each: the
+    requests drain with their budgets of in-range tokens, the prefill's
+    and one decode step's logits through the kernels lie within LOGIT_TOL
+    of the plain path on the card (mamba2 layer-forced, each block within
+    FORCED_LAYER_TOL), the free-running kernel path within WITNESS_FACTOR
+    of the one-ulp witness, a decode step's logits are bitwise equal
+    eager and graphed, the launches a decode step are counted, the paged
+    streams equal the dense ones (mamba2 exactly; jamba's are counted, and
+    one decode step from the same prefill on both caches, MoE routing
+    pinned, is held within LOGIT_TOL with bf16 pages and INT8_LOGIT_TOL
+    with int8 ones), and B1/B4/B5 run at the model's shapes against their
+    plain versions.
+    Prints the ``families summary:`` line."""
+    rows = {"ternary_gemm": [], "fused_mlp": [],
+            "paged_decode_attention": []}
+    runs, summary = {}, {}
+    for name, spec in FAMILIES.items():
+        t0 = time.perf_counter()
+        fam_rows, fam_runs, summary[name] = family_phase(name, spec, flush)
+        summary[name]["phase_s"] = round(time.perf_counter() - t0, 1)
+        runs.update(fam_runs)
+        for k, v in fam_rows.items():
+            rows[k] += v
+    print("families summary: " + json.dumps(summary), flush=True)
+    return rows, runs
+
+
 def main() -> int:
     start = time.perf_counter()
     import torch
@@ -3839,6 +4412,11 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    family_rows, family_runs = families_phase(flush)
+    runs.update(family_runs)
+    for name, rows in family_rows.items():
+        shapes[name] += rows
+    torch.cuda.empty_cache()
     format_rows, runs["gemm_formats"] = gemm_formats_phase(flush)
     k_sweep = format_rows.pop("k_sweep")
     shapes.update(format_rows)

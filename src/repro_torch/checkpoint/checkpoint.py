@@ -12,15 +12,25 @@ every crc and raises ``CheckpointCorruptError`` on a mismatch;
 ``latest_step(verify=True)`` skips corrupt steps.
 
 Trees are nested dicts and lists (list indices become keys ``"0"``,
-``"1"``, ...) of torch tensors, numpy arrays or Python numbers. Restored
-leaves are CPU torch tensors; unsigned integer arrays
-wider than a byte come back as the signed tensor of the same bits, the
-port's convention for packed words. The model's layout (``repro``'s
-stacked ``block0`` leaves against the port's ``layers`` list) is
+``"1"``, ...) of torch tensors, numpy arrays, Python numbers and
+``TernaryWeight`` containers. A container is stored leaf-wise, as
+``repro`` stores its pytree (``.../w_packed/packed``, ``scale``, ``bias``;
+a ``None`` leaf is not stored), its words as ``repro``'s uint32, and its
+format and static fields (logical shape, ``nnz``, tile sizes) go into the
+manifest's ``"containers"``, so a packed tree (MoE banks included)
+restores bitwise with no skeleton. Restored leaves are CPU torch tensors;
+unsigned integer arrays wider than a byte come back as the signed tensor
+of the same bits, the port's convention for packed words. A ``repro``-
+saved packed tree has no ``"containers"``: restore it into a port
+skeleton (``target``: the config's model drawn, packed and written in
+``repro``'s layout by ``convert.params_to_numpy``, its containers the
+port's), which gives the static fields. The model's layout (``repro``'s
+stacked ``block{j}`` leaves against the port's ``layers`` list) is
 ``checkpoint.convert``'s business.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -32,6 +42,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.weights import FORMATS, TernaryWeight
 
 __all__ = ["save", "restore", "latest_step", "unflatten",
            "CheckpointCorruptError"]
@@ -55,7 +67,35 @@ class CheckpointCorruptError(RuntimeError):
             f"{key!r} crc32 {got:#010x} != manifest {expected:#010x}")
 
 
-def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+def _join(prefix: str, k) -> str:
+    return f"{prefix}{SEP}{k}" if prefix else str(k)
+
+
+def _static(w: TernaryWeight) -> Dict[str, Any]:
+    """A container's format and non-array fields, JSON-ready."""
+    meta = {"format": w.format_name}
+    for f in dataclasses.fields(w):
+        if f.name not in w._leaves:
+            v = getattr(w, f.name)
+            meta[f.name] = list(v) if isinstance(v, tuple) else v
+    return meta
+
+
+def _flatten(tree, prefix: str, containers: Dict[str, Any]
+             ) -> Dict[str, Any]:
+    """Leaves by key path; a container's array leaves under its own path
+    (its words viewed as uint32), its static fields into ``containers``."""
+    if isinstance(tree, TernaryWeight):
+        containers[prefix] = _static(tree)
+        flat = {}
+        for f in tree._leaves:
+            v = getattr(tree, f)
+            if v is None:
+                continue
+            if f == "packed" and v.dtype == torch.int32:
+                v = v.detach().cpu().numpy().view(np.uint32)
+            flat[_join(prefix, f)] = v
+        return flat
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, list):
@@ -64,7 +104,7 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
         return {prefix: tree}
     flat = {}
     for k, v in items:
-        flat.update(_flatten(v, f"{prefix}{SEP}{k}" if prefix else str(k)))
+        flat.update(_flatten(v, _join(prefix, k), containers))
     return flat
 
 
@@ -101,7 +141,9 @@ def _crc(a: np.ndarray) -> int:
 def save(ckpt_dir: str, step: int, state: Any) -> str:
     """Atomically write ``state`` under ``ckpt_dir/step_<n>/``."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    flat = {k: _stored(v) for k, v in _flatten(state).items()}
+    containers: Dict[str, Any] = {}
+    flat = {k: _stored(v) for k, v in _flatten(state, "",
+                                                containers).items()}
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
@@ -113,6 +155,8 @@ def save(ckpt_dir: str, step: int, state: Any) -> str:
                            "crc32": _crc(a)}
                        for k, (a, dt) in flat.items()},
         }
+        if containers:
+            manifest["containers"] = containers
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f, indent=1)
         if os.path.exists(final):
@@ -172,11 +216,14 @@ def _tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
 def restore(ckpt_dir: str, step: Optional[int] = None,
             target: Any = None) -> Tuple[int, Any]:
     """(step, state) of ``step`` (default: the newest), as CPU tensors.
-    Without ``target`` the state is the flat ``{key: tensor}`` dict; a
-    ``target`` tree fixes
-    the structure, and each leaf takes the dtype of the target's leaf
-    (anything with a ``dtype``). Every leaf's checksum is checked before
-    use: a mismatch raises ``CheckpointCorruptError``."""
+    Without ``target`` the state is the flat ``{key: tensor}`` dict, each
+    container the manifest names rebuilt under its own key; a ``target``
+    tree fixes the structure, and each leaf takes the dtype of the
+    target's leaf (anything with a ``dtype``); a container in the target
+    is rebuilt from its stored leaves, with the manifest's static fields
+    or, for a checkpoint without them (``repro``'s), the target's. Every
+    leaf's checksum is checked before use: a mismatch raises
+    ``CheckpointCorruptError``."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -196,7 +243,10 @@ def restore(ckpt_dir: str, step: Optional[int] = None,
                 if got != want:
                     raise CheckpointCorruptError(path, key, want, got)
             flat[key] = _tensor(a, meta.get("dtype", str(a.dtype)))
+    containers = manifest.get("containers", {})
     if target is None:
+        for prefix in containers:
+            flat[prefix] = _container(flat, prefix, containers[prefix])
         return step, flat
 
     def pick(key, leaf):
@@ -209,12 +259,25 @@ def restore(ckpt_dir: str, step: Optional[int] = None,
         return t
 
     def build(node, prefix):
+        if isinstance(node, TernaryWeight):
+            return _container(flat, prefix,
+                              containers.get(prefix, _static(node)))
         if isinstance(node, dict):
-            return {k: build(v, f"{prefix}{SEP}{k}" if prefix else str(k))
-                    for k, v in node.items()}
+            return {k: build(v, _join(prefix, k)) for k, v in node.items()}
         if isinstance(node, list):
-            return [build(v, f"{prefix}{SEP}{i}" if prefix else str(i))
-                    for i, v in enumerate(node)]
+            return [build(v, _join(prefix, i)) for i, v in enumerate(node)]
         return pick(prefix, node)
 
     return step, build(target, "")
+
+
+def _container(flat: Dict[str, Any], prefix: str,
+               meta: Dict[str, Any]) -> TernaryWeight:
+    """The ``meta["format"]`` container at ``prefix``: its array leaves
+    taken (and removed) from ``flat``, its static fields from ``meta``."""
+    cls = FORMATS[meta["format"]]
+    kw = {k: (tuple(v) if isinstance(v, list) else v)
+          for k, v in meta.items() if k != "format"}
+    for f in cls._leaves:
+        kw[f] = flat.pop(_join(prefix, f), None)
+    return cls(**kw)

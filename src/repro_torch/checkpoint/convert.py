@@ -10,20 +10,24 @@ Input layout (what ``repro``'s ``LM.init`` + ``layers.pack_params`` give,
 with every array leaf converted to numpy): ``{"embed": {"table"},
 "block{j}": {...}, "final_norm": {...}, "unembed": {...}}`` where each
 ``block{j}`` leaf is stacked ``(n_groups, ...)`` over the layers
-``g * period + j``. A packed linear arrives as ``{"w_packed": {"packed"
-(uint32 words), "scale", "bias", "shape"}}``; a latent one as ``{"w"}``.
-A node may also be a port container already (``weight_from_numpy``
+``g * period + j`` (``period`` is ``repro``'s: 1 for a uniform stack, 8
+for jamba). A packed linear arrives as ``{"w_packed": {"packed" (uint32
+words), "scale", "bias", "shape"}}``; a latent one as ``{"w"}``. A MoE
+node is ``{"router", "w_in", "w_gate", "w_out"}`` (plus ``shared_*``)
+with each bank latent ``(n_groups, E, K, N)`` or packed in the same dict
+form, words ``(n_groups, E, ceil(K/16), N)``; an SSM mixer is its plain
+arrays and packed or latent ``in_proj`` / ``out_proj``. A node may also
+be a port container already (``weight_from_numpy``
 builds one of any registered format from a ``repro`` container's leaves
 and static fields); it is moved to the device and, inside a stacked
 block, its leaves are sliced per layer like every other leaf. The port never imports ``repro``: turning
 ``repro``'s containers into those dicts or leaves is the caller's business.
 Leaves may also be torch tensors (what ``checkpoint.restore`` gives).
 
-``params_to_numpy`` writes the port's latent parameters in that layout with
-one stacked group (``block0``, leading axis over all layers: the port runs
-one kind of block, so its period is 1). numpy has no bfloat16, so a
-bfloat16 leaf stays a CPU tensor there; ``checkpoint.save`` stores it as
-``repro`` does.
+``params_to_numpy`` writes the port's parameters, latent or packed
+(``Dense2Bit`` linears and banks, as the dicts above), in that layout
+with ``repro``'s period. numpy has no bfloat16, so a bfloat16 leaf stays
+a CPU tensor there; ``checkpoint.save`` stores it as ``repro`` does.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.weights import FORMATS, Dense2Bit, TernaryWeight
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import layer_period
 
 __all__ = ["params_from_numpy", "params_to_numpy", "weight_from_numpy",
            "opt_state_from_numpy", "opt_state_to_numpy"]
@@ -53,6 +58,9 @@ def _tensor(arr, i: Optional[int], device) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)          # same bits, the port's word dtype
+    if str(a.dtype) == "bfloat16":    # an ml_dtypes array (bf16 params)
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
     return torch.from_numpy(a.copy()).to(device)
 
 
@@ -84,11 +92,11 @@ def _convert(node, i: Optional[int], device):
                 if getattr(node, f) is not None})
         return node.to(device)
     if isinstance(node, dict):
-        if set(node) == _PACKED_KEYS:
+        if _PACKED_KEYS - {"bias"} <= set(node) <= _PACKED_KEYS:
             return Dense2Bit.from_packed(
                 _tensor(node["packed"], i, device), k=int(node["shape"][0]),
                 scale=_convert(node["scale"], i, device),
-                bias=_convert(node["bias"], i, device))
+                bias=_convert(node.get("bias"), i, device))
         return {k: _convert(v, i, device) for k, v in node.items()}
     return _tensor(node, i, device)
 
@@ -98,9 +106,10 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     ``device``, slicing the stacked blocks per layer."""
     dev = resolve_device(device)
     period = sum(1 for k in tree if k.startswith("block"))
-    if period == 0 or cfg.num_layers % period:
-        raise ValueError(f"tree has {period} stacked blocks for "
-                         f"{cfg.num_layers} layers")
+    if period != layer_period(cfg):
+        raise ValueError(f"tree has {period} stacked blocks; "
+                         f"{cfg.name}'s {cfg.num_layers} layers repeat with "
+                         f"period {layer_period(cfg)}")
     n_groups = cfg.num_layers // period
     layers = [None] * cfg.num_layers
     for j in range(period):
@@ -118,34 +127,57 @@ def _numpy(t: torch.Tensor):
     return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
+def _words(t: torch.Tensor) -> np.ndarray:
+    """int32 words -> ``repro``'s uint32 words, same bits."""
+    return t.detach().cpu().numpy().view(np.uint32)
+
+
+def _container(w: Dense2Bit, leaf) -> dict:
+    return {"packed": _words(leaf("packed")),
+            "scale": None if w.scale is None else _numpy(leaf("scale")),
+            "bias": None if w.bias is None else _numpy(leaf("bias")),
+            "shape": tuple(w.shape)}
+
+
+def _tree(node):
+    """A node outside the blocks -> numpy leaves (containers as dicts)."""
+    if isinstance(node, dict):
+        return {k: _tree(v) for k, v in node.items()}
+    if isinstance(node, Dense2Bit):
+        return _container(node, lambda f: getattr(node, f))
+    return _numpy(node)
+
+
 def _stack(layers):
-    """Per-layer trees of tensors -> one tree of (L, ...) stacks."""
+    """Per-layer trees of tensors and ``Dense2Bit`` containers -> one tree
+    of (G, ...) stacks, a container as ``{"packed", "scale", "bias",
+    "shape"}``."""
     first = layers[0]
     if isinstance(first, dict):
         return {k: _stack([lay[k] for lay in layers]) for k in first}
+    if isinstance(first, Dense2Bit):
+        return _container(first, lambda f: torch.stack(
+            [getattr(w, f).detach() for w in layers]))
     if not isinstance(first, torch.Tensor):
-        raise TypeError(f"params_to_numpy takes latent parameters; got a "
-                        f"{type(first).__name__} leaf")
+        raise TypeError(f"params_to_numpy takes tensors and Dense2Bit "
+                        f"containers; got a {type(first).__name__} leaf")
     return _numpy(torch.stack([t.detach() for t in layers]))
 
 
 def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
-    """The port's latent parameters -> ``repro``'s tree (numpy leaves,
-    ``block0`` stacked over the layers); ``params_from_numpy`` inverts it."""
+    """The port's parameters -> ``repro``'s tree (numpy leaves,
+    ``block{j}`` stacked over the layers ``g * period + j``);
+    ``params_from_numpy`` inverts it."""
     if len(params["layers"]) != cfg.num_layers:
         raise ValueError(f"{len(params['layers'])} layers for a "
                          f"{cfg.num_layers}-layer config")
-
-    def leaves(node):
-        if isinstance(node, dict):
-            return {k: leaves(v) for k, v in node.items()}
-        return _numpy(node)
-
-    out = {"embed": leaves(params["embed"]),
-           "block0": _stack(params["layers"]),
-           "final_norm": leaves(params["final_norm"])}
+    period = layer_period(cfg)
+    out = {"embed": _tree(params["embed"])}
+    for j in range(period):
+        out[f"block{j}"] = _stack(params["layers"][j::period])
+    out["final_norm"] = _tree(params["final_norm"])
     if "unembed" in params:
-        out["unembed"] = leaves(params["unembed"])
+        out["unembed"] = _tree(params["unembed"])
     return out
 
 

@@ -1,31 +1,52 @@
-"""Architecture registry of the port. Only ``ternary-paper`` is registered
-so far; ``get_config(name, reduced=True)`` gives the CPU-test reduction."""
+"""Architecture registry of the port: one module per architecture, the
+same eleven as ``repro.configs``. ``get_config(name)`` returns the full
+published config; ``get_config(name, reduced=True)`` the CPU-test
+reduction."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict
+from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 
-_ARCH_MODULES = ["ternary_paper"]
+_ARCH_MODULES = [
+    "seamless_m4t_large_v2",
+    "mistral_nemo_12b",
+    "command_r_35b",
+    "granite_3_8b",
+    "deepseek_coder_33b",
+    "jamba_v0_1_52b",
+    "kimi_k2_1t_a32b",
+    "mixtral_8x22b",
+    "mamba2_130m",
+    "internvl2_76b",
+    "ternary_paper",
+]
+
+REGISTRY: Dict[str, ModelConfig] = {}
 
 
-def _registry() -> Dict[str, ModelConfig]:
-    out = {}
+def _load() -> None:
+    if REGISTRY:
+        return
     for mod in _ARCH_MODULES:
         cfg = importlib.import_module(f"repro_torch.configs.{mod}").CONFIG
-        out[cfg.name] = cfg
-    return out
+        REGISTRY[cfg.name] = cfg
+
+
+def list_archs() -> List[str]:
+    _load()
+    return sorted(REGISTRY)
 
 
 def get_config(name: str, reduced: bool = False, **overrides) -> ModelConfig:
-    registry = _registry()
+    _load()
     name = name.replace("_", "-")
-    if name not in registry:
-        raise KeyError(f"unknown arch {name!r}; the port registers "
-                       f"{sorted(registry)}")
-    cfg = registry[name]
+    if name not in REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; registered: "
+                       f"{sorted(REGISTRY)}")
+    cfg = REGISTRY[name]
     if reduced:
         cfg = cfg.reduced()
     if overrides:
@@ -33,4 +54,5 @@ def get_config(name: str, reduced: bool = False, **overrides) -> ModelConfig:
     return cfg
 
 
-__all__ = ["get_config", "ModelConfig"]
+__all__ = ["get_config", "list_archs", "REGISTRY", "SHAPES", "ModelConfig",
+           "ShapeConfig"]

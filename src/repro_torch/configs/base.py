@@ -3,17 +3,37 @@
 ``ModelConfig`` keeps ``repro``'s field names and defaults one for one, so a
 config built for either package reads the same; the methods the serving
 path needs (``reduced``, ``padded_vocab``, ``layer_kind``, ``layer_ffn``)
-come across unchanged.
+come across unchanged, and so do the shape cells (``SHAPES``), the
+analytic ``param_count`` / ``active_param_count`` and ``supports_shape``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
-__all__ = ["ModelConfig", "pad_to_multiple"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "pad_to_multiple"]
 
 
 def pad_to_multiple(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +118,14 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.enc_layers > 0
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def layer_kind(self, i: int) -> str:
         """'attn' or 'ssm' mixer for decoder layer i."""
         if self.family == "ssm":
@@ -116,6 +144,63 @@ class ModelConfig:
 
     def padded_vocab(self, multiple: int = 16) -> int:
         return pad_to_multiple(self.vocab_size, multiple)
+
+    def param_count(self) -> int:
+        """Total parameter count (embedding + layers), analytic."""
+        d, v = self.d_model, self.padded_vocab()
+        hd = self.head_dim
+        total = v * d  # embed
+        if not self.tie_embeddings:
+            total += d * v
+
+        def attn_params():
+            p = d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd \
+                + self.num_heads * hd * d
+            if self.use_bias:
+                p += (self.num_heads + 2 * self.num_kv_heads) * hd + d
+            return p
+
+        def mlp_params(ff):
+            return 3 * d * ff  # gated (SwiGLU): in, gate, out
+
+        def ssm_params():
+            di, s, h = self.d_inner, self.ssm_state, self.ssm_heads
+            proj_in = d * (2 * di + 2 * self.ssm_groups * s + h)
+            conv = self.ssm_conv * (di + 2 * self.ssm_groups * s)
+            return proj_in + conv + 3 * h + di + di * d
+
+        def layer_params(i):
+            p = 2 * d  # norms
+            p += attn_params() if self.layer_kind(i) == "attn" else ssm_params()
+            ffn = self.layer_ffn(i)
+            if ffn == "moe":
+                p += d * self.num_experts
+                p += self.num_experts * mlp_params(self.d_ff_expert)
+                p += self.n_shared_experts * mlp_params(self.d_ff_expert)
+            elif ffn == "mlp":
+                p += mlp_params(self.d_ff)
+            return p
+
+        for i in range(self.num_layers):
+            total += layer_params(i)
+        if self.is_encdec:
+            for _ in range(self.enc_layers):
+                total += 2 * d + attn_params() + mlp_params(self.d_ff)
+            # cross attention per decoder layer
+            total += self.num_layers * (d + attn_params())
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k + shared experts only)."""
+        if not self.num_experts:
+            return self.param_count()
+        full = self.param_count()
+        per_expert = 3 * self.d_model * self.d_ff_expert
+        n_moe_layers = sum(1 for i in range(self.num_layers)
+                           if self.layer_ffn(i) == "moe")
+        inactive = n_moe_layers * (self.num_experts - self.num_experts_per_tok) \
+            * per_expert
+        return full - inactive
 
     def reduced(self, **overrides) -> "ModelConfig":
         """Tiny same-family config for CPU smoke tests."""
@@ -145,3 +230,14 @@ class ModelConfig:
         )
         changes.update(overrides)
         return dataclasses.replace(self, **changes)
+
+    def supports_shape(self, shape_name: str) -> Tuple[bool, str]:
+        """(supported, reason-if-not). long_500k needs sub-quadratic
+        attention."""
+        if shape_name == "long_500k":
+            subquad = (self.family in ("ssm", "hybrid")
+                       or self.sliding_window > 0)
+            if not subquad:
+                return False, ("full quadratic attention; 500k decode cache "
+                               "infeasible (see DESIGN.md §4)")
+        return True, ""

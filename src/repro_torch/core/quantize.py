@@ -76,7 +76,7 @@ def ternarize_target_sparsity(w: torch.Tensor, sparsity: float,
 class _SteTernarize(torch.autograd.Function):
     """Forward: the effective ternary weight α·T in ``w.dtype``. Backward:
     straight through, masked to |w| <= 2·(mean|w| per column + 1e-8), as
-    ``repro``'s ``_ste_bwd``."""
+    ``repro``'s ``_ste_bwd`` (the column mean over K, axis -2)."""
 
     @staticmethod
     def forward(ctx, w, threshold_factor):
@@ -87,14 +87,15 @@ class _SteTernarize(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (w,) = ctx.saved_tensors
-        scale = w.abs().mean(dim=0, keepdim=True) + 1e-8
+        scale = w.abs().mean(dim=-2, keepdim=True) + 1e-8
         passthrough = (w.abs() <= 2.0 * scale).to(g.dtype)
         return g * passthrough, None
 
 
 def ste_ternarize(w: torch.Tensor,
                   threshold_factor: float = 0.7) -> torch.Tensor:
-    """QAT weight of a 2-D (K, N) latent: ternary forward, straight-through
+    """QAT weight of a (..., K, N) latent (one ternarization per matrix, so
+    an expert bank ternarizes per expert): ternary forward, straight-through
     backward (see ``_SteTernarize``)."""
     return _SteTernarize.apply(w, threshold_factor)
 

@@ -5,6 +5,10 @@ server (``--static``) on the same workload for an A/B.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch ternary-paper \\
       --packed --requests 16 --slots 8 --prompt-len 128 --gen-lens 32,64
+  ... --arch mamba2-130m | mixtral-8x22b | jamba-v0.1-52b | ...  # every
+      registered decoder config (encoder-decoder and VLM ones are refused);
+      only ternary-paper's config quantizes, so --packed on another one
+      converts nothing and warns, as repro's does
   ... --static --batch 8                 # whole batches, the A/B reference
   ... --max-len N --eos-id T             # cache capacity; stop on a token
   ... --cache paged --page-size 16 [--kv-dtype int8 --pages N]
@@ -155,15 +159,25 @@ def count_packed(params) -> int:
 
 def build_params(cfg, seed: int, device, packed: bool):
     """Random-init parameters from a seeded generator on ``device``, packed
-    into the ternary serving format when asked. Returns (cfg, params): a
-    packed model's config reads ``quantization="ternary_packed"``."""
+    into the ternary serving format when asked: each layer as it is drawn
+    (a full-width MoE layer's latent f32 banks are ~11 GB), then the rest.
+    Returns (cfg, params): a packed model's config reads
+    ``quantization="ternary_packed"``. A config that packs nothing (its
+    ``quantization`` is ``"none"``, or no projection meets
+    ``ternary_min_dim``) is served latent, with ``repro``'s warning."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = LM(cfg, dev).init(gen)
-    if packed:
-        params = pack_params(params, cfg)
-        if count_packed(params):
-            cfg = dataclasses.replace(cfg, quantization="ternary_packed")
+    if not packed:
+        return cfg, LM(cfg, dev).init(gen)
+    params = pack_params(LM(cfg, dev).init(
+        gen, layer_fn=lambda bp: pack_params(bp, cfg)), cfg)
+    if count_packed(params):
+        cfg = dataclasses.replace(cfg, quantization="ternary_packed")
+    else:
+        print(f"warning: --packed converted nothing (quantization="
+              f"{cfg.quantization!r}, no projection meets "
+              f"ternary_min_dim={cfg.ternary_min_dim}); serving the "
+              f"dense model", file=sys.stderr)
     return cfg, params
 
 

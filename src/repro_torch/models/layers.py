@@ -50,13 +50,22 @@ def _is_ternary(cfg: ModelConfig, d_in: int, d_out: int) -> bool:
             and min(d_in, d_out) >= cfg.ternary_min_dim)
 
 
+def gemm_impl(cfg: ModelConfig) -> str:
+    """The ``ternary_gemm`` row packed linears dispatch (``repro``'s
+    ``gemm_impl``): ``cfg.ternary_kernel="xla"`` pins the plain ``"ref"``
+    row wherever the tensors lie; otherwise ``"auto"`` (the kernel on the
+    card, its plain version on the CPU)."""
+    return "ref" if cfg.ternary_kernel == "xla" else "auto"
+
+
 def linear_apply(params: dict, x: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """x: (..., d_in) -> (..., d_out)."""
     wc = params.get("w_packed")
     if wc is not None:
         lead = x.shape[:-1]
-        y = ops.ternary_gemm(x.reshape(-1, x.shape[-1]), wc)
+        y = ops.ternary_gemm(x.reshape(-1, x.shape[-1]), wc,
+                             impl=gemm_impl(cfg))
         y = y.reshape(*lead, -1)
     else:
         w = params["w"]
@@ -82,9 +91,14 @@ def pack_linear(params: dict, cfg: ModelConfig) -> dict:
 
 def pack_params(params, cfg: ModelConfig):
     """Walk a param tree (dicts and lists) and pack every ternarizable
-    projection. Packing runs on the device the weights lie on."""
+    projection and MoE expert bank (``moe.pack_moe``; router and shared
+    experts stay latent). Packing runs on the device the weights lie on."""
+    from repro_torch.models import moe
+
     def walk(p):
         if isinstance(p, dict):
+            if moe.is_moe_node(p):
+                return moe.pack_moe(p, cfg)
             w = p.get("w")
             if w is not None and w.ndim in (2, 3) \
                     and min(w.shape[-2:]) >= cfg.ternary_min_dim:
@@ -181,8 +195,10 @@ def _fused_mlp_weights(params: dict, x: torch.Tensor, cfg: ModelConfig):
     """The (w_in, w_out, w_gate) containers when this MLP dispatches the
     fused kernel: every projection packed (bias inside the container), the
     kernel path active — here, the activations lie on the card — and fusion
-    not configured off."""
-    if cfg.fused_mlp == "off" or not x.is_cuda:
+    not configured off, nor the plain GEMM row pinned
+    (``cfg.ternary_kernel="xla"``)."""
+    if cfg.fused_mlp == "off" or not x.is_cuda \
+            or gemm_impl(cfg) == "ref":
         return None
     ws = []
     for name in ("in", "out", "gate"):

@@ -1,5 +1,10 @@
-"""The decoder LM of the port (dense, attention-only family): a Python loop
-over per-layer parameter dicts where ``repro`` scans stacked ones.
+"""The decoder LM of the port: a Python loop over per-layer parameter dicts
+where ``repro`` scans stacked ones. Every decoder family ``repro``'s
+continuous engine serves: dense and MoE attention stacks, the SSM family
+and the hybrid (attention + SSM, MLP + MoE) family; each layer is an
+(``attn`` | ``ssm``) mixer and an (``mlp`` | ``moe`` | ``none``) FFN as
+``cfg.layer_kind`` / ``cfg.layer_ffn`` say. Encoder-decoder and VLM
+configs raise ``NotImplementedError``.
 
     m = LM(cfg, device="cuda")
     params = m.init(torch.Generator(device="cuda").manual_seed(0))
@@ -7,15 +12,22 @@ over per-layer parameter dicts where ``repro`` scans stacked ones.
     cache, logits = m.prefill(params, {"tokens": toks}, max_len)
     logits, cache = m.decode_step(params, cache, next_tokens)
 
-Parameter tree: ``{"embed": {"table"}, "layers": [{"norm1", "mixer": {q, k,
-v, o}, "norm2", "ffn": {in, gate, out}}, ...], "final_norm", "unembed"}``
-with ``{"w"}`` latent or ``{"w_packed": Dense2Bit}`` linears. Caches:
-``{"layers": [{"k", "v"} per layer], "pos": int32 tensor}``, ``pos`` a
-scalar or a (B,) vector of per-slot positions, each layer's tensors in
-the config's layout (``attention.init_kv_cache``: ``bshd``, ``flat`` or
-``opt``, rolling when the model has a sliding window); a paged cache holds
-``{"k_pages", "v_pages"}`` per layer (``init_paged_cache``) and decodes with
-a ``"block_table"`` entry beside ``"pos"``.
+Parameter tree: ``{"embed": {"table"}, "layers": [{"norm1", "mixer",
+"norm2", "ffn"}, ...], "final_norm", "unembed"}``: the mixer ``{q, k, v,
+o}`` (attention) or ``{in_proj, out_proj, conv_w, ...}`` (SSM), the FFN
+``{in, gate, out}`` (MLP) or ``{router, w_in, w_gate, w_out, ...}`` (MoE),
+with ``{"w"}`` latent or ``{"w_packed": Dense2Bit}`` linears and latent or
+``Dense2Bit`` expert banks. ``period`` and ``block_kinds`` are
+``repro``'s: layer ``g * period + j`` is ``repro``'s ``block{j}`` of
+group ``g``.
+
+Caches: ``{"layers": [per layer], "pos": int32 tensor}``, ``pos`` a scalar
+or a (B,) vector of per-slot positions. An attention layer holds ``{"k",
+"v"}`` in the config's layout (``attention.init_kv_cache``: ``bshd``,
+``flat`` or ``opt``, rolling when the model has a sliding window), or
+``{"k_pages", "v_pages"}`` in a paged cache (``init_paged_cache``, decoded
+with a ``"block_table"`` entry beside ``"pos"``); an SSM layer holds
+per-row ``{"state", "conv"}`` in both.
 """
 from __future__ import annotations
 
@@ -26,39 +38,59 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe, ssm
+
+
+def layer_period(cfg: ModelConfig) -> int:
+    """``repro``'s period: the smallest p with L % p == 0 over which the
+    layers' (mixer, ffn) kinds repeat; its ``block{j}`` stacks layers
+    ``g * p + j``."""
+    kinds = [(cfg.layer_kind(i), cfg.layer_ffn(i))
+             for i in range(cfg.num_layers)]
+    p = 1
+    while p <= cfg.num_layers:
+        if cfg.num_layers % p == 0 and all(
+                kinds[i] == kinds[i % p] for i in range(cfg.num_layers)):
+            break
+        p += 1
+    return p
 
 
 class LM:
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        for i in range(cfg.num_layers):
-            if cfg.layer_kind(i) != "attn" or cfg.layer_ffn(i) not in (
-                    "mlp", "none"):
-                raise NotImplementedError(
-                    f"the port serves the dense attention-only family; "
-                    f"{cfg.name!r} layer {i} is "
-                    f"{cfg.layer_kind(i)}/{cfg.layer_ffn(i)}")
-        if cfg.is_encdec or cfg.family not in ("dense",):
-            raise NotImplementedError(f"family {cfg.family!r} is not ported")
+        if cfg.is_encdec or cfg.family == "vlm":
+            raise NotImplementedError(
+                f"family {cfg.family!r} ({cfg.name}) needs the encoder, "
+                f"cross-attention and frontend, which the next slice of the "
+                f"port (ROADMAP A11b) brings")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.kinds = [(cfg.layer_kind(i), cfg.layer_ffn(i))
+                      for i in range(cfg.num_layers)]
+        self.period = layer_period(cfg)
+        self.block_kinds = self.kinds[:self.period]  # [(mixer, ffn)] * p
 
     # ------------------------------------------------------------------
-    def init(self, generator: torch.Generator) -> dict:
+    def init(self, generator: torch.Generator, layer_fn=None) -> dict:
         """Random latent parameters drawn from ``generator`` on its device
-        (which must be this model's)."""
+        (which must be this model's). ``layer_fn`` maps each layer's
+        parameters as they are drawn (e.g. ``layers.pack_params``), so a
+        model whose latent weights would not fit at once is packed layer
+        by layer."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator lies on {generator.device}, the "
                              f"model on {self.device}")
         cfg, g = self.cfg, generator
         blocks = []
-        for i in range(cfg.num_layers):
+        for kind, ffn in self.kinds:
             bp = {"norm1": layers.norm_init(g, cfg, cfg.d_model),
-                  "mixer": attention.attn_init(g, cfg)}
-            if cfg.layer_ffn(i) == "mlp":
+                  "mixer": (attention.attn_init(g, cfg) if kind == "attn"
+                            else ssm.ssm_init(g, cfg))}
+            if ffn != "none":
                 bp["norm2"] = layers.norm_init(g, cfg, cfg.d_model)
-                bp["ffn"] = layers.mlp_init(g, cfg, cfg.d_ff)
-            blocks.append(bp)
+                bp["ffn"] = (moe.moe_init(g, cfg) if ffn == "moe"
+                             else layers.mlp_init(g, cfg, cfg.d_ff))
+            blocks.append(bp if layer_fn is None else layer_fn(bp))
         params = {"embed": layers.embed_init(g, cfg), "layers": blocks,
                   "final_norm": layers.norm_init(g, cfg, cfg.d_model)}
         if not cfg.tie_embeddings:
@@ -66,39 +98,61 @@ class LM:
         return params
 
     # ------------------------------------------------------------------
-    def _apply_block(self, bp, x, *, positions, cache, cache_pos,
+    def _apply_block(self, bp, x, kind, ffn, *, positions, cache, cache_pos,
                      block_table):
         cfg = self.cfg
         h = layers.norm_apply(bp["norm1"], x, cfg)
-        h, new_cache = attention.attn_apply(
-            bp["mixer"], h, cfg, positions=positions, cache=cache,
-            cache_pos=cache_pos, block_table=block_table)
+        if kind == "attn":
+            h, new_cache = attention.attn_apply(
+                bp["mixer"], h, cfg, positions=positions, cache=cache,
+                cache_pos=cache_pos, block_table=block_table)
+        else:
+            h, new_cache = ssm.ssm_apply(bp["mixer"], h, cfg, cache=cache,
+                                         cache_pos=cache_pos)
         x = x + h
-        if "ffn" in bp:
+        aux = None
+        if ffn != "none":
             h2 = layers.norm_apply(bp["norm2"], x, cfg)
-            x = x + layers.mlp_apply(bp["ffn"], h2, cfg)
-        return x, new_cache
+            if ffn == "moe":
+                h2, aux = moe.moe_apply(bp["ffn"], h2, cfg)
+            else:
+                h2 = layers.mlp_apply(bp["ffn"], h2, cfg)
+            x = x + h2
+        return x, new_cache, aux
 
     def _run_stack(self, params, x, *, positions, caches=None,
                    cache_pos=None, block_table=None):
         """``caches=None`` runs the full-sequence (training) stack; each
         block is then recomputed in the backward when ``cfg.remat ==
         "full"`` and a gradient is being taken — as ``repro`` remats only
-        where there is a backward pass."""
+        where there is a backward pass. Returns (x, new caches, aux): the
+        MoE aux losses summed per group of ``period`` layers, then over
+        the groups, as ``repro``'s scan sums them (0 without MoE layers;
+        the layers without an aux add nothing, where ``repro`` adds 0)."""
         remat = (caches is None and self.cfg.remat == "full"
                  and torch.is_grad_enabled())
         new_caches = []
+        aux_total = group = None
         for i, bp in enumerate(params["layers"]):
+            kind, ffn = self.kinds[i]
             kw = dict(positions=positions,
                       cache=None if caches is None else caches[i],
                       cache_pos=cache_pos, block_table=block_table)
             if remat:
-                x, nc = torch_checkpoint.checkpoint(
-                    self._apply_block, bp, x, use_reentrant=False, **kw)
+                x, nc, aux = torch_checkpoint.checkpoint(
+                    self._apply_block, bp, x, kind, ffn, use_reentrant=False,
+                    **kw)
             else:
-                x, nc = self._apply_block(bp, x, **kw)
+                x, nc, aux = self._apply_block(bp, x, kind, ffn, **kw)
+            if aux is not None:
+                group = aux if group is None else group + aux
+            if (i + 1) % self.period == 0 and group is not None:
+                aux_total = group if aux_total is None else aux_total + group
+                group = None
             new_caches.append(nc)
-        return x, new_caches
+        if aux_total is None:
+            aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, new_caches, aux_total
 
     def _logits(self, params, x):
         if self.cfg.tie_embeddings:
@@ -107,16 +161,15 @@ class LM:
 
     # ------------------------------------------------------------------
     def forward(self, params, batch):
-        """Full-sequence forward -> (hidden (B, S, D), n_frontend = 0,
-        aux = 0.0 f32): the attention-only stack has no frontend and no
-        auxiliary loss."""
+        """Full-sequence forward -> (hidden (B, S, D), n_frontend = 0, aux
+        f32: the MoE layers' load-balancing loss, 0 without them)."""
         cfg = self.cfg
         x = layers.embed_apply(params["embed"], batch["tokens"], cfg)
         positions = torch.arange(x.shape[1], device=x.device).expand(
             x.shape[0], -1)
-        x, _ = self._run_stack(params, x, positions=positions)
+        x, _, aux = self._run_stack(params, x, positions=positions)
         x = layers.norm_apply(params["final_norm"], x, cfg)
-        return x, 0, torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, 0, aux
 
     def loss(self, params, batch):
         """Causal-LM cross-entropy, chunked over the sequence when
@@ -144,35 +197,41 @@ class LM:
     def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
         cfg = self.cfg
         dtype = layers.dtype_of(cfg.cache_dtype) if dtype is None else dtype
-        return {"layers": [attention.init_kv_cache(cfg, batch, max_len,
-                                                   dtype, self.device)
-                           for _ in range(cfg.num_layers)],
-                "pos": torch.zeros((), dtype=torch.int32,
-                                   device=self.device)}
+        return {"layers": [
+            attention.init_kv_cache(cfg, batch, max_len, dtype, self.device)
+            if kind == "attn" else
+            ssm.init_ssm_cache(cfg, batch, dtype, self.device)
+            for kind, _ in self.kinds],
+            "pos": torch.zeros((), dtype=torch.int32, device=self.device)}
 
     def init_paged_cache(self, n_pages: int, page_size: int, batch: int,
                          dtype=None, kv_dtype=None) -> dict:
-        """Per-layer page tensors shared by all slots and indexed through
-        per-slot block tables (owned by ``repro_torch.paging.PagePool``).
-        ``batch`` sizes per-slot state, which an attention-only stack does
-        not have; it keeps ``repro``'s signature."""
-        del batch
+        """Attention layers: page tensors shared by all slots and indexed
+        through per-slot block tables (owned by
+        ``repro_torch.paging.PagePool``); SSM layers keep their O(1)
+        per-slot rows (``batch`` of them), as ``repro``'s do."""
         cfg = self.cfg
         dtype = layers.dtype_of(cfg.cache_dtype) if dtype is None else dtype
-        return {"layers": [attention.init_paged_kv_cache(
-            cfg, n_pages, page_size, dtype, kv_dtype, self.device)
-            for _ in range(cfg.num_layers)]}
+        return {"layers": [
+            attention.init_paged_kv_cache(cfg, n_pages, page_size, dtype,
+                                          kv_dtype, self.device)
+            if kind == "attn" else
+            ssm.init_ssm_cache(cfg, batch, dtype, self.device)
+            for kind, _ in self.kinds]}
 
     @staticmethod
     def insert_cache(pool_layers: List[Dict[str, torch.Tensor]],
                      req_layers: List[Dict[str, torch.Tensor]],
                      slots) -> List[Dict[str, torch.Tensor]]:
         """Write a freshly prefilled k-request cache (batch dim k, same
-        max_len) into the batch rows ``slots`` of a pool cache, in place."""
+        max_len) into the batch rows ``slots`` of a pool cache, in place:
+        every leaf of each layer (K/V, or SSM state and conv)."""
         for big, small in zip(pool_layers, req_layers):
-            idx = torch.as_tensor(slots, device=big["k"].device).reshape(-1)
-            for name in ("k", "v"):
-                big[name][idx] = small[name].to(big[name].dtype)
+            idx = None
+            for name, t in big.items():
+                if idx is None:
+                    idx = torch.as_tensor(slots, device=t.device).reshape(-1)
+                t[idx] = small[name].to(t.dtype)
         return pool_layers
 
     def prefill(self, params, batch, max_len: int,
@@ -187,9 +246,9 @@ class LM:
         positions = torch.arange(x.shape[1], device=x.device).expand(
             x.shape[0], -1)
         cache0 = self.init_cache(x.shape[0], max_len, cache_dtype)
-        x, new_caches = self._run_stack(params, x, positions=positions,
-                                        caches=cache0["layers"],
-                                        cache_pos=None)
+        x, new_caches, _ = self._run_stack(params, x, positions=positions,
+                                           caches=cache0["layers"],
+                                           cache_pos=None)
         x = layers.norm_apply(params["final_norm"], x, cfg)
         logits = self._logits(params, x[:, logits_from:])
         cache = {"layers": new_caches,
@@ -202,10 +261,12 @@ class LM:
         batched window (every token's K/V written, then attended causally)
         equals one-token steps only where a write cannot clobber what an
         earlier token of the window reads. Rolling sliding-window caches
-        (a wrapped write overwrites the oldest live entry) and the ``opt``
-        delta-commit layout unroll; paged pools refuse both."""
+        (a wrapped write overwrites the oldest live entry), the ``opt``
+        delta-commit layout and SSM recurrences unroll; paged pools refuse
+        the first two."""
         cfg = self.cfg
-        if cfg.cache_layout == "opt":
+        if cfg.cache_layout == "opt" or any(
+                kind == "ssm" for kind, _ in self.block_kinds):
             return True
         if "block_table" in cache:
             return False
@@ -237,10 +298,9 @@ class LM:
         if sq > 1:
             src = src + torch.arange(sq, dtype=pos.dtype, device=pos.device)
         positions = src.expand(tokens.shape)
-        x, new_caches = self._run_stack(params, x, positions=positions,
-                                        caches=cache["layers"],
-                                        cache_pos=pos,
-                                        block_table=cache.get("block_table"))
+        x, new_caches, _ = self._run_stack(
+            params, x, positions=positions, caches=cache["layers"],
+            cache_pos=pos, block_table=cache.get("block_table"))
         x = layers.norm_apply(params["final_norm"], x, cfg)
         logits = self._logits(params, x)
         if cfg.cache_layout == "opt":
@@ -254,6 +314,8 @@ class LM:
         returns the layers."""
         window = self.cfg.sliding_window
         for layer, tok in zip(layers, toks):
+            if "k_tok" not in tok:               # an SSM layer's own cache
+                continue
             k_c, v_c = layer["k"], layer["v"]
             s_len = k_c.shape[2]
             rolling = bool(window) and s_len <= window

@@ -5,7 +5,11 @@
 pages owned globally: each attention layer holds one ``(n_pages,
 page_size, KV, hd)`` tensor pair (or ``Int8Pages`` containers) shared by
 all slots, and each slot reads its own sequence through a host-side block
-table that the engine pushes to the device when it changes.
+table that the engine pushes to the device when it changes. SSM layers
+keep dense per-slot ``{"state", "conv"}`` rows inside the same layer list
+(constant-size state gains nothing from pages): ``insert`` writes them by
+slot, the copy on write skips them, ``nbytes`` counts them, and a
+preempted request's replay rebuilds them with its prefill.
 
 The host ownership model is ``repro``'s, call for call:
 
@@ -156,7 +160,8 @@ class PagePool:
 
     @property
     def nbytes(self) -> int:
-        """Device bytes of the page tensors + the block table."""
+        """Device bytes of the page tensors, the SSM slot rows and the
+        block table."""
         return tree_nbytes(self.layers) + int(self.table.nbytes)
 
     def pages_needed(self, prompt_len: int) -> int:
@@ -356,6 +361,8 @@ class PagePool:
     # ------------------------------------------------------------------
     def _copy_page(self, src: int, dst: int) -> None:
         for entry in self.layers:
+            if "k_pages" not in entry:       # an SSM layer's slot rows
+                continue
             for pages in (entry["k_pages"], entry["v_pages"]):
                 if isinstance(pages, Int8Pages):
                     pages.codes[dst] = pages.codes[src]
@@ -368,12 +375,17 @@ class PagePool:
         a page multiple) into each request's pages. Prefix-matched pages
         already hold this content and live sharers may be reading them, so
         their chunks go to the trash page instead, never over them. int8
-        pages quantize the rows here."""
+        pages quantize the rows here. SSM layers' state and conv rows go
+        to the admitted slots' rows whole."""
         flat = [0 if i < adm.n_shared else pid
                 for adm in admissions
                 for i, pid in enumerate(adm.page_ids)]
+        slots = [adm.slot for adm in admissions]
         ps = self.page_size
         for entry, src in zip(self.layers, req_layers):
+            if "k_pages" not in entry:       # SSM state/conv: slot rows
+                self.model.insert_cache([entry], [src], slots)
+                continue
             idx = torch.tensor(flat, dtype=torch.long,
                                device=src["k"].device)
             for pk, sk in (("k_pages", "k"), ("v_pages", "v")):

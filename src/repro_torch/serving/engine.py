@@ -91,6 +91,17 @@ speculative decoding, chunked prefill and the paged pool refuse the
 with the fused MLP on, ``fused_plans`` for every M the engine dispatches
 (``ops.precompute_plans`` / ``precompute_fused_plans``).
 
+Model families (``repro``'s): every decoder family ``LM`` builds, dense
+and MoE attention stacks, SSM and hybrid ones. SSM layers keep per-slot
+state and conv rows in both cache modes: the prefill's insert writes a
+slot's rows whole, the decode step updates them in place (so the captured
+graph reads them as static buffers), and a free slot's garbage lane
+advances only its own rows, which the next insert overwrites.
+Speculative decoding and chunked prefill refuse stacks with SSM layers,
+and the engine refuses encoder-decoder and VLM configs, with ``repro``'s
+messages. Plans cover packed linears only: MoE banks are decoded into
+the compute dtype every call, as ``repro``'s are.
+
 Counters (``_ENGINE_COUNTERS``: steps, preemptions, deferrals, chunk,
 spec and fault counts) live in a ``MetricsRegistry`` (``engine.metrics``)
 behind attributes of those names, beside the step-time EWMA
@@ -161,6 +172,10 @@ class ContinuousScheduler:
                  faults: Optional[FaultConfig] = None,
                  resilience: Optional[ResilienceConfig] = None,
                  device="cuda", tracer=None, cuda_graph: bool = True):
+        if cfg.is_encdec or cfg.family == "vlm":
+            raise ValueError(
+                f"family {cfg.family!r} needs per-request encoder/frontend "
+                "state; use the static BatchedServer for it")
         if cache not in ("dense", "paged"):
             raise ValueError(f"cache must be 'dense' or 'paged', got "
                              f"{cache!r}")
@@ -1312,7 +1327,12 @@ def _is_packed_linear(path, w) -> bool:
 
 
 def _check_chunked(cfg: ModelConfig) -> None:
-    """``repro``'s checks of a chunked-prefill engine."""
+    """``repro``'s checks of a chunked-prefill engine, in its order."""
+    if any(cfg.layer_kind(i) != "attn" for i in range(cfg.num_layers)):
+        raise ValueError("chunked prefill needs an attention-only stack: "
+                         "mid-prefill slots ride the decode batch as garbage "
+                         "lanes, and SSM recurrent state advanced on garbage "
+                         "tokens cannot be overwritten later")
     if cfg.cache_layout == "opt":
         raise ValueError("chunked prefill needs cache_layout='bshd' (the "
                          "'opt' delta-commit layout is one-token-only)")
@@ -1323,9 +1343,7 @@ def _check_chunked(cfg: ModelConfig) -> None:
 
 
 def _check_spec(cfg: ModelConfig, spec, max_len: int) -> None:
-    """``repro``'s checks of a speculative engine, ahead of the model's own
-    (the port's ``LM`` serves attention-only stacks and raises for the
-    rest)."""
+    """``repro``'s checks of a speculative engine, in its order."""
     if spec.k < 1:
         raise ValueError(f"spec.k must be >= 1, got {spec.k}")
     if max_len < spec.k + 2:

@@ -1124,3 +1124,53 @@ def test_sliding_window_layouts_graph_match_eager(cuda, layout):
     for a, b in zip(streams[False], streams[True]):
         np.testing.assert_array_equal(a, b)
     assert [len(s) for s in static] == list(gens)
+
+
+@pytest.mark.parametrize("arch,cache", [
+    ("jamba-v0.1-52b", {}), ("jamba-v0.1-52b", {"cache": "paged",
+                                                "page_size": 8}),
+    ("mamba2-130m", {"cache": "paged", "page_size": 8}),
+    ("mixtral-8x22b", {})])
+def test_families_graph_matches_eager(cuda, arch, cache):
+    """Reduced packed MoE, SSM and hybrid models (2 layers; jamba one
+    attention and one SSM layer) through the engine with the decode step
+    replayed as a CUDA graph and run eagerly: equal token streams and
+    launches, B5 once per attention layer a replay, the SSM rows and MoE
+    scatter inside the graph, and one step's logits bitwise equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import graphs
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousScheduler
+
+    extra = (dict(attn_period=2, attn_offset=1)
+             if arch.startswith("jamba") else {})
+    cfg = get_config(arch, reduced=True, num_layers=2, ternary_min_dim=64,
+                     quantization="ternary", **extra)
+    cfg, params = serve.build_params(cfg, 0, "cuda", packed=True)
+    prompts, gens = serve.build_workload(cfg, 6, 16, (4, 12), seed=0)
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
+    runs, logits = {}, []
+    for graph in (False, True):
+        eng = ContinuousScheduler(cfg, max_slots=3, max_len=29,
+                                  device="cuda", cuda_graph=graph, **cache)
+        eng.load(params)
+        before = graphs.read_launches()
+        outs, _ = serve.run_continuous(eng, prompts, gens)
+        after = graphs.read_launches()
+        runs[graph] = (outs, {k: after[k] - before[k] for k in after})
+        if graph:
+            per = eng._graph.launches_per_replay
+            assert per["paged_decode_attention"] == (n_attn if cache else 0)
+            assert per["ternary_gemm"] > 0
+        eng = ContinuousScheduler(cfg, max_slots=3, max_len=29,
+                                  device="cuda", cuda_graph=graph, **cache)
+        eng.load(params)
+        for p, g in zip(prompts[:3], gens[:3]):
+            eng.submit(p, g)
+        eng.step()
+        eng.step()
+        logits.append(eng.last_logits.clone())
+    for a, b in zip(runs[False][0], runs[True][0]):
+        np.testing.assert_array_equal(a, b)
+    assert runs[False][1] == runs[True][1]
+    assert torch.equal(*logits)
