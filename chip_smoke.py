@@ -85,6 +85,20 @@ the step-time EWMA; (e) one 8 x 32 window under the profiler, eager and
 graphed; (f) the graphed chunked run's trace through validate_events
 and scripts/trace_report.py.
 
+``tune`` runs the block-shape tuner on the card (the whole script points
+the tuner at a fresh cache file, so every other phase plans with the
+model and no file): every B1 and B4 key the served engines' load()
+plans, and jamba-v0.1-52b's in_proj and lm head at M 8 and 1024, each
+candidate tile bitwise equal to the tile its phase took before the tuner
+(``FIXED_TILE``) and timed, ``lookup(..., run=...)`` in measure mode
+into a temporary cache file, the model's pick with no cache file (at
+most ``TUNE["slack"]`` x the fixed tile's time), cuBLAS and the bound;
+B2, B3 and B7 at the served shapes the same way (no slack gate: off the
+path); then the dense, paged bf16 and chunked workloads under fixed,
+model and measured plans, the streams and last logits bitwise equal.
+``--only tune`` builds, serves the dense workload and runs this phase
+alone; ``--tune-out FILE`` keeps the measured cache.
+
 ``faults`` drives the serving fault model, every decode step and window
 graphed: (a) dense, paged bf16 and chunked dense serving workloads under
 a pinned chaos schedule (NaN logits in one live slot at steps 4, 12, 30
@@ -276,6 +290,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -286,8 +301,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
-BF16_OPS_PER_S = 989e12         # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12           # f32 outside the tensor cores
 SLACK_CYCLES = 500_000          # ~0.3 ms of spinning (cuda_ms's spin)
 KERNEL_RTOL = 1e-2
@@ -464,6 +477,21 @@ WITNESS_FACTOR = 2.0
 FAMILY_LONG_CONTEXT = (1024, 4096)
 PORT_KERNEL_NAMES = ("ternary_gemm", "fused_mlp", "paged_attention",
                      "flash_attention", "bitplane")
+# The tiles each serving phase took before the block-shape tuner (B1 and
+# B7 (block_m, block_n); B2/B3 the rows; B4 the same (block_m, strip)
+# pairs): the tune phase's baseline, against which every candidate tile is
+# held bitwise and the model's pick is timed.
+FIXED_TILE = {"decode": (16, 64), "verify": (16, 64), "prefill": (64, 128),
+              "chunk": (64, 128)}
+# The tune phase: every key the served engines' load() plans, then
+# jamba-v0.1-52b's in_proj and lm head at decode and prefill M; B2/B3
+# (tiled 256 x 128 packs at occupancy 1/4) and B7 at the served shapes at
+# one M a phase; the model's pick may be at most `slack` x the fixed
+# tile's card time.
+TUNE = dict(jamba=((4096, 16544), (4096, 65536)), jamba_ms=(8, 1024),
+            side_ms={"decode": 8, "verify": 40, "chunk": 256,
+                     "prefill": 1024},
+            sparsity=0.25, iters=20, slack=1.05, retimes=3)
 
 
 def card_line() -> str:
@@ -514,9 +542,15 @@ def host_ms(fn, iters: int) -> float:
     return (t1 - t0) / iters * 1e3
 
 
-def bound_ms(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = None):
+    """The least time of the work: its bytes at the H100's device-memory
+    rate or its operations at ``ops_per_s`` (by default the dense bf16
+    tensor-core peak), whichever is longer; both rates are the port's
+    (repro_torch.kernels.autotune, its single source)."""
+    from repro_torch.kernels.autotune import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.kernels.autotune import PEAK_FLOPS as BF16_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
+    t_ops = ops / (ops_per_s or BF16_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -611,15 +645,15 @@ def gemm_row(gen, m, k, n, phase, flush):
         w_eff = w.materialize(torch.float32, with_scale=True).to(
             torch.bfloat16)
         iters = _iters_for(m)
-        variant = gemm_lib.VARIANTS[phase]
+        plan = ops.ternary_gemm_plan(w, m)
         row = {
             "m": m, "k": k, "n": n, "phase": phase, "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.ternary_gemm(x, w), iters, flush),
             # the wrapper called directly, without ops' dispatch: the gap
             # to "ms" is host time that the launch waits for
             "kernel_ms": cuda_ms(lambda: gemm_lib.ternary_gemm_cuda(
-                x, w.packed, w.scale, w.bias, n=w.n, variant=variant),
-                iters, flush),
+                x, w.packed, w.scale, w.bias, n=w.n, block_m=plan.block_m,
+                block_n=plan.block_n), iters, flush),
             "plain_ms": cuda_ms(lambda: gemm_lib.ternary_gemm_ref(
                 x, w.packed, w.scale), iters, flush),
             "library_ms": cuda_ms(lambda: torch.matmul(x, w_eff), iters,
@@ -652,14 +686,15 @@ def mlp_row(gen, m, k, ff, n, phase, flush):
         ei, eg, eo = (c.materialize(torch.float32, with_scale=True).to(
             torch.bfloat16) for c in (wi, wg, wo))
         iters = _iters_for(m)
-        variant = fused_lib.VARIANTS[phase]
+        plan = ops.fused_mlp_plan(wi, wo, wg, m=m)
         row = {
             "m": m, "k": k, "ff": ff, "n": n, "phase": phase,
             "max_abs_err": err,
             "ms": cuda_ms(lambda: ops.fused_mlp(x, wi, wo, wg), iters,
                           flush),
             "kernel_ms": cuda_ms(lambda: fused_lib.fused_mlp_cuda(
-                x, *plain_args[1:], variant=variant), iters, flush),
+                x, *plain_args[1:], block_m=plan.block_m,
+                strip=plan.block_n1), iters, flush),
             "plain_ms": cuda_ms(lambda: fused_lib.fused_mlp_ref(
                 *plain_args), iters, flush),
             # cuBLAS chain over pre-decoded, pre-scaled bf16 weights
@@ -1271,6 +1306,15 @@ def trace_check(tracer, metrics, label="dense graph"):
     if len(report["ttft_waterfall"]) != metrics["drained"]:
         raise AssertionError(f"trace {label}: trace_report's waterfall has "
                              f"{len(report['ttft_waterfall'])} requests")
+    # every kernel-phase span carries the warmed plans' modelled roofline,
+    # so trace_report's "measured vs modeled" has a row for each
+    mvm = report["measured_vs_modeled"]
+    for name, n in (("decode_step", metrics["decode_steps"]),
+                    ("chunk_window", sched.get("chunk_steps", 0)),
+                    ("prefill", metrics["prefill_steps"])):
+        if n and mvm.get(name, {}).get("n") != n:
+            raise AssertionError(f"trace {label}: measured_vs_modeled has "
+                                 f"{mvm.get(name)} for {n} {name} spans")
     tracks = {}
     for e in events:
         if e["ph"] != "M" and e.get("tid", 0) > 0:
@@ -1286,7 +1330,8 @@ def trace_check(tracer, metrics, label="dense graph"):
                                  f"{names}")
     print(f"trace: {label} run, {n_events} events, valid, read by "
           f"trace_report (busy {report['interleave']['busy_frac']:.4f}); "
-          f"engine spans {json.dumps(spans)}", flush=True)
+          f"engine spans {json.dumps(spans)}; measured vs modeled "
+          f"{json.dumps(mvm)}", flush=True)
     return spans
 
 
@@ -2056,11 +2101,12 @@ def verify_op_check():
         def decode8(j, w=w, x=x):
             return gemm_lib.ternary_gemm_cuda(
                 x[:, j].contiguous(), w.packed, w.scale, w.bias, n=w.n,
-                variant=gemm_lib.VARIANTS["decode"])
-        for tile, variant in (("verify", gemm_lib.VARIANTS["verify"]),
-                              ("prefill", gemm_lib.VARIANTS["prefill"])):
-            call = (lambda w=w, v=variant: gemm_lib.ternary_gemm_cuda(
-                x40, w.packed, w.scale, w.bias, n=w.n, variant=v))
+                block_m=16, block_n=64)
+        for tile, (bm, bn) in (("verify", FIXED_TILE["verify"]),
+                               ("prefill", FIXED_TILE["prefill"])):
+            call = (lambda w=w, bm=bm, bn=bn: gemm_lib.ternary_gemm_cuda(
+                x40, w.packed, w.scale, w.bias, n=w.n, block_m=bm,
+                block_n=bn))
             rows_check(f"B1 K {k} N {n}, {tile} tile", call, decode8)
             out[f"B1 K {k} N {n}, {tile} tile"]["ms"] = cuda_ms(call, 20,
                                                                flush)
@@ -2071,12 +2117,11 @@ def verify_op_check():
     args = (wi.packed, wo.packed, wg.packed, wi.scale, None, wg.scale, None,
             wo.scale, None)
     for tile in ("verify", "prefill"):
-        call = (lambda v=fused_lib.VARIANTS[tile]: fused_lib.fused_mlp_cuda(
-            x.reshape(b * s, 1024), *args, variant=v))
+        call = (lambda t=FIXED_TILE[tile]: fused_lib.fused_mlp_cuda(
+            x.reshape(b * s, 1024), *args, block_m=t[0], strip=t[1]))
         rows_check(f"B4, {tile} tile", call,
                    lambda j: fused_lib.fused_mlp_cuda(
-                       x[:, j].contiguous(), *args,
-                       variant=fused_lib.VARIANTS["decode"]))
+                       x[:, j].contiguous(), *args, block_m=16, strip=64))
         out[f"B4, {tile} tile"]["ms"] = cuda_ms(call, 20, flush)
     # dense attention: 16 heads of 64 over a 197-long bf16 cache view
     pos = torch.tensor(B5_VERIFY["pos"], dtype=torch.int32, device="cuda")
@@ -3159,14 +3204,15 @@ def gemm_formats_phase(flush):
             host = {impl: host_ms(lambda i=impl: ops.ternary_gemm(
                 x, w, impl=i), 100) for impl in ("skip", "skip_db")}
             # the wrappers called directly (no dispatch): kernel time alone
-            bm = gemm_lib.SKIP_BLOCK_M["decode" if m <= 16 else "prefill"]
+            bm = ops.ternary_gemm_plan(w, m, impl="skip").block_m
+            dense_plan = ops.ternary_gemm_plan(w, m, impl="dense")
             kernel = {db: cuda_ms(lambda d=db: gemm_lib.ternary_gemm_skip_cuda(
                 x, w.packed, w.kt_indices, w.kt_counts, w.scale, n=w.n,
                 tile_k=w.tile_k, tile_n=w.tile_n, block_m=bm, db=d), iters,
                 flush) for db in (False, True)}
             dense_kernel_ms = cuda_ms(lambda: gemm_lib.ternary_gemm_cuda(
-                x, w.packed, w.scale, n=w.n, variant=gemm_lib.VARIANTS[
-                    "decode" if m <= 16 else "prefill"]), iters, flush)
+                x, w.packed, w.scale, n=w.n, block_m=dense_plan.block_m,
+                block_n=dense_plan.block_n), iters, flush)
             plain_ms = cuda_ms(lambda: skip_plain(x, w), 5, flush)
             library_ms = cuda_ms(lambda: torch.matmul(x, w_eff), iters,
                                  flush)
@@ -3249,7 +3295,10 @@ def gemm_formats_phase(flush):
             check_close(f"{label} factorized vs plain mode", fact, got)
             w_eff = _effective(w)
             iters = 20
-            variant = gemm_lib.VARIANTS["decode" if m <= 16 else "prefill"]
+            tiles = {impl: (lambda p: dict(block_m=p.block_m,
+                                           block_n=p.block_n))(
+                ops.ternary_gemm_plan(w, m, impl=impl))
+                for impl in ("bitplane", "bitplane_factorized")}
             row = {"sparsity": s, "m": m, "k": k, "n": n,
                    "max_abs_err": max(err, err_f),
                    "ms": cuda_ms(lambda: ops.ternary_gemm(x, w), iters,
@@ -3259,12 +3308,12 @@ def gemm_formats_phase(flush):
                    # the wrapper called directly: kernel time alone
                    "kernel_ms": cuda_ms(
                        lambda: bitplane_lib.ternary_gemm_bitplane_cuda(
-                           x, w.plus, w.minus, w.scale, variant=variant),
-                       iters, flush),
+                           x, w.plus, w.minus, w.scale,
+                           **tiles["bitplane"]), iters, flush),
                    "factorized_kernel_ms": cuda_ms(
                        lambda: bitplane_lib.ternary_gemm_bitplane_cuda(
                            x, w.plus, w.minus, w.scale, factorized=True,
-                           variant=variant), iters, flush),
+                           **tiles["bitplane_factorized"]), iters, flush),
                    "plain_ms": cuda_ms(
                        lambda: bitplane_lib.ternary_gemm_bitplane_ref(*args),
                        5, flush),
@@ -4329,7 +4378,401 @@ def families_phase(flush):
     return rows, runs
 
 
-def main() -> int:
+def _fixed_tuner(path):
+    """A tuner whose one candidate at every key is ``FIXED_TILE``'s tile
+    for the key's phase (outside one, M <= 16 decode-shaped): the plans
+    the port made before the tuner."""
+    from repro_torch.kernels import autotune
+
+    class FixedTiles(autotune.Autotuner):
+        def candidates(self, m, k, n, fixed_n=None, fixed_k=None,
+                       phase=None, impl="dense"):
+            bm, bn = FIXED_TILE[phase or ("decode" if m <= 16
+                                          else "prefill")]
+            return [autotune.BlockConfig(bm, fixed_n or bn, fixed_k or 64)]
+
+    return FixedTiles(path=path, mode="model")
+
+
+@contextlib.contextmanager
+def _with_tuner(tuner):
+    """``tuner`` as the process-wide tuner in this scope (the ops' plan
+    memos key on it, so plans follow it)."""
+    from repro_torch.kernels import autotune
+    saved = autotune._GLOBAL
+    autotune._GLOBAL = tuner
+    try:
+        yield tuner
+    finally:
+        autotune._GLOBAL = saved
+
+
+def _engine_plan_keys(cfg, params, max_len):
+    """The GEMM keys (k, n, m, phase) and fused keys (k, ff, n, m, phase)
+    that load() plans on the card for the served model, whole-prompt,
+    chunked and speculative (one M per tuner bucket: the first planned)."""
+    from repro_torch.kernels import autotune
+    from repro_torch.serving import ContinuousScheduler, SchedConfig
+    gemm, fused = {}, {}
+    for kw in ({}, dict(sched=SchedConfig(chunk_tokens=CHUNK["tokens"])),
+               dict(spec=_spec_config("layer_skip"))):
+        engine = ContinuousScheduler(
+            cfg, max_slots=SERVE["slots"],
+            max_len=max_len + (SPEC["k"] if "spec" in kw else 0),
+            device="cuda", **kw)
+        engine._plan(params)
+        for (_, m, phase), p in engine.gemm_plans.items():
+            gemm.setdefault((phase, p.k, p.n, autotune._pow2_bucket(m)), m)
+        for (_, m, phase), p in engine.fused_plans.items():
+            fused.setdefault((phase, p.k, p.ff, p.n,
+                              autotune._pow2_bucket(m)), m)
+        del engine
+    order = {ph: i for i, ph in enumerate(("decode", "verify", "chunk",
+                                           "prefill"))}
+    return ([(k, n, m, ph) for (ph, k, n, _), m in
+             sorted(gemm.items(), key=lambda e: (order[e[0][0]], e[0][1:]))],
+            [(k, ff, n, m, ph) for (ph, k, ff, n, _), m in
+             sorted(fused.items(), key=lambda e: (order[e[0][0]],
+                                                  e[0][1:]))])
+
+
+def _timed_tiles(label, call, tiles, fixed, flush):
+    """Each tile's output bitwise equal to the fixed tile's, and each
+    tile's card time (``cuda_ms`` with the spin: the card alone)."""
+    import torch
+    ref = call(fixed)
+    ms = {}
+    for t in dict.fromkeys(list(tiles) + [fixed]):
+        y = call(t)
+        torch.cuda.synchronize()
+        if not torch.equal(y, ref):
+            d = float((y.float() - ref.float()).abs().max())
+            raise AssertionError(f"tune {label}: tile {t} differs from the "
+                                 f"fixed tile {fixed}, max |d| {d}")
+        ms[t] = cuda_ms(lambda t=t: call(t), TUNE["iters"], flush, spin=True)
+    return ms
+
+
+def _slack_check(label, call, ms, model, fixed, flush):
+    """The model's pick within ``TUNE["slack"]`` of the fixed tile's card
+    time: when the first reading says otherwise, both are timed again in
+    turns and the best of each decides."""
+    if model == fixed or ms[model] <= TUNE["slack"] * ms[fixed]:
+        return ms[model] / ms[fixed]
+    best = {model: ms[model], fixed: ms[fixed]}
+    for _ in range(TUNE["retimes"]):
+        for t in (model, fixed):
+            best[t] = min(best[t], cuda_ms(lambda t=t: call(t), TUNE["iters"],
+                                           flush, spin=True))
+    ratio = best[model] / best[fixed]
+    if ratio > TUNE["slack"]:
+        raise AssertionError(f"tune {label}: the model's tile {model} takes "
+                             f"{best[model]:.5f} ms, {ratio:.3f}x the fixed "
+                             f"tile {fixed}'s {best[fixed]:.5f} ms")
+    return ratio
+
+
+def _tune_gemm(tuners, gen, w, m, phase, flush, label):
+    """One B1 key: every candidate bitwise equal to the fixed tile and
+    timed, the measured tuner's winner, the model's pick with no cache
+    file, cuBLAS on the decoded weights and the bound."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_gemm as gemm_lib
+    k, n = w.k, w.n
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def call(t):
+        return gemm_lib.ternary_gemm_cuda(x, w.packed, w.scale, w.bias, n=n,
+                                          block_m=t[0], block_n=t[1])
+
+    cands = [(c.block_m, c.block_n) for c in tuners["measured"].candidates(
+        m, k, n, phase=phase, impl="dense")]
+    fixed = FIXED_TILE[phase]
+    ms = _timed_tiles(label, call, cands, fixed, flush)
+    won = tuners["measured"].lookup(m, k, n, impl="dense", phase=phase,
+                                    run=lambda c: call((c.block_m,
+                                                        c.block_n)))
+    with _with_tuner(tuners["model"]):
+        plan = ops.ternary_gemm_plan(w, m, phase=phase)
+    model = (plan.block_m, plan.block_n)
+    ratio = _slack_check(label, call, ms, model, fixed, flush)
+    w_eff = w.materialize(torch.float32, with_scale=True).to(torch.bfloat16)
+    nbytes = m * k * 2 + w.packed.numel() * 4 + n * 4 + m * n * 2
+    b_ms, b_by = bound_ms(nbytes, 2.0 * m * w.nnz)
+    row = {"key": label, "kernel": "B1", "m": m, "k": k, "n": n,
+           "phase": phase, "fixed": list(fixed), "fixed_ms": ms[fixed],
+           "measured": [won.block_m, won.block_n],
+           "measured_ms": ms[(won.block_m, won.block_n)],
+           "best": list(min(ms, key=ms.get)), "best_ms": min(ms.values()),
+           "model": list(model), "model_ms": ms[model],
+           "model_vs_fixed": ratio,
+           "cublas_ms": cuda_ms(lambda: torch.matmul(x, w_eff),
+                                TUNE["iters"], flush, spin=True),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "candidates_ms": {f"{a}x{b}": v for (a, b), v in ms.items()}}
+    print(f"tune {label}: " + json.dumps(row), flush=True)
+    return row
+
+
+def _tune_fused(tuners, gen, blk, m, phase, flush, label):
+    """One B4 key: both tiles bitwise equal to the fixed one and timed; the
+    measured tuner's two sub-keys of the fused entry timed on B4 through
+    the tile each ``block_m`` names, then its plan; the model's plan; the
+    cuBLAS SwiGLU chain and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_mlp as fused_lib
+    from repro_torch.kernels import ops
+    wi, wg, wo = blk
+    x = torch.randn(m, wi.k, generator=gen, device="cuda").to(torch.bfloat16)
+    args = (wi.packed, wo.packed, wg.packed, wi.scale, None, wg.scale, None,
+            wo.scale, None)
+
+    def call(t):
+        return fused_lib.fused_mlp_cuda(x, *args, block_m=t[0], strip=t[1])
+
+    fixed = FIXED_TILE[phase]
+    ms = _timed_tiles(label, call, fused_lib.TILES, fixed, flush)
+    tuner = tuners["measured"]
+
+    def run(c):
+        return call(fused_lib.tile_for(c.block_m))
+
+    with _with_tuner(tuner):
+        for w in (wi, wo):
+            p = ops.ternary_gemm_plan(w, m, phase=phase)
+            tuner.lookup(m, w.k, w.n, sparsity=w.occupancy(), impl="skip",
+                         fixed_n=p.block_n, fixed_k=p.block_k, phase=phase,
+                         run=run)
+        won = ops.fused_mlp_plan(wi, wo, wg, m=m, phase=phase)
+    with _with_tuner(tuners["model"]):
+        plan = ops.fused_mlp_plan(wi, wo, wg, m=m, phase=phase)
+    model = (plan.block_m, plan.block_n1)
+    ratio = _slack_check(label, call, ms, model, fixed, flush)
+    ei, eg, eo = (c.materialize(torch.float32, with_scale=True).to(
+        torch.bfloat16) for c in (wi, wg, wo))
+    nbytes = (m * wi.k * 2 + (wi.packed.numel() + wg.packed.numel()
+                              + wo.packed.numel()) * 4
+              + (2 * wi.n + wo.n) * 4 + m * wo.n * 2)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * m * (wi.nnz + wg.nnz + wo.nnz))
+    row = {"key": label, "kernel": "B4", "m": m, "k": wi.k, "ff": wi.n,
+           "n": wo.n, "phase": phase, "fixed": list(fixed),
+           "fixed_ms": ms[fixed],
+           "measured": [won.block_m, won.block_n1],
+           "measured_ms": ms[(won.block_m, won.block_n1)],
+           "best": list(min(ms, key=ms.get)), "best_ms": min(ms.values()),
+           "model": list(model), "model_ms": ms[model],
+           "model_vs_fixed": ratio,
+           "cublas_ms": cuda_ms(lambda: (F.silu(x @ eg) * (x @ ei)) @ eo,
+                                TUNE["iters"], flush, spin=True),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "candidates_ms": {f"{a}x{b}": v for (a, b), v in ms.items()}}
+    print(f"tune {label}: " + json.dumps(row), flush=True)
+    return row
+
+
+def _tune_side(tuners, gen, shapes, flush):
+    """B2, B3 (a ``tiled`` pack of each served shape) and B7 (a
+    ``bitplane`` pack, both modes) at one M a phase: every candidate tile
+    bitwise equal to the phase's fixed tile and timed, each key measured
+    into the tuner, beside the model's pick."""
+    import numpy as np
+    import torch
+    from repro_torch.core import formats, weights
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_gemm as gemm_lib
+    from repro_torch.kernels import ternary_gemm_bitplane as bitplane_lib
+    rows = []
+    for i, (k, n) in enumerate(shapes):
+        scale = torch.rand(n, generator=gen, device="cuda") + 0.5
+        wt = _tiled_pack(SEED + 60 + i, k, n, TUNE["sparsity"], scale)
+        t = formats.random_ternary(np.random.default_rng(SEED + 70 + i), k,
+                                   n, 0.5)
+        bp = weights.pack(torch.from_numpy(t).cuda(), "bitplane",
+                          scale=scale)
+        for phase, m in TUNE["side_ms"].items():
+            x = torch.randn(m, k, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            for impl, db in (("skip", False), ("skip_db", True)):
+                def skip(tile, db=db):
+                    return gemm_lib.ternary_gemm_skip_cuda(
+                        x, wt.packed, wt.kt_indices, wt.kt_counts, wt.scale,
+                        n=n, tile_k=wt.tile_k, tile_n=wt.tile_n,
+                        block_m=tile[0], db=db)
+                pins = dict(fixed_n=wt.tile_n, fixed_k=wt.tile_k,
+                            phase=phase, impl=impl)
+                cands = [(c.block_m, c.block_n) for c in
+                         tuners["measured"].candidates(m, k, n, **pins)]
+                fixed = (FIXED_TILE[phase][0], wt.tile_n)
+                rows.append(_side_row(
+                    tuners, f"{impl} {k}x{n} M {m} {phase}", skip, cands,
+                    fixed, flush, lambda: ops.ternary_gemm_plan(
+                        wt, m, impl=impl, phase=phase),
+                    lambda run: tuners["measured"].lookup(
+                        m, k, n, sparsity=wt.occupancy(), run=run, **pins)))
+            for impl, fact in (("bitplane", False),
+                               ("bitplane_factorized", True)):
+                def b7(tile, fact=fact):
+                    return bitplane_lib.ternary_gemm_bitplane_cuda(
+                        x, bp.plus, bp.minus, bp.scale, factorized=fact,
+                        block_m=tile[0], block_n=tile[1])
+                rows.append(_side_row(
+                    tuners, f"{impl} {k}x{n} M {m} {phase}", b7,
+                    bitplane_lib.TILES, FIXED_TILE[phase], flush,
+                    lambda: ops.ternary_gemm_plan(bp, m, impl=impl,
+                                                  phase=phase),
+                    lambda run: tuners["measured"].lookup(
+                        m, k, n, impl=impl, phase=phase, run=run)))
+    return rows
+
+
+def _side_row(tuners, label, call, tiles, fixed, flush, plan, measure):
+    ms = _timed_tiles(label, call, tiles, fixed, flush)
+    won = measure(lambda c: call((c.block_m, c.block_n)))
+    with _with_tuner(tuners["model"]):
+        p = plan()
+    row = {"key": label, "fixed": list(fixed), "fixed_ms": ms[fixed],
+           "measured": [won.block_m, won.block_n],
+           "model": [p.block_m, p.block_n],
+           "candidates_ms": {f"{a}x{b}": v for (a, b), v in ms.items()}}
+    print(f"tune {label}: " + json.dumps(row), flush=True)
+    return row
+
+
+def _tune_serving(cfg, params, prompts, gens, max_len, tuners):
+    """The dense, paged bf16 and chunked workloads served under the fixed
+    tiles, the model's plans (no cache file) and the measured cache: the
+    model's and the measured streams and last decode step's logits
+    bitwise equal to the fixed tiles'. Returns tok/s, TPOT and the decode
+    step's p50 per (plans, workload)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import SchedConfig
+    workloads = {"dense": {},
+                 "paged_bf16": dict(cache="paged", page_size=PAGE_SIZE),
+                 "chunked": dict(sched=SchedConfig(
+                     chunk_tokens=CHUNK["tokens"]))}
+    runs, out = {}, {}
+    for name in ("fixed", "model", "measured"):
+        with _with_tuner(tuners[name]):
+            for label, kw in workloads.items():
+                tracer = Tracer()
+                engine = _engine(cfg, params, max_len, True, tracer, **kw)
+                outs, metrics = serve.run_continuous(engine, prompts, gens)
+                torch.cuda.synchronize()
+                runs[(name, label)] = (outs, engine.last_logits.clone())
+                spans = span_summary(tracer.to_dict()["traceEvents"])
+                out[f"{name} {label}"] = {
+                    "tok_per_s": metrics["tok_per_s"],
+                    "tpot_p50_ms": metrics["latency"]["tpot_s"]["p50"] * 1e3,
+                    "decode_step_p50_ms": spans["decode_step"]["p50_ms"]}
+                del engine, tracer
+    for label in workloads:
+        ref_outs, ref_logits = runs[("fixed", label)]
+        for name in ("model", "measured"):
+            outs, logits = runs[(name, label)]
+            same = [bool(np.array_equal(a, b))
+                    for a, b in zip(ref_outs, outs)]
+            if not all(same) or not torch.equal(logits, ref_logits):
+                raise AssertionError(
+                    f"tune serving {label}: {name} plans' streams equal on "
+                    f"{sum(same)}/{len(same)}, last logits bitwise "
+                    f"{bool(torch.equal(logits, ref_logits))}")
+    print("tune serving: model and measured plans' streams and last "
+          "logits bitwise equal to the fixed tiles' (dense, paged bf16, "
+          "chunked); " + json.dumps(out), flush=True)
+    return out
+
+
+def tune_phase(cfg, params, prompts, gens, max_len, tune_out=None):
+    """The block-shape tuner on the card. Every key the served engines'
+    load() plans (B1 at q/k/v/o, gate/up, down and the lm head; B4's
+    fused keys) and jamba's in_proj and lm head at M 8 and 1024: each
+    candidate tile bitwise equal to the tile the phase took before the
+    tuner and timed, ``lookup(..., run=...)`` in measure mode into a cache
+    file in a temporary directory, the model's pick with no cache file
+    (within ``TUNE["slack"]`` of the fixed tile's time), cuBLAS and the
+    bound; B2, B3 and B7 at the served shapes the same way; then the
+    served workloads under fixed, model and measured plans
+    (``_tune_serving``). ``tune_out``: where to copy the measured cache."""
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as d:
+        tuners = {"measured": autotune.Autotuner(
+                      path=str(Path(d) / "measured.json"), mode="measure"),
+                  "model": autotune.Autotuner(
+                      path=str(Path(d) / "model.json"), mode="model"),
+                  "fixed": _fixed_tuner(str(Path(d) / "fixed.json"))}
+        gemm_keys, fused_keys = _engine_plan_keys(cfg, params, max_len)
+        weights_by_shape = {}
+        rows = []
+        for k, n, m, phase in gemm_keys:
+            if (k, n) not in weights_by_shape:
+                weights_by_shape[(k, n)] = _packed_weight(gen, k, n)
+            rows.append(_tune_gemm(tuners, gen, weights_by_shape[(k, n)], m,
+                                   phase, flush, f"B1 {k}x{n} M {m} {phase}"))
+        blocks = {}
+        for k, ff, n, m, phase in fused_keys:
+            if (k, ff, n) not in blocks:
+                blocks[(k, ff, n)] = (weights_by_shape[(k, ff)],
+                                      _packed_weight(gen, k, ff),
+                                      weights_by_shape[(ff, n)])
+            rows.append(_tune_fused(tuners, gen, blocks[(k, ff, n)], m,
+                                    phase, flush,
+                                    f"B4 {k}x{ff}x{n} M {m} {phase}"))
+        del weights_by_shape, blocks
+        for k, n in TUNE["jamba"]:
+            w = _packed_weight(gen, k, n)
+            for m in TUNE["jamba_ms"]:
+                phase = "decode" if m <= 16 else "prefill"
+                rows.append(_tune_gemm(tuners, gen, w, m, phase, flush,
+                                       f"B1 jamba {k}x{n} M {m} {phase}"))
+            del w
+        torch.cuda.empty_cache()
+        served_shapes = sorted({(r["k"], r["n"]) for r in rows
+                                if r["kernel"] == "B1"
+                                and "jamba" not in r["key"]})
+        side = _tune_side(tuners, gen, served_shapes, flush)
+        del flush
+        measured_keys = set(tuners["measured"].entries())
+        serving = _tune_serving(cfg, params, prompts, gens, max_len, tuners)
+        grown = sorted(set(tuners["measured"].entries()) - measured_keys)
+        if tune_out:
+            Path(tune_out).parent.mkdir(parents=True, exist_ok=True)
+            shutil.copyfile(tuners["measured"].path, tune_out)
+    faster = [r for r in rows if r["measured_ms"] < r["fixed_ms"] / 1.05]
+    summary = {
+        "keys": len(rows), "side_keys": len(side),
+        "model_is_fixed": sum(r["model"] == r["fixed"] for r in rows),
+        "measured_is_fixed": sum(r["measured"] == r["fixed"] for r in rows),
+        "worst_model_vs_fixed": max(r["model_vs_fixed"] for r in rows),
+        "measured_beats_fixed_by_5pct": [
+            {k: r[k] for k in ("key", "fixed", "fixed_ms", "measured",
+                               "measured_ms", "cublas_ms")}
+            for r in faster],
+        "keys_planned_unmeasured_while_serving": grown,
+        "serving": serving,
+        "seconds": time.perf_counter() - t0}
+    print("tune summary: " + json.dumps(summary), flush=True)
+    return rows, side
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=("tune",),
+                    help="build, serve the dense workload and run this "
+                         "phase alone (no kernels line)")
+    ap.add_argument("--tune-out", help="copy the tune phase's measured "
+                    "block-shape cache to this file")
+    args = ap.parse_args(argv)
     start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -4343,7 +4786,18 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels import build
+    from repro_torch.kernels import autotune, build
+    # every plan of the run comes from the tuner's model with no cache file
+    # (a fresh one, removed at the end): the same plans in every checkout
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_autotune_")
+    os.environ[autotune.CACHE_ENV] = str(Path(tune_dir) / "model.json")
+    try:
+        return _main(args, start, torch, build)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def _main(args, start, torch, build) -> int:
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -4372,6 +4826,11 @@ def main() -> int:
     row_independence_check()
     torch.cuda.empty_cache()
     cfg, params, prompts, gens, max_len, dense_outs, launches = serve_phase()
+    if args.only == "tune":
+        tune_phase(cfg, params, prompts, gens, max_len, args.tune_out)
+        print(f"chip_smoke --only tune took "
+              f"{time.perf_counter() - start:.1f}s", flush=True)
+        return 0
     model_phase(cfg, params, prompts, max_len)
     runs = {"dense": launches}
     workloads = serving_workloads(cfg, prompts, gens, max_len)
@@ -4395,6 +4854,8 @@ def main() -> int:
          "chunked_dense": chunk_streams["dense"]}, graph_rows, profile_rows))
     for name, rows in chunk_rows.items():
         shapes[name] += rows
+    tune_rows, tune_side_rows = tune_phase(cfg, params, prompts, gens,
+                                           max_len, args.tune_out)
     spec_rows, spec_runs = spec_phase(
         cfg, params, workloads,
         {"dense": dense_outs, "paged_bf16": bf16_outs,

@@ -25,15 +25,16 @@ SDPA. The tile-skipping packs (B2, B3, the K sweep), B5 and B6 are timed
 twice: as a caller meets them, the host's enqueue time included where the
 flush does not cover it, and with the card kept busy while the host
 enqueues each call (``cuda_ms(spin=True)``, keys ending in ``_spin``),
-the card's time alone; and B3, B2 (s 1/8, M 8 and 1024), B5 and B6
-give the host's time to issue one call (``host_ms``, calls back to back
-with no synchronization). Each tree also counts every opcode of its
+the card's time alone; and B3, B2 (s 1/8, M 8 and 1024), B1 through
+``ops`` at decode (M 8, K = N 1024), B5 and B6 give the host's time to
+issue one call (``host_ms``, calls back to back with no
+synchronization). Each tree also counts every opcode of its
 B2/B3 library (``cuobjdump -sass``); the counts are compared across
 trees. Naming the
 parent and the change in turns (parent, change, change, parent) shows the card's
 drift beside the change's effect. Prints one line per shape with each
-run's kernel ms (B1, B4 and B6: the wrapper called directly; B2, B3, B5, B7:
-through ``ops``) beside B1's on the same pack and the library call's, and
+run's kernel ms (B1, B4 and B6: the wrapper called directly, and B1 and
+B4 through ``ops`` too; B2, B3, B5, B7: through ``ops``) beside B1's on the same pack and the library call's, and
 writes all rows as JSON, with the card's name and power limit.
 With ``--split TREE`` it also profiles B4 in TREE at the main path's
 shapes (``torch.profiler``, L2 flushed before each call) and prints the
@@ -93,6 +94,15 @@ for m in (8, 1024):
             "sparsity": 0.125, "m": m, "k": 4096, "n": 4096,
             "host_ms": ab.host_ms(
                 lambda: ops.ternary_gemm(x, w, impl=impl), 200)})
+# the host's time to issue one B1 call through ops at decode (planning
+# included: the plan memo in a tree that has one)
+w = ab._packed_weight(torch.Generator(device="cuda").manual_seed(2), 1024,
+                      1024)
+x = torch.randn(8, 1024, device="cuda").to(torch.bfloat16)
+with ops.serving_phase("decode"):
+    rows["ternary_gemm_host"] = [{
+        "m": 8, "k": 1024, "n": 1024, "phase": "decode",
+        "host_ms": ab.host_ms(lambda: ops.ternary_gemm(x, w), 500)}]
 rows["paged_decode_attention"] = []
 for name, shape, seed in (("serving", ab.PAGED, ab.SEED + 2),
                           ("long", ab.PAGED_LONG, ab.SEED + 12)):
@@ -196,7 +206,8 @@ print("SPLIT " + json.dumps(out), flush=True)
 
 # per kernel: the time keys of its rows (the first is the kernel's own;
 # a checkout older than a key prints "-" for it)
-TIMES = {"ternary_gemm": ("kernel_ms",), "fused_mlp": ("kernel_ms",),
+TIMES = {"ternary_gemm": ("kernel_ms", "ms"), "fused_mlp": ("kernel_ms", "ms"),
+         "ternary_gemm_host": ("host_ms",),
          "ternary_gemm_skip": ("ms", "ms_spin", "kernel_ms", "dense_ms"),
          "ternary_gemm_skip_db": ("ms", "ms_spin", "kernel_ms", "dense_ms"),
          "ternary_gemm_bitplane": ("ms", "factorized_ms", "kernel_ms",

@@ -45,10 +45,11 @@
 // Words are read in place with a row stride per matrix (ldw_i, ldw_g,
 // ldw_o >= the logical widths), so a tile-padded `tiled` pack runs with
 // no copy; x past K and h past ff are zero, so padded rows add nothing.
-// Two tiles, the fastest of the candidates timed on the H100 (PERF.md
-// §6): decode (M <= 16) is BM 16 with 8 warps of 16 x 8 and 64-column
-// strips, 8 stages; prefill and evaluation take BM 64 with 8 warps (2 x 4)
-// of 32 x 32 and 128-column strips, 3 stages. At FC 1024 the h slice
+// Two tiles (the block-shape tuner's fused plan names one), the fastest
+// of the candidates timed on the H100 (PERF.md §6): the decode tile is BM
+// 16 with 8 warps of 16 x 8 and 64-column strips, 8 stages; the prefill
+// and evaluation tile BM 64 with 8 warps (2 x 4) of 32 x 32 and 128-column
+// strips, 3 stages. At FC 1024 the h slice
 // (129 KB) left one block an SM and ran 1.2x slower at M 8192; 64-row
 // warp tiles and 128-row blocks were slower too.
 #include "ternary_tiles.cuh"
@@ -326,24 +327,27 @@ static int launch(const void* x, const void* wi, const void* wg,
 }
 
 template <bool GATED>
-static int launch_variant(int variant, const void* x, const void* wi,
-                          const void* wg, const void* wo, const void* si,
-                          const void* bi, const void* sg, const void* bg,
-                          void* partial, int M, int K, int FF, int N, int kw1,
-                          int kw2, int ldw_i, int ldw_g, int ldw_o, int FC,
-                          int CL, int act, int vec, cudaStream_t s) {
+static int launch_tile(int bm, int strip, const void* x, const void* wi,
+                       const void* wg, const void* wo, const void* si,
+                       const void* bi, const void* sg, const void* bg,
+                       void* partial, int M, int K, int FF, int N, int kw1,
+                       int kw2, int ldw_i, int ldw_g, int ldw_o, int FC,
+                       int CL, int act, int vec, cudaStream_t s) {
 #define MLP_ARGS x, wi, wg, wo, si, bi, sg, bg, partial, M, K, FF, N, kw1, \
                  kw2, ldw_i, ldw_g, ldw_o, FC, CL, act, vec, s
-  if (variant == 0) return launch<16, 1, 8, 1, 8, GATED>(MLP_ARGS);
-  if (variant == 1) return launch<64, 2, 4, 4, 3, GATED>(MLP_ARGS);
+  if (bm == 16 && strip == 64)
+    return launch<16, 1, 8, 1, 8, GATED>(MLP_ARGS);
+  if (bm == 64 && strip == 128)
+    return launch<64, 2, 4, 4, 3, GATED>(MLP_ARGS);
 #undef MLP_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 // x (M, K) bf16; wi, wg (kw1, ldw_i / ldw_g) and wo (kw2, ldw_o) int32
 // words of which the first FF (wi, wg) and N (wo) columns are read.
-// variant 0: decode tile (BM 16, 8 warps, 64-column strips); variant 1:
-// prefill tile (BM 64, 8 warps, 128-column strips). FC (a multiple of 64)
+// (bm, strip) names a tile, as fused_mlp.TILES: (16, 64), 8 warps of 16 x
+// 8; or (64, 128), 8 warps of 32 x 32 (cudaErrorInvalidValue for another
+// tile). FC (a multiple of 64)
 // hidden columns a chunk, each chunk spread over a cluster of CL blocks
 // (1 to 8, FC a multiple of CL strips). ``partial`` holds ceil(FF / FC) *
 // M * N floats. act: 0 silu, 1 relu, 2 none. Returns the cudaError_t of
@@ -354,7 +358,7 @@ extern "C" int fused_mlp_bf16(const void* x, const void* wi, const void* wg,
                               const void* bo, void* partial, void* y, int M,
                               int K, int FF, int N, int kw1, int kw2,
                               int ldw_i, int ldw_g, int ldw_o, int FC, int CL,
-                              int act, int variant, void* stream) {
+                              int act, int bm, int strip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = (K % 8 == 0) && (ldw_i % 4 == 0) && (ldw_g % 4 == 0) &&
                   (ldw_o % 4 == 0) &&
@@ -364,12 +368,12 @@ extern "C" int fused_mlp_bf16(const void* x, const void* wi, const void* wg,
                   (reinterpret_cast<uintptr_t>(wo) % 16 == 0);
   const int err =
       wg != nullptr
-          ? launch_variant<true>(variant, x, wi, wg, wo, si, bi, sg, bg,
-                                 partial, M, K, FF, N, kw1, kw2, ldw_i, ldw_g,
-                                 ldw_o, FC, CL, act, vec, s)
-          : launch_variant<false>(variant, x, wi, wg, wo, si, bi, sg, bg,
-                                  partial, M, K, FF, N, kw1, kw2, ldw_i,
-                                  ldw_g, ldw_o, FC, CL, act, vec, s);
+          ? launch_tile<true>(bm, strip, x, wi, wg, wo, si, bi, sg, bg,
+                              partial, M, K, FF, N, kw1, kw2, ldw_i, ldw_g,
+                              ldw_o, FC, CL, act, vec, s)
+          : launch_tile<false>(bm, strip, x, wi, wg, wo, si, bi, sg, bg,
+                               partial, M, K, FF, N, kw1, kw2, ldw_i, ldw_g,
+                               ldw_o, FC, CL, act, vec, s);
   if (err != 0) return err;
   const int chunks = (FF + FC - 1) / FC;
   const size_t total = (size_t)M * N;

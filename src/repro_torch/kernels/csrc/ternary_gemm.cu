@@ -25,14 +25,13 @@
 //  - no split-K: every output element adds its K chunks in ascending order
 //    into one f32 accumulator through HMMA.16816, as B2 and B3 do, so the
 //    three agree bit for bit.
-// Two tiles, each the fastest of the candidates timed on the H100 (PERF.md
-// §6): decode (M <= 16) is BM 16 x BN 64 with 4 warps of 16 x 16 and 8
-// stages (7 steps, 448 of K, in flight; rows 8-15 of the A fragment are
-// zero at M 8): BN 32 gave the lm head's 1024 blocks two waves, and 16
-// stages gained nothing. Prefill and evaluation take BM 64 x BN 128 with 4
-// warps of 64 x 32 and 4 stages (45 KB of shared memory): 128-row tiles and 64 x 64 warp tiles were slower. wgmma
-// and TMA would change the accumulation and come to B1, B2 and B3
-// together.
+// A grid of tiles (B1_TILES below), from which the block-shape tuner
+// (autotune.py) picks per (M, K, N, phase): 16-row tiles for GEMV-shaped
+// decode (rows 8-15 of the A fragment are zero at M 8), 32-row tiles for
+// windows and prefills up to M ~512, 64 rows for wider ones (PERF.md §6).
+// No tile moves a bit: every element adds the same ascending 16-deep
+// chunks. wgmma and TMA would change the accumulation and come to B1, B2
+// and B3 together.
 #include "ternary_tiles.cuh"
 
 using ternary::BK;
@@ -118,24 +117,37 @@ static int launch(const void* x, const void* w, const void* scale,
   return (int)cudaGetLastError();
 }
 
+// The instantiated tiles, X(BM, BN, WARPS_M, WARPS_N, STAGES); the same
+// table as ternary_gemm.TILES (CPU-tested in tests/test_torch_autotune.py).
+// A warp holds BM rows and BN / 4 columns; the stages keep 7 (BM 16), 5
+// (BM 32) or 3 (BM 64) K steps in flight. A 128 x 128 tile of 8 warps was
+// slower than 64 x 128 at every served key but one (PERF.md §6).
+#define B1_TILES(X)     \
+  X(16, 64, 1, 4, 8)    \
+  X(16, 128, 1, 4, 8)   \
+  X(32, 64, 1, 4, 6)    \
+  X(32, 128, 1, 4, 6)   \
+  X(64, 64, 1, 4, 4)    \
+  X(64, 128, 1, 4, 4)
+
 // w is (kw, ldw) words of which the first N columns are read (ldw > N for
-// a tile-padded pack). variant 0: decode tile (BM 16, BN 64, 4 warps, 8
-// stages); variant 1: prefill tile (BM 64, BN 128, 4 warps, 4 stages).
-// Returns the cudaError_t of the launch (0 = success).
+// a tile-padded pack). (bm, bn) names one of B1_TILES. Returns the
+// cudaError_t of the launch (0 = success; cudaErrorInvalidValue for a tile
+// that is not instantiated).
 extern "C" int ternary_gemm_bf16(const void* x, const void* w,
                                  const void* scale, const void* bias, void* y,
                                  int M, int K, int N, int kw, int ldw,
-                                 int fuse_prelu, float prelu_alpha,
-                                 int variant, void* stream) {
+                                 int fuse_prelu, float prelu_alpha, int bm,
+                                 int bn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = (K % 8 == 0) && (ldw % 4 == 0) &&
                   (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                   (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-  if (variant == 0)
-    return launch<16, 64, 1, 4, 8>(x, w, scale, bias, y, M, K, N, kw, ldw,
-                                   fuse_prelu, prelu_alpha, vec, s);
-  if (variant == 1)
-    return launch<64, 128, 1, 4, 4>(x, w, scale, bias, y, M, K, N, kw, ldw,
-                                    fuse_prelu, prelu_alpha, vec, s);
+#define B1_LAUNCH(BM, BN, WM, WN, ST)                                      \
+  if (bm == BM && bn == BN)                                               \
+    return launch<BM, BN, WM, WN, ST>(x, w, scale, bias, y, M, K, N, kw,  \
+                                      ldw, fuse_prelu, prelu_alpha, vec, s);
+  B1_TILES(B1_LAUNCH)
+#undef B1_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -34,11 +34,12 @@
 //    so each plane gives its own fragment and MMA into its own accumulator
 //    set; the two sets are subtracted once, after the K loop, as the plain
 //    version subtracts its two products.
-// Tiles: ternary_gemm.TILES. Decode (M <= 16) is BM 16 x BN 64 with 4
-// warps of 16 x 16 and 8 stages in both modes. Prefill is BM 64 x BN 128
-// with 4 stages: 4 warps of 64 x 32 in plain mode (B1's tile); the
-// factorized mode's two accumulator sets take 8 warps of 32 x 32 instead,
-// so a thread holds 64 accumulators either way.
+// Tiles (B7_TILES below; the block-shape tuner picks one): the decode
+// tile BM 16 x BN 64 with 4 warps of 16 x 16 and 8 stages in both modes;
+// the prefill tile BM 64 x BN 128 with 4 stages: 4 warps of 64 x 32 in
+// plain mode (B1's tile), while the factorized mode's two accumulator sets
+// take 8 warps of 32 x 32, so a thread holds 64 accumulators either way;
+// and the 16- and 32-row tiles of 128 columns between them.
 #include "ternary_tiles.cuh"
 
 using ternary::BK;
@@ -223,17 +224,26 @@ static int launch(const void* x, const void* plus, const void* minus,
   return (int)cudaGetLastError();
 }
 
+// The instantiated tiles, X(BM, BN, WARPS_M, WARPS_M factorized, WARPS_N,
+// STAGES): the same table as ternary_gemm_bitplane.TILES. The 16 x 128
+// and 32 x 128 tiles are where the tuner's clamp of the 64 x 128 tile to
+// a small M's rows lands.
+#define B7_TILES(X)          \
+  X(16, 64, 1, 1, 4, 8)      \
+  X(16, 128, 1, 1, 4, 8)     \
+  X(32, 128, 1, 2, 4, 6)     \
+  X(64, 128, 1, 2, 4, 4)
+
 // x (M, K) bf16; plus/minus (kb, N) uint8 with kb * 8 >= K; y (M, N) bf16.
-// variant 0: decode tile (BM 16, BN 64, 4 warps, 8 stages); variant 1:
-// prefill tile (BM 64, BN 128, 4 stages; 4 warps of 64 x 32, factorized 8
-// warps of 32 x 32). Returns the cudaError_t of the launch.
+// (bm, bn) names one of B7_TILES. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for another tile).
 extern "C" int ternary_gemm_bitplane_bf16(const void* x, const void* plus,
                                           const void* minus,
                                           const void* scale, const void* bias,
                                           void* y, int M, int K, int N,
                                           int kb, int fuse_prelu,
                                           float prelu_alpha, int factorized,
-                                          int variant, void* stream) {
+                                          int bm, int bn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec_x = (K % 8 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
   const int vec_p = (N % 16 == 0) &&
@@ -241,12 +251,12 @@ extern "C" int ternary_gemm_bitplane_bf16(const void* x, const void* plus,
                     (reinterpret_cast<uintptr_t>(minus) % 16 == 0);
 #define BP_ARGS x, plus, minus, scale, bias, y, M, K, N, kb, fuse_prelu, \
                 prelu_alpha, vec_x, vec_p, s
-  if (variant == 0)
-    return factorized ? launch<16, 64, 1, 4, 8, true>(BP_ARGS)
-                      : launch<16, 64, 1, 4, 8, false>(BP_ARGS);
-  if (variant == 1)
-    return factorized ? launch<64, 128, 2, 4, 4, true>(BP_ARGS)
-                      : launch<64, 128, 1, 4, 4, false>(BP_ARGS);
+#define BP_LAUNCH(BM, BN, WM, FWM, WN, ST)                          \
+  if (bm == BM && bn == BN)                                         \
+    return factorized ? launch<BM, BN, FWM, WN, ST, true>(BP_ARGS)  \
+                      : launch<BM, BN, WM, WN, ST, false>(BP_ARGS);
+  B7_TILES(BP_LAUNCH)
+#undef BP_LAUNCH
 #undef BP_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -33,10 +33,10 @@
 // exact zeros, and the three agree bit for bit. Both run B1's register
 // decode: each lane turns the word of its column into its mma.sync B
 // fragment with the nibble table, and the epilogue runs from the
-// accumulators. Tiles per phase: decode (bm 16) 16 rows with 8 stages,
-// prefill (bm 64) 64 rows with 4 stages; one warp row of up to 4 warps
-// across bn 16, 32, 64 or 128 (the wrapper takes at most 64 at decode, as
-// B1 does). They differ in how a stage is filled.
+// accumulators. Rows per block (the tuner's block_m): 16 with 8 stages,
+// 32 with 6, 64 with 4; one warp row of up to 4 warps across bn 16, 32,
+// 64 or 128 (the wrapper takes at most 64 at 16 rows, as B1's 16-row
+// decode tile). They differ in how a stage is filled.
 //
 // B2 (ternary_gemm_skip_kernel): every thread fills the ring with 16-byte
 // cp.async copies, the x slice with a padded row stride (XLD), and one
@@ -421,7 +421,7 @@ static int launch_bn(int bn, const void* x, const void* w, const void* idx,
 // x (M, K) bf16; w (kw, ldw) words, ldw a multiple of tile_n; kt_indices
 // (ldw / tile_n, max_occ) and kt_counts (ldw / tile_n,) int32; y (M, N)
 // bf16. tile_k and tile_n are multiples of 16; bn (16, 32, 64 or 128)
-// divides tile_n; bm is 16 or 64; db selects B3 (the TMA ring) over B2
+// divides tile_n; bm is 16, 32 or 64; db selects B3 (the TMA ring) over B2
 // (the cp.async ring). Returns the cudaError_t of the launch (0 =
 // success).
 extern "C" int ternary_gemm_skip_bf16(const void* x, const void* w,
@@ -445,6 +445,9 @@ extern "C" int ternary_gemm_skip_bf16(const void* x, const void* w,
   if (bm == 16)
     return db ? launch_bn<16, 8, true>(SKIP_ARGS)
               : launch_bn<16, 8, false>(SKIP_ARGS);
+  if (bm == 32)
+    return db ? launch_bn<32, 6, true>(SKIP_ARGS)
+              : launch_bn<32, 6, false>(SKIP_ARGS);
   if (bm == 64)
     return db ? launch_bn<64, 4, true>(SKIP_ARGS)
               : launch_bn<64, 4, false>(SKIP_ARGS);

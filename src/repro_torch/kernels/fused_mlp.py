@@ -26,20 +26,17 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ternary_gemm import (_check_vec, _ptr,
                                               ternary_gemm_ref)
 
-__all__ = ["ACTIVATIONS", "VARIANTS", "BLOCK_M", "STRIP", "MAX_CHUNK",
-           "MAX_CLUSTER", "FusedPlan", "chunk_width", "launch_plan",
-           "fused_mlp_ref", "fused_mlp_cuda"]
+__all__ = ["ACTIVATIONS", "TILES", "MAX_CHUNK", "MAX_CLUSTER", "FusedPlan",
+           "chunk_width", "tile_for", "launch_plan", "fused_mlp_ref",
+           "fused_mlp_cuda"]
 
 ACTIVATIONS = ("silu", "relu", "none")
 
-# tile variant per serving phase (csrc/fused_mlp.cu), the fastest of the
-# candidates timed on the H100: decode takes 16-row tiles and 64-column
-# strips, prefill and evaluation 64-row tiles and 128-column strips;
-# speculative verify windows (M = slots x (k+1)) take decode's and
-# chunked-prefill windows (M = slots x S) prefill's, as B1 does
-VARIANTS = {"decode": 0, "prefill": 1, "verify": 0, "chunk": 1}
-BLOCK_M = {0: 16, 1: 64}          # variant -> rows per block
-STRIP = {0: 64, 1: 128}           # variant -> ff / N columns per strip
+# the tiles csrc/fused_mlp.cu instantiates, (rows per block, ff / N
+# columns per strip), the fastest of the candidates timed on the H100: the
+# 16-row tile for GEMV-shaped decode, the 64-row one for prefill and
+# evaluation; the block-shape tuner's fused plan names one (tile_for)
+TILES = ((16, 64), (64, 128))
 MAX_CHUNK = 512                   # the widest ff chunk (h slice) a block holds
 MAX_CLUSTER = 8                   # blocks sharing a chunk (portable cluster)
 BLOCKS_PER_SM = 2                 # the prefill tile's residency at FC <= 512
@@ -47,7 +44,7 @@ BLOCKS_PER_SM = 2                 # the prefill tile's residency at FC <= 512
 
 def chunk_width(ff: int) -> int:
     """FC, the ff columns whose down-projection products one f32 partial
-    sums: ff rounded up to whole 128-column strips (so both variants'
+    sums: ff rounded up to whole 128-column strips (so every tile's
     strips divide it), at most ``MAX_CHUNK``. It depends on the widths
     alone, so a row's sum is grouped the same way whatever M and tile."""
     return min(MAX_CHUNK, max(128, -(-ff // 128) * 128))
@@ -59,7 +56,7 @@ class FusedPlan:
     spread over a cluster of ``cluster`` blocks per row tile, a
     (chunks x cluster, row tiles) grid, the (chunks, M, N) f32 partials."""
 
-    variant: int
+    tile: Tuple[int, int]
     fc: int
     chunks: int
     cluster: int
@@ -67,26 +64,40 @@ class FusedPlan:
     partial_numel: int
 
 
-def launch_plan(m: int, ff: int, n: int, variant: int,
+def tile_for(block_m: int) -> Tuple[int, int]:
+    """The B4 tile a fused plan's ``block_m`` names: the tile with the
+    smallest ``block_m`` at or above it, else the largest tile. Its strip
+    is the tile's own (the composed entry's ``block_n1`` / ``block_n2``
+    are B1's or the pack's, which B4 does not take)."""
+    for tile in TILES:
+        if tile[0] >= block_m:
+            return tile
+    return TILES[-1]
+
+
+def launch_plan(m: int, ff: int, n: int, tile: Tuple[int, int],
                 sm_count: int) -> FusedPlan:
     """The chunk width comes from ``chunk_width(ff)``; the cluster size
     doubles (up to ``MAX_CLUSTER``, each block keeping whole strips of
     the chunk) while the grid holds fewer blocks than 7/8 of
     ``BLOCKS_PER_SM`` x ``sm_count``. The cluster spreads a chunk's work
-    over more SMs and moves no sum. Raises when the tile is unknown."""
-    if variant not in BLOCK_M:
-        raise ValueError(f"unknown tile variant {variant}")
-    strip = STRIP[variant]
+    over more SMs and moves no sum. Raises when the tile is not one of
+    ``TILES``."""
+    tile = tuple(tile)
+    if tile not in TILES:
+        raise ValueError(f"(block_m, strip)={tile} is not one of B4's tiles "
+                         f"{TILES}")
+    block_m, strip = tile
     fc = chunk_width(ff)
     chunks = -(-ff // fc)
-    m_tiles = -(-m // BLOCK_M[variant])
+    m_tiles = -(-m // block_m)
     wave = BLOCKS_PER_SM * sm_count
     cluster = 1
     while (chunks * cluster * m_tiles < wave - wave // 8
            and cluster * 2 <= MAX_CLUSTER
            and fc % (cluster * 2 * strip) == 0):
         cluster *= 2
-    return FusedPlan(variant=variant, fc=fc, chunks=chunks, cluster=cluster,
+    return FusedPlan(tile=tile, fc=fc, chunks=chunks, cluster=cluster,
                      grid=(chunks * cluster, m_tiles),
                      partial_numel=chunks * m * n)
 
@@ -124,7 +135,7 @@ def fused_mlp_ref(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = build.load("fused_mlp")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_mlp_bf16.argtypes = [p] * 12 + [i] * 13 + [p]
+    lib.fused_mlp_bf16.argtypes = [p] * 12 + [i] * 14 + [p]
     lib.fused_mlp_bf16.restype = ctypes.c_int
     return lib
 
@@ -141,15 +152,16 @@ def fused_mlp_cuda(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
                    wg: Optional[torch.Tensor] = None,
                    si=None, bi=None, sg=None, bg=None, so=None, bo=None, *,
                    ff: Optional[int] = None, n: Optional[int] = None,
-                   activation: str = "silu",
-                   variant: int = 1) -> torch.Tensor:
+                   activation: str = "silu", block_m: int = 64,
+                   strip: int = 128) -> torch.Tensor:
     """Launch the fused kernel (and its fixed-order partial-sum pass) on the
     current stream. x (M, K) bf16; words int32 as in ``fused_mlp_ref``,
     read in place: the first ``ff`` (default wi's width) columns of wi and
     wg and the first ``n`` (default wo's width) of wo, so a tile-padded
-    pack runs without a copy; the six vectors float32. ``launch_plan``
-    fixes the chunk width from ff and spreads it to fill the card. Returns
-    (M, n) bf16."""
+    pack runs without a copy; the six vectors float32. ``(block_m,
+    strip)`` is one of ``TILES`` (another raises). ``launch_plan`` fixes
+    the chunk width from ff and spreads it to fill the card. Returns (M, n)
+    bf16."""
     if not x.is_cuda:
         raise ValueError("fused_mlp_cuda needs a CUDA tensor; CPU tensors "
                          "take fused_mlp_ref")
@@ -174,7 +186,7 @@ def fused_mlp_cuda(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
     for name, v, width in (("si", si, ff), ("bi", bi, ff), ("sg", sg, ff),
                            ("bg", bg, ff), ("so", so, n), ("bo", bo, n)):
         _check_vec(name, v, width, dev)
-    plan = launch_plan(m, ff, n, variant,
+    plan = launch_plan(m, ff, n, (block_m, strip),
                        _sm_count(dev.index if dev.index is not None
                                  else torch.cuda.current_device()))
     y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
@@ -191,7 +203,7 @@ def fused_mlp_cuda(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
             partial.data_ptr(), y.data_ptr(), m, k, ff, n, kw1, kw2,
             wi.shape[1], wi.shape[1] if wg is None else wg.shape[1],
             wo.shape[1], plan.fc, plan.cluster,
-            ACTIVATIONS.index(activation), variant,
+            ACTIVATIONS.index(activation), block_m, strip,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed: cudaError {err}")

@@ -49,28 +49,38 @@ imported. On a CPU tensor every kernel row runs its plain version; a row
 named explicitly runs wherever the tensors lie, and nothing falls back to
 another row.
 
-There is no autotuner yet. Block shapes come from the kernels' fixed
-per-phase tiles (``ternary_gemm.TILES``, ``SKIP_BLOCK_M``); the skip rows
-take ``block_n``/``block_k`` from the pack's ``tile_n``/``tile_k``.
-Outside a phase scope, M <= 16 counts as decode-shaped.
+Blocks come from the block-shape tuner (``autotune.get_tuner()``), as
+``repro``'s do: the dense rows under the dense key at ``sparsity=1.0`` (so
+a restored checkpoint plans as the packing run did), the skip rows'
+``block_m`` under the skip key with the pack's ``tile_n``/``tile_k``
+pinned, the bitplane rows under their own key, the fused row through
+``lookup_fused`` (its composed entry names a B4 tile,
+``fused_mlp.tile_for``). An explicit ``block_m``/``block_n`` that names one
+of the kernel's tiles wins; any other raises, as does a tuner entry that
+names none (a hand-edited cache file). Each answer is memoized per tuner
+key, and ``ternary_gemm`` memoizes its plan per (weight, M, phase,
+arguments), so a repeated dispatch is a dictionary hit, not a lookup.
+``GemmPlan.roofline()`` and ``FusedMlpPlan.roofline()`` place a plan on
+the H100's roofline with the tuner's constants and score.
 
 ``kernel_probe(cb)`` times each eager ``ternary_gemm`` / ``fused_mlp``
 dispatch in its scope and calls ``cb(plan, seconds)``: with CUDA events
 on the card, with the host clock on the CPU. A dispatch while the stream
 is being captured into a CUDA graph is not timed (nothing runs then), as
-``repro``'s probe skips dispatch under jit tracing. The plans carry no
-modelled roofline yet (ROADMAP A9).
+``repro``'s probe skips dispatch under jit tracing.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
+import weakref
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import formats, weights
+from repro_torch.kernels import autotune as autotune_lib
 from repro_torch.kernels import fused_mlp as fused_lib
 from repro_torch.kernels import ref
 from repro_torch.kernels import ternary_gemm as gemm_lib
@@ -161,14 +171,6 @@ def _probe_dispatch(probe: Callable, plan, tag: str, x: torch.Tensor,
     return y
 
 
-def _phase(m: int, phase: Optional[str] = "__current__") -> str:
-    """The phase whose tiles an M-row op takes: the given one (by default
-    the ambient scope's), else decode-shaped for M <= 16."""
-    if phase == "__current__":
-        phase = current_phase()
-    return phase or ("decode" if m <= 16 else "prefill")
-
-
 # ---------------------------------------------------------------------------
 # The kernel registry
 # ---------------------------------------------------------------------------
@@ -212,7 +214,36 @@ class GemmPlan:
                    * (bk // formats.K_PER_WORD) * bn * 4)
         out_bytes = mp * npad * 2
         return {"flops": flops,
-                "bytes": float(x_bytes + w_bytes + out_bytes)}
+                "bytes": float(x_bytes + w_bytes + out_bytes),
+                "collective_bytes": 0.0}
+
+    def roofline(self) -> Dict[str, Any]:
+        """The plan on the H100's roofline (``autotune.HBM_BW`` /
+        ``PEAK_FLOPS``), ``repro``'s keys: the ceiling at the plan's
+        arithmetic intensity, the tuner's modelled time of its tile and the
+        rate that time achieves. No tensor parallelism yet: ``collective``
+        None, ``tp`` 1."""
+        t = self.traffic()
+        ai = t["flops"] / max(t["bytes"], 1.0)
+        ceiling = min(autotune_lib.PEAK_FLOPS, ai * autotune_lib.HBM_BW)
+        cfg = autotune_lib.BlockConfig(
+            self.block_m or 128, self.block_n or 128, self.block_k or 256)
+        t_model = autotune_lib.Autotuner()._model_score(
+            cfg, self.m, self.k, self.n,
+            self.occupancy if self.impl in ("skip", "skip_db") else 1.0)
+        achieved = t["flops"] / max(t_model, 1e-12)
+        return {"flops": t["flops"], "bytes": t["bytes"],
+                "arithmetic_intensity": ai,
+                "ceiling_flops": ceiling,
+                "achieved_flops": achieved,
+                "peak_flops": autotune_lib.PEAK_FLOPS,
+                "model_time_s": t_model,
+                "headroom": max(0.0, 1.0 - achieved / max(ceiling, 1.0)),
+                "bound": ("memory" if ceiling < autotune_lib.PEAK_FLOPS
+                          else "compute"),
+                "collective": None,
+                "collective_bytes": t["collective_bytes"],
+                "tp": 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,6 +262,9 @@ class KernelImpl:
 
 
 _KERNELS: Dict[Tuple[str, str], KernelImpl] = {}
+_REGISTRY_VERSION = [0]           # bumped by register_kernel / _fused
+# ternary_gemm's plans per weight (module docstring)
+_PLANS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def register_kernel(fmt: str, impl: str, *, priority: int = 0,
@@ -241,6 +275,7 @@ def register_kernel(fmt: str, impl: str, *, priority: int = 0,
     ``ternary_gemm_plan`` pick it up with no call-site change."""
 
     def deco(fn):
+        _REGISTRY_VERSION[0] += 1
         _KERNELS[(fmt, impl)] = KernelImpl(
             format=fmt, impl=impl, priority=priority,
             predicate=predicate or (lambda w, m, phase: True),
@@ -259,20 +294,61 @@ def kernel_registry() -> Dict[Tuple[str, str], KernelImpl]:
 
 # --- block planning ---------------------------------------------------------
 
-def _blocks_fixed_tiles(w, m, phase, bm, bn, bk):
-    """B1's and B7's tiles: the phase's (block_m, block_n) unless the
-    caller names one of the kernel's tiles; block_k is the kernel's 64."""
+_TUNED: Dict[tuple, Any] = {}
+_TUNED_BY: list = [None]          # the tuner _TUNED's answers came from
+
+
+def _tuned(key: tuple, lookup: Callable[[autotune_lib.Autotuner], Any]):
+    """The process-wide tuner's answer ``lookup(tuner)`` for ``key`` (what
+    its cache key holds, M bucketed), memoized while the tuner stays the
+    same: the tuner's own hit formats a key and takes a lock."""
+    tuner = autotune_lib.get_tuner()
+    if _TUNED_BY[0] is not tuner:
+        _TUNED.clear()
+        _TUNED_BY[0] = tuner
+    hit = _TUNED.get(key)
+    if hit is None:
+        hit = _TUNED[key] = lookup(tuner)
+    return hit
+
+
+def _pick_tile(kind, tiles, bm, bn, cfg_of):
+    """``(block_m, block_n)`` of ``tiles`` (a kernel's instantiated tiles):
+    the explicit one when both are given, the first tile agreeing with a
+    lone explicit one, else the tuner's (``cfg_of()``). Raises when the
+    answer is not one of ``tiles``."""
+    if bm is None and bn is None:
+        cfg = cfg_of()
+        bm, bn = cfg.block_m, cfg.block_n
+        if (bm, bn) not in tiles:
+            raise ValueError(
+                f"the tuner's tile ({bm}, {bn}) for {kind} is not one of its "
+                f"tiles {sorted(tiles)} (cache file "
+                f"{autotune_lib.get_tuner().path})")
+        return bm, bn
+    for tbm, tbn in sorted(tiles):
+        if bm in (None, tbm) and bn in (None, tbn):
+            return tbm, tbn
+    raise ValueError(f"(block_m, block_n)=({bm}, {bn}) is not one of "
+                     f"{kind}'s tiles {sorted(tiles)}")
+
+
+def _check_bk(bk):
     if bk is not None and bk != gemm_lib.BLOCK_K:
         raise ValueError(f"block_k={bk}: this kernel steps K by "
                          f"{gemm_lib.BLOCK_K} only")
-    if bm is None and bn is None:
-        return (*gemm_lib.TILES[gemm_lib.VARIANTS[_phase(m, phase)]],
-                gemm_lib.BLOCK_K)
-    for tbm, tbn in gemm_lib.TILES.values():
-        if bm in (None, tbm) and bn in (None, tbn):
-            return tbm, tbn, gemm_lib.BLOCK_K
-    raise ValueError(f"(block_m, block_n)=({bm}, {bn}) is not one of this "
-                     f"kernel's tiles {sorted(gemm_lib.TILES.values())}")
+
+
+def _blocks_dense(w, m, phase, bm, bn, bk):
+    """B1's tile: the tuner's under the dense key at ``sparsity=1.0``
+    (repro's ``_blocks_dense``: a restored checkpoint plans as the packing
+    run did), unless the caller names one of ``ternary_gemm.TILES``."""
+    _check_bk(bk)
+    key = ("dense", autotune_lib._pow2_bucket(m), w.k, w.n, phase)
+    bm, bn = _pick_tile("B1", gemm_lib.TILES, bm, bn, lambda: _tuned(
+        key, lambda t: t.lookup(m, w.k, w.n, sparsity=1.0, impl="dense",
+                                phase=phase)))
+    return bm, bn, gemm_lib.BLOCK_K
 
 
 def _blocks_skip_impl(impl):
@@ -285,11 +361,27 @@ def _blocks_skip_impl(impl):
             raise ValueError(f"impl={impl!r}: block_k={bk} must equal the "
                              f"pack's tile_k={w.tile_k}")
         if bm is None:
-            bm = gemm_lib.SKIP_BLOCK_M[_phase(m, phase)]
-        elif bm not in gemm_lib.SKIP_BLOCK_M.values():
+            occ = w.occupancy()
+            key = (impl, autotune_lib._pow2_bucket(m), w.k, w.n,
+                   autotune_lib._sparsity_bucket(occ), w.tile_n, w.tile_k,
+                   phase)
+            bm = _tuned(key, lambda t: t.lookup(
+                m, w.k, w.n, sparsity=occ, impl=impl, fixed_n=w.tile_n,
+                fixed_k=w.tile_k, phase=phase)).block_m
+        if bm not in gemm_lib.SKIP_BLOCK_M:
             raise ValueError(f"impl={impl!r}: block_m={bm} must be one of "
-                             f"{sorted(gemm_lib.SKIP_BLOCK_M.values())}")
+                             f"{gemm_lib.SKIP_BLOCK_M}")
         return bm, w.tile_n, w.tile_k
+    return plan
+
+
+def _blocks_bitplane(impl):
+    def plan(w, m, phase, bm, bn, bk):
+        _check_bk(bk)
+        key = (impl, autotune_lib._pow2_bucket(m), w.k, w.n, phase)
+        bm, bn = _pick_tile("B7", bitplane_lib.TILES, bm, bn, lambda: _tuned(
+            key, lambda t: t.lookup(m, w.k, w.n, impl=impl, phase=phase)))
+        return bm, bn, gemm_lib.BLOCK_K
     return plan
 
 
@@ -303,11 +395,6 @@ def _require_2d(w, *leaves):
             raise ValueError(
                 f"{w.format_name} weight has stacked leaves "
                 f"{tuple(leaf.shape)}; pass one layer's 2-D weight")
-
-
-def _variant(plan: GemmPlan) -> int:
-    return next(v for v, tile in gemm_lib.TILES.items()
-                if tile == (plan.block_m, plan.block_n))
 
 
 def _prelu(plan: GemmPlan) -> Optional[float]:
@@ -366,9 +453,8 @@ def _kernel_row(x, w, scale, bias, prelu_alpha, launch):
 # --- 2-bit rows (dense2bit, tiled) -------------------------------------------
 
 @register_kernel("dense2bit", "dense", priority=10,
-                 plan_blocks=_blocks_fixed_tiles)
-@register_kernel("tiled", "dense", priority=5,
-                 plan_blocks=_blocks_fixed_tiles)
+                 plan_blocks=_blocks_dense)
+@register_kernel("tiled", "dense", priority=5, plan_blocks=_blocks_dense)
 def _lower_dense(plan, x, w, scale, bias):
     # B1 reads the first n word columns in place (a tiled pack is N-padded)
     _require_2d(w, w.packed)
@@ -377,7 +463,8 @@ def _lower_dense(plan, x, w, scale, bias):
             x.contiguous(), w, scale, bias, _prelu(plan),
             lambda x, s, b: gemm_lib.ternary_gemm_cuda(
                 x, w.packed, s, b, n=w.n, fuse_prelu=plan.fuse_prelu,
-                prelu_alpha=plan.prelu_alpha, variant=_variant(plan)))
+                prelu_alpha=plan.prelu_alpha, block_m=plan.block_m,
+                block_n=plan.block_n))
     return gemm_lib.ternary_gemm_ref(x, w.packed[:, :w.n], scale, bias,
                                      fuse_prelu=plan.fuse_prelu,
                                      prelu_alpha=plan.prelu_alpha)
@@ -431,19 +518,20 @@ def _lower_bitplane_common(plan, x, w, scale, bias, factorized):
         return _kernel_row(
             x.contiguous(), w, scale, bias, _prelu(plan),
             lambda x, s, b: bitplane_lib.ternary_gemm_bitplane_cuda(
-                x, w.plus, w.minus, s, b, variant=_variant(plan), **kw))
+                x, w.plus, w.minus, s, b, block_m=plan.block_m,
+                block_n=plan.block_n, **kw))
     return bitplane_lib.ternary_gemm_bitplane_ref(x, w.plus, w.minus, scale,
                                                   bias, **kw)
 
 
 @register_kernel("bitplane", "bitplane", priority=10,
-                 plan_blocks=_blocks_fixed_tiles)
+                 plan_blocks=_blocks_bitplane("bitplane"))
 def _lower_bitplane(plan, x, w, scale, bias):
     return _lower_bitplane_common(plan, x, w, scale, bias, factorized=False)
 
 
 @register_kernel("bitplane", "bitplane_factorized", priority=5,
-                 plan_blocks=_blocks_fixed_tiles)
+                 plan_blocks=_blocks_bitplane("bitplane_factorized"))
 def _lower_bitplane_fact(plan, x, w, scale, bias):
     return _lower_bitplane_common(plan, x, w, scale, bias, factorized=True)
 
@@ -556,9 +644,19 @@ def ternary_gemm(x: torch.Tensor, w: Any,
     _validate_k(w, x, k)
     scale = w.scale if scale is None else scale
     bias = w.bias if bias is None else bias
-    plan = ternary_gemm_plan(w, x.shape[0], impl=impl, block_m=block_m,
-                             block_n=block_n, block_k=block_k,
-                             fuse_prelu=fuse_prelu, prelu_alpha=prelu_alpha)
+    # the plan is a function of these (the registry and the tuner fixed),
+    # so a repeated dispatch takes it from the weight's memo
+    key = (x.shape[0], current_phase(), impl, block_m, block_n, block_k,
+           fuse_prelu, prelu_alpha, _REGISTRY_VERSION[0],
+           autotune_lib._GLOBAL)
+    memo = _PLANS.get(w)
+    if memo is None:
+        memo = _PLANS[w] = {}
+    plan = memo.get(key)
+    if plan is None:
+        plan = memo[key] = ternary_gemm_plan(
+            w, x.shape[0], impl=impl, block_m=block_m, block_n=block_n,
+            block_k=block_k, fuse_prelu=fuse_prelu, prelu_alpha=prelu_alpha)
     lower = _KERNELS[(plan.format, plan.impl)].lower
     probe = _KERNEL_PROBE.get()
     if probe is not None and not _capturing():
@@ -631,10 +729,11 @@ class FusedMlpPlan:
     the TPU-only ``interpret`` and the tensor-parallel ones). ``impl`` is a
     registered row: ``"pallas"`` (B4 on the card, its plain version on the
     CPU) or ``"chain"`` (one ``ternary_gemm`` per projection). The
-    ``"pallas"`` row's blocks are B4's fixed tiles for the phase
-    (``fused_mlp.VARIANTS``): ``block_m`` rows, strips of ``block_n1`` ff
-    and ``block_n2`` output columns, K stepped by ``block_k1`` /
-    ``block_k2``; the chain's are ``None``, as in ``repro``."""
+    ``"pallas"`` row's blocks are the B4 tile that the tuner's fused entry
+    names (``fused_mlp.tile_for``): ``block_m`` rows, strips of
+    ``block_n1`` ff and ``block_n2`` output columns, K stepped by
+    ``block_k1`` / ``block_k2``; the chain's are ``None``, as in
+    ``repro``."""
 
     impl: str
     format_up: str
@@ -653,6 +752,75 @@ class FusedMlpPlan:
     phase: Optional[str]
     occupancy_up: float
     occupancy_down: float
+
+    def sub_plans(self) -> Tuple[GemmPlan, GemmPlan]:
+        """The two chained ``GemmPlan``s this fusion replaces (the gate
+        shares the up plan): the roofline's baseline."""
+        up = GemmPlan(format=self.format_up, impl="dense", m=self.m,
+                      k=self.k, n=self.ff, block_m=self.block_m,
+                      block_n=self.block_n1, block_k=self.block_k1,
+                      phase=self.phase, occupancy=self.occupancy_up)
+        down = GemmPlan(format=self.format_down, impl="dense", m=self.m,
+                        k=self.ff, n=self.n, block_m=self.block_m,
+                        block_n=self.block_n2, block_k=self.block_k2,
+                        phase=self.phase, occupancy=self.occupancy_down)
+        return up, down
+
+    def roofline(self) -> Dict[str, Any]:
+        """``repro``'s fused vs unfused roofline with the H100's constants:
+        the chain's device-memory traffic (both GEMMs and the hidden
+        activation's round trip), the fused kernel's (x and each weight
+        once per M tile, h never leaves the SM), and the modelled speedup."""
+        up, down = self.sub_plans()
+        n_up = 2 if self.gated else 1
+        unfused_bytes = n_up * up.traffic()["bytes"] \
+            + down.traffic()["bytes"]
+        bm = self.block_m or 128
+        mp = -(-self.m // bm) * bm
+        m_tiles = mp // bm
+        k1p = -(-self.k // (self.block_k1 or 256)) * (self.block_k1 or 256)
+        ff1 = -(-self.ff // (self.block_n1 or 128)) * (self.block_n1 or 128)
+        k2p = -(-self.ff // (self.block_k2 or 256)) * (self.block_k2 or 256)
+        n2p = -(-self.n // (self.block_n2 or 128)) * (self.block_n2 or 128)
+        w_up = (k1p // formats.K_PER_WORD) * ff1 * 4
+        w_down = (k2p // formats.K_PER_WORD) * n2p * 4
+        fused_bytes = float(
+            mp * k1p * 2                        # x: once per M tile
+            + m_tiles * (n_up * w_up + w_down)  # weights streamed per tile
+            + mp * n2p * 2)                     # the output's write
+        nf1 = ff1 // (self.block_n1 or 128)
+        nf2 = n2p // (self.block_n2 or 128)
+        t_fused = (fused_bytes / autotune_lib.HBM_BW
+                   + m_tiles * (nf1 + nf2) * autotune_lib.STEP_OVERHEAD_S)
+        tuner = autotune_lib.Autotuner()
+        t_unfused = n_up * tuner._model_score(
+            autotune_lib.BlockConfig(bm, self.block_n1 or 128,
+                                     self.block_k1 or 256),
+            self.m, self.k, self.ff, 1.0) \
+            + tuner._model_score(
+                autotune_lib.BlockConfig(bm, self.block_n2 or 128,
+                                         self.block_k2 or 256),
+                self.m, self.ff, self.n, 1.0)
+        flops = 2.0 * self.m * self.ff * (n_up * self.k + self.n)
+        ai = flops / max(fused_bytes, 1.0)
+        ceiling = min(autotune_lib.PEAK_FLOPS, ai * autotune_lib.HBM_BW)
+        achieved = flops / max(t_fused, 1e-12)
+        return {"flops": flops,
+                "bytes": fused_bytes,
+                "unfused_bytes": float(unfused_bytes),
+                "collective": None,
+                "collective_bytes": 0.0,
+                "tp": 1,
+                "arithmetic_intensity": ai,
+                "ceiling_flops": ceiling,
+                "achieved_flops": achieved,
+                "peak_flops": autotune_lib.PEAK_FLOPS,
+                "model_time_s": t_fused,
+                "unfused_model_time_s": t_unfused,
+                "fused_speedup": t_unfused / max(t_fused, 1e-12),
+                "headroom": max(0.0, 1.0 - achieved / max(ceiling, 1.0)),
+                "bound": ("memory" if ceiling < autotune_lib.PEAK_FLOPS
+                          else "compute")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -676,6 +844,7 @@ def register_fused(impl: str, *, priority: int = 0,
     highest-priority admissible row wins ``impl="auto"``."""
 
     def deco(fn):
+        _REGISTRY_VERSION[0] += 1
         _FUSED[impl] = FusedImpl(impl=impl, priority=priority,
                                  predicate=predicate or (lambda *a: True),
                                  fn=fn)
@@ -750,8 +919,20 @@ def fused_mlp_plan(w_in: Any, w_out: Any, w_gate: Any = None, *, m: int,
                              f"available: {sorted(_FUSED)}")
     bm = bn = bk = None
     if chosen.impl == "pallas":
-        variant = fused_lib.VARIANTS[_phase(m, phase)]
-        bm, bn = fused_lib.BLOCK_M[variant], fused_lib.STRIP[variant]
+        # repro's composition: the fused key pinned to the chain plans'
+        # tiles; the composed block_m names B4's tile
+        up = ternary_gemm_plan(w_in, m, phase=phase)
+        down = ternary_gemm_plan(w_out, m, phase=phase)
+        occ_up, occ_down = w_in.occupancy(), w_out.occupancy()
+        pins = (up.block_n, up.block_k, down.block_n, down.block_k)
+        key = ("fused", autotune_lib._pow2_bucket(m), w_in.k, w_in.n,
+               w_out.n, autotune_lib._sparsity_bucket(occ_up),
+               autotune_lib._sparsity_bucket(occ_down), pins, phase)
+        cfg = _tuned(key, lambda t: t.lookup_fused(
+            m, w_in.k, w_in.n, w_out.n, sparsity_up=occ_up,
+            sparsity_down=occ_down, fixed_n1=pins[0], fixed_k1=pins[1],
+            fixed_n2=pins[2], fixed_k2=pins[3], phase=phase))
+        bm, bn = fused_lib.tile_for(cfg.block_m)
         bk = gemm_lib.BLOCK_K
     return FusedMlpPlan(
         impl=chosen.impl, format_up=w_in.format_name,
@@ -769,12 +950,11 @@ def _lower_fused_pallas(plan, x, w_in, w_out, w_gate):
     ff, n = w_in.n, w_out.n
     if x.is_cuda:
         words = (w_in.packed, w_out.packed, None if g is None else g.packed)
-        variant = fused_lib.VARIANTS[_phase(x.shape[0], plan.phase)]
         return _fused_row(
             x.contiguous(), w_in, w_out, w_gate, plan.activation,
             lambda x, *vecs: fused_lib.fused_mlp_cuda(
                 x, *words, *vecs, ff=ff, n=n, activation=plan.activation,
-                variant=variant))
+                block_m=plan.block_m, strip=plan.block_n1))
     words = (w_in.packed[:, :ff], w_out.packed[:, :n],
              None if g is None else g.packed[:, :ff])
     vecs = (w_in.scale, w_in.bias, None if g is None else g.scale,
@@ -814,8 +994,17 @@ def fused_mlp(x: torch.Tensor, w_in: Any, w_out: Any, w_gate: Any = None,
     if x.ndim != 2 or x.shape[1] != w_in.k:
         raise ValueError(f"x {tuple(x.shape)} does not match the up "
                          f"projection's K={w_in.k}")
-    plan = fused_mlp_plan(w_in, w_out, w_gate, m=x.shape[0], impl=impl,
-                          activation=activation)
+    key = (x.shape[0], current_phase(), impl, activation,
+           _REGISTRY_VERSION[0], autotune_lib._GLOBAL)
+    memo = _PLANS.get(w_in)
+    if memo is None:
+        memo = _PLANS[w_in] = {}
+    hit = memo.get(("fused",) + key)
+    if hit is None or hit[1] is not w_out or hit[2] is not w_gate:
+        plan = fused_mlp_plan(w_in, w_out, w_gate, m=x.shape[0], impl=impl,
+                              activation=activation)
+        hit = memo[("fused",) + key] = (plan, w_out, w_gate)
+    plan = hit[0]
     lower = _FUSED[plan.impl].fn
     probe = _KERNEL_PROBE.get()
     if probe is not None and not _capturing():

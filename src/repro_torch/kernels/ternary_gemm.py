@@ -29,28 +29,21 @@ from repro_torch.core import formats
 from repro_torch.kernels import build, ref
 
 __all__ = ["ternary_gemm_ref", "ternary_gemm_cuda", "ternary_gemm_skip_ref",
-           "ternary_gemm_skip_cuda", "VARIANTS", "TILES", "BLOCK_K",
-           "SKIP_BLOCK_M", "skip_block_n"]
+           "ternary_gemm_skip_cuda", "TILES", "BLOCK_K", "SKIP_BLOCK_M",
+           "skip_block_n"]
 
-# tile shape of B1 per serving phase (see csrc/ternary_gemm.cu), the
-# fastest of the candidates timed on the H100: decode GEMVs (M <= 16) take
-# the 16 x 64 tile (4 warps, 8 cp.async stages in flight), prefill and
-# evaluation the 64 x 128 tile (4 warps of 64 x 32, each decoded B
-# fragment feeding four MMAs; 4 stages); both step K by 64. Speculative
-# verify windows (M = slots x (k+1), 40 at 8 slots and k 4) take the decode
-# tile, as repro's tuner starts the verify phase from decode's candidates,
-# so a verify row rounds as the one-token step's row does. Chunked-prefill
-# windows (M = slots x S, 8 to 256 at 8 slots, above the decode tile's 16
-# rows from S 4 on) take the prefill tile; they have no tuning of their
-# own. B7 (ternary_gemm_bitplane.cu) has tiles of the same shapes and takes
-# its variant from this table too.
-VARIANTS = {"decode": 0, "prefill": 1, "verify": 0, "chunk": 1}
-TILES = {0: (16, 64), 1: (64, 128)}           # variant -> (block_m, block_n)
+# B1's tiles, (block_m, block_n) -> (warps_m, warps_n, stages): the
+# B1_TILES table of csrc/ternary_gemm.cu, every one stepping K by 64. The
+# block-shape tuner (autotune.py) picks one per (M, K, N, phase): 16-row
+# tiles for decode GEMVs, 32-row ones for windows and prefills up to M
+# ~512, 64-row ones above. No tile moves a bit of the output.
+TILES = {(16, 64): (1, 4, 8), (16, 128): (1, 4, 8), (32, 64): (1, 4, 6),
+         (32, 128): (1, 4, 6), (64, 64): (1, 4, 4), (64, 128): (1, 4, 4)}
 BLOCK_K = 64
-# rows per block of B2/B3 per serving phase; their block_n is the largest
-# of 128, 64, 32, 16 dividing the pack's tile_n (skip_block_n), at most 64
-# at decode (B1's decode width)
-SKIP_BLOCK_M = {"decode": 16, "prefill": 64, "verify": 16, "chunk": 64}
+# rows per block of B2/B3 (the tuner's block_m); their block_n is the
+# largest of 128, 64, 32, 16 dividing the pack's tile_n (skip_block_n), at
+# most 64 at 16 rows (B1's 16 x 64 decode tile)
+SKIP_BLOCK_M = (16, 32, 64)
 
 
 def skip_block_n(tile_n: int, widest: int = 128) -> int:
@@ -80,7 +73,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("ternary_gemm")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ternary_gemm_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                      ctypes.c_float, i, p]
+                                      ctypes.c_float, i, i, p]
     lib.ternary_gemm_bf16.restype = ctypes.c_int
     return lib
 
@@ -132,22 +125,24 @@ def ternary_gemm_cuda(x: torch.Tensor, words: torch.Tensor,
                       scale: Optional[torch.Tensor] = None,
                       bias: Optional[torch.Tensor] = None, *,
                       n: Optional[int] = None, fuse_prelu: bool = False,
-                      prelu_alpha: float = 0.25,
-                      variant: int = 1) -> torch.Tensor:
+                      prelu_alpha: float = 0.25, block_m: int = 64,
+                      block_n: int = 128) -> torch.Tensor:
     """Launch B1 on the current stream. x (M, K) bf16 and words
     (>= ceil(K/16), ldw) int32 must be contiguous CUDA tensors on one
     device; the output has the first ``n`` (default ldw) word columns, so a
     tile-padded pack runs without a copy. scale/bias, when given, (n,)
-    float32. Returns (M, n) bf16. Raises on anything the kernel does not
-    take, and on a failed launch."""
+    float32. ``(block_m, block_n)`` is one of ``TILES``. Returns (M, n)
+    bf16. Raises on anything the kernel does not take (a tile that is not
+    built included), and on a failed launch."""
     _check_x_words("ternary_gemm_cuda", x, words)
     m, k = x.shape
     kw, ldw = words.shape
     n = ldw if n is None else n
     if not 0 <= n <= ldw:
         raise ValueError(f"n={n} outside the words' {ldw} columns")
-    if variant not in VARIANTS.values():
-        raise ValueError(f"unknown tile variant {variant}")
+    if (block_m, block_n) not in TILES:
+        raise ValueError(f"(block_m, block_n)=({block_m}, {block_n}) is not "
+                         f"one of B1's tiles {sorted(TILES)}")
     _check_vec("scale", scale, n, x.device)
     _check_vec("bias", bias, n, x.device)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
@@ -157,7 +152,7 @@ def ternary_gemm_cuda(x: torch.Tensor, words: torch.Tensor,
         err = _lib().ternary_gemm_bf16(
             x.data_ptr(), words.data_ptr(), _ptr(scale), _ptr(bias),
             y.data_ptr(), m, k, n, kw, ldw, int(fuse_prelu), prelu_alpha,
-            variant, torch.cuda.current_stream().cuda_stream)
+            block_m, block_n, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ternary_gemm kernel launch failed: "
                            f"cudaError {err}")
@@ -207,7 +202,7 @@ def ternary_gemm_skip_cuda(x: torch.Tensor, words: torch.Tensor,
     x (M, K) bf16, words (Kp/16, Np) int32 of a pack with (tile_k, tile_n)
     tiles (multiples of 16), kt_indices (Np/tile_n, max_occ) and kt_counts
     (Np/tile_n,) int32, all contiguous on one CUDA device; scale/bias (n,)
-    float32. ``block_m`` is 16 or 64. Returns (M, n) bf16. Raises on
+    float32. ``block_m`` is one of ``SKIP_BLOCK_M``. Returns (M, n) bf16. Raises on
     anything the kernel does not take, and on a failed launch. Launches
     are counted in ``.launches`` (B2) and ``.launches_db`` (B3)."""
     _check_x_words("ternary_gemm_skip_cuda", x, words)
@@ -230,9 +225,9 @@ def ternary_gemm_skip_cuda(x: torch.Tensor, words: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous {ndim}-D int32 "
                              f"tensor with {n_ntiles} rows on {x.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if block_m not in SKIP_BLOCK_M.values():
-        raise ValueError(f"block_m must be one of "
-                         f"{sorted(SKIP_BLOCK_M.values())}, got {block_m}")
+    if block_m not in SKIP_BLOCK_M:
+        raise ValueError(f"block_m must be one of {SKIP_BLOCK_M}, got "
+                         f"{block_m}")
     _check_vec("scale", scale, n, x.device)
     _check_vec("bias", bias, n, x.device)
     bn = skip_block_n(tile_n, 64 if block_m == 16 else 128)

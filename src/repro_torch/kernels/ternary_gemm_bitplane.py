@@ -21,11 +21,16 @@ import torch
 
 from repro_torch.core import formats
 from repro_torch.kernels import build
-from repro_torch.kernels.ternary_gemm import (VARIANTS, _check_vec,
-                                              _ptr)
+from repro_torch.kernels.ternary_gemm import _check_vec, _ptr
 
 __all__ = ["ternary_gemm_bitplane_ref", "ternary_gemm_bitplane_cuda",
-           "PLANE_LUT", "fragment_byte_rows", "fragment_index"]
+           "PLANE_LUT", "TILES", "fragment_byte_rows", "fragment_index"]
+
+# B7's tiles, (block_m, block_n): B7_TILES of csrc/ternary_gemm_bitplane.cu
+# (the decode tile 16 x 64, the prefill tile 64 x 128, and the 16- and
+# 32-row tiles of 128 columns the tuner's clamp of the prefill tile lands
+# on at small M); the block-shape tuner picks one
+TILES = ((16, 64), (16, 128), (32, 128), (64, 128))
 
 _BF16 = {0: 0x0000, 1: 0x3F80, -1: 0xBF80}
 
@@ -91,7 +96,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("ternary_gemm_bitplane")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ternary_gemm_bitplane_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                               i, ctypes.c_float, i, i, p]
+                                               i, ctypes.c_float, i, i, i,
+                                               p]
     lib.ternary_gemm_bitplane_bf16.restype = ctypes.c_int
     return lib
 
@@ -103,11 +109,12 @@ def ternary_gemm_bitplane_cuda(x: torch.Tensor, plus: torch.Tensor,
                                factorized: bool = False,
                                fuse_prelu: bool = False,
                                prelu_alpha: float = 0.25,
-                               variant: int = 1) -> torch.Tensor:
+                               block_m: int = 64,
+                               block_n: int = 128) -> torch.Tensor:
     """Launch B7 on the current stream. x (M, K) bf16 and the planes
     (>= ceil(K/8), N) uint8 must be contiguous CUDA tensors on one device;
-    scale/bias, when given, (N,) float32. ``variant`` picks the decode
-    (16 x 64) or prefill (64 x 128) tile. Returns (M, N) bf16. Raises on
+    scale/bias, when given, (N,) float32. ``(block_m, block_n)`` is one of
+    ``TILES`` (another raises). Returns (M, N) bf16. Raises on
     anything the kernel does not take, and on a failed launch."""
     if not x.is_cuda:
         raise ValueError("ternary_gemm_bitplane_cuda needs a CUDA tensor; "
@@ -129,8 +136,9 @@ def ternary_gemm_bitplane_cuda(x: torch.Tensor, plus: torch.Tensor,
     if kb * formats.K_PER_BYTE < k:
         raise ValueError(f"planes cover K={kb * formats.K_PER_BYTE} < x's "
                          f"K={k}")
-    if variant not in VARIANTS.values():
-        raise ValueError(f"unknown tile variant {variant}")
+    if (block_m, block_n) not in TILES:
+        raise ValueError(f"(block_m, block_n)=({block_m}, {block_n}) is not "
+                         f"one of B7's tiles {TILES}")
     _check_vec("scale", scale, n, x.device)
     _check_vec("bias", bias, n, x.device)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
@@ -140,7 +148,7 @@ def ternary_gemm_bitplane_cuda(x: torch.Tensor, plus: torch.Tensor,
         err = _lib().ternary_gemm_bitplane_bf16(
             x.data_ptr(), plus.data_ptr(), minus.data_ptr(), _ptr(scale),
             _ptr(bias), y.data_ptr(), m, k, n, kb, int(fuse_prelu),
-            prelu_alpha, int(factorized), variant,
+            prelu_alpha, int(factorized), block_m, block_n,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ternary_gemm_bitplane kernel launch failed: "

@@ -89,7 +89,8 @@ speculative decoding, chunked prefill and the paged pool refuse the
 ``paged_attn`` names the paged cache's decode-attention row (None:
 ``cfg.paged_attn_impl``). ``load()`` fills ``gemm_plans`` and, on the card
 with the fused MLP on, ``fused_plans`` for every M the engine dispatches
-(``ops.precompute_plans`` / ``precompute_fused_plans``).
+(``ops.precompute_plans`` / ``precompute_fused_plans``), each tile resolved
+through the block-shape tuner there, so no step tunes.
 
 Model families (``repro``'s): every decoder family ``LM`` builds, dense
 and MoE attention stacks, SSM and hybrid ones. SSM layers keep per-slot
@@ -109,7 +110,11 @@ behind attributes of those names, beside the step-time EWMA
 (``obs.trace.Tracer``) the engine records each request's life on its own
 track and its prefill, chunk-window, decode-step, draft and verify spans
 (and ``draft_fallback`` / ``spec_disabled`` instants) and per-step
-counters on the scheduler track, as ``repro``'s does; ``tracer=None``
+counters on the scheduler track, as ``repro``'s does; the prefill,
+chunk-window, decode-step and verify spans carry the warmed plans'
+modelled roofline aggregate (``gemms``, ``modeled_flops``,
+``modeled_bytes``, ``model_time_s``, ``m_bucket``), which
+``scripts/trace_report.py`` sets beside the measured time. ``tracer=None``
 costs one attribute test per site.
 """
 from __future__ import annotations
@@ -269,6 +274,8 @@ class ContinuousScheduler:
         # the plans load() warms, keyed as repro's: (leaf, m, phase) and,
         # for the draft's, ("draft", leaf, m, phase)
         self.gemm_plans: Dict[tuple, ops.GemmPlan] = {}
+        self._phase_model: Dict[tuple, Dict[str, float]] = {}
+        self._modeled_memo: Dict[tuple, Optional[Dict[str, float]]] = {}
         self.fused_plans: Dict[tuple, ops.FusedMlpPlan] = {}
         self._depth_stat = RunningStat("queue_depth")
         self._live_stat = RunningStat("live_slots")
@@ -351,8 +358,11 @@ class ContinuousScheduler:
         power-of-two prefill M up to ``slots * max_len``, the decode M
         (slots), the verify M (slots * (k + 1)) and the chunk windows' Ms;
         the fused blocks at the same Ms when the fused path is on (the
-        card, ``cfg.fused_mlp`` not ``"off"``). No autotuner reads them
-        yet: they record what each dispatch will run."""
+        card, ``cfg.fused_mlp`` not ``"off"``). Every plan resolves its
+        tile through the block-shape tuner here, so no serving step pays a
+        first-call tune: a step's dispatches hit the ops' memo. Then
+        ``repro``'s modelled roofline aggregate per (phase, M), which the
+        kernel-phase spans carry (``_modeled``)."""
         top = max(self.max_slots * self.max_len, 1)
         prefill_ms = [1 << i for i in range((top - 1).bit_length() + 1)]
         chunk_ms = ()
@@ -370,6 +380,31 @@ class ContinuousScheduler:
         fused_on = self.device.type == "cuda" and self.cfg.fused_mlp != "off"
         self.fused_plans = (ops.precompute_fused_plans(params, **ms)
                             if fused_on else {})
+        self._phase_model, self._modeled_memo = {}, {}
+        for (_, m, phase), plan in self.gemm_plans.items():
+            agg = self._phase_model.setdefault(
+                (phase, m), {"gemms": 0, "modeled_flops": 0.0,
+                             "modeled_bytes": 0.0, "model_time_s": 0.0})
+            rl = plan.roofline()
+            agg["gemms"] += 1
+            agg["modeled_flops"] += rl["flops"]
+            agg["modeled_bytes"] += rl["bytes"]
+            agg["model_time_s"] += rl["model_time_s"]
+
+    def _modeled(self, phase: str, m: int) -> Optional[Dict[str, float]]:
+        """``repro``'s modelled roofline aggregate for one kernel-phase
+        span: the warmed bucket a dispatch of ``m`` rows hits (the smallest
+        planned M >= m, else the largest), with ``m_bucket``; memoized.
+        The draft's plans (``("draft", ...)`` keys) are not in it."""
+        if (phase, m) in self._modeled_memo:
+            return self._modeled_memo[(phase, m)]
+        buckets = sorted(mb for ph, mb in self._phase_model if ph == phase)
+        out = None
+        if buckets:
+            mb = next((b for b in buckets if b >= m), buckets[-1])
+            out = dict(self._phase_model[(phase, mb)], m_bucket=mb)
+        self._modeled_memo[(phase, m)] = out
+        return out
 
     @property
     def chunker(self) -> Optional[ChunkRunner]:
@@ -530,7 +565,9 @@ class ContinuousScheduler:
                         pid=self._trace_pid,
                         args={"batch": len(group),
                               "prompt_len": int(prompts.shape[1]),
-                              "m": int(prompts.size)})
+                              "m": int(prompts.size),
+                              **(self._modeled("prefill", int(prompts.size))
+                                 or {})})
         if self.cache_mode == "paged":
             self.pool.insert([a for _, _, a in group], req_layers)
         else:
@@ -835,7 +872,9 @@ class ContinuousScheduler:
                         pid=self._trace_pid,
                         args={"rows": len(jobs),
                               "tokens": sum(c for _, _, c in jobs),
-                              "m": self.max_slots * meta["window"], **meta})
+                              "m": self.max_slots * meta["window"], **meta,
+                              **(self._modeled("chunk", self.max_slots
+                                               * meta["window"]) or {})})
         for i, (slot, req, c) in enumerate(jobs):
             if not ok[i]:
                 self._quarantine(slot)
@@ -954,7 +993,9 @@ class ContinuousScheduler:
             # dispatch (or replay) and its run on the device
             tr.complete("decode_step", t_decode, obs_clock.now(),
                         cat="kernel", pid=self._trace_pid,
-                        args={"live": len(self._live), "m": self.max_slots})
+                        args={"live": len(self._live), "m": self.max_slots,
+                              **(self._modeled("decode", self.max_slots)
+                                 or {})})
         for slot in list(self._live):
             req = self._live[slot]
             if not ok[slot]:
@@ -1014,7 +1055,9 @@ class ContinuousScheduler:
             tr.complete("verify", t_verify, obs_clock.now(), cat="kernel",
                         pid=self._trace_pid,
                         args={"live": len(self._live), "k": k,
-                              "m": self.max_slots * (k + 1)})
+                              "m": self.max_slots * (k + 1),
+                              **(self._modeled("verify", self.max_slots
+                                               * (k + 1)) or {})})
         round_slots = round_accepted = 0
         for slot in list(self._live):
             req = self._live[slot]

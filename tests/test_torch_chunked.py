@@ -16,6 +16,7 @@ phases, so there chunked and whole-prompt agree under ``chip_smoke.py``'s
 near-tie rule instead. ``repro``'s mid-prefill injected-OOM test has no
 counterpart: the port's page pool has no fault injection yet."""
 import dataclasses
+import functools
 import json
 import sys
 
@@ -30,7 +31,7 @@ from repro.serving import ContinuousScheduler as RScheduler
 from repro.serving import SchedConfig as RSchedConfig
 from repro.serving import run_open_loop as r_run_open_loop
 from repro_torch.configs import get_config
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from repro_torch.launch import serve
 from repro_torch.models import LM
 from repro_torch.obs import Tracer, load_trace, validate_events
@@ -44,11 +45,21 @@ from test_torch_decode_graph import _buffers
 from test_torch_model import TDT, TOL, _close, _packed_pair
 from test_torch_obs import ROOT, _tracks
 from test_torch_paging import SCENARIOS
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 # repro's tests/test_chunked_prefill.py workload: several lengths no chunk
 # size divides, one shorter than every chunk size, one over 3 chunks
 PLENS = (16, 23, 7, 16, 31, 5)
 GENS = (6, 3, 8, 2, 5, 7)
+
+
+
+
+@functools.lru_cache(maxsize=None)
+def _pair(dtype):
+    """Both packages' reduced 2-layer model on the same weights, built once
+    a dtype for the file."""
+    return _packed_pair(dtype, num_layers=2)
 
 
 # ---------------------------------------------------------------------------
@@ -86,7 +97,7 @@ def test_windows_match_repro(mode, dtype):
     """Two windows per row from per-row offsets (0, 2, 4): S 5, then S 4
     from where each row stopped; the logits of every window position and
     the positions each row reached, against repro's decode_step."""
-    rcfg, rparams, pcfg, pparams = _packed_pair(dtype, num_layers=2)
+    rcfg, rparams, pcfg, pparams = _pair(dtype)
     rcfg = dataclasses.replace(rcfg, paged_attn_impl="jax")
     rlm, plm = RLM(rcfg), LM(pcfg, "cpu")
     max_len = B * T * PAGE // B
@@ -157,7 +168,7 @@ def test_window_equals_one_token_steps_bitwise(mode):
 
 def test_window_runs_under_the_chunk_phase():
     """Every GEMM of a chunk window is planned under the "chunk" phase,
-    which takes B1's prefill tile."""
+    whose tile is the block-shape tuner's under the chunk key."""
     cfg = get_config("ternary-paper", reduced=True, num_layers=2,
                      ternary_min_dim=64)
     cfg, params = serve.build_params(cfg, 0, "cpu", packed=True)
@@ -170,14 +181,17 @@ def test_window_runs_under_the_chunk_phase():
         eng.step()                        # admit + first window
     assert eng.chunk_steps == 1 and plans
     assert {p.phase for p in plans} == {"chunk"}
-    assert {(p.block_m, p.block_n) for p in plans
-            if hasattr(p, "block_m")} == {(64, 128)}
+    tuner = autotune.get_tuner()
+    for p in plans:
+        want = tuner.lookup(p.m, p.k, p.n, impl="dense", phase="chunk")
+        assert (p.block_m, p.block_n) == (want.block_m, want.block_n)
 
 
 # ---------------------------------------------------------------------------
 # Chunked against whole-prompt admission (repro's test_chunked_prefill.py)
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
 def _small():
     cfg = get_config("ternary-paper", reduced=True, num_layers=2,
                      ternary_min_dim=64)
@@ -337,7 +351,7 @@ def test_chunked_engines_give_equal_streams_in_float32(mode, tmp_path):
     """Both chunked engines on the same prompts and weights: equal greedy
     streams, the same sched metrics (keys and counts), the same request
     tracks in their traces."""
-    rcfg, rparams, pcfg, pparams = _packed_pair("float32", num_layers=2)
+    rcfg, rparams, pcfg, pparams = _pair("float32")
     prompts = _workload(pcfg)
     kw = dict(max_slots=3, max_len=48)
     pkw = dict(cache="paged", page_size=4) if mode == "paged" else {}
@@ -393,7 +407,7 @@ def test_open_loop_compressed_matches_repro(kind):
     """``run_open_loop`` at time_scale 0 (every arrival at t = 0) on both
     packages' chunked engines, one schedule: equal streams and the traffic
     block's counts."""
-    rcfg, rparams, pcfg, pparams = _packed_pair("float32", num_layers=2)
+    rcfg, rparams, pcfg, pparams = _pair("float32")
     tc = TrafficConfig(kind=kind, rate=8.0, n_requests=6,
                        prompt_lens=(6, 12, 20), gen_lens=(3, 5), seed=0)
     sched = make_schedule(tc, pcfg.vocab_size, classes=DEFAULT_SLO_CLASSES,

@@ -189,6 +189,51 @@ def test_wrappers_count_launches_and_refuse_bad_inputs(cuda):
         gemm_lib.ternary_gemm_cuda(x, w.packed, w.scale.double())
     with pytest.raises(ValueError, match="contiguous"):
         gemm_lib.ternary_gemm_cuda(x.t(), w.packed)
+    with pytest.raises(ValueError, match="tiles"):
+        gemm_lib.ternary_gemm_cuda(x, w.packed, block_m=128, block_n=128)
+
+
+@pytest.mark.parametrize("m", [8, 40, 200])
+def test_every_tile_gives_the_same_bits(cuda, m):
+    """B1's, B7's (both modes) and B4's tiles and B2/B3's rows per block
+    at a ragged N: every tile's output bitwise equal to the first's (each
+    element adds the same 16-deep chunks in the same order); a tile that
+    is not built raises."""
+    g = _gen(m)
+    k, n = 320, 200
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    w = weights.pack(torch.randn(k, n, generator=g, device=cuda))
+    ys = [gemm_lib.ternary_gemm_cuda(x, w.packed, w.scale, n=n, block_m=bm,
+                                     block_n=bn) for bm, bn in gemm_lib.TILES]
+    assert all(torch.equal(y, ys[0]) for y in ys)
+    tw = weights.pack(torch.randn(k, n, generator=g, device=cuda), "tiled",
+                      tile_k=64, tile_n=32)
+    for db in (False, True):
+        ys = [gemm_lib.ternary_gemm_skip_cuda(
+            x, tw.packed, tw.kt_indices, tw.kt_counts, tw.scale, n=n,
+            tile_k=64, tile_n=32, block_m=bm, db=db)
+            for bm in gemm_lib.SKIP_BLOCK_M]
+        assert all(torch.equal(y, ys[0]) for y in ys)
+    bp = weights.pack(torch.randn(k, n, generator=g, device=cuda),
+                      "bitplane")
+    for fact in (False, True):
+        ys = [bitplane_lib.ternary_gemm_bitplane_cuda(
+            x, bp.plus, bp.minus, bp.scale, factorized=fact, block_m=bm,
+            block_n=bn) for bm, bn in bitplane_lib.TILES]
+        assert all(torch.equal(y, ys[0]) for y in ys)
+    with pytest.raises(ValueError, match="tiles"):
+        bitplane_lib.ternary_gemm_bitplane_cuda(x, bp.plus, bp.minus,
+                                                block_m=32, block_n=64)
+    wi, wg = (weights.pack(torch.randn(k, 256, generator=g, device=cuda))
+              for _ in range(2))
+    wo = weights.pack(torch.randn(256, n, generator=g, device=cuda))
+    args = (wi.packed, wo.packed, wg.packed, wi.scale, None, wg.scale, None,
+            wo.scale, None)
+    ys = [fused_lib.fused_mlp_cuda(x, *args, block_m=bm, strip=st)
+          for bm, st in fused_lib.TILES]
+    assert all(torch.equal(y, ys[0]) for y in ys)
+    with pytest.raises(ValueError, match="tiles"):
+        fused_lib.fused_mlp_cuda(x, *args, block_m=32, strip=128)
 
 
 def _paged_inputs(g, b, h, kv, hd, ps, t, n_pages, lengths, int8):
@@ -379,7 +424,7 @@ def test_skip_kernels_equal_dense_with_unaligned_operands(cuda, phase,
         x = _misaligned(x)
     else:
         words = _misaligned(words)
-    bm = gemm_lib.SKIP_BLOCK_M[phase]
+    bm = 16 if phase == "decode" else 64
     for kw in (dict(), dict(bias=bias, fuse_prelu=True)):
         ys = {db: gemm_lib.ternary_gemm_skip_cuda(
             x, words, w.kt_indices, w.kt_counts, w.scale, kw.get("bias"),
@@ -514,7 +559,7 @@ def test_new_wrappers_count_launches_and_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError, match="kt_counts"):
         skip(x, w.packed, w.kt_indices, w.kt_counts.long(), **kw)
     with pytest.raises(ValueError, match="block_m"):
-        skip(x, *args, block_m=32, **kw)
+        skip(x, *args, block_m=48, **kw)
     assert (skip.launches, skip.launches_db) == (before[0] + 1,
                                                 before[1] + 1)
     bp = weights.pack(torch.randn(128, 64, device=cuda), "bitplane")

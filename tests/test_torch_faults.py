@@ -55,6 +55,7 @@ from repro_torch.serving.faults import FAIL_DEADLINE, FAIL_NUMERIC
 from repro_torch.spec import SpecConfig
 
 from test_torch_model import _packed_pair
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +145,14 @@ def _reference(pk, prompts, gen=8, **kw):
     return [list(r.tokens) for r in reqs]
 
 
+@functools.lru_cache(maxsize=None)
+def _fault_free(name):
+    """One package's fault-free streams of the default workload, run once
+    and shared by the cases that compare with them."""
+    pk = _package(name)
+    return _reference(pk, _workload(pk.cfg))
+
+
 PKGS = pytest.mark.parametrize("pkg", ["repro", "port"])
 
 
@@ -151,7 +160,7 @@ PKGS = pytest.mark.parametrize("pkg", ["repro", "port"])
 def test_nan_quarantine_isolates_slot_and_retry_is_token_exact(pkg):
     pk = _package(pkg)
     prompts = _workload(pk.cfg)
-    ref = _reference(pk, prompts)
+    ref = _fault_free(pkg)
     eng = _engine(pk, faults=pk.faults(nan_at=(3, 5)),
                   resilience=pk.resilience(max_retries=2))
     reqs = [eng.submit(p, 8) for p in prompts]
@@ -171,7 +180,7 @@ def test_nan_quarantine_isolates_slot_and_retry_is_token_exact(pkg):
 def test_guard_disabled_outputs_unchanged(pkg):
     pk = _package(pkg)
     prompts = _workload(pk.cfg)
-    a = _reference(pk, prompts)
+    a = _fault_free(pkg)
     eng = _engine(pk, resilience=pk.resilience())
     reqs = [eng.submit(p, 8) for p in prompts]
     m = eng.run()

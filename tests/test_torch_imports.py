@@ -140,3 +140,10 @@ def test_the_checks_cover_the_fault_and_tcsc_modules():
     assert {"serving/faults.py", "serving/engine.py", "paging/pages.py",
             "launch/serve.py", "core/formats.py", "core/quantize.py",
             "kernels/ref.py"} <= names
+
+
+def test_the_checks_cover_the_tuner():
+    names = {p.relative_to(PORT).as_posix() for p in FILES
+             if PORT in p.parents}
+    assert {"kernels/autotune.py", "kernels/__init__.py",
+            "kernels/ops.py"} <= names

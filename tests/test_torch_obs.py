@@ -339,7 +339,15 @@ def test_engine_trace_matches_repro(mode, tmp_path):
     assert rep["ttft_waterfall"][0]["ttft_s"] == pytest.approx(
         pm["latency"]["ttft_s"]["max"], abs=2e-6)
     assert 0.0 < rep["interleave"]["busy_frac"] <= 1.0
-    assert rep["measured_vs_modeled"] == {}       # no modelled rooflines
+    # the kernel-phase spans carry the warmed plans' modelled roofline, as
+    # repro's do: the same rows, one per span
+    rrep = trace_report.report(str(rpath))
+    mvm = rep["measured_vs_modeled"]
+    assert set(mvm) == set(rrep["measured_vs_modeled"]) == {"decode_step",
+                                                            "prefill"}
+    assert mvm["decode_step"]["n"] == pm["decode_steps"]
+    assert mvm["prefill"]["n"] == pm["prefill_steps"]
+    assert all(row["modeled_s"] > 0 for row in mvm.values())
     json.dumps(rep)
 
 

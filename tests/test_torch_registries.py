@@ -7,8 +7,10 @@ reduced packed ``ternary-paper`` tree, ``repro``'s errors for an unknown
 row, and an engine that honours ``paged_attn=`` and
 ``cfg.paged_attn_impl`` as ``repro``'s does.
 
-Blocks are not compared: ``repro``'s come from its TPU autotuner, the
-port's from its kernels' fixed tiles (``fused_mlp.VARIANTS``). On the CPU
+Blocks are not compared: both packages take them from their block-shape
+tuner under the same fused key (``autotune.fused_cache_key``), whose
+grids differ by design (the port's fused entry names one of B4's tiles,
+``fused_mlp.TILES``); the keys are compared. On the CPU
 every row runs a plain version, so the paged rows are held bitwise to
 ``paged_decode_attention_ref`` (which ``tests/test_torch_paging.py``
 holds against ``repro``'s lowerings) and the engines' streams bitwise to
@@ -23,10 +25,12 @@ import torch
 
 from repro.core import formats as rformats
 from repro.core import weights as rweights
+from repro.kernels import autotune as rautotune
 from repro.kernels import ops as rops
 from repro.serving import ContinuousScheduler as RScheduler
 from repro.serving import SchedConfig as RSchedConfig
 from repro_torch.core import weights
+from repro_torch.kernels import autotune
 from repro_torch.kernels import fused_mlp as fused_lib
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
@@ -114,14 +118,26 @@ def test_fused_mlp_plan_matches_repro(name, gated):
 
 
 def test_fused_plan_blocks_are_b4s_tiles():
-    _, pw = BLOCKS["dense2bit"]
-    for phase, variant in fused_lib.VARIANTS.items():
+    """The fused row's blocks are the B4 tile the tuner's fused entry (under
+    repro's key, composed from the chain plans' pinned sub-keys) names;
+    the entry is in the tuner's cache under that key after planning."""
+    rw, pw = BLOCKS["dense2bit"]
+    tuner = autotune.get_tuner()
+    for phase in ops.SERVING_PHASES:
         plan = ops.fused_mlp_plan(pw["in"], pw["out"], pw["gate"], m=8,
                                   phase=phase)
         assert plan.impl == "pallas"
+        key = autotune.fused_cache_key(
+            8, pw["in"].k, pw["in"].n, pw["out"].n, pw["in"].occupancy(),
+            pw["out"].occupancy(), phase=phase)
+        assert key == rautotune.fused_cache_key(
+            8, rw["in"].k, rw["in"].n, rw["out"].n, rw["in"].occupancy(),
+            rw["out"].occupancy(), phase=phase)
+        entry = tuner.entries()[key]
+        tile = fused_lib.tile_for(entry.block_m)
         assert (plan.block_m, plan.block_n1, plan.block_n2) == (
-            fused_lib.BLOCK_M[variant], fused_lib.STRIP[variant],
-            fused_lib.STRIP[variant])
+            tile[0], tile[1], tile[1])
+        assert tile in fused_lib.TILES
     plan = ops.fused_mlp_plan(pw["in"], pw["out"], pw["gate"], m=8,
                               impl="chain")
     assert (plan.block_m, plan.block_n1, plan.block_k2) == (None,) * 3

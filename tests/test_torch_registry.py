@@ -5,9 +5,10 @@ every registered row computes, on the CPU, what ``repro``'s ``ref``
 lowerings compute, and what its own Pallas kernels compute in interpret
 mode.
 
-The dense and bitplane rows' blocks are the card kernels' fixed tiles in
-the port (``ternary_gemm.TILES``, K steps of 64) and ``repro``'s TPU
-autotuner's picks there, so those are not compared; ``block_m`` never is.
+Both packages take every other block from their block-shape tuner, under
+the same key (``autotune.cache_key``); the grids differ by design (the
+port's are the card kernels' tiles, ``ternary_gemm.TILES``, K steps of
+64; ``repro``'s the TPU's), so the keys are compared, not the blocks.
 
 Tolerances: float32 outputs within 1e-4 x max|y| (the same exact products
 summed in another order); bfloat16 within 1e-2 x max|y| (that reordering
@@ -24,10 +25,13 @@ import torch
 
 from repro.core import formats as rformats
 from repro.core import weights as rweights
+from repro.kernels import autotune as rautotune
 from repro.kernels import ops as rops
 from repro_torch.core import formats, weights
+from repro_torch.kernels import autotune
 from repro_torch.kernels import ops
 from repro_torch.kernels import ternary_gemm as gemm_lib
+from repro_torch.kernels import ternary_gemm_bitplane as bitplane_lib
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 1e-2)}
@@ -72,6 +76,21 @@ def _containers():
 CONTAINERS = _containers()
 
 
+def _tuner_keys(lib, w, plan):
+    """The key a package's planner looks its blocks up under: the dense
+    key at sparsity 1.0, the skip key pinned to the pack's tiles, the
+    bitplane key (repro's _blocks_dense / _blocks_skip_impl /
+    _blocks_bitplane)."""
+    if plan.impl == "dense":
+        return lib.cache_key(plan.m, w.k, w.n, 1.0, "dense",
+                             phase=plan.phase)
+    if plan.impl in ("skip", "skip_db"):
+        return lib.cache_key(plan.m, w.k, w.n, w.occupancy(), plan.impl,
+                             fixed_n=w.tile_n, fixed_k=w.tile_k,
+                             phase=plan.phase)
+    return lib.cache_key(plan.m, w.k, w.n, impl=plan.impl, phase=plan.phase)
+
+
 def _impls(fmt):
     return sorted(i for f, i in ops.kernel_registry() if f == fmt)
 
@@ -97,8 +116,14 @@ def test_plans_match_repro(name, m, phase):
         if got.impl in BLOCKS_FROM_PACK:
             assert (got.block_n, got.block_k) == (ref.block_n, ref.block_k)
         else:
-            assert (got.block_m, got.block_n) in gemm_lib.TILES.values()
+            tiles = (bitplane_lib.TILES if got.format == "bitplane"
+                     else gemm_lib.TILES)
+            assert (got.block_m, got.block_n) in tiles
             assert got.block_k == gemm_lib.BLOCK_K
+        if got.impl != "ref":
+            # the tuner key each package resolves its blocks under
+            assert _tuner_keys(autotune, got_w, got) == \
+                _tuner_keys(rautotune, ref_w, ref), impl
 
 
 def test_auto_switches_at_the_occupancy_cutoff():
@@ -115,20 +140,22 @@ def test_auto_switches_at_the_occupancy_cutoff():
         assert rops.ternary_gemm_plan(ref_w, 8).impl == want
 
 
-@pytest.mark.parametrize("phase,tile", [
-    (phase, gemm_lib.TILES[gemm_lib.VARIANTS[phase]])
-    for phase in ("decode", "prefill")])
-def test_dense2bit_plan_keeps_the_serving_tiles(phase, tile):
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+def test_dense2bit_plan_keeps_the_serving_tiles(phase):
+    """Under a phase scope the plan is the tuner's tile for the phase's
+    dense key at sparsity 1.0; outside one, the key has no phase (as in
+    repro), and M 16 takes a 16-row tile while M 17 may not."""
     w = CONTAINERS["dense2bit"][0]
+    tuner = autotune.get_tuner()
     with ops.serving_phase(phase):
         plan = ops.ternary_gemm_plan(w, 300)
+    want = tuner.lookup(300, w.k, w.n, sparsity=1.0, impl="dense",
+                        phase=phase)
     assert (plan.impl, plan.phase) == ("dense", phase)
-    assert (plan.block_m, plan.block_n, plan.block_k) == (*tile, 64)
-    # outside a phase scope M <= 16 is decode-shaped
-    decode, prefill = (gemm_lib.TILES[gemm_lib.VARIANTS[p]]
-                       for p in ("decode", "prefill"))
-    assert (ops.ternary_gemm_plan(w, 16).block_m,
-            ops.ternary_gemm_plan(w, 17).block_m) == (decode[0], prefill[0])
+    assert (plan.block_m, plan.block_n, plan.block_k) == (
+        want.block_m, want.block_n, 64)
+    assert ops.ternary_gemm_plan(w, 16).block_m == 16
+    assert ops.ternary_gemm_plan(w, 17).block_m in (16, 32)
 
 
 def test_plan_errors_match_repro():
@@ -147,14 +174,25 @@ def test_plan_errors_match_repro():
     with pytest.raises(ValueError, match="block_k"):
         ops.ternary_gemm_plan(CONTAINERS["dense2bit"][0], 8, block_k=256)
     with pytest.raises(ValueError, match="tiles"):
-        ops.ternary_gemm_plan(CONTAINERS["dense2bit"][0], 8, block_m=32)
+        ops.ternary_gemm_plan(CONTAINERS["dense2bit"][0], 8, block_m=48)
+    with pytest.raises(ValueError, match="block_m=48 must be one of"):
+        ops.ternary_gemm_plan(tiled, 8, impl="skip", block_m=48)
     with pytest.raises(ValueError, match="phase"):
         ops.ternary_gemm_plan(tiled, 8, phase="nope")
-    # "verify" is a serving phase, as in repro; it plans the decode tiles
-    assert ops.ternary_gemm_plan(tiled, 40, phase="verify").block_m == \
-        ops.ternary_gemm_plan(tiled, 40, phase="decode").block_m == 16
-    assert ops.ternary_gemm_plan(CONTAINERS["dense2bit"][0], 40,
-                                 phase="verify").block_n == 64
+    # "verify" is a serving phase, as in repro; it plans from the decode
+    # phase's widened grid, under its own key
+    tuner = autotune.get_tuner()
+    for w, impl in ((tiled, "skip_db"), (CONTAINERS["dense2bit"][0],
+                                         "dense")):
+        plan = ops.ternary_gemm_plan(w, 40, phase="verify")
+        pins = (dict(fixed_n=w.tile_n, fixed_k=w.tile_k,
+                     sparsity=w.occupancy()) if impl == "skip_db" else {})
+        want = tuner.lookup(40, w.k, w.n, impl=impl, phase="verify", **pins)
+        assert (plan.impl, plan.block_m) == (impl, want.block_m)
+        assert want in tuner.candidates(40, w.k, w.n, phase="verify",
+                                        impl=impl, **{
+                                            k: v for k, v in pins.items()
+                                            if k != "sparsity"})
 
 
 def test_raw_operands_raise_type_error_like_repro():
@@ -195,9 +233,7 @@ def test_traffic_matches_repro(name, m):
         ref = dataclasses.replace(
             rops.ternary_gemm_plan(ref_w, m, impl=impl),
             block_m=got.block_m, block_n=got.block_n, block_k=got.block_k)
-        want = ref.traffic()
-        assert got.traffic() == {"flops": want["flops"],
-                                 "bytes": want["bytes"]}, impl
+        assert got.traffic() == ref.traffic(), impl
 
 
 def _epilogue_operands(rng, n, kind):

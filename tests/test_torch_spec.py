@@ -51,6 +51,7 @@ from repro_torch.spec import (SpecConfig, build_draft, external, layer_skip,
 from test_torch_decode_graph import _buffers
 from test_torch_model import _packed_pair, repro_tree_to_numpy
 from test_torch_paging import _Lockstep
+from torch_cpu_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -334,16 +335,32 @@ MODES = {"dense": {}, "paged": dict(cache="paged", page_size=4),
                                            admission="fifo"))}
 
 
+@pytest.fixture(scope="module")
+def non_spec_streams(bf16_model):
+    """The non-spec engine's streams of the 6-request workload per mode,
+    run once and shared by every k."""
+    cfg, params = bf16_model
+    prompts, gens = _workload(cfg, 6)
+    done = {}
+
+    def streams(mode):
+        if mode not in done:
+            done[mode] = _run(cfg, params, prompts, gens, 40,
+                              **MODES[mode])[0]
+        return done[mode]
+    return streams
+
+
 @pytest.mark.parametrize("mode", sorted(MODES))
 @pytest.mark.parametrize("k", [1, 2, 4])
-def test_spec_engine_token_exact(bf16_model, mode, k):
+def test_spec_engine_token_exact(bf16_model, non_spec_streams, mode, k):
     """6 mixed-budget requests through 2 slots: the spec engine's streams
     are the non-spec engine's; the spec block's counts are consistent
     and the pools drain clean."""
     cfg, params = bf16_model
     prompts, gens = _workload(cfg, 6)
     kw = MODES[mode]
-    base, bm, _ = _run(cfg, params, prompts, gens, 40, **kw)
+    base = non_spec_streams(mode)
     outs, m, eng = _run(cfg, params, prompts, gens, 40,
                         spec=SpecConfig(draft="layer_skip", k=k,
                                         draft_layers=2), **kw)
