@@ -197,6 +197,30 @@ the first prefill group's M, against their plain versions, timed (rows
 of the ``kernels`` line with ``"model"``); and a ``families summary:``
 line (tok/s, TPOT p50, decode-step p50, launches a step, the profile,
 bank decoding).
+``frontends`` serves the encoder-decoder and VLM families (``FRONTENDS``;
+each config with ``quantization="ternary"``, drawn from the seed and
+packed layer by layer) through the static server, which the continuous
+engine leaves them to: seamless-m4t-large-v2 whole (24 encoder and 24
+decoder layers, d 1024, ff 8192, biases, vocab 256206) and internvl2-76b
+at full width with 4 of its 80 layers (d 8192, 64 heads over 8, ff
+28672); 8 requests at batch 8, 2048 encoder frames or 1024 vision rows
+and 128 text tokens each, budgets {32, 64}; each under attn_impl "flash"
+and "pallas". Each: the prefill's and one decode step's logits through
+the kernels against the plain path (``family_plain_check``, B1's plain
+row, the chain and, under "pallas", blockwise attention for B6), every
+budget of in-range tokens, B1 and B4 launched, B6 ``enc_layers`` times a
+prefill under "pallas" (the encoder) and never under "flash", B5 never;
+the "pallas" streams against the "flash" ones (equal or near-tie
+splits); one prefill's and one decode step's launches, the prefill's
+wall and its encoder's share, the decode step's p50 and, from one
+profiled step, the cross-attention K/V projections' share of its device
+time. Then seamless's new kernel shapes against their plain versions,
+timed (B1 at the cross K/V, M 16384 with a bias, and at the lm head's
+ragged N 256208, M 8 and 1024; B4 with biases at M 8 and 1024; B6
+non-causal at (128, 2048, 64) beside SDPA), three QAT steps of each model
+at full width (seamless 2 + 2 layers through the supervisor; internvl2 2
+layers with a 32768-token vocabulary, uncheckpointed), and a ``frontends
+summary:`` line. ``--only frontends`` builds and runs this phase alone.
 ``tcsc`` runs the paper's TCSC formats on the card (plain PyTorch: no TPU
 kernel computes them) at K = N = 4096, s 1/2 and 1/16, M 8 and 64: each
 format's arrays round-trip, each matmul agrees with the plain dense
@@ -269,7 +293,7 @@ host/device summary`` JSON line (decode_graph's readings, the trace's
 spans, the profiles), one ``{"kernels": ...}`` JSON line (each kernel's launches summed over the
 path runs — serving dense, paged bf16 and int8, the chunked runs, the
 faults runs, the spec runs, the modes runs, mlp_formats, the families
-runs, gemm_formats, train and eval —
+and frontends runs, gemm_formats, train and eval —
 with the per-run
 counts
 under ``runs``,
@@ -462,6 +486,33 @@ FAMILIES = {
                           gen_lens=(16, 32), paged_exact=False,
                           layer_forced=False),
 }
+# frontends: the encoder-decoder and VLM families through the static server
+# (the continuous engine refuses them, as repro's does), each model
+# get_config(name, quantization="ternary", **overrides), packed layer by
+# layer. seamless whole (24 encoder + 24 decoder layers); internvl2 4 of
+# its 80 layers: every layer is the same kind (period 1, ~856 M parameters
+# each), cut for init + pack time as mixtral's are. prompt_len counts the
+# frontend rows, so the text prompts are 128 tokens after 2048 encoder
+# frames or 1024 vision rows (SyntheticLM's text_len).
+FRONTENDS = {
+    "seamless-m4t-large-v2": dict(overrides={}, requests=8, batch=8,
+                                  prompt_len=2048 + 128, gen_lens=(32, 64)),
+    "internvl2-76b": dict(overrides=dict(num_layers=4), requests=8, batch=8,
+                          prompt_len=1024 + 128, gen_lens=(32, 64)),
+}
+# the train check: 3 QAT steps of each at full width, batch 2, grad_accum 1
+# (the configs' 4 and 8 do not divide 2); internvl2 2 layers with a
+# 32768-token vocabulary: at its 128256 (3.8 B parameters) the parameters,
+# gradients, AdamW's two moments and the update's new copies of all three
+# would pass the card's 80 GB (70.3 GiB peak at 32768); its state is not
+# checkpointed (27 GB written in ~60 s of the time limit)
+FRONTEND_TRAIN = {
+    "seamless-m4t-large-v2": dict(num_layers=2, enc_layers=2,
+                                  seq=2048 + 128, checkpoint=True),
+    "internvl2-76b": dict(num_layers=2, vocab_size=32768, seq=1024 + 128,
+                          checkpoint=False),
+}
+FRONTEND_STEPS = 10             # decode steps timed for the p50
 # a layer-forced block's output through the kernels against the plain
 # path's on the same input: within two bf16 ulps of its max (each GEMM
 # output rounds at most one ulp the other way; sound runs read 0.0036)
@@ -612,12 +663,14 @@ def ptxas_report(build, name: str):
     return out
 
 
-def _packed_weight(gen, k, n):
-    """A dense2bit pack of latent weights as LM.init draws them: N(0, 1/k)."""
+def _packed_weight(gen, k, n, bias=False):
+    """A dense2bit pack of latent weights as LM.init draws them: N(0, 1/k);
+    with ``bias``, a random f32 bias inside the container."""
     import torch
     from repro_torch.core import weights
-    return weights.pack(torch.randn(k, n, generator=gen, device="cuda")
-                        / k ** 0.5)
+    w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+    b = torch.randn(n, generator=gen, device="cuda") * 0.1 if bias else None
+    return weights.pack(w, bias=b)
 
 
 def _serving_phase(m):
@@ -628,22 +681,24 @@ def _iters_for(m):
     return 20 if m <= 1024 else 5
 
 
-def gemm_row(gen, m, k, n, phase, flush):
+def gemm_row(gen, m, k, n, phase, flush, bias=False):
     """B1 through ops under ``phase`` against its plain version, timed:
     through ops (``ms``), its wrapper alone (``kernel_ms``), the plain
-    version and cuBLAS on the decoded weights."""
+    version and cuBLAS on the decoded weights (plus the bias, with
+    ``bias``: a pack carrying one)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import ternary_gemm as gemm_lib
 
-    w = _packed_weight(gen, k, n)
+    w = _packed_weight(gen, k, n, bias)
     x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
     with ops.serving_phase(phase):
         got = ops.ternary_gemm(x, w)
-        ref = gemm_lib.ternary_gemm_ref(x, w.packed, w.scale)
+        ref = gemm_lib.ternary_gemm_ref(x, w.packed, w.scale, w.bias)
         err = check_close(f"ternary_gemm M={m} K={k} N={n}", got, ref)
         w_eff = w.materialize(torch.float32, with_scale=True).to(
             torch.bfloat16)
+        b_eff = None if w.bias is None else w.bias.to(torch.bfloat16)
         iters = _iters_for(m)
         plan = ops.ternary_gemm_plan(w, m)
         row = {
@@ -655,36 +710,44 @@ def gemm_row(gen, m, k, n, phase, flush):
                 x, w.packed, w.scale, w.bias, n=w.n, block_m=plan.block_m,
                 block_n=plan.block_n), iters, flush),
             "plain_ms": cuda_ms(lambda: gemm_lib.ternary_gemm_ref(
-                x, w.packed, w.scale), iters, flush),
-            "library_ms": cuda_ms(lambda: torch.matmul(x, w_eff), iters,
-                                  flush),
+                x, w.packed, w.scale, w.bias), iters, flush),
+            "library_ms": cuda_ms(
+                (lambda: torch.matmul(x, w_eff)) if b_eff is None else
+                (lambda: torch.addmm(b_eff, x, w_eff)), iters, flush),
         }
-    nbytes = m * k * 2 + w.packed.numel() * 4 + n * 4 + m * n * 2
+    if bias:
+        row["bias"] = True
+    nbytes = (m * k * 2 + w.packed.numel() * 4 + n * 4 * (1 + bias)
+              + m * n * 2)
     row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * m * w.nnz)
     print(f"ternary_gemm M={m} K={k} N={n} ({phase}): " + json.dumps(row),
           flush=True)
     return row
 
 
-def mlp_row(gen, m, k, ff, n, phase, flush):
+def mlp_row(gen, m, k, ff, n, phase, flush, bias=False):
     """B4 through ops under ``phase`` against its plain version, timed as
-    ``gemm_row`` times B1 (the library: cuBLAS's SwiGLU chain)."""
+    ``gemm_row`` times B1 (the library: cuBLAS's SwiGLU chain); with
+    ``bias``, each projection's pack carries a bias."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import fused_mlp as fused_lib
     from repro_torch.kernels import ops
 
-    wi, wg, wo = (_packed_weight(gen, a, b)
+    wi, wg, wo = (_packed_weight(gen, a, b, bias)
                   for a, b in ((k, ff), (k, ff), (ff, n)))
     x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
-    plain_args = (x, wi.packed, wo.packed, wg.packed, wi.scale, None,
-                  wg.scale, None, wo.scale, None)
+    plain_args = (x, wi.packed, wo.packed, wg.packed, wi.scale, wi.bias,
+                  wg.scale, wg.bias, wo.scale, wo.bias)
     with ops.serving_phase(phase):
         got = ops.fused_mlp(x, wi, wo, wg)
         ref = fused_lib.fused_mlp_ref(*plain_args)
         err = check_close(f"fused_mlp M={m} K={k} ff={ff} N={n}", got, ref)
         ei, eg, eo = (c.materialize(torch.float32, with_scale=True).to(
             torch.bfloat16) for c in (wi, wg, wo))
+        bi, bg, bo = (torch.zeros(c.n, device="cuda", dtype=torch.bfloat16)
+                      if c.bias is None else c.bias.to(torch.bfloat16)
+                      for c in (wi, wg, wo))
         iters = _iters_for(m)
         plan = ops.fused_mlp_plan(wi, wo, wg, m=m)
         row = {
@@ -699,11 +762,16 @@ def mlp_row(gen, m, k, ff, n, phase, flush):
                 *plain_args), iters, flush),
             # cuBLAS chain over pre-decoded, pre-scaled bf16 weights
             "library_ms": cuda_ms(
-                lambda: (F.silu(x @ eg) * (x @ ei)) @ eo, iters, flush),
+                (lambda: (F.silu(x @ eg) * (x @ ei)) @ eo) if not bias else
+                (lambda: torch.addmm(bo, F.silu(torch.addmm(bg, x, eg))
+                                     * torch.addmm(bi, x, ei), eo)),
+                iters, flush),
         }
+    if bias:
+        row["bias"] = True
     nbytes = (m * k * 2 + (wi.packed.numel() + wg.packed.numel()
                            + wo.packed.numel()) * 4
-              + (2 * ff + n) * 4 + m * n * 2)
+              + (2 * ff + n) * 4 * (1 + bias) + m * n * 2)
     ops_needed = 2.0 * m * (wi.nnz + wg.nnz + wo.nnz)
     row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_needed)
     print(f"fused_mlp M={m} K={k} ff={ff} N={n} ({phase}): "
@@ -972,7 +1040,7 @@ def serve_phase():
     from repro_torch.launch import serve
 
     cfg = get_config("ternary-paper")
-    prompts, gens = serve.build_workload(
+    prompts, gens, _ = serve.build_workload(
         cfg, SERVE["requests"], SERVE["prompt_len"], SERVE["gen_lens"],
         seed=SEED)
     t0 = time.perf_counter()
@@ -1335,14 +1403,15 @@ def trace_check(tracer, metrics, label="dense graph"):
     return spans
 
 
-def _split_check(what, cfg, params, prompt, ref, got):
+def _split_check(what, cfg, params, prompt, ref, got, front=None):
     """Where two greedy streams of one request part, and what ``got`` does
     after: prefill the prompt and ``got``'s tokens (the card's prefill
-    path, teacher-forced) and read, at every position from the split on,
-    how far the token ``got`` chose lies below the prefill's top logit
-    (its lag). Fails unless both streams' tokens at the split and every
-    later token of ``got`` lag by at most LOGIT_TOL, an absolute bound
-    (near ties only)."""
+    path, teacher-forced; ``front``: the request's frontend rows, as
+    ``{"vision_embeds" | "enc_embeds": (S_front, d)}``) and read, at
+    every position from the split on, how far the token ``got`` chose
+    lies below the prefill's top logit (its lag). Fails unless both
+    streams' tokens at the split and every later token of ``got`` lag by
+    at most LOGIT_TOL, an absolute bound (near ties only)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -1350,10 +1419,14 @@ def _split_check(what, cfg, params, prompt, ref, got):
 
     j = int(np.nonzero(ref != got)[0][0])
     seq = np.concatenate([prompt, got[:-1]]).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(seq[None], device="cuda")}
+    for k, v in (front or {}).items():
+        batch[k] = torch.as_tensor(v[None], device="cuda")
+    rows = batch.get("vision_embeds", batch["tokens"][:, :0]).shape[1]
     with torch.no_grad(), ops.serving_phase("prefill"):
         _, logits = LM(cfg, "cuda").prefill(
-            params, {"tokens": torch.as_tensor(seq[None], device="cuda")},
-            len(seq), logits_from=len(prompt) - 1)
+            params, batch, len(seq) + rows,
+            logits_from=len(prompt) - 1 - len(seq))
     rows = logits[0].float()          # row t predicts got[t]
     top = rows.max(dim=-1).values
     idx = torch.as_tensor(got, dtype=torch.long, device=rows.device)
@@ -1377,9 +1450,11 @@ def _split_check(what, cfg, params, prompt, ref, got):
     return split
 
 
-def streams_or_near_ties(what, cfg, params, prompts, ref_outs, got_outs):
+def streams_or_near_ties(what, cfg, params, prompts, ref_outs, got_outs,
+                         extras=None):
     """Equal streams, or each split at a near tie and every later token a
-    near-greedy one (``_split_check``)."""
+    near-greedy one (``_split_check``; ``extras``: the workload's
+    frontend rows, a request's row with its prompt)."""
     import numpy as np
     splits = {}
     for i, (p, a, b) in enumerate(zip(prompts, ref_outs, got_outs)):
@@ -1387,8 +1462,9 @@ def streams_or_near_ties(what, cfg, params, prompts, ref_outs, got_outs):
             raise AssertionError(f"{what}: request {i}: {len(b)} tokens "
                                  f"against {len(a)}")
         if not np.array_equal(a, b):
-            splits[i] = _split_check(f"{what} request {i}", cfg, params,
-                                     p, a, b)
+            splits[i] = _split_check(
+                f"{what} request {i}", cfg, params, p, a, b,
+                {k: v[i] for k, v in (extras or {}).items()})
     print(f"{what}: {len(prompts) - len(splits)}/{len(prompts)} streams "
           f"equal, {len(splits)} split at near ties", flush=True)
     return splits
@@ -4089,7 +4165,8 @@ def _layer_rel_d(got, ref):
             for g, r in zip(got, ref)]
 
 
-def family_plain_check(name, cfg, params, prompts, max_len, forced):
+def family_plain_check(name, cfg, params, prompts, max_len, forced,
+                       extras=None, tag="families"):
     """The prefill's last-position logits and one decode step's logits
     through the kernels against the plain path on the card (the same
     weights and inputs with ``ternary_kernel="xla"``: B1's plain row, the
@@ -4107,16 +4184,24 @@ def family_plain_check(name, cfg, params, prompts, max_len, forced):
     logits must lie within WITNESS_FACTOR times the witness's distance (or
     LOGIT_TOL): what the model itself makes of one rounding bounds what
     the kernels' roundings may do. Both per-layer distance curves over
-    the prefill's blocks are reported."""
+    the prefill's blocks are reported. ``extras``: the prompts' frontend
+    rows (a VLM's vision rows, an encoder-decoder's frames; its encoder
+    blocks count among the prefill's blocks); ``tag`` heads the lines."""
     import dataclasses
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models import LM
 
-    plain = dataclasses.replace(cfg, ternary_kernel="xla")
-    toks = torch.as_tensor(prompts, device="cuda")
-    b, s = prompts.shape
-    pos = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    # the plain path: B1's plain row and the MLP chain, and under
+    # attn_impl "pallas" the blockwise attention in B6's place
+    plain = dataclasses.replace(
+        cfg, ternary_kernel="xla",
+        attn_impl="flash" if cfg.attn_impl == "pallas" else cfg.attn_impl)
+    batch = {"tokens": torch.as_tensor(prompts, device="cuda")}
+    for k, v in (extras or {}).items():
+        batch[k] = torch.as_tensor(v, device="cuda")
+    b = prompts.shape[0]
+    n = cfg.num_layers + cfg.enc_layers      # a prefill's blocks
     out, routes, layers, nxt = {}, {}, {}, None
     gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
     with torch.no_grad():
@@ -4128,28 +4213,28 @@ def family_plain_check(name, cfg, params, prompts, max_len, forced):
             route = routes["plain"] if mode == "replay" else []
             replay = mode == "replay" and forced
             book = {"in": layers["plain"]["in"] if replay else [], "out": []}
-            nudge = (gen, cfg.num_layers) if label == "witness" else None
+            nudge = (gen, n) if label == "witness" else None
             force = _layer_inputs("replay" if replay else "record", book,
                                   nudge)
             with _routing(mode, route), force:
                 with ops.serving_phase("prefill"):
-                    cache, logits = model.prefill(params, {"tokens": toks},
-                                                  max_len)
+                    cache, logits = model.prefill(params, batch, max_len)
                 if nxt is None:
                     nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+                pos = cache["pos"].expand(b).contiguous()
                 with ops.serving_phase("decode"):
-                    step, _ = model.decode_step(
-                        params, {"layers": cache["layers"], "pos": pos}, nxt)
+                    step, _ = model.decode_step(params, dict(cache, pos=pos),
+                                                nxt)
             routes.setdefault(label, route)
             layers[label] = book
             out[label] = (logits[:, -1].clone(), step[:, 0].clone())
             del cache
     ref = out["plain"]
     how = "layer-forced, " if forced else ""
-    _compare_logits(f"families {name}: prefill, kernels vs plain path on "
+    _compare_logits(f"{tag} {name}: prefill, kernels vs plain path on "
                     f"the card ({how}routing pinned)", ref[0],
                     out["kernels"][0], LOGIT_TOL)
-    _compare_logits(f"families {name}: one decode step, kernels vs plain "
+    _compare_logits(f"{tag} {name}: one decode step, kernels vs plain "
                     f"path on the card ({how}routing pinned)", ref[1],
                     out["kernels"][1], LOGIT_TOL)
 
@@ -4163,7 +4248,6 @@ def family_plain_check(name, cfg, params, prompts, max_len, forced):
     def max_d(label, i):
         return float((out[label][i].float() - ref[i].float()).abs().max())
 
-    n = cfg.num_layers
     scale = float(ref[0].float().abs().max())
     report = {"gate": ("layer_forced" if forced else "end_to_end")
               + ", routing pinned",
@@ -4184,11 +4268,11 @@ def family_plain_check(name, cfg, params, prompts, max_len, forced):
                                  layers["plain"]["out"])
         report["forced_layer_rel_d"] = per_layer[:n]
         report["forced_layer_max_rel_d"] = max(per_layer)
-    print(f"families {name}: kernels vs plain, free-running, and the "
+    print(f"{tag} {name}: kernels vs plain, free-running, and the "
           f"one-ulp witness: " + json.dumps(report), flush=True)
     if forced and report["forced_layer_max_rel_d"] > FORCED_LAYER_TOL:
         raise AssertionError(
-            f"families {name}: a layer-forced block's output through the "
+            f"{tag} {name}: a layer-forced block's output through the "
             f"kernels lies {report['forced_layer_max_rel_d']} of its max "
             f"from the plain path's (bound {FORCED_LAYER_TOL})")
     for i, what in enumerate(("prefill", "step")):
@@ -4196,7 +4280,7 @@ def family_plain_check(name, cfg, params, prompts, max_len, forced):
         bound = max(LOGIT_TOL * scale, WITNESS_FACTOR * witness)
         if free > bound:
             raise AssertionError(
-                f"families {name}: the free-running {what} logits through "
+                f"{tag} {name}: the free-running {what} logits through "
                 f"the kernels lie {free} from the plain path's, more than "
                 f"{WITNESS_FACTOR} x the one-ulp witness's {witness} and "
                 f"LOGIT_TOL x max|logit| ({LOGIT_TOL * scale})")
@@ -4300,7 +4384,7 @@ def family_phase(name, spec, flush):
           f"containers in {time.perf_counter() - t0:.2f}s, "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB peak",
           flush=True)
-    prompts, gens = serve.build_workload(cfg, spec["requests"],
+    prompts, gens, _ = serve.build_workload(cfg, spec["requests"],
                                          spec["prompt_len"],
                                          spec["gen_lens"], seed=SEED)
     spec = dict(spec, max_len=spec["prompt_len"] + max(spec["gen_lens"]) + 1)
@@ -4375,6 +4459,412 @@ def families_phase(flush):
         for k, v in fam_rows.items():
             rows[k] += v
     print("families summary: " + json.dumps(summary), flush=True)
+    return rows, runs
+
+
+def _frontend_batch(prompts, extras):
+    """The prefill batch of ``prompts`` and their frontend rows, on the
+    card."""
+    import torch
+    batch = {"tokens": torch.as_tensor(prompts, device="cuda")}
+    for k, v in extras.items():
+        batch[k] = torch.as_tensor(v, device="cuda")
+    return batch
+
+
+def frontend_static_run(name, cfg, params, prompts, gens, extras, max_len,
+                        batch):
+    """Drain the workload through the static server on the card (the
+    continuous engine refuses these families); the launch counters set to
+    0 just before the run and read just after. Checks every request's
+    budget of in-range tokens, B1 and B4 launched, B5 never, and B6
+    ``enc_layers`` times a prefill under ``attn_impl="pallas"`` (the
+    encoder's non-causal attention; serving's decoder attends its cache
+    view, never B6), else never."""
+    from repro_torch.launch import serve
+
+    label = f"frontends {name} {cfg.attn_impl}"
+    server = serve.BatchedServer(cfg, max_len, "cuda")
+    server.load(params)
+    _zero_counts()
+    outs, metrics = serve.run_static(server, prompts, gens, batch, extras)
+    launches = _read_counts()
+    print(f"{label} static metrics: {json.dumps(metrics)}", flush=True)
+    print(f"{label} launches: {json.dumps(launches)}", flush=True)
+    if metrics["drained"] != len(gens):
+        raise AssertionError(f"{label}: drained {metrics['drained']} of "
+                             f"{len(gens)}")
+    for i, (toks, g) in enumerate(zip(outs, gens)):
+        if len(toks) != g or not ((toks >= 0)
+                                  & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{label}: request {i}: {len(toks)} tokens "
+                                 f"for a budget of {g}, or ids out of range")
+    prefills = -(-len(gens) // batch)
+    want = {"ternary_gemm": None, "fused_mlp": None,
+            "paged_decode_attention": 0,
+            "flash_attention": (cfg.enc_layers * prefills
+                                if cfg.attn_impl == "pallas" else 0)}
+    for kernel, n in want.items():
+        if (n is None and launches[kernel] <= 0) or (
+                n is not None and launches[kernel] != n):
+            raise AssertionError(f"{label}: {kernel} launched "
+                                 f"{launches[kernel]} times, expected "
+                                 f"{'some' if n is None else n}")
+    return outs, metrics, launches
+
+
+def cross_kv_profile(model, params, cache, tok, flush):
+    """One decode step under ``torch.profiler`` with every cross-attention
+    K/V projection (B1 over ``enc_out``, M = B x S_enc) inside a
+    ``cross_kv`` range: the step's device time (its kernels summed), the
+    ranges' device time (the device-side spans of the ``cross_kv``
+    annotations) and its share, the top device ops; and the same share
+    from CUDA events (the step against its cross K/V GEMMs alone on the
+    same inputs)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as layers_lib
+
+    cross = {id(lay["cross"][n]) for lay in params["layers"]
+             for n in ("k", "v")}
+    orig = layers_lib.linear_apply
+
+    def linear_apply(p, x, cfg):
+        if id(p) in cross:
+            with record_function("cross_kv"):
+                return orig(p, x, cfg)
+        return orig(p, x, cfg)
+
+    def step():
+        with torch.no_grad(), ops.serving_phase("decode"):
+            model.decode_step(params, cache, tok)
+
+    layers_lib.linear_apply = linear_apply
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+            step()
+            torch.cuda.synchronize()
+    finally:
+        layers_lib.linear_apply = orig
+    events = prof.events()
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    spans = [e for e in on_device if e.name == "cross_kv"]
+    kernels = [e for e in on_device if e.name != "cross_kv"
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("ProfilerStep")]
+    if not kernels:
+        raise AssertionError("cross_kv_profile: the trace holds no device "
+                             "events")
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    step_us = sum(t for _, t in by_name.values())
+    kv_us = sum(e.time_range.elapsed_us() for e in spans)
+    enc_out = cache["enc_out"]
+    with torch.no_grad(), ops.serving_phase("decode"):
+        step_ms = cuda_ms(step, 3, flush)
+        kv_ms = cuda_ms(lambda: [orig(lay["cross"][n], enc_out, model.cfg)
+                                 for lay in params["layers"]
+                                 for n in ("k", "v")], 3, flush)
+    return {"step_device_us": round(step_us, 1),
+            "kernels": len(kernels),
+            "cross_kv_spans": len(spans),
+            "cross_kv_device_us": round(kv_us, 1),
+            "cross_kv_share": round(kv_us / step_us, 4),
+            "top_device_ops": [
+                {"name": name[:80], "n": n, "us": round(t, 1)}
+                for name, (n, t) in sorted(by_name.items(),
+                                           key=lambda kv: -kv[1][1])[:6]],
+            "step_ms_events": step_ms, "cross_kv_ms_events": kv_ms,
+            "cross_kv_share_events": round(kv_ms / step_ms, 4)}
+
+
+def frontend_step_readings(name, cfg, params, prompts, extras, max_len,
+                           flush):
+    """One batch's prefill and decode steps on the card: the launches of a
+    prefill and of a decode step (counters zeroed before each), the
+    prefill's host wall and the encoder's share of it, the decode step's
+    p50 over FRONTEND_STEPS steps, and for an encoder-decoder the cross
+    K/V GEMMs' share of a step (``cross_kv_profile``)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import LM
+
+    model = LM(cfg, "cuda")
+    batch = _frontend_batch(prompts, extras)
+    out = {}
+    with torch.no_grad():
+        _zero_counts()
+        with ops.serving_phase("prefill"):
+            cache, logits = model.prefill(params, batch, max_len)
+        torch.cuda.synchronize()
+        out["prefill_launches"] = _read_counts()
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        _zero_counts()
+        with ops.serving_phase("decode"):
+            model.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        out["decode_step_launches"] = _read_counts()
+        with ops.serving_phase("prefill"):
+            out["prefill_ms"] = _mean_wall(
+                lambda: model.prefill(params, batch, max_len), 2) * 1e3
+            if cfg.is_encdec:
+                enc = batch["enc_embeds"].to(torch.bfloat16)
+                out["encoder_ms"] = _mean_wall(
+                    lambda: model._run_encoder(params, enc), 2) * 1e3
+                out["encoder_share"] = out["encoder_ms"] / out["prefill_ms"]
+        walls = []
+        with ops.serving_phase("decode"):
+            for _ in range(FRONTEND_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = model.decode_step(params, cache, tok)
+                tok = logits.argmax(-1).to(torch.int32)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        out["decode_step_p50_ms"] = float(np.percentile(walls, 50))
+        if cfg.is_encdec:
+            out["cross_kv"] = cross_kv_profile(model, params, cache, tok,
+                                               flush)
+    print(f"frontends {name} {cfg.attn_impl}: one batch's steps "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def flash_row(gen, bh, s, hd, causal, flush):
+    """B6 against its plain version at (BH, S, hd), timed beside SDPA's
+    fastest backend (rows as ``flash_kernel_phase``'s)."""
+    import torch
+    from repro_torch.kernels import flash_attention as flash_lib
+
+    q, k, v = (torch.randn(bh, s, hd, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    label = f"flash_attention BH={bh} S={s} hd={hd} causal={causal}"
+    err = check_close(label, flash_lib.flash_attention_cuda(
+        q, k, v, causal=causal), flash_lib.flash_attention_ref(
+            q, k, v, causal=causal))
+    iters = 20
+    sdpa = _sdpa_ms(q[None], k[None], v[None], causal, iters, flush)
+    fastest = min((n for n in sdpa if sdpa[n] is not None), key=sdpa.get)
+    row = {"bh": bh, "s": s, "hd": hd, "causal": causal,
+           "max_abs_err": err,
+           "ms": cuda_ms(lambda: flash_lib.flash_attention(
+               q, k, v, causal=causal), iters, flush),
+           "device_ms": cuda_ms(lambda: flash_lib.flash_attention_cuda(
+               q, k, v, causal=causal), iters, flush, spin=True),
+           "plain_ms": cuda_ms(lambda: flash_lib.flash_attention_ref(
+               q, k, v, causal=causal), iters, flush),
+           "library_ms": sdpa[fastest], "library": f"sdpa {fastest}",
+           "sdpa_ms": sdpa}
+    nbytes = 4 * bh * s * hd * 2
+    ops_needed = (2.0 if causal else 4.0) * bh * s * s * hd
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops_needed)
+    print(f"{label}: " + json.dumps(row), flush=True)
+    return row
+
+
+def frontend_kernel_rows(name, cfg, spec, flush):
+    """seamless's new kernel shapes against their plain versions, timed
+    (rows with the model's name): B1 at the cross K/V projections (M =
+    batch x S_enc, K = N = d, with a bias) under "decode", and at the lm
+    head's ragged N (padded vocabulary 256208 = 64 x 4003 + 16) at M 8
+    and 1024; B4 with biases at M 8 and 1024; B6 non-causal at the
+    encoder's (B x H, S_enc, hd)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    d, b = cfg.d_model, spec["batch"]
+    m_enc = b * cfg.frontend_seq
+    rows = {"ternary_gemm": [], "fused_mlp": [], "flash_attention": []}
+    for what, m, n, phase, bias in (
+            ("cross_kv", m_enc, cfg.num_kv_heads * cfg.head_dim, "decode",
+             cfg.use_bias),
+            ("lm_head", b, cfg.padded_vocab(), "decode", False),
+            ("lm_head", 1024, cfg.padded_vocab(), "prefill", False)):
+        row = gemm_row(gen, m, d, n, phase, flush, bias=bias)
+        rows["ternary_gemm"].append(dict(row, model=name, proj=what))
+    for m, phase in ((b, "decode"), (1024, "prefill")):
+        row = mlp_row(gen, m, d, cfg.d_ff, d, phase, flush,
+                      bias=cfg.use_bias)
+        rows["fused_mlp"].append(dict(row, model=name))
+    row = flash_row(gen, b * cfg.num_heads, cfg.frontend_seq, cfg.head_dim,
+                    False, flush)
+    rows["flash_attention"].append(dict(row, model=name))
+    return rows
+
+
+def frontend_phase(name, spec, flush):
+    """One model of FRONTENDS, ternarized and packed layer by layer as it
+    is drawn, served by the static server under attn_impl "flash" and
+    "pallas"; then the checks of ``frontends_phase``. Returns (kernel
+    rows, runs' launches, summary)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config(name, quantization="ternary", **spec["overrides"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = serve.build_params(cfg, SEED, "cuda", packed=True)
+    torch.cuda.synchronize()
+    summary = {"init_pack_s": round(time.perf_counter() - t0, 2)}
+    print(f"frontends {name}: init+pack {cfg.num_layers} decoder and "
+          f"{cfg.enc_layers} encoder layers (d {cfg.d_model}, ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}): "
+          f"{serve.count_packed(params)} packed linears in "
+          f"{summary['init_pack_s']}s", flush=True)
+    prompts, gens, extras = serve.build_workload(
+        cfg, spec["requests"], spec["prompt_len"], spec["gen_lens"],
+        seed=SEED)
+    front = cfg.frontend_seq if cfg.family == "vlm" else 0
+    max_len = prompts.shape[1] + max(gens) + 1 + front
+    b = spec["batch"]
+    first = {k: v[:b] for k, v in extras.items()}
+    summary.update(text_len=int(prompts.shape[1]),
+                   frontend_rows=cfg.frontend_seq, max_len=max_len)
+    outs, runs, cfgs = {}, {}, {}
+    for impl in ("flash", "pallas"):
+        cfgs[impl] = c = dataclasses.replace(cfg, attn_impl=impl)
+        plain = family_plain_check(name, c, params, prompts[:b], max_len,
+                                   False, first, tag=f"frontends {impl}")
+        outs[impl], metrics, runs[f"frontends {name} {impl}"] = \
+            frontend_static_run(name, c, params, prompts, gens, extras,
+                                max_len, b)
+        summary[impl] = dict(
+            {k: metrics[k] for k in ("tok_per_s", "wall_s",
+                                     "decode_steps")},
+            plain_check=plain,
+            **frontend_step_readings(name, c, params, prompts[:b], first,
+                                     max_len, flush))
+    summary["pallas_vs_flash_splits"] = streams_or_near_ties(
+        f"frontends {name} pallas vs flash", cfgs["pallas"], params,
+        prompts, outs["flash"], outs["pallas"], extras)
+    summary["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
+    del params
+    torch.cuda.empty_cache()
+    rows = (frontend_kernel_rows(name, cfg, spec, flush) if cfg.is_encdec
+            else {})
+    return rows, runs, summary
+
+
+def _train_steps(cfg, seq, steps, ckpt):
+    """``steps`` QAT steps of ``cfg`` on the card, batch 2: with ``ckpt``
+    through ``train.make_supervisor`` (``train.main``'s loop, whose history
+    holds the grad norms; its last step checkpoints into a temporary
+    directory, removed after), else through ``train.build``'s data and
+    train step alone (the same step the supervisor runs, no checkpoint).
+    Returns (history of (step, metrics), per-step seconds)."""
+    import torch
+    from repro_torch.launch import train
+
+    if not ckpt:
+        _, data, train_step, init_state = train.build(
+            cfg, 2, seq, 3e-4, steps, "cuda")
+        state, history, t_hist = init_state(SEED), [], []
+        for step in range(steps):
+            t0 = time.perf_counter()
+            params, opt, metrics = train_step(
+                state["params"], state["opt"],
+                data.sharded_batch(step, device="cuda"))
+            state = {"params": params, "opt": opt}
+            history.append((step, {k: float(v)
+                                   for k, v in metrics.items()}))
+            t_hist.append(time.perf_counter() - t0)
+        return history, t_hist
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_frontend_train_")
+    try:
+        sup, t_hist = train.make_supervisor(
+            cfg, batch=2, seq=seq, lr=3e-4, steps=steps, ckpt_dir=ckpt_dir,
+            ckpt_every=100, seed=SEED, device="cuda", log_every=100)
+        _, history = sup.run(steps)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    return history, t_hist
+
+
+def frontend_train_check():
+    """FRONTEND_TRAIN: three QAT steps of each model on the card, batch 2
+    with their frontend rows (``_train_steps``: seamless through the
+    supervisor with its checkpoint; internvl2's 27 GB of parameters and
+    moments are not checkpointed, which would take ~60 s); the loss and
+    grad norm of every step finite."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+
+    out = {}
+    for name, spec in FRONTEND_TRAIN.items():
+        over = {k: v for k, v in spec.items()
+                if k not in ("seq", "checkpoint")}
+        cfg = get_config(name, quantization="ternary", grad_accum=1, **over)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        history, t_hist = _train_steps(cfg, spec["seq"], 3,
+                                       spec["checkpoint"])
+        row = {"layers": [cfg.num_layers, cfg.enc_layers],
+               "checkpoint": spec["checkpoint"],
+               "vocab": cfg.vocab_size, "seq": spec["seq"],
+               "loss": [m["loss"] for _, m in history],
+               "grad_norm": [m["grad_norm"] for _, m in history],
+               "step_s": [round(t, 3) for t in t_hist],
+               "wall_s": round(time.perf_counter() - t0, 1),
+               "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30,
+                                 2)}
+        print(f"frontends train {name}: " + json.dumps(row), flush=True)
+        if len(history) != 3 or not all(
+                math.isfinite(x) for x in row["loss"] + row["grad_norm"]):
+            raise AssertionError(f"frontends train {name}: {len(history)} "
+                                 f"steps, loss {row['loss']}, grad norm "
+                                 f"{row['grad_norm']}")
+        out[name] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def frontends_phase(flush):
+    """The encoder-decoder and VLM families on the card (FRONTENDS):
+    seamless-m4t-large-v2 whole and internvl2-76b at full width with 4
+    of its 80 layers, each drawn, packed and served by the static server
+    (batch 8, each request with its frontend rows) under
+    attn_impl="flash" and "pallas". Each: the prefill's and one decode
+    step's logits through the kernels against the plain path on the card
+    (``family_plain_check``: within LOGIT_TOL, the free-running path
+    within WITNESS_FACTOR of the one-ulp witness; under "pallas" the
+    plain path attends blockwise where the kernels run B6); every budget of
+    in-range tokens, B1 and B4 launched, B6 ``enc_layers`` times a
+    prefill under "pallas" and never under "flash"; the "pallas" streams
+    equal the "flash" ones or split at near ties; the launches of one
+    prefill and one decode step, the prefill's wall and encoder share,
+    the decode step's p50 and the cross K/V GEMMs' share of it. Then
+    seamless's new kernel shapes (``frontend_kernel_rows``) and the train
+    check (``frontend_train_check``). Prints the ``frontends summary:``
+    line; returns (kernel rows, runs' launches)."""
+    rows = {"ternary_gemm": [], "fused_mlp": [], "flash_attention": []}
+    runs, summary = {}, {}
+    for name, spec in FRONTENDS.items():
+        t0 = time.perf_counter()
+        model_rows, model_runs, summary[name] = frontend_phase(name, spec,
+                                                               flush)
+        summary[name]["phase_s"] = round(time.perf_counter() - t0, 1)
+        runs.update(model_runs)
+        for k, v in model_rows.items():
+            rows[k] += v
+    t0 = time.perf_counter()
+    summary["train"] = frontend_train_check()
+    summary["train_s"] = round(time.perf_counter() - t0, 1)
+    print("frontends summary: " + json.dumps(summary), flush=True)
     return rows, runs
 
 
@@ -4767,9 +5257,9 @@ def tune_phase(cfg, params, prompts, gens, max_len, tune_out=None):
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("tune",),
-                    help="build, serve the dense workload and run this "
-                         "phase alone (no kernels line)")
+    ap.add_argument("--only", choices=("tune", "frontends"),
+                    help="build and run this phase alone (tune: after the "
+                         "dense serve it plans from; no kernels line)")
     ap.add_argument("--tune-out", help="copy the tune phase's measured "
                     "block-shape cache to this file")
     args = ap.parse_args(argv)
@@ -4820,6 +5310,11 @@ def _main(args, start, torch, build) -> int:
     sass_summary(build)
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    if args.only == "frontends":
+        frontends_phase(flush)
+        print(f"chip_smoke --only frontends took "
+              f"{time.perf_counter() - start:.1f}s", flush=True)
+        return 0
     shapes = kernel_phase(flush)
     shapes["paged_decode_attention"] = paged_kernel_phase(flush)
     del flush
@@ -4878,11 +5373,16 @@ def _main(args, start, torch, build) -> int:
     for name, rows in family_rows.items():
         shapes[name] += rows
     torch.cuda.empty_cache()
+    frontend_rows, frontend_runs = frontends_phase(flush)
+    runs.update(frontend_runs)
+    torch.cuda.empty_cache()
     format_rows, runs["gemm_formats"] = gemm_formats_phase(flush)
     k_sweep = format_rows.pop("k_sweep")
     shapes.update(format_rows)
     print("tcsc summary: " + json.dumps(tcsc_phase(flush)), flush=True)
     shapes["flash_attention"] = flash_kernel_phase(flush, build)
+    for name, rows in frontend_rows.items():
+        shapes[name] += rows
     del flush
     torch.cuda.empty_cache()
     gradients_phase()

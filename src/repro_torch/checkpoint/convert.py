@@ -24,6 +24,11 @@ block, its leaves are sliced per layer like every other leaf. The port never imp
 ``repro``'s containers into those dicts or leaves is the caller's business.
 Leaves may also be torch tensors (what ``checkpoint.restore`` gives).
 
+An encoder-decoder's tree also holds ``enc_block`` (stacked over the
+``cfg.enc_layers`` encoder blocks: the port's ``enc_layers`` list, one
+entry a block) and ``enc_norm``; its decoder blocks carry ``norm_cross``
+and ``cross`` inside ``block{j}``, like every other block leaf.
+
 ``params_to_numpy`` writes the port's parameters, latent or packed
 (``Dense2Bit`` linears and banks, as the dicts above), in that layout
 with ``repro``'s period. numpy has no bfloat16, so a bfloat16 leaf stays
@@ -117,6 +122,10 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
             layers[g * period + j] = _convert(tree[f"block{j}"], g, dev)
     out = {"embed": _convert(tree["embed"], None, dev), "layers": layers,
            "final_norm": _convert(tree["final_norm"], None, dev)}
+    if cfg.is_encdec:
+        out["enc_layers"] = [_convert(tree["enc_block"], i, dev)
+                             for i in range(cfg.enc_layers)]
+        out["enc_norm"] = _convert(tree["enc_norm"], None, dev)
     if "unembed" in tree:
         out["unembed"] = _convert(tree["unembed"], None, dev)
     return out
@@ -171,10 +180,16 @@ def params_to_numpy(params: dict, cfg: ModelConfig) -> dict:
     if len(params["layers"]) != cfg.num_layers:
         raise ValueError(f"{len(params['layers'])} layers for a "
                          f"{cfg.num_layers}-layer config")
+    if len(params.get("enc_layers", ())) != cfg.enc_layers:
+        raise ValueError(f"{len(params.get('enc_layers', ()))} encoder "
+                         f"layers for a config with {cfg.enc_layers}")
     period = layer_period(cfg)
     out = {"embed": _tree(params["embed"])}
     for j in range(period):
         out[f"block{j}"] = _stack(params["layers"][j::period])
+    if cfg.is_encdec:
+        out["enc_block"] = _stack(params["enc_layers"])
+        out["enc_norm"] = _tree(params["enc_norm"])
     out["final_norm"] = _tree(params["final_norm"])
     if "unembed" in params:
         out["unembed"] = _tree(params["unembed"])

@@ -1,10 +1,14 @@
 """Deterministic synthetic token streams — the port's copy of
-``repro.data.pipeline.SyntheticLM`` for the decoder families it serves.
+``repro.data.pipeline.SyntheticLM``.
 
 Per-sequence affine recurrences ``x_{t+1} = (a*x_t + b) mod V`` plus
 noise; a batch is a pure function of (seed, step), so both packages draw
 the same prompts and training batches from the same seed, and a restarted
-trainer regenerates any step without pipeline state.
+trainer regenerates any step without pipeline state. A VLM's batch also
+holds ``vision_embeds`` and an encoder-decoder's ``enc_embeds``: (B,
+``n_front``, d) float32 frontend rows drawn from the same generator after
+the tokens; the text then takes the last ``text_len`` positions of the
+``seq_len`` (at least 16), as ``repro``'s does.
 """
 from __future__ import annotations
 
@@ -19,23 +23,27 @@ from repro_torch.configs.base import ModelConfig
 class SyntheticLM:
     def __init__(self, cfg: ModelConfig, batch: int, seq_len: int,
                  seed: int = 0, noise: float = 0.05):
-        if cfg.frontend or cfg.is_encdec or cfg.family == "vlm":
-            raise NotImplementedError("frontend/encoder streams are not "
-                                      "ported yet")
         self.cfg = cfg
         self.batch = batch
         self.seq = seq_len
         self.seed = seed
         self.noise = noise
-        self.text_len = seq_len
+        # frontend split (vlm / encdec): text tokens occupy the tail
+        self.n_front = cfg.frontend_seq if cfg.frontend or cfg.is_encdec \
+            else 0
+        if cfg.family == "vlm" or cfg.is_encdec:
+            self.text_len = max(seq_len - self.n_front, 16)
+        else:
+            self.text_len = seq_len
 
     def _rng(self, step: int) -> np.random.Generator:
         return np.random.default_rng(
             np.random.SeedSequence([self.seed, step]))
 
     def global_batch(self, step: int) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
         rng = self._rng(step)
-        v = self.cfg.vocab_size
+        v = cfg.vocab_size
         b, s = self.batch, self.text_len + 1
         a = rng.integers(1, 8, size=(b, 1))
         c = rng.integers(0, v, size=(b, 1))
@@ -45,8 +53,16 @@ class SyntheticLM:
             x[:, t] = (a[:, 0] * x[:, t - 1] + c[:, 0]) % v
         flip = rng.random((b, s)) < self.noise
         x[flip] = rng.integers(0, v, size=int(flip.sum()))
-        return {"tokens": x[:, :-1].astype(np.int32),
-                "targets": x[:, 1:].astype(np.int32)}
+        batch = {"tokens": x[:, :-1].astype(np.int32),
+                 "targets": x[:, 1:].astype(np.int32)}
+        front = (b, self.n_front, cfg.d_model)
+        if cfg.family == "vlm":
+            batch["vision_embeds"] = rng.standard_normal(front).astype(
+                np.float32) * 0.02
+        if cfg.is_encdec:
+            batch["enc_embeds"] = rng.standard_normal(front).astype(
+                np.float32) * 0.02
+        return batch
 
     def sharded_batch(self, step: int, mesh=None,
                       device="cpu") -> Dict[str, torch.Tensor]:

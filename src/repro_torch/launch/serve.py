@@ -6,10 +6,13 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch ternary-paper \\
       --packed --requests 16 --slots 8 --prompt-len 128 --gen-lens 32,64
   ... --arch mamba2-130m | mixtral-8x22b | jamba-v0.1-52b | ...  # every
-      registered decoder config (encoder-decoder and VLM ones are refused);
-      only ternary-paper's config quantizes, so --packed on another one
-      converts nothing and warns, as repro's does
+      registered config; only ternary-paper's config quantizes, so
+      --packed on another one converts nothing and warns, as repro's does
   ... --static --batch 8                 # whole batches, the A/B reference
+  ... --arch seamless-m4t-large-v2 | internvl2-76b --static   # the
+      encoder-decoder and VLM families, static only (the continuous
+      engine refuses them, as repro's does): each request carries its
+      frontend rows, and the default --max-len holds a VLM's vision rows
   ... --max-len N --eos-id T             # cache capacity; stop on a token
   ... --cache paged --page-size 16 [--kv-dtype int8 --pages N]
   ... --cache paged --paged-attn jax     # the gather lowering, not B5
@@ -53,15 +56,23 @@ from repro_torch.spec import SpecConfig
 
 def build_workload(cfg, requests: int, prompt_len: int,
                    gen_lens: Sequence[int], seed: int = 0,
-                   ) -> Tuple[np.ndarray, List[int]]:
-    """(prompts (R, prompt_len) int32, per-request gen budgets): prompts from
+                   ) -> Tuple[np.ndarray, List[int], Dict[str, np.ndarray]]:
+    """(prompts (R, L) int32, per-request gen budgets, extras): prompts from
     the deterministic SyntheticLM stream, budgets drawn uniformly from
-    ``gen_lens`` — the same draws as ``repro.launch.serve.build_workload``."""
+    ``gen_lens`` — the same draws as ``repro.launch.serve.build_workload``.
+    ``extras`` holds each request's frontend rows (``vision_embeds`` or
+    ``enc_embeds``, (R, frontend_seq, d) float32) for the VLM and
+    encoder-decoder families, else nothing; their text prompts then take
+    what ``prompt_len`` leaves after the frontend (``SyntheticLM``'s
+    ``text_len``, at least 16)."""
     data = SyntheticLM(cfg, requests, max(prompt_len, 16), seed=seed)
-    prompts = data.global_batch(0)["tokens"][:, :prompt_len]
+    b = data.global_batch(0)
+    prompts = b["tokens"][:, :prompt_len]
+    extras = {k: v for k, v in b.items()
+              if k in ("vision_embeds", "enc_embeds")}
     rng = np.random.default_rng(seed + 1)
     gens = [int(g) for g in rng.choice(list(gen_lens), size=requests)]
-    return prompts.astype(np.int32), gens
+    return prompts.astype(np.int32), gens, extras
 
 
 def run_continuous(engine, prompts: np.ndarray, gens: Sequence[int],
@@ -89,14 +100,20 @@ class BatchedServer:
         self.params = params
 
     @torch.no_grad()
-    def generate(self, prompts: np.ndarray, gen_len: int) -> np.ndarray:
+    def generate(self, prompts: np.ndarray, gen_len: int,
+                 extras: Optional[Dict[str, np.ndarray]] = None
+                 ) -> np.ndarray:
         """(B, L) prompts -> (B, gen_len) greedy tokens: the prefill's
-        last-position argmax, then one token a decode step."""
-        toks = torch.as_tensor(np.asarray(prompts, np.int32),
-                               device=self.model.device)
+        last-position argmax, then one token a decode step. ``extras``:
+        the batch's frontend rows (``vision_embeds`` / ``enc_embeds``,
+        (B, S_front, d)), part of the prefill's batch."""
+        dev = self.model.device
+        batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
+                                           device=dev)}
+        for k, v in (extras or {}).items():
+            batch[k] = torch.as_tensor(np.asarray(v), device=dev)
         with ops.serving_phase("prefill"):
-            cache, logits = self.model.prefill(self.params,
-                                               {"tokens": toks},
+            cache, logits = self.model.prefill(self.params, batch,
                                                self.max_len)
         tok = logits[:, -1:].argmax(dim=-1).to(torch.int32)
         out = []
@@ -111,25 +128,32 @@ class BatchedServer:
 
 def run_static(server: BatchedServer, prompts: np.ndarray,
                gens: Sequence[int], batch: int,
+               extras: Optional[Dict[str, np.ndarray]] = None,
                ) -> Tuple[List[np.ndarray], Dict[str, Any]]:
     """Static-batch A/B reference on the same workload (``repro``'s):
     requests grouped in submit order, each batch decoding max(its budgets)
     steps and each request keeping its own budget's prefix. A ragged final
-    batch is padded with copies of its last row and the padding dropped."""
+    batch is padded with copies of its last row (prompt and ``extras``
+    rows alike) and the padding dropped."""
     n = len(prompts)
     if n == 0 or n != len(gens):
         raise ValueError(f"{n} prompts for {len(gens)} budgets")
     outs: List[np.ndarray] = []
     t0 = obs_clock.now()
     n_decode = 0
+
+    def pad(rows):
+        if len(rows) == batch:
+            return rows
+        return np.concatenate(
+            [rows, np.repeat(rows[-1:], batch - len(rows), axis=0)])
+
     for lo in range(0, n, batch):
-        chunk = prompts[lo:lo + batch]
+        chunk = pad(prompts[lo:lo + batch])
+        ext = {k: pad(v[lo:lo + batch]) for k, v in (extras or {}).items()}
         budgets = list(gens[lo:lo + batch])
-        if len(chunk) < batch:
-            chunk = np.concatenate(
-                [chunk, np.repeat(chunk[-1:], batch - len(chunk), axis=0)])
         gen = max(budgets)
-        toks = server.generate(chunk, gen)
+        toks = server.generate(chunk, gen, ext or None)
         n_decode += gen
         outs.extend(toks[i, :g].astype(np.int32)
                     for i, g in enumerate(budgets))
@@ -195,7 +219,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                     help="comma list; per-request budgets drawn uniformly")
     ap.add_argument("--max-len", type=int, default=0,
                     help="cache capacity (0: prompt + max(gen-lens) + 1, "
-                         "+ spec-k with --spec)")
+                         "+ spec-k with --spec, + the vision rows of a "
+                         "VLM); a prompt that overflows it raises")
     ap.add_argument("--static", action="store_true",
                     help="the static-batch server (whole batches, each "
                          "finishing its budget before the next) on the same "
@@ -301,10 +326,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     cfg = get_config(args.arch, reduced=args.reduced, **overrides)
     gen_lens = [int(g) for g in args.gen_lens.split(",")]
     spec_headroom = args.spec_k if args.spec != "off" else 0
+    # a VLM's vision rows share the cache with the text (repro's default
+    # leaves them out and its prefill then rolls the cache; ROADMAP C14)
+    front = cfg.frontend_seq if cfg.family == "vlm" else 0
     max_len = args.max_len or (args.prompt_len + max(gen_lens) + 1
-                               + spec_headroom)
-    prompts, gens = build_workload(cfg, args.requests, args.prompt_len,
-                                   gen_lens, seed=args.seed)
+                               + spec_headroom + front)
+    prompts, gens, extras = build_workload(cfg, args.requests,
+                                           args.prompt_len, gen_lens,
+                                           seed=args.seed)
     cfg, params = build_params(cfg, args.seed, device, args.packed)
     if args.static:
         if args.chunked_prefill or args.traffic != "off":
@@ -315,7 +344,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                              "drop --static")
         server = BatchedServer(cfg, max_len, device)
         server.load(params)
-        _, metrics = run_static(server, prompts, gens, args.batch)
+        _, metrics = run_static(server, prompts, gens, args.batch,
+                                extras=extras)
         print(json.dumps(metrics))
         return metrics
     tracer = Tracer(capacity=args.trace_buffer) if args.trace else None

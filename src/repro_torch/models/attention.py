@@ -142,17 +142,26 @@ def naive_attention(q, k, v, *, causal: bool, window: int = 0,
 
 
 def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-               positions: torch.Tensor, cache: Optional[dict] = None,
+               positions: torch.Tensor, causal: bool = True,
+               cache: Optional[dict] = None,
                cache_pos: Optional[torch.Tensor] = None,
+               kv_override: Optional[Tuple[torch.Tensor,
+                                           torch.Tensor]] = None,
                block_table: Optional[torch.Tensor] = None,
                ) -> Tuple[torch.Tensor, Optional[dict]]:
     """One attention layer over the full sequence, a dense cache or a paged
-    cache.
+    cache, or cross-attention.
 
-    * no cache (training, evaluation): x (B, S, d), causal attention over
-      the S tokens by ``cfg.attn_impl`` — ``"pallas"`` (no window): K/V
-      repeated to H heads and B6 on (B*H, S, hd); ``"flash"``: the
-      blockwise version; otherwise ``naive_attention``. Returns (y, None);
+    * no cache (training, evaluation, the encoder): x (B, S, d), attention
+      over the S tokens, causal unless ``causal=False`` (the encoder), by
+      ``cfg.attn_impl`` — ``"pallas"`` (no window): K/V repeated to H
+      heads and B6 on (B*H, S, hd); ``"flash"``: the blockwise version;
+      otherwise ``naive_attention``. Returns (y, None);
+    * cross-attention: ``kv_override`` = (k, v), each (B, S_enc, KV, hd),
+      projected from the encoder's output by the caller: no rope on q or
+      on them, never causal, no cache, and always ``naive_attention``
+      (``repro`` keeps ``kv_override`` out of its flash and Pallas
+      branches). Returns (y, None);
     * prefill (``cache_pos is None``): x (B, S, d); K/V of all S tokens are
       written at positions 0..S-1 and the layer attends the cache view. A
       rolling cache shorter than S keeps the last ``cache_len`` tokens at
@@ -177,6 +186,11 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     h = cfg.num_heads + cfg.head_pad
     lead = x.shape[:-1]
     q = linear_apply(params["q"], x, cfg).reshape(*lead, h, hd)
+    if kv_override is not None:
+        k, v = kv_override
+        o = naive_attention(q, k, v, causal=False,
+                            window=cfg.sliding_window)
+        return linear_apply(params["o"], o.reshape(*lead, h * hd), cfg), None
     k = linear_apply(params["k"], x, cfg).reshape(*lead, kv, hd)
     v = linear_apply(params["v"], x, cfg).reshape(*lead, kv, hd)
     if cfg.rope_theta:
@@ -184,7 +198,7 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         k = rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        o = _full_sequence(q, k, v, cfg)
+        o = _full_sequence(q, k, v, cfg, causal)
         return linear_apply(params["o"], o.reshape(*lead, h * hd), cfg), None
 
     if "k_pages" in cache:
@@ -357,10 +371,11 @@ def _store_view(t: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return t.reshape(*t.shape[:2], *c.shape[2:])
 
 
-def _full_sequence(q, k, v, cfg: ModelConfig) -> torch.Tensor:
-    """Causal attention of (B, S, H, hd) q over its own K/V, with the
-    config's sliding window (``repro``'s no-cache branch,
-    ``attention.py:433-466``: B6 never takes a window)."""
+def _full_sequence(q, k, v, cfg: ModelConfig,
+                   causal: bool = True) -> torch.Tensor:
+    """Attention of (B, S, H, hd) q over its own K/V, causal or not (the
+    encoder), with the config's sliding window (``repro``'s no-cache
+    branch, ``attention.py:433-466``: B6 never takes a window)."""
     h = q.shape[2]
     window = cfg.sliding_window
     if cfg.attn_impl == "pallas" and not window:
@@ -373,15 +388,15 @@ def _full_sequence(q, k, v, cfg: ModelConfig) -> torch.Tensor:
             return t.transpose(1, 2).reshape(b * h, s, hd).contiguous()
 
         o = flash_lib.flash_attention(
-            heads(q), heads(k), heads(v), causal=True,
+            heads(q), heads(k), heads(v), causal=causal,
             block_q=min(cfg.attn_block_q, 512),
             block_kv=min(cfg.attn_block_kv, 512))
         return o.reshape(b, h, s, hd).transpose(1, 2)
     if cfg.attn_impl == "flash":
-        return flash_attention(q, k, v, causal=True, window=window,
+        return flash_attention(q, k, v, causal=causal, window=window,
                                block_q=cfg.attn_block_q,
                                block_kv=cfg.attn_block_kv)
-    return naive_attention(q, k, v, causal=True, window=window)
+    return naive_attention(q, k, v, causal=causal, window=window)
 
 
 def _window_positions(cache_pos: torch.Tensor, b: int,

@@ -1,10 +1,12 @@
-"""The decoder LM of the port: a Python loop over per-layer parameter dicts
-where ``repro`` scans stacked ones. Every decoder family ``repro``'s
-continuous engine serves: dense and MoE attention stacks, the SSM family
-and the hybrid (attention + SSM, MLP + MoE) family; each layer is an
-(``attn`` | ``ssm``) mixer and an (``mlp`` | ``moe`` | ``none``) FFN as
-``cfg.layer_kind`` / ``cfg.layer_ffn`` say. Encoder-decoder and VLM
-configs raise ``NotImplementedError``.
+"""The LM of the port: a Python loop over per-layer parameter dicts where
+``repro`` scans stacked ones. Every family ``repro`` builds: dense and MoE
+attention stacks, the SSM family and the hybrid (attention + SSM, MLP +
+MoE) family, each decoder layer an (``attn`` | ``ssm``) mixer and an
+(``mlp`` | ``moe`` | ``none``) FFN as ``cfg.layer_kind`` /
+``cfg.layer_ffn`` say; the encoder-decoder family (``cfg.enc_layers``
+non-causal encoder blocks over the batch's ``enc_embeds``, and a
+cross-attention in every decoder block) and the VLM family (the batch's
+``vision_embeds`` rows prepended to the embedded tokens).
 
     m = LM(cfg, device="cuda")
     params = m.init(torch.Generator(device="cuda").manual_seed(0))
@@ -16,18 +18,24 @@ Parameter tree: ``{"embed": {"table"}, "layers": [{"norm1", "mixer",
 "norm2", "ffn"}, ...], "final_norm", "unembed"}``: the mixer ``{q, k, v,
 o}`` (attention) or ``{in_proj, out_proj, conv_w, ...}`` (SSM), the FFN
 ``{in, gate, out}`` (MLP) or ``{router, w_in, w_gate, w_out, ...}`` (MoE),
-with ``{"w"}`` latent or ``{"w_packed": Dense2Bit}`` linears and latent or
-``Dense2Bit`` expert banks. ``period`` and ``block_kinds`` are
-``repro``'s: layer ``g * period + j`` is ``repro``'s ``block{j}`` of
-group ``g``.
+with ``{"w"}`` (and ``{"b"}``) latent or ``{"w_packed": Dense2Bit}``
+linears (the bias inside the container) and latent or ``Dense2Bit``
+expert banks. An encoder-decoder adds ``"enc_layers"`` (attention + MLP
+blocks, ``repro``'s stacked ``enc_block``) and ``"enc_norm"``, and
+``"norm_cross"`` + ``"cross"`` ``{q, k, v, o}`` to every decoder block.
+``period`` and ``block_kinds`` are ``repro``'s: layer ``g * period + j``
+is ``repro``'s ``block{j}`` of group ``g``.
 
 Caches: ``{"layers": [per layer], "pos": int32 tensor}``, ``pos`` a scalar
-or a (B,) vector of per-slot positions. An attention layer holds ``{"k",
-"v"}`` in the config's layout (``attention.init_kv_cache``: ``bshd``,
-``flat`` or ``opt``, rolling when the model has a sliding window), or
-``{"k_pages", "v_pages"}`` in a paged cache (``init_paged_cache``, decoded
-with a ``"block_table"`` entry beside ``"pos"``); an SSM layer holds
-per-row ``{"state", "conv"}`` in both.
+or a (B,) vector of per-slot positions, and an encoder-decoder's prefill
+adds ``"enc_out"`` (B, S_enc, d), from which every decode step projects
+the cross K/V again in every layer, as ``repro``'s does. An attention
+layer holds ``{"k", "v"}`` in the config's layout
+(``attention.init_kv_cache``: ``bshd``, ``flat`` or ``opt``, rolling when
+the model has a sliding window), or ``{"k_pages", "v_pages"}`` in a paged
+cache (``init_paged_cache``, decoded with a ``"block_table"`` entry beside
+``"pos"``); an SSM layer holds per-row ``{"state", "conv"}`` in both. A
+VLM's vision rows take the first cache positions.
 """
 from __future__ import annotations
 
@@ -58,11 +66,6 @@ def layer_period(cfg: ModelConfig) -> int:
 
 class LM:
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        if cfg.is_encdec or cfg.family == "vlm":
-            raise NotImplementedError(
-                f"family {cfg.family!r} ({cfg.name}) needs the encoder, "
-                f"cross-attention and frontend, which the next slice of the "
-                f"port (ROADMAP A11b) brings")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.kinds = [(cfg.layer_kind(i), cfg.layer_ffn(i))
@@ -71,45 +74,74 @@ class LM:
         self.block_kinds = self.kinds[:self.period]  # [(mixer, ffn)] * p
 
     # ------------------------------------------------------------------
+    def _block_init(self, g: torch.Generator, kind: str, ffn: str,
+                    cross: bool) -> dict:
+        cfg = self.cfg
+        bp = {"norm1": layers.norm_init(g, cfg, cfg.d_model),
+              "mixer": (attention.attn_init(g, cfg) if kind == "attn"
+                        else ssm.ssm_init(g, cfg))}
+        if cross:
+            bp["norm_cross"] = layers.norm_init(g, cfg, cfg.d_model)
+            bp["cross"] = attention.attn_init(g, cfg)
+        if ffn != "none":
+            bp["norm2"] = layers.norm_init(g, cfg, cfg.d_model)
+            bp["ffn"] = (moe.moe_init(g, cfg) if ffn == "moe"
+                         else layers.mlp_init(g, cfg, cfg.d_ff))
+        return bp
+
     def init(self, generator: torch.Generator, layer_fn=None) -> dict:
         """Random latent parameters drawn from ``generator`` on its device
         (which must be this model's). ``layer_fn`` maps each layer's
-        parameters as they are drawn (e.g. ``layers.pack_params``), so a
-        model whose latent weights would not fit at once is packed layer
-        by layer."""
+        parameters (decoder and encoder blocks alike) as they are drawn
+        (e.g. ``layers.pack_params``), so a model whose latent weights
+        would not fit at once is packed layer by layer."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator lies on {generator.device}, the "
                              f"model on {self.device}")
         cfg, g = self.cfg, generator
-        blocks = []
-        for kind, ffn in self.kinds:
-            bp = {"norm1": layers.norm_init(g, cfg, cfg.d_model),
-                  "mixer": (attention.attn_init(g, cfg) if kind == "attn"
-                            else ssm.ssm_init(g, cfg))}
-            if ffn != "none":
-                bp["norm2"] = layers.norm_init(g, cfg, cfg.d_model)
-                bp["ffn"] = (moe.moe_init(g, cfg) if ffn == "moe"
-                             else layers.mlp_init(g, cfg, cfg.d_ff))
-            blocks.append(bp if layer_fn is None else layer_fn(bp))
-        params = {"embed": layers.embed_init(g, cfg), "layers": blocks,
-                  "final_norm": layers.norm_init(g, cfg, cfg.d_model)}
+        fn = layer_fn or (lambda bp: bp)
+        # draw order: decoder blocks, encoder blocks, then the rest (a
+        # decoder-only model's draws are those of the port before the
+        # encoder was added)
+        blocks = [fn(self._block_init(g, kind, ffn, cfg.is_encdec))
+                  for kind, ffn in self.kinds]
+        enc = [fn(self._block_init(g, "attn", "mlp", False))
+               for _ in range(cfg.enc_layers)]
+        params = {"embed": layers.embed_init(g, cfg), "layers": blocks}
+        if cfg.is_encdec:
+            params["enc_layers"] = enc
+            params["enc_norm"] = layers.norm_init(g, cfg, cfg.d_model)
+        params["final_norm"] = layers.norm_init(g, cfg, cfg.d_model)
         if not cfg.tie_embeddings:
             params["unembed"] = layers.unembed_init(g, cfg)
         return params
 
     # ------------------------------------------------------------------
     def _apply_block(self, bp, x, kind, ffn, *, positions, cache, cache_pos,
-                     block_table):
+                     block_table, causal=True, enc_out=None):
         cfg = self.cfg
         h = layers.norm_apply(bp["norm1"], x, cfg)
         if kind == "attn":
             h, new_cache = attention.attn_apply(
-                bp["mixer"], h, cfg, positions=positions, cache=cache,
-                cache_pos=cache_pos, block_table=block_table)
+                bp["mixer"], h, cfg, positions=positions, causal=causal,
+                cache=cache, cache_pos=cache_pos, block_table=block_table)
         else:
             h, new_cache = ssm.ssm_apply(bp["mixer"], h, cfg, cache=cache,
                                          cache_pos=cache_pos)
         x = x + h
+        if enc_out is not None and "cross" in bp:
+            # the cross K/V are projected from the encoder's output here,
+            # every call (repro's _apply_block, transformer.py:165-175)
+            hc = layers.norm_apply(bp["norm_cross"], x, cfg)
+            lead = enc_out.shape[:-1]
+            kv, hd = cfg.num_kv_heads, cfg.head_dim
+            ek = layers.linear_apply(bp["cross"]["k"], enc_out, cfg)
+            ev = layers.linear_apply(bp["cross"]["v"], enc_out, cfg)
+            hc, _ = attention.attn_apply(
+                bp["cross"], hc, cfg, positions=positions,
+                kv_override=(ek.reshape(*lead, kv, hd),
+                             ev.reshape(*lead, kv, hd)))
+            x = x + hc
         aux = None
         if ffn != "none":
             h2 = layers.norm_apply(bp["norm2"], x, cfg)
@@ -121,7 +153,7 @@ class LM:
         return x, new_cache, aux
 
     def _run_stack(self, params, x, *, positions, caches=None,
-                   cache_pos=None, block_table=None):
+                   cache_pos=None, block_table=None, enc_out=None):
         """``caches=None`` runs the full-sequence (training) stack; each
         block is then recomputed in the backward when ``cfg.remat ==
         "full"`` and a gradient is being taken — as ``repro`` remats only
@@ -137,7 +169,8 @@ class LM:
             kind, ffn = self.kinds[i]
             kw = dict(positions=positions,
                       cache=None if caches is None else caches[i],
-                      cache_pos=cache_pos, block_table=block_table)
+                      cache_pos=cache_pos, block_table=block_table,
+                      enc_out=enc_out)
             if remat:
                 x, nc, aux = torch_checkpoint.checkpoint(
                     self._apply_block, bp, x, kind, ffn, use_reentrant=False,
@@ -154,6 +187,44 @@ class LM:
             aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, new_caches, aux_total
 
+    def _run_encoder(self, params, enc_x):
+        """The encoder blocks over (B, S_enc, d) ``enc_x``, non-causal and
+        cacheless, then ``enc_norm`` (``repro``'s ``_run_encoder``); each
+        block is recomputed in the backward under ``cfg.remat == "full"``
+        when a gradient is being taken."""
+        positions = torch.arange(enc_x.shape[1], device=enc_x.device).expand(
+            enc_x.shape[0], -1)
+        remat = self.cfg.remat == "full" and torch.is_grad_enabled()
+        kw = dict(positions=positions, cache=None, cache_pos=None,
+                  block_table=None, causal=False)
+        x = enc_x
+        for bp in params["enc_layers"]:
+            if remat:
+                x = torch_checkpoint.checkpoint(
+                    self._apply_block, bp, x, "attn", "mlp",
+                    use_reentrant=False, **kw)[0]
+            else:
+                x = self._apply_block(bp, x, "attn", "mlp", **kw)[0]
+        return layers.norm_apply(params["enc_norm"], x, self.cfg)
+
+    def _inputs(self, params, batch):
+        """(x (B, S, d), n_front, enc_out): the embedded tokens after a
+        VLM's ``vision_embeds`` rows (``n_front`` of them, cast to the
+        activations' dtype), and an encoder-decoder's encoder output over
+        its ``enc_embeds`` (else None)."""
+        cfg = self.cfg
+        x = layers.embed_apply(params["embed"], batch["tokens"], cfg)
+        n_front = 0
+        if "vision_embeds" in batch:
+            ve = batch["vision_embeds"].to(x.dtype)
+            x = torch.cat([ve, x], dim=1)
+            n_front = ve.shape[1]
+        enc_out = None
+        if cfg.is_encdec:
+            enc_out = self._run_encoder(params,
+                                        batch["enc_embeds"].to(x.dtype))
+        return x, n_front, enc_out
+
     def _logits(self, params, x):
         if self.cfg.tie_embeddings:
             return x @ params["embed"]["table"].to(x.dtype).T
@@ -161,15 +232,17 @@ class LM:
 
     # ------------------------------------------------------------------
     def forward(self, params, batch):
-        """Full-sequence forward -> (hidden (B, S, D), n_frontend = 0, aux
-        f32: the MoE layers' load-balancing loss, 0 without them)."""
+        """Full-sequence forward -> (hidden (B, S, D), n_frontend: the
+        vision rows in front of the text, aux f32: the MoE layers'
+        load-balancing loss, 0 without them)."""
         cfg = self.cfg
-        x = layers.embed_apply(params["embed"], batch["tokens"], cfg)
+        x, n_front, enc_out = self._inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device).expand(
             x.shape[0], -1)
-        x, _, aux = self._run_stack(params, x, positions=positions)
+        x, _, aux = self._run_stack(params, x, positions=positions,
+                                    enc_out=enc_out)
         x = layers.norm_apply(params["final_norm"], x, cfg)
-        return x, 0, aux
+        return x, n_front, aux
 
     def loss(self, params, batch):
         """Causal-LM cross-entropy, chunked over the sequence when
@@ -239,21 +312,24 @@ class LM:
         """Run the prompt, fill the caches, return (cache, logits of the
         positions from ``logits_from`` on: by default the last, (B, 1,
         V)). ``cache_dtype`` defaults to bf16 whatever the config says, as
-        ``repro``'s prefill does."""
+        ``repro``'s prefill does. A VLM's vision rows take the first
+        positions (``max_len`` must hold them too); an encoder-decoder's
+        cache keeps the encoder's output as ``"enc_out"``."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = layers.embed_apply(params["embed"], tokens, cfg)
+        x, _, enc_out = self._inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device).expand(
             x.shape[0], -1)
         cache0 = self.init_cache(x.shape[0], max_len, cache_dtype)
         x, new_caches, _ = self._run_stack(params, x, positions=positions,
                                            caches=cache0["layers"],
-                                           cache_pos=None)
+                                           cache_pos=None, enc_out=enc_out)
         x = layers.norm_apply(params["final_norm"], x, cfg)
         logits = self._logits(params, x[:, logits_from:])
         cache = {"layers": new_caches,
                  "pos": torch.tensor(x.shape[1], dtype=torch.int32,
                                      device=x.device)}
+        if enc_out is not None:
+            cache["enc_out"] = enc_out
         return cache, logits
 
     def _decode_window_unrolled(self, cache) -> bool:
@@ -300,7 +376,8 @@ class LM:
         positions = src.expand(tokens.shape)
         x, new_caches, _ = self._run_stack(
             params, x, positions=positions, caches=cache["layers"],
-            cache_pos=pos, block_table=cache.get("block_table"))
+            cache_pos=pos, block_table=cache.get("block_table"),
+            enc_out=cache.get("enc_out"))
         x = layers.norm_apply(params["final_norm"], x, cfg)
         logits = self._logits(params, x)
         if cfg.cache_layout == "opt":

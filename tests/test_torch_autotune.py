@@ -391,7 +391,7 @@ def served(tmp_path_factory):
                    lambda self, *a, _real=real, **k:
                    lookups.append(a) or _real(self, *a, **k))
     _, _, pcfg, pparams = _packed_pair("bfloat16", num_layers=2)
-    prompts, gens = serve.build_workload(pcfg, 5, 8, (2, 5), seed=7)
+    prompts, gens, _ = serve.build_workload(pcfg, 5, 8, (2, 5), seed=7)
     out = {}
     try:
         for name, kw in (("whole", {}),

@@ -814,7 +814,7 @@ def test_decode_graph_matches_eager_decode(cuda, cache):
     cfg = get_config("ternary-paper", reduced=True, num_layers=2,
                      ternary_min_dim=64)
     cfg, params = serve.build_params(cfg, 0, "cuda", packed=True)
-    prompts, gens = serve.build_workload(cfg, 6, 16, (4, 12), seed=0)
+    prompts, gens, _ = serve.build_workload(cfg, 6, 16, (4, 12), seed=0)
     runs = {}
     for graph in (False, True):
         eng = ContinuousScheduler(cfg, max_slots=3, max_len=29,
@@ -865,7 +865,7 @@ def test_chunk_windows_graph_matches_eager(cuda, cache):
     cfg = get_config("ternary-paper", reduced=True, num_layers=2,
                      ternary_min_dim=64)
     cfg, params = serve.build_params(cfg, 0, "cuda", packed=True)
-    prompts, gens = serve.build_workload(cfg, 6, 16, (4, 12), seed=0)
+    prompts, gens, _ = serve.build_workload(cfg, 6, 16, (4, 12), seed=0)
     sched = SchedConfig(chunk_tokens=4)
     per_window = {"ternary_gemm": 4 * cfg.num_layers + 1,
                   "fused_mlp": cfg.num_layers,
@@ -926,7 +926,7 @@ def test_spec_rounds_graph_match_eager(cuda, cache):
     cfg = get_config("ternary-paper", reduced=True, num_layers=2,
                      ternary_min_dim=64)
     cfg, params = serve.build_params(cfg, 0, "cuda", packed=True)
-    prompts, gens = serve.build_workload(cfg, 6, 16, (4, 12), seed=0)
+    prompts, gens, _ = serve.build_workload(cfg, 6, 16, (4, 12), seed=0)
     spec = SpecConfig(draft="layer_skip", k=2, draft_layers=1)
     want = {"draft": {"ternary_gemm": 3 * 5, "fused_mlp": 3,
                       "paged_decode_attention": 0},
@@ -984,7 +984,7 @@ def test_guarded_graph_flags_a_poisoned_slot(cuda, cache):
     cfg = get_config("ternary-paper", reduced=True, num_layers=2,
                      ternary_min_dim=64)
     cfg, params = serve.build_params(cfg, 0, "cuda", packed=True)
-    prompts, gens = serve.build_workload(cfg, 6, 16, (4, 12), seed=0)
+    prompts, gens, _ = serve.build_workload(cfg, 6, 16, (4, 12), seed=0)
     ref = ContinuousScheduler(cfg, max_slots=3, max_len=29, device="cuda",
                               cuda_graph=False, **cache)
     ref.load(params)
@@ -1123,7 +1123,7 @@ def test_cuda_tensors_reach_a_plain_version_only_when_named(cuda,
     cfg = get_config("ternary-paper", reduced=True, num_layers=2,
                      ternary_min_dim=64)
     cfg, params = serve.build_params(cfg, 0, "cuda", packed=True)
-    prompts, gens = serve.build_workload(cfg, 4, 16, (4, 9), seed=0)
+    prompts, gens, _ = serve.build_workload(cfg, 4, 16, (4, 9), seed=0)
     streams = {}
     for label, kw in (("dense", {}),
                       ("paged", dict(cache="paged", page_size=16)),
@@ -1153,7 +1153,7 @@ def test_sliding_window_layouts_graph_match_eager(cuda, layout):
     cfg = get_config("ternary-paper", reduced=True, num_layers=2,
                      ternary_min_dim=64, sliding_window=8, **layout)
     cfg, params = serve.build_params(cfg, 0, "cuda", packed=True)
-    prompts, gens = serve.build_workload(cfg, 5, 16, (4, 12), seed=0)
+    prompts, gens, _ = serve.build_workload(cfg, 5, 16, (4, 12), seed=0)
     streams = {}
     for graph in (False, True):
         eng = ContinuousScheduler(cfg, max_slots=2, max_len=29,
@@ -1192,7 +1192,7 @@ def test_families_graph_matches_eager(cuda, arch, cache):
     cfg = get_config(arch, reduced=True, num_layers=2, ternary_min_dim=64,
                      quantization="ternary", **extra)
     cfg, params = serve.build_params(cfg, 0, "cuda", packed=True)
-    prompts, gens = serve.build_workload(cfg, 6, 16, (4, 12), seed=0)
+    prompts, gens, _ = serve.build_workload(cfg, 6, 16, (4, 12), seed=0)
     n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.num_layers))
     runs, logits = {}, []
     for graph in (False, True):

@@ -171,7 +171,7 @@ def test_engine_replays_a_captured_step():
     step eagerly: the same streams as the eager step, one replay a
     decode step."""
     _, _, pcfg, pparams = _packed_pair("float32", num_layers=2)
-    prompts, gens = serve.build_workload(pcfg, 5, 8, (2, 7), seed=3)
+    prompts, gens, _ = serve.build_workload(pcfg, 5, 8, (2, 7), seed=3)
     eager = ContinuousScheduler(pcfg, max_slots=2, max_len=16, device="cpu")
     eager.load(pparams)
     ref, rm = serve.run_continuous(eager, prompts, gens)

@@ -100,9 +100,9 @@ def test_paged_pool_keeps_ssm_rows():
 
 
 def test_refusals_match_repros():
-    """The engine refuses encoder-decoder and VLM configs, and chunked
-    prefill and speculative decoding on a stack with SSM layers, with
-    repro's messages; the port's LM names the next slice for the first."""
+    """The engine refuses encoder-decoder and VLM configs (the static
+    server and the LM take them), and chunked prefill and speculative
+    decoding on a stack with SSM layers, with repro's messages."""
     def msg(fn):
         with pytest.raises(ValueError) as e:
             fn()
@@ -114,8 +114,7 @@ def test_refusals_match_repros():
         assert msg(lambda: ContinuousScheduler(
             pcfg, max_slots=1, max_len=16, device="cpu")) == msg(
             lambda: RScheduler(rcfg, max_slots=1, max_len=16))
-        with pytest.raises(NotImplementedError, match="A11b"):
-            LM(pcfg, "cpu")
+        assert LM(pcfg, "cpu").cfg is pcfg
     for arch in ("mamba2-130m", "jamba-v0.1-52b"):
         rcfg = rget_config(arch, reduced=True)
         pcfg = get_config(arch, reduced=True)

@@ -375,7 +375,7 @@ def test_chaos_engines_match_repro(pair, mode, seed):
     cache metrics, paged)."""
     rcfg, rparams, pcfg, pparams = pair
     pkw, rkw = MODES[mode]
-    prompts, gens = serve.build_workload(pcfg, 8, 8, (3, 9), seed=5)
+    prompts, gens, _ = serve.build_workload(pcfg, 8, 8, (3, 9), seed=5)
     chunked = mode == "chunked"
     rfaults = RFaultConfig(seed=seed, nan_rate=0.2, oom_rate=0.2)
     reng = RScheduler(rcfg, max_slots=3, max_len=20, faults=rfaults,
@@ -413,7 +413,7 @@ def test_deadlines_match_repro_under_fake_clocks(pair):
     lockstep: deadlines of 0.45 s (and 0.25 s, queued behind full slots)
     cancel the same requests at the same steps."""
     rcfg, rparams, pcfg, pparams = pair
-    prompts, gens = serve.build_workload(pcfg, 6, 6, (4, 9), seed=2)
+    prompts, gens, _ = serve.build_workload(pcfg, 6, 6, (4, 9), seed=2)
     with rclock.fake_clock() as rc, clock.fake_clock() as pc:
         reng = RScheduler(rcfg, max_slots=2, max_len=16,
                           resilience=RResilienceConfig(deadline_s=0.45))
@@ -438,7 +438,7 @@ def test_admission_pause_matches_repro(pair):
     """admission_pause_frac on a small page pool: the same pauses and
     outcomes as repro's."""
     rcfg, rparams, pcfg, pparams = pair
-    prompts, gens = serve.build_workload(pcfg, 6, 8, (4, 8), seed=4)
+    prompts, gens, _ = serve.build_workload(pcfg, 6, 8, (4, 8), seed=4)
     res = dict(admission_pause_frac=0.5)
     reng = RScheduler(rcfg, max_slots=3, max_len=16, cache="paged",
                       page_size=4, n_pages=13, paged_attn="jax",
@@ -503,7 +503,7 @@ def test_nan_in_one_slots_cache_quarantines_that_slot(pair, mode):
     _, _, pcfg, pparams = pair
     kw = (dict(cache="paged", page_size=4, prefix_cache=False)
           if mode == "paged" else {})
-    prompts, gens = serve.build_workload(pcfg, 3, 6, (8,), seed=7)
+    prompts, gens, _ = serve.build_workload(pcfg, 3, 6, (8,), seed=7)
     ref = ContinuousScheduler(pcfg, max_slots=3, max_len=16, device="cpu",
                               **kw)
     ref.load(pparams)
@@ -536,7 +536,7 @@ def test_nan_in_a_chunk_window_quarantines_that_row(pair):
     next window row non-finite; it alone is quarantined and replayed, and
     both streams equal the fault-free chunked run's."""
     _, _, pcfg, pparams = pair
-    prompts, gens = serve.build_workload(pcfg, 2, 12, (5,), seed=8)
+    prompts, gens, _ = serve.build_workload(pcfg, 2, 12, (5,), seed=8)
     sched = SchedConfig(chunk_tokens=4, admission="fifo")
     ref = ContinuousScheduler(pcfg, max_slots=2, max_len=20, device="cpu",
                               sched=sched)
@@ -566,7 +566,7 @@ def test_guard_leaves_a_clean_steps_logits_bitwise(pair, mode):
     and every row flagged finite."""
     _, _, pcfg, pparams = pair
     kw = dict(cache="paged", page_size=4) if mode == "paged" else {}
-    prompts, gens = serve.build_workload(pcfg, 3, 6, (8,), seed=9)
+    prompts, gens, _ = serve.build_workload(pcfg, 3, 6, (8,), seed=9)
     eng = ContinuousScheduler(pcfg, max_slots=3, max_len=16, device="cpu",
                               faults=FaultConfig(seed=0), **kw)
     eng.load(pparams)
@@ -596,7 +596,7 @@ def test_slo_admission_retry_drains(pair):
     check; the port's engine counts its own submissions and drains, its
     outcomes equal to the same schedule under FIFO admission."""
     rcfg, rparams, pcfg, pparams = pair
-    prompts, gens = serve.build_workload(pcfg, 8, 8, (3, 9), seed=5)
+    prompts, gens, _ = serve.build_workload(pcfg, 8, 8, (3, 9), seed=5)
     reng = RScheduler(rcfg, max_slots=3, max_len=20,
                       sched=RSchedConfig(chunk_tokens=3),
                       faults=RFaultConfig(nan_at=(3, 5, 7)),
@@ -635,7 +635,7 @@ def test_nan_in_a_released_slots_v_meets_the_next_request_as_in_repro(
     masked NaN by a probability of 0, so every attempt is quarantined
     until the request fails. Both packages give the same outcome."""
     rcfg, rparams, pcfg, pparams = pair
-    prompts, _ = serve.build_workload(pcfg, 2, 6, (5,), seed=7)
+    prompts, _, _ = serve.build_workload(pcfg, 2, 6, (5,), seed=7)
     outcomes = []
     for pkg in ("repro", "port"):
         if pkg == "repro":

@@ -164,7 +164,7 @@ def test_engines_give_equal_streams_in_float32(slots, gen_lens):
     whose keys are a subset of repro's."""
     rcfg, rparams, pcfg, pparams = _packed_pair("float32", num_layers=2)
     prompts, gens, _ = rserve.build_workload(rcfg, 7, 8, gen_lens, seed=5)
-    pprompts, pgens = serve.build_workload(pcfg, 7, 8, gen_lens, seed=5)
+    pprompts, pgens, _ = serve.build_workload(pcfg, 7, 8, gen_lens, seed=5)
     np.testing.assert_array_equal(prompts, pprompts)
     assert gens == pgens
     max_len = 8 + max(gen_lens) + 1

@@ -245,7 +245,7 @@ def _traced_runs(mode, tmp_path):
     both."""
     rcfg, rparams, pcfg, pparams = _packed_pair("float32", num_layers=2)
     if mode == "dense":
-        prompts, gens = serve.build_workload(pcfg, 7, 8, (2, 9), seed=5)
+        prompts, gens, _ = serve.build_workload(pcfg, 7, 8, (2, 9), seed=5)
         kw, pkw = dict(max_slots=3, max_len=18), {}
     else:
         make, kw, paged_kw = SCENARIOS[mode]
@@ -355,7 +355,7 @@ def test_engine_counters_are_registry_backed():
     _, _, pcfg, pparams = _packed_pair("float32", num_layers=2)
     eng = ContinuousScheduler(pcfg, max_slots=2, max_len=16, device="cpu")
     eng.load(pparams)
-    prompts, gens = serve.build_workload(pcfg, 3, 6, (2, 4), seed=1)
+    prompts, gens, _ = serve.build_workload(pcfg, 3, 6, (2, 4), seed=1)
     snap = eng.begin_metrics()
     for p, g in zip(prompts, gens):
         eng.submit(p, g)

@@ -511,7 +511,7 @@ def test_one_decode_step_paged_vs_dense(kv_dtype):
     cfg = get_config("ternary-paper", reduced=True, num_layers=4,
                      ternary_min_dim=64)
     cfg, params = serve.build_params(cfg, 0, "cpu", packed=True)
-    prompts, _ = serve.build_workload(cfg, 8, 30, (4,), seed=0)
+    prompts, _, _ = serve.build_workload(cfg, 8, 30, (4,), seed=0)
     model, ps, max_len = LM(cfg, "cpu"), 8, 64
     b, s = prompts.shape
     toks = torch.from_numpy(prompts)

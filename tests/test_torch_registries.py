@@ -326,7 +326,7 @@ def test_engine_honours_paged_attn(one_layer, monkeypatch, cfg_impl, arg,
     dense = ContinuousScheduler(pcfg, max_slots=2, max_len=24, device="cpu",
                                 paged_attn=arg)
     assert dense.cfg.paged_attn_impl == cfg_impl
-    prompts, gens = serve.build_workload(pcfg, 3, 8, (3, 5), seed=2)
+    prompts, gens, _ = serve.build_workload(pcfg, 3, 8, (3, 5), seed=2)
     calls = _recording_rows(monkeypatch)
     peng.load(pparams)
     pouts, _ = serve.run_continuous(peng, prompts, gens)

@@ -416,7 +416,7 @@ def test_spec_engine_matches_repro(pair, mode, draft):
     slot-round, page reclaims, per request) and cache metrics. The paged
     pool is small enough to preempt."""
     rcfg, rparams, pcfg, pparams = pair
-    prompts, gens = serve.build_workload(pcfg, 6, 8, (3, 9), seed=5)
+    prompts, gens, _ = serve.build_workload(pcfg, 6, 8, (3, 9), seed=5)
     spec = dict(draft=draft, k=2, draft_layers=1, draft_sparsity=0.5)
     kw = {"paged": dict(cache="paged", page_size=4, n_pages=14)}.get(
         mode, {})

@@ -36,7 +36,7 @@ def test_run_static_matches_repro_and_the_engine(pair, requests, batch):
     1, padded and trimmed. The continuous engine runs 2 slots with one
     long request pinned while short ones cycle through the other."""
     rcfg, rparams, pcfg, pparams = pair
-    prompts, _ = serve.build_workload(pcfg, requests, 8, (2,), seed=1)
+    prompts, _, _ = serve.build_workload(pcfg, requests, 8, (2,), seed=1)
     gens = [12, 2, 2, 2, 2, 3, 4][:requests]
     max_len = 8 + 12 + 1
     rserver = rserve.BatchedServer(rcfg, max_len)
@@ -64,7 +64,7 @@ def test_generate_pads_nothing_itself(pair):
     """generate() takes the rows it is given: a 2-row batch gives the two
     rows' tokens of a 3-row batch holding them."""
     _, _, pcfg, pparams = pair
-    prompts, _ = serve.build_workload(pcfg, 3, 8, (2,), seed=2)
+    prompts, _, _ = serve.build_workload(pcfg, 3, 8, (2,), seed=2)
     server = serve.BatchedServer(pcfg, 16, "cpu")
     server.load(pparams)
     three = server.generate(prompts, 5)
@@ -96,7 +96,7 @@ def test_cli_continuous_flags(capsys):
                                "--page-size", "4", "--paged-attn", "jax"])
     assert paged["generated_tokens"] == dense["generated_tokens"]
     cfg = get_config("ternary-paper", reduced=True, ternary_min_dim=64)
-    prompts, gens = serve.build_workload(cfg, 5, 8, (2, 5))
+    prompts, gens, _ = serve.build_workload(cfg, 5, 8, (2, 5))
     cfg, params = serve.build_params(cfg, 0, "cpu", True)
     engine = ContinuousScheduler(cfg, max_slots=4, max_len=24, device="cpu")
     engine.load(params)

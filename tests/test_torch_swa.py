@@ -139,7 +139,7 @@ def test_engine_and_static_serve_repros_streams(pair):
     prompts (the prefill rolls) and budgets past the wrap: streams equal
     repro's engine's and the port's static server's."""
     layout, rcfg, rparams, pcfg, pparams = pair
-    prompts, gens = serve.build_workload(pcfg, 5, 12, (3, 9), seed=3)
+    prompts, gens, _ = serve.build_workload(pcfg, 5, 12, (3, 9), seed=3)
     max_len = 12 + 9 + 1
     reng = RScheduler(rcfg, max_slots=2, max_len=max_len)
     reng.load(rparams)
