@@ -221,6 +221,29 @@ non-causal at (128, 2048, 64) beside SDPA), three QAT steps of each model
 at full width (seamless 2 + 2 layers through the supervisor; internvl2 2
 layers with a 32768-token vocabulary, uncheckpointed), and a ``frontends
 summary:`` line. ``--only frontends`` builds and runs this phase alone.
+``tp`` serves with tensor parallelism on this one card: two ranks, each
+a process, sharing cuda:0 over gloo (NCCL refuses two ranks on one
+device), so every step runs eagerly (gloo steps cannot be captured, and
+``cuda_graph=True`` with a gloo mesh must raise). First gloo's all-reduce
+and all-gather of CUDA tensors are checked and an f32 all-reduce of (8,
+1024) and (1024, 1024) is timed beside its modelled bytes (host-bound
+gloo on one card: correctness, not tensor parallelism's speed); then the
+kernels at tp 2's per-shard shapes against their plain versions, timed
+(rows of the ``kernels`` line with ``"tp_shard"``): B1 on a q/k/v column
+shard (1024 -> 512), on o's row shard (512 -> 1024, the f32 form) and on
+the lm head's shard (1024 -> 16384), at M 8 and 1024; B4 on an ff-2048
+slice with the f32 partial; B5 over 8 of the 16 heads, bf16 and int8
+pages. Then full-width ternary-paper at tp 2 (the leader spawns its
+follower rank), dense, paged bf16 and paged int8, the dense workload:
+each against a tp-1 engine on the same weights, the first decode step's
+logits within LOGIT_TOL of max|logit| and the streams equal or split at
+near ties (``_split_check``), every budget met, B1 and B4 launched by
+the leader and B5 12 a leader decode step (paged). Last, the router at
+dp 2 x tp 1 and dp 2 x tp 2 (four ranks on the card) over paged bf16
+pools, two waves of a workload whose even requests share a 64-token
+prefix: the placements, affinity hits and spills printed, at least one
+affinity hit, and the streams against one engine's under the near-tie
+rule. ``--only tp`` builds and runs this phase alone.
 ``tcsc`` runs the paper's TCSC formats on the card (plain PyTorch: no TPU
 kernel computes them) at K = N = 4096, s 1/2 and 1/16, M 8 and 64: each
 format's arrays round-trip, each matmul agrees with the plain dense
@@ -292,7 +315,8 @@ Output: progress lines, each serving run's metrics JSON, a ``serving
 host/device summary`` JSON line (decode_graph's readings, the trace's
 spans, the profiles), one ``{"kernels": ...}`` JSON line (each kernel's launches summed over the
 path runs — serving dense, paged bf16 and int8, the chunked runs, the
-faults runs, the spec runs, the modes runs, mlp_formats, the families
+faults runs, the spec runs, the modes runs, mlp_formats, the tp runs (the leader's
+launches), the families
 and frontends runs, gemm_formats, train and eval —
 with the per-run
 counts
@@ -532,6 +556,12 @@ PORT_KERNEL_NAMES = ("ternary_gemm", "fused_mlp", "paged_attention",
 # B7 (block_m, block_n); B2/B3 the rows; B4 the same (block_m, strip)
 # pairs): the tune phase's baseline, against which every candidate tile is
 # held bitwise and the model's pick is timed.
+# tensor parallelism on the one card (tp_phase): tp 2 ranks sharing cuda:0
+# over gloo; the router's workload shares a 64-token prefix on half of its
+# requests; the all-reduce shapes (decode rows, a prefill's) and their
+# timed iterations
+TP = dict(tp=2, requests=16, prefix_len=64,
+          allreduce=(((8, 1024), 50), ((1024, 1024), 20)))
 FIXED_TILE = {"decode": (16, 64), "verify": (16, 64), "prefill": (64, 128),
               "chunk": (64, 128)}
 # The tune phase: every key the served engines' load() plans, then
@@ -5254,17 +5284,370 @@ def tune_phase(cfg, params, prompts, gens, max_len, tune_out=None):
     return rows, side
 
 
+def _tp_drive(engine, prompts, gens, waves=1):
+    """Submit ``prompts`` (in ``waves`` equal waves, each drained before the
+    next: a router's later wave meets the prefixes the first one cached),
+    take the first step's decode logits (the first wave's prefill and one
+    decode step), drain; the launch counters zeroed just before and read
+    just after. Returns (streams, metrics of the last wave, the first
+    step's logits, launches)."""
+    import numpy as np
+    _zero_counts()
+    n = len(prompts)
+    per = -(-n // waves)
+    reqs, first, metrics = [], None, None
+    for w in range(waves):
+        reqs += [engine.submit(p, g) for p, g in
+                 zip(prompts[w * per:(w + 1) * per],
+                     gens[w * per:(w + 1) * per])]
+        if first is None and hasattr(engine, "step"):
+            engine.step()
+            first = engine.last_logits.float().clone()
+        metrics = engine.run()
+    launches = _read_counts()
+    return ([np.asarray(r.tokens, np.int32) for r in reqs], metrics, first,
+            launches)
+
+
+def _tp_check_run(label, cfg, outs, gens, launches, decode_steps):
+    """Every budget of in-range tokens, B1 and B4 launched on the leader,
+    and, paged (``decode_steps``: the leaders' decode steps, else None),
+    B5 once per layer and decode step."""
+    for i, (toks, g) in enumerate(zip(outs, gens)):
+        if len(toks) != g or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{label}: request {i}: {len(toks)} tokens "
+                                 f"for a budget of {g}, or ids out of range")
+    for name in ("ternary_gemm", "fused_mlp"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{label}: {name} kernel never launched")
+    want = 0 if decode_steps is None else cfg.num_layers * decode_steps
+    if launches["paged_decode_attention"] != want:
+        raise AssertionError(f"{label}: paged_decode_attention launched "
+                             f"{launches['paged_decode_attention']} times, "
+                             f"expected {want}")
+
+
+def tp_prefix_workload(cfg):
+    """The router's workload: TP["requests"] prompts of SERVE's length,
+    the even-numbered half sharing a TP["prefix_len"]-token prefix."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 27)
+    n, plen = TP["requests"], SERVE["prompt_len"]
+    prompts = rng.integers(0, cfg.vocab_size, size=(n, plen)).astype(
+        np.int32)
+    common = rng.integers(0, cfg.vocab_size, size=TP["prefix_len"])
+    prompts[::2, :TP["prefix_len"]] = common
+    gens = [int(g) for g in rng.choice(SERVE["gen_lens"], size=n)]
+    return prompts, gens
+
+
+def _allreduce_peer(store: str) -> int:
+    """The second rank of ``tp_collectives``: join, then take part in the
+    same sequence of collectives on cuda:0."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.distributed import tp as tp_lib
+    group = tp_lib.Group.join(store, 1, 2, "gloo", 300.0)
+    for shape, iters in TP["allreduce"]:
+        t = torch.ones(shape, device="cuda")
+        for _ in range(iters + 3):
+            group.all_reduce(t)
+    group.all_gather(torch.full((8, 16), 1.0, dtype=torch.bfloat16,
+                                device="cuda"))
+    torch.cuda.synchronize()
+    return 0
+
+
+def tp_collectives():
+    """Two ranks on this card over gloo (a second process): one f32
+    all-reduce and one bf16 all-gather of CUDA tensors checked, then the
+    time of an f32 all-reduce of each TP["allreduce"] shape (the median of
+    the iterations; host-bound gloo through host copies on one card, not
+    NVLink and not tensor parallelism's speed) beside the plans' modelled
+    collective bytes, 2 (tp - 1) / tp * m * n * 4."""
+    import torch
+    from repro_torch.distributed import tp as tp_lib
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    store = os.path.join(workdir, "store")
+    peer = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--allreduce-peer", store])
+    rows = []
+    try:
+        group = tp_lib.Group.join(store, 0, 2, "gloo", 300.0)
+        for shape, iters in TP["allreduce"]:
+            t = torch.full(shape, 2.0, device="cuda")
+            got = group.all_reduce(t.clone())
+            if got.device.type != "cuda" or not bool((got == 3.0).all()):
+                raise AssertionError(f"gloo all-reduce of a CUDA tensor "
+                                     f"{shape}: wrong sum or device")
+            times = []
+            for _ in range(iters + 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                group.all_reduce(t)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            times = sorted(times[2:])
+            m, n = shape
+            rows.append({"shape": list(shape), "dtype": "float32",
+                         "backend": "gloo", "ranks_on_card": 2,
+                         "ms_p50": times[len(times) // 2],
+                         "ms_min": times[0],
+                         "modelled_bytes": 2.0 * (2 - 1) / 2 * m * n * 4})
+        got = group.all_gather(torch.zeros((8, 16), dtype=torch.bfloat16,
+                                           device="cuda"))
+        if tuple(got.shape) != (8, 32) or got.device.type != "cuda" or \
+                not bool((got[:, :16] == 0).all() & (got[:, 16:] == 1).all()):
+            raise AssertionError("gloo all-gather of a CUDA bf16 tensor: "
+                                 "wrong result")
+        torch.cuda.synchronize()
+        if peer.wait(60) != 0:
+            raise AssertionError("the all-reduce peer failed")
+    finally:
+        if peer.poll() is None:
+            peer.kill()
+        shutil.rmtree(workdir, ignore_errors=True)
+    print("tp collectives (gloo, 2 ranks on one card): " + json.dumps(rows),
+          flush=True)
+    return rows
+
+
+def tp_kernel_rows(flush):
+    """The kernels at tp 2's per-shard shapes of full-width ternary-paper,
+    each through ops as the rank's forward calls it, against its plain
+    version, timed: B1 on a column shard (q/k/v 1024 -> 512) and a row
+    shard (o, 512 -> 1024, the f32 form: scale, no bias), the lm head's
+    shard (1024 -> 16384), at M 8 and 1024; B4 on an ff-2048 slice with
+    the f32 partial; B5 over 8 of the 16 heads (serving shape). The
+    library time of an f32 form is cuBLAS's bf16 product of the same
+    shape (a bf16 output)."""
+    import torch
+    from repro_torch.core import weights
+    from repro_torch.kernels import fused_mlp as fused_lib
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_gemm as gemm_lib
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+    gemm, mlp = [], []
+    for label, k, n, part in (("column shard q/k/v", 1024, 1024, "n"),
+                              ("row shard o (f32)", 1024, 1024, "k"),
+                              ("lm head shard", 1024, 32768, "n")):
+        full = _packed_weight(gen, k, n)
+        w = weights.shard_weight(full, part, 0, TP["tp"])
+        for m in (8, 1024):
+            phase = _serving_phase(m)
+            x = torch.randn(m, w.k, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            f32 = part == "k"
+            kw = dict(partition="k", tp=TP["tp"]) if f32 else {}
+            with ops.serving_phase(phase):
+                got = ops.ternary_gemm(x, w, **kw)
+                ref = gemm_lib.ternary_gemm_ref(
+                    x, w.packed, w.scale, None if f32 else w.bias,
+                    out_dtype=torch.float32 if f32 else None)
+                if got.dtype != ref.dtype:
+                    raise AssertionError(f"{label}: {got.dtype} against "
+                                         f"{ref.dtype}")
+                err = check_close(f"ternary_gemm {label} M={m}", got, ref)
+                w_eff = w.materialize(torch.float32, with_scale=True).to(
+                    torch.bfloat16)
+                iters = _iters_for(m)
+                row = {"tp_shard": label, "m": m, "k": w.k, "n": w.n,
+                       "phase": phase, "out": "float32" if f32 else
+                       "bfloat16", "max_abs_err": err,
+                       "ms": cuda_ms(lambda: ops.ternary_gemm(x, w, **kw),
+                                     iters, flush),
+                       "plain_ms": cuda_ms(lambda: gemm_lib.ternary_gemm_ref(
+                           x, w.packed, w.scale, None, out_dtype=(
+                               torch.float32 if f32 else None)), iters,
+                           flush),
+                       "library_ms": cuda_ms(lambda: torch.matmul(x, w_eff),
+                                             iters, flush)}
+            nbytes = (m * w.k * 2 + w.packed.numel() * 4 + w.n * 4
+                      + m * w.n * (4 if f32 else 2))
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes,
+                                                        2.0 * m * w.nnz)
+            print(f"tp kernel {label} M={m}: " + json.dumps(row), flush=True)
+            gemm.append(row)
+    wi, wg = (weights.shard_weight(_packed_weight(gen, 1024, 4096), "n", 0,
+                                   TP["tp"]) for _ in range(2))
+    wo = weights.shard_weight(_packed_weight(gen, 4096, 1024), "k", 0,
+                              TP["tp"])
+    for m in (8, 1024):
+        phase = _serving_phase(m)
+        x = torch.randn(m, 1024, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        args = (x, wi.packed, wo.packed, wg.packed, wi.scale, None,
+                wg.scale, None, wo.scale, None)
+        with ops.serving_phase(phase):
+            got = ops.fused_mlp(x, wi, wo, wg, tp=TP["tp"])
+            ref = fused_lib.fused_mlp_ref(*args, out_dtype=torch.float32)
+            err = check_close(f"fused_mlp ff-{wi.n} slice M={m}", got, ref)
+            ei, eg, eo = (c.materialize(torch.float32, with_scale=True).to(
+                torch.bfloat16) for c in (wi, wg, wo))
+            iters = _iters_for(m)
+            row = {"tp_shard": "ff slice (f32 partial)", "m": m, "k": 1024,
+                   "ff": wi.n, "n": 1024, "phase": phase,
+                   "out": "float32", "max_abs_err": err,
+                   "ms": cuda_ms(lambda: ops.fused_mlp(x, wi, wo, wg,
+                                                       tp=TP["tp"]),
+                                 iters, flush),
+                   "plain_ms": cuda_ms(lambda: fused_lib.fused_mlp_ref(
+                       *args, out_dtype=torch.float32), iters, flush),
+                   "library_ms": cuda_ms(
+                       lambda: (torch.nn.functional.silu(x @ eg) * (x @ ei))
+                       @ eo, iters, flush)}
+        nbytes = (m * 1024 * 2 + (wi.packed.numel() + wg.packed.numel()
+                                  + wo.packed.numel()) * 4
+                  + (2 * wi.n + 1024) * 4 + m * 1024 * 4)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, 2.0 * m * (wi.nnz + wg.nnz + wo.nnz))
+        print(f"tp kernel fused_mlp ff {wi.n} M={m}: " + json.dumps(row),
+              flush=True)
+        mlp.append(row)
+    shape = dict(PAGED, h=PAGED["h"] // TP["tp"], kv=PAGED["kv"] // TP["tp"])
+    gen_p = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    inputs = _paged_inputs(gen_p, shape, lambda: torch.randint(
+        1, shape["max_len"] + 1, (shape["b"],), generator=gen_p,
+        device="cuda", dtype=torch.int32))
+    paged = paged_rows("tp 8 heads", shape, inputs, flush,
+                       subsets=([3], [6, 1, 4, 0, 7, 2, 5, 3]), on_path=True)
+    for r in paged:
+        r["tp_shard"] = "8 of 16 heads"
+    return {"ternary_gemm": gemm, "fused_mlp": mlp,
+            "paged_decode_attention": paged}
+
+
+def tp_phase(flush, cfg=None, params=None):
+    """Tensor-parallel serving on this card (module docstring, ``tp``):
+    gloo's CUDA collectives and their times, the per-shard kernel rows,
+    then full-width ternary-paper at tp 2 (two ranks sharing cuda:0 over
+    gloo, eager) dense, paged bf16 and paged int8 against tp 1, and the
+    router at dp 2 x tp 1 and dp 2 x tp 2 against one engine. Returns
+    (kernel rows by name, launch counts by run, a summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import router as router_lib
+    from repro_torch.distributed import tp as tp_lib
+    from repro_torch.launch import serve
+    from repro_torch.serving import ContinuousScheduler
+
+    summary = {"collectives": tp_collectives()}
+    rows = tp_kernel_rows(flush)
+    if params is None:
+        cfg = get_config("ternary-paper")
+        cfg, params = serve.build_params(cfg, SEED, "cuda", packed=True)
+    prompts, gens, _ = serve.build_workload(
+        cfg, SERVE["requests"], SERVE["prompt_len"], SERVE["gen_lens"],
+        seed=SEED)
+    max_len = SERVE["prompt_len"] + max(SERVE["gen_lens"]) + 1
+    devices = ["cuda:0"] * (2 * TP["tp"])
+    mesh = tp_lib.replica_meshes(1, TP["tp"], devices[:TP["tp"]])[0]
+    try:
+        ContinuousScheduler(cfg, max_slots=SERVE["slots"], max_len=max_len,
+                            mesh=mesh)
+    except ValueError as e:
+        print(f"tp: cuda_graph=True over gloo raises: {e}", flush=True)
+    else:
+        raise AssertionError("a gloo tensor-parallel engine with "
+                             "cuda_graph=True did not raise")
+    runs, steps = {}, {}
+    modes = (("dense", {}),
+             ("paged_bf16", dict(cache="paged", page_size=PAGE_SIZE)),
+             ("paged_int8", dict(cache="paged", page_size=PAGE_SIZE,
+                                 kv_dtype="int8")))
+    for label, kw in modes:
+        ref = _engine(cfg, params, max_len, True, **kw)
+        r_outs, _, r_first, _ = _tp_drive(ref, prompts, gens)
+        del ref
+        t0 = time.perf_counter()
+        eng = ContinuousScheduler(cfg, max_slots=SERVE["slots"],
+                                  max_len=max_len, cuda_graph=False,
+                                  mesh=mesh, **kw)
+        eng.load(params)
+        t_load = time.perf_counter() - t0
+        try:
+            outs, metrics, first, launches = _tp_drive(eng, prompts, gens)
+        finally:
+            eng.close()
+        what = f"tp 2 {label}"
+        _tp_check_run(what, cfg, outs, gens, launches,
+                      None if label == "dense" else eng.decode_steps)
+        live = [i for i in range(SERVE["slots"])
+                if outs[i][0] == r_outs[i][0]]
+        _compare_logits(f"{what} first decode step vs tp 1 (rows {live})",
+                        r_first[live], first[live], LOGIT_TOL)
+        splits = streams_or_near_ties(what + " vs tp 1", cfg, params,
+                                      prompts, r_outs, outs)
+        brief = {k: v for k, v in metrics.items() if k != "per_request"}
+        print(f"{what} serving metrics: " + json.dumps(brief), flush=True)
+        print(f"{what} serving launches (leader): " + json.dumps(launches),
+              flush=True)
+        runs[f"tp2_{label}"] = launches
+        steps[label] = {"load_s": t_load, "tok_per_s": metrics["tok_per_s"],
+                        "tpot_p50_s": metrics["latency"]["tpot_s"]["p50"],
+                        "decode_steps": metrics["decode_steps"],
+                        "splits": len(splits), "mesh": metrics["mesh"]}
+    summary["tp2"] = steps
+
+    p_prompts, p_gens = tp_prefix_workload(cfg)
+    kw = dict(cache="paged", page_size=PAGE_SIZE)
+    ref = _engine(cfg, params, max_len, True, **kw)
+    r_outs, _, _, _ = _tp_drive(ref, p_prompts, p_gens, waves=2)
+    del ref
+    routers = {}
+    for dp, tp in ((2, 1), (2, TP["tp"])):
+        label = f"router dp {dp} x tp {tp}"
+        meshes = tp_lib.replica_meshes(dp, tp, devices[:dp * tp])
+        engines = []
+        try:
+            for m in meshes:
+                e = ContinuousScheduler(cfg, max_slots=SERVE["slots"],
+                                        max_len=max_len, cuda_graph=tp == 1,
+                                        mesh=m, **kw)
+                e.load(params)
+                engines.append(e)
+            front = router_lib.Router(engines)
+            outs, metrics, _, launches = _tp_drive(front, p_prompts, p_gens,
+                                                   waves=2)
+        finally:
+            for e in engines:
+                e.close()
+        _tp_check_run(label, cfg, outs, p_gens, launches,
+                      sum(e.decode_steps for e in engines))
+        splits = streams_or_near_ties(label + " vs one engine", cfg, params,
+                                      p_prompts, r_outs, outs)
+        if front.affinity_hits <= 0:
+            raise AssertionError(f"{label}: no prefix-affinity placement")
+        info = {"placements": front.placements,
+                "affinity": {"candidates": front.affinity_candidates,
+                             "hits": front.affinity_hits},
+                "spills": front.spills, "splits": len(splits),
+                "tok_per_s": metrics["tok_per_s"],
+                "per_replica": metrics["per_replica"]}
+        print(f"{label}: " + json.dumps(info), flush=True)
+        runs[f"router_dp{dp}_tp{tp}"] = launches
+        routers[label] = info
+    summary["router"] = routers
+    print("tp summary: " + json.dumps(summary), flush=True)
+    return rows, runs, summary
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("tune", "frontends"),
+    ap.add_argument("--only", choices=("tune", "frontends", "tp"),
                     help="build and run this phase alone (tune: after the "
                          "dense serve it plans from; no kernels line)")
     ap.add_argument("--tune-out", help="copy the tune phase's measured "
                     "block-shape cache to this file")
+    ap.add_argument("--allreduce-peer", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     start = time.perf_counter()
     import torch
+    if args.allreduce_peer:
+        return _allreduce_peer(args.allreduce_peer)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -5313,6 +5696,11 @@ def _main(args, start, torch, build) -> int:
     if args.only == "frontends":
         frontends_phase(flush)
         print(f"chip_smoke --only frontends took "
+              f"{time.perf_counter() - start:.1f}s", flush=True)
+        return 0
+    if args.only == "tp":
+        tp_phase(flush)
+        print(f"chip_smoke --only tp took "
               f"{time.perf_counter() - start:.1f}s", flush=True)
         return 0
     shapes = kernel_phase(flush)
@@ -5365,6 +5753,13 @@ def _main(args, start, torch, build) -> int:
         shapes[name] += rows
     mlp_rows, runs["mlp_formats"] = mlp_formats_phase(cfg, params, prompts,
                                                       max_len)
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    tp_rows, tp_runs, _ = tp_phase(flush, cfg, params)
+    del flush
+    runs.update(tp_runs)
+    for name, rows in tp_rows.items():
+        shapes[name] += rows
     del params
     torch.cuda.empty_cache()
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")

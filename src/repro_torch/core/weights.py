@@ -18,6 +18,14 @@ planning never reads a device tensor. Uniform interface::
     wc.nbytes                     # payload bytes
     wc.materialize(torch.float32) # decoded {-1, 0, +1} matrix
     kernels.ops.ternary_gemm(x, wc)
+
+Tensor parallelism (``repro``'s pack-boundary rule): ``shard_constraints``
+names each logical axis's physical extent and the value count of one
+indivisible pack unit, ``validate_spec_twin`` rejects a spec whose shard
+boundaries would split one, and ``shard_weight`` cuts one rank's slice out
+of a container along K (a row split) or N (a column split), re-packed so
+that it equals ``pack`` of the sliced matrix (a ``Tiled`` shard's
+``kt_indices``/``kt_counts`` recomputed over its own tiles).
 """
 from __future__ import annotations
 
@@ -30,7 +38,8 @@ import torch
 from repro_torch.core import formats, quantize
 
 __all__ = ["TernaryWeight", "Dense2Bit", "Tiled", "Bitplane", "Base3",
-           "FORMATS", "register_format", "ternarize_stacked", "pack"]
+           "FORMATS", "register_format", "ternarize_stacked", "pack",
+           "validate_spec_twin", "shard_weight"]
 
 # name -> container class; the one place a new layout registers
 FORMATS: Dict[str, Type["TernaryWeight"]] = {}
@@ -79,6 +88,19 @@ class TernaryWeight:
         if self.nnz < 0:
             return 1.0
         return self.nnz / max(self.k * self.n, 1)
+
+    def shard_constraints(self) -> Dict[str, Tuple[int, int]]:
+        """``{"k": (extent, multiple), "n": (extent, multiple)}``: the
+        physical size of each logical axis as stored (tile-padded for
+        ``Tiled``) and the values one indivisible pack unit covers (a
+        2-bit word 16 K values, a bitplane byte 8, a base-3 byte 5, a skip
+        tile ``tile_k`` / ``tile_n``). A shard boundary off ``multiple``
+        would split a pack unit across ranks (``repro``'s rule)."""
+        return {"k": (self.k, 1), "n": (self.n, 1)}
+
+    def pack_opts(self) -> Dict[str, int]:
+        """The format options ``pack`` needs to re-pack a slice alike."""
+        return {}
 
     def materialize(self, dtype=torch.float32,
                     with_scale: bool = False) -> torch.Tensor:
@@ -138,6 +160,9 @@ class Dense2Bit(TernaryWeight):
                     with_scale: bool = False) -> torch.Tensor:
         t = formats.decode_2bit(self.packed, self.k, dtype)[..., :self.n]
         return self._apply_scale(t, with_scale, dtype)
+
+    def shard_constraints(self) -> Dict[str, Tuple[int, int]]:
+        return {"k": (self.k, formats.K_PER_WORD), "n": (self.n, 1)}
 
 
 @register_format("tiled")
@@ -200,6 +225,15 @@ class Tiled(TernaryWeight):
         t = formats.decode_2bit(self.packed, kp, dtype)[:self.k, :self.n]
         return self._apply_scale(t, with_scale, dtype)
 
+    def shard_constraints(self) -> Dict[str, Tuple[int, int]]:
+        # the occupancy lists are per (K-tile, N-tile): boundaries land on
+        # whole tiles of the padded grid
+        return {"k": (self.n_ktiles * self.tile_k, self.tile_k),
+                "n": (self.n_ntiles * self.tile_n, self.tile_n)}
+
+    def pack_opts(self) -> Dict[str, int]:
+        return {"tile_k": self.tile_k, "tile_n": self.tile_n}
+
 
 @register_format("bitplane")
 @dataclasses.dataclass(frozen=True, eq=False, repr=False)
@@ -238,6 +272,9 @@ class Bitplane(TernaryWeight):
         t = formats.decode_bitplanes(self.plus, self.minus, self.k, dtype)
         return self._apply_scale(t[..., :self.n], with_scale, dtype)
 
+    def shard_constraints(self) -> Dict[str, Tuple[int, int]]:
+        return {"k": (self.k, formats.K_PER_BYTE), "n": (self.n, 1)}
+
 
 @register_format("base3")
 @dataclasses.dataclass(frozen=True, eq=False, repr=False)
@@ -260,6 +297,9 @@ class Base3(TernaryWeight):
                     with_scale: bool = False) -> torch.Tensor:
         t = formats.decode_base3(self.packed, self.k, dtype)
         return self._apply_scale(t[..., :self.n], with_scale, dtype)
+
+    def shard_constraints(self) -> Dict[str, Tuple[int, int]]:
+        return {"k": (self.k, 5), "n": (self.n, 1)}
 
 
 def ternarize_stacked(w: torch.Tensor, threshold: float = 0.7):
@@ -287,3 +327,123 @@ def pack(w, format: str = "dense2bit", *, scale=None, bias=None,
     else:
         t = w
     return FORMATS[format].from_dense(t, scale=scale, bias=bias, **opts)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel shards: the pack-boundary rule and the slicer
+# ---------------------------------------------------------------------------
+
+def _mesh_axis_sizes(mesh) -> Dict[str, int]:
+    """Axis name -> size of a mesh (anything with a ``shape`` mapping, as
+    ``distributed.tp.Mesh``) or of a plain ``{name: size}`` dict."""
+    return dict(getattr(mesh, "shape", mesh))
+
+
+def _resolve_split(ax, sizes: Dict[str, int], used: set, fsdp: bool):
+    """``repro``'s axis-name resolution of one spec entry (logical
+    ``"fsdp"`` / ``"expert"``, tuples, literal names, no reuse) without the
+    replicate-on-indivisible fallback: (split size, resolved names)."""
+    if ax is None:
+        return 1, ()
+    if ax == "fsdp":
+        axes = (tuple(a for a in ("pod", "data") if a in sizes)
+                if fsdp else ())
+    elif ax == "expert":
+        axes = ("model",) if "model" in sizes else ()
+    elif isinstance(ax, (tuple, list)):
+        axes = tuple(a for a in ax if a in sizes)
+    else:
+        axes = (ax,) if ax in sizes else ()
+    axes = tuple(a for a in axes if a not in used)
+    size = 1
+    for a in axes:
+        size *= sizes[a]
+    used.update(axes)
+    return size, axes
+
+
+def _twin_spec(twin):
+    """The (K, N) spec of a container's spec twin: the twin itself when it
+    is a tuple of axis entries, else its ``packed`` / ``plus`` entry (a
+    dict or an object, as ``repro``'s container twins)."""
+    if twin is None or isinstance(twin, tuple):
+        return twin
+    for name in ("packed", "plus"):
+        cand = (twin.get(name) if isinstance(twin, dict)
+                else getattr(twin, name, None))
+        if cand is not None and not isinstance(cand, TernaryWeight):
+            return tuple(cand)
+    return None
+
+
+def validate_spec_twin(wc: TernaryWeight, twin, mesh, *,
+                       fsdp: bool = False) -> None:
+    """Raise ``ValueError`` (``repro``'s message) when the container's spec
+    twin puts a K (or N) shard boundary off the format's pack multiple
+    (``shard_constraints``); return None when it is legal. ``twin``: the
+    (K, N) spec as a tuple of axis entries (leading stack entries allowed)
+    or a twin with a ``packed`` / ``plus`` spec; ``mesh``: axis sizes."""
+    spec = _twin_spec(twin)
+    if spec is None:
+        return
+    sizes = _mesh_axis_sizes(mesh)
+    cons = wc.shard_constraints()
+    entries = tuple(spec)
+    if len(entries) < 2:
+        entries = (None,) * (2 - len(entries)) + entries
+    used: set = set()
+    for ax in entries[:-2]:               # leading stack dims burn axes too
+        _resolve_split(ax, sizes, used, fsdp)
+    splits = [_resolve_split(ax, sizes, used, fsdp) for ax in entries[-2:]]
+    for (tp, axes), dim in zip(splits, ("k", "n")):
+        if tp <= 1:
+            continue
+        extent, multiple = cons[dim]
+        if extent % (tp * multiple) == 0:
+            continue
+        per_shard = extent / tp
+        legal = max(multiple, int(round(per_shard / multiple)) * multiple)
+        raise ValueError(
+            f"{wc.format_name} spec twin: sharding {dim.upper()} over mesh "
+            f"axis {axes if len(axes) > 1 else axes[0]!r} ({tp}-way) puts "
+            f"shard boundaries every {per_shard:g} of {extent} values — "
+            f"off the {multiple}-value pack multiple of {wc!r}. Per-shard "
+            f"{dim.upper()} must be a multiple of {multiple} that divides "
+            f"{extent}; nearest legal boundary is {legal}.")
+
+
+def shard_weight(wc: TernaryWeight, partition: str, rank: int,
+                 tp: int) -> TernaryWeight:
+    """Rank ``rank``'s slice of ``wc`` split ``tp`` ways along K
+    (``partition="k"``, a row split: the scale and bias stay whole, for
+    the epilogue after the all-reduce) or N (``"n"``, a column split: the
+    scale and bias sliced with the columns). Boundaries fall every
+    ``extent / tp`` physical values and must land on the format's pack
+    multiple (else ``ValueError``); a shard holds the logical values of
+    its range. The slice is decoded and re-packed in the same format, so
+    it equals ``pack`` of the sliced matrix bit for bit."""
+    if partition not in ("k", "n"):
+        raise ValueError(f"partition must be 'k' or 'n', got {partition!r}")
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} outside a {tp}-way split")
+    extent, multiple = wc.shard_constraints()[partition]
+    if extent % (tp * multiple) != 0:
+        raise ValueError(
+            f"{wc.format_name} shard: {partition.upper()}-partitioning "
+            f"{tp}-way puts shard boundaries every {extent / tp:g} of "
+            f"{extent} values — off the {multiple}-value pack multiple")
+    if tp == 1:
+        return wc
+    step = extent // tp
+    logical = wc.k if partition == "k" else wc.n
+    lo, hi = min(rank * step, logical), min((rank + 1) * step, logical)
+    t = wc.materialize(torch.float32).to(torch.int8)
+    scale, bias = wc.scale, wc.bias
+    if partition == "k":
+        t = t[lo:hi]
+    else:
+        t = t[:, lo:hi]
+        scale = None if scale is None else scale[..., lo:hi].contiguous()
+        bias = None if bias is None else bias[..., lo:hi].contiguous()
+    return FORMATS[wc.format_name].from_dense(
+        t.contiguous(), scale=scale, bias=bias, **wc.pack_opts())

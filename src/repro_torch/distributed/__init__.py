@@ -1,2 +1,5 @@
-"""Distributed training support of the port: so far the single-process
-fault tolerance (checkpoint/restart supervision, straggler watchdog)."""
+"""Distributed support of the port: the single-process training fault
+tolerance (checkpoint/restart supervision, straggler watchdog), logical
+spec resolution (``sharding``), tensor-parallel serving over
+``torch.distributed`` (``tp``) and the prefix-affinity router over engine
+replicas (``router``)."""

@@ -33,6 +33,8 @@
 // loop, the same as ternary_gemm.cu). A second, fixed-order pass sums the
 // chunks' partials and applies the down epilogue (so, bo, cast), so the
 // sum order never depends on scheduling; partials are (chunks, M, N) f32.
+// Its f32 form (fused_mlp_f32, a tensor-parallel rank's ff slice) stops
+// after the scale: no bias, no cast, for the ranks' f32 all-reduce.
 //
 // Row independence: FC comes from the widths alone (fused_mlp.launch_plan,
 // 512 at ff 4096), both tiles accumulate each element's K chunks and its
@@ -283,6 +285,21 @@ __global__ void fused_mlp_reduce_kernel(const float* __restrict__ partial,
       ternary::epilogue_f32(acc, (int)(idx % N), so, bo, 0, 0.0f));
 }
 
+// The f32 form of the same pass for a row-split tensor-parallel shard:
+// the same fixed-order sum and scale, no bias, no cast (the caller sums
+// the ranks' partials in f32, then adds the bias and casts).
+__global__ void fused_mlp_reduce_f32_kernel(const float* __restrict__ partial,
+                                            const float* __restrict__ so,
+                                            float* __restrict__ y, int chunks,
+                                            int M, int N) {
+  const size_t total = (size_t)M * N;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  float acc = 0.0f;
+  for (int c = 0; c < chunks; ++c) acc += partial[(size_t)c * total + idx];
+  y[idx] = ternary::epilogue_f32(acc, (int)(idx % N), so, nullptr, 0, 0.0f);
+}
+
 template <int BM, int WARPS_M, int WARPS_N, int FN, int STAGES, bool GATED>
 static int launch(const void* x, const void* wi, const void* wg,
                   const void* wo, const void* si, const void* bi,
@@ -352,13 +369,13 @@ static int launch_tile(int bm, int strip, const void* x, const void* wi,
 // (1 to 8, FC a multiple of CL strips). ``partial`` holds ceil(FF / FC) *
 // M * N floats. act: 0 silu, 1 relu, 2 none. Returns the cudaError_t of
 // the launches (0 = success).
-extern "C" int fused_mlp_bf16(const void* x, const void* wi, const void* wg,
-                              const void* wo, const void* si, const void* bi,
-                              const void* sg, const void* bg, const void* so,
-                              const void* bo, void* partial, void* y, int M,
-                              int K, int FF, int N, int kw1, int kw2,
-                              int ldw_i, int ldw_g, int ldw_o, int FC, int CL,
-                              int act, int bm, int strip, void* stream) {
+static int fused_mlp_run(const void* x, const void* wi, const void* wg,
+                         const void* wo, const void* si, const void* bi,
+                         const void* sg, const void* bg, const void* so,
+                         const void* bo, void* partial, void* y, int M, int K,
+                         int FF, int N, int kw1, int kw2, int ldw_i,
+                         int ldw_g, int ldw_o, int FC, int CL, int act,
+                         int bm, int strip, int out_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int vec = (K % 8 == 0) && (ldw_i % 4 == 0) && (ldw_g % 4 == 0) &&
                   (ldw_o % 4 == 0) &&
@@ -379,8 +396,40 @@ extern "C" int fused_mlp_bf16(const void* x, const void* wi, const void* wg,
   const size_t total = (size_t)M * N;
   const int threads = 256;
   const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  fused_mlp_reduce_kernel<<<blocks, threads, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<const float*>(so),
-      static_cast<const float*>(bo), static_cast<bf16*>(y), chunks, M, N);
+  if (out_f32)
+    fused_mlp_reduce_f32_kernel<<<blocks, threads, 0, s>>>(
+        static_cast<const float*>(partial), static_cast<const float*>(so),
+        static_cast<float*>(y), chunks, M, N);
+  else
+    fused_mlp_reduce_kernel<<<blocks, threads, 0, s>>>(
+        static_cast<const float*>(partial), static_cast<const float*>(so),
+        static_cast<const float*>(bo), static_cast<bf16*>(y), chunks, M, N);
   return (int)cudaGetLastError();
+}
+
+extern "C" int fused_mlp_bf16(const void* x, const void* wi, const void* wg,
+                              const void* wo, const void* si, const void* bi,
+                              const void* sg, const void* bg, const void* so,
+                              const void* bo, void* partial, void* y, int M,
+                              int K, int FF, int N, int kw1, int kw2,
+                              int ldw_i, int ldw_g, int ldw_o, int FC, int CL,
+                              int act, int bm, int strip, void* stream) {
+  return fused_mlp_run(x, wi, wg, wo, si, bi, sg, bg, so, bo, partial, y, M,
+                       K, FF, N, kw1, kw2, ldw_i, ldw_g, ldw_o, FC, CL, act,
+                       bm, strip, 0, stream);
+}
+
+// The f32 form: y (M, N) float32, the down projection scaled by so, no
+// bias (bo is not read). Everything before the partial-sum pass is the
+// bf16 form's.
+extern "C" int fused_mlp_f32(const void* x, const void* wi, const void* wg,
+                             const void* wo, const void* si, const void* bi,
+                             const void* sg, const void* bg, const void* so,
+                             void* partial, void* y, int M, int K, int FF,
+                             int N, int kw1, int kw2, int ldw_i, int ldw_g,
+                             int ldw_o, int FC, int CL, int act, int bm,
+                             int strip, void* stream) {
+  return fused_mlp_run(x, wi, wg, wo, si, bi, sg, bg, so, nullptr, partial,
+                       y, M, K, FF, N, kw1, kw2, ldw_i, ldw_g, ldw_o, FC, CL,
+                       act, bm, strip, 1, stream);
 }

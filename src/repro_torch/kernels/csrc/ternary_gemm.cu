@@ -22,6 +22,10 @@
 //    words; K % 8 != 0 fills the same stages with plain loads;
 //  - the epilogue runs from the accumulators (scale, then bias, then PReLU
 //    in f32, one cast, bf16x2 stores);
+//  - an f32 form (ternary_gemm_f32) for a row-split tensor-parallel
+//    shard: the same accumulators and scale, no bias, no cast; the caller
+//    sums the ranks' partials in f32, then adds the bias and casts, where
+//    a single card would have rounded;
 //  - no split-K: every output element adds its K chunks in ascending order
 //    into one f32 accumulator through HMMA.16816, as B2 and B3 do, so the
 //    three agree bit for bit.
@@ -48,11 +52,38 @@ struct GemmSmem {
   static constexpr int BYTES = LUT + STAGES * STAGE;
 };
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
+// The f32 form's store: this warp's FM x FN fragments, scaled
+// (epilogue_f32 with no bias and no PReLU) and written as f32, masked at
+// the M and N edges.
+template <int FM, int FN>
+__device__ __forceinline__ void store_frags_f32(
+    const float (&acc)[FM][FN][4], int r0, int c0, int M, int N,
+    const float* __restrict__ scale, float* __restrict__ y) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gr = r0 + i * 16 + h * 8 + g, gc = c0 + j * 8 + 2 * t;
+        if (gr >= M || gc >= N) continue;
+        float* out = y + (size_t)gr * N + gc;
+        out[0] = ternary::epilogue_f32(acc[i][j][2 * h], gc, scale, nullptr,
+                                       0, 0.0f);
+        if (gc + 1 < N)
+          out[1] = ternary::epilogue_f32(acc[i][j][2 * h + 1], gc + 1, scale,
+                                         nullptr, 0, 0.0f);
+      }
+}
+
+template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES,
+          bool F32OUT = false>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
 ternary_gemm_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ w,
                     const float* __restrict__ scale,
-                    const float* __restrict__ bias, bf16* __restrict__ y,
+                    const float* __restrict__ bias, void* __restrict__ y,
                     int M, int K, int N, int kw, int ldw, int fuse_prelu,
                     float prelu_alpha, int vec) {
   constexpr int FM = BM / (16 * WARPS_M);
@@ -96,12 +127,18 @@ ternary_gemm_kernel(const bf16* __restrict__ x, const uint32_t* __restrict__ w,
         acc, xs(s) + wm * FM * 16 * XLD, XLD, ws(s) + wn * FN * 8, BKW, lut);
   }
   ternary::cp_async_wait<0>();
-  ternary::store_frags_epilogue<FM, FN>(acc[0], m0 + wm * FM * 16,
-                                        n0 + wn * FN * 8, M, N, scale, bias,
-                                        fuse_prelu, prelu_alpha, y);
+  if constexpr (F32OUT)
+    store_frags_f32<FM, FN>(acc[0], m0 + wm * FM * 16, n0 + wn * FN * 8, M,
+                            N, scale, static_cast<float*>(y));
+  else
+    ternary::store_frags_epilogue<FM, FN>(acc[0], m0 + wm * FM * 16,
+                                          n0 + wn * FN * 8, M, N, scale,
+                                          bias, fuse_prelu, prelu_alpha,
+                                          static_cast<bf16*>(y));
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
+template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES,
+          bool F32OUT = false>
 static int launch(const void* x, const void* w, const void* scale,
                   const void* bias, void* y, int M, int K, int N, int kw,
                   int ldw, int fuse_prelu, float prelu_alpha, int vec,
@@ -109,11 +146,11 @@ static int launch(const void* x, const void* w, const void* scale,
   constexpr int SMEM = GemmSmem<BM, BN, STAGES>::BYTES;
   static_assert(SMEM <= 48 * 1024, "above 48 KB needs cudaFuncSetAttribute");
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  ternary_gemm_kernel<BM, BN, WARPS_M, WARPS_N, STAGES>
+  ternary_gemm_kernel<BM, BN, WARPS_M, WARPS_N, STAGES, F32OUT>
       <<<grid, WARPS_M * WARPS_N * 32, SMEM, stream>>>(
       static_cast<const bf16*>(x), static_cast<const uint32_t*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<bf16*>(y), M, K, N, kw, ldw, fuse_prelu, prelu_alpha, vec);
+      static_cast<const float*>(scale), static_cast<const float*>(bias), y,
+      M, K, N, kw, ldw, fuse_prelu, prelu_alpha, vec);
   return (int)cudaGetLastError();
 }
 
@@ -147,6 +184,26 @@ extern "C" int ternary_gemm_bf16(const void* x, const void* w,
   if (bm == BM && bn == BN)                                               \
     return launch<BM, BN, WM, WN, ST>(x, w, scale, bias, y, M, K, N, kw,  \
                                       ldw, fuse_prelu, prelu_alpha, vec, s);
+  B1_TILES(B1_LAUNCH)
+#undef B1_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The f32 form: y (M, N) float32 = X @ decode(W) * scale, no bias, no
+// PReLU (a row-split shard's partial product). Same tiles and return
+// codes as ternary_gemm_bf16.
+extern "C" int ternary_gemm_f32(const void* x, const void* w,
+                                const void* scale, void* y, int M, int K,
+                                int N, int kw, int ldw, int bm, int bn,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = (K % 8 == 0) && (ldw % 4 == 0) &&
+                  (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                  (reinterpret_cast<uintptr_t>(w) % 16 == 0);
+#define B1_LAUNCH(BM, BN, WM, WN, ST)                                      \
+  if (bm == BM && bn == BN)                                               \
+    return launch<BM, BN, WM, WN, ST, true>(x, w, scale, nullptr, y, M, K, \
+                                            N, kw, ldw, 0, 0.0f, vec, s);
   B1_TILES(B1_LAUNCH)
 #undef B1_LAUNCH
   return (int)cudaErrorInvalidValue;

@@ -9,7 +9,10 @@ so ``h`` is held in ``x.dtype``. The plain version is literally the chain
 of plain GEMMs; the kernel keeps ``h`` in shared memory and sums the down
 projection in f32 partials of ``chunk_width(ff)`` hidden columns, added in
 a fixed order, so its output for a row does not depend on how many rows
-share the call.
+share the call. Both have an f32 form (``out_dtype=torch.float32``) for a
+tensor-parallel shard whose ff slice is this rank's: the down projection
+scaled, in f32, without its bias, which the ranks sum before the bias and
+the cast.
 """
 from __future__ import annotations
 
@@ -120,14 +123,21 @@ def _act(name: str, y: torch.Tensor) -> torch.Tensor:
 def fused_mlp_ref(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
                   wg: Optional[torch.Tensor] = None,
                   si=None, bi=None, sg=None, bg=None, so=None, bo=None, *,
-                  activation: str = "silu") -> torch.Tensor:
+                  activation: str = "silu",
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version: the chain of plain GEMMs. x (M, K); wi, wg
-    (>= ceil(K/16), ff) and wo (>= ceil(ff/16), N) int32 words."""
+    (>= ceil(K/16), ff) and wo (>= ceil(ff/16), N) int32 words.
+    ``out_dtype=torch.float32``: the last GEMM's f32 form (scale only;
+    ``bo`` must be None)."""
     yi = ternary_gemm_ref(x, wi, si, bi)
     if wg is not None:
         h = _act(activation, ternary_gemm_ref(x, wg, sg, bg)) * yi
     else:
         h = _act(activation, yi)
+    if out_dtype == torch.float32:
+        if bo is not None:
+            raise ValueError("the f32 form adds no bias")
+        return ternary_gemm_ref(h, wo, so, out_dtype=torch.float32)
     return ternary_gemm_ref(h, wo, so, bo)
 
 
@@ -137,6 +147,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_mlp_bf16.argtypes = [p] * 12 + [i] * 14 + [p]
     lib.fused_mlp_bf16.restype = ctypes.c_int
+    lib.fused_mlp_f32.argtypes = [p] * 11 + [i] * 14 + [p]
+    lib.fused_mlp_f32.restype = ctypes.c_int
     return lib
 
 
@@ -153,7 +165,8 @@ def fused_mlp_cuda(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
                    si=None, bi=None, sg=None, bg=None, so=None, bo=None, *,
                    ff: Optional[int] = None, n: Optional[int] = None,
                    activation: str = "silu", block_m: int = 64,
-                   strip: int = 128) -> torch.Tensor:
+                   strip: int = 128,
+                   out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Launch the fused kernel (and its fixed-order partial-sum pass) on the
     current stream. x (M, K) bf16; words int32 as in ``fused_mlp_ref``,
     read in place: the first ``ff`` (default wi's width) columns of wi and
@@ -161,7 +174,8 @@ def fused_mlp_cuda(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
     pack runs without a copy; the six vectors float32. ``(block_m,
     strip)`` is one of ``TILES`` (another raises). ``launch_plan`` fixes
     the chunk width from ff and spreads it to fill the card. Returns (M, n)
-    bf16."""
+    bf16, or with ``out_dtype=torch.float32`` the f32 form (``bo`` must be
+    None)."""
     if not x.is_cuda:
         raise ValueError("fused_mlp_cuda needs a CUDA tensor; CPU tensors "
                          "take fused_mlp_ref")
@@ -183,28 +197,38 @@ def fused_mlp_cuda(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
                              f"({rows}, {cols})")
     if activation not in ACTIVATIONS:
         raise ValueError(f"activation must be one of {ACTIVATIONS}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bfloat16 or float32, got "
+                         f"{out_dtype}")
+    f32 = out_dtype == torch.float32
+    if f32 and bo is not None:
+        raise ValueError("B4's f32 form adds no bias: it follows the ranks' "
+                         "all-reduce")
     for name, v, width in (("si", si, ff), ("bi", bi, ff), ("sg", sg, ff),
                            ("bg", bg, ff), ("so", so, n), ("bo", bo, n)):
         _check_vec(name, v, width, dev)
     plan = launch_plan(m, ff, n, (block_m, strip),
                        _sm_count(dev.index if dev.index is not None
                                  else torch.cuda.current_device()))
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    y = torch.empty((m, n), dtype=out_dtype, device=dev)
     if m == 0 or n == 0:
         return y
     partial = torch.empty((plan.chunks, m, n), dtype=torch.float32,
                           device=dev)
     # word rows past K (ff) meet zero x (h) columns: read only those needed
     kw1, kw2 = -(-k // formats.K_PER_WORD), -(-ff // formats.K_PER_WORD)
-    with torch.cuda.device(dev):
-        err = _lib().fused_mlp_bf16(
-            x.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(), _ptr(si),
-            _ptr(bi), _ptr(sg), _ptr(bg), _ptr(so), _ptr(bo),
-            partial.data_ptr(), y.data_ptr(), m, k, ff, n, kw1, kw2,
+    head = (x.data_ptr(), wi.data_ptr(), _ptr(wg), wo.data_ptr(), _ptr(si),
+            _ptr(bi), _ptr(sg), _ptr(bg), _ptr(so))
+    tail = (partial.data_ptr(), y.data_ptr(), m, k, ff, n, kw1, kw2,
             wi.shape[1], wi.shape[1] if wg is None else wg.shape[1],
             wo.shape[1], plan.fc, plan.cluster,
             ACTIVATIONS.index(activation), block_m, strip,
             torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(dev):
+        if f32:
+            err = _lib().fused_mlp_f32(*head, *tail)
+        else:
+            err = _lib().fused_mlp_bf16(*head, _ptr(bo), *tail)
     if err != 0:
         raise RuntimeError(f"fused_mlp kernel launch failed: cudaError {err}")
     fused_mlp_cuda.launches += 1

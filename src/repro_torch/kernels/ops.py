@@ -63,6 +63,18 @@ arguments), so a repeated dispatch is a dictionary hit, not a lookup.
 ``GemmPlan.roofline()`` and ``FusedMlpPlan.roofline()`` place a plan on
 the H100's roofline with the tuner's constants and score.
 
+Tensor parallelism (``repro``'s plan fields): ``ternary_gemm_plan(w, m,
+partition=, tp=)`` plans one shard of the full container ``w`` —
+``"k"`` a row split whose partial products need the f32 all-reduce
+(``collective="psum"``, its bytes in ``roofline()``), ``"n"`` a column
+split with none — and the tuner keys the shard's own (K, N).
+``ternary_gemm(x, shard, partition="k", tp=)`` dispatches a rank's shard:
+B1's f32 form on the card (the plain f32 partial on the CPU and on the
+``ref`` rows), the scale applied and no bias, for the caller's all-reduce;
+``fused_mlp(..., tp=)`` likewise through B4's f32 form.
+``precompute_plans(shard=)`` / ``precompute_fused_plans(tp=)`` warm a
+rank's shards' plans with their collectives recorded.
+
 ``kernel_probe(cb)`` times each eager ``ternary_gemm`` / ``fused_mlp``
 dispatch in its scope and calls ``cb(plan, seconds)``: with CUDA events
 on the card, with the host clock on the CPU. A dispatch while the stream
@@ -193,6 +205,9 @@ class GemmPlan:
     occupancy: float
     fuse_prelu: bool = False
     prelu_alpha: float = 0.25
+    partition: Optional[str] = None      # None | "k" | "n"
+    collective: Optional[str] = None     # None | "psum"
+    tp: int = 1
 
     def traffic(self) -> Dict[str, float]:
         """Modeled operations and device-memory bytes of one pass, from the
@@ -213,16 +228,20 @@ class GemmPlan:
         w_bytes = (m_tiles * n_tiles * k_steps
                    * (bk // formats.K_PER_WORD) * bn * 4)
         out_bytes = mp * npad * 2
+        # ring all-reduce over the K-split partial products: each shard
+        # sends and receives 2 (tp - 1) / tp of the (m, n) f32 output
+        coll = (2.0 * (self.tp - 1) / self.tp * self.m * self.n * 4
+                if self.collective == "psum" and self.tp > 1 else 0.0)
         return {"flops": flops,
                 "bytes": float(x_bytes + w_bytes + out_bytes),
-                "collective_bytes": 0.0}
+                "collective_bytes": coll}
 
     def roofline(self) -> Dict[str, Any]:
         """The plan on the H100's roofline (``autotune.HBM_BW`` /
         ``PEAK_FLOPS``), ``repro``'s keys: the ceiling at the plan's
         arithmetic intensity, the tuner's modelled time of its tile and the
-        rate that time achieves. No tensor parallelism yet: ``collective``
-        None, ``tp`` 1."""
+        rate that time achieves, with the shard's collective and its bytes
+        under tensor parallelism."""
         t = self.traffic()
         ai = t["flops"] / max(t["bytes"], 1.0)
         ceiling = min(autotune_lib.PEAK_FLOPS, ai * autotune_lib.HBM_BW)
@@ -241,9 +260,9 @@ class GemmPlan:
                 "headroom": max(0.0, 1.0 - achieved / max(ceiling, 1.0)),
                 "bound": ("memory" if ceiling < autotune_lib.PEAK_FLOPS
                           else "compute"),
-                "collective": None,
+                "collective": self.collective,
                 "collective_bytes": t["collective_bytes"],
-                "tp": 1}
+                "tp": self.tp}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -585,6 +604,26 @@ def _validate_k(w: weights.TernaryWeight, x: torch.Tensor,
             f"weight's logical K={w.k} (shape {w.shape})")
 
 
+def _check_partition(partition: Optional[str], tp: int) -> Optional[str]:
+    if partition not in (None, "k", "n"):
+        raise ValueError(f"partition must be 'k', 'n' or None, "
+                         f"got {partition!r}")
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    return None if tp == 1 else partition
+
+
+def _shard_view(w: weights.TernaryWeight, k: int,
+                n: int) -> weights.TernaryWeight:
+    """``w``'s metadata as one shard's (logical (k, n), nnz in proportion)
+    for the predicates and the tuner, which read no payload."""
+    if (k, n) == (w.k, w.n):
+        return w
+    nnz = w.nnz if w.nnz < 0 else round(w.nnz * k * n
+                                        / max(w.k * w.n, 1))
+    return dataclasses.replace(w, shape=(k, n), nnz=nnz)
+
+
 def ternary_gemm_plan(w: Any, m: int, *, k: Optional[int] = None,
                       impl: str = "auto",
                       phase: Optional[str] = "__current__",
@@ -592,10 +631,19 @@ def ternary_gemm_plan(w: Any, m: int, *, k: Optional[int] = None,
                       block_n: Optional[int] = None,
                       block_k: Optional[int] = None,
                       fuse_prelu: bool = False,
-                      prelu_alpha: float = 0.25) -> GemmPlan:
+                      prelu_alpha: float = 0.25,
+                      partition: Optional[str] = None,
+                      tp: int = 1) -> GemmPlan:
     """Plan (but do not run) a ternary GEMM of M rows. ``phase`` defaults
     to the ambient ``serving_phase`` scope; ``k``, if given, is checked
-    against the container. Reads only host-side pack-time metadata."""
+    against the container. Reads only host-side pack-time metadata.
+
+    ``partition``/``tp`` plan one shard of a tensor-parallel GEMM
+    (``repro``'s fields): ``"k"`` row splits K ``tp`` ways and records the
+    ``psum`` its partial products need, ``"n"`` column splits N with no
+    collective; ``m``/``k``/``n`` are the shard's, and its blocks are the
+    tuner's for the shard's (K, N). Shard boundaries must land on the
+    container's pack multiples (``shard_constraints``)."""
     w = _coerce_weight(w)
     if k is not None and k != w.k:
         raise ValueError(
@@ -606,6 +654,18 @@ def ternary_gemm_plan(w: Any, m: int, *, k: Optional[int] = None,
     elif phase is not None and phase not in SERVING_PHASES:
         raise ValueError(f"phase must be one of {SERVING_PHASES} or None, "
                          f"got {phase!r}")
+    partition = _check_partition(partition, tp)
+    if partition is not None:
+        extent, multiple = w.shard_constraints()[partition]
+        if extent % (tp * multiple) != 0:
+            raise ValueError(
+                f"{w.format_name} GEMM: {partition.upper()}-partitioning "
+                f"{tp}-way puts shard boundaries every {extent / tp:g} of "
+                f"{extent} values — off the {multiple}-value pack multiple; "
+                f"repack or choose tp dividing {extent // multiple}")
+    occupancy = w.occupancy()
+    w = _shard_view(w, w.k // tp if partition == "k" else w.k,
+                    w.n // tp if partition == "n" else w.n)
     fmt = w.format_name
     if impl == "auto":
         # ties keep registration order (repro's stable sort)
@@ -624,8 +684,29 @@ def ternary_gemm_plan(w: Any, m: int, *, k: Optional[int] = None,
     bm, bn, bk = chosen.plan_blocks(w, m, phase, block_m, block_n, block_k)
     return GemmPlan(format=fmt, impl=chosen.impl, m=m, k=w.k, n=w.n,
                     block_m=bm, block_n=bn, block_k=bk, phase=phase,
-                    occupancy=w.occupancy(), fuse_prelu=fuse_prelu,
-                    prelu_alpha=prelu_alpha)
+                    occupancy=occupancy, fuse_prelu=fuse_prelu,
+                    prelu_alpha=prelu_alpha, partition=partition,
+                    collective="psum" if partition == "k" else None, tp=tp)
+
+
+def _lower_partial(plan: GemmPlan, x: torch.Tensor,
+                   w: weights.TernaryWeight, scale: Optional[torch.Tensor],
+                   bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """A row-split shard's f32 partial ``x @ T * scale``, ``bias`` left
+    for after the all-reduce: B1's f32 form on the ``dense`` row on the
+    card; the plain version on the CPU and on the ``ref`` rows. The other
+    kernel rows have no f32 form and raise."""
+    if x.is_cuda and plan.impl == "dense":
+        _require_2d(w, w.packed)
+        return gemm_lib.ternary_gemm_cuda(
+            x.contiguous(), w.packed, scale, n=w.n, block_m=plan.block_m,
+            block_n=plan.block_n, out_dtype=torch.float32)
+    if x.is_cuda and plan.impl != "ref":
+        raise NotImplementedError(
+            f"the {plan.format}/{plan.impl} row has no f32 partial form: a "
+            f"row-split shard runs B1 (dense2bit) or a ref row")
+    return ref._epilogue(x.float() @ w.materialize(torch.float32), scale,
+                         None, None)
 
 
 def ternary_gemm(x: torch.Tensor, w: Any,
@@ -634,30 +715,47 @@ def ternary_gemm(x: torch.Tensor, w: Any,
                  k: Optional[int] = None, block_m: Optional[int] = None,
                  block_n: Optional[int] = None, block_k: Optional[int] = None,
                  fuse_prelu: bool = False, prelu_alpha: float = 0.25,
-                 impl: str = "auto") -> torch.Tensor:
+                 impl: str = "auto", partition: Optional[str] = None,
+                 tp: int = 1) -> torch.Tensor:
     """Y = X @ decode(w) * scale + bias (+PReLU) for x (M, K). ``w`` is a
     ``TernaryWeight`` (raw operands raise ``TypeError``); ``scale`` and
     ``bias`` default to the container's own. ``impl`` names a registered
     row ("auto" plans by format, occupancy and phase); ``block_*`` must
-    agree with the row's kernel tiles."""
+    agree with the row's kernel tiles.
+
+    ``partition``/``tp``: ``w`` is this rank's shard of a ``tp``-way split
+    (``weights.shard_weight``). A ``"k"`` shard returns its f32 partial
+    product, the scale applied and no bias (``_lower_partial``), which
+    the ranks sum before the bias and the cast; an ``"n"`` shard runs as
+    any container. The plan records the collective."""
     w = _coerce_weight(w)
     _validate_k(w, x, k)
+    partition = _check_partition(partition, tp)
     scale = w.scale if scale is None else scale
     bias = w.bias if bias is None else bias
+    if partition == "k" and (fuse_prelu or bias is not w.bias):
+        raise ValueError("a row-split shard's partial takes no bias or "
+                         "PReLU: they follow the all-reduce")
     # the plan is a function of these (the registry and the tuner fixed),
     # so a repeated dispatch takes it from the weight's memo
     key = (x.shape[0], current_phase(), impl, block_m, block_n, block_k,
-           fuse_prelu, prelu_alpha, _REGISTRY_VERSION[0],
+           fuse_prelu, prelu_alpha, partition, tp, _REGISTRY_VERSION[0],
            autotune_lib._GLOBAL)
     memo = _PLANS.get(w)
     if memo is None:
         memo = _PLANS[w] = {}
     plan = memo.get(key)
     if plan is None:
-        plan = memo[key] = ternary_gemm_plan(
+        plan = ternary_gemm_plan(
             w, x.shape[0], impl=impl, block_m=block_m, block_n=block_n,
             block_k=block_k, fuse_prelu=fuse_prelu, prelu_alpha=prelu_alpha)
-    lower = _KERNELS[(plan.format, plan.impl)].lower
+        if partition is not None:
+            plan = dataclasses.replace(
+                plan, partition=partition, tp=tp,
+                collective="psum" if partition == "k" else None)
+        memo[key] = plan
+    lower = (_lower_partial if plan.collective == "psum"
+             else _KERNELS[(plan.format, plan.impl)].lower)
     probe = _KERNEL_PROBE.get()
     if probe is not None and not _capturing():
         return _probe_dispatch(
@@ -698,19 +796,26 @@ def precompute_plans(params, *, prefill_ms=(), decode_ms=(), verify_ms=(),
     ``(leaf index, m, phase)`` as ``repro``'s are. ``select(path, w)``
     filters the containers (``path`` the tuple of dict keys and list
     indices down to the leaf); ``impl`` should be the row the apply path
-    dispatches. ``shard`` (tensor-parallel plans) is not ported yet."""
-    if shard is not None:
-        raise NotImplementedError("tensor-parallel plans (shard=) are not "
-                                  "ported yet")
-    ws = [w for path, w in _weight_leaves(params)
+    dispatches. ``shard(path, w) -> (partition, tp)`` (a rank's tree under
+    tensor parallelism, ``distributed.tp.gemm_shard_fn``): each container
+    is that rank's shard, planned as the shard it is with its collective
+    recorded — the plan ``repro`` makes from the whole weight with
+    ``partition=``/``tp=``."""
+    ws = [(path, w) for path, w in _weight_leaves(params)
           if select is None or select(path, w)]
     plans: Dict[Tuple[Any, ...], GemmPlan] = {}
-    for i, w in enumerate(ws):
+    for i, (path, w) in enumerate(ws):
+        part, ntp = shard(path, w) if shard is not None else (None, 1)
+        part = _check_partition(part, ntp)
         for phase, ms in _phase_ms(prefill_ms, decode_ms, verify_ms,
                                    chunk_ms):
             for m in ms:
-                plans[(i, m, phase)] = ternary_gemm_plan(w, m, impl=impl,
-                                                         phase=phase)
+                plan = ternary_gemm_plan(w, m, impl=impl, phase=phase)
+                if part is not None:
+                    plan = dataclasses.replace(
+                        plan, partition=part, tp=ntp,
+                        collective="psum" if part == "k" else None)
+                plans[(i, m, phase)] = plan
     return plans
 
 
@@ -752,6 +857,8 @@ class FusedMlpPlan:
     phase: Optional[str]
     occupancy_up: float
     occupancy_down: float
+    collective: Optional[str] = None     # None | "psum"
+    tp: int = 1
 
     def sub_plans(self) -> Tuple[GemmPlan, GemmPlan]:
         """The two chained ``GemmPlan``s this fusion replaces (the gate
@@ -759,11 +866,14 @@ class FusedMlpPlan:
         up = GemmPlan(format=self.format_up, impl="dense", m=self.m,
                       k=self.k, n=self.ff, block_m=self.block_m,
                       block_n=self.block_n1, block_k=self.block_k1,
-                      phase=self.phase, occupancy=self.occupancy_up)
+                      phase=self.phase, occupancy=self.occupancy_up,
+                      partition="n" if self.tp > 1 else None, tp=self.tp)
         down = GemmPlan(format=self.format_down, impl="dense", m=self.m,
                         k=self.ff, n=self.n, block_m=self.block_m,
                         block_n=self.block_n2, block_k=self.block_k2,
-                        phase=self.phase, occupancy=self.occupancy_down)
+                        phase=self.phase, occupancy=self.occupancy_down,
+                        partition="k" if self.tp > 1 else None,
+                        collective=self.collective, tp=self.tp)
         return up, down
 
     def roofline(self) -> Dict[str, Any]:
@@ -808,9 +918,9 @@ class FusedMlpPlan:
         return {"flops": flops,
                 "bytes": fused_bytes,
                 "unfused_bytes": float(unfused_bytes),
-                "collective": None,
-                "collective_bytes": 0.0,
-                "tp": 1,
+                "collective": self.collective,
+                "collective_bytes": down.traffic()["collective_bytes"],
+                "tp": self.tp,
                 "arithmetic_intensity": ai,
                 "ceiling_flops": ceiling,
                 "achieved_flops": achieved,
@@ -896,12 +1006,26 @@ def fused_mlp_plan(w_in: Any, w_out: Any, w_gate: Any = None, *, m: int,
                    tp: int = 1) -> FusedMlpPlan:
     """Plan (but do not run) a fused MLP block of M rows: ``impl="auto"``
     takes the highest-priority row whose predicate admits the containers
-    under ``phase`` (by default the ambient scope's). ``tp > 1``
-    (tensor-parallel shards) is not ported yet and raises."""
-    if tp != 1:
-        raise NotImplementedError(f"tensor-parallel fused plans (tp={tp}) "
-                                  f"are not ported yet")
+    under ``phase`` (by default the ambient scope's). ``tp > 1`` plans one
+    Megatron-MLP shard of the whole containers (``repro``'s rule): the
+    hidden dimension column split on the way up and row split on the way
+    down, ``ff`` the shard's, with the trailing ``psum``."""
     w_in, w_out, w_gate = _fused_operands(w_in, w_out, w_gate)
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if tp > 1:
+        for which, wgt, dim in (("up N", w_in, "n"), ("down K", w_out, "k")):
+            extent, multiple = wgt.shard_constraints()[dim]
+            if extent % (tp * multiple) != 0:
+                raise ValueError(
+                    f"fused_mlp: {tp}-way TP splits the {which} axis every "
+                    f"{extent / tp:g} of {extent} values — off the "
+                    f"{multiple}-value pack multiple of {wgt.format_name}")
+        ff = w_in.n // tp
+        w_in = _shard_view(w_in, w_in.k, ff)
+        w_out = _shard_view(w_out, ff, w_out.n)
+        if w_gate is not None:
+            w_gate = _shard_view(w_gate, w_gate.k, ff)
     if activation not in fused_lib.ACTIVATIONS:
         raise ValueError(f"activation must be one of "
                          f"{fused_lib.ACTIVATIONS}, got {activation!r}")
@@ -939,17 +1063,28 @@ def fused_mlp_plan(w_in: Any, w_out: Any, w_gate: Any = None, *, m: int,
         format_down=w_out.format_name, m=m, k=w_in.k, ff=w_in.n, n=w_out.n,
         gated=w_gate is not None, activation=activation, block_m=bm,
         block_n1=bn, block_k1=bk, block_n2=bn, block_k2=bk, phase=phase,
-        occupancy_up=w_in.occupancy(), occupancy_down=w_out.occupancy())
+        occupancy_up=w_in.occupancy(), occupancy_down=w_out.occupancy(),
+        collective="psum" if tp > 1 else None, tp=tp)
 
 
 def _lower_fused_pallas(plan, x, w_in, w_out, w_gate):
     """B4 on a CUDA tensor, reading the words in place; its plain version
     (the chain of plain GEMMs) on a CPU tensor. Only 2-D packs of
-    ``FUSED_FORMATS`` reach it."""
+    ``FUSED_FORMATS`` reach it. A tensor-parallel shard's plan
+    (``collective="psum"``) takes B4's f32 form: no output bias."""
     g = w_gate
     ff, n = w_in.n, w_out.n
+    partial = plan.collective == "psum"
+    out_dtype = torch.float32 if partial else torch.bfloat16
     if x.is_cuda:
         words = (w_in.packed, w_out.packed, None if g is None else g.packed)
+        if partial:
+            vecs = (w_in.scale, w_in.bias, None if g is None else g.scale,
+                    None if g is None else g.bias, w_out.scale, None)
+            return fused_lib.fused_mlp_cuda(
+                x.contiguous(), *words, *vecs, ff=ff, n=n,
+                activation=plan.activation, block_m=plan.block_m,
+                strip=plan.block_n1, out_dtype=out_dtype)
         return _fused_row(
             x.contiguous(), w_in, w_out, w_gate, plan.activation,
             lambda x, *vecs: fused_lib.fused_mlp_cuda(
@@ -958,9 +1093,11 @@ def _lower_fused_pallas(plan, x, w_in, w_out, w_gate):
     words = (w_in.packed[:, :ff], w_out.packed[:, :n],
              None if g is None else g.packed[:, :ff])
     vecs = (w_in.scale, w_in.bias, None if g is None else g.scale,
-            None if g is None else g.bias, w_out.scale, w_out.bias)
+            None if g is None else g.bias, w_out.scale,
+            None if partial else w_out.bias)
     return fused_lib.fused_mlp_ref(x, *words, *vecs,
-                                   activation=plan.activation)
+                                   activation=plan.activation,
+                                   out_dtype=out_dtype if partial else None)
 
 
 def _lower_fused_chain(plan, x, w_in, w_out, w_gate):
@@ -974,6 +1111,8 @@ def _lower_fused_chain(plan, x, w_in, w_out, w_gate):
         h = fused_lib._act(plan.activation, ternary_gemm(x, w_gate)) * yi
     else:
         h = fused_lib._act(plan.activation, yi)
+    if plan.collective == "psum":
+        return ternary_gemm(h, w_out, partition="k", tp=plan.tp)
     return ternary_gemm(h, w_out)
 
 
@@ -983,18 +1122,24 @@ register_fused("chain", priority=0)(_lower_fused_chain)
 
 
 def fused_mlp(x: torch.Tensor, w_in: Any, w_out: Any, w_gate: Any = None,
-              *, activation: str = "silu", impl: str = "auto"
+              *, activation: str = "silu", impl: str = "auto", tp: int = 1
               ) -> torch.Tensor:
     """Fused ternary MLP block ``act(x @ Wg) * (x @ Wi) @ Wo`` (gate
     optional), each projection's scale and bias from its container.
     ``impl`` names a registered row; ``"auto"`` fuses ``dense2bit`` and
     ``tiled`` packs (``"pallas"``: B4 on the card, its plain version on the
-    CPU) and sends every other format to ``"chain"``, as in ``repro``."""
+    CPU) and sends every other format to ``"chain"``, as in ``repro``.
+    ``tp > 1``: the containers are this rank's shards of a ``tp``-way
+    Megatron MLP (up and gate column split, down row split); the result
+    is the f32 partial, the down projection's scale applied and not its
+    bias, for the caller's all-reduce."""
     w_in, w_out, w_gate = _fused_operands(w_in, w_out, w_gate)
     if x.ndim != 2 or x.shape[1] != w_in.k:
         raise ValueError(f"x {tuple(x.shape)} does not match the up "
                          f"projection's K={w_in.k}")
-    key = (x.shape[0], current_phase(), impl, activation,
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    key = (x.shape[0], current_phase(), impl, activation, tp,
            _REGISTRY_VERSION[0], autotune_lib._GLOBAL)
     memo = _PLANS.get(w_in)
     if memo is None:
@@ -1003,6 +1148,8 @@ def fused_mlp(x: torch.Tensor, w_in: Any, w_out: Any, w_gate: Any = None,
     if hit is None or hit[1] is not w_out or hit[2] is not w_gate:
         plan = fused_mlp_plan(w_in, w_out, w_gate, m=x.shape[0], impl=impl,
                               activation=activation)
+        if tp > 1:
+            plan = dataclasses.replace(plan, collective="psum", tp=tp)
         hit = memo[("fused",) + key] = (plan, w_out, w_gate)
     plan = hit[0]
     lower = _FUSED[plan.impl].fn
@@ -1025,7 +1172,7 @@ def _mlp_containers(node):
     wi, wo = packed("in"), packed("out")
     if wi is None or wo is None or wo.k != wi.n:
         return None
-    return wi, wo, packed("gate")
+    return wi, wo, packed("gate"), node["out"].get("tp") == "k"
 
 
 def precompute_fused_plans(params, *, prefill_ms=(), decode_ms=(),
@@ -1034,7 +1181,10 @@ def precompute_fused_plans(params, *, prefill_ms=(), decode_ms=(),
     """Plan every MLP-shaped subtree (a dict with packed ``"in"`` /
     ``"out"`` and optionally ``"gate"`` linears) at every (M, phase),
     keyed ``(block index, m, phase)`` as ``repro``'s are; the blocks in
-    the order of a walk over dict values and list items."""
+    the order of a walk over dict values and list items. ``tp > 1``: a
+    rank's tree, whose MLPs with a row-split ``"out"`` (its ``"tp"`` mark
+    ``"k"``) are shards, planned as the shards they are with the
+    ``psum`` recorded; the rest plan whole."""
     found = []
 
     def walk(node):
@@ -1050,12 +1200,16 @@ def precompute_fused_plans(params, *, prefill_ms=(), decode_ms=(),
 
     walk(params)
     plans: Dict[Tuple[Any, ...], FusedMlpPlan] = {}
-    for i, (wi, wo, wg) in enumerate(found):
+    for i, (wi, wo, wg, sharded) in enumerate(found):
         for phase, ms in _phase_ms(prefill_ms, decode_ms, verify_ms,
                                    chunk_ms):
             for m in ms:
-                plans[(i, m, phase)] = fused_mlp_plan(
-                    wi, wo, wg, m=m, impl=impl, phase=phase, tp=tp)
+                plan = fused_mlp_plan(wi, wo, wg, m=m, impl=impl,
+                                      phase=phase)
+                if sharded and tp > 1:
+                    plan = dataclasses.replace(plan, collective="psum",
+                                               tp=tp)
+                plans[(i, m, phase)] = plan
     return plans
 
 

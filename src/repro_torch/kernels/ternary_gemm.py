@@ -12,7 +12,9 @@ and their plain PyTorch versions.
 
 All compute ``Y = X @ decode(W) * scale + bias (+ PReLU)`` with f32
 accumulation and the f32 epilogue rounding once, at the cast to
-``x.dtype``. B2 and B3 run B1's 16-deep MMA chunks in B1's order, minus the
+``x.dtype``. B1 also has an f32 form (``out_dtype=torch.float32``) for a
+row-split tensor-parallel shard: ``X @ decode(W) * scale`` in f32, no bias,
+no cast, which the ranks sum before the bias and the cast. B2 and B3 run B1's 16-deep MMA chunks in B1's order, minus the
 chunks of empty tiles, so the three agree bit for bit on the card. The
 plain versions decode to f32 and multiply in f32; they serve CPU tensors
 and the comparisons, never a CUDA tensor on a kernel row.
@@ -61,9 +63,15 @@ def ternary_gemm_ref(x: torch.Tensor, words: torch.Tensor,
                      scale: Optional[torch.Tensor] = None,
                      bias: Optional[torch.Tensor] = None, *,
                      fuse_prelu: bool = False,
-                     prelu_alpha: float = 0.25) -> torch.Tensor:
+                     prelu_alpha: float = 0.25,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain version: x (M, K), words (>= ceil(K/16), N) int32 -> (M, N) in
-    x.dtype. Decode to f32, f32 matmul, f32 epilogue, one cast."""
+    x.dtype. Decode to f32, f32 matmul, f32 epilogue, one cast.
+    ``out_dtype=torch.float32`` is the f32 form's plain version: the scale
+    alone, no bias, no PReLU, no cast."""
+    if out_dtype == torch.float32:
+        t = formats.decode_2bit(words, x.shape[1], torch.float32)
+        return ref._epilogue(x.float() @ t, scale, None, None)
     return ref.packed2bit_matmul(x, words, x.shape[1], scale, bias,
                                  prelu_alpha if fuse_prelu else None)
 
@@ -75,6 +83,8 @@ def _lib() -> ctypes.CDLL:
     lib.ternary_gemm_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                       ctypes.c_float, i, i, p]
     lib.ternary_gemm_bf16.restype = ctypes.c_int
+    lib.ternary_gemm_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.ternary_gemm_f32.restype = ctypes.c_int
     return lib
 
 
@@ -126,14 +136,24 @@ def ternary_gemm_cuda(x: torch.Tensor, words: torch.Tensor,
                       bias: Optional[torch.Tensor] = None, *,
                       n: Optional[int] = None, fuse_prelu: bool = False,
                       prelu_alpha: float = 0.25, block_m: int = 64,
-                      block_n: int = 128) -> torch.Tensor:
+                      block_n: int = 128,
+                      out_dtype: torch.dtype = torch.bfloat16
+                      ) -> torch.Tensor:
     """Launch B1 on the current stream. x (M, K) bf16 and words
     (>= ceil(K/16), ldw) int32 must be contiguous CUDA tensors on one
     device; the output has the first ``n`` (default ldw) word columns, so a
     tile-padded pack runs without a copy. scale/bias, when given, (n,)
     float32. ``(block_m, block_n)`` is one of ``TILES``. Returns (M, n)
-    bf16. Raises on anything the kernel does not take (a tile that is not
-    built included), and on a failed launch."""
+    bf16, or with ``out_dtype=torch.float32`` the f32 form (scale only: a
+    bias or PReLU raises). Raises on anything the kernel does not take (a
+    tile that is not built included), and on a failed launch."""
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bfloat16 or float32, got "
+                         f"{out_dtype}")
+    f32 = out_dtype == torch.float32
+    if f32 and (bias is not None or fuse_prelu):
+        raise ValueError("B1's f32 form applies the scale alone: the bias "
+                         "(and PReLU) follow the ranks' all-reduce")
     _check_x_words("ternary_gemm_cuda", x, words)
     m, k = x.shape
     kw, ldw = words.shape
@@ -145,14 +165,20 @@ def ternary_gemm_cuda(x: torch.Tensor, words: torch.Tensor,
                          f"one of B1's tiles {sorted(TILES)}")
     _check_vec("scale", scale, n, x.device)
     _check_vec("bias", bias, n, x.device)
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return y
     with torch.cuda.device(x.device):
-        err = _lib().ternary_gemm_bf16(
-            x.data_ptr(), words.data_ptr(), _ptr(scale), _ptr(bias),
-            y.data_ptr(), m, k, n, kw, ldw, int(fuse_prelu), prelu_alpha,
-            block_m, block_n, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if f32:
+            err = _lib().ternary_gemm_f32(
+                x.data_ptr(), words.data_ptr(), _ptr(scale), y.data_ptr(), m,
+                k, n, kw, ldw, block_m, block_n, stream)
+        else:
+            err = _lib().ternary_gemm_bf16(
+                x.data_ptr(), words.data_ptr(), _ptr(scale), _ptr(bias),
+                y.data_ptr(), m, k, n, kw, ldw, int(fuse_prelu), prelu_alpha,
+                block_m, block_n, stream)
     if err != 0:
         raise RuntimeError(f"ternary_gemm kernel launch failed: "
                            f"cudaError {err}")

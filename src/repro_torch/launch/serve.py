@@ -24,6 +24,12 @@ Usage:
   ... --chaos [--deadline-s 2 --max-retries 2]    # seeded fault injection
   ... --spec layer_skip|resparsify [--spec-k 4 --draft-layers N
       --draft-sparsity 0.125]                     # speculative decoding
+  ... --mesh 2,2 [--mesh-devices cuda:0,cuda:1,cuda:2,cuda:3]   # dp x tp:
+      dp engine replicas, each tensor-parallel over tp ranks (one process
+      a rank), behind the prefix-affinity Router; dense family and
+      continuous mode only. Needs dp*tp devices (default: every card; a
+      device may repeat, e.g. --device cpu --mesh-devices cpu,cpu, and
+      ranks sharing a card run over gloo without CUDA graphs)
 
 Read a trace with ``python scripts/trace_report.py run.json`` or load it at
 https://ui.perfetto.dev.
@@ -43,6 +49,8 @@ from repro_torch.configs import get_config
 from repro_torch.core.weights import Dense2Bit
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tp as tp_lib
+from repro_torch.distributed.router import Router
 from repro_torch.kernels import ops
 from repro_torch.models import LM
 from repro_torch.obs import clock as obs_clock
@@ -315,6 +323,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--trace-buffer", type=int, default=65536,
                     help="--trace: ring capacity in events; the oldest "
                          "events drop first and the file records how many")
+    ap.add_argument("--mesh", default="",
+                    help="continuous mode: 'dp,tp' (or bare 'tp') — dp "
+                         "engine replicas, each tensor-parallel over tp "
+                         "ranks, behind the prefix-affinity Router. Needs "
+                         "dp*tp devices")
+    ap.add_argument("--mesh-devices", default="",
+                    help="--mesh: comma-separated devices, one per rank "
+                         "(default: every card, or the one CPU with "
+                         "--device cpu); a device may repeat")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
@@ -336,6 +353,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
                                            seed=args.seed)
     cfg, params = build_params(cfg, args.seed, device, args.packed)
     if args.static:
+        if args.mesh:
+            raise SystemExit("--mesh is a continuous-engine feature; "
+                             "drop --static")
         if args.chunked_prefill or args.traffic != "off":
             raise SystemExit("--chunked-prefill/--traffic drive the "
                              "continuous engine; drop --static")
@@ -380,38 +400,70 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         sched = SchedConfig(
             chunk_tokens=args.chunk_tokens if args.chunked_prefill else 0,
             step_token_budget=args.step_token_budget)
-    engine = ContinuousScheduler(cfg, max_slots=args.slots, max_len=max_len,
-                                 eos_id=args.eos_id if args.eos_id >= 0
-                                 else None,
-                                 cache=args.cache, page_size=args.page_size,
-                                 n_pages=args.pages,
-                                 kv_dtype=args.kv_dtype or None,
-                                 prefix_cache=not args.no_prefix_cache,
-                                 paged_attn=args.paged_attn,
-                                 sched=sched, spec=spec, faults=faults,
-                                 resilience=resilience, device=device,
-                                 tracer=tracer)
-    engine.load(params)
-    if args.traffic != "off":
-        tc = TrafficConfig(kind=args.traffic, rate=args.arrival_rate,
-                           n_requests=args.requests,
-                           prompt_lens=(args.prompt_len,),
-                           gen_lens=tuple(gen_lens), seed=args.seed)
-        schedule = make_schedule(tc, cfg.vocab_size,
-                                 classes=(interactive, batch_cls),
-                                 class_weights=(0.75, 0.25))
-        _, metrics = run_open_loop(engine, schedule)
+    def build_engine(mesh=None):
+        # ranks sharing a card talk over gloo, whose steps are not
+        # captured (the engine raises on cuda_graph there)
+        eng = ContinuousScheduler(
+            cfg, max_slots=args.slots, max_len=max_len,
+            eos_id=args.eos_id if args.eos_id >= 0 else None,
+            cache=args.cache, page_size=args.page_size, n_pages=args.pages,
+            kv_dtype=args.kv_dtype or None,
+            prefix_cache=not args.no_prefix_cache,
+            paged_attn=args.paged_attn, sched=sched, spec=spec,
+            faults=faults, resilience=resilience,
+            device=device if mesh is None else None, tracer=tracer,
+            cuda_graph=mesh is None or mesh.tp == 1
+            or mesh.backend == "nccl", mesh=mesh)
+        eng.load(params)
+        return eng
+
+    if args.mesh:
+        if args.traffic != "off":
+            raise SystemExit("--traffic drives a single engine open-loop; "
+                             "drop --mesh")
+        dp, tp = tp_lib.parse_mesh(args.mesh)
+        devices = ([d.strip() for d in args.mesh_devices.split(",")
+                    if d.strip()] if args.mesh_devices
+                   else None if device.type == "cuda" else [str(device)])
+        meshes = tp_lib.replica_meshes(dp, tp, devices)
+        engines = [build_engine(m) for m in meshes]
+        engine = Router(engines)
     else:
-        slo = interactive if slo_on else None
-        for p, g in zip(prompts, gens):
-            engine.submit(p, g, slo=slo)
-        metrics = engine.run()
+        engines = [build_engine()]
+        engine = engines[0]
+    try:
+        metrics = _drive(engine, args, cfg, prompts, gens, interactive,
+                         batch_cls, slo_on)
+    finally:
+        for eng in engines:
+            eng.close()
     if tracer is not None:
         n_ev = tracer.export(args.trace)
         print(f"# trace: {args.trace} ({n_ev} events, {tracer.dropped} "
               f"dropped)", file=sys.stderr)
     print(json.dumps(metrics))
     return metrics
+
+
+def _drive(engine, args, cfg, prompts, gens, interactive, batch_cls,
+           slo_on) -> Dict[str, Any]:
+    """Run the workload through an engine (or a router): open loop from
+    the seeded schedule, or submit everything and drain."""
+    if args.traffic != "off":
+        tc = TrafficConfig(kind=args.traffic, rate=args.arrival_rate,
+                           n_requests=args.requests,
+                           prompt_lens=(args.prompt_len,),
+                           gen_lens=tuple(int(g) for g in
+                                          args.gen_lens.split(",")),
+                           seed=args.seed)
+        schedule = make_schedule(tc, cfg.vocab_size,
+                                 classes=(interactive, batch_cls),
+                                 class_weights=(0.75, 0.25))
+        return run_open_loop(engine, schedule)[1]
+    slo = interactive if slo_on else None
+    for p, g in zip(prompts, gens):
+        engine.submit(p, g, slo=slo)
+    return engine.run()
 
 
 if __name__ == "__main__":

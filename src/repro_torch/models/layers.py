@@ -5,6 +5,15 @@ counterparts of ``repro.models.layers``, with the same rounding points.
 Dtypes follow ``repro``: activations in ``cfg.dtype`` (bf16), parameters in
 ``cfg.param_dtype`` (f32); norms compute in f32 and cast back; the packed
 GEMM's epilogue is f32.
+
+Tensor parallelism (``distributed.tp``): a rank's linear carries a ``"tp"``
+mark. ``"n"`` (a column split) runs as any linear on its columns; ``"k"``
+(a row split) computes its f32 partial product, all-reduces it over the
+current group (``tp.bound``), then adds the bias and casts, where a single
+card's f32 epilogue does; ``"gather"`` (the lm head) all-gathers its
+columns' logits. A gated MLP whose down projection is a row split
+all-reduces B4's f32 partial the same way. ``linear_spec`` gives
+``repro``'s logical spec of a projection.
 """
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quantize, weights
+from repro_torch.distributed import tp as tp_lib
 from repro_torch.kernels import ops
 
 
@@ -45,6 +55,38 @@ def linear_init(gen: torch.Generator, cfg: ModelConfig, d_in: int,
     return params
 
 
+def linear_spec(in_axis, out_axis, use_bias: bool,
+                packed: bool = False) -> dict:
+    """``repro``'s spec twin of a projection: ``{"w": (in, out)}`` (+
+    ``{"b": (out,)}``), or for a packed one ``{"w_packed": {"packed": (in,
+    out), "scale": (out,), "bias": (out,) or None}}``."""
+    if packed:
+        return {"w_packed": {"packed": (in_axis, out_axis),
+                             "scale": (out_axis,),
+                             "bias": (out_axis,) if use_bias else None}}
+    spec = {"w": (in_axis, out_axis)}
+    if use_bias:
+        spec["b"] = (out_axis,)
+    return spec
+
+
+def _group() -> "tp_lib.Group":
+    group = tp_lib.current_group()
+    if group is None:
+        raise RuntimeError("a tensor-parallel shard runs only inside its "
+                           "group (distributed.tp.bound)")
+    return group
+
+
+def _reduce_partial(y: torch.Tensor, bias, dtype) -> torch.Tensor:
+    """Sum a row split's f32 partials over the group, then the bias and
+    the cast."""
+    y = _group().all_reduce(y)
+    if bias is not None:
+        y = y + bias.to(y.dtype).reshape(1, -1)
+    return y.to(dtype)
+
+
 def _is_ternary(cfg: ModelConfig, d_in: int, d_out: int) -> bool:
     return (cfg.quantization != "none"
             and min(d_in, d_out) >= cfg.ternary_min_dim)
@@ -60,8 +102,20 @@ def gemm_impl(cfg: ModelConfig) -> str:
 
 def linear_apply(params: dict, x: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    """x: (..., d_in) -> (..., d_out)."""
+    """x: (..., d_in) -> (..., d_out); a rank's shard under its ``"tp"``
+    mark (module docstring)."""
     wc = params.get("w_packed")
+    part = params.get("tp")
+    if part == "k":
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        if wc is not None:
+            y = ops.ternary_gemm(x2, wc, impl=gemm_impl(cfg), partition="k",
+                                 tp=_group().size)
+            bias = wc.bias
+        else:
+            y, bias = x2.float() @ params["w"].float(), params.get("b")
+        return _reduce_partial(y, bias, x.dtype).reshape(*lead, -1)
     if wc is not None:
         lead = x.shape[:-1]
         y = ops.ternary_gemm(x.reshape(-1, x.shape[-1]), wc,
@@ -74,6 +128,8 @@ def linear_apply(params: dict, x: torch.Tensor,
         y = x @ w.to(x.dtype)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
+    if part == "gather":
+        y = _group().all_gather(y, dim=-1)
     return y
 
 
@@ -216,7 +272,12 @@ def mlp_apply(params: dict, x: torch.Tensor,
     if fused is not None:
         w_in, w_out, w_gate = fused
         lead = x.shape[:-1]
-        y = ops.fused_mlp(x.reshape(-1, x.shape[-1]), w_in, w_out, w_gate)
+        x2 = x.reshape(-1, x.shape[-1])
+        if params["out"].get("tp") == "k":
+            y = ops.fused_mlp(x2, w_in, w_out, w_gate, tp=_group().size)
+            y = _reduce_partial(y, w_out.bias, x.dtype)
+        else:
+            y = ops.fused_mlp(x2, w_in, w_out, w_gate)
         return y.reshape(*lead, -1)
     h = F.silu(linear_apply(params["gate"], x, cfg)) \
         * linear_apply(params["in"], x, cfg)

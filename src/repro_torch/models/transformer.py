@@ -26,6 +26,15 @@ blocks, ``repro``'s stacked ``enc_block``) and ``"enc_norm"``, and
 ``period`` and ``block_kinds`` are ``repro``'s: layer ``g * period + j``
 is ``repro``'s ``block{j}`` of group ``g``.
 
+``param_specs(cfg, params)`` is the tree's logical spec twin, ``repro``'s
+``init_with_specs`` specs laid over the port's per-layer list (q/k/v, up
+and gate ``("fsdp", "model")``, o and down ``("model", "fsdp")``, the
+embedding table ``("model", "fsdp")``, the lm head ``("fsdp", "model")``,
+norms ``(None,)``); ``distributed.tp.shard_params`` resolves it. A model
+whose ``comm`` is a ``distributed.tp.Group`` runs its forward, prefill
+and decode calls inside that group (a tensor-parallel rank, whose config
+holds its local head counts: ``tp.local_config``).
+
 Caches: ``{"layers": [per layer], "pos": int32 tensor}``, ``pos`` a scalar
 or a (B,) vector of per-slot positions, and an encoder-decoder's prefill
 adds ``"enc_out"`` (B, S_enc, d), from which every decode step projects
@@ -39,13 +48,16 @@ VLM's vision rows take the first cache positions.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import functools
+from typing import Dict, List, Optional
 
 import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tp as tp_lib
+from repro_torch.distributed.sharding import FSDP, MODEL
 from repro_torch.models import attention, layers, moe, ssm
 
 
@@ -64,10 +76,71 @@ def layer_period(cfg: ModelConfig) -> int:
     return p
 
 
+def param_specs(cfg: ModelConfig, params: Optional[dict] = None) -> dict:
+    """The logical spec twin of an ``LM``'s parameter tree (module
+    docstring): one spec per tensor, a tuple of axis entries, and for a
+    packed linear ``layers.linear_spec(..., packed=True)``'s twin. With
+    ``params`` the twin follows its packed and biased linears; without,
+    the latent tree ``LM.init`` draws. The dense family only: the other
+    families' specs come with ROADMAP A12b."""
+    if cfg.family != "dense" or cfg.is_encdec or any(
+            (cfg.layer_kind(i), cfg.layer_ffn(i)) != ("attn", "mlp")
+            for i in range(cfg.num_layers)):
+        raise ValueError(f"param_specs covers the dense family; family "
+                         f"{cfg.family!r} comes with ROADMAP A12b")
+    F, M = FSDP, MODEL
+
+    def lin(p, name, in_axis, out_axis, bias=None):
+        node = None if p is None else p[name]
+        if node is None:
+            return layers.linear_spec(in_axis, out_axis,
+                                      cfg.use_bias if bias is None else bias)
+        wc = node.get("w_packed")
+        if wc is not None:
+            return layers.linear_spec(in_axis, out_axis,
+                                      wc.bias is not None, packed=True)
+        return layers.linear_spec(in_axis, out_axis, "b" in node)
+
+    def norm():
+        return ({"scale": (None,), "bias": (None,)}
+                if cfg.norm_type == "layernorm" else {"scale": (None,)})
+
+    blocks = []
+    for i in range(cfg.num_layers):
+        lp = None if params is None else params["layers"][i]
+        mix = None if lp is None else lp["mixer"]
+        ffn = None if lp is None else lp["ffn"]
+        blocks.append({
+            "norm1": norm(),
+            "mixer": {"q": lin(mix, "q", F, M), "k": lin(mix, "k", F, M),
+                      "v": lin(mix, "v", F, M), "o": lin(mix, "o", M, F)},
+            "norm2": norm(),
+            "ffn": {"in": lin(ffn, "in", F, M), "gate": lin(ffn, "gate", F, M),
+                    "out": lin(ffn, "out", M, F)}})
+    specs = {"embed": {"table": (M, F)}, "layers": blocks,
+             "final_norm": norm()}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = lin(params, "unembed", F, M, bias=False)
+    return specs
+
+
+def _in_group(fn):
+    """Run an ``LM`` call inside the model's tensor-parallel group."""
+    @functools.wraps(fn)
+    def wrapped(self, *args, **kwargs):
+        if self.comm is None:
+            return fn(self, *args, **kwargs)
+        with tp_lib.bound(self.comm):
+            return fn(self, *args, **kwargs)
+    return wrapped
+
+
 class LM:
     def __init__(self, cfg: ModelConfig, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # a distributed.tp.Group when this model is a tensor-parallel rank
+        self.comm = None
         self.kinds = [(cfg.layer_kind(i), cfg.layer_ffn(i))
                       for i in range(cfg.num_layers)]
         self.period = layer_period(cfg)
@@ -230,7 +303,12 @@ class LM:
             return x @ params["embed"]["table"].to(x.dtype).T
         return layers.unembed_apply(params["unembed"], x, self.cfg)
 
+    def param_specs(self, params: Optional[dict] = None) -> dict:
+        """``param_specs(self.cfg, params)``."""
+        return param_specs(self.cfg, params)
+
     # ------------------------------------------------------------------
+    @_in_group
     def forward(self, params, batch):
         """Full-sequence forward -> (hidden (B, S, D), n_frontend: the
         vision rows in front of the text, aux f32: the MoE layers'
@@ -307,6 +385,7 @@ class LM:
                 t[idx] = small[name].to(t.dtype)
         return pool_layers
 
+    @_in_group
     def prefill(self, params, batch, max_len: int,
                 cache_dtype=torch.bfloat16, logits_from: int = -1):
         """Run the prompt, fill the caches, return (cache, logits of the
@@ -350,6 +429,7 @@ class LM:
             return cache["layers"][0]["k"].shape[1] <= cfg.sliding_window
         return False
 
+    @_in_group
     def decode_step(self, params, cache, tokens):
         """tokens (B, S) -> (logits (B, S, V), cache). S is 1 for plain
         decode; S > 1 is a window (a chunk of a prompt, a verify window)

@@ -1,6 +1,6 @@
 """Continuous-batching scheduler of the port over the dense slot pool or the
 paged KV pool — the counterpart of ``repro.serving.engine.
-ContinuousScheduler`` (meshes are not ported yet).
+ContinuousScheduler``, on one device or tensor-parallel over a mesh.
 
 Each step: **admit** FIFO runs of equal-length prompts into free slots as
 one prefill (the last-position argmax is each request's first token);
@@ -103,6 +103,27 @@ and the engine refuses encoder-decoder and VLM configs, with ``repro``'s
 messages. Plans cover packed linears only: MoE banks are decoded into
 the compute dtype every call, as ``repro``'s are.
 
+Tensor parallelism (``mesh=``, a ``distributed.tp.Mesh`` with a
+``"model"`` axis of tp ranks; the dense family only). This engine is the
+leader, rank 0: at ``load()`` it spawns ranks 1..tp-1 as follower
+processes (``tp.start_followers``), each an engine of the same
+configuration on its own device that keeps its own shards of the params
+(``tp.shard_params``: q/k/v, up, gate and the lm head column split, o and
+down row split with an f32 all-reduce, the rest whole) and a cache pool of
+its local KV heads. The leader alone schedules, pages, handles faults,
+runs the speculative draft (whole, on its own card) and reads tokens.
+Before each device step it broadcasts the step's op (prefill, insert,
+decode, chunk window, verify) with what it copied into its static
+buffers since the last one (``_push_host_state``'s positions, tokens and
+block table, the page copies of copy-on-write, the NaN victim, the draft's
+verify window); a follower copies them into its own buffers and runs the
+same step function on its shards, meeting the leader in the step's
+collectives. The logits are all-gathered, so every rank computes the same
+greedy tokens and finite guard. A step that holds a collective is
+captured as a CUDA graph only over NCCL (each rank on its own card);
+over gloo (ranks sharing one card) ``cuda_graph=True`` raises. The
+metrics' ``mesh`` block is ``repro``'s. ``close()`` stops the followers.
+
 Counters (``_ENGINE_COUNTERS``: steps, preemptions, deferrals, chunk,
 spec and fault counts) live in a ``MetricsRegistry`` (``engine.metrics``)
 behind attributes of those names, beside the step-time EWMA
@@ -131,8 +152,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tp as tp_lib
 from repro_torch.kernels import graphs, ops
 from repro_torch.models import LM
+from repro_torch.models.transformer import param_specs
 from repro_torch.obs import clock as obs_clock
 from repro_torch.obs.metrics import MetricsRegistry, RunningStat, percentiles
 from repro_torch.paging import PagePool
@@ -165,8 +188,11 @@ class ContinuousScheduler:
     ``cfg.paged_attn_impl``; dense engines ignore it).
     ``cuda_graph=False`` runs the decode step, the chunk windows, the
     draft round and the verify window eagerly on the card: it exists
-    only for the same-process A/B against the graphs, and no CLI flag sets
-    it. On the CPU both always run eagerly."""
+    for the same-process A/B against the graphs and for tensor-parallel
+    ranks that share one card over gloo; no CLI flag sets it. On the CPU
+    both always run eagerly. ``mesh``: a ``distributed.tp.Mesh`` (module
+    docstring), None for one device; with one, ``device`` defaults to the
+    mesh's first."""
 
     def __init__(self, cfg: ModelConfig, max_slots: int, max_len: int,
                  eos_id: Optional[int] = None, *, cache: str = "dense",
@@ -176,7 +202,25 @@ class ContinuousScheduler:
                  sched: Optional[SchedConfig] = None, spec=None,
                  faults: Optional[FaultConfig] = None,
                  resilience: Optional[ResilienceConfig] = None,
-                 device="cuda", tracer=None, cuda_graph: bool = True):
+                 device=None, tracer=None, cuda_graph: bool = True,
+                 mesh=None):
+        # what a follower rank needs to build the same engine
+        self._init_kwargs = dict(
+            cfg=cfg, max_slots=max_slots, max_len=max_len, eos_id=eos_id,
+            cache=cache, page_size=page_size, n_pages=n_pages,
+            kv_dtype=kv_dtype, prefix_cache=prefix_cache,
+            paged_attn=paged_attn, sched=sched, spec=spec,
+            cuda_graph=cuda_graph)
+        if device is None:
+            device = mesh.devices[0] if mesh is not None else "cuda"
+        tp = 1 if mesh is None else tp_lib.mesh_axis_sizes(mesh).get(
+            "model", 1)
+        if tp > 1 and mesh.backend == "gloo" and cuda_graph \
+                and resolve_device(device).type == "cuda":
+            raise ValueError(
+                "a tensor-parallel step over gloo (ranks sharing a card) "
+                "cannot be captured as a CUDA graph: pass cuda_graph=False "
+                "(graph capture of a collective needs NCCL, one card a rank)")
         if cfg.is_encdec or cfg.family == "vlm":
             raise ValueError(
                 f"family {cfg.family!r} needs per-request encoder/frontend "
@@ -204,7 +248,18 @@ class ContinuousScheduler:
         self._trace_pid = tracer.new_pid("engine") if tracer is not None else 0
         if tracer is not None:
             tracer.thread_name(self._trace_pid, 0, "scheduler")
-        self.model = LM(cfg, self.device)
+        # tensor parallelism: this rank's model has its local heads; the
+        # group, the followers and the outbox of buffer pushes and page
+        # copies come up at load()
+        self.mesh = mesh
+        self.tp = tp
+        self._group: Optional[tp_lib.Group] = None
+        self._tp_rank = 0
+        self._followers: List[Any] = []
+        self._tp_dir: Optional[str] = None
+        self._outbox: List[tuple] = []
+        self._full_params = None
+        self.model = LM(tp_lib.local_config(cfg, tp), self.device)
         self.max_slots = max_slots
         self.max_len = max_len
         self.eos_id = eos_id
@@ -218,6 +273,15 @@ class ContinuousScheduler:
                                  page_size=page_size, n_pages=n_pages,
                                  kv_dtype=kv_dtype,
                                  prefix_cache=prefix_cache)
+            if tp > 1:
+                # copy-on-write copies reach the followers' pools too
+                copy_page = self.pool._copy_page
+
+                def _copy_page(src: int, dst: int) -> None:
+                    self._outbox.append(("copy", (src, dst)))
+                    copy_page(src, dst)
+
+                self.pool._copy_page = _copy_page
             self._dev_table = torch.zeros(self.pool.table.shape,
                                           dtype=torch.int32,
                                           device=self.device)
@@ -226,6 +290,8 @@ class ContinuousScheduler:
         self._chunker = (ChunkRunner(self.model, max_len,
                                      paged=cache == "paged", rows=max_slots)
                          if chunked else None)
+        if self._chunker is not None and tp > 1:
+            self._chunker.sender = functools.partial(self._tp_send, "chunk")
         self._prefills: Dict[int, Request] = {}      # slot -> mid-prefill
         self._chunk_meta = None       # the last plan_chunks meta, traced
         self._live: Dict[int, Request] = {}          # slot -> request
@@ -310,11 +376,21 @@ class ContinuousScheduler:
         raises."""
         if self._live or self._prefills:
             raise RuntimeError("load() while requests are live")
+        if self.tp > 1:
+            params = self._load_shards(params)
         self.params = params
         self._graph = self._draft_graph = self._verify_graph = None
         self._plan(params)
-        if self.spec is not None:
-            self.draft = build_draft(self.spec, self.model, params)
+        if self.spec is not None and self._tp_rank > 0:
+            # a follower verifies; the leader alone drafts
+            self._verify = make_verify_step(self.model, self.max_len,
+                                            self.spec.k)
+        elif self.spec is not None:
+            # under tensor parallelism the draft is whole, on the leader
+            # (repro replicates it): built from the unsharded params
+            full = self._full_params if self.tp > 1 else params
+            self.draft = build_draft(self.spec, LM(self.cfg, self.device)
+                                     if self.tp > 1 else self.model, full)
             self._draft_layers = self.draft.model.init_cache(
                 self.max_slots, self.max_len)["layers"]
             self._draft_round = make_draft_round(self.draft, self.max_len,
@@ -337,7 +413,7 @@ class ContinuousScheduler:
             with ops.serving_phase("decode"):
                 self._graph = graphs.CapturedStep(self._decode_step,
                                                   capture=capture)
-                if self.spec is not None:
+                if self.draft is not None:
                     self._draft_graph = graphs.CapturedStep(
                         self._draft_step, capture=capture)
             if self.spec is not None:
@@ -352,6 +428,89 @@ class ContinuousScheduler:
             self._chunker.warmup(
                 params, self.pool, [1 << i for i in range(smax.bit_length())],
                 cuda_graph=graphed, graph_pool=mempool)
+
+    def _load_shards(self, params):
+        """Tensor parallelism at ``load()``: the leader starts the
+        followers (each loads the same whole ``params`` and keeps its own
+        shards) and keeps the whole tree for the draft; every rank returns
+        its shards on its device."""
+        if self._tp_rank == 0 and self._group is None:
+            group, self._followers, self._tp_dir = tp_lib.start_followers(
+                self.mesh, params, self._init_kwargs)
+            self._attach_group(group, 0)
+        if self._tp_rank == 0 and self.spec is not None:
+            self._full_params = params
+        shards = tp_lib.shard_params(params, param_specs(self.cfg, params),
+                                     self.mesh, rank=self._tp_rank,
+                                     cfg=self.cfg)
+        return tp_lib._tree_to(shards, self.device)
+
+    def _attach_group(self, group: "tp_lib.Group", rank: int) -> None:
+        """Join this engine to its tensor-parallel group as ``rank``."""
+        self._group, self._tp_rank = group, rank
+        self.model.comm = group
+
+    def _tp_send(self, op: str, **payload) -> None:
+        """Leader: broadcast one step's op to the followers, with the
+        buffer pushes and page copies queued since the last one."""
+        if self._group is None or self._tp_rank != 0:
+            return
+        pre, self._outbox = self._outbox, []
+        self._group.send({"op": op, "pre": pre, **payload})
+
+    def follow(self) -> None:
+        """A follower's loop: take the leader's ops in order and run each
+        on this rank's shards, until the leader stops. The pushes and page
+        copies that came with an op land first."""
+        dev = self.device
+        pending = None
+        while True:
+            msg = self._group.recv()
+            for kind, arg in msg["pre"]:
+                if kind == "copy":
+                    self.pool._copy_page(*arg)
+                else:
+                    self._push_arrays(**arg)
+            op = msg["op"]
+            if op == "stop":
+                return
+            if op == "prefill":
+                with ops.serving_phase("prefill"):
+                    pending, _ = self._prefill(
+                        torch.as_tensor(msg["tokens"], device=dev))
+            elif op == "insert":
+                self.pool.insert(msg["where"], pending)
+                pending = None
+            elif op == "chunk":
+                self._chunker.run_window(self.params, self.pool, msg["pos"],
+                                         msg["toks"], msg["table"])
+            elif op in ("decode", "verify"):
+                if msg["nan"] is not None:
+                    self._dev_nan[msg["nan"]] = True
+                if op == "decode":
+                    with ops.serving_phase("decode"):
+                        if self._graph is not None:
+                            self._graph.replay()
+                        else:
+                            self._decode_step()
+                else:
+                    self._dev_win.copy_(torch.from_numpy(msg["win"]))
+                    with ops.serving_phase("verify"):
+                        if self._verify_graph is not None:
+                            self._verify_graph.replay()
+                        else:
+                            self._verify_step()
+                if msg["nan"] is not None:
+                    self._dev_nan.zero_()
+            else:
+                raise RuntimeError(f"unknown tensor-parallel op {op!r}")
+
+    def close(self) -> None:
+        """Stop this engine's follower ranks (tensor parallelism; a no-op
+        otherwise). The engine serves no more steps after it."""
+        if self._followers or self._tp_dir is not None:
+            tp_lib.stop_followers(self._group, self._followers, self._tp_dir)
+            self._followers, self._tp_dir = [], None
 
     def _plan(self, params) -> None:
         """``repro``'s plan warm-up at load: every packed linear at every
@@ -374,11 +533,14 @@ class ContinuousScheduler:
                   verify_ms=((self.max_slots * (self.spec.k + 1),)
                              if self.spec else ()),
                   chunk_ms=chunk_ms)
+        shard = (tp_lib.gemm_shard_fn(self.mesh, params) if self.tp > 1
+                 else None)
         self.gemm_plans = ops.precompute_plans(params,
                                                select=_is_packed_linear,
-                                               **ms)
+                                               shard=shard, **ms)
         fused_on = self.device.type == "cuda" and self.cfg.fused_mlp != "off"
-        self.fused_plans = (ops.precompute_fused_plans(params, **ms)
+        self.fused_plans = (ops.precompute_fused_plans(params, tp=self.tp,
+                                                       **ms)
                             if fused_on else {})
         self._phase_model, self._modeled_memo = {}, {}
         for (_, m, phase), plan in self.gemm_plans.items():
@@ -421,6 +583,8 @@ class ContinuousScheduler:
 
     @torch.no_grad()
     def _prefill(self, toks: torch.Tensor):
+        if self._group is not None:
+            self._tp_send("prefill", tokens=toks.cpu().numpy())
         cache_len = self.max_len
         if self.cache_mode == "paged":
             # page-aligned cache length: the pool writes whole pages
@@ -475,15 +639,29 @@ class ContinuousScheduler:
         the block table (after a page change) into the static buffers. The
         copies block, so a mirror the next step mutates is never read
         mid-copy."""
+        push = {}
         if self._dirty:
-            self._dev_pos.copy_(torch.from_numpy(self._pos))
-            self._dev_tok.copy_(torch.from_numpy(self._tok))
+            push.update(pos=self._pos, tok=self._tok)
             if self.spec is not None:
-                self._dev_prev.copy_(torch.from_numpy(self._prev_tok))
+                push["prev"] = self._prev_tok
             self._dirty = False
         if self.cache_mode == "paged" and self.pool.table_dirty:
-            self._dev_table.copy_(torch.from_numpy(self.pool.table))
+            push["table"] = self.pool.table
             self.pool.table_dirty = False
+        if push:
+            self._push_arrays(**push)
+            if self._group is not None:
+                self._outbox.append(("push", {k: v.copy()
+                                              for k, v in push.items()}))
+
+    def _push_arrays(self, pos=None, tok=None, prev=None,
+                     table=None) -> None:
+        """Copy host arrays into the static buffers (blocking copies)."""
+        for buf, arr in ((self._dev_pos, pos), (self._dev_tok, tok),
+                         (self._dev_prev, prev),
+                         (getattr(self, "_dev_table", None), table)):
+            if arr is not None:
+                buf.copy_(torch.from_numpy(arr))
 
     def submit(self, prompt: np.ndarray, max_new: int, *,
                deadline_s: Optional[float] = None,
@@ -568,10 +746,10 @@ class ContinuousScheduler:
                               "m": int(prompts.size),
                               **(self._modeled("prefill", int(prompts.size))
                                  or {})})
-        if self.cache_mode == "paged":
-            self.pool.insert([a for _, _, a in group], req_layers)
-        else:
-            self.pool.insert([s for _, s, _ in group], req_layers)
+        where = ([a for _, _, a in group] if self.cache_mode == "paged"
+                 else [s for _, s, _ in group])
+        self._tp_send("insert", where=where)
+        self.pool.insert(where, req_layers)
         if self.spec is not None:
             self._draft_prefill(prompts, [s for _, s, _ in group])
         toks = toks_dev.cpu().numpy()
@@ -977,6 +1155,7 @@ class ContinuousScheduler:
             return
         victim = self._nan_mask(faults)
         t_decode = obs_clock.now()
+        self._tp_send("decode", nan=victim)
         with ops.serving_phase("decode"):
             if self._graph is not None:
                 self._graph.replay()
@@ -1038,6 +1217,10 @@ class ContinuousScheduler:
                               "m": self.max_slots})
         victim = self._nan_mask(faults)
         t_verify = obs_clock.now()
+        if self._group is not None:
+            # the followers verify the window the leader's draft wrote
+            self._tp_send("verify", win=self._dev_win.cpu().numpy(),
+                          nan=victim)
         with ops.serving_phase("verify"):
             if self._verify_graph is not None:
                 self._verify_graph.replay()
@@ -1255,7 +1438,7 @@ class ContinuousScheduler:
 
     def collect_metrics(self, snap: Dict[str, Any]) -> Dict[str, Any]:
         """The metrics JSON of the span since ``begin_metrics``: ``repro``'s
-        keys and shapes, with ``mesh`` None (not ported), and without
+        keys and shapes (``mesh`` None on one device), without
         ``planned_gemms``."""
         wall = obs_clock.now() - snap["t0"]
         c0, f0 = snap["c0"], snap["f0"]
@@ -1271,7 +1454,13 @@ class ContinuousScheduler:
             "engine": "continuous",
             "max_slots": self.max_slots,
             "max_len": self.max_len,
-            "mesh": None,
+            "mesh": (None if self.mesh is None else
+                     {"tp": int(np.prod(list(tp_lib.mesh_axis_sizes(
+                          self.mesh).values()))),
+                      "axes": tp_lib.mesh_axis_sizes(self.mesh),
+                      "collective_plans": sum(
+                          1 for p in self.gemm_plans.values()
+                          if p.collective)}),
             "cache": cache,
             "spec": self._spec_metrics(snap, done),
             "concurrency": {"peak": self._live_stat.peak,

@@ -72,6 +72,9 @@ class ChunkRunner:
         # a graph's own output, valid only until the next replay of any
         # graph of the pool (clone it to keep it)
         self.last_logits: Optional[torch.Tensor] = None
+        # a tensor-parallel leader's hook: sender(pos=, toks=, table=)
+        # hands each window's inputs to the follower ranks first
+        self.sender = None
 
     # ------------------------------------------------------------------
     def _tokens(self, s: int) -> torch.Tensor:
@@ -120,18 +123,35 @@ class ChunkRunner:
         table[slots] = pool.table[slots]
         return table
 
-    def _push(self, pool, slots: Sequence[int], pos: np.ndarray,
-              toks: np.ndarray) -> None:
-        """Copy the window into the static buffers (blocking copies, so a
-        host array is never read mid-copy)."""
+    def _push(self, pos: np.ndarray, toks: np.ndarray,
+              table: Optional[np.ndarray]) -> None:
+        """Copy the window (and, paged, its (rows, T) block table) into the
+        static buffers (blocking copies, so a host array is never read
+        mid-copy)."""
         self._pos.copy_(torch.from_numpy(pos))
         self._tokens(toks.shape[1]).copy_(torch.from_numpy(toks))
         if self.paged:
             if self._table is None:
-                self._table = torch.zeros(
-                    (self.rows, pool.table.shape[1]), dtype=torch.int32,
-                    device=self.model.device)
-            self._table.copy_(torch.from_numpy(self._pad_table(pool, slots)))
+                self._table = torch.zeros(table.shape, dtype=torch.int32,
+                                          device=self.model.device)
+            self._table.copy_(torch.from_numpy(table))
+
+    def _run(self, params, pool, s: int) -> None:
+        with ops.serving_phase("chunk"):
+            if self._graphs:
+                if s not in self._graphs:
+                    raise KeyError(f"no captured window of width {s}; "
+                                   f"captured: {sorted(self._graphs)}")
+                self._graphs[s].replay()
+            else:
+                self._forward(params, pool, s)
+
+    def run_window(self, params, pool, pos: np.ndarray, toks: np.ndarray,
+                   table: Optional[np.ndarray]) -> None:
+        """A tensor-parallel follower's window: the leader's packed inputs
+        pushed and run as ``advance`` runs them."""
+        self._push(pos, toks, table)
+        self._run(params, pool, toks.shape[1])
 
     def advance(self, params, pool, jobs, frontier,
                 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -144,15 +164,11 @@ class ChunkRunner:
         pos, toks = self.pack_window(jobs, frontier)
         slots = [slot for slot, _, _ in jobs]
         s = toks.shape[1]
-        self._push(pool, slots, pos, toks)
-        with ops.serving_phase("chunk"):
-            if self._graphs:
-                if s not in self._graphs:
-                    raise KeyError(f"no captured window of width {s}; "
-                                   f"captured: {sorted(self._graphs)}")
-                self._graphs[s].replay()
-            else:
-                self._forward(params, pool, s)
+        table = self._pad_table(pool, slots) if self.paged else None
+        if self.sender is not None:
+            self.sender(pos=pos, toks=toks, table=table)
+        self._push(pos, toks, table)
+        self._run(params, pool, s)
         out, self.last_logits = self._out[s]
         out = out.cpu().numpy()[slots]
         return out[:, :s], out[:, s].astype(bool)
@@ -166,8 +182,9 @@ class ChunkRunner:
         ``cuda_graph`` capture each into a CUDA graph (widest first)
         sharing ``graph_pool``."""
         self._graphs = {}
-        self._push(pool, [], np.zeros(self.rows, np.int32),
-                   np.zeros((self.rows, 1), np.int32))
+        self._push(np.zeros(self.rows, np.int32),
+                   np.zeros((self.rows, 1), np.int32),
+                   self._pad_table(pool, []) if self.paged else None)
         for s in sorted(windows, reverse=True):
             self._tokens(s).zero_()
             step = functools.partial(self._forward, params, pool, s)

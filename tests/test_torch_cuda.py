@@ -1219,3 +1219,81 @@ def test_families_graph_matches_eager(cuda, arch, cache):
         np.testing.assert_array_equal(a, b)
     assert runs[False][1] == runs[True][1]
     assert torch.equal(*logits)
+
+
+# --- tensor-parallel shards: the f32 forms and sliced packs ------------------
+
+@pytest.mark.parametrize("m", [8, 1024])
+@pytest.mark.parametrize("kn", [(512, 1024), (1008, 200)])
+def test_ternary_gemm_f32_form_matches_plain_and_bf16(cuda, m, kn):
+    """B1's f32 form (a row-split shard, o at tp 2: 512 -> 1024) against
+    its plain version; its output plus the bias, cast, is bitwise the bf16
+    form's (the same accumulators, scale, f32 add and one rounding)."""
+    k, n = kn
+    g = _gen(m + k)
+    full = weights.pack(torch.randn(2 * k, n, generator=g, device=cuda),
+                        bias=torch.randn(n, generator=g, device=cuda))
+    w = weights.shard_weight(full, "k", 1, 2)
+    x = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    with ops.serving_phase("decode" if m <= 16 else "prefill"):
+        got = ops.ternary_gemm(x, w, partition="k", tp=2)
+        bf16 = ops.ternary_gemm(x, w)
+    ref = gemm_lib.ternary_gemm_ref(x, w.packed, w.scale,
+                                    out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    _close(got, ref)
+    assert torch.equal((got + w.bias).to(torch.bfloat16), bf16)
+    with pytest.raises(ValueError, match="scale alone"):
+        gemm_lib.ternary_gemm_cuda(x, w.packed, w.scale, w.bias, n=n,
+                                   out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("m", [8, 1024])
+@pytest.mark.parametrize("gated", [True, False])
+def test_fused_mlp_f32_form_matches_plain_and_bf16(cuda, m, gated):
+    """B4's f32 partial at tp 2's ff slice (1024 -> 2048 -> 1024) against
+    its plain version; plus the down projection's bias and cast, bitwise
+    the bf16 form. The ff slice keeps B4's chunk width (512: 4 chunks)."""
+    g = _gen(m * 3 + gated)
+    wi, wg = (weights.shard_weight(weights.pack(
+        torch.randn(1024, 4096, generator=g, device=cuda)), "n", 0, 2)
+        for _ in range(2))
+    wo = weights.shard_weight(weights.pack(
+        torch.randn(4096, 1024, generator=g, device=cuda),
+        bias=torch.randn(1024, generator=g, device=cuda)), "k", 0, 2)
+    wg = wg if gated else None
+    assert wi.n == 2048 and fused_lib.chunk_width(wi.n) == 512
+    x = torch.randn(m, 1024, generator=g, device=cuda).to(torch.bfloat16)
+    with ops.serving_phase("decode" if m <= 16 else "prefill"):
+        got = ops.fused_mlp(x, wi, wo, wg, tp=2)
+        bf16 = ops.fused_mlp(x, wi, wo, wg)
+    ref = fused_lib.fused_mlp_ref(
+        x, wi.packed, wo.packed, None if wg is None else wg.packed,
+        wi.scale, None, None if wg is None else wg.scale, None, wo.scale,
+        None, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    _close(got, ref)
+    assert torch.equal((got + wo.bias).to(torch.bfloat16), bf16)
+
+
+@pytest.mark.parametrize("part", ["k", "n"])
+@pytest.mark.parametrize("m", [8, 200])
+def test_skip_kernels_on_a_sliced_tiled_shard(cuda, part, m):
+    """A tiled pack sliced for tp 2 (its occupancy lists recomputed over
+    the shard's tiles): B2 == B3 == B1 bitwise, and within tolerance of
+    the plain version."""
+    g = _gen(m + len(part))
+    t = formats.random_tile_ternary(np.random.default_rng(m), 1024, 512,
+                                    256, 128, 0.5)
+    full = weights.pack(torch.from_numpy(t).to(cuda), "tiled", tile_k=256,
+                        tile_n=128,
+                        scale=torch.rand(512, generator=g, device=cuda) + .5)
+    w = weights.shard_weight(full, part, 1, 2)
+    x = torch.randn(m, w.k, generator=g, device=cuda).to(torch.bfloat16)
+    ys = [ops.ternary_gemm(x, w, impl=impl)
+          for impl in ("skip", "skip_db", "dense")]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1]) and torch.equal(ys[1], ys[2])
+    _close(ys[2], gemm_lib.ternary_gemm_ref(x, w.packed[:, :w.n], w.scale))
