@@ -251,6 +251,29 @@ matmul within 1e-4 of max|ref| and with B1 within the kernel bound, and
 is timed beside B1, ``torch.matmul`` on the decoded weights and the plain
 dense matmul (``tcsc summary`` line; not kernels of the port, so not in
 the ``kernels`` line).
+``train_dist`` runs the distributed trainer (``launch.train.
+DistTrainer``, one process a rank, all ranks on this card over gloo) on
+full-width ternary-paper at TRAIN's batch 8 x 512 and lr, on four meshes:
+dp 2, dp 2 with compressed gradients, tp 2 and dp 2 x tp 2. Each first
+step runs in f32 from the seed's state and is held to one process's on
+this card (the plain step on the global batch; for the compressed mesh,
+its stand-in: each half's gradients ternarized, the codes summed, the
+scales averaged) by STEP_CHECK's rule, after which the data-parallel
+ranks' checksums of every param and AdamW leaf must agree and the
+tensor-parallel ranks' gradients of every replicated leaf too; the row
+shards' ternary code flips against one process are counted. Then each
+takes TRAIN_DIST["steps"] bf16 steps with one failure at step 2 and a
+restart from a checkpoint of step 2 (dp 2 x tp 2 under
+``TrainSupervisor``; the others save it, lose every rank's state and
+restore it): the loss on a held-out batch (EVAL's step) must fall below
+one process's at the seed's state and every rank end at the same step
+with equal replicas. Step
+times, the collectives' calls, bytes and host ms a step (gradient sync
+over the data group, f32 or bf16 codes; tensor-parallel collectives),
+peak memory per rank and the loss curve are printed. Last, dp 2 x tp 2's
+trained state, gathered, goes through ``eval``'s packed evaluation (B1,
+B4 and B6 on the card; the packed loss within EVAL["packed_tol"] of the
+QAT loss). ``--only train_dist`` builds and runs this phase alone.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -430,6 +453,16 @@ EVAL = dict(batch=8, seq=1024, step=10_000, qat_tol=1e-2, packed_tol=0.05)
 # the card's first full-width train step against the CPU's, both float32:
 # the same sums in another order through 12 layers
 STEP_CHECK = dict(batch=2, seq=256, rtol=1e-3, max_flip_share=1e-6)
+# train_dist: full-width ternary-paper at TRAIN's batch on four meshes of
+# ranks sharing this card over gloo (label: data-parallel, model-parallel,
+# compressed gradients); the first step in f32 against one process, then
+# 3 bf16 steps with a checkpoint at 2 and one injected failure at step 2.
+# The schedule is TRAIN's 24-step one (warmup 3) at a peak lr of 3e-4: at
+# 1e-3 and 3e-3 the first steps raise the held-out loss
+TRAIN_DIST = dict(meshes=(("dp2", 2, 1, False), ("dp2_compress", 2, 1, True),
+                          ("tp2", 1, 2, False), ("dp2_tp2", 2, 2, False)),
+                  steps=3, ckpt_every=2, fail_at=2, lr=3e-4,
+                  schedule_steps=TRAIN["steps"], timeout_s=300.0)
 # decode_graph: each serving workload drained eagerly and through the
 # captured decode step in one process; the kernels counted per decode step
 GRAPH_KERNELS = ("ternary_gemm", "fused_mlp", "paged_decode_attention")
@@ -3791,23 +3824,39 @@ def train_step_check():
            "loss_cpu": float(met["loss"]), "loss_card": float(gmet["loss"]),
            "grad_norm_cpu": float(met["grad_norm"]),
            "grad_norm_card": float(gmet["grad_norm"]), "lr": step_lr}
+    out.update(hold_first_step("train step check", "card", "CPU",
+                               (gparams, gopt, gmet), (params, opt, met)))
+    print("train step check, card vs CPU, full width in float32: "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def hold_first_step(label, got_name, ref_name, got, ref):
+    """One first train step (params, AdamW state, metrics) held to another
+    from the same state by STEP_CHECK's rule; ``got`` is moved to ``ref``'s
+    device. Returns the readings."""
+    import torch
+    gparams, gopt, gmet = got
+    params, opt, met = ref
+    step_lr = float(met["lr"])
+    out = {}
     for key in ("loss", "grad_norm"):
-        ref, got = out[f"{key}_cpu"], out[f"{key}_card"]
-        out[f"{key}_rel_err"] = abs(got - ref) / abs(ref)
+        r, g = float(met[key]), float(gmet[key])
+        out[f"{key}_rel_err"] = abs(g - r) / abs(r)
         if out[f"{key}_rel_err"] > STEP_CHECK["rtol"]:
-            raise AssertionError(f"train step check: the card's {key} {got} "
-                                 f"differs from the CPU's {ref}")
+            raise AssertionError(f"{label}: the {got_name}'s {key} {g} "
+                                 f"differs from the {ref_name}'s {r}")
 
     # A weight whose |w| lies within an ulp of its column's 2 mean|w| (the
-    # straight-through mask's edge, a mean the two devices sum in another
+    # straight-through mask's edge, a mean the two sides sum in another
     # order) gets its gradient on one side and 0 on the other: those
     # elements are counted, and must be few, instead of held to rtol
-    flips = {path: (g.cpu() == 0) != (r == 0)
+    flips = {path: (g.to(r.device) == 0) != (r == 0)
              for path, g, r in _leaf_pairs(gopt["m"], opt["m"])}
     n_elems = sum(int(f.numel()) for f in flips.values())
     out["mask_edge_flips"] = sum(int(f.sum()) for f in flips.values())
     if out["mask_edge_flips"] > STEP_CHECK["max_flip_share"] * n_elems:
-        raise AssertionError(f"train step check: {out['mask_edge_flips']} "
+        raise AssertionError(f"{label}: {out['mask_edge_flips']} "
                              f"gradients are 0 on one side only")
 
     def worst(tree_got, tree_ref, loose, loose_bound=0.0):
@@ -3815,21 +3864,21 @@ def train_step_check():
         element is held to ``loose_bound``."""
         top = 0.0
         for path, g, r in _leaf_pairs(tree_got, tree_ref):
-            g, r = g.float().cpu(), r.float()
+            g, r = g.float().to(r.device), r.float()
             d = (g - r).abs()
             mask = loose[path]
             if loose_bound > 0 and bool((d[mask] > loose_bound).any()):
-                raise AssertionError(f"train step check: {path} moved "
+                raise AssertionError(f"{label}: {path} moved "
                                      f"more than two steps apart")
             d = torch.where(mask, torch.zeros_like(d), d)
             rel = float(d.max()) / max(float(r.abs().max()), 1e-30)
             if rel > STEP_CHECK["rtol"]:
                 i = int(d.flatten().argmax())
                 raise AssertionError(
-                    f"train step check: {path} differs by {rel:.3g} of its "
+                    f"{label}: {path} differs by {rel:.3g} of its "
                     f"max ({int((d > STEP_CHECK['rtol'] * r.abs().max()).sum())}"
-                    f" elements; worst card {float(g.flatten()[i])}, CPU "
-                    f"{float(r.flatten()[i])})")
+                    f" elements; worst {got_name} {float(g.flatten()[i])}, "
+                    f"{ref_name} {float(r.flatten()[i])})")
             top = max(top, rel)
         return top
 
@@ -3844,8 +3893,6 @@ def train_step_check():
              for path, _, r in _leaf_pairs(opt["v"], opt["v"])}
     out["params_held_to_2lr"] = sum(int(m.sum()) for m in loose.values())
     out["params_rel_err"] = worst(gparams, params, loose, 2.01 * step_lr)
-    print("train step check, card vs CPU, full width in float32: "
-          + json.dumps(out), flush=True)
     return out
 
 
@@ -3993,6 +4040,273 @@ def eval_phase(cfg, params):
         raise AssertionError(f"eval: the packed forward did not go through "
                              f"B1 and B4 ({launches})")
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# train_dist: the distributed trainer, ranks sharing this card over gloo
+# ---------------------------------------------------------------------------
+
+def _compressed_reference(cfg, state, batch, dp, lr):
+    """One process's stand-in for the compressed data-parallel step:
+    each of the ``dp`` row blocks' gradients ternarized with zero error
+    (``compression.ternarize_tree``), the codes and the scales summed as
+    the group's all-reduces would, then ``synced_tree``, the clip, the
+    schedule and AdamW.
+    Returns (params, opt, metrics)."""
+    from repro_torch.distributed import compression
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import LM
+    from repro_torch.models.transformer import layer_period
+    from repro_torch.optim import adamw, clip_by_global_norm, warmup_cosine
+
+    model = LM(cfg, "cuda")
+    rows = batch["tokens"].shape[0] // dp
+    per_rank = [steps_lib.value_and_grad(
+        model, cfg, state["params"],
+        {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}, accum=1)
+        for r in range(dp)]
+    period = layer_period(cfg)
+    codes = scales = None
+    for _, g in per_rank:
+        c, sc, _ = compression.ternarize_tree(
+            g, compression.init_error_state(g), period=period)
+        codes = c if codes is None else codes + c
+        scales = sc if scales is None else scales + sc
+    grads = compression.synced_tree(per_rank[0][1], codes, scales, dp,
+                                    period)
+    grads, gnorm = clip_by_global_norm(grads, 1.0)
+    total = TRAIN_DIST["schedule_steps"]
+    lr_fn = warmup_cosine(lr, min(100, total // 10 + 1), total)
+    _, opt_update = adamw(state_dtype=cfg.opt_state_dtype)
+    step_lr = lr_fn(state["opt"]["step"] + 1)
+    params, opt = opt_update(grads, state["opt"], state["params"], step_lr)
+    loss = sum(m["loss"] for m, _ in per_rank) / dp
+    return params, opt, {"loss": loss, "grad_norm": gnorm, "lr": step_lr}
+
+
+def _ternary_flips(params, tp):
+    """Row-split latents whose ternary codes differ between one process
+    (the column mean over K at once) and ``tp`` row shards (the shards'
+    column sums added, then / K): the elements counted."""
+    import torch
+    n = 0
+    for lp in params["layers"]:
+        for w in (lp["mixer"]["o"]["w"], lp["ffn"]["out"]["w"]):
+            a = w.float().abs()
+            one = a > 0.7 * a.mean(dim=-2, keepdim=True)
+            parts = a.chunk(tp, dim=-2)
+            total = parts[0].sum(dim=-2, keepdim=True)
+            for p in parts[1:]:
+                total = total + p.sum(dim=-2, keepdim=True)
+            n += int((one != (a > 0.7 * (total / a.shape[-2]))).sum())
+    return n
+
+
+def train_dist_mesh(label, trainer, compress, cfg32, cfg, ref, ckpt_root,
+                    held_out_init):
+    """One mesh of ``train_dist`` on ``trainer``'s ranks, rebuilt for it:
+    its first f32 step from the seed's state held to one process's
+    (``ref``), the ranks' states checked equal and (tensor parallelism)
+    the replicated leaves' gradients equal across tensor-parallel ranks;
+    then bf16 steps with one failure and a restart from a checkpoint
+    (``_bf16_restart_run``), after which the loss on a held-out batch
+    (EVAL's step) must be below ``held_out_init``, one process's at the
+    seed's state: over a few steps the step batches' losses follow the
+    batches more than the weights. Returns (the readings, the gathered
+    bf16 params for ``dp2_tp2``)."""
+    from repro_torch.launch import train
+
+    t0 = time.perf_counter()
+    dp, tp = trainer.dp, trainer.tp
+    trainer.build(cfg32, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                  lr=TRAIN_DIST["lr"],
+                  total_steps=TRAIN_DIST["schedule_steps"], timed=True,
+                  compress=compress)
+    out = {"mesh": {"data": dp, "model": tp}, "compress": compress,
+           "ranks_on_card": dp * tp, "backend": "gloo"}
+    try:
+        trainer.init(SEED)
+        t1 = time.perf_counter()
+        met = trainer.step(0)
+        out["f32_step_s"] = time.perf_counter() - t1
+        out["f32_comm"] = trainer.last_comm
+        st = trainer.state()
+        got = (st["params"], st["opt"], met)
+        out["first_step"] = hold_first_step(
+            f"train_dist {label} first step", label, "one process", got,
+            ref)
+        del st, got
+        reports = trainer.report(grads_step=1 if tp > 1 else None)
+        out["replicas"] = train.check_replicas(reports)
+        out["f32_peak_bytes"] = [r["peak_bytes"] for r in reports]
+
+        t2 = time.perf_counter()
+        history, restarts, t_hist, comms = _bf16_restart_run(
+            label, trainer, cfg, compress, str(Path(ckpt_root) / label))
+        out["bf16_run_s"] = time.perf_counter() - t2
+        out["held_out_loss_trained"] = trainer.eval_loss(EVAL["step"])
+        reports = trainer.report()
+        out["after_restart"] = train.check_replicas(reports)
+        out["bf16_peak_bytes"] = [r["peak_bytes"] for r in reports]
+        steps_run = [s for s, _ in history]
+        out["steps_run"] = steps_run
+        out["restarts"] = restarts
+        out["losses"] = [m["loss"] for _, m in history]
+        out["bf16_step_s"] = t_hist
+        out["bf16_comm"] = comms
+        params = trainer.state(params_only=True)["params"] \
+            if label == "dp2_tp2" else None
+    finally:
+        shutil.rmtree(Path(ckpt_root) / label, ignore_errors=True)
+        out["seconds"] = time.perf_counter() - t0
+        print(f"train_dist {label}: " + json.dumps(out), flush=True)
+    if restarts != 1 or steps_run[-1] != TRAIN_DIST["steps"] - 1 \
+            or reports[0]["step"] != TRAIN_DIST["steps"]:
+        raise AssertionError(f"train_dist {label}: the run did not restart "
+                             f"once and finish")
+    if not out["held_out_loss_trained"] < held_out_init:
+        raise AssertionError(f"train_dist {label}: the held-out loss did not "
+                             f"fall")
+    return out, params
+
+
+def _bf16_restart_run(label, trainer, cfg, compress, ckpt_dir):
+    """``train_dist``'s bf16 steps on ``trainer``'s ranks from the seed's
+    state, with one failure at TRAIN_DIST["fail_at"] and a restart from a
+    checkpoint of that step. ``dp2_tp2`` runs under ``TrainSupervisor``
+    (``make_dist_supervisor``: checkpoints every ckpt_every and at the
+    end, the newest intact one found and restored on every rank after the
+    injected failure); the other meshes save one checkpoint at the
+    failure's step, lose every rank's state (a fresh draw from another
+    seed) and restore it: the same save and restore, without the
+    supervisor's verify pass and final save. Returns (history of (step,
+    metrics), restarts, step seconds, collectives by step)."""
+    from repro_torch import checkpoint as ckpt_lib
+    from repro_torch.launch import train
+
+    comms = []
+    if label == "dp2_tp2":
+        failed = []
+
+        def injector(step):
+            if step == TRAIN_DIST["fail_at"] and not failed:
+                failed.append(step)
+                raise RuntimeError("injected failure")
+
+        sup, t_hist, _ = train.make_dist_supervisor(
+            cfg, data_parallel=trainer.dp, model_parallel=trainer.tp,
+            batch=TRAIN["batch"], seq=TRAIN["seq"], lr=TRAIN_DIST["lr"],
+            steps=TRAIN_DIST["schedule_steps"], ckpt_dir=ckpt_dir,
+            ckpt_every=TRAIN_DIST["ckpt_every"], seed=SEED,
+            compress=compress, log_every=TRAIN_DIST["steps"], timed=True,
+            trainer=trainer)
+
+        def step_fn(step, state, inner=sup.step_fn):
+            state, metrics = inner(step, state)
+            comms.append(trainer.last_comm)
+            return state, metrics
+
+        sup.step_fn = step_fn
+        # the schedule spans schedule_steps; the run stops after steps
+        _, history = sup.run(TRAIN_DIST["steps"], failure_injector=injector)
+        return history, sup.restarts, t_hist, comms
+    trainer.build(cfg, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                  lr=TRAIN_DIST["lr"],
+                  total_steps=TRAIN_DIST["schedule_steps"], timed=True)
+    trainer.init(SEED)
+    history, t_hist = [], []
+    for step in range(TRAIN_DIST["steps"]):
+        if step == TRAIN_DIST["fail_at"]:
+            ckpt_lib.save(ckpt_dir, step, trainer.checkpoint_tree())
+            trainer.init(SEED + 1)
+            if trainer.restore(ckpt_dir) != step:
+                raise AssertionError(f"train_dist {label}: restored another "
+                                     f"step than {step}")
+        t0 = time.perf_counter()
+        history.append((step, trainer.step(step)))
+        t_hist.append(time.perf_counter() - t0)
+        comms.append(trainer.last_comm)
+    return history, 1, t_hist, comms
+
+
+def train_dist_phase():
+    """The distributed trainer (module docstring, ``train_dist``). Returns
+    (readings, launches of the packed evaluation of dp 2 x tp 2's state)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression
+    from repro_torch.launch import train
+    from repro_torch.models import LM
+    from repro_torch.models.transformer import layer_period
+
+    t0 = time.perf_counter()
+    cfg = get_config("ternary-paper")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    _, data, step, init = train.build(cfg32, TRAIN["batch"], TRAIN["seq"],
+                                      TRAIN_DIST["lr"],
+                                      TRAIN_DIST["schedule_steps"], "cuda")
+    state = init(SEED)
+    batch = data.sharded_batch(0, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plain = step(state["params"], state["opt"], batch)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t1
+    flips = _ternary_flips(state["params"], 2)
+    summary = {"one_process_f32_step_s": one_s,
+               "ternary_code_flips_at_tp2": flips,
+               "wire_bytes_f32": compression.wire_bytes(state["params"],
+                                                        False),
+               "wire_bytes_codes": compression.wire_bytes(
+                   state["params"], True, layer_period(cfg))}
+    print("train_dist: one-process f32 step at batch "
+          f"{TRAIN['batch']} x {TRAIN['seq']}: {one_s:.3f}s; " +
+          json.dumps(summary), flush=True)
+    comp = _compressed_reference(cfg32, state, batch, 2, TRAIN_DIST["lr"])
+    del state
+    model = LM(cfg, "cuda")
+    with torch.no_grad():
+        summary["held_out_loss_init"] = float(model.loss(
+            model.init(torch.Generator(device="cuda").manual_seed(SEED)),
+            data.sharded_batch(EVAL["step"], device="cuda"))[0])
+    del model
+    torch.cuda.empty_cache()
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_train_dist_")
+    meshes, params, trainer = {}, None, None
+    try:
+        for label, dp, tp, compress in TRAIN_DIST["meshes"]:
+            if trainer is None or (trainer.dp, trainer.tp) != (dp, tp):
+                # meshes of one shape share their ranks (processes, groups)
+                if trainer is not None:
+                    trainer.close()
+                t1 = time.perf_counter()
+                trainer = train.DistTrainer(
+                    cfg32, data_parallel=dp, model_parallel=tp,
+                    batch=TRAIN["batch"], seq=TRAIN["seq"],
+                    lr=TRAIN_DIST["lr"],
+                    total_steps=TRAIN_DIST["schedule_steps"],
+                    compress=compress, device="cuda",
+                    timeout_s=TRAIN_DIST["timeout_s"], timed=True)
+                summary[f"start_s_dp{dp}_tp{tp}"] = time.perf_counter() - t1
+            ref = comp if compress else plain
+            meshes[label], got = train_dist_mesh(
+                label, trainer, compress, cfg32, cfg, ref, ckpt_root,
+                summary["held_out_loss_init"])
+            params = got if got is not None else params
+            torch.cuda.empty_cache()
+    finally:
+        if trainer is not None:
+            trainer.close()
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    del plain, comp
+    torch.cuda.empty_cache()
+    summary["meshes"] = meshes
+    eval_out, launches = eval_phase(cfg, params)
+    summary["eval_dp2_tp2"] = eval_out
+    summary["seconds"] = time.perf_counter() - t0
+    print("train_dist summary: " + json.dumps(summary), flush=True)
+    return summary, launches
 
 
 # ---------------------------------------------------------------------------
@@ -5637,7 +5951,8 @@ def tp_phase(flush, cfg=None, params=None):
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("tune", "frontends", "tp"),
+    ap.add_argument("--only", choices=("tune", "frontends", "tp",
+                                       "train_dist"),
                     help="build and run this phase alone (tune: after the "
                          "dense serve it plans from; no kernels line)")
     ap.add_argument("--tune-out", help="copy the tune phase's measured "
@@ -5701,6 +6016,12 @@ def _main(args, start, torch, build) -> int:
     if args.only == "tp":
         tp_phase(flush)
         print(f"chip_smoke --only tp took "
+              f"{time.perf_counter() - start:.1f}s", flush=True)
+        return 0
+    if args.only == "train_dist":
+        del flush
+        train_dist_phase()
+        print(f"chip_smoke --only train_dist took "
               f"{time.perf_counter() - start:.1f}s", flush=True)
         return 0
     shapes = kernel_phase(flush)
@@ -5792,6 +6113,8 @@ def _main(args, start, torch, build) -> int:
     print("train/eval summary: " + json.dumps(
         {"train_step_check": step_check, "train": train_summary,
          "eval": eval_out}), flush=True)
+    torch.cuda.empty_cache()
+    _, runs["train_dist_eval"] = train_dist_phase()
 
     meta = {
         "ternary_gemm": ("src/repro_torch/kernels/csrc/ternary_gemm.cu",

@@ -8,7 +8,7 @@ from typing import Tuple
 import torch
 
 __all__ = ["ternarize", "ternarize_target_sparsity", "ste_ternarize",
-           "effective_weight"]
+           "ste_ternarize_rows", "effective_weight"]
 
 
 def ternarize(w: torch.Tensor, threshold_factor: float = 0.7,
@@ -98,6 +98,44 @@ def ste_ternarize(w: torch.Tensor,
     an expert bank ternarizes per expert): ternary forward, straight-through
     backward (see ``_SteTernarize``)."""
     return _SteTernarize.apply(w, threshold_factor)
+
+
+class _SteTernarizeRows(torch.autograd.Function):
+    """``_SteTernarize`` of a row shard: this rank holds K/tp of every
+    column's K rows, the group the rest. Δ's mean, α's masked sum and
+    count, and the backward's pass-through scale (the same mean) are
+    column sums all-reduced over the group: two all-reduces a forward
+    ((1, N) sums of |w|, then (2, N) masked sums and counts), none in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, w, threshold_factor, group):
+        absw = w.float().abs()
+        mean = group.all_reduce(absw.sum(dim=-2, keepdim=True)) \
+            / (absw.shape[-2] * group.size)
+        mask = absw > threshold_factor * mean
+        t = torch.sign(w.float()) * mask
+        stats = group.all_reduce(torch.cat(
+            [(absw * mask).sum(dim=-2, keepdim=True),
+             mask.sum(dim=-2, keepdim=True).float()], dim=-2))
+        alpha = stats.narrow(-2, 0, 1) / stats.narrow(-2, 1, 1).clamp_min(1)
+        ctx.save_for_backward(w, mean)
+        return t.to(w.dtype) * alpha.to(w.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, mean = ctx.saved_tensors
+        passthrough = (w.abs() <= 2.0 * (mean + 1e-8)).to(g.dtype)
+        return g * passthrough, None, None
+
+
+def ste_ternarize_rows(w: torch.Tensor, threshold_factor: float,
+                       group) -> torch.Tensor:
+    """QAT weight of a (..., K/tp, N) row shard of a latent whose columns
+    ternarize over the whole K, the other rows held by ``group``'s ranks
+    (a ``distributed.tp.Group``): the shard's rows of ``ste_ternarize`` of
+    the whole matrix, up to the order of the column sums."""
+    return _SteTernarizeRows.apply(w, threshold_factor, group)
 
 
 def effective_weight(w: torch.Tensor, quantization: str,

@@ -64,12 +64,32 @@ class SyntheticLM:
                 np.float32) * 0.02
         return batch
 
-    def sharded_batch(self, step: int, mesh=None,
-                      device="cpu") -> Dict[str, torch.Tensor]:
-        """The global batch of ``step`` as tensors on ``device``. A mesh
-        (data-parallel sharding) is not ported yet."""
+    def sharded_batch(self, step: int, mesh=None, device="cpu", *,
+                      rank: int = 0) -> Dict[str, torch.Tensor]:
+        """The batch of ``step`` as tensors on ``device``: the global batch
+        without a mesh; with one (a ``distributed.tp.Mesh``, ranks row
+        major over its axes), rank ``rank``'s rows: each leaf's rows split
+        evenly over the data axes (``("pod", "data")`` present in the mesh)
+        where their product divides the batch, else the whole leaf (as
+        ``repro``'s ``batch_sharding`` replicates it). Ranks that differ
+        only in the ``"model"`` coordinate get the same rows."""
+        arrs = self.global_batch(step)
         if mesh is not None:
-            raise NotImplementedError("sharded batches wait for the "
-                                      "data-parallel trainer (ROADMAP A14)")
-        return {k: torch.from_numpy(a).to(device)
-                for k, a in self.global_batch(step).items()}
+            arrs = {k: _rank_rows(a, mesh, rank) for k, a in arrs.items()}
+        return {k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for k, a in arrs.items()}
+
+
+def _rank_rows(a: np.ndarray, mesh, rank: int) -> np.ndarray:
+    """Rank ``rank``'s slice of ``a``'s rows over the mesh's data axes."""
+    names, sizes = tuple(mesh.axis_names), tuple(mesh.sizes)
+    coords = dict(zip(names, np.unravel_index(rank, sizes)))
+    n, index = 1, 0
+    for ax in ("pod", "data"):
+        if ax in coords:
+            n, index = n * mesh.shape[ax], index * mesh.shape[ax] + int(
+                coords[ax])
+    if n == 1 or a.shape[0] % n:
+        return a
+    rows = a.shape[0] // n
+    return a[index * rows:(index + 1) * rows]

@@ -18,15 +18,18 @@ dict), with ``repro``'s rules:
 
 The result is a tuple of per-dimension entries (a name, a tuple of
 names, or ``None``) with trailing ``None``s dropped, as ``PartitionSpec``
-prints them. ``batch_sharding`` and the
-optimizer-state specs come with the distributed trainer (ROADMAP A12b).
+prints them. ``batch_sharding``, ``replicated`` and
+``opt_state_shardings`` give the data-parallel trainer's placements in
+the same form (``repro``'s ``NamedSharding`` trees as resolved spec
+tuples).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Sequence, Tuple
 
 __all__ = ["FSDP", "MODEL", "EXPERT", "batch_axes", "resolve_spec",
-           "resolve_specs"]
+           "resolve_specs", "batch_sharding", "replicated",
+           "opt_state_shardings"]
 
 FSDP = "fsdp"
 MODEL = "model"
@@ -114,3 +117,47 @@ def resolve_specs(spec_tree, shape_tree, mesh, fsdp: bool):
         return None
     shape = tuple(getattr(shape_tree, "shape", ()))
     return resolve_spec(spec_tree, shape, mesh, fsdp)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def batch_sharding(batch_tree, mesh):
+    """The spec of every leaf of a batch: dimension 0 (the global batch)
+    split over the data axes (``("pod", "data")`` present in the mesh)
+    where their product divides it, else whole (``()``)."""
+    axes = batch_axes(mesh)
+    size = _axes_size(_sizes(mesh), axes)
+    entry = axes[0] if len(axes) == 1 else axes
+
+    def spec(x):
+        shape = tuple(getattr(x, "shape", ()))
+        if axes and shape and shape[0] % size == 0:
+            return (entry,)
+        return ()
+    return _map(spec, batch_tree)
+
+
+def replicated(tree, mesh):
+    """Every leaf whole on every rank."""
+    return _map(lambda _: (), tree)
+
+
+def opt_state_shardings(param_shardings, opt_state_shape, mesh):
+    """AdamW's ``{"m", "v", "step"}`` placements: m and v mirror the
+    parameters' specs, a scalar (0-d) moment and the step are whole."""
+    def like(params, shapes):
+        if isinstance(params, dict):
+            return {k: like(params[k], shapes[k]) for k in params}
+        if isinstance(params, list):
+            return [like(p, s) for p, s in zip(params, shapes)]
+        return params if len(getattr(shapes, "shape", ())) > 0 else ()
+
+    return {"m": like(param_shardings, opt_state_shape["m"]),
+            "v": like(param_shardings, opt_state_shape["v"]),
+            "step": ()}

@@ -1,5 +1,5 @@
-"""Tensor-parallel serving over ``torch.distributed`` (the port's
-counterpart of ``repro.distributed.tp``).
+"""Tensor parallelism over ``torch.distributed``, serving and training
+(the port's counterpart of ``repro.distributed.tp``).
 
 ``repro`` is single-controller GSPMD: it places the whole parameter tree
 on a ``("model",)`` mesh by its logical specs and XLA inserts the
@@ -35,6 +35,15 @@ rank:
   repeat the leader's device steps on their shards (the leader/follower
   protocol of ``serving.engine``).
 
+Training (``launch.train.DistTrainer``) shards latent params with
+``shard_params(..., latent=True)`` and keeps the marks apart from the
+trees the optimizer walks (``strip_marks`` / ``attach_marks``;
+``split_mask``, ``shard_tree`` and ``gather_tree`` for norms, AdamW's
+moments and checkpoints); its collectives are differentiable —
+Megatron's f/g pair and the gather (``copy_to_group``,
+``reduce_from_group``, ``gather_from_group``), which are serving's
+in-place collectives where no gradient is taken.
+
 Serving topology is dp x tp, as ``repro``'s: ``replica_meshes`` carves
 ``dp`` disjoint tp-sized ``("model",)`` meshes out of a device list, one
 per engine replica, and ``distributed.router.Router`` places requests
@@ -52,6 +61,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -64,7 +74,10 @@ __all__ = ["Mesh", "parse_mesh", "replica_meshes", "validate_param_specs",
            "shard_params", "cache_sharding", "replicated_sharding",
            "device_put_cache", "mesh_axis_sizes", "gemm_shard_fn",
            "attention_split", "local_config", "Group", "bound",
-           "current_group", "start_followers"]
+           "current_group", "start_followers", "copy_to_group",
+           "reduce_from_group", "gather_from_group", "strip_marks",
+           "attach_marks", "split_mask", "shard_tree", "gather_tree",
+           "spawn_ranks"]
 
 MODEL = sharding.MODEL
 
@@ -160,14 +173,33 @@ def mesh_axis_sizes(mesh) -> Dict[str, int]:
 # ---------------------------------------------------------------------------
 
 class Group:
-    """One rank's view of a tensor-parallel group: ``all_reduce`` (sum,
-    in place) and ``all_gather`` of tensors on the rank's device over the
-    data group, ``send`` (rank 0) / ``recv`` (the others) of picklable
-    control messages over a gloo group."""
+    """One rank's view of a process group: ``all_reduce`` (sum, in place)
+    and ``all_gather`` of tensors on the rank's device over the data
+    group, ``send`` (rank 0) / ``recv`` (the others) of picklable control
+    messages and ``gather_objects`` over a gloo group. ``calls`` and
+    ``bytes`` count the data collectives and the bytes this rank puts in;
+    with ``timed`` set, each is bracketed by device synchronizations and
+    its host wall added to ``seconds``."""
 
     def __init__(self, rank: int, size: int, data, ctrl, backend: str):
         self.rank, self.size, self.backend = rank, size, backend
         self._data, self._ctrl = data, ctrl
+        self.calls, self.bytes, self.seconds = 0, 0, 0.0
+        self.timed = False
+
+    def _run(self, t: torch.Tensor, op):
+        self.calls += 1
+        self.bytes += t.numel() * t.element_size()
+        if not self.timed:
+            return op()
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        t0 = time.perf_counter()
+        out = op()
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        self.seconds += time.perf_counter() - t0
+        return out
 
     @classmethod
     def join(cls, store_path: str, rank: int, size: int, backend: str,
@@ -190,14 +222,23 @@ class Group:
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the ranks, in place; every rank gets the same
         bits."""
-        self._data.allreduce([t]).wait()
+        self._run(t, lambda: self._data.allreduce([t]).wait())
         return t
+
+    def all_reduce_flat(self, flat: torch.Tensor,
+                        bucket: int = 1 << 25) -> torch.Tensor:
+        """``all_reduce`` of a 1-D tensor in buckets of ``bucket`` elements
+        (in place): the staging buffers a collective of CUDA tensors takes
+        stay bucket-sized whatever the model's size."""
+        for piece in flat.split(bucket):
+            self.all_reduce(piece)
+        return flat
 
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """The ranks' ``t`` concatenated along ``dim``, in rank order."""
         t = t.contiguous()
         outs = [torch.empty_like(t) for _ in range(self.size)]
-        self._data.allgather([outs], [t]).wait()
+        self._run(t, lambda: self._data.allgather([outs], [t]).wait())
         return torch.cat(outs, dim=dim)
 
     def _bcast(self, t: torch.Tensor) -> None:
@@ -218,6 +259,92 @@ class Group:
         buf = torch.empty(int(n[0]), dtype=torch.uint8)
         self._bcast(buf)
         return pickle.loads(buf.numpy().tobytes())
+
+    def gather_objects(self, obj: Any) -> List[Any]:
+        """Every rank's picklable ``obj``, in rank order, on every rank
+        (over the control group)."""
+        data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        n = torch.tensor([len(data)], dtype=torch.int64)
+        sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(self.size)]
+        self._ctrl.allgather([sizes], [n]).wait()
+        top = max(int(t[0]) for t in sizes)
+        buf = torch.zeros(top, dtype=torch.uint8)
+        buf[:len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+        outs = [torch.empty(top, dtype=torch.uint8) for _ in range(self.size)]
+        self._ctrl.allgather([outs], [buf]).wait()
+        return [pickle.loads(o[:int(k[0])].numpy().tobytes())
+                for o, k in zip(outs, sizes)]
+
+
+# ---------------------------------------------------------------------------
+# Collectives under autograd (training): Megatron's f / g pair
+# ---------------------------------------------------------------------------
+
+class _CopyToGroup(torch.autograd.Function):
+    """f: the input of a column-split region. Identity forward; the
+    backward all-reduces the ranks' partial input gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(
+            g.clone(memory_format=torch.contiguous_format)), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """g: a row split's partial products summed over the group. The
+    backward is the identity (every rank holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """The lm head's column shards concatenated along ``dim``; the
+    backward keeps this rank's columns of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.width = group, dim, x.shape[dim]
+        return group.all_gather(x, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.group.rank * ctx.width,
+                        ctx.width).contiguous(), None, None
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_to_group(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """f (``_CopyToGroup``) where a gradient is being taken, else ``x``."""
+    return _CopyToGroup.apply(x, group) if _tracked(x) else x
+
+
+def reduce_from_group(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """Sum ``x`` over the group: g (``_ReduceFromGroup``) where a gradient
+    is being taken, else in place (serving's bits)."""
+    return _ReduceFromGroup.apply(x, group) if _tracked(x) \
+        else group.all_reduce(x)
+
+
+def gather_from_group(x: torch.Tensor, group: Group,
+                      dim: int = -1) -> torch.Tensor:
+    """All-gather ``x`` along ``dim``, differentiably where a gradient is
+    being taken."""
+    return _GatherFromGroup.apply(x, group, dim) if _tracked(x) \
+        else group.all_gather(x, dim=dim)
 
 
 _GROUP: contextvars.ContextVar[Optional[Group]] = contextvars.ContextVar(
@@ -253,13 +380,15 @@ def attention_split(cfg, tp: int) -> bool:
 def local_config(cfg, tp: int):
     """A rank's model config: the local head counts where attention splits
     (``attention_split``), else ``cfg``. Families other than dense raise:
-    their tensor-parallel forward comes with ROADMAP A12b."""
+    their tensor-parallel forward (serving and training) is ROADMAP
+    A12d."""
     if tp <= 1:
         return cfg
     if cfg.family != "dense":
         raise ValueError(
-            f"tensor parallelism (tp={tp}) serves the dense family only; "
-            f"family {cfg.family!r} comes with ROADMAP A12b")
+            f"tensor parallelism (tp={tp}) serves and trains the dense "
+            f"family only; family {cfg.family!r} comes with ROADMAP A12d "
+            f"(split out of A12b)")
     if not attention_split(cfg, tp):
         return cfg
     return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
@@ -341,14 +470,19 @@ def _shard_linear(p: dict, part: str, rank: int, tp: int) -> dict:
 
 
 def shard_params(params, specs, mesh, *, rank: int = 0, cfg=None,
-                 fsdp: bool = False, validate: bool = True):
+                 fsdp: bool = False, validate: bool = True,
+                 latent: bool = False):
     """Rank ``rank``'s slices of a param tree under its logical spec twin
     (``LM.param_specs``), resolved against the mesh (module docstring).
     Packed twins are validated first unless ``validate=False``. Every
     split linear gains a ``"tp"`` mark: ``"n"`` column split, ``"k"``
     row split (its partial product all-reduced), ``"gather"`` the lm
     head's column split (its logits all-gathered). ``cfg`` (the model's)
-    applies the head rule; without it attention splits as resolved."""
+    applies the head rule; without it attention splits as resolved.
+    A latent ternary weight ternarizes per column over the whole K, so
+    it is refused unless ``latent=True``: the training path, whose row
+    splits reduce their column statistics over the group
+    (``quantize.ste_ternarize_rows``)."""
     tp = mesh_axis_sizes(mesh).get(MODEL, 1)
     if validate:
         validate_param_specs(params, specs, mesh, fsdp=fsdp)
@@ -366,12 +500,13 @@ def shard_params(params, specs, mesh, *, rank: int = 0, cfg=None,
                     and path[-2] in ("mixer", "cross")
                 if part is None or (attn and not split_attn):
                     return dict(p)
-                if "w" in p and cfg is not None \
+                if "w" in p and cfg is not None and not latent \
                         and cfg.quantization == "ternary" \
                         and min(p["w"].shape[-2:]) >= cfg.ternary_min_dim:
                     raise ValueError(
                         "a latent ternary weight ternarizes as a whole "
-                        "matrix: pack the params before sharding them")
+                        "matrix: pack the params before sharding them "
+                        "(training shards them with latent=True)")
                 out = _shard_linear(p, part, rank, tp)
                 out["tp"] = ("gather" if part == "n" and path[:1]
                              == ("unembed",) else part)
@@ -382,6 +517,93 @@ def shard_params(params, specs, mesh, *, rank: int = 0, cfg=None,
         return p
 
     return walk(params, specs, ())
+
+
+# ---------------------------------------------------------------------------
+# Training: marks kept apart from the trees the optimizer walks
+# ---------------------------------------------------------------------------
+
+def strip_marks(params) -> Tuple[Any, Dict[tuple, str]]:
+    """(the tree without its ``"tp"`` marks, {path of a marked linear:
+    its mark}): the optimizer, the error state and checkpoints walk plain
+    trees of tensors."""
+    marks: Dict[tuple, str] = {}
+
+    def walk(p, path):
+        if isinstance(p, dict):
+            if "tp" in p:
+                marks[path] = p["tp"]
+            return {k: walk(v, path + (k,)) for k, v in p.items()
+                    if k != "tp"}
+        if isinstance(p, list):
+            return [walk(v, path + (i,)) for i, v in enumerate(p)]
+        return p
+
+    return walk(params, ()), marks
+
+
+def _map_linears(tree, marks, fn, path=()):
+    """``tree`` with ``fn(linear_dict, mark)`` in place of every marked
+    linear (the other nodes rebuilt, leaves shared)."""
+    if isinstance(tree, dict):
+        if path in marks:
+            return fn(tree, marks[path])
+        return {k: _map_linears(v, marks, fn, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_linears(v, marks, fn, path + (i,))
+                for i, v in enumerate(tree)]
+    return tree
+
+
+def attach_marks(params, marks: Dict[tuple, str]):
+    """The rank's tree as the model reads it: each marked linear with its
+    ``"tp"`` mark."""
+    return _map_linears(params, marks, lambda p, m: dict(p, tp=m))
+
+
+def split_mask(params, marks: Dict[tuple, str]):
+    """A tree of bools like ``params``: True where the leaf is a slice
+    (every leaf of a column split; a row split's ``"w"``, not its whole
+    bias), False where every rank holds the whole leaf."""
+    def node(p, m):
+        return {k: (k == "w" or m != "k") for k in p}
+
+    def mark(tree, path=()):
+        if isinstance(tree, dict):
+            if path in marks:
+                return node(tree, marks[path])
+            return {k: mark(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [mark(v, path + (i,)) for i, v in enumerate(tree)]
+        return False
+
+    return mark(params)
+
+
+def shard_tree(tree, marks: Dict[tuple, str], rank: int, tp: int):
+    """Rank ``rank``'s slices of a whole tree shaped like the params (the
+    params, AdamW's m or v): each marked linear sliced as ``shard_params``
+    slices it, the rest shared."""
+    return _map_linears(tree, marks, lambda p, m: _shard_linear(
+        p, "n" if m == "gather" else m, rank, tp))
+
+
+def gather_tree(tree, marks: Dict[tuple, str], group: Optional[Group]):
+    """The whole tree from every rank's slices (``shard_tree``'s inverse):
+    each marked linear's ``"w"`` (and a column split's ``"b"``)
+    all-gathered over ``group`` in rank order."""
+    if group is None or not marks:
+        return tree
+
+    def whole(p, m):
+        out = dict(p)
+        out["w"] = group.all_gather(p["w"], dim=-2 if m == "k" else -1)
+        if "b" in p and m != "k":
+            out["b"] = group.all_gather(p["b"], dim=-1)
+        return out
+
+    return _map_linears(tree, marks, whole)
 
 
 def gemm_shard_fn(mesh, params) -> Callable:
@@ -496,16 +718,8 @@ def start_followers(mesh: Mesh, params, engine_kwargs: Dict[str, Any]):
     job_path = os.path.join(workdir, "job.pkl")
     with open(job_path, "wb") as f:
         pickle.dump(job, f)
-    src = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(
-            os.pathsep) if p]))
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", "import sys; from repro_torch.distributed."
-         "tp import _follower_main; _follower_main(sys.argv[1], "
-         "int(sys.argv[2]))", job_path, str(r)], env=env)
-        for r in range(1, mesh.tp)]
+    procs = spawn_ranks("repro_torch.distributed.tp", "_follower_main",
+                        job_path, range(1, mesh.tp))
     try:
         group = Group.join(job["store"], 0, mesh.tp, mesh.backend,
                            mesh.timeout_s)
@@ -513,6 +727,21 @@ def start_followers(mesh: Mesh, params, engine_kwargs: Dict[str, Any]):
         stop_followers(None, procs, workdir)
         raise
     return group, procs, workdir
+
+
+def spawn_ranks(module: str, fn: str, job_path: str, ranks):
+    """One Python process a rank (``python -c``, so nothing of the
+    caller's main module runs again), each calling ``module.fn(job_path,
+    rank)`` with the port's ``src`` first on its PYTHONPATH."""
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    return [subprocess.Popen(
+        [sys.executable, "-c", f"import sys; from {module} import {fn}; "
+         f"{fn}(sys.argv[1], int(sys.argv[2]))", job_path, str(r)], env=env)
+        for r in ranks]
 
 
 def stop_followers(group: Optional[Group], procs, workdir: Optional[str],

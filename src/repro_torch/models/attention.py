@@ -34,7 +34,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as flash_lib
 from repro_torch.kernels import ops
-from repro_torch.models.layers import linear_apply, linear_init, rope
+from repro_torch.models.layers import (linear_apply, linear_init,
+                                      region_input, rope)
 from repro_torch.paging.quant import Int8Pages, quantize_rows
 
 NEG_INF = -1e30
@@ -185,6 +186,7 @@ def attn_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     h = cfg.num_heads + cfg.head_pad
     lead = x.shape[:-1]
+    x = region_input(x, params["q"])
     q = linear_apply(params["q"], x, cfg).reshape(*lead, h, hd)
     if kv_override is not None:
         k, v = kv_override

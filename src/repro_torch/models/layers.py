@@ -14,6 +14,16 @@ card's f32 epilogue does; ``"gather"`` (the lm head) all-gathers its
 columns' logits. A gated MLP whose down projection is a row split
 all-reduces B4's f32 partial the same way. ``linear_spec`` gives
 ``repro``'s logical spec of a projection.
+
+Training a rank's latent shards (``distributed.tp.shard_params(...,
+latent=True)``) takes gradients through the same collectives as
+Megatron's f/g pair: the row split's all-reduce passes the gradient
+through, each column-split region's input (``region_input``: q/k/v,
+gate/up, the lm head) all-reduces its input gradient, the logits'
+all-gather keeps this rank's columns of the gradient. A row split's
+latent weight ternarizes with its column statistics summed over the group
+(``quantize.ste_ternarize_rows``); a column split's ternarizes whole
+columns locally.
 """
 from __future__ import annotations
 
@@ -79,12 +89,22 @@ def _group() -> "tp_lib.Group":
 
 
 def _reduce_partial(y: torch.Tensor, bias, dtype) -> torch.Tensor:
-    """Sum a row split's f32 partials over the group, then the bias and
-    the cast."""
-    y = _group().all_reduce(y)
+    """Sum a row split's f32 partials over the group (differentiably where
+    a gradient is being taken), then the bias and the cast."""
+    y = tp_lib.reduce_from_group(y, _group())
     if bias is not None:
         y = y + bias.to(y.dtype).reshape(1, -1)
     return y.to(dtype)
+
+
+def region_input(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """The input of a column-split region (q/k/v, gate/up, the lm head)
+    whose first linear is ``params``: Megatron's f (identity forward, the
+    input gradient all-reduced) where a gradient is being taken, so every
+    rank's replicated activations get the whole gradient; else ``x``."""
+    if params.get("tp") in ("n", "gather"):
+        return tp_lib.copy_to_group(x, _group())
+    return x
 
 
 def _is_ternary(cfg: ModelConfig, d_in: int, d_out: int) -> bool:
@@ -114,7 +134,12 @@ def linear_apply(params: dict, x: torch.Tensor,
                                  tp=_group().size)
             bias = wc.bias
         else:
-            y, bias = x2.float() @ params["w"].float(), params.get("b")
+            w, group = params["w"], _group()
+            if cfg.quantization == "ternary" and _is_ternary(
+                    cfg, w.shape[-2] * group.size, w.shape[-1]):
+                w = quantize.ste_ternarize_rows(w, cfg.ternary_threshold,
+                                                group)
+            y, bias = x2.float() @ w.to(x.dtype).float(), params.get("b")
         return _reduce_partial(y, bias, x.dtype).reshape(*lead, -1)
     if wc is not None:
         lead = x.shape[:-1]
@@ -123,13 +148,16 @@ def linear_apply(params: dict, x: torch.Tensor,
         y = y.reshape(*lead, -1)
     else:
         w = params["w"]
-        if cfg.quantization == "ternary" and _is_ternary(cfg, *w.shape):
+        # a column shard ternarizes as its columns of the whole matrix
+        n = w.shape[-1] * (_group().size if part in ("n", "gather") else 1)
+        if cfg.quantization == "ternary" and _is_ternary(cfg, w.shape[-2],
+                                                         n):
             w = quantize.ste_ternarize(w, cfg.ternary_threshold)
         y = x @ w.to(x.dtype)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     if part == "gather":
-        y = _group().all_gather(y, dim=-1)
+        y = tp_lib.gather_from_group(y, _group(), dim=-1)
     return y
 
 
@@ -215,7 +243,7 @@ def unembed_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def unembed_apply(params: dict, x: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
-    return linear_apply(params, x, cfg)
+    return linear_apply(params, region_input(x, params), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +307,7 @@ def mlp_apply(params: dict, x: torch.Tensor,
         else:
             y = ops.fused_mlp(x2, w_in, w_out, w_gate)
         return y.reshape(*lead, -1)
+    x = region_input(x, params["gate"])
     h = F.silu(linear_apply(params["gate"], x, cfg)) \
         * linear_apply(params["in"], x, cfg)
     return linear_apply(params["out"], h, cfg)

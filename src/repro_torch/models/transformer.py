@@ -31,9 +31,9 @@ is ``repro``'s ``block{j}`` of group ``g``.
 and gate ``("fsdp", "model")``, o and down ``("model", "fsdp")``, the
 embedding table ``("model", "fsdp")``, the lm head ``("fsdp", "model")``,
 norms ``(None,)``); ``distributed.tp.shard_params`` resolves it. A model
-whose ``comm`` is a ``distributed.tp.Group`` runs its forward, prefill
-and decode calls inside that group (a tensor-parallel rank, whose config
-holds its local head counts: ``tp.local_config``).
+whose ``comm`` is a ``distributed.tp.Group`` runs its forward, loss,
+prefill and decode calls inside that group (a tensor-parallel rank, whose
+config holds its local head counts: ``tp.local_config``).
 
 Caches: ``{"layers": [per layer], "pos": int32 tensor}``, ``pos`` a scalar
 or a (B,) vector of per-slot positions, and an encoder-decoder's prefill
@@ -82,12 +82,13 @@ def param_specs(cfg: ModelConfig, params: Optional[dict] = None) -> dict:
     packed linear ``layers.linear_spec(..., packed=True)``'s twin. With
     ``params`` the twin follows its packed and biased linears; without,
     the latent tree ``LM.init`` draws. The dense family only: the other
-    families' specs come with ROADMAP A12b."""
+    families' specs come with ROADMAP A12d."""
     if cfg.family != "dense" or cfg.is_encdec or any(
             (cfg.layer_kind(i), cfg.layer_ffn(i)) != ("attn", "mlp")
             for i in range(cfg.num_layers)):
         raise ValueError(f"param_specs covers the dense family; family "
-                         f"{cfg.family!r} comes with ROADMAP A12b")
+                         f"{cfg.family!r} comes with ROADMAP A12d (split "
+                         f"out of A12b)")
     F, M = FSDP, MODEL
 
     def lin(p, name, in_axis, out_axis, bias=None):
@@ -225,6 +226,10 @@ class LM:
             x = x + h2
         return x, new_cache, aux
 
+    def _apply_block_in_group(self, *args, **kwargs):
+        with tp_lib.bound(self.comm):
+            return self._apply_block(*args, **kwargs)
+
     def _run_stack(self, params, x, *, positions, caches=None,
                    cache_pos=None, block_table=None, enc_out=None):
         """``caches=None`` runs the full-sequence (training) stack; each
@@ -236,6 +241,9 @@ class LM:
         the layers without an aux add nothing, where ``repro`` adds 0)."""
         remat = (caches is None and self.cfg.remat == "full"
                  and torch.is_grad_enabled())
+        # the backward's recomputation runs outside the call's group scope
+        block = self._apply_block if self.comm is None \
+            else self._apply_block_in_group
         new_caches = []
         aux_total = group = None
         for i, bp in enumerate(params["layers"]):
@@ -246,8 +254,7 @@ class LM:
                       enc_out=enc_out)
             if remat:
                 x, nc, aux = torch_checkpoint.checkpoint(
-                    self._apply_block, bp, x, kind, ffn, use_reentrant=False,
-                    **kw)
+                    block, bp, x, kind, ffn, use_reentrant=False, **kw)
             else:
                 x, nc, aux = self._apply_block(bp, x, kind, ffn, **kw)
             if aux is not None:
@@ -322,6 +329,7 @@ class LM:
         x = layers.norm_apply(params["final_norm"], x, cfg)
         return x, n_front, aux
 
+    @_in_group
     def loss(self, params, batch):
         """Causal-LM cross-entropy, chunked over the sequence when
         ``cfg.logits_chunk`` divides it -> (loss, {"loss", "ce", "aux"})."""

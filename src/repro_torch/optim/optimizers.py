@@ -38,15 +38,32 @@ def tree_leaves(tree) -> List:
     return out
 
 
-def global_norm(tree) -> torch.Tensor:
-    leaves = [x.float().square().sum() for x in tree_leaves(tree)
-              if x.is_floating_point()]
-    return torch.sqrt(torch.stack(leaves).sum())
+def global_norm(tree, split=None, group=None) -> torch.Tensor:
+    """The L2 norm of every floating leaf. Under tensor parallelism
+    (``group`` a ``distributed.tp.Group``, ``split`` a tree of bools like
+    ``tree``: ``tp.split_mask``) a rank holds slices of the split leaves
+    and the whole of the rest: the split leaves' squares are summed over
+    the group, the replicated leaves' counted once, so every rank gets the
+    same norm."""
+    if group is None:
+        leaves = [x.float().square().sum() for x in tree_leaves(tree)
+                  if x.is_floating_point()]
+        return torch.sqrt(torch.stack(leaves).sum())
+    sums = {True: [], False: []}
+    for x, s in zip(tree_leaves(tree), tree_leaves(split)):
+        if x.is_floating_point():
+            sums[bool(s)].append(x.float().square().sum())
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=tree_leaves(tree)[0].device)
+    part = torch.stack(sums[True]).sum() if sums[True] else zero
+    whole = torch.stack(sums[False]).sum() if sums[False] else zero
+    return torch.sqrt(group.all_reduce(part) + whole)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled by min(1, max_norm / (norm + 1e-9)), norm)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, split=None, group=None):
+    """(grads scaled by min(1, max_norm / (norm + 1e-9)), norm);
+    ``split`` and ``group`` as ``global_norm``'s."""
+    norm = global_norm(grads, split, group)
     factor = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: (g * factor).to(g.dtype)
                     if g.is_floating_point() else g, grads), norm

@@ -1297,3 +1297,80 @@ def test_skip_kernels_on_a_sliced_tiled_shard(cuda, part, m):
     torch.cuda.synchronize()
     assert torch.equal(ys[0], ys[1]) and torch.equal(ys[1], ys[2])
     _close(ys[2], gemm_lib.ternary_gemm_ref(x, w.packed[:, :w.n], w.scale))
+
+
+# ---------------------------------------------------------------------------
+# distributed training: two ranks on this card over gloo
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tp_ranks_on_card():
+    """``test_torch_gloo_ranks.tp_rank_checks`` on two ranks sharing cuda:0
+    (the autograd collectives, the row-split STE, the tensor-parallel
+    norm), with its inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from test_torch_gloo_ranks import run_ranks, tp_rank_checks
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((64, 256)).astype(np.float32)
+    w_rows = rng.standard_normal((256, 96)).astype(np.float32)
+    w_cols = rng.standard_normal((256, 160)).astype(np.float32)
+    w = rng.standard_normal((1024, 384)).astype(np.float32) / 32
+    g = rng.standard_normal((1024, 384)).astype(np.float32)
+    leaves = [rng.standard_normal(s).astype(np.float32)
+              for s in ((64, 128), (96,), (32, 64))]
+    split = [True, False, True]
+    got = run_ranks(2, tp_rank_checks, x, w_rows, w_cols, w, g, leaves,
+                    split, "cuda:0")
+    return (x, w_rows, w_cols, w, g, leaves, split), got
+
+
+def _f32_close(got, ref, tol=1e-5):
+    ref = ref.detach().float().cpu().numpy()
+    scale = float(np.abs(ref).max())
+    np.testing.assert_allclose(got, ref, rtol=tol, atol=tol * scale)
+
+
+def test_tp_autograd_collectives_on_the_card(cuda, tp_ranks_on_card):
+    """Megatron's f/g pair and the logits' gather over two ranks on cuda:0
+    (gloo): forwards, x's gradient and the weight shards' gradients
+    against the whole matrices' on the card, f32 within 1e-5 of each
+    tensor's magnitude; g without a gradient gives the same bits."""
+    (x, w_rows, w_cols, *_), got = tp_ranks_on_card
+    xt = torch.from_numpy(x).to(cuda).requires_grad_()
+    wr = torch.from_numpy(w_rows).to(cuda).requires_grad_()
+    wc = torch.from_numpy(w_cols).to(cuda).requires_grad_()
+    cols, rows = xt @ wc, xt @ wr
+    ((cols * cols).sum() + rows.sin().sum()).backward()
+    k, n = w_rows.shape[0] // 2, w_cols.shape[1] // 2
+    for rank, out in enumerate(got):
+        _f32_close(out["cols"], cols)
+        _f32_close(out["rows"], rows)
+        assert np.array_equal(out["rows_nograd"], out["rows"])
+        _f32_close(out["gx"], xt.grad)
+        _f32_close(out["gwr"], wr.grad[rank * k:(rank + 1) * k])
+        _f32_close(out["gwc"], wc.grad[:, rank * n:(rank + 1) * n])
+    assert np.array_equal(got[0]["gx"], got[1]["gx"])
+
+
+def test_row_split_ste_on_the_card(cuda, tp_ranks_on_card):
+    """The row-split STE (column statistics all-reduced over the two
+    ranks) against ``ste_ternarize`` of the whole (1024, 384) matrix on
+    the card: the codes equal, values and the straight-through gradient
+    within 1e-6; and the tensor-parallel clip norm (split leaves summed
+    over the ranks, the replicated one once) within 1e-6."""
+    from repro_torch.core import quantize
+    from repro_torch.optim import global_norm
+    (*_, w, g, leaves, split), got = tp_ranks_on_card
+    wt = torch.from_numpy(w).to(cuda).requires_grad_()
+    y = quantize.ste_ternarize(wt, 0.7)
+    (gw,) = torch.autograd.grad(y, [wt], torch.from_numpy(g).to(cuda))
+    ys = np.concatenate([out["ste_y"] for out in got])
+    gws = np.concatenate([out["ste_g"] for out in got])
+    want = y.detach().cpu().numpy()
+    np.testing.assert_array_equal(np.sign(ys), np.sign(want))
+    np.testing.assert_allclose(ys, want, rtol=1e-6)
+    np.testing.assert_allclose(gws, gw.cpu().numpy(), rtol=1e-6, atol=1e-6)
+    norm = float(global_norm([torch.from_numpy(a).to(cuda)
+                              for a in leaves]))
+    assert all(abs(out["norm"] - norm) <= 1e-6 * norm for out in got)

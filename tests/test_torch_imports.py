@@ -147,3 +147,11 @@ def test_the_checks_cover_the_tuner():
              if PORT in p.parents}
     assert {"kernels/autotune.py", "kernels/__init__.py",
             "kernels/ops.py"} <= names
+
+
+def test_the_checks_cover_the_distributed_trainer_modules():
+    names = {p.relative_to(PORT).as_posix() for p in FILES
+             if PORT in p.parents}
+    assert {"distributed/compression.py", "distributed/sharding.py",
+            "distributed/tp.py", "launch/train.py", "launch/steps.py",
+            "data/pipeline.py", "optim/optimizers.py"} <= names
