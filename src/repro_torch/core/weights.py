@@ -39,7 +39,7 @@ from repro_torch.core import formats, quantize
 
 __all__ = ["TernaryWeight", "Dense2Bit", "Tiled", "Bitplane", "Base3",
            "FORMATS", "register_format", "ternarize_stacked", "pack",
-           "validate_spec_twin", "shard_weight"]
+           "validate_spec_twin", "shard_weight", "select_columns"]
 
 # name -> container class; the one place a new layout registers
 FORMATS: Dict[str, Type["TernaryWeight"]] = {}
@@ -416,34 +416,69 @@ def shard_weight(wc: TernaryWeight, partition: str, rank: int,
                  tp: int) -> TernaryWeight:
     """Rank ``rank``'s slice of ``wc`` split ``tp`` ways along K
     (``partition="k"``, a row split: the scale and bias stay whole, for
-    the epilogue after the all-reduce) or N (``"n"``, a column split: the
-    scale and bias sliced with the columns). Boundaries fall every
-    ``extent / tp`` physical values and must land on the format's pack
-    multiple (else ``ValueError``); a shard holds the logical values of
-    its range. The slice is decoded and re-packed in the same format, so
-    it equals ``pack`` of the sliced matrix bit for bit."""
-    if partition not in ("k", "n"):
-        raise ValueError(f"partition must be 'k' or 'n', got {partition!r}")
+    the epilogue after the all-reduce), N (``"n"``, a column split: the
+    scale and bias sliced with the columns), or, for a stacked bank of
+    ``(E, ...)`` matrices, E (``"e"``: whole experts, each with its scale
+    and bias). K and N boundaries fall every ``extent / tp`` physical
+    values and must land on the format's pack multiple (else
+    ``ValueError``); a shard holds the logical values of its range. The
+    slice is decoded and re-packed in the same format, so it equals
+    ``pack`` of the sliced matrix (or bank) bit for bit."""
+    if partition not in ("k", "n", "e"):
+        raise ValueError(f"partition must be 'k', 'n' or 'e', got "
+                         f"{partition!r}")
     if not 0 <= rank < tp:
         raise ValueError(f"rank {rank} outside a {tp}-way split")
-    extent, multiple = wc.shard_constraints()[partition]
-    if extent % (tp * multiple) != 0:
-        raise ValueError(
-            f"{wc.format_name} shard: {partition.upper()}-partitioning "
-            f"{tp}-way puts shard boundaries every {extent / tp:g} of "
-            f"{extent} values — off the {multiple}-value pack multiple")
+    t = None
+    if partition == "e":
+        t = wc.materialize(torch.float32).to(torch.int8)
+        if t.ndim < 3 or t.shape[0] % tp != 0:
+            raise ValueError(f"{wc.format_name} shard: {tp}-way expert "
+                             f"split of a bank of shape {tuple(t.shape)}")
+    else:
+        extent, multiple = wc.shard_constraints()[partition]
+        if extent % (tp * multiple) != 0:
+            raise ValueError(
+                f"{wc.format_name} shard: {partition.upper()}-partitioning "
+                f"{tp}-way puts shard boundaries every {extent / tp:g} of "
+                f"{extent} values — off the {multiple}-value pack multiple")
     if tp == 1:
         return wc
-    step = extent // tp
+    if t is None:
+        t = wc.materialize(torch.float32).to(torch.int8)
+    scale, bias = wc.scale, wc.bias
+    if partition == "e":
+        step = t.shape[0] // tp
+        t = t[rank * step:(rank + 1) * step]
+        scale, bias = (None if v is None else
+                       v[rank * step:(rank + 1) * step].contiguous()
+                       for v in (scale, bias))
+        return FORMATS[wc.format_name].from_dense(
+            t.contiguous(), scale=scale, bias=bias, **wc.pack_opts())
+    step = wc.shard_constraints()[partition][0] // tp
     logical = wc.k if partition == "k" else wc.n
     lo, hi = min(rank * step, logical), min((rank + 1) * step, logical)
-    t = wc.materialize(torch.float32).to(torch.int8)
-    scale, bias = wc.scale, wc.bias
     if partition == "k":
-        t = t[lo:hi]
+        t = t[..., lo:hi, :]
     else:
-        t = t[:, lo:hi]
+        t = t[..., lo:hi]
         scale = None if scale is None else scale[..., lo:hi].contiguous()
         bias = None if bias is None else bias[..., lo:hi].contiguous()
     return FORMATS[wc.format_name].from_dense(
         t.contiguous(), scale=scale, bias=bias, **wc.pack_opts())
+
+
+def select_columns(wc: TernaryWeight, cols: torch.Tensor) -> TernaryWeight:
+    """The columns ``cols`` (an index tensor, in that order) of ``wc``,
+    with their scale and bias: decoded, selected and re-packed in the same
+    format, so it equals ``pack`` of the selected matrix bit for bit (a
+    column set that no contiguous ``shard_weight`` range covers)."""
+    cols = torch.as_tensor(cols, dtype=torch.long)
+    t = wc.materialize(torch.float32).to(torch.int8)
+    idx = cols.to(t.device)
+    scale, bias = (None if v is None else
+                   v.index_select(-1, idx.to(v.device)).contiguous()
+                   for v in (wc.scale, wc.bias))
+    return FORMATS[wc.format_name].from_dense(
+        t.index_select(-1, idx).contiguous(), scale=scale, bias=bias,
+        **wc.pack_opts())

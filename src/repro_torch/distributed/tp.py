@@ -22,9 +22,21 @@ rank:
   whole attention block stays whole on every rank — replication is
   always correct — where ``repro``'s resolver would still split a q or
   K/V projection whose width divides (ROADMAP C15);
+* the other families, as ``repro`` resolves their specs: a MoE layer's
+  banks by whole experts where tp divides E (``"expert"`` -> ``"model"``),
+  else by every expert's d_ff (w_in and w_gate columns, w_out rows), the
+  router whole and routing computed on the replicated activations on
+  every rank (``moe_split``; one f32 all-reduce of the layer's output);
+  a Mamba2 mixer by SSM heads where tp divides them (``ssm_split``): a
+  rank's in_proj columns are its heads' z, x and dt and all of B and C
+  (``ssm_columns``, re-packed by ``weights.select_columns``; ``repro``'s
+  GSPMD splits the concatenation contiguously instead, C18), its conv
+  channels and per-head vectors with them, out_proj by rows, and the
+  gated norm's sum of squares all-reduced; else the mixer stays whole;
 * ``local_config``: a rank's model is the config with its local head
-  counts, so attention, caches and page pools hold the local KV heads
-  (``cache_sharding``'s placement);
+  counts (and a ``ShardConfig``'s local d_inner where SSM mixers split),
+  so attention, caches and page pools hold the local KV heads and SSM
+  rows (``cache_sharding``'s placement);
 * ``Group``: a rank's process group — the data collectives (all-reduce,
   all-gather) on NCCL where each rank has a card of its own and on gloo
   otherwise (on the CPU, and where ranks share one card: NCCL refuses two
@@ -42,7 +54,10 @@ trees the optimizer walks (``strip_marks`` / ``attach_marks``;
 moments and checkpoints); its collectives are differentiable —
 Megatron's f/g pair and the gather (``copy_to_group``,
 ``reduce_from_group``, ``gather_from_group``), which are serving's
-in-place collectives where no gradient is taken.
+in-place collectives where no gradient is taken, ``sum_over_group``
+(summed both ways: the SSM norm's statistic) and
+``reduce_grad_columns`` (the replicated B and C columns' partial
+gradients summed).
 
 Serving topology is dp x tp, as ``repro``'s: ``replica_meshes`` carves
 ``dp`` disjoint tp-sized ``("model",)`` meshes out of a device list, one
@@ -62,12 +77,14 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import weights
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import formats, weights
 from repro_torch.distributed import sharding
 
 __all__ = ["Mesh", "parse_mesh", "replica_meshes", "validate_param_specs",
@@ -77,7 +94,9 @@ __all__ = ["Mesh", "parse_mesh", "replica_meshes", "validate_param_specs",
            "current_group", "start_followers", "copy_to_group",
            "reduce_from_group", "gather_from_group", "strip_marks",
            "attach_marks", "split_mask", "shard_tree", "gather_tree",
-           "spawn_ranks"]
+           "spawn_ranks", "ShardConfig", "ssm_split", "moe_split",
+           "ssm_columns", "ssm_replicated", "sum_over_group",
+           "reduce_grad_columns"]
 
 MODEL = sharding.MODEL
 
@@ -323,6 +342,43 @@ class _GatherFromGroup(torch.autograd.Function):
                         ctx.width).contiguous(), None, None
 
 
+class _SumOverGroup(torch.autograd.Function):
+    """A sum of the ranks' partials that each rank then uses for its own
+    slice (the SSM gated norm's sum of squares): all-reduced forward, and
+    the ranks' partial gradients all-reduced backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_reduce(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(
+            g.clone(memory_format=torch.contiguous_format)), None
+
+
+class _ReduceGradColumns(torch.autograd.Function):
+    """Identity forward on a rank's parameter slice whose columns ``cols``
+    are replicated on every rank but used only by the rank's own heads
+    (the SSM in_proj's B and C columns, their conv channels): the backward
+    all-reduces those columns' partial gradients, so every rank gets the
+    whole gradient of the replicated columns."""
+
+    @staticmethod
+    def forward(ctx, w, cols, group):
+        ctx.cols, ctx.group = cols, group
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        cols = ctx.cols.to(g.device)
+        part = g.index_select(-1, cols).contiguous()
+        g.index_copy_(-1, cols, ctx.group.all_reduce(part))
+        return g, None, None
+
+
 def _tracked(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -345,6 +401,20 @@ def gather_from_group(x: torch.Tensor, group: Group,
     being taken."""
     return _GatherFromGroup.apply(x, group, dim) if _tracked(x) \
         else group.all_gather(x, dim=dim)
+
+
+def sum_over_group(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """Sum ``x`` over the group, the gradient summed too where one is
+    being taken (``_SumOverGroup``), else in place."""
+    return _SumOverGroup.apply(x, group) if _tracked(x) \
+        else group.all_reduce(x)
+
+
+def reduce_grad_columns(w: torch.Tensor, cols: torch.Tensor,
+                        group: Group) -> torch.Tensor:
+    """``w``, whose columns ``cols`` get their gradient all-reduced over
+    the group (``_ReduceGradColumns``) where one is being taken."""
+    return _ReduceGradColumns.apply(w, cols, group) if _tracked(w) else w
 
 
 _GROUP: contextvars.ContextVar[Optional[Group]] = contextvars.ContextVar(
@@ -377,22 +447,103 @@ def attention_split(cfg, tp: int) -> bool:
             and cfg.num_kv_heads % tp == 0 and not cfg.head_pad)
 
 
+def ssm_split(cfg, tp: int) -> bool:
+    """The SSM rule: a Mamba2 mixer splits by SSM heads where tp divides
+    the head count, its groups are one (every rank keeps all of B and C)
+    and each rank's d_inner rows of out_proj land on the 2-bit word;
+    otherwise the mixer stays whole on every rank, as attention does under
+    the head rule."""
+    return (tp > 1 and cfg.ssm_state > 0 and cfg.ssm_groups == 1
+            and cfg.ssm_heads % tp == 0
+            and (cfg.d_inner // tp) % formats.K_PER_WORD == 0)
+
+
+def moe_split(cfg, tp: int) -> Optional[str]:
+    """How a MoE layer's expert banks split, as ``repro`` resolves
+    ``P("expert", "fsdp", "model")``: ``"e"`` (expert parallelism, whole
+    experts a rank) where tp divides the expert count, else ``"ff"`` (every
+    expert's d_ff split: w_in and w_gate by columns, w_out by rows) where
+    each rank's rows land on the 2-bit word, else None (whole)."""
+    if tp <= 1 or not cfg.num_experts:
+        return None
+    if cfg.num_experts % tp == 0:
+        return "e"
+    if cfg.d_ff_expert % (tp * formats.K_PER_WORD) == 0:
+        return "ff"
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardConfig(ModelConfig):
+    """A rank's config where the SSM mixers split by heads
+    (``ssm_split``): ``ssm_tp`` ranks share the d_inner, so ``d_inner``,
+    ``ssm_heads``, the conv width and the in_proj width are the rank's."""
+
+    ssm_tp: int = 1
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model // self.ssm_tp
+
+
 def local_config(cfg, tp: int):
     """A rank's model config: the local head counts where attention splits
-    (``attention_split``), else ``cfg``. Families other than dense raise:
-    their tensor-parallel forward (serving and training) is ROADMAP
-    A12d."""
+    (``attention_split``), the local SSM heads and d_inner where the SSM
+    mixers split (``ssm_split``: a ``ShardConfig``), else ``cfg``. Expert
+    banks need nothing here: the router sees every expert on every rank
+    and a MoE layer reads its local experts from its banks."""
     if tp <= 1:
         return cfg
-    if cfg.family != "dense":
-        raise ValueError(
-            f"tensor parallelism (tp={tp}) serves and trains the dense "
-            f"family only; family {cfg.family!r} comes with ROADMAP A12d "
-            f"(split out of A12b)")
-    if not attention_split(cfg, tp):
-        return cfg
-    return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
-                               num_kv_heads=cfg.num_kv_heads // tp)
+    out = cfg
+    if attention_split(cfg, tp) and cfg.num_heads:
+        out = dataclasses.replace(out, num_heads=cfg.num_heads // tp,
+                                  num_kv_heads=cfg.num_kv_heads // tp)
+    if ssm_split(cfg, tp):
+        fields = {f.name: getattr(out, f.name)
+                  for f in dataclasses.fields(ModelConfig)}
+        out = ShardConfig(**fields, ssm_tp=tp)
+    return out
+
+
+def ssm_columns(cfg, rank: int, tp: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """A rank's columns of a split SSM mixer (``ssm_split``), as index
+    tensors into the whole: (in_proj columns — its heads' z and x, all of
+    B and C, its heads' dt —, conv channels — its x, all of B and C —,
+    the rank's d_inner). ``repro``'s GSPMD splits the in_proj's
+    concatenation contiguously instead (ROADMAP C18)."""
+    di, gs, h = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads
+    dl, hl = di // tp, h // tp
+    inner = torch.arange(rank * dl, (rank + 1) * dl)
+    bc = torch.arange(2 * di, 2 * di + 2 * gs)
+    in_cols = torch.cat([inner, di + inner, bc,
+                         2 * di + 2 * gs + torch.arange(rank * hl,
+                                                        (rank + 1) * hl)])
+    conv_cols = torch.cat([inner, torch.arange(di, di + 2 * gs)])
+    return in_cols, conv_cols, dl
+
+
+def _ssm_mark(cfg, tp: int) -> tuple:
+    """A split SSM mixer's mark: ``("ssm", d_inner, groups * state,
+    heads, tp)`` of the whole mixer, all ``shard_tree`` and
+    ``gather_tree`` need to place its columns."""
+    return ("ssm", cfg.d_inner, cfg.ssm_groups * cfg.ssm_state,
+            cfg.ssm_heads, tp)
+
+
+def _mark_cfg(mark):
+    _, di, gs, h, _ = mark
+    return types.SimpleNamespace(d_inner=di, ssm_groups=1, ssm_state=gs,
+                                 ssm_heads=h)
+
+
+def ssm_replicated(mark) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The local indices of a split SSM mixer's replicated columns (B and
+    C) in its in_proj and in its conv channels."""
+    _, di, gs, _, tp = mark
+    dl = di // tp
+    return (torch.arange(2 * dl, 2 * dl + 2 * gs),
+            torch.arange(dl, dl + 2 * gs))
 
 
 def _walk_specs(params, specs, fn, path=()):
@@ -404,6 +555,8 @@ def _walk_specs(params, specs, fn, path=()):
             fn(path, params, specs)
             return
         for k, v in params.items():
+            if k == "tp":
+                continue
             _walk_specs(v, specs[k] if specs is not None else None, fn,
                         path + (k,))
     elif isinstance(params, list):
@@ -415,11 +568,15 @@ def _walk_specs(params, specs, fn, path=()):
 def validate_param_specs(params, specs, mesh, *, fsdp: bool = False) -> int:
     """Validate every packed container's spec twin against the mesh
     (``weights.validate_spec_twin``); returns the number checked, raises
-    ``ValueError`` on the first bad twin."""
+    ``ValueError`` on the first bad twin. An SSM in_proj is left out: it
+    is placed by its column set (``ssm_columns``), not by its twin's
+    contiguous range (ROADMAP C18)."""
     checked = [0]
 
     def check(path, p, spec):
         wc = p.get("w_packed")
+        if path[-1:] == ("in_proj",):
+            return
         if isinstance(wc, weights.TernaryWeight):
             weights.validate_spec_twin(wc, spec["w_packed"], mesh,
                                        fsdp=fsdp)
@@ -449,23 +606,93 @@ def _linear_partition(p: dict, spec: dict, mesh, fsdp: bool) -> Optional[str]:
     return None
 
 
+def _slice(t, part: str, rank: int, tp: int):
+    """Rank ``rank``'s slice of a tensor or packed container: ``"k"`` the
+    rows (axis -2), ``"n"`` the columns (axis -1), ``"e"`` the experts
+    (axis 0)."""
+    if isinstance(t, weights.TernaryWeight):
+        return weights.shard_weight(t, part, rank, tp)
+    ax = {"k": -2, "n": -1, "e": 0}[part]
+    step = t.shape[ax] // tp
+    return t.narrow(ax, rank * step, step).contiguous()
+
+
 def _shard_linear(p: dict, part: str, rank: int, tp: int) -> dict:
     out = {k: v for k, v in p.items() if k not in ("w", "b", "w_packed")}
     wc = p.get("w_packed")
     if wc is not None:
         out["w_packed"] = weights.shard_weight(wc, part, rank, tp)
         return out
-    w = p["w"]
-    if part == "k":
-        step = w.shape[-2] // tp
-        out["w"] = w[..., rank * step:(rank + 1) * step, :].contiguous()
-        if "b" in p:
-            out["b"] = p["b"]
+    out["w"] = _slice(p["w"], part, rank, tp)
+    if "b" in p:
+        out["b"] = p["b"] if part == "k" else _slice(p["b"], "n", rank, tp)
+    return out
+
+
+def _is_moe(p: dict) -> bool:
+    return "router" in p and "w_in" in p
+
+
+def _is_ssm(p: dict) -> bool:
+    return "in_proj" in p and "conv_w" in p
+
+
+# a MoE node's leaves by how each splits: (leaf, "e" split, "ff" split)
+_MOE_SPLITS = (("w_in", "e", "n"), ("w_gate", "e", "n"),
+               ("w_out", "e", "k"), ("shared_in", "n", "n"),
+               ("shared_gate", "n", "n"), ("shared_out", "k", "k"))
+
+
+def _moe_mark(p: dict, part: str, tp: int) -> tuple:
+    """A split MoE node's mark: ``("moe", part, shared, tp)``, ``shared``
+    whether its shared expert splits as an MLP (tp divides its d_ff; else
+    it stays whole on every rank)."""
+    return ("moe", part, "shared_in" in p
+            and p["shared_in"].shape[-1] % tp == 0, tp)
+
+
+def _moe_leaves(p: dict, mark: tuple):
+    """(leaf name, how it splits) of a split MoE node's split leaves."""
+    _, part, shared, _ = mark
+    for name, e_part, ff_part in _MOE_SPLITS:
+        if name in p and (shared or not name.startswith("shared")):
+            yield name, e_part if part == "e" else ff_part
+
+
+def _shard_moe(p: dict, mark: tuple, rank: int) -> dict:
+    """A MoE node's rank slices under its mark (``_moe_mark``); the router
+    whole."""
+    out = dict(p, tp=mark)
+    for name, part in _moe_leaves(p, mark):
+        out[name] = _slice(p[name], part, rank, mark[3])
+    return out
+
+
+def _shard_ssm(p: dict, mark: tuple, rank: int) -> dict:
+    """A split SSM mixer's rank slices (``ssm_columns``): in_proj its
+    column set (re-packed when packed: ``weights.select_columns``),
+    out_proj its d_inner rows, conv and the per-head and per-channel
+    vectors with them."""
+    cfg, tp = _mark_cfg(mark), mark[4]
+    in_cols, conv_cols, dl = ssm_columns(cfg, rank, tp)
+    hl = cfg.ssm_heads // tp
+    ip = p["in_proj"]
+    if "w_packed" in ip:
+        new_in = {"w_packed": weights.select_columns(ip["w_packed"],
+                                                     in_cols)}
     else:
-        step = w.shape[-1] // tp
-        out["w"] = w[..., rank * step:(rank + 1) * step].contiguous()
-        if "b" in p:
-            out["b"] = p["b"][..., rank * step:(rank + 1) * step].contiguous()
+        new_in = {k: v.index_select(-1, in_cols.to(v.device))
+                  for k, v in ip.items() if k in ("w", "b")}
+    out = dict(p, in_proj=dict(new_in, tp="cols"),
+               out_proj=dict(_shard_linear(p["out_proj"], "k", rank, tp),
+                             tp="k"),
+               tp=mark)
+    for name in ("conv_w", "conv_b"):
+        out[name] = p[name].index_select(-1, conv_cols.to(p[name].device))
+    for name in ("a_log", "dt_bias", "d_skip"):
+        out[name] = p[name][..., rank * hl:(rank + 1) * hl].contiguous()
+    out["norm_scale"] = p["norm_scale"][
+        ..., rank * dl:(rank + 1) * dl].contiguous()
     return out
 
 
@@ -478,7 +705,11 @@ def shard_params(params, specs, mesh, *, rank: int = 0, cfg=None,
     split linear gains a ``"tp"`` mark: ``"n"`` column split, ``"k"``
     row split (its partial product all-reduced), ``"gather"`` the lm
     head's column split (its logits all-gathered). ``cfg`` (the model's)
-    applies the head rule; without it attention splits as resolved.
+    applies the head rule, and places the other families' nodes: a MoE
+    node under ``moe_split`` (marked ``"e"`` or ``"ff"``), an SSM mixer
+    under ``ssm_split`` (marked ``_ssm_mark``, its in_proj ``"cols"``
+    and its out_proj ``"k"``); without ``cfg`` attention splits as
+    resolved and a MoE or SSM node raises.
     A latent ternary weight ternarizes per column over the whole K, so
     it is refused unless ``latent=True``: the training path, whose row
     splits reduce their column statistics over the group
@@ -488,12 +719,24 @@ def shard_params(params, specs, mesh, *, rank: int = 0, cfg=None,
         validate_param_specs(params, specs, mesh, fsdp=fsdp)
     if tp <= 1:
         return params
-    if cfg is not None:
-        local_config(cfg, tp)                 # the family check
     split_attn = cfg is None or attention_split(cfg, tp)
+
+    def family_node(p):
+        if cfg is None:
+            raise ValueError("sharding a MoE or SSM node needs the "
+                             "model's cfg")
+        if _is_moe(p):
+            part = moe_split(cfg, tp)
+            return dict(p) if part is None else _shard_moe(
+                p, _moe_mark(p, part, tp), rank)
+        if not ssm_split(cfg, tp):
+            return dict(p)
+        return _shard_ssm(p, _ssm_mark(cfg, tp), rank)
 
     def walk(p, s, path):
         if isinstance(p, dict):
+            if _is_moe(p) or _is_ssm(p):
+                return family_node(p)
             if "w" in p or "w_packed" in p:
                 part = _linear_partition(p, s, mesh, fsdp)
                 attn = len(path) >= 2 and path[-1] in ("q", "k", "v", "o") \
@@ -523,11 +766,12 @@ def shard_params(params, specs, mesh, *, rank: int = 0, cfg=None,
 # Training: marks kept apart from the trees the optimizer walks
 # ---------------------------------------------------------------------------
 
-def strip_marks(params) -> Tuple[Any, Dict[tuple, str]]:
-    """(the tree without its ``"tp"`` marks, {path of a marked linear:
-    its mark}): the optimizer, the error state and checkpoints walk plain
-    trees of tensors."""
-    marks: Dict[tuple, str] = {}
+def strip_marks(params) -> Tuple[Any, Dict[tuple, Any]]:
+    """(the tree without its ``"tp"`` marks, {path of a marked node: its
+    mark}): the optimizer, the error state and checkpoints walk plain
+    trees of tensors. A split SSM mixer's marks nest (the mixer's, its
+    in_proj's and its out_proj's)."""
+    marks: Dict[tuple, Any] = {}
 
     def walk(p, path):
         if isinstance(p, dict):
@@ -543,8 +787,8 @@ def strip_marks(params) -> Tuple[Any, Dict[tuple, str]]:
 
 
 def _map_linears(tree, marks, fn, path=()):
-    """``tree`` with ``fn(linear_dict, mark)`` in place of every marked
-    linear (the other nodes rebuilt, leaves shared)."""
+    """``tree`` with ``fn(node, mark)`` in place of every outermost marked
+    node (the other nodes rebuilt, leaves shared)."""
     if isinstance(tree, dict):
         if path in marks:
             return fn(tree, marks[path])
@@ -556,17 +800,54 @@ def _map_linears(tree, marks, fn, path=()):
     return tree
 
 
-def attach_marks(params, marks: Dict[tuple, str]):
-    """The rank's tree as the model reads it: each marked linear with its
-    ``"tp"`` mark."""
-    return _map_linears(params, marks, lambda p, m: dict(p, tp=m))
+def attach_marks(params, marks: Dict[tuple, Any]):
+    """The rank's tree as the model reads it: every marked node (nested
+    ones too) with its ``"tp"`` mark."""
+    def walk(p, path):
+        if isinstance(p, dict):
+            out = {k: walk(v, path + (k,)) for k, v in p.items()}
+            if path in marks:
+                out["tp"] = marks[path]
+            return out
+        if isinstance(p, list):
+            return [walk(v, path + (i,)) for i, v in enumerate(p)]
+        return p
+
+    return walk(params, ())
 
 
-def split_mask(params, marks: Dict[tuple, str]):
-    """A tree of bools like ``params``: True where the leaf is a slice
-    (every leaf of a column split; a row split's ``"w"``, not its whole
-    bias), False where every rank holds the whole leaf."""
+def _family_mark(m) -> Optional[str]:
+    """``"ssm"`` or ``"moe"`` for a family node's mark, else None."""
+    return m[0] if isinstance(m, tuple) else None
+
+
+def _col_mask(t: torch.Tensor, replicated: torch.Tensor) -> torch.Tensor:
+    mask = torch.ones(t.shape[-1], dtype=torch.bool, device=t.device)
+    mask[replicated.to(t.device)] = False
+    return mask
+
+
+def split_mask(params, marks: Dict[tuple, Any]):
+    """A tree like ``params`` saying which leaves are slices: True where
+    the leaf is a slice (every leaf of a column split, a split expert
+    bank; a row split's ``"w"``, not its whole bias), False where every
+    rank holds the whole leaf (a MoE router, a whole shared expert), and
+    for a split SSM mixer's in_proj and conv a bool tensor over the last
+    axis, False at the replicated B and C columns."""
     def node(p, m):
+        kind = _family_mark(m)
+        if kind == "ssm":
+            rep_in, rep_conv = ssm_replicated(m)
+            out = {k: True for k in p}
+            out["in_proj"] = {k: _col_mask(v, rep_in)
+                              for k, v in p["in_proj"].items()}
+            out["out_proj"] = {k: k == "w" for k in p["out_proj"]}
+            for name in ("conv_w", "conv_b"):
+                out[name] = _col_mask(p[name], rep_conv)
+            return out
+        if kind == "moe":
+            split = {name for name, _ in _moe_leaves(p, m)}
+            return {k: k in split for k in p}
         return {k: (k == "w" or m != "k") for k in p}
 
     def mark(tree, path=()):
@@ -581,23 +862,67 @@ def split_mask(params, marks: Dict[tuple, str]):
     return mark(params)
 
 
-def shard_tree(tree, marks: Dict[tuple, str], rank: int, tp: int):
+def shard_tree(tree, marks: Dict[tuple, Any], rank: int, tp: int):
     """Rank ``rank``'s slices of a whole tree shaped like the params (the
-    params, AdamW's m or v): each marked linear sliced as ``shard_params``
+    params, AdamW's m or v): each marked node sliced as ``shard_params``
     slices it, the rest shared."""
-    return _map_linears(tree, marks, lambda p, m: _shard_linear(
-        p, "n" if m == "gather" else m, rank, tp))
+    def cut(p, m):
+        kind = _family_mark(m)
+        if kind == "ssm":
+            return strip_marks(_shard_ssm(p, m, rank))[0]
+        if kind == "moe":
+            return strip_marks(_shard_moe(p, m, rank))[0]
+        return _shard_linear(p, "n" if m == "gather" else m, rank, tp)
+
+    return _map_linears(tree, marks, cut)
 
 
-def gather_tree(tree, marks: Dict[tuple, str], group: Optional[Group]):
+def _gather_cols(group: Group, t: torch.Tensor, cols_of, n: int):
+    """The whole last axis (width ``n``) from every rank's columns
+    ``cols_of(rank)`` of it (the replicated ones written by each rank,
+    with the same bits)."""
+    parts = group.all_gather(t, dim=-1).chunk(group.size, dim=-1)
+    whole = torch.empty(*t.shape[:-1], n, dtype=t.dtype, device=t.device)
+    for r, piece in enumerate(parts):
+        whole[..., cols_of(r).to(t.device)] = piece
+    return whole
+
+
+def gather_tree(tree, marks: Dict[tuple, Any], group: Optional[Group]):
     """The whole tree from every rank's slices (``shard_tree``'s inverse):
-    each marked linear's ``"w"`` (and a column split's ``"b"``)
-    all-gathered over ``group`` in rank order."""
+    each marked node's split leaves all-gathered over ``group`` in rank
+    order (a split SSM mixer's in_proj and conv columns put back at their
+    places)."""
     if group is None or not marks:
         return tree
 
-    def whole(p, m):
+    def ssm_whole(p, m):
+        cfg, tp = _mark_cfg(m), m[4]
+        di, gs, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
         out = dict(p)
+        out["in_proj"] = {k: _gather_cols(
+            group, v, lambda r: ssm_columns(cfg, r, tp)[0],
+            2 * di + 2 * gs + h) for k, v in p["in_proj"].items()}
+        for name in ("conv_w", "conv_b"):
+            out[name] = _gather_cols(group, p[name],
+                                     lambda r: ssm_columns(cfg, r, tp)[1],
+                                     di + 2 * gs)
+        out["out_proj"] = dict(p["out_proj"], w=group.all_gather(
+            p["out_proj"]["w"], dim=-2))
+        for name in ("a_log", "dt_bias", "d_skip", "norm_scale"):
+            out[name] = group.all_gather(p[name], dim=-1)
+        return out
+
+    def whole(p, m):
+        kind = _family_mark(m)
+        if kind == "ssm":
+            return ssm_whole(p, m)
+        out = dict(p)
+        if kind == "moe":
+            for name, part in _moe_leaves(p, m):
+                out[name] = group.all_gather(
+                    p[name], dim={"k": -2, "n": -1, "e": 0}[part])
+            return out
         out["w"] = group.all_gather(p["w"], dim=-2 if m == "k" else -1)
         if "b" in p and m != "k":
             out["b"] = group.all_gather(p["b"], dim=-1)
@@ -609,14 +934,15 @@ def gather_tree(tree, marks: Dict[tuple, str], group: Optional[Group]):
 def gemm_shard_fn(mesh, params) -> Callable:
     """``shard(path, w) -> (partition, tp)`` for ``ops.precompute_plans``
     over a rank's tree: it reads the partition ``shard_params`` recorded
-    beside each packed shard (the lm head's gather is a column split), so
-    each plan's collective follows where the bits actually live."""
+    beside each packed shard (the lm head's gather is a column split; an
+    SSM in_proj's column set plans as the whole GEMM it is), so each
+    plan's collective follows where the bits actually live."""
     tp = mesh_axis_sizes(mesh).get(MODEL, 1)
     marks: Dict[int, str] = {}
 
     def note(path, p, spec):
         if isinstance(p.get("w_packed"), weights.TernaryWeight) \
-                and p.get("tp"):
+                and p.get("tp") in ("n", "k", "gather"):
             marks[id(p["w_packed"])] = "n" if p["tp"] == "gather" \
                 else p["tp"]
 
@@ -634,15 +960,26 @@ def cache_sharding(layers, cfg, mesh):
     tensors, int8 pages), as ``repro``'s: the KV-head axis of every
     ``(..., KV, hd)`` leaf split over ``"model"`` wherever tp divides the
     head count (matching the column-split K/V projections), the int8
-    page scales ``(..., KV)`` with their pages, everything else whole.
-    Returns the tree with a spec (a tuple of axis entries, trailing
-    ``None``s dropped) for each tensor."""
+    page scales ``(..., KV)`` with their pages; where the SSM mixers
+    split (``ssm_split``), an SSM state ``(B, H, P, S)`` by heads and a
+    conv row ``(B, w-1, C)`` by the rank's channels (``ssm_columns``:
+    its x channels and all of B and C, not a contiguous range — C18);
+    everything else whole. Returns the tree with a spec (a tuple of axis
+    entries, trailing ``None``s dropped) for each tensor."""
     kv, hd = cfg.num_kv_heads, cfg.head_dim
     tp = mesh_axis_sizes(mesh).get(MODEL, 1)
     shardable = tp > 1 and kv % tp == 0
+    ssm = ssm_split(cfg, tp)
+    state = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+    conv = (cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_groups
+            * cfg.ssm_state)
 
     def spec(x):
         shp = tuple(getattr(x, "shape", ()))
+        if ssm and len(shp) == 4 and shp[1:] == state:
+            return (None, MODEL)
+        if ssm and len(shp) == 3 and shp[1:] == conv:
+            return (None, None, MODEL)
         if shardable and len(shp) >= 2 and shp[-1] == hd and shp[-2] == kv:
             return (None,) * (len(shp) - 2) + (MODEL,)
         if shardable and len(shp) >= 1 and shp[-1] == kv:
@@ -682,6 +1019,9 @@ def device_put_cache(layers, cfg, mesh, *, rank: int = 0):
         if MODEL not in spec:
             return x
         ax = spec.index(MODEL)
+        if ssm_split(cfg, tp) and ax == 2 and x.ndim == 3:   # conv row
+            cols = ssm_columns(cfg, rank, tp)[1].to(x.device)
+            return x.index_select(-1, cols).contiguous()
         step = x.shape[ax] // tp
         return x.narrow(ax, rank * step, step).contiguous()
 

@@ -26,8 +26,8 @@ Usage:
       --draft-sparsity 0.125]                     # speculative decoding
   ... --mesh 2,2 [--mesh-devices cuda:0,cuda:1,cuda:2,cuda:3]   # dp x tp:
       dp engine replicas, each tensor-parallel over tp ranks (one process
-      a rank), behind the prefix-affinity Router; dense family and
-      continuous mode only. Needs dp*tp devices (default: every card; a
+      a rank), behind the prefix-affinity Router; every decoder family
+      (dense, moe, ssm, hybrid) and continuous mode only. Needs dp*tp devices (default: every card; a
       device may repeat, e.g. --device cpu --mesh-devices cpu,cpu, and
       ranks sharing a card run over gloo without CUDA graphs)
 

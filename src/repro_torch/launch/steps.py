@@ -174,8 +174,7 @@ def model_shardings(model: LM, cfg: ModelConfig, mesh):
     """(the parameter tree as ``meta`` tensors — shapes and dtypes, no
     storage —, their resolved specs on ``mesh``): ``LM.init`` traced under
     a fake-tensor mode, then ``sharding.resolve_specs`` of
-    ``LM.param_specs`` with ``cfg.fsdp``. The dense family only, as
-    ``param_specs``."""
+    ``LM.param_specs`` with ``cfg.fsdp``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.distributed import sharding

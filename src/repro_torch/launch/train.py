@@ -16,7 +16,7 @@ sharded_batch``); the gradients are averaged in f32 over its data group,
 or, with ``--compress-grads``, cross it as ternary codes plus a scale
 with error feedback (``make_compressed_dp_step``; ``repro``'s refusal:
 it needs --data-parallel > 1 and --model-parallel 1); tensor-parallel
-ranks (dense family) hold Megatron-style shards (``distributed.tp``).
+ranks (every family) hold Megatron-style shards (``distributed.tp``).
 The update is replicated, so the ranks of a data group hold the same
 bits. Checkpoints stay in ``repro``'s layout: rank 0 gathers the shards
 before it saves, so a mesh's checkpoint restores in one process and the
@@ -238,6 +238,13 @@ class _Rank:
 
     def op_build(self, cfg, batch, seq, lr, total_steps, compress, timed):
         self.cfg, self.compress = cfg, compress
+        # the old model's state goes, and with it its cached blocks (ranks
+        # sharing a card would otherwise hold each other's memory); the
+        # peak memory a report reads is this model's
+        self.params = self.opt = self.err = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(self.device)
         for g in self.groups().values():
             g.timed = timed
         dev = self.device
@@ -359,8 +366,9 @@ class _Rank:
                                                 self.params, batch,
                                                 self.marks)
             rep["grads"] = sums(grads)
-            rep["split"] = [bool(x) for x in tree_leaves(
-                tp_lib.split_mask(grads, self.marks))]
+            rep["split"] = [bool(torch.as_tensor(x).any()) for x in
+                            tree_leaves(tp_lib.split_mask(grads,
+                                                          self.marks))]
         return self.world.gather_objects(rep)
 
 
@@ -396,9 +404,6 @@ class DistTrainer:
         if compress and (dp <= 1 or tp > 1):
             raise SystemExit("--compress-grads needs a pure data-parallel "
                              "mesh: --data-parallel > 1 --model-parallel 1")
-        if tp > 1:
-            tp_lib.local_config(cfg, tp)        # the family check (A12d)
-            LM(cfg, "cpu").param_specs()
         if devices is None:
             dev = resolve_device(device)
             cards = torch.cuda.device_count() if dev.type == "cuda" else 0
@@ -458,8 +463,6 @@ class DistTrainer:
                 raise SystemExit("--compress-grads needs a pure "
                                  "data-parallel mesh")
             self.compress = compress
-        if self.tp > 1:
-            tp_lib.local_config(cfg, self.tp)
         self.cfg = cfg
         self._call("build", cfg=cfg, batch=batch, seq=seq, lr=lr,
                    total_steps=total_steps, compress=self.compress,

@@ -9,6 +9,12 @@ results back in token order. Packed banks (``Dense2Bit`` of ``(E,
 ceil(K/16), N)`` words) are decoded and scaled into the compute dtype
 each call, as ``repro``'s are.
 
+Tensor parallelism (a node marked by ``distributed.tp``): every rank
+routes the replicated activations alike, then runs its own experts
+(``"e"``) or its d_ff slice of every expert (``"ff"``, w_out's latent
+rows ternarized with their columns' statistics summed over the group);
+its partial output is summed in f32 and all-reduced once, then cast.
+
 Orders that decide bits: top-k and the capacity top-C keep the lower
 index first on ties (``jax.lax.top_k``'s order; a stable descending sort
 here), and the scatter-add runs one expert at a time in expert order, in
@@ -17,6 +23,8 @@ same on every run and under a CUDA graph.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Tuple
 
@@ -25,7 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quantize, weights
-from repro_torch.models.layers import _is_ternary, _randn
+from repro_torch.distributed import tp as tp_lib
+from repro_torch.models.layers import _group, _is_ternary, _randn
 
 _BANKS = ("w_in", "w_gate", "w_out")
 
@@ -63,12 +72,65 @@ def top_k(a: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _bank(params: dict, name: str, x: torch.Tensor,
-          cfg: ModelConfig) -> torch.Tensor:
+def _bank(params: dict, name: str, x: torch.Tensor, cfg: ModelConfig,
+          rows_group=None) -> torch.Tensor:
+    """A bank decoded (packed) or ternarized (latent, QAT) into the
+    compute dtype; ``rows_group``: the bank is a row shard of every
+    expert, its columns' statistics summed over that group
+    (``quantize.ste_ternarize_rows``)."""
     w = params[name]
     if isinstance(w, weights.TernaryWeight):
         return w.materialize(x.dtype, with_scale=True)
+    if rows_group is not None and cfg.quantization == "ternary":
+        return quantize.ste_ternarize_rows(w, cfg.ternary_threshold,
+                                           rows_group).to(x.dtype)
     return _expert_weight(w, cfg).to(x.dtype)
+
+
+def _bank_len(w) -> int:
+    return (w.packed if isinstance(w, weights.TernaryWeight) else w).shape[0]
+
+
+def _moe_shard(params: dict, mark: tuple, xb, g_sel, tok_sel, rows,
+               cfg: ModelConfig):
+    """A rank's f32 partial of a split MoE layer (``tp.moe_split``),
+    before the all-reduce: its own experts (``"e"``) or its d_ff slice of
+    every expert (``"ff"``), and its slice of a split shared expert. The
+    dispatched activations and the gates enter through Megatron's f, so
+    their partial gradients are summed over the group."""
+    _, part, shared, _ = mark
+    group = _group()
+    nb, tb, d = xb.shape
+    xf = tp_lib.copy_to_group(xb, group)
+    gf = tp_lib.copy_to_group(g_sel, group)
+    el = _bank_len(params["w_in"]) if part == "e" else cfg.num_experts
+    lo = group.rank * el if part == "e" else 0
+    sel, gl = tok_sel[:, lo:lo + el], gf[:, lo:lo + el]
+    xe = xf[rows, sel]                                           # (nb,El,C,d)
+    w_in, w_gate = (_bank(params, n, xb, cfg) for n in ("w_in", "w_gate"))
+    w_out = _bank(params, "w_out", xb, cfg,
+                  rows_group=group if part == "ff" else None)
+    h = F.silu(torch.einsum("necd,edf->necf", xe, w_gate)) \
+        * torch.einsum("necd,edf->necf", xe, w_in)
+    if part == "e":
+        # whole experts: each expert's product rounds as on one card
+        ye = torch.einsum("necf,efd->necd", h, w_out)
+        ye = (ye * gl[..., None].to(ye.dtype)).float()
+    else:
+        ye = torch.einsum("necf,efd->necd", h.float(), w_out.float()) \
+            * gl[..., None]
+    y = torch.zeros((nb, tb, d), dtype=torch.float32, device=xb.device)
+    brow = rows[:, 0]
+    for i in range(el):
+        idx = sel[:, i]
+        y[brow, idx] = y[brow, idx] + ye[:, i]
+    if shared:
+        xt = xf.reshape(nb * tb, d)
+        hs = F.silu(xt @ params["shared_gate"].to(xb.dtype)) \
+            * (xt @ params["shared_in"].to(xb.dtype))
+        y = y + (hs.float() @ params["shared_out"].to(xb.dtype).float()
+                 ).reshape(nb, tb, d)
+    return y
 
 
 def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig
@@ -96,6 +158,24 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig
     cap = min(max(cap, 1), tb)
     g_sel, tok_sel = top_k(gates.transpose(1, 2), cap)           # (nb,E,C)
     rows = torch.arange(nb, device=x.device)[:, None, None]
+    if _ROUTES.get() is not None:
+        _ROUTES.get().append(tok_sel.detach().cpu())
+
+    mark = params.get("tp")
+    if mark is not None:
+        # tensor parallel: every rank routed the same replicated
+        # activations; the partials are summed in f32, then cast
+        y = tp_lib.reduce_from_group(
+            _moe_shard(params, mark, xb, g_sel, tok_sel, rows, cfg),
+            _group())
+        if cfg.n_shared_experts and not mark[2]:
+            xt = xb.reshape(t, d)
+            hs = F.silu(xt @ params["shared_gate"].to(x.dtype)) \
+                * (xt @ params["shared_in"].to(x.dtype))
+            y = y + (hs @ params["shared_out"].to(x.dtype)).reshape(
+                nb, tb, d).float()
+        return y.reshape(b, s, d).to(x.dtype), _aux(probs, top_ids, e)
+
     xe = xb[rows, tok_sel]                                       # (nb,E,C,d)
 
     w_in, w_gate, w_out = (_bank(params, n, x, cfg) for n in _BANKS)
@@ -118,11 +198,31 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig
             * (xt @ params["shared_in"].to(x.dtype))
         y = y + (hs @ params["shared_out"].to(x.dtype)).reshape(nb, tb, d)
 
-    # Switch-style load-balancing auxiliary loss
+    return y.reshape(b, s, d).to(x.dtype), _aux(probs, top_ids, e)
+
+
+def _aux(probs: torch.Tensor, top_ids: torch.Tensor, e: int) -> torch.Tensor:
+    """The Switch-style load-balancing auxiliary loss."""
     me = probs.mean(dim=(0, 1))                                  # (E,)
     ce = F.one_hot(top_ids[..., 0], e).float().mean(dim=(0, 1))
-    aux = e * torch.sum(me * ce)
-    return y.reshape(b, s, d).to(x.dtype), aux
+    return e * torch.sum(me * ce)
+
+
+_ROUTES: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_moe_routes", default=None)
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Record every MoE layer's capacity pick (``tok_sel``, (nb, E, C)
+    token indices, on the host) of the calls in the scope into the list
+    it yields: the check that every tensor-parallel rank routes alike."""
+    log: list = []
+    tok = _ROUTES.set(log)
+    try:
+        yield log
+    finally:
+        _ROUTES.reset(tok)
 
 
 def pack_moe(params: dict, cfg: ModelConfig) -> dict:
@@ -146,4 +246,5 @@ def is_moe_node(node) -> bool:
     return isinstance(node, dict) and "router" in node and "w_in" in node
 
 
-__all__ = ["moe_init", "moe_apply", "pack_moe", "top_k", "is_moe_node"]
+__all__ = ["moe_init", "moe_apply", "pack_moe", "top_k", "is_moe_node",
+           "recorded_routes"]

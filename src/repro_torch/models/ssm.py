@@ -7,6 +7,11 @@ The in/out projections are ``layers.linear`` layers, so packed ones run
 through ``ops.ternary_gemm`` (B1 on the card); the state updates are
 activation-activation products with no weights to ternarize.
 
+A head-split rank (``distributed.tp.ssm_split``: its config a
+``tp.ShardConfig`` with the local d_inner) runs the same code on its
+heads: its in_proj columns and conv channels hold all of B and C, the
+gated norm's sum of squares is all-reduced, out_proj is a row split.
+
 Caches are ``{"state": (B, H, P, S) f32, "conv": (B, conv-1, conv_dim)}``.
 A single-token step writes both in place (the engine's captured decode
 step reads them as static buffers); the full-sequence path returns new
@@ -21,8 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (_randn, dtype_of, linear_apply,
-                                       linear_init)
+from repro_torch.distributed import tp as tp_lib
+from repro_torch.models.layers import (_group, _randn, dtype_of,
+                                       linear_apply, linear_init)
 
 NEG_INF = -1e30
 
@@ -133,11 +139,37 @@ def ssd_chunked(x_dt: torch.Tensor, a_dt: torch.Tensor, bm: torch.Tensor,
     return y.to(x_dt.dtype), final_state
 
 
-def _gated_norm(y, z, scale, eps):
+def _gated_norm(y, z, scale, eps, group=None):
+    """RMS norm of y * silu(z) over the whole d_inner: a head-split rank
+    (``group``) holds its slice, so the f32 sum of squares is summed over
+    the group (``tp.sum_over_group``, its gradient too)."""
     y = y * F.silu(z)
     yf = y.float()
-    var = yf.square().mean(dim=-1, keepdim=True)
+    if group is None:
+        var = yf.square().mean(dim=-1, keepdim=True)
+    else:
+        var = tp_lib.sum_over_group(yf.square().sum(dim=-1, keepdim=True),
+                                    group) / (yf.shape[-1] * group.size)
     return (yf * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
+
+
+def _split_inputs(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """A head-split rank's (params, x, group) (``tp.ssm_split``): x enters
+    through Megatron's f, and the replicated B and C columns of its
+    in_proj and conv get their partial gradients summed over the group
+    (``tp.reduce_grad_columns``); (params, x, None) for a whole mixer."""
+    mark = params.get("tp")
+    if mark is None:
+        return params, x, None
+    group = _group()
+    rep_in, rep_conv = tp_lib.ssm_replicated(mark)
+    ip = {k: (tp_lib.reduce_grad_columns(v, rep_in, group)
+              if k in ("w", "b") else v)
+          for k, v in params["in_proj"].items()}
+    params = dict(params, in_proj=ip, **{
+        n: tp_lib.reduce_grad_columns(params[n], rep_conv, group)
+        for n in ("conv_w", "conv_b")})
+    return params, tp_lib.copy_to_group(x, group), group
 
 
 def _heads(t: torch.Tensor, b: int, g: int, h: int, s: int) -> torch.Tensor:
@@ -158,6 +190,7 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     di, g, s, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     p = cfg.ssm_head_dim
     b = x.shape[0]
+    params, x, group = _split_inputs(params, x, cfg)
     proj = linear_apply(params["in_proj"], x, cfg)
     z, xbc, dt = _split_proj(proj, cfg)
     a = -torch.exp(params["a_log"].float())                  # (H,)
@@ -209,7 +242,8 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         cache["conv"].copy_(window[:, 1:])
         new_cache = cache
 
-    y = _gated_norm(y, z.reshape(y.shape), params["norm_scale"], cfg.norm_eps)
+    y = _gated_norm(y, z.reshape(y.shape), params["norm_scale"], cfg.norm_eps,
+                    group)
     return linear_apply(params["out_proj"], y, cfg), new_cache
 
 

@@ -27,10 +27,12 @@ blocks, ``repro``'s stacked ``enc_block``) and ``"enc_norm"``, and
 is ``repro``'s ``block{j}`` of group ``g``.
 
 ``param_specs(cfg, params)`` is the tree's logical spec twin, ``repro``'s
-``init_with_specs`` specs laid over the port's per-layer list (q/k/v, up
-and gate ``("fsdp", "model")``, o and down ``("model", "fsdp")``, the
-embedding table ``("model", "fsdp")``, the lm head ``("fsdp", "model")``,
-norms ``(None,)``); ``distributed.tp.shard_params`` resolves it. A model
+``init_with_specs`` specs laid over the port's per-layer list for every
+family (q/k/v, up and gate ``("fsdp", "model")``, o and down ``("model",
+"fsdp")``, the embedding table ``("model", "fsdp")``, the lm head
+``("fsdp", "model")``, norms ``(None,)``, the SSM mixer's and the MoE
+banks' as ``repro`` writes them); ``distributed.tp.shard_params``
+resolves it. A model
 whose ``comm`` is a ``distributed.tp.Group`` runs its forward, loss,
 prefill and decode calls inside that group (a tensor-parallel rank, whose
 config holds its local head counts: ``tp.local_config``).
@@ -55,9 +57,10 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import weights
 from repro_torch.device import resolve_device
 from repro_torch.distributed import tp as tp_lib
-from repro_torch.distributed.sharding import FSDP, MODEL
+from repro_torch.distributed.sharding import EXPERT, FSDP, MODEL
 from repro_torch.models import attention, layers, moe, ssm
 
 
@@ -79,17 +82,18 @@ def layer_period(cfg: ModelConfig) -> int:
 def param_specs(cfg: ModelConfig, params: Optional[dict] = None) -> dict:
     """The logical spec twin of an ``LM``'s parameter tree (module
     docstring): one spec per tensor, a tuple of axis entries, and for a
-    packed linear ``layers.linear_spec(..., packed=True)``'s twin. With
-    ``params`` the twin follows its packed and biased linears; without,
-    the latent tree ``LM.init`` draws. The dense family only: the other
-    families' specs come with ROADMAP A12d."""
-    if cfg.family != "dense" or cfg.is_encdec or any(
-            (cfg.layer_kind(i), cfg.layer_ffn(i)) != ("attn", "mlp")
-            for i in range(cfg.num_layers)):
-        raise ValueError(f"param_specs covers the dense family; family "
-                         f"{cfg.family!r} comes with ROADMAP A12d (split "
-                         f"out of A12b)")
-    F, M = FSDP, MODEL
+    packed linear ``layers.linear_spec(..., packed=True)``'s twin, for a
+    packed expert bank ``{"packed", "scale", "bias"}``. Every family, as
+    ``repro``'s ``init_with_specs`` writes them: attention (self, cross
+    and the encoder's) q/k/v ``("fsdp", "model")`` and o ``("model",
+    "fsdp")``; the SSM mixer's in_proj ``("fsdp", "model")``, out_proj
+    ``("model", "fsdp")``, conv and ``norm_scale`` on ``"model"``, its
+    per-head vectors whole; a MoE node's router whole, its banks
+    ``("expert", "fsdp", "model")`` / ``("expert", "model", "fsdp")``
+    and its shared expert as an MLP. With ``params`` the twin follows its
+    packed and biased linears and packed banks; without, the latent tree
+    ``LM.init`` draws."""
+    F, M, E = FSDP, MODEL, EXPERT
 
     def lin(p, name, in_axis, out_axis, bias=None):
         node = None if p is None else p[name]
@@ -106,20 +110,59 @@ def param_specs(cfg: ModelConfig, params: Optional[dict] = None) -> dict:
         return ({"scale": (None,), "bias": (None,)}
                 if cfg.norm_type == "layernorm" else {"scale": (None,)})
 
-    blocks = []
-    for i in range(cfg.num_layers):
-        lp = None if params is None else params["layers"][i]
-        mix = None if lp is None else lp["mixer"]
-        ffn = None if lp is None else lp["ffn"]
-        blocks.append({
-            "norm1": norm(),
-            "mixer": {"q": lin(mix, "q", F, M), "k": lin(mix, "k", F, M),
-                      "v": lin(mix, "v", F, M), "o": lin(mix, "o", M, F)},
-            "norm2": norm(),
-            "ffn": {"in": lin(ffn, "in", F, M), "gate": lin(ffn, "gate", F, M),
-                    "out": lin(ffn, "out", M, F)}})
-    specs = {"embed": {"table": (M, F)}, "layers": blocks,
-             "final_norm": norm()}
+    def attn(p):
+        return {"q": lin(p, "q", F, M), "k": lin(p, "k", F, M),
+                "v": lin(p, "v", F, M), "o": lin(p, "o", M, F)}
+
+    def ssm_mixer(p):
+        return {"in_proj": lin(p, "in_proj", F, M),
+                "out_proj": lin(p, "out_proj", M, F),
+                "conv_w": (None, M), "conv_b": (M,), "a_log": (None,),
+                "dt_bias": (None,), "d_skip": (None,), "norm_scale": (M,)}
+
+    def bank(p, name, spec, scale):
+        if p is not None and isinstance(p[name], weights.TernaryWeight):
+            return {"packed": spec, "scale": scale, "bias": None}
+        return spec
+
+    def moe_ffn(p):
+        out = {"router": (None, None),
+               "w_in": bank(p, "w_in", (E, F, M), (E, M)),
+               "w_gate": bank(p, "w_gate", (E, F, M), (E, M)),
+               "w_out": bank(p, "w_out", (E, M, F), (E, F))}
+        if cfg.n_shared_experts:
+            out.update(shared_in=(F, M), shared_gate=(F, M),
+                       shared_out=(M, F))
+        return out
+
+    def block(lp, kind, ffn, cross):
+        get = (lambda k: None) if lp is None else lp.get
+        spec = {"norm1": norm(),
+                "mixer": attn(get("mixer")) if kind == "attn"
+                else ssm_mixer(get("mixer"))}
+        if cross:
+            spec["norm_cross"] = norm()
+            spec["cross"] = attn(get("cross"))
+        if ffn != "none":
+            spec["norm2"] = norm()
+            f = get("ffn")
+            spec["ffn"] = moe_ffn(f) if ffn == "moe" else {
+                "in": lin(f, "in", F, M), "gate": lin(f, "gate", F, M),
+                "out": lin(f, "out", M, F)}
+        return spec
+
+    def nth(name, i):
+        return None if params is None else params[name][i]
+
+    specs = {"embed": {"table": (M, F)},
+             "layers": [block(nth("layers", i), cfg.layer_kind(i),
+                              cfg.layer_ffn(i), cfg.is_encdec)
+                        for i in range(cfg.num_layers)]}
+    if cfg.is_encdec:
+        specs["enc_layers"] = [block(nth("enc_layers", i), "attn", "mlp",
+                                     False) for i in range(cfg.enc_layers)]
+        specs["enc_norm"] = norm()
+    specs["final_norm"] = norm()
     if not cfg.tie_embeddings:
         specs["unembed"] = lin(params, "unembed", F, M, bias=False)
     return specs
@@ -209,8 +252,10 @@ class LM:
             hc = layers.norm_apply(bp["norm_cross"], x, cfg)
             lead = enc_out.shape[:-1]
             kv, hd = cfg.num_kv_heads, cfg.head_dim
-            ek = layers.linear_apply(bp["cross"]["k"], enc_out, cfg)
-            ev = layers.linear_apply(bp["cross"]["v"], enc_out, cfg)
+            # a head-split rank's cross K/V are a column-split region too
+            enc_in = layers.region_input(enc_out, bp["cross"]["k"])
+            ek = layers.linear_apply(bp["cross"]["k"], enc_in, cfg)
+            ev = layers.linear_apply(bp["cross"]["v"], enc_in, cfg)
             hc, _ = attention.attn_apply(
                 bp["cross"], hc, cfg, positions=positions,
                 kv_override=(ek.reshape(*lead, kv, hd),
@@ -277,11 +322,14 @@ class LM:
         remat = self.cfg.remat == "full" and torch.is_grad_enabled()
         kw = dict(positions=positions, cache=None, cache_pos=None,
                   block_table=None, causal=False)
+        # the backward's recomputation runs outside the call's group scope
+        block = self._apply_block if self.comm is None \
+            else self._apply_block_in_group
         x = enc_x
         for bp in params["enc_layers"]:
             if remat:
                 x = torch_checkpoint.checkpoint(
-                    self._apply_block, bp, x, "attn", "mlp",
+                    block, bp, x, "attn", "mlp",
                     use_reentrant=False, **kw)[0]
             else:
                 x = self._apply_block(bp, x, "attn", "mlp", **kw)[0]

@@ -44,15 +44,23 @@ def global_norm(tree, split=None, group=None) -> torch.Tensor:
     ``tree``: ``tp.split_mask``) a rank holds slices of the split leaves
     and the whole of the rest: the split leaves' squares are summed over
     the group, the replicated leaves' counted once, so every rank gets the
-    same norm."""
+    same norm. A ``split`` leaf may also be a bool tensor over the leaf's
+    last axis (a split SSM in_proj's columns: False at the replicated
+    ones)."""
     if group is None:
         leaves = [x.float().square().sum() for x in tree_leaves(tree)
                   if x.is_floating_point()]
         return torch.sqrt(torch.stack(leaves).sum())
     sums = {True: [], False: []}
     for x, s in zip(tree_leaves(tree), tree_leaves(split)):
-        if x.is_floating_point():
-            sums[bool(s)].append(x.float().square().sum())
+        if not x.is_floating_point():
+            continue
+        sq = x.float().square()
+        if isinstance(s, torch.Tensor):
+            sums[True].append((sq * s).sum())
+            sums[False].append((sq * ~s).sum())
+        else:
+            sums[bool(s)].append(sq.sum())
     zero = torch.zeros((), dtype=torch.float32,
                        device=tree_leaves(tree)[0].device)
     part = torch.stack(sums[True]).sum() if sums[True] else zero

@@ -104,13 +104,16 @@ messages. Plans cover packed linears only: MoE banks are decoded into
 the compute dtype every call, as ``repro``'s are.
 
 Tensor parallelism (``mesh=``, a ``distributed.tp.Mesh`` with a
-``"model"`` axis of tp ranks; the dense family only). This engine is the
+``"model"`` axis of tp ranks; every decoder family). This engine is the
 leader, rank 0: at ``load()`` it spawns ranks 1..tp-1 as follower
 processes (``tp.start_followers``), each an engine of the same
 configuration on its own device that keeps its own shards of the params
 (``tp.shard_params``: q/k/v, up, gate and the lm head column split, o and
-down row split with an f32 all-reduce, the rest whole) and a cache pool of
-its local KV heads. The leader alone schedules, pages, handles faults,
+down row split with an f32 all-reduce; an SSM mixer by its heads, a MoE
+layer by its experts or their d_ff; the rest whole) and a cache pool of
+its local KV heads and SSM rows (``tp.local_config``). ``rank_routes``
+returns every rank's MoE capacity picks of one forward (they must be
+equal: routing runs on the replicated activations). The leader alone schedules, pages, handles faults,
 runs the speculative draft (whole, on its own card) and reads tokens.
 Before each device step it broadcasts the step's op (prefill, insert,
 decode, chunk window, verify) with what it copied into its static
@@ -154,7 +157,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed import tp as tp_lib
 from repro_torch.kernels import graphs, ops
-from repro_torch.models import LM
+from repro_torch.models import LM, moe
 from repro_torch.models.transformer import param_specs
 from repro_torch.obs import clock as obs_clock
 from repro_torch.obs.metrics import MetricsRegistry, RunningStat, percentiles
@@ -481,6 +484,9 @@ class ContinuousScheduler:
             elif op == "insert":
                 self.pool.insert(msg["where"], pending)
                 pending = None
+            elif op == "routes":
+                self._group.gather_objects(self._routes(
+                    torch.as_tensor(msg["tokens"], device=dev)))
             elif op == "chunk":
                 self._chunker.run_window(self.params, self.pool, msg["pos"],
                                          msg["toks"], msg["table"])
@@ -593,6 +599,25 @@ class ContinuousScheduler:
         cache, logits = self.model.prefill(self.params, {"tokens": toks},
                                            cache_len)
         return cache["layers"], logits[:, -1].argmax(dim=-1).to(torch.int32)
+
+    @torch.no_grad()
+    def _routes(self, toks: torch.Tensor) -> List[np.ndarray]:
+        with moe.recorded_routes() as log:
+            self.model.forward(self.params, {"tokens": toks})
+        return [t.numpy() for t in log]
+
+    def rank_routes(self, tokens) -> List[List[np.ndarray]]:
+        """Every rank's MoE capacity picks (``tok_sel`` of each MoE layer,
+        ``moe.recorded_routes``) for a full-sequence forward of ``tokens``
+        (B, S) on its shards, in rank order: tensor-parallel ranks must
+        route alike (ROADMAP C11). No cache is touched. One device: [its
+        picks]."""
+        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                               device=self.device)
+        if self._group is None:
+            return [self._routes(toks)]
+        self._tp_send("routes", tokens=toks.cpu().numpy())
+        return self._group.gather_objects(self._routes(toks))
 
     @torch.no_grad()
     def _decode_step(self) -> None:

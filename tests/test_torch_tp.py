@@ -170,11 +170,19 @@ def test_tp2_gqa_head_rule_replicates_attention(pair):
 
 
 def test_tp_refusals():
-    """Other families, and graph capture over gloo on a card, raise."""
+    """repro's refusals stay: encoder-decoder and VLM configs belong to
+    the static server, mesh or not (every decoder family takes a mesh:
+    ``test_torch_tp_families``), and graph capture over gloo on a card
+    raises."""
     _, _, pcfg, _ = _packed_pair("bfloat16", num_layers=1)
-    fam = dataclasses.replace(pcfg, family="moe")
-    with pytest.raises(ValueError, match="A12b"):
-        ContinuousScheduler(fam, device="cpu", mesh=_mesh(), **ENGINE)
+    for family, extra in (("encdec", dict(enc_layers=1)), ("vlm", {})):
+        fam = dataclasses.replace(pcfg, family=family, **extra)
+        with pytest.raises(ValueError, match="static BatchedServer"):
+            ContinuousScheduler(fam, device="cpu", mesh=_mesh(), **ENGINE)
+    moe = ContinuousScheduler(dataclasses.replace(pcfg, family="moe"),
+                              device="cpu", mesh=_mesh(), **ENGINE)
+    assert moe.tp == 2
+    moe.close()
     shared = tp_lib.Mesh(("model",), (2,), ("cuda:0", "cuda:0"))
     if torch.cuda.is_available():
         with pytest.raises(ValueError, match="NCCL"):
