@@ -309,6 +309,23 @@ trained state, gathered, goes through ``eval``'s packed evaluation (B1,
 B4 and B6 on the card; the packed loss within EVAL["packed_tol"] of the
 QAT loss). ``--only train_dist`` builds and runs this phase alone.
 
+Last, ``dryrun`` calibrates the dry run (``repro_torch.launch.dryrun``)
+against the card on ``ternary-paper`` on a one-card mesh at three cut
+shapes (``DRYRUN``: a QAT train step of 8 x 512, a packed prefill of 8 x
+1024, a packed decode step of 8 rows over a 576-token cache): each shape's
+cell is traced on ``meta`` tensors (``run_cell``), and the same step runs
+on the card with seeded random weights under the cost walker
+(``hlo_cost.trace``), whose kernel reading (each B1 / B4 dispatch charged
+by its plan) must equal the meta trace's, FLOPs, bytes and op by op; the
+modelled peak of live storage must lie within 10% of
+``torch.cuda.max_memory_allocated()`` over the step (read after a reset
+taken with the arguments resident, less what else was resident then). The
+modelled step time (the larger of the kernel reading's FLOPs at the bf16
+peak and its bytes at the HBM rate) is printed beside the step's
+CUDA-event time (median of 10) and their ratio, not gated, with the card's
+name and power limit; the card's memory is held against the dry run's
+``HBM_BYTES``. ``--only dryrun`` builds and runs this phase alone.
+
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 Needs one CUDA device and nvcc (PATH or /usr/local/cuda/bin). Exits
@@ -682,6 +699,16 @@ FIXED_TILE = {"decode": (16, 64), "verify": (16, 64), "prefill": (64, 128),
 # (tiled 256 x 128 packs at occupancy 1/4) and B7 at the served shapes at
 # one M a phase; the model's pick may be at most `slack` x the fixed
 # tile's card time.
+# the dry run's calibration (dryrun_phase): (name, sequence, batch, kind,
+# quantization) of ternary-paper on a one-card mesh; cut from the
+# production shapes (4096 x 256 train, 32768-token serving) to what one
+# card holds and the phase's time: the train phase's 8 x 512, a prefill
+# of 8 x 1024, a decode step of 8 rows over the serving runs' 576 tokens
+DRYRUN = dict(shapes=(("train_8x512", 512, 8, "train", "ternary"),
+                      ("prefill_8x1024", 1024, 8, "prefill",
+                       "ternary_packed"),
+                      ("decode_8x576", 576, 8, "decode", "ternary_packed")),
+              iters=10, peak_rtol=0.10, hbm_rtol=0.03)
 TUNE = dict(jamba=((4096, 16544), (4096, 65536)), jamba_ms=(8, 1024),
             side_ms={"decode": 8, "verify": 40, "chunk": 256,
                      "prefill": 1024},
@@ -6707,11 +6734,119 @@ def tp_phase(flush, cfg=None, params=None):
     return rows, runs, summary
 
 
+def dryrun_phase():
+    """The dry run's calibration on the card (module docstring,
+    ``dryrun``). Returns its readings."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, hlo_cost, serve
+    from repro_torch.models import LM
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    total = torch.cuda.get_device_properties(0).total_memory
+    hbm_err = abs(total - dryrun.HBM_BYTES) / dryrun.HBM_BYTES
+    print(f"dryrun: card {card}; total_memory {total} B against HBM_BYTES "
+          f"{dryrun.HBM_BYTES} B ({hbm_err:.4f} apart)", flush=True)
+    if hbm_err > DRYRUN["hbm_rtol"]:
+        raise AssertionError(f"dryrun: the card holds {total} B, "
+                             f"HBM_BYTES says {dryrun.HBM_BYTES}")
+    mesh = dryrun.parse_mesh("1x1")
+    rows = []
+    for name, seq, batch, kind, quant in DRYRUN["shapes"]:
+        shape = ShapeConfig(name, seq, batch, kind)
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell("ternary-paper", name, quant=quant, mesh=mesh,
+                              shape=shape)
+        cfg = get_config("ternary-paper", quantization=quant)
+        step, args, _ = dryrun.rank_step(cfg, shape, mesh)
+        meta = hlo_cost.trace(step, *args)
+        del step, args
+        t_meta = time.perf_counter() - t0
+        if kind == "train":
+            params = LM(cfg, "cuda").init(
+                torch.Generator(device="cuda").manual_seed(SEED))
+        else:
+            _, params = serve.build_params(
+                get_config("ternary-paper"), SEED, "cuda", packed=True)
+        step, args, _ = dryrun.rank_step(cfg, shape, mesh, params=params,
+                                         device="cuda")
+        del params
+        out = step(*args)                       # builds, warms the pools
+        del out
+        torch.cuda.synchronize()
+        on_card = hlo_cost.trace(step, *args)
+        on_card.result = None
+        for what, a, b in (("flops", on_card.kernel.flops, meta.kernel.flops),
+                           ("bytes", on_card.kernel.bytes, meta.kernel.bytes)):
+            if a != b:
+                raise AssertionError(f"dryrun {name}: kernel-charged {what} "
+                                     f"on the card {a} != meta {b}")
+        if on_card.kernel.by_op != meta.kernel.by_op:
+            diff = {k: (on_card.kernel.by_op.get(k),
+                        meta.kernel.by_op.get(k))
+                    for k in set(on_card.kernel.by_op) | set(
+                        meta.kernel.by_op)
+                    if on_card.kernel.by_op.get(k) != meta.kernel.by_op.get(k)}
+            raise AssertionError(f"dryrun {name}: kernel-charged ops differ "
+                                 f"(card, meta): {diff}")
+        torch.cuda.synchronize()
+        arg_bytes = on_card.argument_bytes
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = step(*args)
+        torch.cuda.synchronize()
+        del out
+        peak = torch.cuda.max_memory_allocated() - (resident - arg_bytes)
+        peak_err = abs(meta.peak_bytes - peak) / peak
+        times = []
+        for _ in range(DRYRUN["iters"]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*args)
+            end.record()
+            end.synchronize()
+            del out
+            times.append(start.elapsed_time(end) / 1e3)
+        measured = statistics.median(times)
+        modelled = max(rec["kernel_t_compute_s"], rec["kernel_t_memory_s"])
+        row = {"shape": name, "kind": kind, "quant": quant,
+               "kernel_flops": meta.kernel.flops,
+               "kernel_bytes": meta.kernel.bytes,
+               "plain_flops": meta.plain.flops,
+               "plain_bytes": meta.plain.bytes,
+               "modelled_s": modelled,
+               "modelled_plain_s": max(rec["t_compute_s"],
+                                       rec["t_memory_s"]),
+               "measured_s": measured, "measured_over_modelled":
+                   measured / modelled,
+               "peak_bytes_modelled": meta.peak_bytes,
+               "peak_bytes_measured": peak, "peak_rel_err": peak_err,
+               "argument_bytes": arg_bytes, "resident_else":
+                   resident - arg_bytes,
+               "trace_meta_s": t_meta, "card": card}
+        print(f"dryrun {name}: " + json.dumps(row), flush=True)
+        if peak_err > DRYRUN["peak_rtol"]:
+            raise AssertionError(
+                f"dryrun {name}: modelled peak {meta.peak_bytes} B is "
+                f"{peak_err:.3f} from the card's {peak} B")
+        rows.append(row)
+        del step, args
+        torch.cuda.empty_cache()
+    print(f"dryrun phase took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("tune", "frontends", "tp",
-                                       "train_dist", "tp_families"),
+                                       "train_dist", "tp_families",
+                                       "dryrun"),
                     help="build and run this phase alone (tune: after the "
                          "dense serve it plans from; no kernels line)")
     ap.add_argument("--tune-out", help="copy the tune phase's measured "
@@ -6780,6 +6915,12 @@ def _main(args, start, torch, build) -> int:
     if args.only == "tp_families":
         tp_families_phase(flush)
         print(f"chip_smoke --only tp_families took "
+              f"{time.perf_counter() - start:.1f}s", flush=True)
+        return 0
+    if args.only == "dryrun":
+        del flush
+        dryrun_phase()
+        print(f"chip_smoke --only dryrun took "
               f"{time.perf_counter() - start:.1f}s", flush=True)
         return 0
     if args.only == "train_dist":
@@ -6885,6 +7026,8 @@ def _main(args, start, torch, build) -> int:
          "eval": eval_out}), flush=True)
     torch.cuda.empty_cache()
     _, runs["train_dist_eval"] = train_dist_phase()
+    torch.cuda.empty_cache()
+    print("dryrun summary: " + json.dumps(dryrun_phase()), flush=True)
 
     meta = {
         "ternary_gemm": ("src/repro_torch/kernels/csrc/ternary_gemm.cu",

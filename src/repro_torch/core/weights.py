@@ -26,6 +26,10 @@ boundaries would split one, and ``shard_weight`` cuts one rank's slice out
 of a container along K (a row split) or N (a column split), re-packed so
 that it equals ``pack`` of the sliced matrix (a ``Tiled`` shard's
 ``kt_indices``/``kt_counts`` recomputed over its own tiles).
+
+A ``meta`` tensor (the dry run's shapes, allocated nowhere) packs and
+shards too: its count is unknown (``nnz=-1``) where a pack reads it, and
+a shard of a meta container carries its share of the parent's ``nnz``.
 """
 from __future__ import annotations
 
@@ -55,6 +59,24 @@ def register_format(name: str):
         return cls
 
     return deco
+
+
+def _count(t: torch.Tensor, n_stack: int = 1) -> int:
+    """The mean nonzero count of ``n_stack`` stacked matrices (-1 for a
+    meta tensor, whose values do not exist)."""
+    if t.is_meta:
+        return -1
+    return int(round(int(torch.count_nonzero(t)) / n_stack))
+
+
+def _meta_share(out: "TernaryWeight", wc: "TernaryWeight") -> "TernaryWeight":
+    """A meta shard ``out`` of ``wc`` with its share of ``wc``'s nnz (the
+    count a real shard would read, in expectation)."""
+    if out.nnz >= 0 or wc.nnz < 0 \
+            or not getattr(out, out._leaves[0]).is_meta:
+        return out
+    share = out.k * out.n / max(wc.k * wc.n, 1)
+    return dataclasses.replace(out, nnz=int(round(wc.nnz * share)))
 
 
 class TernaryWeight:
@@ -142,7 +164,7 @@ class Dense2Bit(TernaryWeight):
         n_stack = max(math.prod(t.shape[:-2]), 1)
         return cls(packed=formats.pack_2bit(t), scale=scale, bias=bias,
                    shape=tuple(t.shape[-2:]),
-                   nnz=int(round(int(torch.count_nonzero(t)) / n_stack)))
+                   nnz=_count(t, n_stack))
 
     @classmethod
     def from_packed(cls, packed: torch.Tensor, k: int, scale=None, bias=None,
@@ -252,7 +274,7 @@ class Bitplane(TernaryWeight):
         t = formats._as_tensor(t)
         plus, minus = formats.pack_bitplanes(t)
         return cls(plus=plus, minus=minus, scale=scale, bias=bias,
-                   shape=tuple(t.shape), nnz=int(torch.count_nonzero(t)))
+                   shape=tuple(t.shape), nnz=_count(t))
 
     @classmethod
     def from_planes(cls, plus: torch.Tensor, minus: torch.Tensor, k: int,
@@ -291,7 +313,7 @@ class Base3(TernaryWeight):
     def from_dense(cls, t, scale=None, bias=None) -> "Base3":
         t = formats._as_tensor(t)
         return cls(packed=formats.pack_base3(t), scale=scale, bias=bias,
-                   shape=tuple(t.shape), nnz=int(torch.count_nonzero(t)))
+                   shape=tuple(t.shape), nnz=_count(t))
 
     def materialize(self, dtype=torch.float32,
                     with_scale: bool = False) -> torch.Tensor:
@@ -453,8 +475,8 @@ def shard_weight(wc: TernaryWeight, partition: str, rank: int,
         scale, bias = (None if v is None else
                        v[rank * step:(rank + 1) * step].contiguous()
                        for v in (scale, bias))
-        return FORMATS[wc.format_name].from_dense(
-            t.contiguous(), scale=scale, bias=bias, **wc.pack_opts())
+        return _meta_share(FORMATS[wc.format_name].from_dense(
+            t.contiguous(), scale=scale, bias=bias, **wc.pack_opts()), wc)
     step = wc.shard_constraints()[partition][0] // tp
     logical = wc.k if partition == "k" else wc.n
     lo, hi = min(rank * step, logical), min((rank + 1) * step, logical)
@@ -464,8 +486,8 @@ def shard_weight(wc: TernaryWeight, partition: str, rank: int,
         t = t[..., lo:hi]
         scale = None if scale is None else scale[..., lo:hi].contiguous()
         bias = None if bias is None else bias[..., lo:hi].contiguous()
-    return FORMATS[wc.format_name].from_dense(
-        t.contiguous(), scale=scale, bias=bias, **wc.pack_opts())
+    return _meta_share(FORMATS[wc.format_name].from_dense(
+        t.contiguous(), scale=scale, bias=bias, **wc.pack_opts()), wc)
 
 
 def select_columns(wc: TernaryWeight, cols: torch.Tensor) -> TernaryWeight:
@@ -479,6 +501,6 @@ def select_columns(wc: TernaryWeight, cols: torch.Tensor) -> TernaryWeight:
     scale, bias = (None if v is None else
                    v.index_select(-1, idx.to(v.device)).contiguous()
                    for v in (wc.scale, wc.bias))
-    return FORMATS[wc.format_name].from_dense(
+    return _meta_share(FORMATS[wc.format_name].from_dense(
         t.index_select(-1, idx).contiguous(), scale=scale, bias=bias,
-        **wc.pack_opts())
+        **wc.pack_opts()), wc)

@@ -104,11 +104,14 @@ def resolve_spec(spec: Sequence[Any], shape: Sequence[int], mesh,
 
 def resolve_specs(spec_tree, shape_tree, mesh, fsdp: bool):
     """Resolve a spec tree against the matching tree of arrays (dicts and
-    lists; a leaf is anything with a ``shape``): the same structure with
-    each spec resolved. A ``None`` spec leaf (an absent bias) stays
-    ``None``."""
+    lists; a leaf is anything with a ``shape``; a packed container's spec
+    twin is a dict of its fields): the same structure with each spec
+    resolved. A ``None`` spec leaf (an absent bias) stays ``None``."""
     if isinstance(spec_tree, dict):
-        return {k: resolve_specs(v, shape_tree[k], mesh, fsdp)
+        def sub(k):
+            return shape_tree[k] if isinstance(shape_tree, dict) \
+                else getattr(shape_tree, k)
+        return {k: resolve_specs(v, sub(k), mesh, fsdp)
                 for k, v in spec_tree.items()}
     if isinstance(spec_tree, list):
         return [resolve_specs(s, a, mesh, fsdp)

@@ -175,7 +175,15 @@ def fused_mlp_cuda(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
     strip)`` is one of ``TILES`` (another raises). ``launch_plan`` fixes
     the chunk width from ff and spreads it to fill the card. Returns (M, n)
     bf16, or with ``out_dtype=torch.float32`` the f32 form (``bo`` must be
-    None)."""
+    None). A meta tensor (the dry run's trace) gets the output through
+    the plain version, and no launch."""
+    if x.is_meta:
+        ff = wi.shape[1] if ff is None else ff
+        n = wo.shape[1] if n is None else n
+        return fused_mlp_ref(x, wi[:, :ff], wo[:, :n],
+                             None if wg is None else wg[:, :ff],
+                             si, bi, sg, bg, so, bo, activation=activation,
+                             out_dtype=out_dtype)
     if not x.is_cuda:
         raise ValueError("fused_mlp_cuda needs a CUDA tensor; CPU tensors "
                          "take fused_mlp_ref")

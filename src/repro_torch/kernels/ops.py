@@ -17,7 +17,10 @@ runs in two stages, as ``repro``'s does:
    activations lie on: on a CUDA tensor a kernel row launches its
    hand-written kernel (or its wrapper raises; it never falls back), on a
    CPU tensor it runs the kernel's plain PyTorch version. ``ref`` rows run
-   the plain versions wherever the tensors lie.
+   the plain versions wherever the tensors lie. A ``meta`` tensor (the
+   dry run's trace, ``launch.dryrun``) takes the card's choice at every
+   such branch (``on_card``) and its wrapper computes the output through
+   the plain version, launching nothing.
 
 Gradients. A kernel row on a CUDA tensor runs through
 ``_PackedGemm`` (and ``fused_mlp`` through ``_FusedMlp``), whose forward
@@ -106,7 +109,7 @@ __all__ = ["ternary_gemm", "ternary_gemm_plan", "GemmPlan", "KernelImpl",
            "fused_mlp", "precompute_fused_plans", "PagedAttnImpl",
            "register_paged_attn", "paged_attention_registry",
            "paged_decode_attention", "serving_phase", "current_phase",
-           "SERVING_PHASES", "kernel_probe"]
+           "SERVING_PHASES", "kernel_probe", "dispatch_hook", "on_card"]
 
 # prefill GEMMs are M = B*L, decode GEMVs M = slots, speculative verify
 # windows M = slots*(k+1) and chunked-prefill windows M = slots*S in
@@ -154,6 +157,47 @@ def kernel_probe(cb: Callable[[Any, float], None]):
         _KERNEL_PROBE.reset(token)
 
 
+_DISPATCH_HOOK: contextvars.ContextVar[Optional[Callable]] = \
+    contextvars.ContextVar("repro_torch_dispatch_hook", default=None)
+
+
+@contextlib.contextmanager
+def dispatch_hook(hook: Callable[[Any], Any]):
+    """``with dispatch_hook(lambda plan: cm):`` enters the context manager
+    ``hook(plan)`` around the lowering of every eager ``ternary_gemm`` /
+    ``fused_mlp`` dispatch in the scope and, when entering it gives a
+    callable, hands that the dispatch's output (``launch.hlo_cost``
+    charges a dispatch's plan there in place of the ops its lowering
+    runs, and counts its output as the kernel's)."""
+    token = _DISPATCH_HOOK.set(hook)
+    try:
+        yield
+    finally:
+        _DISPATCH_HOOK.reset(token)
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the card's lowering: a CUDA tensor, or a
+    ``meta`` tensor of the dry run's trace, which follows the card's
+    dispatch (its kernel wrappers compute through the plain versions)."""
+    return x.is_cuda or x.is_meta
+
+
+def _dispatch(plan, tag: str, x: torch.Tensor, lower: Callable):
+    """Run one dispatch's ``lower()`` under the probe and the hook in
+    scope (neither while a graph is being captured)."""
+    hook, probe = _DISPATCH_HOOK.get(), _KERNEL_PROBE.get()
+    if (hook is None and probe is None) or _capturing():
+        return lower()
+    with hook(plan) if hook is not None else contextlib.nullcontext() \
+            as output:
+        y = (_probe_dispatch(probe, plan, tag, x, lower) if probe is not None
+             else lower())
+        if output is not None:
+            output(y)
+        return y
+
+
 def _capturing() -> bool:
     """Whether the current CUDA stream is being captured into a graph."""
     try:
@@ -167,7 +211,9 @@ def _probe_dispatch(probe: Callable, plan, tag: str, x: torch.Tensor,
     """Run ``lower()`` timed (CUDA events on the card, the host clock on
     the CPU) inside a profiler range named ``tag``; report to ``probe``."""
     with torch.profiler.record_function(tag):
-        if x.is_cuda:
+        if x.is_meta:             # a dry-run trace: nothing runs
+            y, dt = lower(), 0.0
+        elif x.is_cuda:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -477,7 +523,7 @@ def _kernel_row(x, w, scale, bias, prelu_alpha, launch):
 def _lower_dense(plan, x, w, scale, bias):
     # B1 reads the first n word columns in place (a tiled pack is N-padded)
     _require_2d(w, w.packed)
-    if x.is_cuda:
+    if on_card(x):
         return _kernel_row(
             x.contiguous(), w, scale, bias, _prelu(plan),
             lambda x, s, b: gemm_lib.ternary_gemm_cuda(
@@ -501,7 +547,7 @@ def _lower_skip_common(plan, x, w, scale, bias, db):
     args = (w.packed, w.kt_indices, w.kt_counts, scale, bias)
     kw = dict(n=w.n, tile_k=w.tile_k, tile_n=w.tile_n,
               fuse_prelu=plan.fuse_prelu, prelu_alpha=plan.prelu_alpha)
-    if x.is_cuda:
+    if on_card(x):
         return _kernel_row(
             x.contiguous(), w, scale, bias, _prelu(plan),
             lambda x, s, b: gemm_lib.ternary_gemm_skip_cuda(
@@ -533,7 +579,7 @@ def _lower_bitplane_common(plan, x, w, scale, bias, factorized):
     _require_2d(w, w.plus)
     kw = dict(factorized=factorized, fuse_prelu=plan.fuse_prelu,
               prelu_alpha=plan.prelu_alpha)
-    if x.is_cuda:
+    if on_card(x):
         return _kernel_row(
             x.contiguous(), w, scale, bias, _prelu(plan),
             lambda x, s, b: bitplane_lib.ternary_gemm_bitplane_cuda(
@@ -696,12 +742,12 @@ def _lower_partial(plan: GemmPlan, x: torch.Tensor,
     for after the all-reduce: B1's f32 form on the ``dense`` row on the
     card; the plain version on the CPU and on the ``ref`` rows. The other
     kernel rows have no f32 form and raise."""
-    if x.is_cuda and plan.impl == "dense":
+    if on_card(x) and plan.impl == "dense":
         _require_2d(w, w.packed)
         return gemm_lib.ternary_gemm_cuda(
             x.contiguous(), w.packed, scale, n=w.n, block_m=plan.block_m,
             block_n=plan.block_n, out_dtype=torch.float32)
-    if x.is_cuda and plan.impl != "ref":
+    if on_card(x) and plan.impl != "ref":
         raise NotImplementedError(
             f"the {plan.format}/{plan.impl} row has no f32 partial form: a "
             f"row-split shard runs B1 (dense2bit) or a ref row")
@@ -756,13 +802,9 @@ def ternary_gemm(x: torch.Tensor, w: Any,
         memo[key] = plan
     lower = (_lower_partial if plan.collective == "psum"
              else _KERNELS[(plan.format, plan.impl)].lower)
-    probe = _KERNEL_PROBE.get()
-    if probe is not None and not _capturing():
-        return _probe_dispatch(
-            probe, plan, f"ternary_gemm[{plan.format}/{plan.impl} "
-            f"m={plan.m} k={plan.k} n={plan.n}]", x,
-            lambda: lower(plan, x, w, scale, bias))
-    return lower(plan, x, w, scale, bias)
+    return _dispatch(plan, f"ternary_gemm[{plan.format}/{plan.impl} "
+                     f"m={plan.m} k={plan.k} n={plan.n}]", x,
+                     lambda: lower(plan, x, w, scale, bias))
 
 
 # ---------------------------------------------------------------------------
@@ -1076,7 +1118,7 @@ def _lower_fused_pallas(plan, x, w_in, w_out, w_gate):
     ff, n = w_in.n, w_out.n
     partial = plan.collective == "psum"
     out_dtype = torch.float32 if partial else torch.bfloat16
-    if x.is_cuda:
+    if on_card(x):
         words = (w_in.packed, w_out.packed, None if g is None else g.packed)
         if partial:
             vecs = (w_in.scale, w_in.bias, None if g is None else g.scale,
@@ -1153,13 +1195,9 @@ def fused_mlp(x: torch.Tensor, w_in: Any, w_out: Any, w_gate: Any = None,
         hit = memo[("fused",) + key] = (plan, w_out, w_gate)
     plan = hit[0]
     lower = _FUSED[plan.impl].fn
-    probe = _KERNEL_PROBE.get()
-    if probe is not None and not _capturing():
-        return _probe_dispatch(
-            probe, plan, f"fused_mlp[{plan.impl} m={plan.m} k={plan.k} "
-            f"ff={plan.ff}]", x,
-            lambda: lower(plan, x, w_in, w_out, w_gate))
-    return lower(plan, x, w_in, w_out, w_gate)
+    return _dispatch(plan, f"fused_mlp[{plan.impl} m={plan.m} k={plan.k} "
+                     f"ff={plan.ff}]", x,
+                     lambda: lower(plan, x, w_in, w_out, w_gate))
 
 
 def _mlp_containers(node):

@@ -17,7 +17,9 @@ row-split tensor-parallel shard: ``X @ decode(W) * scale`` in f32, no bias,
 no cast, which the ranks sum before the bias and the cast. B2 and B3 run B1's 16-deep MMA chunks in B1's order, minus the
 chunks of empty tiles, so the three agree bit for bit on the card. The
 plain versions decode to f32 and multiply in f32; they serve CPU tensors
-and the comparisons, never a CUDA tensor on a kernel row.
+and the comparisons, never a CUDA tensor on a kernel row. A ``meta``
+tensor (the dry run's trace, which takes the card's dispatch) gets the
+kernel's output through the plain version, and no launch.
 """
 from __future__ import annotations
 
@@ -154,6 +156,10 @@ def ternary_gemm_cuda(x: torch.Tensor, words: torch.Tensor,
     if f32 and (bias is not None or fuse_prelu):
         raise ValueError("B1's f32 form applies the scale alone: the bias "
                          "(and PReLU) follow the ranks' all-reduce")
+    if x.is_meta:
+        return ternary_gemm_ref(x, words[:, :n], scale, bias,
+                                fuse_prelu=fuse_prelu,
+                                prelu_alpha=prelu_alpha, out_dtype=out_dtype)
     _check_x_words("ternary_gemm_cuda", x, words)
     m, k = x.shape
     kw, ldw = words.shape
@@ -230,7 +236,13 @@ def ternary_gemm_skip_cuda(x: torch.Tensor, words: torch.Tensor,
     (Np/tile_n,) int32, all contiguous on one CUDA device; scale/bias (n,)
     float32. ``block_m`` is one of ``SKIP_BLOCK_M``. Returns (M, n) bf16. Raises on
     anything the kernel does not take, and on a failed launch. Launches
-    are counted in ``.launches`` (B2) and ``.launches_db`` (B3)."""
+    are counted in ``.launches`` (B2) and ``.launches_db`` (B3). A meta
+    tensor's output comes through B1's plain version (the skip walk's
+    plain version reads the occupancy lists' values)."""
+    if x.is_meta:
+        return ternary_gemm_ref(x, words[:, :n], scale, bias,
+                                fuse_prelu=fuse_prelu,
+                                prelu_alpha=prelu_alpha)
     _check_x_words("ternary_gemm_skip_cuda", x, words)
     m, k = x.shape
     kw, ldw = words.shape

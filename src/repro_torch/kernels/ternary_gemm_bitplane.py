@@ -115,7 +115,13 @@ def ternary_gemm_bitplane_cuda(x: torch.Tensor, plus: torch.Tensor,
     (>= ceil(K/8), N) uint8 must be contiguous CUDA tensors on one device;
     scale/bias, when given, (N,) float32. ``(block_m, block_n)`` is one of
     ``TILES`` (another raises). Returns (M, N) bf16. Raises on
-    anything the kernel does not take, and on a failed launch."""
+    anything the kernel does not take, and on a failed launch. A meta
+    tensor (the dry run's trace) gets the output through the plain
+    version, and no launch."""
+    if x.is_meta:
+        return ternary_gemm_bitplane_ref(
+            x, plus, minus, scale, bias, factorized=factorized,
+            fuse_prelu=fuse_prelu, prelu_alpha=prelu_alpha)
     if not x.is_cuda:
         raise ValueError("ternary_gemm_bitplane_cuda needs a CUDA tensor; "
                          "CPU tensors take the plain version")

@@ -5,9 +5,11 @@ in f32 over the data group, its clip norm summed over the tensor-parallel
 group) — and the prefill and decode steps; ``input_specs`` (the batch of
 one step of a cell as ``(shape, dtype)`` stand-ins) and
 ``model_shardings`` (the parameters' shapes, allocated nowhere, and their
-resolved specs on a mesh)."""
+resolved specs on a mesh; packed containers for a ``ternary_packed``
+config) and ``cache_specs_shapes`` (a decode cell's cache, likewise)."""
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -19,7 +21,7 @@ from repro_torch.optim.optimizers import tree_leaves, tree_map
 
 __all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
            "value_and_grad", "mean_all_reduce", "input_specs",
-           "model_shardings"]
+           "model_shardings", "cache_specs_shapes", "packed_shapes"]
 
 F32, BF16, I32 = torch.float32, torch.bfloat16, torch.int32
 
@@ -173,14 +175,82 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig
 def model_shardings(model: LM, cfg: ModelConfig, mesh):
     """(the parameter tree as ``meta`` tensors — shapes and dtypes, no
     storage —, their resolved specs on ``mesh``): ``LM.init`` traced under
-    a fake-tensor mode, then ``sharding.resolve_specs`` of
-    ``LM.param_specs`` with ``cfg.fsdp``."""
+    a fake-tensor mode (packed by ``packed_shapes`` for a
+    ``ternary_packed`` config, as ``repro``'s init makes containers for
+    one), then ``sharding.resolve_specs`` of ``LM.param_specs`` with
+    ``cfg.fsdp``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.distributed import sharding
-    specs = model.param_specs()
     with FakeTensorMode():
         fake = LM(cfg, "cpu").init(torch.Generator().manual_seed(0))
     shapes = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                             device="meta"), fake)
+    if cfg.quantization == "ternary_packed":
+        shapes = packed_shapes(shapes, cfg)
+    specs = model.param_specs(shapes)
     return shapes, sharding.resolve_specs(specs, shapes, mesh, cfg.fsdp)
+
+
+def twn_density(threshold: float) -> float:
+    """The share of N(0, s^2) weights that TWN ternarization at
+    ``threshold`` keeps nonzero: |w| > threshold * E|w|, i.e.
+    erfc(threshold / sqrt(pi))."""
+    return math.erfc(threshold / math.sqrt(math.pi))
+
+
+def packed_shapes(params, cfg: ModelConfig):
+    """A ``meta`` parameter tree with every projection and expert bank
+    that ``layers.pack_params`` packs as a ``Dense2Bit`` of ``meta``
+    words, scale and bias, its ``nnz`` what packing random N(0, s^2)
+    weights keeps in expectation (``twn_density``), so a plan keys the
+    sparsity bucket a packed random model's does."""
+    from repro_torch.core import formats, weights
+    from repro_torch.models import layers, moe
+    density = twn_density(cfg.ternary_threshold)
+
+    def container(w, bias=None):
+        k, n = w.shape[-2:]
+        lead = tuple(w.shape[:-2])
+        return weights.Dense2Bit(
+            packed=torch.empty(lead + (-(-k // formats.K_PER_WORD), n),
+                               dtype=torch.int32, device="meta"),
+            scale=torch.empty(lead + (n,), dtype=torch.float32,
+                              device="meta"),
+            bias=None if bias is None else torch.empty(
+                lead + (n,), dtype=torch.float32, device="meta"),
+            shape=(k, n), nnz=int(round(density * k * n)))
+
+    def walk(p):
+        if isinstance(p, dict):
+            if moe.is_moe_node(p):
+                if not layers._is_ternary(cfg, *p["w_in"].shape[-2:]):
+                    return p
+                return {k: (container(v) if k in moe._BANKS else v)
+                        for k, v in p.items()}
+            w = p.get("w")
+            if w is not None and w.ndim in (2, 3) \
+                    and layers._is_ternary(cfg, *w.shape[-2:]):
+                return {"w_packed": container(w, p.get("b"))}
+            return {k: walk(v) for k, v in p.items()}
+        if isinstance(p, list):
+            return [walk(v) for v in p]
+        return p
+
+    return walk(params)
+
+
+def cache_specs_shapes(model: LM, cfg: ModelConfig, shape: ShapeConfig
+                       ) -> Tuple[Any, Any]:
+    """(the decode cache of ``shape`` as ``meta`` tensors, its logical spec
+    tree ``LM.cache_specs``), as ``repro``'s ``cache_specs_shapes``: an
+    encoder-decoder's adds ``enc_out`` (B, frontend_seq, d) bf16 over
+    ``("pod", "data")``. ``sharding.resolve_specs`` resolves the specs."""
+    b, s = shape.global_batch, shape.seq_len
+    shapes = LM(cfg, "meta").init_cache(b, s)
+    specs = model.cache_specs()
+    if cfg.is_encdec:
+        shapes = dict(shapes, enc_out=torch.empty(
+            (b, cfg.frontend_seq, cfg.d_model), dtype=BF16, device="meta"))
+        specs = dict(specs, enc_out=(("pod", "data"), None, None))
+    return shapes, specs

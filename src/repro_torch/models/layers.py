@@ -278,10 +278,11 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, d_ff: int) -> dict:
 def _fused_mlp_weights(params: dict, x: torch.Tensor, cfg: ModelConfig):
     """The (w_in, w_out, w_gate) containers when this MLP dispatches the
     fused kernel: every projection packed (bias inside the container), the
-    kernel path active — here, the activations lie on the card — and fusion
+    kernel path active — here, the activations lie on the card, or on
+    ``meta`` for the dry run's trace (``ops.on_card``) — and fusion
     not configured off, nor the plain GEMM row pinned
     (``cfg.ternary_kernel="xla"``)."""
-    if cfg.fused_mlp == "off" or not x.is_cuda \
+    if cfg.fused_mlp == "off" or not ops.on_card(x) \
             or gemm_impl(cfg) == "ref":
         return None
     ws = []

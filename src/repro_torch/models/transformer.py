@@ -411,6 +411,34 @@ class LM:
             for kind, _ in self.kinds],
             "pos": torch.zeros((), dtype=torch.int32, device=self.device)}
 
+    def cache_specs(self) -> dict:
+        """``repro``'s logical spec tree of ``init_cache``'s output, laid
+        over the port's per-layer list (no stacked group axis): the batch
+        over ``("pod", "data")``; an attention layer's sequence over
+        ``"model"`` (its head dim under ``decode_cache_shard="heads"``,
+        its channels under ``"flat"``, the new position's axis of an
+        ``opt`` layout); an SSM layer's conv channels over ``"model"``;
+        ``pos`` whole. ``sharding.resolve_specs`` resolves it."""
+        cfg = self.cfg
+        dp = ("pod", "data")
+        seq_ax, hd_ax = MODEL, None
+        if cfg.decode_cache_shard == "heads":
+            seq_ax, hd_ax = None, MODEL
+        specs = []
+        for kind, _ in self.kinds:
+            if kind != "attn":
+                specs.append({"state": (dp, None, None, None),
+                              "conv": (dp, None, MODEL)})
+            elif cfg.cache_layout == "opt":
+                specs.append({"k": (dp, None, seq_ax, None),
+                              "v": (dp, None, None, seq_ax)})
+            elif cfg.decode_cache_shard == "flat":
+                specs.append({"k": (dp, None, MODEL), "v": (dp, None, MODEL)})
+            else:
+                specs.append({"k": (dp, seq_ax, None, hd_ax),
+                              "v": (dp, seq_ax, None, hd_ax)})
+        return {"layers": specs, "pos": ()}
+
     def init_paged_cache(self, n_pages: int, page_size: int, batch: int,
                          dtype=None, kv_dtype=None) -> dict:
         """Attention layers: page tensors shared by all slots and indexed

@@ -155,3 +155,10 @@ def test_the_checks_cover_the_distributed_trainer_modules():
     assert {"distributed/compression.py", "distributed/sharding.py",
             "distributed/tp.py", "launch/train.py", "launch/steps.py",
             "data/pipeline.py", "optim/optimizers.py"} <= names
+
+
+def test_the_checks_cover_the_dryrun_modules():
+    names = {p.relative_to(PORT).as_posix() for p in FILES
+             if PORT in p.parents}
+    assert {"launch/dryrun.py", "launch/hlo_cost.py", "launch/mesh.py",
+            "launch/steps.py", "launch/__init__.py"} <= names

@@ -60,3 +60,24 @@ def routes_rank(group, rank, cfg, params, tokens):
         _, logits = model.prefill(shards, {"tokens": torch.as_tensor(
             tokens)}, tokens.shape[1] + 1)
     return [t.numpy() for t in log], _host(logits.float())
+
+
+def decode_comm_rank(group, rank, cfg, params, rows, cache_len):
+    """One decode step of ``rows`` rows over a ``cache_len`` dense cache on
+    this rank's shards of ``params`` inside the group: (the data
+    collectives' calls, the bytes this rank put in)."""
+    from repro_torch.distributed import tp as tp_lib
+    from repro_torch.models import LM
+    from repro_torch.models.transformer import param_specs
+
+    mesh = {"model": group.size}
+    shards = tp_lib.shard_params(params, param_specs(cfg, params), mesh,
+                                 rank=rank, cfg=cfg)
+    model = LM(tp_lib.local_config(cfg, group.size), "cpu")
+    model.comm = group
+    cache = model.init_cache(rows, cache_len)
+    cache["pos"] = torch.full((rows,), cache_len - 1, dtype=torch.int32)
+    tokens = torch.zeros((rows, 1), dtype=torch.int32)
+    with torch.no_grad():
+        model.decode_step(shards, cache, tokens)
+    return group.calls, group.bytes
