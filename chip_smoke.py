@@ -12,7 +12,16 @@ slice's 513 to 1024 tokens, off the path), and at both shapes B5 on a
 subset of the rows must give those rows' bits among all rows.
 Before serving, B4's rows are held independent of M (the first M rows of
 one 8192-row X give the same bits as X alone, M 1 to 8192, gated and
-ungated). After it, ``mlp_formats`` drives MLP blocks of other formats at
+ungated). Then ``examples`` runs the user entry points of
+``examples_torch/`` in this process on the card (EXAMPLES): the
+quickstart (B1 against the paper's TCSC variants), quantize_and_pack (a
+packed reduced model's forward through B1 and B4), train_ternary_lm at
+the paper's full width for 32 steps at lr 3e-4 (its packed evaluation
+through B1 and B4) and serve_batched continuous, static, speculative and open-loop;
+each example's own asserts must hold, B1 and B4 must launch exactly where
+EXAMPLES says, and ``ops.kernel_probe``'s eager kernel-row dispatches
+must equal the launches. ``--only examples`` builds and runs this phase
+alone. After serving, ``mlp_formats`` drives MLP blocks of other formats at
 ternary-paper's MLP width through ``layers.mlp_apply``: ``tiled`` packs
 with padded words through B4, ``bitplane`` packs through the chain (B7),
 and a full-width prefill of the served model with its MLPs re-packed as
@@ -38,9 +47,9 @@ kernel rows' gradients
 against the plain rows'; ``train_step_check`` holds the card's first
 full-width train step against the CPU's on the same weights and batch,
 both in float32; ``train`` trains full-width ``ternary-paper``
-with QAT through ``repro_torch.launch.train`` (24 steps, checkpoints every
-8), resumes it to step 32 from its checkpoint, and survives one injected
-failure under ``TrainSupervisor``; ``eval`` runs ``examples/
+with QAT through ``repro_torch.launch.train`` (24 steps, a checkpoint at
+24), resumes it to step 32 from its checkpoint, and survives one injected
+failure under ``TrainSupervisor``; ``eval`` runs ``examples_torch/
 train_ternary_lm.py``'s evaluation on the trained state: the QAT model's
 loss on a held-out batch with the plain blockwise attention and with B6,
 and the packed model's with B1 + B4 + B6.
@@ -53,7 +62,9 @@ the decode step run eagerly and through the graph: the token streams, the
 step) must be equal and one decode step's logits bitwise equal; it prints
 tok/s, TPOT p50 and the decode step's wall time (the engine's
 ``decode_step`` trace spans) of both. ``trace`` exports the dense graph
-run's ``Tracer``, validates it with the port's ``validate_events`` and
+run's ``Tracer``, validates it with the port's ``validate_events``, reads
+it with the port's reader (``scripts/torch_trace_report.py``, in this
+process: no script that reads the reference package runs here) and
 checks one ``decode_step`` span per decode step and every request's track
 from ``submit`` to ``done``. ``profiler`` takes five ``torch.profiler``
 traces (a dense decode step eager and graphed, a paged bf16 decode step
@@ -83,7 +94,7 @@ bursty one through a whole-prompt engine and a chunked one, TTFT, TPOT
 and queue wait p50/p99 by SLO class, violations, windows, prefills and
 the step-time EWMA; (e) one 8 x 32 window under the profiler, eager and
 graphed; (f) the graphed chunked run's trace through validate_events
-and scripts/trace_report.py.
+and the port's reader, scripts/torch_trace_report.py.
 
 ``tune`` runs the block-shape tuner on the card (the whole script points
 the tuner at a fresh cache file, so every other phase plans with the
@@ -200,12 +211,12 @@ bank decoding).
 ``frontends`` serves the encoder-decoder and VLM families (``FRONTENDS``;
 each config with ``quantization="ternary"``, drawn from the seed and
 packed layer by layer) through the static server, which the continuous
-engine leaves them to: seamless-m4t-large-v2 whole (24 encoder and 24
-decoder layers, d 1024, ff 8192, biases, vocab 256206) and internvl2-76b
-at full width with 4 of its 80 layers (d 8192, 64 heads over 8, ff
-28672); 8 requests at batch 8, 2048 encoder frames or 1024 vision rows
-and 128 text tokens each, budgets {32, 64}; each under attn_impl "flash"
-and "pallas". Each: the prefill's and one decode step's logits through
+engine leaves them to: seamless-m4t-large-v2 at full width with 12 of its
+24 encoder and 12 of its 24 decoder layers (d 1024, ff 8192, biases,
+vocab 256206) and internvl2-76b at full width with 2 of its 80 layers (d
+8192, 64 heads over 8, ff 28672); 8 requests at batch 8, 2048 encoder frames or 1024 vision rows
+and 128 text tokens each, budgets FRONTENDS' {8, 16}; each under
+attn_impl "flash" and "pallas". Each: the prefill's and one decode step's logits through
 the kernels against the plain path (``family_plain_check``, B1's plain
 row, the chain and, under "pallas", blockwise attention for B6), every
 budget of in-range tokens, B1 and B4 launched, B6 ``enc_layers`` times a
@@ -235,8 +246,9 @@ the lm head's shard (1024 -> 16384), at M 8 and 1024; B4 on an ff-2048
 slice with the f32 partial; B5 over 8 of the 16 heads, bf16 and int8
 pages. Then full-width ternary-paper at tp 2 (the leader spawns its
 follower rank), dense, paged bf16 and paged int8, the dense workload's
-prompts at budgets TP["gen_lens"] (cut from {32, 64} for the script's
-time limit when tp_families came): each against a tp-1 engine on the same weights, the first decode step's
+prompts at budgets TP["gen_lens"] (cut from {32, 64} to {16, 32} when
+tp_families came, then to {4, 8} when the examples phase came: the
+script's time limit): each against a tp-1 engine on the same weights, the first decode step's
 logits within LOGIT_TOL of max|logit| and the streams equal or split at
 near ties (``_split_check``), every budget met, B1 and B4 launched by
 the leader and B5 12 a leader decode step (paged). Last, the router at
@@ -247,10 +259,11 @@ affinity hit, and the streams against one engine's under the near-tie
 rule. ``--only tp`` builds and runs this phase alone.
 ``tp_families`` runs tensor parallelism for the other families, two
 ranks sharing cuda:0 over gloo, eagerly. Serving: FAMILIES' models
-(jamba-v0.1-52b at full width, 8 layers, dense / paged bf16 / paged
-int8; mamba2-130m whole, dense / paged; mixtral-8x22b at full width, 2
-layers, dense; the families phase's packed weights when the whole script
-runs) at tp 2 against tp 1 on the same weights over TP_FAMILIES'
+(jamba-v0.1-52b at full width, 2 layers of attn_period 2 (TP_FAMILIES'
+overrides), dense / paged bf16 / paged int8; mamba2-130m whole, dense /
+paged; mixtral-8x22b at full width, 2 layers, dense; the families phase's
+packed weights when the whole script runs and the cut is the same) at
+tp 2 against tp 1 on the same weights over TP_FAMILIES'
 workload: every budget met, B1 (B4 with MLP layers, B5 once per
 attention layer and paged decode step) launched, one decode-only step's
 launches, wall and collectives (calls, bytes a rank, ms) on the leader,
@@ -276,8 +289,8 @@ leaf by leaf, the loss and grad norm over both ranks; each bound at
 least WITNESS_FACTOR times the reading of one process's step with every
 parameter moved one ulp), each model at the first cut of
 TP_FAMILIES_TRAIN that the 28-B-a-parameter reckoning fits in
-TP_TRAIN_BUDGET_GIB (mamba2 whole), the cuts passed over printed with
-why. ``--only tp_families`` builds and runs this phase alone.
+TP_TRAIN_BUDGET_GIB (mamba2 at 12 layers, seamless at 12 + 12), the cuts
+passed over printed with why. ``--only tp_families`` builds and runs this phase alone.
 ``tcsc`` runs the paper's TCSC formats on the card (plain PyTorch: no TPU
 kernel computes them) at K = N = 4096, s 1/2 and 1/16, M 8 and 64: each
 format's arrays round-trip, each matmul agrees with the plain dense
@@ -496,9 +509,10 @@ SDPA_BACKENDS = {"flash": "FLASH_ATTENTION",
                  "efficient": "EFFICIENT_ATTENTION",
                  "cudnn": "CUDNN_ATTENTION"}
 # training: full-width ternary-paper (12 layers, d 1024, 16 x 64 heads, ff
-# 4096, vocab 32768), batch 8 x seq 512, 24 steps with checkpoints every 8,
-# resumed to 32; the supervisor run fails once at step 3 of 4
-TRAIN = dict(batch=8, seq=512, steps=24, resume_to=32, ckpt_every=8,
+# 4096, vocab 32768), batch 8 x seq 512, 24 steps with a checkpoint at 24
+# (every 8 until the examples phase came: each is 3.2 GB, and the script's
+# time limit), resumed to 32; the supervisor run fails once at step 3 of 4
+TRAIN = dict(batch=8, seq=512, steps=24, resume_to=32, ckpt_every=24,
              lr=3e-3, sup_steps=4, sup_every=2, fail_at=3)
 EVAL = dict(batch=8, seq=1024, step=10_000, qat_tol=1e-2, packed_tol=0.05)
 # the card's first full-width train step against the CPU's, both float32:
@@ -531,12 +545,13 @@ CHUNK = dict(tokens=32, int8_alt=16)
 B5_WINDOW = dict(b=8, s=32, h=16, kv=16, hd=64, t=13,
                  pos=(0, 32, 64, 96, 0, 32, 64, 96))
 # open loop: one seeded schedule each (Poisson at repro's serve default of
-# 8 req/s, then bursty in bursts of ~8 at the same mean rate), 48 requests
+# 8 req/s, then bursty in bursts of ~8 at the same mean rate), 24 requests
+# (48 until the examples phase came: the script's time limit)
 # of 64, 128 or 512 prompt tokens and 32 or 64 output tokens, the default
 # interactive/batch classes half and half; driven through a whole-prompt
 # engine (SLO admission, chunk_tokens 0) and a chunked one (32), dense,
 # 8 slots, max_len 576 (512 + 64)
-OPEN_LOOP = dict(requests=48, rate=8.0, prompt_lens=(64, 128, 512),
+OPEN_LOOP = dict(requests=24, rate=8.0, prompt_lens=(64, 128, 512),
                  gen_lens=(32, 64), burst_size=8, slots=8, max_len=576,
                  class_weights=(0.5, 0.5))
 # faults: the serving workloads under a pinned chaos schedule, graphed
@@ -576,40 +591,47 @@ TCSC_CHECK = dict(k=4096, n=4096, sparsities=(0.5, 0.0625), ms=(8, 64),
 # is cut (jamba to one 8-layer period, mixtral to 2 of 56 layers) because
 # every MoE layer decodes its packed banks every step (~66 ms a layer on
 # the card), and init + pack at full depth would not fit the time limit;
-# jamba's and mixtral's budgets {8, 16} (were {16, 32}: cut for the
-# script's time limit when tp_families came, which serves these models
-# again at tp 2). layer_forced: the kernels-vs-plain logit gate runs each block on the
+# jamba's and mixtral's budgets {4, 8}, mamba2's {16, 32} (were {16, 32}
+# and {32, 64}, then {8, 16} for jamba and mixtral when tp_families came,
+# then halved again when the examples phase came: the script's time
+# limit). layer_forced: the kernels-vs-plain logit gate runs each block on the
 # plain path's input (mamba2's 24 random SSM layers grow a bf16 ulp ~3x a
 # layer at first, to ~0.1 of max|logit| end to end)
 FAMILIES = {
     "jamba-v0.1-52b": dict(overrides=dict(num_layers=8),
                            caches=("dense", "paged_bf16", "paged_int8"),
                            requests=16, slots=8, prompt_len=128,
-                           gen_lens=(8, 16), paged_exact=False,
+                           gen_lens=(4, 8), paged_exact=False,
                            layer_forced=False),
     "mamba2-130m": dict(overrides={}, caches=("dense", "paged_bf16"),
                         requests=16, slots=8, prompt_len=128,
-                        gen_lens=(32, 64), paged_exact=True,
+                        gen_lens=(16, 32), paged_exact=True,
                         layer_forced=True),
     "mixtral-8x22b": dict(overrides=dict(num_layers=2), caches=("dense",),
                           requests=16, slots=8, prompt_len=128,
-                          gen_lens=(8, 16), paged_exact=False,
+                          gen_lens=(4, 8), paged_exact=False,
                           layer_forced=False),
 }
 # frontends: the encoder-decoder and VLM families through the static server
 # (the continuous engine refuses them, as repro's does), each model
 # get_config(name, quantization="ternary", **overrides), packed layer by
-# layer. seamless whole (24 encoder + 24 decoder layers); internvl2 4 of
-# its 80 layers: every layer is the same kind (period 1, ~856 M parameters
-# each), cut for init + pack time as mixtral's are. prompt_len counts the
+# layer. seamless at 12 encoder + 12 decoder layers of its 24 + 24;
+# internvl2 2 of its 80 layers: every layer is the same kind (period 1,
+# ~856 M parameters each), cut for init + pack time as mixtral's are (both
+# halved when the examples phase came: the script's time limit; seamless
+# was whole, internvl2 4 layers). prompt_len counts the
 # frontend rows, so the text prompts are 128 tokens after 2048 encoder
-# frames or 1024 vision rows (SyntheticLM's text_len); budgets {16, 32}
-# (were {32, 64}: cut for the script's time limit when tp_families came).
+# frames or 1024 vision rows (SyntheticLM's text_len); budgets {8, 16}
+# (were {32, 64}, then {16, 32} when tp_families came, then {8, 16} when
+# the examples phase came: the script's time limit; still more decode
+# steps a batch than the FRONTEND_STEPS timed).
 FRONTENDS = {
-    "seamless-m4t-large-v2": dict(overrides={}, requests=8, batch=8,
-                                  prompt_len=2048 + 128, gen_lens=(16, 32)),
-    "internvl2-76b": dict(overrides=dict(num_layers=4), requests=8, batch=8,
-                          prompt_len=1024 + 128, gen_lens=(16, 32)),
+    "seamless-m4t-large-v2": dict(overrides=dict(num_layers=12,
+                                                 enc_layers=12),
+                                  requests=8, batch=8,
+                                  prompt_len=2048 + 128, gen_lens=(8, 16)),
+    "internvl2-76b": dict(overrides=dict(num_layers=2), requests=8, batch=8,
+                          prompt_len=1024 + 128, gen_lens=(8, 16)),
 }
 # the train check: 3 QAT steps of each at full width, batch 2, grad_accum 1
 # (the configs' 4 and 8 do not divide 2); internvl2 2 layers with a
@@ -647,19 +669,30 @@ PORT_KERNEL_NAMES = ("ternary_gemm", "fused_mlp", "paged_attention",
 # over gloo; the router's workload shares a 64-token prefix on half of its
 # requests; the all-reduce shapes (decode rows, a prefill's) and their
 # timed iterations
-TP = dict(tp=2, requests=16, prefix_len=64, gen_lens=(16, 32),
+TP = dict(tp=2, requests=16, prefix_len=64, gen_lens=(4, 8),
           allreduce=(((8, 1024), 50), ((1024, 1024), 20)))
 # tp_families: FAMILIES' models and cache modes at tp 2 (two ranks on this
 # card over gloo, eager) against tp 1 on the same packed weights, over a
 # shorter workload than the families phase's (every MoE layer decodes its
-# banks each step: jamba's step is ~0.26 s)
-TP_FAMILIES = dict(requests=4, slots=4, prompt_len=64, gen_lens=(4, 8))
+# banks each step: jamba's step is ~0.26 s), budgets {2, 4} (were {4, 8});
+# `overrides` serves a model at another cut than the families phase's
+# (built here, not taken from it): jamba at 2 layers, one period of
+# attn_period 2 (a Mamba layer with an MLP, an attention layer with a MoE
+# one: every kind of the 8-layer period), as its training check is cut;
+# at 8 layers its three cache modes' tp 2 engines took 99 of the phase's
+# 323 s. Both cuts came with the examples phase (the script's time limit)
+TP_FAMILIES = dict(requests=4, slots=4, prompt_len=64, gen_lens=(2, 4),
+                   overrides={"jamba-v0.1-52b": dict(
+                       num_layers=2, attn_period=2, attn_offset=1)})
 # its training part: each family's first f32 QAT step at tp 2 against one
 # process, at the first cut (deepest first, then width) whose reckoned
 # card bytes (tp_train_cut) fit the budget
+# (mamba2 at 12 of its 24 layers and seamless at 12 + 12 of its 24 + 24
+# since the examples phase came: the script's time limit; whole, they took
+# 23 and 67 of the phase's 323 s)
 TP_FAMILIES_TRAIN = {
-    "mamba2-130m": ({},),
-    "seamless-m4t-large-v2": ({}, dict(num_layers=12, enc_layers=12)),
+    "mamba2-130m": (dict(num_layers=12),),
+    "seamless-m4t-large-v2": (dict(num_layers=12, enc_layers=12),),
     "jamba-v0.1-52b": (dict(num_layers=8),
                        dict(num_layers=2, attn_period=2, attn_offset=1),
                        dict(num_layers=2, attn_period=2, attn_offset=1,
@@ -688,9 +721,9 @@ TP_TRAIN_BUDGET_GIB = 60
 # ternarization ties as such a move does), and a parameter whose gradient
 # takes another sign on the two sides, or lies below the larger of
 # STEP_CHECK's 1e-4 and the moments' measured disagreement of its leaf's
-# largest, held to 2.01 lr. mamba2 runs whole: at 24 layers its random
-# SSM stack carries f32 rounding to ~1% of a leaf's max in the backward
-# (measured on one H100)
+# largest, held to 2.01 lr. (Whole, at 24 layers, mamba2's random SSM
+# stack carried f32 rounding to ~1% of a leaf's max in the backward,
+# measured on one H100.)
 TP_TRAIN_RULE = dict(floor=1e-3)
 FIXED_TILE = {"decode": (16, 64), "verify": (16, 64), "prefill": (64, 128),
               "chunk": (64, 128)}
@@ -709,6 +742,28 @@ DRYRUN = dict(shapes=(("train_8x512", 512, 8, "train", "ternary"),
                        "ternary_packed"),
                       ("decode_8x576", 576, 8, "decode", "ternary_packed")),
               iters=10, peak_rtol=0.10, hbm_rtol=0.03)
+# the examples phase: each examples_torch script's main() on the card, in
+# order, with the arguments given, and the port's kernels each must launch:
+# B1 and B4 wherever a packed model runs; the serving examples serve
+# reduced latent weights (their projections lie below ternary_min_dim), so
+# none. The train example runs the paper's full width for 32 steps at lr
+# 3e-4 (the train CLI's default): at the example's own 3e-3 the full-width
+# QAT loss climbs before it falls, ending above its first reading at 32
+# steps (10.854 -> 11.286) and below it only at the example's default 300
+# (10.734, 112 s of this script; one H100, seed 0: the losses repeat to
+# the last digit between machines)
+EXAMPLES = (
+    ("quickstart", (), ("ternary_gemm",)),
+    ("quantize_and_pack", (), ("ternary_gemm", "fused_mlp")),
+    ("train_ternary_lm", ("--steps", "32", "--lr", "3e-4"),
+     ("ternary_gemm", "fused_mlp")),
+    ("serve_batched", ("--arch", "ternary-paper"), ()),
+    ("serve_batched", ("--arch", "ternary-paper", "--static"), ()),
+    ("serve_batched", ("--arch", "ternary-paper", "--spec", "--spec-k", "4"),
+     ()),
+    ("serve_batched", ("--arch", "ternary-paper", "--traffic", "poisson",
+                       "--rate", "12"), ()),
+)
 TUNE = dict(jamba=((4096, 16544), (4096, 65536)), jamba_ms=(8, 1024),
             side_ms={"decode": 8, "verify": 40, "chunk": 256,
                      "prefill": 1024},
@@ -1150,6 +1205,17 @@ def paged_kernel_phase(flush):
     return rows
 
 
+def _load_script(path: Path):
+    """Import a script of the repository by its path (``examples_torch``
+    and ``scripts`` are directories, not packages)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"chip_smoke_{path.parent.name}_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _counters():
     """Kernel name -> (wrapper, attribute holding its launch count)."""
     from repro_torch.kernels import graphs
@@ -1518,20 +1584,19 @@ def decode_graph_phase(cfg, params, workloads):
 
 def trace_check(tracer, metrics, label="dense graph"):
     """A graph run's trace: export, validate with the port's
-    validate_events and read with scripts/trace_report.py (run as a child
-    process: it reads the trace through the reference package, which this
-    script never imports); one decode_step span per decode step (and one
-    chunk_window span per window), every request's track from submit to
-    done; print the spans by name."""
+    validate_events and read with the port's reader
+    (scripts/torch_trace_report.py, in this process); one decode_step span
+    per decode step (and one chunk_window span per window), every
+    request's track from submit to done; print the spans by name."""
     from repro_torch.obs import load_trace, validate_events
+    reader = _load_script(ROOT / "scripts" / "torch_trace_report.py")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
         path = str(Path(d) / "run.json")
         n_events = tracer.export(path)
         events = load_trace(path)["traceEvents"]
-        report = json.loads(subprocess.run(
-            [sys.executable, str(ROOT / "scripts" / "trace_report.py"),
-             path, "--json"], check=True, capture_output=True, text=True,
-            timeout=300).stdout)
+        t0 = time.perf_counter()
+        report = reader.report(path)
+        read_s = time.perf_counter() - t0
     validate_events(events)
     spans = span_summary([e for e in events if e.get("tid") == 0])
     sched = metrics["sched"] or {}
@@ -1542,10 +1607,10 @@ def trace_check(tracer, metrics, label="dense graph"):
             raise AssertionError(f"trace {label}: {got} {name} spans for "
                                  f"{n}")
     if len(report["ttft_waterfall"]) != metrics["drained"]:
-        raise AssertionError(f"trace {label}: trace_report's waterfall has "
+        raise AssertionError(f"trace {label}: the reader's waterfall has "
                              f"{len(report['ttft_waterfall'])} requests")
     # every kernel-phase span carries the warmed plans' modelled roofline,
-    # so trace_report's "measured vs modeled" has a row for each
+    # so the reader's "measured vs modeled" has a row for each
     mvm = report["measured_vs_modeled"]
     for name, n in (("decode_step", metrics["decode_steps"]),
                     ("chunk_window", sched.get("chunk_steps", 0)),
@@ -1566,9 +1631,10 @@ def trace_check(tracer, metrics, label="dense graph"):
                 sched.get("chunked_prefill") and "admit" not in names):
             raise AssertionError(f"trace {label}: request track {tid} runs "
                                  f"{names}")
+    busy = report["interleave"]["busy_frac"]
     print(f"trace: {label} run, {n_events} events, valid, read by "
-          f"trace_report (busy {report['interleave']['busy_frac']:.4f}); "
-          f"engine spans {json.dumps(spans)}; measured vs modeled "
+          f"torch_trace_report in {read_s:.4f}s (busy {busy:.4f}); engine "
+          f"spans {json.dumps(spans)}; measured vs modeled "
           f"{json.dumps(mvm)}", flush=True)
     return spans
 
@@ -4056,7 +4122,7 @@ def hold_first_step(label, got_name, ref_name, got, ref, floor=0.0,
 
 def train_phase(ckpt_root):
     """Full-width ternary-paper QAT through the training CLI: 24 steps
-    with checkpoints every 8, then a second invocation to 32 steps that
+    with a checkpoint at 24, then a second invocation to 32 steps that
     must resume at 24; then a TrainSupervisor run that fails once. The
     launch counters are zeroed before and read after the CLI runs.
     Returns (trained params from the step-32 checkpoint, launches,
@@ -4135,11 +4201,11 @@ def train_phase(ckpt_root):
 
 
 def eval_phase(cfg, params):
-    """examples/train_ternary_lm.py's evaluation on the trained state: a
-    held-out batch (step 10 000) at batch 8 x seq 1024, the QAT model's
-    loss with the plain blockwise attention and with B6, then the packed
-    model's (B1 + B4 + B6). Counters zeroed before, read after; B6 must
-    launch once per layer per "pallas" forward."""
+    """examples_torch/train_ternary_lm.py's evaluation on the trained
+    state: a held-out batch (step 10 000) at batch 8 x seq 1024, the QAT
+    model's loss with the plain blockwise attention and with B6, then the
+    packed model's (B1 + B4 + B6). Counters zeroed before, read after; B6
+    must launch once per layer per "pallas" forward."""
     import dataclasses
     import torch
     from repro_torch.data import SyntheticLM
@@ -5543,11 +5609,15 @@ def tp_families_phase(flush, built=None):
     runs, summary = {}, {}
     for name, spec in FAMILIES.items():
         t1 = time.perf_counter()
-        if built is not None and name in built:
+        cut = TP_FAMILIES["overrides"].get(name)
+        if built is not None and name in built and cut is None:
             cfg, params = built.pop(name)
         else:
+            if built is not None:
+                built.pop(name, None)
+                torch.cuda.empty_cache()
             cfg = get_config(name, quantization="ternary",
-                             **spec["overrides"])
+                             **(spec["overrides"] if cut is None else cut))
             cfg, params = serve.build_params(cfg, SEED, "cuda", packed=True)
         fam_runs, summary[name] = tp_family_serve(name, cfg, params, flush)
         del params
@@ -5938,8 +6008,8 @@ def frontend_train_check():
 
 def frontends_phase(flush):
     """The encoder-decoder and VLM families on the card (FRONTENDS):
-    seamless-m4t-large-v2 whole and internvl2-76b at full width with 4
-    of its 80 layers, each drawn, packed and served by the static server
+    seamless-m4t-large-v2 at 12 + 12 layers and internvl2-76b at full
+    width with 2 of its 80 layers, each drawn, packed and served by the static server
     (batch 8, each request with its frontend rows) under
     attn_impl="flash" and "pallas". Each: the prefill's and one decode
     step's logits through the kernels against the plain path on the card
@@ -6841,12 +6911,80 @@ def dryrun_phase():
     return rows
 
 
+def examples_phase():
+    """Each ``examples_torch`` script's ``main`` on the card, in process
+    (EXAMPLES): its own asserts must hold; the launch counters are set to
+    0 just before each example and read just after, and each eager
+    ``ternary_gemm`` / ``fused_mlp`` dispatch is tallied by its plan's row
+    through ``ops.kernel_probe``. An example must launch B1 / B4 exactly
+    where EXAMPLES says, and every eager dispatch on a kernel row must be
+    one launch. Prints each example's seconds and summary. Returns (the
+    launches summed over the examples, the summary)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    t0 = time.perf_counter()
+    total, out = {}, []
+    try:
+        for name, argv, kernels in EXAMPLES:
+            mod = _load_script(ROOT / "examples_torch" / f"{name}.py")
+            label = " ".join((name,) + argv)
+            argv = list(argv) + (["--ckpt-dir", ckpt_dir]
+                                 if name == "train_ternary_lm" else [])
+            rows = {}
+
+            def tally(plan, dt, rows=rows):
+                kind = ("fused_mlp" if type(plan).__name__ == "FusedMlpPlan"
+                        else "ternary_gemm")
+                key = f"{kind}:{plan.impl}"
+                rows[key] = rows.get(key, 0) + 1
+
+            torch.cuda.synchronize()
+            _zero_counts()
+            t1 = time.perf_counter()
+            with ops.kernel_probe(tally):
+                summary = mod.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t1
+            launches = _read_counts()
+            brief = {k: v for k, v in summary.items() if k not in
+                     ("outputs", "rows")}
+            print(f"examples: {label}: {seconds:.2f}s on {card_line()}; "
+                  f"launches {json.dumps(launches)}; "
+                  f"eager dispatches {json.dumps(rows)}; summary "
+                  f"{json.dumps(brief)}", flush=True)
+            for kernel in ("ternary_gemm", "fused_mlp"):
+                want = kernel in kernels
+                if (launches[kernel] > 0) != want:
+                    raise AssertionError(
+                        f"examples: {label} launched {kernel} "
+                        f"{launches[kernel]} times; expected "
+                        f"{'some' if want else 'none'}")
+            eager = {"ternary_gemm": rows.get("ternary_gemm:dense", 0),
+                     "fused_mlp": rows.get("fused_mlp:pallas", 0)}
+            if any(launches[k] != n for k, n in eager.items()):
+                raise AssertionError(
+                    f"examples: {label}: the probe saw {eager} eager "
+                    f"dispatches on the kernel rows for launches {launches}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            out.append({"example": label, "seconds": seconds,
+                        "launches": {k: v for k, v in launches.items() if v},
+                        "dispatches": rows})
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    print(f"examples phase took {seconds:.1f}s", flush=True)
+    return total, {"examples": out, "seconds": seconds}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=("tune", "frontends", "tp",
                                        "train_dist", "tp_families",
-                                       "dryrun"),
+                                       "dryrun", "examples"),
                     help="build and run this phase alone (tune: after the "
                          "dense serve it plans from; no kernels line)")
     ap.add_argument("--tune-out", help="copy the tune phase's measured "
@@ -6929,11 +7067,30 @@ def _main(args, start, torch, build) -> int:
         print(f"chip_smoke --only train_dist took "
               f"{time.perf_counter() - start:.1f}s", flush=True)
         return 0
+    if args.only == "examples":
+        del flush
+        examples_phase()
+        print(f"chip_smoke --only examples took "
+              f"{time.perf_counter() - start:.1f}s", flush=True)
+        return 0
+    phase_s = {"build": time.perf_counter() - start}
+    lap = [time.perf_counter()]
+
+    def timed(name):
+        now = time.perf_counter()
+        phase_s[name] = phase_s.get(name, 0.0) + now - lap[0]
+        lap[0] = now
     shapes = kernel_phase(flush)
     shapes["paged_decode_attention"] = paged_kernel_phase(flush)
     del flush
     row_independence_check()
     torch.cuda.empty_cache()
+    timed("kernels")
+    if args.only != "tune":
+        runs = {}
+        runs["examples"], examples_summary = examples_phase()
+        torch.cuda.empty_cache()
+        timed("examples")
     cfg, params, prompts, gens, max_len, dense_outs, launches = serve_phase()
     if args.only == "tune":
         tune_phase(cfg, params, prompts, gens, max_len, args.tune_out)
@@ -6941,15 +7098,17 @@ def _main(args, start, torch, build) -> int:
               f"{time.perf_counter() - start:.1f}s", flush=True)
         return 0
     model_phase(cfg, params, prompts, max_len)
-    runs = {"dense": launches}
+    runs["dense"] = launches
     workloads = serving_workloads(cfg, prompts, gens, max_len)
     paged_runs, bf16_outs, int8_outs = paged_phases(cfg, params, workloads,
                                                     dense_outs)
     runs.update(paged_runs)
+    timed("serve")
     graph_rows, tracers = decode_graph_phase(cfg, params, workloads)
     trace_spans = trace_check(*tracers["dense"])
     del tracers
     profile_rows = profiler_phase(cfg, params, workloads)
+    timed("decode_graph+trace+profiler")
     print("serving host/device summary: " + json.dumps(
         {"decode_graph": graph_rows, "trace_spans": trace_spans,
          "profiles": profile_rows}), flush=True)
@@ -6957,14 +7116,17 @@ def _main(args, start, torch, build) -> int:
         cfg, params, workloads,
         {"dense": dense_outs, "paged_bf16": bf16_outs})
     runs.update(chunk_runs)
+    timed("chunked")
     runs.update(faults_phase(
         cfg, params, workloads,
         {"dense": dense_outs, "paged_bf16": bf16_outs,
          "chunked_dense": chunk_streams["dense"]}, graph_rows, profile_rows))
     for name, rows in chunk_rows.items():
         shapes[name] += rows
+    timed("faults")
     tune_rows, tune_side_rows = tune_phase(cfg, params, prompts, gens,
                                            max_len, args.tune_out)
+    timed("tune")
     spec_rows, spec_runs = spec_phase(
         cfg, params, workloads,
         {"dense": dense_outs, "paged_bf16": bf16_outs,
@@ -6972,13 +7134,16 @@ def _main(args, start, torch, build) -> int:
     runs.update(spec_runs)
     for name, rows in spec_rows.items():
         shapes[name] += rows
+    timed("spec")
     mode_rows, mode_runs = modes_phase(cfg, params, workloads, dense_outs,
                                        graph_rows)
     runs.update(mode_runs)
     for name, rows in mode_rows.items():
         shapes[name] += rows
+    timed("modes")
     mlp_rows, runs["mlp_formats"] = mlp_formats_phase(cfg, params, prompts,
                                                       max_len)
+    timed("mlp_formats")
     torch.cuda.empty_cache()
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     tp_rows, tp_runs, _ = tp_phase(flush, cfg, params)
@@ -6986,6 +7151,7 @@ def _main(args, start, torch, build) -> int:
     runs.update(tp_runs)
     for name, rows in tp_rows.items():
         shapes[name] += rows
+    timed("tp")
     del params
     torch.cuda.empty_cache()
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
@@ -6994,26 +7160,32 @@ def _main(args, start, torch, build) -> int:
     runs.update(family_runs)
     for name, rows in family_rows.items():
         shapes[name] += rows
+    timed("families")
     tpf_rows, tpf_runs = tp_families_phase(flush, built)
     del built
     runs.update(tpf_runs)
     for name, rows in tpf_rows.items():
         shapes[name] += rows
+    timed("tp_families")
     torch.cuda.empty_cache()
     frontend_rows, frontend_runs = frontends_phase(flush)
     runs.update(frontend_runs)
+    timed("frontends")
     torch.cuda.empty_cache()
     format_rows, runs["gemm_formats"] = gemm_formats_phase(flush)
     k_sweep = format_rows.pop("k_sweep")
     shapes.update(format_rows)
+    timed("gemm_formats")
     print("tcsc summary: " + json.dumps(tcsc_phase(flush)), flush=True)
     shapes["flash_attention"] = flash_kernel_phase(flush, build)
+    timed("tcsc+flash_kernel")
     for name, rows in frontend_rows.items():
         shapes[name] += rows
     del flush
     torch.cuda.empty_cache()
     gradients_phase()
     step_check = train_step_check()
+    timed("gradients+train_step_check")
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         cfg, params, runs["train"], train_summary = train_phase(ckpt_root)
@@ -7021,13 +7193,17 @@ def _main(args, start, torch, build) -> int:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     eval_out, runs["eval"] = eval_phase(cfg, params)
     del params
+    timed("train+eval")
     print("train/eval summary: " + json.dumps(
         {"train_step_check": step_check, "train": train_summary,
          "eval": eval_out}), flush=True)
     torch.cuda.empty_cache()
     _, runs["train_dist_eval"] = train_dist_phase()
+    timed("train_dist")
     torch.cuda.empty_cache()
     print("dryrun summary: " + json.dumps(dryrun_phase()), flush=True)
+    timed("dryrun")
+    print("examples summary: " + json.dumps(examples_summary), flush=True)
 
     meta = {
         "ternary_gemm": ("src/repro_torch/kernels/csrc/ternary_gemm.cu",
@@ -7076,6 +7252,9 @@ def _main(args, start, torch, build) -> int:
         if name == "fused_mlp":
             entry["mlp_formats"] = mlp_rows
         kernels.append(entry)
+    timed("kernels_line")
+    print("phase seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in phase_s.items()}), flush=True)
     print(f"chip_smoke took {time.perf_counter() - start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

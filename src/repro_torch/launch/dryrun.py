@@ -79,7 +79,8 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import LM
 from repro_torch.obs import clock as obs_clock
 
-__all__ = ["run_cell", "model_flops", "rank_step", "RecordingGroup",
+__all__ = ["run_cell", "trace_cell", "TracedCell", "model_flops",
+           "rank_step", "RecordingGroup", "parse_mesh", "parse_override",
            "PEAK_FLOPS", "HBM_BW", "NVLINK_BW", "IB_BW", "NODE_CARDS",
            "HBM_BYTES", "main"]
 
@@ -239,12 +240,41 @@ def _mesh_name(mesh) -> str:
     return "x".join(str(s) for s in mesh.sizes)
 
 
-def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
-             quant: str = "", overrides: Optional[Dict[str, Any]] = None,
-             mesh=None, reduced: bool = False,
-             shape: Optional[ShapeConfig] = None) -> Dict[str, Any]:
-    """One cell's record (module docstring). ``shape`` (a ``ShapeConfig``
-    of the caller's) replaces ``SHAPES[shape_name]``."""
+@dataclasses.dataclass
+class TracedCell:
+    """One cell's traced rank (``trace_cell``): its config, shape and
+    mesh, the walker's ``Trace`` of rank 0's step, the rank's recording
+    groups and the seconds the trace took."""
+
+    cfg: ModelConfig
+    shape: ShapeConfig
+    mesh: Any
+    trace: hlo_cost.Trace
+    groups: List[RecordingGroup]
+    trace_s: float
+
+    def bound(self, costs: hlo_cost.Costs) -> Dict[str, Any]:
+        """The step's three times for one reading of the trace (``costs``:
+        ``trace.plain`` or ``trace.kernel``) and the largest's name."""
+        t = {"compute": costs.flops / PEAK_FLOPS,
+             "memory": costs.bytes / HBM_BW,
+             "collective": sum(g.seconds_modelled() for g in self.groups)}
+        return {"t_compute_s": t["compute"], "t_memory_s": t["memory"],
+                "t_collective_s": t["collective"],
+                "dominant": max(t.items(), key=lambda kv: kv[1])[0]}
+
+
+def trace_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+               quant: str = "", overrides: Optional[Dict[str, Any]] = None,
+               mesh=None, reduced: bool = False,
+               shape: Optional[ShapeConfig] = None
+               ) -> Tuple[Dict[str, Any], Optional[TracedCell]]:
+    """(the head of the cell's record, its ``TracedCell``): the config
+    from ``get_config(arch, reduced=, quantization=quant, **overrides)``,
+    rank 0's step on ``mesh`` (default the production mesh) traced on
+    ``meta``. A shape the config does not support gives a ``"skipped"``
+    record and no trace. ``shape`` (a ``ShapeConfig`` of the caller's)
+    replaces ``SHAPES[shape_name]``."""
     shape = shape or SHAPES[shape_name]
     kw = dict(overrides or {})
     if quant:
@@ -259,30 +289,39 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     ok, reason = cfg.supports_shape(shape_name)
     if not ok:
         rec.update(status="skipped", reason=reason)
-        return rec
+        return rec, None
     if mesh is None:
         mesh = make_production_mesh(multi_pod=multi_pod)
     else:
         rec["mesh"] = _mesh_name(mesh)
-    chips = mesh.size
     t0 = obs_clock.now()
     step, args, groups = rank_step(cfg, shape, mesh)
     tr = hlo_cost.trace(step, *args)
-    t_trace = obs_clock.now() - t0
+    return rec, TracedCell(cfg, shape, mesh, tr, groups,
+                           obs_clock.now() - t0)
 
+
+def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+             quant: str = "", overrides: Optional[Dict[str, Any]] = None,
+             mesh=None, reduced: bool = False,
+             shape: Optional[ShapeConfig] = None) -> Dict[str, Any]:
+    """One cell's record (module docstring; ``trace_cell``'s
+    arguments)."""
+    rec, cell = trace_cell(arch, shape_name, multi_pod=multi_pod,
+                           quant=quant, overrides=overrides, mesh=mesh,
+                           reduced=reduced, shape=shape)
+    if cell is None:
+        return rec
+    cfg, tr, groups = cell.cfg, cell.trace, cell.groups
+    chips = cell.mesh.size
     coll = dict(tr.plain.collective_bytes)
     coll["total"] = tr.plain.total_collective()
-    mf = model_flops(cfg, shape)
-    t_comp = tr.plain.flops / PEAK_FLOPS
-    t_mem = tr.plain.bytes / HBM_BW
-    t_coll = sum(g.seconds_modelled() for g in groups)
-    dominant = max((("compute", t_comp), ("memory", t_mem),
-                    ("collective", t_coll)), key=lambda kv: kv[1])[0]
+    mf = model_flops(cfg, cell.shape)
     temp = tr.peak_bytes - tr.argument_bytes
     rec.update(
         status="ok",
         chips=chips,
-        trace_s=round(t_trace, 1),
+        trace_s=round(cell.trace_s, 1),
         hlo_flops_per_chip=tr.plain.flops,
         hlo_bytes_per_chip=tr.plain.bytes,
         collective_bytes_per_chip=coll,
@@ -299,10 +338,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 "peak_bytes": tr.peak_bytes,
                 "plain_peak_bytes": tr.plain_peak_bytes,
                 "fits": tr.peak_bytes <= HBM_BYTES},
-        t_compute_s=t_comp,
-        t_memory_s=t_mem,
-        t_collective_s=t_coll,
-        dominant=dominant,
+        **cell.bound(tr.plain),
         model_flops_total=mf,
         model_flops_per_chip=mf / chips,
         useful_flops_ratio=((mf / chips) / tr.plain.flops
@@ -326,7 +362,8 @@ def parse_mesh(arg: str):
     return tp_lib.Mesh(names, dims, ("meta",) * n)
 
 
-def _override(key: str, value: str):
+def parse_override(key: str, value: str):
+    """A ``--set key=value`` string as the ``ModelConfig`` field's type."""
     f = ModelConfig.__dataclass_fields__[key]
     typ = f.type if isinstance(f.type, type) else {
         "int": int, "float": float, "bool": bool, "str": str}[f.type]
@@ -354,7 +391,7 @@ def main(argv=None):
     overrides: Dict[str, Any] = {}
     for kv in args.set:
         k, v = kv.split("=", 1)
-        overrides[k] = _override(k, v)
+        overrides[k] = parse_override(k, v)
 
     os.makedirs(args.out, exist_ok=True)
     mesh_tag = _mesh_name(mesh) if mesh is not None else (

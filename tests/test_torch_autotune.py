@@ -446,8 +446,8 @@ def test_kernel_phase_spans_carry_the_modelled_roofline(served):
 
 
 def test_trace_report_rows_for_a_port_trace(served):
-    """scripts/trace_report.py as a child process, as chip_smoke.py runs
-    it."""
+    """scripts/trace_report.py (``repro``'s reader) as a child process on
+    the port's traces."""
     for name, spans in (("whole", {"decode_step", "prefill"}),
                         ("chunked", {"decode_step", "chunk_window"})):
         run = served[name]

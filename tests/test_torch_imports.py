@@ -1,18 +1,25 @@
 """The port stands alone: no module under ``src/repro_torch/``, not
-``chip_smoke.py`` and not ``scripts/torch_kernel_ab.py`` imports ``jax``
-or anything of ``repro``, itself or through a script of the repo it
-imports by name; every module
-imports on a machine without a GPU, nvcc or triton."""
+``chip_smoke.py``, not the port's examples (``examples_torch/``) and not
+its scripts (``scripts/torch_*.py``) imports ``jax`` or anything of
+``repro``, itself or through a script of the repo it imports by name;
+``chip_smoke.py`` names no script that does (run as a child process or
+loaded by path); every module imports on a machine without a GPU, nvcc or
+triton."""
 import ast
 import importlib
 import pathlib
+import re
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                     ROOT / "scripts" / "torch_kernel_ab.py"]
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "scripts").glob("torch_*.py")) + EXAMPLES)
+# where a script named in code (a string ending in ".py") may lie: the
+# repository's root, and each of these when the file names it too
+SCRIPT_DIRS = ("scripts", "examples_torch", "examples")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 # where a top-level import can name a script of the repo, not a package
 LOCAL_DIRS = (ROOT, ROOT / "scripts")
@@ -162,3 +169,98 @@ def test_the_checks_cover_the_dryrun_modules():
              if PORT in p.parents}
     assert {"launch/dryrun.py", "launch/hlo_cost.py", "launch/mesh.py",
             "launch/steps.py", "launch/__init__.py"} <= names
+
+
+def test_the_checks_cover_the_entry_points():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert {"chip_smoke.py", "scripts/torch_kernel_ab.py",
+            "scripts/torch_trace_report.py", "scripts/torch_hillclimb.py",
+            "examples_torch/quickstart.py",
+            "examples_torch/quantize_and_pack.py",
+            "examples_torch/train_ternary_lm.py",
+            "examples_torch/serve_batched.py"} <= names
+
+
+def _docstrings(tree):
+    return {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+
+
+def _named_scripts(path: pathlib.Path, root: pathlib.Path = ROOT):
+    """{name: the repository's files it may mean} for every script that
+    ``path``'s code names (a string constant ending in ".py", docstrings
+    aside): ``name`` under the root, or under a directory of SCRIPT_DIRS
+    that the code names too (``ROOT / "scripts" / "x.py"``)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    skip = _docstrings(tree)
+    consts = {n.value for n in ast.walk(tree)
+              if isinstance(n, ast.Constant) and isinstance(n.value, str)
+              and id(n) not in skip}
+    dirs = [root] + [root / d for d in SCRIPT_DIRS if d in consts]
+    return {name: [d / name for d in dirs if (d / name).is_file()]
+            for name in consts
+            if name.endswith(".py") and len(name) > 3 and "/" not in name}
+
+
+def _child_modules(path: pathlib.Path):
+    """The forbidden roots among the string arguments of ``path``'s child
+    processes (``subprocess.*`` and ``os.system`` / ``exec*`` /
+    ``spawn*`` calls): a ``-m repro...`` module or ``-c`` code that
+    imports one."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = set()
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        owner = getattr(getattr(f, "value", None), "id", "")
+        attr = getattr(f, "attr", "")
+        if not ((owner == "subprocess" and attr in (
+                "run", "Popen", "call", "check_call", "check_output"))
+                or (owner == "os" and (attr == "system" or attr.startswith(
+                    ("exec", "spawn"))))):
+            continue
+        for arg in ast.walk(node):
+            if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                for word in re.findall(r"[A-Za-z_][\w.]*", arg.value):
+                    if word.split(".")[0] in FORBIDDEN:
+                        bad.add(word.split(".")[0])
+    return bad
+
+
+def _reference_scripts(path: pathlib.Path, root: pathlib.Path = ROOT):
+    return sorted(str(f.relative_to(root))
+                  for files in _named_scripts(path, root).values()
+                  for f in files if _forbidden_imports(f))
+
+
+def test_chip_smoke_runs_no_script_that_reads_the_reference():
+    """No child process of chip_smoke.py and no script it loads imports
+    ``repro`` or ``jax``: it names the port's trace reader and itself, and
+    no script of the reference."""
+    path = ROOT / "chip_smoke.py"
+    named = _named_scripts(path)
+    assert "torch_trace_report.py" in named
+    assert "trace_report.py" not in named
+    assert _reference_scripts(path) == []
+    assert _child_modules(path) == set()
+
+
+@pytest.mark.parametrize("code", [
+    "import subprocess, sys\nfrom pathlib import Path\nROOT = Path('.')\n"
+    "subprocess.run([sys.executable, str(ROOT / 'scripts' / "
+    "'trace_report.py'), 'run.json', '--json'])\n",
+    "import subprocess, sys\n"
+    "subprocess.run([sys.executable, '-m', 'repro.launch.serve'])\n",
+    "import os\nos.system('python -c \"import jax\"')\n"])
+def test_the_child_process_check_catches_a_reference_script(tmp_path, code):
+    """The form chip_smoke.py's trace check took before it read traces
+    with the port's reader, a reference module run with ``-m`` and ``-c``
+    code importing ``jax``."""
+    p = tmp_path / "smoke.py"
+    p.write_text(code)
+    assert (_reference_scripts(p) == ["scripts/trace_report.py"]
+            or _child_modules(p))
