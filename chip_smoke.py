@@ -211,8 +211,8 @@ bank decoding).
 ``frontends`` serves the encoder-decoder and VLM families (``FRONTENDS``;
 each config with ``quantization="ternary"``, drawn from the seed and
 packed layer by layer) through the static server, which the continuous
-engine leaves them to: seamless-m4t-large-v2 at full width with 12 of its
-24 encoder and 12 of its 24 decoder layers (d 1024, ff 8192, biases,
+engine leaves them to: seamless-m4t-large-v2 at full width with 6 of its
+24 encoder and 6 of its 24 decoder layers (d 1024, ff 8192, biases,
 vocab 256206) and internvl2-76b at full width with 2 of its 80 layers (d
 8192, 64 heads over 8, ff 28672); 8 requests at batch 8, 2048 encoder frames or 1024 vision rows
 and 128 text tokens each, budgets FRONTENDS' {8, 16}; each under
@@ -247,8 +247,8 @@ slice with the f32 partial; B5 over 8 of the 16 heads, bf16 and int8
 pages. Then full-width ternary-paper at tp 2 (the leader spawns its
 follower rank), dense, paged bf16 and paged int8, the dense workload's
 prompts at budgets TP["gen_lens"] (cut from {32, 64} to {16, 32} when
-tp_families came, then to {4, 8} when the examples phase came: the
-script's time limit): each against a tp-1 engine on the same weights, the first decode step's
+tp_families came, then to {4, 8} when the examples phase came, then to
+{2, 4} when train_dist's fsdp mesh came: the script's time limit): each against a tp-1 engine on the same weights, the first decode step's
 logits within LOGIT_TOL of max|logit| and the streams equal or split at
 near ties (``_split_check``), every budget met, B1 and B4 launched by
 the leader and B5 12 a leader decode step (paged). Last, the router at
@@ -289,7 +289,7 @@ leaf by leaf, the loss and grad norm over both ranks; each bound at
 least WITNESS_FACTOR times the reading of one process's step with every
 parameter moved one ulp), each model at the first cut of
 TP_FAMILIES_TRAIN that the 28-B-a-parameter reckoning fits in
-TP_TRAIN_BUDGET_GIB (mamba2 at 12 layers, seamless at 12 + 12), the cuts
+TP_TRAIN_BUDGET_GIB (mamba2 at 6 layers, seamless at 6 + 6), the cuts
 passed over printed with why. ``--only tp_families`` builds and runs this phase alone.
 ``tcsc`` runs the paper's TCSC formats on the card (plain PyTorch: no TPU
 kernel computes them) at K = N = 4096, s 1/2 and 1/16, M 8 and 64: each
@@ -301,7 +301,9 @@ the ``kernels`` line).
 ``train_dist`` runs the distributed trainer (``launch.train.
 DistTrainer``, one process a rank, all ranks on this card over gloo) on
 full-width ternary-paper at TRAIN's batch 8 x 512 and lr, on four meshes:
-dp 2, dp 2 with compressed gradients, tp 2 and dp 2 x tp 2. Each first
+dp 2, dp 2 with its state split over the data group (``dp2_fsdp``), dp 2
+with compressed gradients and dp 2 x tp 2 (a tp 2 mesh ran until the fsdp
+mesh came: the script's time limit). Each first
 step runs in f32 from the seed's state and is held to one process's on
 this card (the plain step on the global batch; for the compressed mesh,
 its stand-in: each half's gradients ternarized, the codes summed, the
@@ -317,10 +319,21 @@ one process's at the seed's state and every rank end at the same step
 with equal replicas. Step
 times, the collectives' calls, bytes and host ms a step (gradient sync
 over the data group, f32 or bf16 codes; tensor-parallel collectives),
-peak memory per rank and the loss curve are printed. Last, dp 2 x tp 2's
-trained state, gathered, goes through ``eval``'s packed evaluation (B1,
-B4 and B6 on the card; the packed loss within EVAL["packed_tol"] of the
-QAT loss). ``--only train_dist`` builds and runs this phase alone.
+peak memory per rank and the loss curve are printed. ``dp2_fsdp`` sets
+``fsdp`` (the config leaves it off; ``train --set fsdp=true`` does the
+same): each rank keeps half of every projection, the embedding and the
+lm head and of their AdamW moments (``distributed.fsdp``) and gathers a
+block's halves as it runs it. Its first step's gradients (the data
+group's mean before the clip, gathered) must equal dp 2's bit for bit,
+its ranks' ``state_bytes`` the dry run's params and moments for the same
+cell on a 2 x 1 mesh exactly; the ternary code flips of its first step
+against dp 2's are counted, and its bf16 step peak a rank is printed
+beside dp 2's with the drop and beside the dry run's modelled peak (not
+gated: gloo's staging buffers are not modelled). Last, dp 2 x tp 2's and
+dp2_fsdp's trained states, gathered, go through ``eval``'s packed
+evaluation (B1, B4 and B6 on the card; the packed loss within
+EVAL["packed_tol"] of the QAT loss). ``--only train_dist`` builds and
+runs this phase alone.
 
 Last, ``dryrun`` calibrates the dry run (``repro_torch.launch.dryrun``)
 against the card on ``ternary-paper`` on a one-card mesh at three cut
@@ -519,13 +532,24 @@ EVAL = dict(batch=8, seq=1024, step=10_000, qat_tol=1e-2, packed_tol=0.05)
 # the same sums in another order through 12 layers
 STEP_CHECK = dict(batch=2, seq=256, rtol=1e-3, max_flip_share=1e-6)
 # train_dist: full-width ternary-paper at TRAIN's batch on four meshes of
-# ranks sharing this card over gloo (label: data-parallel, model-parallel,
-# compressed gradients); the first step in f32 against one process, then
-# 3 bf16 steps with a checkpoint at 2 and one injected failure at step 2.
-# The schedule is TRAIN's 24-step one (warmup 3) at a peak lr of 3e-4: at
-# 1e-3 and 3e-3 the first steps raise the held-out loss
-TRAIN_DIST = dict(meshes=(("dp2", 2, 1, False), ("dp2_compress", 2, 1, True),
-                          ("tp2", 1, 2, False), ("dp2_tp2", 2, 2, False)),
+# ranks sharing this card over gloo. For the script's time limit, when the
+# fsdp mesh came, the tp 2 mesh went (dp 2 x tp 2 runs every check it
+# ran; the phase took 383 s on a slow machine with it) and the depth was
+# not cut (at 4 layers dp2_compress's held-out loss rose over its 3
+# steps, at 8 tp2's). (label: data-parallel, model-parallel,
+# compressed gradients, state split over the data group — fsdp, set as
+# `train --set fsdp=true` sets it); the first step in f32 against one
+# process, then 3 bf16 steps with a checkpoint at 2 and one injected
+# failure at step 2. The schedule is TRAIN's 24-step one (warmup 3) at a
+# peak lr of 3e-4: at 1e-3 and 3e-3 the first steps raise the held-out
+# loss. dp2_fsdp's first-step gradients are held bitwise to dp2's (it
+# follows dp2 on the same ranks); the meshes of `evals` go through eval's
+# packed evaluation
+TRAIN_DIST = dict(meshes=(("dp2", 2, 1, False, False),
+                          ("dp2_fsdp", 2, 1, False, True),
+                          ("dp2_compress", 2, 1, True, False),
+                          ("dp2_tp2", 2, 2, False, False)),
+                  evals=("dp2_tp2", "dp2_fsdp"),
                   steps=3, ckpt_every=2, fail_at=2, lr=3e-4,
                   schedule_steps=TRAIN["steps"], timeout_s=300.0)
 # decode_graph: each serving workload drained eagerly and through the
@@ -615,19 +639,20 @@ FAMILIES = {
 # frontends: the encoder-decoder and VLM families through the static server
 # (the continuous engine refuses them, as repro's does), each model
 # get_config(name, quantization="ternary", **overrides), packed layer by
-# layer. seamless at 12 encoder + 12 decoder layers of its 24 + 24;
+# layer. seamless at 6 encoder + 6 decoder layers of its 24 + 24;
 # internvl2 2 of its 80 layers: every layer is the same kind (period 1,
 # ~856 M parameters each), cut for init + pack time as mixtral's are (both
-# halved when the examples phase came: the script's time limit; seamless
-# was whole, internvl2 4 layers). prompt_len counts the
+# halved when the examples phase came, seamless halved again when
+# train_dist's fsdp mesh came: the script's time limit; seamless was
+# whole, internvl2 4 layers). prompt_len counts the
 # frontend rows, so the text prompts are 128 tokens after 2048 encoder
 # frames or 1024 vision rows (SyntheticLM's text_len); budgets {8, 16}
 # (were {32, 64}, then {16, 32} when tp_families came, then {8, 16} when
 # the examples phase came: the script's time limit; still more decode
 # steps a batch than the FRONTEND_STEPS timed).
 FRONTENDS = {
-    "seamless-m4t-large-v2": dict(overrides=dict(num_layers=12,
-                                                 enc_layers=12),
+    "seamless-m4t-large-v2": dict(overrides=dict(num_layers=6,
+                                                 enc_layers=6),
                                   requests=8, batch=8,
                                   prompt_len=2048 + 128, gen_lens=(8, 16)),
     "internvl2-76b": dict(overrides=dict(num_layers=2), requests=8, batch=8,
@@ -668,8 +693,9 @@ PORT_KERNEL_NAMES = ("ternary_gemm", "fused_mlp", "paged_attention",
 # tensor parallelism on the one card (tp_phase): tp 2 ranks sharing cuda:0
 # over gloo; the router's workload shares a 64-token prefix on half of its
 # requests; the all-reduce shapes (decode rows, a prefill's) and their
-# timed iterations
-TP = dict(tp=2, requests=16, prefix_len=64, gen_lens=(4, 8),
+# timed iterations; budgets {2, 4} since train_dist's fsdp mesh came
+# ({16, 32}, then {8, 16}, then {4, 8} before: the script's time limit)
+TP = dict(tp=2, requests=16, prefix_len=64, gen_lens=(2, 4),
           allreduce=(((8, 1024), 50), ((1024, 1024), 20)))
 # tp_families: FAMILIES' models and cache modes at tp 2 (two ranks on this
 # card over gloo, eager) against tp 1 on the same packed weights, over a
@@ -688,11 +714,12 @@ TP_FAMILIES = dict(requests=4, slots=4, prompt_len=64, gen_lens=(2, 4),
 # process, at the first cut (deepest first, then width) whose reckoned
 # card bytes (tp_train_cut) fit the budget
 # (mamba2 at 12 of its 24 layers and seamless at 12 + 12 of its 24 + 24
-# since the examples phase came: the script's time limit; whole, they took
-# 23 and 67 of the phase's 323 s)
+# since the examples phase came, at 6 and 6 + 6 since train_dist's fsdp
+# mesh came: the script's time limit; whole, they took 23 and 67 of the
+# phase's 323 s, at 12 and 12 + 12 20.6 and 40.4 s)
 TP_FAMILIES_TRAIN = {
-    "mamba2-130m": (dict(num_layers=12),),
-    "seamless-m4t-large-v2": (dict(num_layers=12, enc_layers=12),),
+    "mamba2-130m": (dict(num_layers=6),),
+    "seamless-m4t-large-v2": (dict(num_layers=6, enc_layers=6),),
     "jamba-v0.1-52b": (dict(num_layers=8),
                        dict(num_layers=2, attn_period=2, attn_offset=1),
                        dict(num_layers=2, attn_period=2, attn_offset=1,
@@ -4326,8 +4353,25 @@ def _ternary_flips(params, tp):
     return n
 
 
+def _ternary_codes(params):
+    """The ternary codes (-1, 0, 1 as int8) of every projection QAT
+    ternarizes (each column's |w| against 0.7 of its mean |w|)."""
+    import torch
+    out = []
+    ws = [params["unembed"]["w"]] + [
+        lp[part][name]["w"] for lp in params["layers"]
+        for part, names in (("mixer", "qkvo"), ("ffn", ("in", "gate",
+                                                         "out")))
+        for name in names]
+    for w in ws:
+        a = w.float().abs()
+        keep = a > 0.7 * a.mean(dim=-2, keepdim=True)
+        out.append((torch.sign(w) * keep).to(torch.int8))
+    return out
+
+
 def train_dist_mesh(label, trainer, compress, cfg32, cfg, ref, ckpt_root,
-                    held_out_init):
+                    held_out_init, across):
     """One mesh of ``train_dist`` on ``trainer``'s ranks, rebuilt for it:
     its first f32 step from the seed's state held to one process's
     (``ref``), the ranks' states checked equal and (tensor parallelism)
@@ -4336,8 +4380,14 @@ def train_dist_mesh(label, trainer, compress, cfg32, cfg, ref, ckpt_root,
     (``_bf16_restart_run``), after which the loss on a held-out batch
     (EVAL's step) must be below ``held_out_init``, one process's at the
     seed's state: over a few steps the step batches' losses follow the
-    batches more than the weights. Returns (the readings, the gathered
-    bf16 params for ``dp2_tp2``)."""
+    batches more than the weights. ``dp2`` keeps in ``across`` its
+    first-step gradients (the data group's mean before the clip), its
+    first step's ternary codes and its peaks; ``dp2_fsdp`` (state split
+    over the data group) is held to them: gradients bitwise equal, code
+    flips counted, ``state_bytes`` equal to the dry run's
+    (``across["fsdp_state_bytes"]``), the peaks' drop printed with the
+    dry run's modelled peak. Returns (the readings, the gathered bf16
+    params for the meshes of TRAIN_DIST["evals"])."""
     from repro_torch.launch import train
 
     t0 = time.perf_counter()
@@ -4347,9 +4397,14 @@ def train_dist_mesh(label, trainer, compress, cfg32, cfg, ref, ckpt_root,
                   total_steps=TRAIN_DIST["schedule_steps"], timed=True,
                   compress=compress)
     out = {"mesh": {"data": dp, "model": tp}, "compress": compress,
-           "ranks_on_card": dp * tp, "backend": "gloo"}
+           "fsdp": cfg.fsdp, "ranks_on_card": dp * tp, "backend": "gloo"}
+    pair = label in ("dp2", "dp2_fsdp")
     try:
         trainer.init(SEED)
+        if pair:
+            # the first step's gradients, the data group's mean before the
+            # clip, gathered: the same bits with and without fsdp
+            grads = trainer.report(grads_step=0)[0]["grads_synced"]
         t1 = time.perf_counter()
         met = trainer.step(0)
         out["f32_step_s"] = time.perf_counter() - t1
@@ -4359,10 +4414,24 @@ def train_dist_mesh(label, trainer, compress, cfg32, cfg, ref, ckpt_root,
         out["first_step"] = hold_first_step(
             f"train_dist {label} first step", label, "one process", got,
             ref)
+        codes = _ternary_codes(st["params"]) if pair else None
         del st, got
         reports = trainer.report(grads_step=1 if tp > 1 else None)
         out["replicas"] = train.check_replicas(reports)
         out["f32_peak_bytes"] = [r["peak_bytes"] for r in reports]
+        out["f32_step_peak_bytes"] = [r["step_peak_bytes"] for r in reports]
+        out["state_bytes"] = [r["state_bytes"] for r in reports]
+        if label == "dp2":
+            across["dp2"] = {"grads": grads, "codes": codes,
+                             "state_bytes": out["state_bytes"]}
+        elif label == "dp2_fsdp":
+            whole = across["dp2"]
+            out["grads_equal_dp2"] = grads == whole["grads"]
+            out["ternary_code_flips_vs_dp2"] = sum(
+                int((a != b).sum()) for a, b in zip(codes, whole["codes"]))
+            out["dryrun_state_bytes"] = across["fsdp_state_bytes"]
+            del whole["codes"]
+        del codes
 
         t2 = time.perf_counter()
         history, restarts, t_hist, comms = _bf16_restart_run(
@@ -4372,14 +4441,20 @@ def train_dist_mesh(label, trainer, compress, cfg32, cfg, ref, ckpt_root,
         reports = trainer.report()
         out["after_restart"] = train.check_replicas(reports)
         out["bf16_peak_bytes"] = [r["peak_bytes"] for r in reports]
+        out["bf16_step_peak_bytes"] = [r["step_peak_bytes"]
+                                       for r in reports]
         steps_run = [s for s, _ in history]
         out["steps_run"] = steps_run
         out["restarts"] = restarts
         out["losses"] = [m["loss"] for _, m in history]
         out["bf16_step_s"] = t_hist
         out["bf16_comm"] = comms
+        if label == "dp2":
+            across["dp2"]["peaks"] = out["bf16_step_peak_bytes"]
+        elif label == "dp2_fsdp":
+            out.update(_fsdp_peaks(out, across))
         params = trainer.state(params_only=True)["params"] \
-            if label == "dp2_tp2" else None
+            if label in TRAIN_DIST["evals"] else None
     finally:
         shutil.rmtree(Path(ckpt_root) / label, ignore_errors=True)
         out["seconds"] = time.perf_counter() - t0
@@ -4391,7 +4466,39 @@ def train_dist_mesh(label, trainer, compress, cfg32, cfg, ref, ckpt_root,
     if not out["held_out_loss_trained"] < held_out_init:
         raise AssertionError(f"train_dist {label}: the held-out loss did not "
                              f"fall")
+    if label == "dp2_fsdp":
+        if not out["grads_equal_dp2"]:
+            raise AssertionError("train_dist dp2_fsdp: the first step's "
+                                 "gathered gradients differ from dp2's")
+        if any(b != out["dryrun_state_bytes"] for b in out["state_bytes"]):
+            raise AssertionError(
+                f"train_dist dp2_fsdp: the ranks hold {out['state_bytes']} "
+                f"B of params, m and v; the dry run's cell "
+                f"{out['dryrun_state_bytes']} B")
     return out, params
+
+
+def _fsdp_peaks(out, across):
+    """dp2_fsdp's bf16 step peak a rank beside dp2's (the drop) and the
+    dry run's modelled peak for the cell (their ratio; gloo's staging
+    buffers are not modelled, so not gated), with the card's line."""
+    whole = across["dp2"]["peaks"]
+    mine = out["bf16_step_peak_bytes"]
+    model = across["fsdp_modelled_peak"]
+    res = {"dp2_bf16_step_peak_bytes": whole,
+           "peak_drop_bytes": [a - b for a, b in zip(whole, mine)],
+           "dryrun_peak_bytes": model,
+           "measured_over_modelled_peak": [m / model for m in mine]}
+    print(f"train_dist dp2_fsdp: a rank's bf16 step peak "
+          f"{[round(m / 2**30, 3) for m in mine]} GiB against dp2's "
+          f"{[round(m / 2**30, 3) for m in whole]} (drop "
+          f"{[round(d / 2**30, 3) for d in res['peak_drop_bytes']]}); "
+          f"state a rank {[round(b / 2**30, 3) for b in out['state_bytes']]}"
+          f" GiB against {[round(b / 2**30, 3) for b in across['dp2']['state_bytes']]};"
+          f" the dry run's modelled peak {model / 2**30:.3f} GiB "
+          f"(measured / modelled {[round(r, 3) for r in res['measured_over_modelled_peak']]});"
+          f" {card_line()}", flush=True)
+    return res
 
 
 def _bf16_restart_run(label, trainer, cfg, compress, ckpt_dir):
@@ -4455,18 +4562,39 @@ def _bf16_restart_run(label, trainer, cfg, compress, ckpt_dir):
 
 def train_dist_phase():
     """The distributed trainer (module docstring, ``train_dist``). Returns
-    (readings, launches of the packed evaluation of dp 2 x tp 2's state)."""
+    (readings, {run label: launches of the packed evaluation of each
+    TRAIN_DIST["evals"] mesh's state})."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.distributed import compression
-    from repro_torch.launch import train
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import compression, fsdp
+    from repro_torch.launch import dryrun, train
     from repro_torch.models import LM
     from repro_torch.models.transformer import layer_period
 
     t0 = time.perf_counter()
     cfg = get_config("ternary-paper")
     cfg32 = dataclasses.replace(cfg, dtype="float32")
+    # the dry run's cell of the fsdp mesh: rank 0's params and moments,
+    # and its modelled peak (traced on meta)
+    cell = dict(mesh=dryrun.parse_mesh("2x1"),
+                shape=ShapeConfig("train", TRAIN["seq"], TRAIN["batch"],
+                                  "train"))
+    cfg_fsdp = dataclasses.replace(cfg, fsdp=True)
+    _, args, _ = dryrun.rank_step(cfg_fsdp, cell["shape"], cell["mesh"])
+    across = {"fsdp_state_bytes": fsdp.state_bytes(args[0], args[1])}
+    del args
+    t1 = time.perf_counter()
+    rec = dryrun.run_cell("ternary-paper", "train_4k",
+                          overrides={"fsdp": True}, **cell)
+    across["fsdp_modelled_peak"] = rec["memory"]["peak_bytes"]
+    print(f"train_dist: the dry run's ternary-paper train cell "
+          f"{TRAIN['batch']} x {TRAIN['seq']} on 2 x 1 with fsdp: state "
+          f"{across['fsdp_state_bytes']} B a rank, peak "
+          f"{rec['memory']['peak_bytes']} B, collectives "
+          f"{json.dumps(rec['collective_bytes_per_chip'])} (traced in "
+          f"{time.perf_counter() - t1:.1f}s)", flush=True)
     _, data, step, init = train.build(cfg32, TRAIN["batch"], TRAIN["seq"],
                                       TRAIN_DIST["lr"],
                                       TRAIN_DIST["schedule_steps"], "cuda")
@@ -4497,9 +4625,9 @@ def train_dist_phase():
     del model
     torch.cuda.empty_cache()
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_train_dist_")
-    meshes, params, trainer = {}, None, None
+    meshes, params, trainer = {}, {}, None
     try:
-        for label, dp, tp, compress in TRAIN_DIST["meshes"]:
+        for label, dp, tp, compress, sharded in TRAIN_DIST["meshes"]:
             if trainer is None or (trainer.dp, trainer.tp) != (dp, tp):
                 # meshes of one shape share their ranks (processes, groups)
                 if trainer is not None:
@@ -4515,9 +4643,12 @@ def train_dist_phase():
                 summary[f"start_s_dp{dp}_tp{tp}"] = time.perf_counter() - t1
             ref = comp if compress else plain
             meshes[label], got = train_dist_mesh(
-                label, trainer, compress, cfg32, cfg, ref, ckpt_root,
-                summary["held_out_loss_init"])
-            params = got if got is not None else params
+                label, trainer, compress,
+                dataclasses.replace(cfg32, fsdp=sharded),
+                dataclasses.replace(cfg, fsdp=sharded), ref, ckpt_root,
+                summary["held_out_loss_init"], across)
+            if got is not None:
+                params[label] = got
             torch.cuda.empty_cache()
     finally:
         if trainer is not None:
@@ -4526,8 +4657,12 @@ def train_dist_phase():
     del plain, comp
     torch.cuda.empty_cache()
     summary["meshes"] = meshes
-    eval_out, launches = eval_phase(cfg, params)
-    summary["eval_dp2_tp2"] = eval_out
+    launches = {}
+    for label in TRAIN_DIST["evals"]:
+        summary[f"eval_{label}"], launches[
+            "train_dist_eval" if label == "dp2_tp2"
+            else f"train_dist_{label}_eval"] = eval_phase(cfg,
+                                                          params.pop(label))
     summary["seconds"] = time.perf_counter() - t0
     print("train_dist summary: " + json.dumps(summary), flush=True)
     return summary, launches
@@ -6008,7 +6143,7 @@ def frontend_train_check():
 
 def frontends_phase(flush):
     """The encoder-decoder and VLM families on the card (FRONTENDS):
-    seamless-m4t-large-v2 at 12 + 12 layers and internvl2-76b at full
+    seamless-m4t-large-v2 at 6 + 6 layers and internvl2-76b at full
     width with 2 of its 80 layers, each drawn, packed and served by the static server
     (batch 8, each request with its frontend rows) under
     attn_impl="flash" and "pallas". Each: the prefill's and one decode
@@ -7198,7 +7333,7 @@ def _main(args, start, torch, build) -> int:
         {"train_step_check": step_check, "train": train_summary,
          "eval": eval_out}), flush=True)
     torch.cuda.empty_cache()
-    _, runs["train_dist_eval"] = train_dist_phase()
+    runs.update(train_dist_phase()[1])
     timed("train_dist")
     torch.cuda.empty_cache()
     print("dryrun summary: " + json.dumps(dryrun_phase()), flush=True)

@@ -12,7 +12,10 @@ whether it fits 80 GiB; from the second directory (another mesh) the same
 cell's times, dominant and peak beside them. The skipped cells in one
 line. Then the ``ternary_packed`` serving cells of the first directory,
 one row an architecture: plain and kernel bytes, the kernel reading's
-memory time and the peak, prefill and decode."""
+memory time and the peak, prefill and decode. Last, the train cells of
+both directories: the rank's arguments, its params and AdamW moments
+(``state_size_in_bytes``), the peak and the link bytes of its data and
+model groups."""
 import glob
 import json
 import os
@@ -82,6 +85,25 @@ def main(first_dir, other_dir):
                         f"{_g(r['kernel_t_memory_s'])} | {_peak(r)}"
                         if r["status"] == "ok" else f"{r['status']} | |")
         print(f"| {arch} | {cols[0]} | {cols[1]} |")
+    print(f"\n| train cell | {a}: args / state / peak GiB | link GB data / "
+          f"model | {b}: args / state / peak GiB | link GB data / model |")
+    print("| --- " * 5 + "|")
+    for (arch, shape, packed), r in sorted(first.items()):
+        if packed or shape != "train_4k" or r["status"] != "ok":
+            continue
+        o = other.get((arch, shape, False), {"status": "missing"})
+        cols = [_train_mem(r)] + ([_train_mem(o)] if o["status"] == "ok"
+                                  else [f"{o['status']} |"])
+        print(f"| {arch} | {cols[0]} | {cols[1]} |")
+
+
+def _train_mem(r):
+    m = r["memory"]
+    data = " / ".join(_g(r["collectives"].get(k, {}).get("link_bytes", 0.0),
+                         1e9) for k in ("data", "model"))
+    return (f"{_g(m['argument_size_in_bytes'], 2 ** 30)} / "
+            f"{_g(m.get('state_size_in_bytes') or 0, 2 ** 30)} / "
+            f"{_g(m['peak_bytes'], 2 ** 30)} | {data}")
 
 
 if __name__ == "__main__":

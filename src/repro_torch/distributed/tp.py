@@ -192,9 +192,9 @@ def mesh_axis_sizes(mesh) -> Dict[str, int]:
 # ---------------------------------------------------------------------------
 
 class Group:
-    """One rank's view of a process group: ``all_reduce`` (sum, in place)
-    and ``all_gather`` of tensors on the rank's device over the data
-    group, ``send`` (rank 0) / ``recv`` (the others) of picklable control
+    """One rank's view of a process group: ``all_reduce`` (sum, in place),
+    ``all_gather`` and ``reduce_scatter`` of tensors on the rank's device
+    over the data group, ``send`` (rank 0) / ``recv`` (the others) of picklable control
     messages and ``gather_objects`` over a gloo group. ``calls`` and
     ``bytes`` count the data collectives and the bytes this rank puts in;
     with ``timed`` set, each is bracketed by device synchronizations and
@@ -259,6 +259,16 @@ class Group:
         outs = [torch.empty_like(t) for _ in range(self.size)]
         self._run(t, lambda: self._data.allgather([outs], [t]).wait())
         return torch.cat(outs, dim=dim)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's block of the ranks' ``t`` summed: ``dim`` cut in
+        ``size`` equal blocks, block r to rank r (``all_gather``'s
+        inverse)."""
+        parts = [p.contiguous() for p in t.chunk(self.size, dim=dim)]
+        out = torch.empty_like(parts[self.rank])
+        self._run(t, lambda: self._data.reduce_scatter([out],
+                                                       [parts]).wait())
+        return out
 
     def _bcast(self, t: torch.Tensor) -> None:
         opts = dist.BroadcastOptions()

@@ -12,16 +12,22 @@ of the port's own placement runs, allocated nowhere and run nowhere:
   ``ternary_packed`` config), sharded by ``tp.shard_params(..., rank=0,
   cfg=)`` for a model of ``tp.local_config`` — the head rule (C15),
   ``moe_split`` and ``ssm_split`` (C18) apply as in serving and training;
-  every data rank keeps the whole of its shard and AdamW's moments (C16);
+  in a ``train`` cell of a config with ``fsdp`` set, rank 0 then keeps
+  its data slice of every leaf ``repro`` places on the data axes and of
+  AdamW's moments (``distributed.fsdp``, as ``launch.train``'s ranks
+  do), the model gathers each block's slices as it runs it and the
+  gradients are reduce-scattered; serving cells keep whole parameters on
+  every data rank (the port's engine is replicated; C19);
 * the batch is the rank's share of ``steps.input_specs`` under
   ``sharding.batch_sharding``;
 * collectives go through ``RecordingGroup``, a stand-in for
   ``tp.Group`` that counts ``calls`` and ``bytes`` as the real one does,
-  returns its input (an all-gather: a tensor of the gathered shape), and
-  charges the walker by ``repro``'s ring rule;
+  returns its input (an all-gather: a tensor of the gathered shape, a
+  reduce-scatter one of the rank's block), and charges the walker by
+  ``repro``'s ring rule;
 * ``train`` cells run ``steps.make_train_step`` (value and grad over
   ``cfg.grad_accum`` microbatches, the clip, AdamW) with the data group's
-  f32 mean all-reduce; ``prefill`` cells ``make_prefill_step``;
+  f32 mean all-reduce (of the whole leaves only, with data slices); ``prefill`` cells ``make_prefill_step``;
   ``decode`` cells ``make_decode_step`` over the rank's slice of the dense
   cache (its local KV heads, its batch rows), as ``repro``'s decode step
   uses the dense cache, every row at the cache's last position.
@@ -37,7 +43,9 @@ by its plan, ``flop_counter`` takes the place of ``xla_cost_analysis``
 ``compile_s``. ``memory`` holds the rank's arguments (parameters,
 optimizer state, batch, cache), its outputs, the most bytes of storage
 live at once during the step (``peak_bytes``), the rest of it over the
-arguments (``temp_size_in_bytes``) and whether the peak fits a card
+arguments (``temp_size_in_bytes``), a train cell's bytes of parameters
+and AdamW moments (``state_size_in_bytes``: ``fsdp.state_bytes``, what
+``launch.train``'s ranks report) and whether the peak fits a card
 (``fits``): the card's peak, each kernel dispatch holding its output and
 not its plain version's temporaries (those are in ``plain_peak_bytes``).
 
@@ -70,6 +78,7 @@ import torch
 
 from repro_torch.configs import SHAPES, get_config, list_archs
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed import fsdp as fsdp_lib
 from repro_torch.distributed import sharding
 from repro_torch.distributed import tp as tp_lib
 from repro_torch.kernels.autotune import HBM_BW, PEAK_FLOPS
@@ -93,10 +102,11 @@ HBM_BYTES = 80 * 2 ** 30   # device memory a card
 
 class RecordingGroup(tp_lib.Group):
     """A stand-in for one rank's ``tp.Group`` in a traced step: the same
-    ``all_reduce``, ``all_reduce_flat`` and ``all_gather``, counting
-    ``calls`` and ``bytes`` as ``Group._run`` does and charging
-    ``hlo_cost`` by ``repro``'s ring rule (``link_bytes``: an all-reduce 2
-    × its operand, an all-gather its result), moving nothing.
+    ``all_reduce``, ``all_reduce_flat``, ``all_gather`` and
+    ``reduce_scatter``, counting ``calls`` and ``bytes`` as ``Group._run``
+    does and charging ``hlo_cost`` by ``repro``'s ring rule
+    (``link_bytes``: an all-reduce 2 × its operand, an all-gather its
+    result, a reduce-scatter its operand), moving nothing.
     ``ranks`` are the group's global ranks; ``link`` is ``"nvlink"`` when
     they lie in one node of ``NODE_CARDS``, else ``"infiniband"``, and
     ``bandwidth`` its rate."""
@@ -122,6 +132,15 @@ class RecordingGroup(tp_lib.Group):
         out = torch.cat(outs, dim=dim)
         self.link_bytes += out.numel() * out.element_size()
         hlo_cost.note_collective("all-gather", t, out)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        shape = list(t.shape)
+        shape[dim] //= self.size
+        out = torch.empty(shape, dtype=t.dtype, device=t.device)
+        self._run(t, lambda: None)
+        self.link_bytes += t.numel() * t.element_size()
+        hlo_cost.note_collective("reduce-scatter", t, out)
         return out
 
     def seconds_modelled(self) -> float:
@@ -217,6 +236,11 @@ def rank_step(cfg: ModelConfig, shape: ShapeConfig, mesh, params=None,
         marks = {}
         if tp > 1:
             sharded, marks = tp_lib.strip_marks(sharded)
+        if cfg.fsdp and data is not None:
+            model.shards = fsdp_lib.Shards(fsdp_lib.data_marks(
+                params, full.param_specs(params), mesh, True), data)
+            sharded = fsdp_lib.shard_data(sharded, model.shards.marks, 0,
+                                          data.size)
         step, opt_init = steps_lib.make_train_step(
             model, cfg, data_group=data, marks=marks)
         return step, (sharded, opt_init(sharded), batch), groups
@@ -244,7 +268,8 @@ def _mesh_name(mesh) -> str:
 class TracedCell:
     """One cell's traced rank (``trace_cell``): its config, shape and
     mesh, the walker's ``Trace`` of rank 0's step, the rank's recording
-    groups and the seconds the trace took."""
+    groups, the seconds the trace took and, for a train cell, the bytes
+    of the rank's parameters and AdamW moments (``fsdp.state_bytes``)."""
 
     cfg: ModelConfig
     shape: ShapeConfig
@@ -252,6 +277,7 @@ class TracedCell:
     trace: hlo_cost.Trace
     groups: List[RecordingGroup]
     trace_s: float
+    state_bytes: Optional[int] = None
 
     def bound(self, costs: hlo_cost.Costs) -> Dict[str, Any]:
         """The step's three times for one reading of the trace (``costs``:
@@ -296,9 +322,11 @@ def trace_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         rec["mesh"] = _mesh_name(mesh)
     t0 = obs_clock.now()
     step, args, groups = rank_step(cfg, shape, mesh)
+    state = fsdp_lib.state_bytes(args[0], args[1]) \
+        if shape.kind == "train" else None
     tr = hlo_cost.trace(step, *args)
     return rec, TracedCell(cfg, shape, mesh, tr, groups,
-                           obs_clock.now() - t0)
+                           obs_clock.now() - t0, state)
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
@@ -337,6 +365,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                 "temp_size_in_bytes": temp,
                 "peak_bytes": tr.peak_bytes,
                 "plain_peak_bytes": tr.plain_peak_bytes,
+                "state_size_in_bytes": cell.state_bytes,
                 "fits": tr.peak_bytes <= HBM_BYTES},
         **cell.bound(tr.plain),
         model_flops_total=mf,

@@ -40,7 +40,7 @@ Cost rules, one per case:
 * collectives are charged by the group that runs them
   (``note_collective``; ``launch.dryrun``'s recording group) by
   ``repro``'s ring rule: an all-reduce 2 × its operand, an all-gather its
-  result, into ``collective_bytes``, and their operand and result bytes
+  result, a reduce-scatter its operand, into ``collective_bytes``, and their operand and result bytes
   into ``bytes``.
 
 Two readings come out of one trace. ``plain`` charges every op, the
@@ -533,14 +533,19 @@ def note_collective(kind: str, operand: torch.Tensor,
                     result: torch.Tensor) -> None:
     """Charge one collective to the trace running, by ``repro``'s ring
     rule (module docstring): a group calls it for each all-reduce
-    (``kind="all-reduce"``) or all-gather it runs. No trace: nothing."""
+    (``kind="all-reduce"``), all-gather or reduce-scatter it runs. No
+    trace: nothing."""
     if kind not in COLLECTIVES:
         raise ValueError(f"kind must be one of {sorted(COLLECTIVES)}")
     walker = _ACTIVE.get()
     if walker is None:
         return
-    link = 2.0 * _nbytes(operand) if kind == "all-reduce" \
-        else _nbytes(result)
+    if kind == "all-reduce":
+        link = 2.0 * _nbytes(operand)
+    elif kind == "all-gather":
+        link = _nbytes(result)
+    else:
+        link = _nbytes(operand)
     walker.collective(kind, link, _nbytes(operand) + _nbytes(result))
 
 

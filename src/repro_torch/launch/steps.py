@@ -1,8 +1,9 @@
 """Step builders of the port (``repro.launch.steps``): the train step with
 AdamW, global-norm clipping and gradient accumulation — on one device, or
 as one rank of a data- and tensor-parallel mesh (its gradients averaged
-in f32 over the data group, its clip norm summed over the tensor-parallel
-group) — and the prefill and decode steps; ``input_specs`` (the batch of
+in f32 over the data group, or reduce-scattered into its data shards
+where the model holds them, its clip norm summed over both groups) — and
+the prefill and decode steps; ``input_specs`` (the batch of
 one step of a cell as ``(shape, dtype)`` stand-ins) and
 ``model_shardings`` (the parameters' shapes, allocated nowhere, and their
 resolved specs on a mesh; packed containers for a ``ternary_packed``
@@ -66,12 +67,19 @@ def value_and_grad(model: LM, cfg: ModelConfig, params, batch, marks=None,
     return {k: v / accum for k, v in metrics.items()}, grads
 
 
-def mean_all_reduce(grads, group):
+def mean_all_reduce(grads, group, skip=None):
     """The mean of every floating leaf over ``group``, summed in f32: all
     leaves in one flat f32 buffer, all-reduced in buckets
     (``Group.all_reduce_flat``), then each leaf / n cast back to its
-    dtype."""
-    leaves = [g for g in tree_leaves(grads) if g.is_floating_point()]
+    dtype. ``skip`` (a tree like ``grads``, ``fsdp.data_marks``) leaves
+    out every leaf it marks (a data shard's gradient, already the
+    group's mean)."""
+    if skip is not None:
+        keep = tree_leaves(tree_map(lambda g, m: m is None, grads, skip))
+    else:
+        keep = [True] * len(tree_leaves(grads))
+    leaves = [g for g, k in zip(tree_leaves(grads), keep)
+              if k and g.is_floating_point()]
     flat = torch.cat([g.reshape(-1).float() for g in leaves])
     group.all_reduce_flat(flat)
     out, at = {}, 0
@@ -98,24 +106,33 @@ def make_train_step(model: LM, cfg: ModelConfig,
     (``tp.strip_marks`` of its shards) make it a tensor-parallel rank of
     ``model.comm`` — the clip's norm sums the split leaves' squares over
     that group and counts the replicated ones once. Every rank of a data
-    group then holds the same gradients, so the same update."""
+    group then holds the same gradients, so the same update.
+
+    ``model.shards`` (``distributed.fsdp.Shards`` over ``data_group``)
+    makes the params the rank's data shards (``cfg.fsdp``): the model
+    gathers them at use, their gradients arrive reduce-scattered (each
+    microbatch's, under accumulation) and only the whole leaves are
+    all-reduced; the norm sums the shards' squares over the data group
+    too, and AdamW updates the shards."""
     lr_fn = lr_fn or warmup_cosine(3e-4, 100, 10_000)
     opt_init, opt_update = adamw(state_dtype=cfg.opt_state_dtype)
     split = None
+    shards = model.shards
 
     def train_step(params, opt_state, batch):
         nonlocal split
         metrics, grads = value_and_grad(model, cfg, params, batch, marks)
         if data_group is not None and data_group.size > 1:
-            grads = mean_all_reduce(grads, data_group)
+            grads = mean_all_reduce(grads, data_group,
+                                    None if shards is None else shards.marks)
             metrics = dict(metrics, loss=mean_loss(metrics, data_group))
-        if marks:
-            if split is None:
-                from repro_torch.distributed import tp as tp_lib
-                split = tp_lib.split_mask(grads, marks)
-            grads, gnorm = clip_by_global_norm(grads, 1.0, split, model.comm)
-        else:
-            grads, gnorm = clip_by_global_norm(grads, 1.0)
+        if marks and split is None:
+            from repro_torch.distributed import tp as tp_lib
+            split = tp_lib.split_mask(grads, marks)
+        data = (None, None) if shards is None \
+            else (shards.marks, shards.group)
+        grads, gnorm = clip_by_global_norm(
+            grads, 1.0, split, model.comm if marks else None, *data)
         lr = lr_fn(opt_state["step"] + 1)
         params, opt_state = opt_update(grads, opt_state, params, lr)
         return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)

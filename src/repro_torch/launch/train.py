@@ -17,11 +17,17 @@ or, with ``--compress-grads``, cross it as ternary codes plus a scale
 with error feedback (``make_compressed_dp_step``; ``repro``'s refusal:
 it needs --data-parallel > 1 and --model-parallel 1); tensor-parallel
 ranks (every family) hold Megatron-style shards (``distributed.tp``).
-The update is replicated, so the ranks of a data group hold the same
-bits. Checkpoints stay in ``repro``'s layout: rank 0 gathers the shards
-before it saves, so a mesh's checkpoint restores in one process and the
-reverse. Whole parameters and AdamW moments live on every data-parallel
-rank, whatever ``cfg.fsdp`` says (ROADMAP C16).
+Where ``cfg.fsdp`` is set (``--set fsdp=true`` for a config without it)
+and the data group has more than one rank, each rank keeps only its
+slice of every parameter ``repro`` places on the data axes and of its
+AdamW moments (``distributed.fsdp``): the model gathers a block's slices
+as it runs it and the gradients are reduce-scattered into the slices, so
+the update runs on the slices. ``--compress-grads`` keeps whole state,
+as ``repro``'s shard_map trainer replicates it. Otherwise the update is
+replicated, so the ranks of a data group hold the same bits.
+Checkpoints stay in ``repro``'s layout: rank 0 gathers the shards (over
+the data group, then the model group) before it saves, so a mesh's
+checkpoint restores in one process and the reverse.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch ternary-paper \\
@@ -59,6 +65,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.distributed import compression
+from repro_torch.distributed import fsdp as fsdp_lib
 from repro_torch.distributed import tp as tp_lib
 from repro_torch.distributed.fault_tolerance import (StragglerWatchdog,
                                                      TrainSupervisor)
@@ -225,6 +232,8 @@ class _Rank:
             f"{store}_model{self.d}", self.m, tp, _backend(model_devs),
             timeout) if tp > 1 else None
         self.params = self.opt = self.err = None
+        self.shards: Optional[fsdp_lib.Shards] = None
+        self.peak = self.step_peak = 0
 
     def groups(self) -> Dict[str, tp_lib.Group]:
         return {n: g for n, g in (("data", self.data),
@@ -242,6 +251,7 @@ class _Rank:
         # sharing a card would otherwise hold each other's memory); the
         # peak memory a report reads is this model's
         self.params = self.opt = self.err = None
+        self.peak = self.step_peak = 0
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(self.device)
@@ -253,12 +263,19 @@ class _Rank:
         self.model.comm = self.model_group
         self.data_src = SyntheticLM(cfg, batch, seq)
         self.marks: Dict[tuple, str] = {}
-        if self.tp > 1:
+        self.shards = None
+        if self.tp > 1 or self.sharded(cfg, compress):
             shapes, _ = steps_lib.model_shardings(self.full_model, cfg,
                                                   self.mesh)
+        if self.tp > 1:
             _, self.marks = tp_lib.strip_marks(tp_lib.shard_params(
                 shapes, self.full_model.param_specs(), self.mesh,
                 rank=self.m, cfg=cfg, latent=True))
+        if self.sharded(cfg, compress):
+            self.shards = fsdp_lib.Shards(fsdp_lib.data_marks(
+                shapes, self.full_model.param_specs(), self.mesh, True),
+                self.data)
+        self.model.shards = self.shards
         lr_fn = warmup_cosine(lr, min(100, total_steps // 10 + 1),
                               total_steps)
         if compress:
@@ -270,8 +287,24 @@ class _Rank:
                 marks=self.marks)
         self.params = self.opt = self.err = None
 
+    def sharded(self, cfg, compress: bool) -> bool:
+        """Whether this mesh splits the state over its data group: fsdp
+        set, more than one data rank, and not the compressed trainer."""
+        return cfg.fsdp and self.dp > 1 and not compress
+
     def _shard(self, tree):
-        return tp_lib.shard_tree(tree, self.marks, self.m, self.tp)
+        """The rank's slices of a whole tree shaped like the params: over
+        the model group, then over the data group."""
+        tree = tp_lib.shard_tree(tree, self.marks, self.m, self.tp)
+        if self.shards is None:
+            return tree
+        return fsdp_lib.shard_data(tree, self.shards.marks, self.d, self.dp)
+
+    def _gather(self, tree):
+        """``_shard``'s inverse (every rank of the mesh takes part)."""
+        if self.shards is not None:
+            tree = fsdp_lib.gather_data(tree, self.shards.marks, self.data)
+        return tp_lib.gather_tree(tree, self.marks, self.model_group)
 
     def op_init(self, seed):
         full = self.full_model.init(
@@ -304,6 +337,11 @@ class _Rank:
                                             rank=self.rank)
         before = {n: (g.calls, g.bytes, g.seconds)
                   for n, g in self.groups().items()}
+        if self.device.type == "cuda":
+            # the step's own peak, kept apart from the build's
+            self.peak = max(self.peak,
+                            torch.cuda.max_memory_allocated(self.device))
+            torch.cuda.reset_peak_memory_stats(self.device)
         if self.compress:
             self.params, self.opt, self.err, metrics = self.step_fn(
                 self.params, self.opt, self.err, batch)
@@ -311,6 +349,9 @@ class _Rank:
             self.params, self.opt, metrics = self.step_fn(
                 self.params, self.opt, batch)
         out = {k: float(v) for k, v in metrics.items()}
+        if self.device.type == "cuda":
+            self.step_peak = max(self.step_peak,
+                                 torch.cuda.max_memory_allocated(self.device))
         self.last_comm = {
             name: {"calls": g.calls - before[name][0],
                    "bytes": g.bytes - before[name][1],
@@ -332,33 +373,45 @@ class _Rank:
         return float(loss)
 
     def op_state(self, params_only=False):
-        """The whole state from the model group's shards (every rank of it
-        takes part): {"params", "opt"} (+ "err"), or {"params"}, on this
-        rank's device."""
-        def whole(tree):
-            return tp_lib.gather_tree(tree, self.marks, self.model_group)
-        state = {"params": whole(self.params)}
+        """The whole state from the ranks' shards, gathered over the data
+        group and then the model group (every rank takes part): {"params",
+        "opt"} (+ "err"), or {"params"}, on this rank's device."""
+        state = {"params": self._gather(self.params)}
         if params_only:
             return state
-        state["opt"] = dict(self.opt, m=whole(self.opt["m"]),
-                            v=whole(self.opt["v"]))
+        state["opt"] = dict(self.opt, m=self._gather(self.opt["m"]),
+                            v=self._gather(self.opt["v"]))
         if self.err is not None:
             state["err"] = self.err
         return state
 
     def op_report(self, grads_step=None):
         """Every rank's (data, model) coordinates, per-leaf checksums of
-        its params, m and v, its peak device memory and, with
-        ``grads_step``, checksums of the gradients of that step's rows
-        (no update) with the leaves' split mask; gathered on every rank."""
+        its params, m and v (gathered over the data group where the rank
+        holds data shards), the bytes of its own params, m and v
+        (``state_bytes``), its peak device memory since the build and in
+        its largest step and, with ``grads_step``, checksums of the
+        gradients of that step's rows (no update) with the leaves' split
+        mask, and (not compressed) of the data group's mean of them before
+        the clip (``grads_synced``: gathered over the data group, each
+        rank's slices over the model group); gathered on every rank."""
         def sums(tree):
             return [checksum(t) for t in tree_leaves(tree)]
+
+        def data_whole(tree):
+            return tree if self.shards is None else fsdp_lib.gather_data(
+                tree, self.shards.marks, self.data)
+        cuda = self.device.type == "cuda"
         rep = {"rank": self.rank, "d": self.d, "m": self.m,
-               "params": sums(self.params), "m_state": sums(self.opt["m"]),
-               "v_state": sums(self.opt["v"]),
-               "step": int(self.opt["step"]),
-               "peak_bytes": (torch.cuda.max_memory_allocated(self.device)
-                              if self.device.type == "cuda" else None)}
+               "peak_bytes": (max(self.peak, torch.cuda.max_memory_allocated(
+                   self.device)) if cuda else None),
+               "step_peak_bytes": self.step_peak if cuda else None,
+               "state_bytes": fsdp_lib.state_bytes(self.params, self.opt),
+               "sharded": self.shards is not None,
+               "params": sums(data_whole(self.params)),
+               "m_state": sums(data_whole(self.opt["m"])),
+               "v_state": sums(data_whole(self.opt["v"])),
+               "step": int(self.opt["step"])}
         if grads_step is not None:
             batch = self.data_src.sharded_batch(
                 grads_step, self.mesh, self.device, rank=self.rank)
@@ -369,6 +422,12 @@ class _Rank:
             rep["split"] = [bool(torch.as_tensor(x).any()) for x in
                             tree_leaves(tp_lib.split_mask(grads,
                                                           self.marks))]
+            if not self.compress:
+                synced = grads if self.data is None \
+                    else steps_lib.mean_all_reduce(
+                        grads, self.data,
+                        None if self.shards is None else self.shards.marks)
+                rep["grads_synced"] = sums(data_whole(synced))
         return self.world.gather_objects(rep)
 
 
@@ -539,7 +598,8 @@ class DistTrainer:
 def check_replicas(reports: List[Dict]) -> Dict[str, int]:
     """Raise unless the ranks of every data group hold the same bits
     (equal checksums of every param, m and v leaf between ranks of one
-    model coordinate) and, where ``reports`` carry gradients, unless the
+    model coordinate; where the ranks hold data shards, of the state
+    gathered over the data group, ``op_report``'s) and, where ``reports`` carry gradients, unless the
     tensor-parallel ranks of a replica got the same gradients for every
     replicated (unsplit) leaf. Returns the counts compared."""
     steps = {r["step"] for r in reports}

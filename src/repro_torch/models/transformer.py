@@ -35,7 +35,11 @@ banks' as ``repro`` writes them); ``distributed.tp.shard_params``
 resolves it. A model
 whose ``comm`` is a ``distributed.tp.Group`` runs its forward, loss,
 prefill and decode calls inside that group (a tensor-parallel rank, whose
-config holds its local head counts: ``tp.local_config``).
+config holds its local head counts: ``tp.local_config``). A model whose
+``shards`` is a ``distributed.fsdp.Shards`` takes parameters split over
+the data group (``cfg.fsdp``): each block's shards are gathered inside
+the call that remat recomputes, the embedding, the final norm and the lm
+head where they are used.
 
 Caches: ``{"layers": [per layer], "pos": int32 tensor}``, ``pos`` a scalar
 or a (B,) vector of per-slot positions, and an encoder-decoder's prefill
@@ -59,6 +63,7 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import weights
 from repro_torch.device import resolve_device
+from repro_torch.distributed import fsdp as fsdp_lib
 from repro_torch.distributed import tp as tp_lib
 from repro_torch.distributed.sharding import EXPERT, FSDP, MODEL
 from repro_torch.models import attention, layers, moe, ssm
@@ -185,6 +190,8 @@ class LM:
         self.device = resolve_device(device)
         # a distributed.tp.Group when this model is a tensor-parallel rank
         self.comm = None
+        # a distributed.fsdp.Shards when its parameters are data shards
+        self.shards = None
         self.kinds = [(cfg.layer_kind(i), cfg.layer_ffn(i))
                       for i in range(cfg.num_layers)]
         self.period = layer_period(cfg)
@@ -275,6 +282,33 @@ class LM:
         with tp_lib.bound(self.comm):
             return self._apply_block(*args, **kwargs)
 
+    def _apply_shard_block(self, marks, bp, *args, **kwargs):
+        """A block whose parameters are data shards: gathered whole here,
+        inside the call remat recomputes, then ``_apply_block`` in the
+        model's tensor-parallel group."""
+        bp = fsdp_lib.gather_data(bp, marks, self.shards.group)
+        return self._apply_block_in_group(bp, *args, **kwargs)
+
+    def _block_fn(self, stack: str, i: int):
+        """The call running block ``i`` of ``stack``: ``_apply_block``, in
+        the group where the model is a tensor-parallel rank (the
+        backward's recomputation runs outside the call's group scope),
+        gathering the block's data shards first where it holds them."""
+        if self.shards is not None:
+            return functools.partial(self._apply_shard_block,
+                                     self.shards.sub(stack, i))
+        if self.comm is not None:
+            return self._apply_block_in_group
+        return self._apply_block
+
+    def _whole(self, params, name: str):
+        """``params[name]``, gathered over the data group where the model
+        holds data shards."""
+        if self.shards is None:
+            return params[name]
+        return fsdp_lib.gather_data(params[name], self.shards.sub(name),
+                                    self.shards.group)
+
     def _run_stack(self, params, x, *, positions, caches=None,
                    cache_pos=None, block_table=None, enc_out=None):
         """``caches=None`` runs the full-sequence (training) stack; each
@@ -286,9 +320,6 @@ class LM:
         the layers without an aux add nothing, where ``repro`` adds 0)."""
         remat = (caches is None and self.cfg.remat == "full"
                  and torch.is_grad_enabled())
-        # the backward's recomputation runs outside the call's group scope
-        block = self._apply_block if self.comm is None \
-            else self._apply_block_in_group
         new_caches = []
         aux_total = group = None
         for i, bp in enumerate(params["layers"]):
@@ -297,11 +328,12 @@ class LM:
                       cache=None if caches is None else caches[i],
                       cache_pos=cache_pos, block_table=block_table,
                       enc_out=enc_out)
+            block = self._block_fn("layers", i)
             if remat:
                 x, nc, aux = torch_checkpoint.checkpoint(
                     block, bp, x, kind, ffn, use_reentrant=False, **kw)
             else:
-                x, nc, aux = self._apply_block(bp, x, kind, ffn, **kw)
+                x, nc, aux = block(bp, x, kind, ffn, **kw)
             if aux is not None:
                 group = aux if group is None else group + aux
             if (i + 1) % self.period == 0 and group is not None:
@@ -322,18 +354,17 @@ class LM:
         remat = self.cfg.remat == "full" and torch.is_grad_enabled()
         kw = dict(positions=positions, cache=None, cache_pos=None,
                   block_table=None, causal=False)
-        # the backward's recomputation runs outside the call's group scope
-        block = self._apply_block if self.comm is None \
-            else self._apply_block_in_group
         x = enc_x
-        for bp in params["enc_layers"]:
+        for i, bp in enumerate(params["enc_layers"]):
+            block = self._block_fn("enc_layers", i)
             if remat:
                 x = torch_checkpoint.checkpoint(
                     block, bp, x, "attn", "mlp",
                     use_reentrant=False, **kw)[0]
             else:
-                x = self._apply_block(bp, x, "attn", "mlp", **kw)[0]
-        return layers.norm_apply(params["enc_norm"], x, self.cfg)
+                x = block(bp, x, "attn", "mlp", **kw)[0]
+        return layers.norm_apply(self._whole(params, "enc_norm"), x,
+                                 self.cfg)
 
     def _inputs(self, params, batch):
         """(x (B, S, d), n_front, enc_out): the embedded tokens after a
@@ -341,7 +372,8 @@ class LM:
         activations' dtype), and an encoder-decoder's encoder output over
         its ``enc_embeds`` (else None)."""
         cfg = self.cfg
-        x = layers.embed_apply(params["embed"], batch["tokens"], cfg)
+        x = layers.embed_apply(self._whole(params, "embed"), batch["tokens"],
+                               cfg)
         n_front = 0
         if "vision_embeds" in batch:
             ve = batch["vision_embeds"].to(x.dtype)
@@ -374,7 +406,7 @@ class LM:
             x.shape[0], -1)
         x, _, aux = self._run_stack(params, x, positions=positions,
                                     enc_out=enc_out)
-        x = layers.norm_apply(params["final_norm"], x, cfg)
+        x = layers.norm_apply(self._whole(params, "final_norm"), x, cfg)
         return x, n_front, aux
 
     @_in_group
@@ -385,9 +417,11 @@ class LM:
         x, n_front, aux = self.forward(params, batch)
         x = x[:, n_front:]
         targets = batch["targets"].long()
+        head_name = "embed" if cfg.tie_embeddings else "unembed"
+        head = {head_name: self._whole(params, head_name)}
 
         def ce_of(xc, tc):
-            logits = self._logits(params, xc).float()
+            logits = self._logits(head, xc).float()
             gold = logits.gather(-1, tc[..., None])[..., 0]
             return torch.logsumexp(logits, dim=-1) - gold
 

@@ -38,7 +38,8 @@ def tree_leaves(tree) -> List:
     return out
 
 
-def global_norm(tree, split=None, group=None) -> torch.Tensor:
+def global_norm(tree, split=None, group=None, data=None,
+                data_group=None) -> torch.Tensor:
     """The L2 norm of every floating leaf. Under tensor parallelism
     (``group`` a ``distributed.tp.Group``, ``split`` a tree of bools like
     ``tree``: ``tp.split_mask``) a rank holds slices of the split leaves
@@ -46,32 +47,43 @@ def global_norm(tree, split=None, group=None) -> torch.Tensor:
     the group, the replicated leaves' counted once, so every rank gets the
     same norm. A ``split`` leaf may also be a bool tensor over the leaf's
     last axis (a split SSM in_proj's columns: False at the replicated
-    ones)."""
-    if group is None:
-        leaves = [x.float().square().sum() for x in tree_leaves(tree)
-                  if x.is_floating_point()]
-        return torch.sqrt(torch.stack(leaves).sum())
-    sums = {True: [], False: []}
-    for x, s in zip(tree_leaves(tree), tree_leaves(split)):
+    ones). ``data`` (``fsdp.data_marks``, not None where a leaf is a data
+    shard) and ``data_group``: the shards' squares are summed over the
+    data group as well, so every leaf counts once. The squares go in four
+    sums by (tensor-parallel slice, data shard); the data shards' two are
+    all-reduced over the data group in one call, then the slices' over
+    the model group (a sum with nothing in it adds an exact 0)."""
+    xs = tree_leaves(tree)
+    splits = tree_leaves(split) if split is not None else [False] * len(xs)
+    shards = tree_leaves(tree_map(lambda _, m: m is not None, tree, data)) \
+        if data is not None else [False] * len(xs)
+    sums = {(t, d): [] for t in (True, False) for d in (True, False)}
+    for x, s, d in zip(xs, splits, shards):
         if not x.is_floating_point():
             continue
         sq = x.float().square()
         if isinstance(s, torch.Tensor):
-            sums[True].append((sq * s).sum())
-            sums[False].append((sq * ~s).sum())
+            sums[True, d].append((sq * s).sum())
+            sums[False, d].append((sq * ~s).sum())
         else:
-            sums[bool(s)].append(sq.sum())
-    zero = torch.zeros((), dtype=torch.float32,
-                       device=tree_leaves(tree)[0].device)
-    part = torch.stack(sums[True]).sum() if sums[True] else zero
-    whole = torch.stack(sums[False]).sum() if sums[False] else zero
-    return torch.sqrt(group.all_reduce(part) + whole)
+            sums[bool(s), d].append(sq.sum())
+    zero = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    tot = {k: torch.stack(v).sum() if v else zero for k, v in sums.items()}
+    both = torch.stack([tot[True, True], tot[False, True]])
+    if data_group is not None:
+        both = data_group.all_reduce(both)
+    part = tot[True, False] + both[0]
+    if group is not None:
+        part = group.all_reduce(part)
+    return torch.sqrt(part + tot[False, False] + both[1])
 
 
-def clip_by_global_norm(grads, max_norm: float, split=None, group=None):
+def clip_by_global_norm(grads, max_norm: float, split=None, group=None,
+                        data=None, data_group=None):
     """(grads scaled by min(1, max_norm / (norm + 1e-9)), norm);
-    ``split`` and ``group`` as ``global_norm``'s."""
-    norm = global_norm(grads, split, group)
+    ``split``, ``group``, ``data`` and ``data_group`` as
+    ``global_norm``'s."""
+    norm = global_norm(grads, split, group, data, data_group)
     factor = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: (g * factor).to(g.dtype)
                     if g.is_floating_point() else g, grads), norm

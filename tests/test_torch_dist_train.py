@@ -24,7 +24,8 @@ out after ``TIMEOUT_S``), on a reduced ``ternary-paper`` (2 layers, d
 * checkpoints cross between a dp 2 x tp 2 mesh and one process both
   ways, and a restart brings every rank back to the same step;
 * every family the one-process trainer trains runs plain and compressed
-  data parallelism; the MoE layer's capacity and aux loss are per rank
+  data parallelism, and with its state split over the data group
+  (``fsdp=True``); the MoE layer's capacity and aux loss are per rank
   (ROADMAP C17);
 * the placement helpers (``sharded_batch``, ``batch_sharding``,
   ``replicated``, ``opt_state_shardings``, ``input_specs``,
@@ -479,22 +480,24 @@ FAMILIES = ["mixtral-8x22b", "mamba2-130m", "jamba-v0.1-52b",
             "seamless-m4t-large-v2", "internvl2-76b"]
 
 
-def _family_cfg(arch):
+def _family_cfg(arch, fsdp=False):
     return get_config(arch, reduced=True, num_layers=2, dtype="float32",
-                      grad_accum=1)
+                      grad_accum=1, fsdp=fsdp)
 
 
 @pytest.fixture(scope="module")
 def families():
-    """One dp 2 mesh rebuilt for each family, plain then compressed: the
-    first step's metrics and the ranks' reports."""
+    """One dp 2 mesh rebuilt for each family, plain, compressed, then
+    with its state split over the data group: the first step's metrics
+    and the ranks' reports."""
     out = {}
     tr = _trainer(_family_cfg(FAMILIES[0]), 2, 1)
     try:
         for arch in FAMILIES:
-            for compress in (False, True):
-                tr.build(_family_cfg(arch), batch=BATCH, seq=SEQ, lr=LR,
-                         total_steps=TOTAL, compress=compress)
+            for compress in (False, True, "fsdp"):
+                tr.build(_family_cfg(arch, fsdp=compress == "fsdp"),
+                         batch=BATCH, seq=SEQ, lr=LR, total_steps=TOTAL,
+                         compress=compress is True)
                 tr.init(0)
                 out[arch, compress] = (tr.step(0), tr.report())
     finally:
@@ -518,7 +521,8 @@ def _losses(arch):
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
-@pytest.mark.parametrize("compress", [False, True], ids=["f32", "codes"])
+@pytest.mark.parametrize("compress", [False, True, "fsdp"],
+                         ids=["f32", "codes", "fsdp"])
 def test_every_family_trains_data_parallel(families, arch, compress):
     met, reports = families[arch, compress]
     whole, per_rank = _losses(arch)
@@ -528,6 +532,14 @@ def test_every_family_trains_data_parallel(families, arch, compress):
     train.check_replicas(reports)
     if get_config(arch).num_experts == 0:
         assert abs(met["loss"] - whole) <= 1e-5 * abs(whole)
+    # fsdp: each rank holds its slices, a little over half the state
+    plain = families[arch, False][1][0]["state_bytes"]
+    assert all(r["sharded"] == (compress == "fsdp") for r in reports)
+    if compress == "fsdp":
+        assert all(plain / 2 <= r["state_bytes"] < 0.6 * plain
+                   for r in reports)
+    else:
+        assert all(r["state_bytes"] == plain for r in reports)
 
 
 def test_c17_moe_capacity_and_aux_are_per_rank(families):

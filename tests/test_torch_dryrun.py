@@ -1,8 +1,10 @@
 """The port's dry run (``repro_torch.launch.dryrun``) against ``repro``'s:
 ``model_flops`` for every architecture and shape, the cells' status and
 skip reasons, ``make_production_mesh``'s shapes and axes, the decode
-cache's resolved specs, and the matmul FLOPs of reduced granite's prefill
-against ``repro``'s walker over its jitted prefill. ``repro.launch.dryrun``
+cache's resolved specs, the matmul FLOPs of reduced granite's prefill
+against ``repro``'s walker over its jitted prefill, and the argument
+bytes of reduced fsdp train cells (state split over the data axes)
+against ``repro``'s compiled ``memory_analysis``. ``repro.launch.dryrun``
 sets ``XLA_FLAGS`` when it is imported, so every ``repro`` reading comes
 from one child process (``REPRO_DRYRUN_DEVICES``, Auto mesh axes, no
 ``train_4k`` cell). The recording group counts what a real 2-rank gloo
@@ -19,18 +21,22 @@ import torch
 
 from repro_torch.configs import SHAPES, get_config, list_archs
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.data import SyntheticLM
 from repro_torch.distributed import sharding
 from repro_torch.launch import dryrun, hlo_cost, make_production_mesh, steps
 from repro_torch.models import LM
 
 from test_torch_gloo_ranks import run_ranks
 from torch_cpu_threads import one_torch_thread  # noqa: F401
-from torch_family_ranks import decode_comm_rank
+from torch_family_ranks import decode_comm_rank, fsdp_train_comm_rank
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CACHE_ARCHS = ("granite-3-8b", "jamba-v0.1-52b", "seamless-m4t-large-v2")
 CACHE_SHAPE = (64, 8)                      # (cache length, batch)
 PREFILL = (2, 48, 64)                      # (batch, prompt, max_len)
+# reduced fsdp train cells: (sequence, global batch, (data, model) mesh)
+TRAIN_CELL = (64, 32, (4, 1))
+TRAIN_ARCHS = ("granite-3-8b", "mixtral-8x22b")
 
 _CHILD = r"""
 import json, os, sys
@@ -83,6 +89,24 @@ step = steps.make_prefill_step(model, cfg, max_len)
 tokens = {"tokens": jax.ShapeDtypeStruct((b, s), jnp.int32)}
 c = jax.jit(step).lower(p_shapes, tokens).compile()
 out["dot"] = hlo_cost.analyze(c.as_text()).by_op.get("dot", [0, 0])[0]
+out["train_args"] = {}
+length, batch, dims = %(train)r
+for a in %(train_archs)r:
+    tmesh = auto(tuple(dims), ("data", "model"))
+    set_mesh(tmesh)
+    cfg = get_config(a, reduced=True, fsdp=True)
+    model = LM(cfg)
+    p_shapes, p_sh = steps.model_shardings(model, cfg, tmesh)
+    shape = ShapeConfig("train", length, batch, "train")
+    tbatch = steps.input_specs(cfg, shape)
+    step, opt_init = steps.make_train_step(model, cfg)
+    o_shapes = jax.eval_shape(opt_init, p_shapes)
+    o_sh = shlib.opt_state_shardings(p_sh, o_shapes, tmesh)
+    c = jax.jit(step, in_shardings=(p_sh, o_sh, shlib.batch_sharding(
+        tbatch, tmesh)), donate_argnums=(0, 1)).lower(
+        p_shapes, o_shapes, tbatch).compile()
+    out["train_args"][a] = dryrun._mem_dict(c.memory_analysis())[
+        "argument_size_in_bytes"]
 print(json.dumps(out))
 """
 
@@ -90,7 +114,8 @@ print(json.dumps(out))
 @pytest.fixture(scope="module")
 def repro_side():
     code = _CHILD % {"cache": CACHE_SHAPE, "archs": CACHE_ARCHS,
-                     "prefill": PREFILL}
+                     "prefill": PREFILL, "train": TRAIN_CELL,
+                     "train_archs": TRAIN_ARCHS}
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     out = subprocess.run([sys.executable, "-c", code, str(ROOT / "src")],
@@ -181,6 +206,73 @@ def test_prefill_matmul_flops_equal_repros_walker(repro_side):
     t = hlo_cost.trace(steps.make_prefill_step(model, cfg, max_len),
                        params, batch)
     assert hlo_cost.matmul_flops(t.plain) == repro_side["dot"] > 0
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_fsdp_train_cell_arguments_equal_repros(arch, repro_side):
+    """A reduced fsdp train cell on a (4, 1) mesh: rank 0's parameters,
+    AdamW state and batch rows (``memory.argument_size_in_bytes``) are
+    ``repro``'s compiled record's to the byte — every fsdp leaf and its
+    moments a quarter, the norms and the step whole — and a quarter or
+    so of the same cell's with fsdp off; the collectives gather and
+    reduce-scatter."""
+    length, batch, dims = TRAIN_CELL
+    shape = ShapeConfig("train", length, batch, "train")
+    mesh = dryrun.parse_mesh("x".join(str(d) for d in dims))
+    rec = dryrun.run_cell(arch, "train_4k", reduced=True, mesh=mesh,
+                          shape=shape, overrides={"fsdp": True})
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] == repro_side["train_args"][arch]
+    whole = dryrun.run_cell(arch, "train_4k", reduced=True, mesh=mesh,
+                            shape=shape, overrides={"fsdp": False})
+    assert whole["memory"]["argument_size_in_bytes"] \
+        > 3.5 * mem["argument_size_in_bytes"]
+    assert 0 < mem["state_size_in_bytes"] < mem["argument_size_in_bytes"]
+    coll = rec["collective_bytes_per_chip"]
+    assert coll["all-gather"] > 0 and coll["reduce-scatter"] > 0
+    assert "reduce-scatter" not in whole["collective_bytes_per_chip"]
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_serving_cells_keep_whole_params_whatever_fsdp_says(kind):
+    """The port's engine is replicated (C19): a reduced fsdp config's
+    prefill or decode cell on a 2 x 2 mesh gives the same record with
+    fsdp on and off — rank 0 holds whole parameters on every data rank."""
+    shape = ShapeConfig(kind, 64, 4, kind)
+    recs = []
+    for flag in (False, True):
+        rec = dryrun.run_cell("granite-3-8b", f"{kind}_32k", reduced=True,
+                              mesh=dryrun.parse_mesh("2x2"), shape=shape,
+                              overrides={"fsdp": flag})
+        rec.pop("trace_s")
+        rec.pop("overrides")
+        recs.append(rec)
+    assert recs[0]["status"] == "ok" and recs[0] == recs[1]
+    assert recs[0]["memory"]["state_size_in_bytes"] is None
+
+
+@pytest.mark.parametrize("arch,accum", [("ternary-paper", 1),
+                                        ("mixtral-8x22b", 2)])
+def test_recording_group_counts_reduce_scatter_as_a_real_gloo_rank(arch,
+                                                                   accum):
+    """Rank 0's data collectives in one fsdp train step at dp 2 — the
+    slices gathered at use, their gradients reduce-scattered (each
+    microbatch's under accumulation), the whole leaves' all-reduced, the
+    norm, the loss — counted by the recording group in the dry run's meta
+    trace equal a real 2-rank gloo group's."""
+    cfg = get_config(arch, reduced=True, fsdp=True, grad_accum=accum)
+    params = LM(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    rows, length = 4, 16
+    batch = {k: v.numpy() for k, v in SyntheticLM(
+        cfg, rows, length).sharded_batch(0).items()}
+    real = run_ranks(2, fsdp_train_comm_rank, cfg, params, batch)[0]
+    step, args, groups = dryrun.rank_step(
+        cfg, ShapeConfig("train", length, rows, "train"),
+        dryrun.parse_mesh("2x1"))
+    hlo_cost.trace(step, *args)
+    (data,) = groups
+    assert (data.calls, data.bytes) == real
+    assert data.calls > 2 * accum
 
 
 @pytest.mark.parametrize("arch", ["granite-3-8b", "mixtral-8x22b"])

@@ -1,5 +1,5 @@
-"""Rank functions for the tensor-parallel family tests, run on CPU ranks
-over gloo by ``test_torch_gloo_ranks.run_ranks`` (each spawned process
+"""Rank functions for the tensor-parallel family tests and the sharded
+training state's (``cfg.fsdp``), run on CPU ranks over gloo by ``test_torch_gloo_ranks.run_ranks`` (each spawned process
 imports this module — torch and numpy, no JAX — and nothing of the
 calling test file)."""
 import numpy as np
@@ -80,4 +80,60 @@ def decode_comm_rank(group, rank, cfg, params, rows, cache_len):
     tokens = torch.zeros((rows, 1), dtype=torch.int32)
     with torch.no_grad():
         model.decode_step(shards, cache, tokens)
+    return group.calls, group.bytes
+
+
+def _rows(batch, rank, n):
+    return {k: torch.as_tensor(np.split(v, n)[rank]) for k, v in
+            batch.items()}
+
+
+def fsdp_grads_rank(group, rank, cfgs, params, batch):
+    """For each config of ``cfgs``, the data group's mean of the
+    gradients of this rank's rows of ``batch`` (block ``rank`` of
+    dimension 0), before the clip: on the whole params through
+    ``steps.mean_all_reduce``, and on this rank's data slices
+    (``LM.shards``: each reduce-scattered, then gathered back), as numpy
+    trees [(whole, sharded)]."""
+    return [_fsdp_grads(group, rank, cfg, params, batch) for cfg in cfgs]
+
+
+def _fsdp_grads(group, rank, cfg, params, batch):
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch import steps
+    from repro_torch.models import LM
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.optim.optimizers import tree_map
+
+    mine = _rows(batch, rank, group.size)
+    model = LM(cfg, "cpu")
+    _, g = steps.value_and_grad(model, cfg, params, mine)
+    whole = steps.mean_all_reduce(g, group)
+    marks = fsdp.data_marks(params, param_specs(cfg, params),
+                            {"data": group.size, "model": 1}, True)
+    model.shards = fsdp.Shards(marks, group)
+    _, g = steps.value_and_grad(
+        model, cfg, fsdp.shard_data(params, marks, rank, group.size), mine)
+    sharded = fsdp.gather_data(steps.mean_all_reduce(g, group, marks),
+                               marks, group)
+    return (tree_map(lambda t: t.numpy(), whole),
+            tree_map(lambda t: t.numpy(), sharded))
+
+
+def fsdp_train_comm_rank(group, rank, cfg, params, batch):
+    """One fsdp train step (``steps.make_train_step`` on this rank's data
+    slices and rows of ``batch``) over the group: (the data collectives'
+    calls, the bytes this rank put in)."""
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch import steps
+    from repro_torch.models import LM
+    from repro_torch.models.transformer import param_specs
+
+    marks = fsdp.data_marks(params, param_specs(cfg, params),
+                            {"data": group.size, "model": 1}, True)
+    model = LM(cfg, "cpu")
+    model.shards = fsdp.Shards(marks, group)
+    step, opt_init = steps.make_train_step(model, cfg, data_group=group)
+    shards = fsdp.shard_data(params, marks, rank, group.size)
+    step(shards, opt_init(shards), _rows(batch, rank, group.size))
     return group.calls, group.bytes
