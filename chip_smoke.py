@@ -251,12 +251,22 @@ tp_families came, then to {4, 8} when the examples phase came, then to
 {2, 4} when train_dist's fsdp mesh came: the script's time limit): each against a tp-1 engine on the same weights, the first decode step's
 logits within LOGIT_TOL of max|logit| and the streams equal or split at
 near ties (``_split_check``), every budget met, B1 and B4 launched by
-the leader and B5 12 a leader decode step (paged). Last, the router at
+the leader and B5 12 a leader decode step (paged); the tp 2 ranks hold
+the split embedding table. Then TP_ONE_HEAD: ternary-paper at full
+width with one K/V head, 2 layers, at tp 2, dense and paged bf16: each
+rank 8 query heads and the one K/V head, held by both ranks (the
+replication GQA-8 has at tp 16), against tp 1 by the same rules, and B5
+at (h 8, kv 1) against its plain version with max abs err 0 (bf16 and
+int8 pages), the case's seconds printed. Last, the router at
 dp 2 x tp 1 and dp 2 x tp 2 (four ranks on the card) over paged bf16
 pools, two waves of a workload whose even requests share a 64-token
 prefix: the placements, affinity hits and spills printed, at least one
 affinity hit, and the streams against one engine's under the near-tie
-rule. ``--only tp`` builds and runs this phase alone.
+rule. ``--only tp`` builds and runs this phase alone. This phase,
+``tp_families`` and ``train_dist`` keep 2, 1 and 3 idle rank processes
+started ahead (``tp.keep_spares``), so a follower or training rank
+reaches its group without a Python start of its own (~8 s each on the
+card's host).
 ``tp_families`` runs tensor parallelism for the other families, two
 ranks sharing cuda:0 over gloo, eagerly. Serving: FAMILIES' models
 (jamba-v0.1-52b at full width, 2 layers of attn_period 2 (TP_FAMILIES'
@@ -290,7 +300,9 @@ least WITNESS_FACTOR times the reading of one process's step with every
 parameter moved one ulp), each model at the first cut of
 TP_FAMILIES_TRAIN that the 28-B-a-parameter reckoning fits in
 TP_TRAIN_BUDGET_GIB (mamba2 at 6 layers, seamless at 6 + 6), the cuts
-passed over printed with why. ``--only tp_families`` builds and runs this phase alone.
+passed over printed with why; TP_ONE_HEAD's ternary-paper too, whose
+shared K/V head's gradients must be equal on both ranks once summed
+(``check_replicas`` over a gradient report). ``--only tp_families`` builds and runs this phase alone.
 ``tcsc`` runs the paper's TCSC formats on the card (plain PyTorch: no TPU
 kernel computes them) at K = N = 4096, s 1/2 and 1/16, M 8 and 64: each
 format's arrays round-trip, each matmul agrees with the plain dense
@@ -697,6 +709,19 @@ PORT_KERNEL_NAMES = ("ternary_gemm", "fused_mlp", "paged_attention",
 # ({16, 32}, then {8, 16}, then {4, 8} before: the script's time limit)
 TP = dict(tp=2, requests=16, prefix_len=64, gen_lens=(2, 4),
           allreduce=(((8, 1024), 50), ((1024, 1024), 20)))
+# the tp phase's GQA case: ternary-paper at full width with one K/V head
+# and 2 layers, so each of tp 2's ranks holds 8 query heads and the one K/V
+# head (GQA-8 at tp 16 replicates each K/V head on 2 ranks too; no config
+# has fewer K/V heads than 2 ranks, and one card cannot host 16 ranks in
+# the time), dense and paged bf16 at TP's budgets; B5 at its rank's shape
+TP_ONE_HEAD = dict(overrides=dict(num_kv_heads=1, num_layers=2),
+                   modes=("dense", "paged_bf16"),
+                   b5=dict(PAGED, h=PAGED["h"] // 2, kv=1))
+# the tp phase's cache modes, each an engine's keyword arguments
+TP_MODES = (("dense", {}),
+            ("paged_bf16", dict(cache="paged", page_size=PAGE_SIZE)),
+            ("paged_int8", dict(cache="paged", page_size=PAGE_SIZE,
+                                kv_dtype="int8")))
 # tp_families: FAMILIES' models and cache modes at tp 2 (two ranks on this
 # card over gloo, eager) against tp 1 on the same packed weights, over a
 # shorter workload than the families phase's (every MoE layer decodes its
@@ -731,6 +756,7 @@ TP_FAMILIES_TRAIN = {
                       dict(num_layers=1, vocab_size=32768)),
     "mixtral-8x22b": (dict(num_layers=2), dict(num_layers=1),
                       dict(num_layers=1, num_experts=4)),
+    "ternary-paper": (TP_ONE_HEAD["overrides"],),
 }
 # (the reckoning reads ~0.9 of the peaks measured: seamless whole 59.9
 # GiB against 57.4 for one process and 66.1 for the two ranks, measured
@@ -4370,6 +4396,26 @@ def _ternary_codes(params):
     return out
 
 
+def _warm_ranks(n):
+    """A phase's decorator: ``n`` idle rank processes kept started ahead
+    while the phase runs (``tp.keep_spares``: a follower or training rank
+    then reaches its group without a Python start of its own, ~8 s on the
+    card's host), none after it."""
+    import functools
+
+    def wrap(phase):
+        @functools.wraps(phase)
+        def run(*args, **kw):
+            from repro_torch.distributed import tp as tp_lib
+            tp_lib.keep_spares(n)
+            try:
+                return phase(*args, **kw)
+            finally:
+                tp_lib.keep_spares(0)
+        return run
+    return wrap
+
+
 def train_dist_mesh(label, trainer, compress, cfg32, cfg, ref, ckpt_root,
                     held_out_init, across):
     """One mesh of ``train_dist`` on ``trainer``'s ranks, rebuilt for it:
@@ -4560,6 +4606,7 @@ def _bf16_restart_run(label, trainer, cfg, compress, ckpt_dir):
     return history, 1, t_hist, comms
 
 
+@_warm_ranks(3)
 def train_dist_phase():
     """The distributed trainer (module docstring, ``train_dist``). Returns
     (readings, {run label: launches of the packed evaluation of each
@@ -5587,8 +5634,10 @@ def tp_train_cut(name):
     AdamW moments, the gradients, the new state): the one process's, whose
     state then waits on the host, and then the two ranks' over their
     shards, plus 28 B for each parameter the second rank holds again (the
-    embedding table). Returns (overrides, params, GiB, the cuts passed
-    over with why)."""
+    embedding table, when it stayed whole on every rank: split by
+    vocabulary rows now, so the reckoning over-counts it, kept so that
+    each family keeps the cut it was measured at). Returns (overrides,
+    params, GiB, the cuts passed over with why)."""
     from repro_torch.configs import get_config
     skipped = []
     for cut in TP_FAMILIES_TRAIN[name]:
@@ -5692,8 +5741,14 @@ def tp_family_train_phase():
                 held = {"failed": str(e)}
                 failed[name] = str(e)
             del ref, ref_opt
-            reports = trainer.report()
-            train.check_replicas(reports)
+            # the shared K/V head's gradients, summed over its ranks, must
+            # be equal on them (a gradient report of the first batch)
+            heads = tp_lib.attention_split(cfg, TP["tp"]) == "replicate"
+            reports = trainer.report(grads_step=0 if heads else None)
+            replicas = train.check_replicas(reports)
+            if heads and replicas["head_grads_compared"] <= 0:
+                raise AssertionError(f"{label}: no K/V head's gradients "
+                                     f"compared between its ranks")
             kinds = cfg_kinds(cfg)
             row = {"cut": cut, "params": n, "reckoned_gib": round(gib, 1),
                    "passed_over": skipped,
@@ -5707,6 +5762,7 @@ def tp_family_train_phase():
                                  "attention": tp_lib.attention_split(
                                      cfg, TP["tp"])},
                    "first_step": held, "witness": seen, "bounds": bounds,
+                   "replicas": replicas,
                    "one_process_step_s": one_s,
                    "one_process_peak_gib": ref_peak / 2**30,
                    "tp2_step_s": tp_s, "collectives_a_step": comm,
@@ -5725,6 +5781,7 @@ def tp_family_train_phase():
     return out
 
 
+@_warm_ranks(1)
 def tp_families_phase(flush, built=None):
     """Tensor parallelism for the MoE, SSM, hybrid, encoder-decoder and
     VLM families on this card (module docstring, ``tp_families``): each
@@ -6823,15 +6880,115 @@ def tp_kernel_rows(flush):
             "paged_decode_attention": paged}
 
 
+def tp_modes(what, cfg, params, modes, mesh, prompts, gens, max_len,
+             graphed_ref):
+    """Each (label, engine kwargs) of ``modes``: a tp 1 engine's run on
+    ``params`` (graphed with ``graphed_ref``, else eager), then a
+    tensor-parallel engine's over ``mesh`` (eager; its follower ranks
+    taken at load), held to the tp 1 run: every budget met with B1 and B4
+    (B5 paged) launched by the leader, the first decode step's logits within
+    LOGIT_TOL of max|logit| over the rows whose first tokens agree, the
+    streams equal or split at near ties. Returns (the leader's launches
+    by label, a summary by label)."""
+    from repro_torch.serving import ContinuousScheduler
+
+    runs, out = {}, {}
+    for label, kw in modes:
+        t0 = time.perf_counter()
+        ref = _engine(cfg, params, max_len, graphed_ref, **kw)
+        r_outs, _, r_first, _ = _tp_drive(ref, prompts, gens)
+        del ref
+        t1 = time.perf_counter()
+        eng = ContinuousScheduler(cfg, max_slots=SERVE["slots"],
+                                  max_len=max_len, cuda_graph=False,
+                                  mesh=mesh, **kw)
+        eng.load(params)
+        t_load = time.perf_counter() - t1
+        try:
+            outs, metrics, first, launches = _tp_drive(eng, prompts, gens)
+        finally:
+            eng.close()
+        name = f"{what} {label}"
+        _tp_check_run(name, cfg, outs, gens, launches,
+                      None if label == "dense" else eng.decode_steps)
+        live = [i for i in range(SERVE["slots"])
+                if outs[i][0] == r_outs[i][0]]
+        agree = _compare_logits(f"{name} first decode step vs tp 1 "
+                                f"(rows {live})", r_first[live],
+                                first[live], LOGIT_TOL)
+        splits = streams_or_near_ties(name + " vs tp 1", cfg, params,
+                                      prompts, r_outs, outs)
+        brief = {k: v for k, v in metrics.items() if k != "per_request"}
+        print(f"{name} serving metrics: " + json.dumps(brief), flush=True)
+        print(f"{name} serving launches (leader): " + json.dumps(launches),
+              flush=True)
+        runs[label] = launches
+        out[label] = {"load_s": t_load, "tok_per_s": metrics["tok_per_s"],
+                      "tpot_p50_s": metrics["latency"]["tpot_s"]["p50"],
+                      "decode_steps": metrics["decode_steps"],
+                      "first_greedy_rows_agree": agree,
+                      "splits": len(splits), "mesh": metrics["mesh"],
+                      "seconds": time.perf_counter() - t0}
+    return runs, out
+
+
+def tp_one_head_case(flush, mesh):
+    """TP_ONE_HEAD (module docstring, ``tp``): B5 at the rank's (h 8,
+    kv 1) shape against its plain version with max abs err 0, then
+    full-width ternary-paper with one K/V head at tp 2 against tp 1 on the
+    same packed weights in each TP_ONE_HEAD mode (``tp_modes``). Returns
+    (kernel rows by name, launches by run, a summary)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tp as tp_lib
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    shape = TP_ONE_HEAD["b5"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    inputs = _paged_inputs(gen, shape, lambda: torch.randint(
+        1, shape["max_len"] + 1, (shape["b"],), generator=gen,
+        device="cuda", dtype=torch.int32))
+    b5 = paged_rows("tp 8 heads, 1 K/V head", shape, inputs, flush,
+                    subsets=([3], [6, 1, 4, 0, 7, 2, 5, 3]), on_path=True)
+    for r in b5:
+        r["tp_shard"] = "8 of 16 heads, the one K/V head"
+        if r["max_abs_err"] != 0.0:
+            raise AssertionError(f"B5 at (h 8, kv 1), {r['pages']} pages: "
+                                 f"max abs err {r['max_abs_err']} against "
+                                 f"its plain version, not 0")
+    cfg = get_config("ternary-paper", **TP_ONE_HEAD["overrides"])
+    cfg, params = serve.build_params(cfg, SEED, "cuda", packed=True)
+    if tp_lib.attention_split(cfg, TP["tp"]) != "replicate":
+        raise AssertionError("TP_ONE_HEAD: the head rule does not "
+                             "replicate its K/V head")
+    local = tp_lib.local_config(cfg, TP["tp"])
+    prompts, gens, _ = serve.build_workload(
+        cfg, SERVE["requests"], SERVE["prompt_len"], TP["gen_lens"],
+        seed=SEED)
+    max_len = SERVE["prompt_len"] + max(TP["gen_lens"]) + 1
+    modes = [(m, dict(TP_MODES)[m]) for m in TP_ONE_HEAD["modes"]]
+    runs, out = tp_modes("tp 2 one K/V head", cfg, params, modes, mesh,
+                         prompts, gens, max_len, graphed_ref=False)
+    out["local_heads"] = [local.num_heads, local.num_kv_heads]
+    del params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print("tp one K/V head: " + json.dumps(out), flush=True)
+    print(f"tp one K/V head case took {out['seconds']:.1f}s", flush=True)
+    return ({"paged_decode_attention": b5},
+            {f"tp2_one_head_{k}": v for k, v in runs.items()}, out)
+
+
+@_warm_ranks(2)
 def tp_phase(flush, cfg=None, params=None):
     """Tensor-parallel serving on this card (module docstring, ``tp``):
     gloo's CUDA collectives and their times, the per-shard kernel rows,
     then full-width ternary-paper at tp 2 (two ranks sharing cuda:0 over
-    gloo, eager) dense, paged bf16 and paged int8 against tp 1, and the
-    router at dp 2 x tp 1 and dp 2 x tp 2 against one engine. Returns
+    gloo, eager) dense, paged bf16 and paged int8 against tp 1 (``tp_modes``),
+    TP_ONE_HEAD's case (``tp_one_head_case``), and the router at dp 2 x
+    tp 1 and dp 2 x tp 2 against one engine. Returns
     (kernel rows by name, launch counts by run, a summary)."""
-    import numpy as np
-    import torch
     from repro_torch.configs import get_config
     from repro_torch.distributed import router as router_lib
     from repro_torch.distributed import tp as tp_lib
@@ -6857,44 +7014,15 @@ def tp_phase(flush, cfg=None, params=None):
     else:
         raise AssertionError("a gloo tensor-parallel engine with "
                              "cuda_graph=True did not raise")
-    runs, steps = {}, {}
-    modes = (("dense", {}),
-             ("paged_bf16", dict(cache="paged", page_size=PAGE_SIZE)),
-             ("paged_int8", dict(cache="paged", page_size=PAGE_SIZE,
-                                 kv_dtype="int8")))
-    for label, kw in modes:
-        ref = _engine(cfg, params, max_len, True, **kw)
-        r_outs, _, r_first, _ = _tp_drive(ref, prompts, gens)
-        del ref
-        t0 = time.perf_counter()
-        eng = ContinuousScheduler(cfg, max_slots=SERVE["slots"],
-                                  max_len=max_len, cuda_graph=False,
-                                  mesh=mesh, **kw)
-        eng.load(params)
-        t_load = time.perf_counter() - t0
-        try:
-            outs, metrics, first, launches = _tp_drive(eng, prompts, gens)
-        finally:
-            eng.close()
-        what = f"tp 2 {label}"
-        _tp_check_run(what, cfg, outs, gens, launches,
-                      None if label == "dense" else eng.decode_steps)
-        live = [i for i in range(SERVE["slots"])
-                if outs[i][0] == r_outs[i][0]]
-        _compare_logits(f"{what} first decode step vs tp 1 (rows {live})",
-                        r_first[live], first[live], LOGIT_TOL)
-        splits = streams_or_near_ties(what + " vs tp 1", cfg, params,
-                                      prompts, r_outs, outs)
-        brief = {k: v for k, v in metrics.items() if k != "per_request"}
-        print(f"{what} serving metrics: " + json.dumps(brief), flush=True)
-        print(f"{what} serving launches (leader): " + json.dumps(launches),
-              flush=True)
-        runs[f"tp2_{label}"] = launches
-        steps[label] = {"load_s": t_load, "tok_per_s": metrics["tok_per_s"],
-                        "tpot_p50_s": metrics["latency"]["tpot_s"]["p50"],
-                        "decode_steps": metrics["decode_steps"],
-                        "splits": len(splits), "mesh": metrics["mesh"]}
-    summary["tp2"] = steps
+    modes_runs, summary["tp2"] = tp_modes("tp 2", cfg, params, TP_MODES,
+                                          mesh, prompts, gens, max_len,
+                                          graphed_ref=True)
+    runs = {f"tp2_{k}": v for k, v in modes_runs.items()}
+    one_rows, one_runs, summary["one_kv_head"] = tp_one_head_case(flush,
+                                                                  mesh)
+    for name, extra in one_rows.items():
+        rows[name] += extra
+    runs.update(one_runs)
 
     p_prompts, p_gens = tp_prefix_workload(cfg)
     kw = dict(cache="paged", page_size=PAGE_SIZE)

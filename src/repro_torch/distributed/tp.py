@@ -12,16 +12,24 @@ rank:
   columns, no collective), o and down row split (each rank's f32 partial
   product is summed by an all-reduce, then the bias, then the cast, where
   XLA does the same for ``repro``'s f32 ``psum``), the lm head column
-  split with its logits all-gathered, so every rank sees the same argmax.
-  Norms, rope and the embedding table stay whole on every rank (a
-  replicated lookup where ``repro`` splits the table's vocabulary rows).
+  split with its logits all-gathered, so every rank sees the same argmax,
+  and the embedding table split by vocabulary rows where tp divides them
+  (``repro``'s ``P(MODEL, FSDP)``): a rank looks up the tokens in its
+  rows, zeros for the rest, and an all-reduce sums the ranks' rows (one
+  nonzero term a row: exact in any dtype); a tied model's logits are its
+  rows' columns, all-gathered. Norms and rope stay whole on every rank.
   Packed containers are sliced by ``weights.shard_weight`` after
   ``validate_spec_twin``;
-* the head rule: attention splits by heads only where both the query
-  and the K/V heads divide by tp (and no head padding). Otherwise the
-  whole attention block stays whole on every rank — replication is
-  always correct — where ``repro``'s resolver would still split a q or
-  K/V projection whose width divides (ROADMAP C15);
+* the head rule (``attention_split``), ``repro``'s resolution over whole
+  heads: the query heads (padded ones counted) split contiguously where
+  tp divides them; the K/V heads split too where tp divides them, and
+  where their count divides tp each rank keeps the one K/V head its query
+  heads read (``repro`` groups query heads contiguously: head i reads K/V
+  head i // g), that head's k/v columns held again by tp / KV ranks
+  (``kv_heads``; marked ``("kv", KV, tp)``), whose partial gradients are
+  summed over those ranks (``reduce_head_grads``). Otherwise attention
+  stays whole on every rank, where ``repro``'s resolver would still split
+  a q or K/V projection whose width divides (ROADMAP C15);
 * the other families, as ``repro`` resolves their specs: a MoE layer's
   banks by whole experts where tp divides E (``"expert"`` -> ``"model"``),
   else by every expert's d_ff (w_in and w_gate columns, w_out rows), the
@@ -36,7 +44,7 @@ rank:
 * ``local_config``: a rank's model is the config with its local head
   counts (and a ``ShardConfig``'s local d_inner where SSM mixers split),
   so attention, caches and page pools hold the local KV heads and SSM
-  rows (``cache_sharding``'s placement);
+  rows (``device_put_cache``'s placement);
 * ``Group``: a rank's process group — the data collectives (all-reduce,
   all-gather) on NCCL where each rank has a card of its own and on gloo
   otherwise (on the CPU, and where ranks share one card: NCCL refuses two
@@ -55,9 +63,10 @@ moments and checkpoints); its collectives are differentiable —
 Megatron's f/g pair and the gather (``copy_to_group``,
 ``reduce_from_group``, ``gather_from_group``), which are serving's
 in-place collectives where no gradient is taken, ``sum_over_group``
-(summed both ways: the SSM norm's statistic) and
+(summed both ways: the SSM norm's statistic),
 ``reduce_grad_columns`` (the replicated B and C columns' partial
-gradients summed).
+gradients summed) and ``reduce_head_grads`` (a K/V head's partial
+gradients summed over the ranks that hold it).
 
 Serving topology is dp x tp, as ``repro``'s: ``replica_meshes`` carves
 ``dp`` disjoint tp-sized ``("model",)`` meshes out of a device list, one
@@ -94,9 +103,10 @@ __all__ = ["Mesh", "parse_mesh", "replica_meshes", "validate_param_specs",
            "current_group", "start_followers", "copy_to_group",
            "reduce_from_group", "gather_from_group", "strip_marks",
            "attach_marks", "split_mask", "shard_tree", "gather_tree",
-           "spawn_ranks", "ShardConfig", "ssm_split", "moe_split",
-           "ssm_columns", "ssm_replicated", "sum_over_group",
-           "reduce_grad_columns"]
+           "spawn_ranks", "keep_spares", "ShardConfig", "ssm_split",
+           "moe_split", "ssm_columns", "ssm_replicated", "sum_over_group",
+           "reduce_grad_columns", "kv_heads", "is_head_mark",
+           "reduce_head_grads", "vocab_split", "head_replicas"]
 
 MODEL = sharding.MODEL
 
@@ -389,6 +399,31 @@ class _ReduceGradColumns(torch.autograd.Function):
         return g, None, None
 
 
+class _ReduceHeadGrads(torch.autograd.Function):
+    """Identity forward on a rank's k or v columns of the one K/V head
+    its query heads read (``("kv", KV, tp)``), held again by the other
+    ranks of that head: the backward writes the rank's partial gradient
+    at the head's place in a (..., KV * hd) buffer of zeros, all-reduces
+    it over the group and takes back the head's columns — the sum over
+    the head's ranks alone (the other heads' columns do not mix in)."""
+
+    @staticmethod
+    def forward(ctx, w, mark, rank, group):
+        ctx.mark, ctx.rank, ctx.group = mark, rank, group
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        _, kv, tp = ctx.mark
+        hd = g.shape[-1]
+        head = kv_heads(kv, ctx.rank, tp)[0]
+        buf = g.new_zeros(*g.shape[:-1], kv * hd)
+        buf[..., head * hd:(head + 1) * hd] = g
+        ctx.group.all_reduce(buf)
+        return buf[..., head * hd:(head + 1) * hd].contiguous(), None, \
+            None, None
+
+
 def _tracked(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -427,6 +462,14 @@ def reduce_grad_columns(w: torch.Tensor, cols: torch.Tensor,
     return _ReduceGradColumns.apply(w, cols, group) if _tracked(w) else w
 
 
+def reduce_head_grads(w: torch.Tensor, mark, group: Group) -> torch.Tensor:
+    """``w``, a rank's k or v columns of a K/V head held by several ranks
+    (``mark`` ``("kv", KV, tp)``), whose gradient is summed over those
+    ranks (``_ReduceHeadGrads``) where one is being taken."""
+    return _ReduceHeadGrads.apply(w, mark, group.rank, group) \
+        if _tracked(w) else w
+
+
 _GROUP: contextvars.ContextVar[Optional[Group]] = contextvars.ContextVar(
     "repro_torch_tp_group", default=None)
 
@@ -450,11 +493,43 @@ def current_group() -> Optional[Group]:
 # Placement
 # ---------------------------------------------------------------------------
 
-def attention_split(cfg, tp: int) -> bool:
-    """The head rule: attention splits by heads only where tp divides both
-    the query and the K/V head counts and no heads are padded."""
-    return (tp > 1 and cfg.num_heads % tp == 0
-            and cfg.num_kv_heads % tp == 0 and not cfg.head_pad)
+def attention_split(cfg, tp: int) -> Optional[str]:
+    """The head rule, with H = ``num_heads + head_pad`` (``repro`` counts
+    padded heads as heads) and KV the K/V heads: ``"heads"`` where tp
+    divides both (each rank H/tp query heads and KV/tp K/V heads),
+    ``"replicate"`` where tp divides H and KV divides tp (each rank H/tp
+    query heads and the one K/V head they read, ``kv_heads``), else None
+    (attention whole on every rank)."""
+    kv = cfg.num_kv_heads
+    if tp <= 1 or not cfg.num_heads or not kv \
+            or (cfg.num_heads + cfg.head_pad) % tp:
+        return None
+    if kv % tp == 0:
+        return "heads"
+    return "replicate" if tp % kv == 0 else None
+
+
+def kv_heads(kv: int, rank: int, tp: int) -> range:
+    """The K/V heads rank ``rank`` of ``tp`` holds under the head rule:
+    its block of KV/tp where tp divides KV, else the one head ``rank //
+    (tp / KV)`` (its query heads' group; held by tp/KV ranks)."""
+    if kv % tp == 0:
+        return range(rank * (kv // tp), (rank + 1) * (kv // tp))
+    head = rank // (tp // kv)
+    return range(head, head + 1)
+
+
+def is_head_mark(mark) -> bool:
+    """Whether ``mark`` is a replicated K/V head's, ``("kv", KV, tp)``."""
+    return isinstance(mark, tuple) and mark[:1] == ("kv",)
+
+
+def vocab_split(table_shape, spec, mesh, fsdp: bool = False) -> bool:
+    """Whether the embedding table splits by vocabulary rows on ``mesh``:
+    ``resolve_spec`` of its ``(MODEL, FSDP)`` spec puts the model axis on
+    its rows (tp divides ``padded_vocab()``)."""
+    res = sharding.resolve_spec(tuple(spec), tuple(table_shape), mesh, fsdp)
+    return len(res) > 0 and _has_model(res[0])
 
 
 def ssm_split(cfg, tp: int) -> bool:
@@ -497,17 +572,21 @@ class ShardConfig(ModelConfig):
 
 
 def local_config(cfg, tp: int):
-    """A rank's model config: the local head counts where attention splits
-    (``attention_split``), the local SSM heads and d_inner where the SSM
-    mixers split (``ssm_split``: a ``ShardConfig``), else ``cfg``. Expert
-    banks need nothing here: the router sees every expert on every rank
-    and a MoE layer reads its local experts from its banks."""
+    """A rank's model config: where attention splits (``attention_split``)
+    H/tp query heads, no padding and max(KV/tp, 1) K/V heads — the
+    attention, its caches, page pools and B5's grid at those counts —,
+    the local SSM heads and d_inner where the SSM mixers split
+    (``ssm_split``: a ``ShardConfig``), else ``cfg``. Expert banks need
+    nothing here: the router sees every expert on every rank and a MoE
+    layer reads its local experts from its banks; nor does the split
+    embedding (a rank's rows are its table's)."""
     if tp <= 1:
         return cfg
     out = cfg
-    if attention_split(cfg, tp) and cfg.num_heads:
-        out = dataclasses.replace(out, num_heads=cfg.num_heads // tp,
-                                  num_kv_heads=cfg.num_kv_heads // tp)
+    if attention_split(cfg, tp):
+        out = dataclasses.replace(
+            out, num_heads=(cfg.num_heads + cfg.head_pad) // tp, head_pad=0,
+            num_kv_heads=max(cfg.num_kv_heads // tp, 1))
     if ssm_split(cfg, tp):
         fields = {f.name: getattr(out, f.name)
                   for f in dataclasses.fields(ModelConfig)}
@@ -678,6 +757,31 @@ def _shard_moe(p: dict, mark: tuple, rank: int) -> dict:
     return out
 
 
+def _shard_kv(p: dict, mark: tuple, rank: int) -> dict:
+    """A k or v projection's columns of the one K/V head rank ``rank``
+    holds (``kv_heads``; re-packed when packed:
+    ``weights.select_columns``), with its bias."""
+    _, kv, tp = mark
+    wc = p.get("w_packed")
+    width = wc.n if wc is not None else p["w"].shape[-1]
+    hd, head = width // kv, kv_heads(kv, rank, tp)[0]
+    cols = torch.arange(head * hd, (head + 1) * hd)
+    out = {k: v for k, v in p.items() if k not in ("w", "b", "w_packed")}
+    if wc is not None:
+        out["w_packed"] = weights.select_columns(wc, cols)
+    else:
+        for name in ("w", "b"):
+            if name in p:
+                out[name] = p[name][..., head * hd:(head + 1) * hd] \
+                    .contiguous()
+    return out
+
+
+def _shard_table(p: dict, rank: int, tp: int) -> dict:
+    """The embedding's vocabulary rows of rank ``rank``."""
+    return dict(p, table=_slice(p["table"], "k", rank, tp))
+
+
 def _shard_ssm(p: dict, mark: tuple, rank: int) -> dict:
     """A split SSM mixer's rank slices (``ssm_columns``): in_proj its
     column set (re-packed when packed: ``weights.select_columns``),
@@ -714,12 +818,14 @@ def shard_params(params, specs, mesh, *, rank: int = 0, cfg=None,
     Packed twins are validated first unless ``validate=False``. Every
     split linear gains a ``"tp"`` mark: ``"n"`` column split, ``"k"``
     row split (its partial product all-reduced), ``"gather"`` the lm
-    head's column split (its logits all-gathered). ``cfg`` (the model's)
-    applies the head rule, and places the other families' nodes: a MoE
-    node under ``moe_split`` (marked ``"e"`` or ``"ff"``), an SSM mixer
-    under ``ssm_split`` (marked ``_ssm_mark``, its in_proj ``"cols"``
-    and its out_proj ``"k"``); without ``cfg`` attention splits as
-    resolved and a MoE or SSM node raises.
+    head's column split (its logits all-gathered), ``("kv", KV, tp)`` a
+    k or v projection's columns of a K/V head held by tp/KV ranks; a
+    split embedding table's node the mark ``"vocab"``. ``cfg`` (the
+    model's) applies the head rule, and places the other families'
+    nodes: a MoE node under ``moe_split`` (marked ``"e"`` or ``"ff"``),
+    an SSM mixer under ``ssm_split`` (marked ``_ssm_mark``, its in_proj
+    ``"cols"`` and its out_proj ``"k"``); without ``cfg`` attention
+    splits as resolved and a MoE or SSM node raises.
     A latent ternary weight ternarizes per column over the whole K, so
     it is refused unless ``latent=True``: the training path, whose row
     splits reduce their column statistics over the group
@@ -729,7 +835,8 @@ def shard_params(params, specs, mesh, *, rank: int = 0, cfg=None,
         validate_param_specs(params, specs, mesh, fsdp=fsdp)
     if tp <= 1:
         return params
-    split_attn = cfg is None or attention_split(cfg, tp)
+    place = "heads" if cfg is None else attention_split(cfg, tp)
+    kv_mark = None if cfg is None else ("kv", cfg.num_kv_heads, tp)
 
     def family_node(p):
         if cfg is None:
@@ -747,11 +854,20 @@ def shard_params(params, specs, mesh, *, rank: int = 0, cfg=None,
         if isinstance(p, dict):
             if _is_moe(p) or _is_ssm(p):
                 return family_node(p)
+            if path == ("embed",):
+                if not vocab_split(p["table"].shape, s["table"], mesh,
+                                   fsdp):
+                    return dict(p)
+                return dict(_shard_table(p, rank, tp), tp="vocab")
             if "w" in p or "w_packed" in p:
                 part = _linear_partition(p, s, mesh, fsdp)
                 attn = len(path) >= 2 and path[-1] in ("q", "k", "v", "o") \
                     and path[-2] in ("mixer", "cross")
-                if part is None or (attn and not split_attn):
+                if attn and place is None:
+                    return dict(p)
+                if attn and place == "replicate" and path[-1] in ("k", "v"):
+                    part = "kv"
+                if part is None:
                     return dict(p)
                 if "w" in p and cfg is not None and not latent \
                         and cfg.quantization == "ternary" \
@@ -760,6 +876,8 @@ def shard_params(params, specs, mesh, *, rank: int = 0, cfg=None,
                         "a latent ternary weight ternarizes as a whole "
                         "matrix: pack the params before sharding them "
                         "(training shards them with latent=True)")
+                if part == "kv":
+                    return dict(_shard_kv(p, kv_mark, rank), tp=kv_mark)
                 out = _shard_linear(p, part, rank, tp)
                 out["tp"] = ("gather" if part == "n" and path[:1]
                              == ("unembed",) else part)
@@ -843,9 +961,14 @@ def split_mask(params, marks: Dict[tuple, Any]):
     bank; a row split's ``"w"``, not its whole bias), False where every
     rank holds the whole leaf (a MoE router, a whole shared expert), and
     for a split SSM mixer's in_proj and conv a bool tensor over the last
-    axis, False at the replicated B and C columns."""
+    axis, False at the replicated B and C columns, and for a K/V head's
+    columns held by tp/KV ranks (``("kv", KV, tp)``) the float KV/tp: the
+    share of the leaf's squares a rank counts in a norm summed over the
+    group (the head's ranks hold equal gradients once they are summed)."""
     def node(p, m):
         kind = _family_mark(m)
+        if kind == "kv":
+            return {k: m[1] / m[2] for k in p}
         if kind == "ssm":
             rep_in, rep_conv = ssm_replicated(m)
             out = {k: True for k in p}
@@ -882,6 +1005,10 @@ def shard_tree(tree, marks: Dict[tuple, Any], rank: int, tp: int):
             return strip_marks(_shard_ssm(p, m, rank))[0]
         if kind == "moe":
             return strip_marks(_shard_moe(p, m, rank))[0]
+        if kind == "kv":
+            return _shard_kv(p, m, rank)
+        if m == "vocab":
+            return _shard_table(p, rank, tp)
         return _shard_linear(p, "n" if m == "gather" else m, rank, tp)
 
     return _map_linears(tree, marks, cut)
@@ -902,7 +1029,8 @@ def gather_tree(tree, marks: Dict[tuple, Any], group: Optional[Group]):
     """The whole tree from every rank's slices (``shard_tree``'s inverse):
     each marked node's split leaves all-gathered over ``group`` in rank
     order (a split SSM mixer's in_proj and conv columns put back at their
-    places)."""
+    places; a replicated K/V head's columns taken once, from the first of
+    its ranks)."""
     if group is None or not marks:
         return tree
 
@@ -923,10 +1051,23 @@ def gather_tree(tree, marks: Dict[tuple, Any], group: Optional[Group]):
             out[name] = group.all_gather(p[name], dim=-1)
         return out
 
+    def kv_whole(p, m):
+        _, kv, tp = m
+        out = dict(p)
+        for name in ("w", "b"):
+            if name in p:
+                parts = group.all_gather(p[name], dim=-1).chunk(tp, dim=-1)
+                out[name] = torch.cat(parts[::tp // kv], dim=-1)
+        return out
+
     def whole(p, m):
         kind = _family_mark(m)
         if kind == "ssm":
             return ssm_whole(p, m)
+        if kind == "kv":
+            return kv_whole(p, m)
+        if m == "vocab":
+            return dict(p, table=group.all_gather(p["table"], dim=-2))
         out = dict(p)
         if kind == "moe":
             for name, part in _moe_leaves(p, m):
@@ -939,6 +1080,23 @@ def gather_tree(tree, marks: Dict[tuple, Any], group: Optional[Group]):
         return out
 
     return _map_linears(tree, marks, whole)
+
+
+def head_replicas(tree, marks: Dict[tuple, Any], rank: int):
+    """A tree like ``tree`` holding, at every leaf of a replicated K/V
+    head's node (``("kv", KV, tp)``), the head rank ``rank`` holds, and
+    None elsewhere: the leaves equal only within a head's ranks."""
+    def walk(t, path=(), head=None):
+        m = marks.get(path) if head is None else None
+        if is_head_mark(m):
+            head = kv_heads(m[1], rank, m[2])[0]
+        if isinstance(t, dict):
+            return {k: walk(v, path + (k,), head) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, path + (i,), head) for i, v in enumerate(t)]
+        return head
+
+    return walk(tree)
 
 
 def gemm_shard_fn(mesh, params) -> Callable:
@@ -1019,12 +1177,21 @@ def replicated_sharding(tree, mesh):
 
 def device_put_cache(layers, cfg, mesh, *, rank: int = 0):
     """A rank's slice of a whole cache tree under ``cache_sharding`` (no
-    mesh: the tree itself)."""
+    mesh: the tree itself); where the head rule replicates K/V heads
+    (``attention_split``), the rank's one head (``kv_heads``) of every
+    ``(..., KV, hd)`` and ``(..., KV)`` leaf — a placement no spec holds."""
     if mesh is None:
         return layers
     tp = mesh_axis_sizes(mesh).get(MODEL, 1)
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    one = kv_heads(kv, rank, tp)[0] \
+        if attention_split(cfg, tp) == "replicate" else None
 
     def put(x):
+        shp = tuple(getattr(x, "shape", ()))
+        if one is not None and (shp[-2:] == (kv, hd) or shp[-1:] == (kv,)):
+            ax = len(shp) - (2 if shp[-2:] == (kv, hd) else 1)
+            return x.narrow(ax, one, 1).contiguous()
         spec = cache_sharding(x, cfg, mesh)
         if MODEL not in spec:
             return x
@@ -1064,13 +1231,15 @@ def start_followers(mesh: Mesh, params, engine_kwargs: Dict[str, Any]):
            "params": os.path.join(workdir, "params.pt"),
            "mesh": mesh, "engine": engine_kwargs,
            "threads": torch.get_num_threads()}
-    torch.save(_tree_to(params, "cpu"), job["params"])
     job_path = os.path.join(workdir, "job.pkl")
     with open(job_path, "wb") as f:
         pickle.dump(job, f)
+    # the followers start while the params are written: a follower reads
+    # them only after the group is up, and rank 0 joins once they are
     procs = spawn_ranks("repro_torch.distributed.tp", "_follower_main",
                         job_path, range(1, mesh.tp))
     try:
+        torch.save(_tree_to(params, "cpu"), job["params"])
         group = Group.join(job["store"], 0, mesh.tp, mesh.backend,
                            mesh.timeout_s)
     except Exception:
@@ -1079,19 +1248,78 @@ def start_followers(mesh: Mesh, params, engine_kwargs: Dict[str, Any]):
     return group, procs, workdir
 
 
+def _rank_env() -> Dict[str, str]:
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+
+
+# idle rank processes started ahead (``keep_spares``)
+_SPARES: List[subprocess.Popen] = []
+_KEEP = [0]
+
+
+def keep_spares(n: int) -> None:
+    """Keep ``n`` idle rank processes started ahead of ``spawn_ranks``:
+    each has imported torch, the engine and the trainer and waits for a
+    job on its stdin, so a rank taken from them reaches its group in about
+    the time of its CUDA context, where a fresh Python spends seconds on
+    its imports first. Every call that takes some starts as many anew.
+    0 (the default) ends the idle ones."""
+    _KEEP[0] = n
+    while len(_SPARES) > n:
+        p = _SPARES.pop()           # idle: nothing of it to keep
+        p.kill()
+        p.wait()
+    while len(_SPARES) < n:
+        _SPARES.append(subprocess.Popen(
+            [sys.executable, "-c", "from repro_torch.distributed.tp import "
+             "_spare_main; _spare_main()"], env=_rank_env(),
+            stdin=subprocess.PIPE))
+
+
+def _spare_main() -> None:
+    """An idle rank process (``keep_spares``): the imports, then the one
+    job its stdin brings, ``[module, fn, job_path, rank]`` as JSON."""
+    import importlib
+    import json
+    import repro_torch.launch.train       # noqa: F401  (imports ahead)
+    import repro_torch.serving.engine     # noqa: F401
+    line = sys.stdin.readline()
+    if line:
+        module, fn, job_path, rank = json.loads(line)
+        getattr(importlib.import_module(module), fn)(job_path, rank)
+
+
 def spawn_ranks(module: str, fn: str, job_path: str, ranks):
     """One Python process a rank (``python -c``, so nothing of the
     caller's main module runs again), each calling ``module.fn(job_path,
-    rank)`` with the port's ``src`` first on its PYTHONPATH."""
-    src = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(
-            os.pathsep) if p]))
-    return [subprocess.Popen(
-        [sys.executable, "-c", f"import sys; from {module} import {fn}; "
-         f"{fn}(sys.argv[1], int(sys.argv[2]))", job_path, str(r)], env=env)
-        for r in ranks]
+    rank)`` with the port's ``src`` first on its PYTHONPATH; an idle one
+    of ``keep_spares`` where there is one (then as many started anew)."""
+    import json
+    procs = []
+    for r in ranks:
+        while _SPARES:
+            p = _SPARES.pop(0)
+            try:
+                p.stdin.write((json.dumps([module, fn, job_path, r])
+                               + "\n").encode())
+                p.stdin.close()
+            except OSError:            # a spare that is gone
+                p.kill()
+                p.wait()
+                continue
+            procs.append(p)
+            break
+        else:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", f"import sys; from {module} import "
+                 f"{fn}; {fn}(sys.argv[1], int(sys.argv[2]))", job_path,
+                 str(r)], env=_rank_env()))
+    keep_spares(_KEEP[0])
+    return procs
 
 
 def stop_followers(group: Optional[Group], procs, workdir: Optional[str],

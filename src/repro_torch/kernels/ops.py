@@ -109,7 +109,8 @@ __all__ = ["ternary_gemm", "ternary_gemm_plan", "GemmPlan", "KernelImpl",
            "fused_mlp", "precompute_fused_plans", "PagedAttnImpl",
            "register_paged_attn", "paged_attention_registry",
            "paged_decode_attention", "serving_phase", "current_phase",
-           "SERVING_PHASES", "kernel_probe", "dispatch_hook", "on_card"]
+           "SERVING_PHASES", "kernel_probe", "dispatch_hook", "on_card",
+           "pack_weights", "pack_weights_tiled"]
 
 # prefill GEMMs are M = B*L, decode GEMVs M = slots, speculative verify
 # windows M = slots*(k+1) and chunked-prefill windows M = slots*S in
@@ -122,6 +123,27 @@ SKIP_OCCUPANCY_CUTOFF = 0.875
 
 _SERVING_PHASE: contextvars.ContextVar[Optional[str]] = \
     contextvars.ContextVar("repro_torch_serving_phase", default=None)
+
+
+def _vec(v) -> Optional[torch.Tensor]:
+    return None if v is None else formats._as_tensor(v).float()
+
+
+def pack_weights(t, scale=None, bias=None) -> weights.Dense2Bit:
+    """(K, N) {-1, 0, 1} (a tensor, or an array from the host) ->
+    ``Dense2Bit`` container (16 weights per int32 word, the dense kernel
+    format), on the tensor's device."""
+    return weights.Dense2Bit.from_dense(formats._as_tensor(t),
+                                        scale=_vec(scale), bias=_vec(bias))
+
+
+def pack_weights_tiled(t, tile_k: int = 256, tile_n: int = 128, scale=None,
+                       bias=None) -> weights.Tiled:
+    """(K, N) {-1, 0, 1} -> ``Tiled`` container (packed words and each
+    N-tile's occupied K-tiles) for the skipping kernels."""
+    return weights.Tiled.from_dense(formats._as_tensor(t), tile_k=tile_k,
+                                    tile_n=tile_n, scale=_vec(scale),
+                                    bias=_vec(bias))
 
 
 @contextlib.contextmanager

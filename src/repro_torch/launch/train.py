@@ -392,7 +392,8 @@ class _Rank:
         (``state_bytes``), its peak device memory since the build and in
         its largest step and, with ``grads_step``, checksums of the
         gradients of that step's rows (no update) with the leaves' split
-        mask, and (not compressed) of the data group's mean of them before
+        mask and each leaf's replicated K/V head (``heads``, None for the
+        others), and (not compressed) of the data group's mean of them before
         the clip (``grads_synced``: gathered over the data group, each
         rank's slices over the model group); gathered on every rank."""
         def sums(tree):
@@ -422,6 +423,8 @@ class _Rank:
             rep["split"] = [bool(torch.as_tensor(x).any()) for x in
                             tree_leaves(tp_lib.split_mask(grads,
                                                           self.marks))]
+            rep["heads"] = tree_leaves(tp_lib.head_replicas(
+                grads, self.marks, self.m))
             if not self.compress:
                 synced = grads if self.data is None \
                     else steps_lib.mean_all_reduce(
@@ -599,9 +602,11 @@ def check_replicas(reports: List[Dict]) -> Dict[str, int]:
     """Raise unless the ranks of every data group hold the same bits
     (equal checksums of every param, m and v leaf between ranks of one
     model coordinate; where the ranks hold data shards, of the state
-    gathered over the data group, ``op_report``'s) and, where ``reports`` carry gradients, unless the
-    tensor-parallel ranks of a replica got the same gradients for every
-    replicated (unsplit) leaf. Returns the counts compared."""
+    gathered over the data group, ``op_report``'s) and, where ``reports``
+    carry gradients, unless the tensor-parallel ranks of a replica got the
+    same gradients for every replicated (unsplit) leaf, and the ranks that
+    hold one K/V head (``heads``) the same for its columns. Returns the
+    counts compared."""
     steps = {r["step"] for r in reports}
     if len(steps) != 1:
         raise AssertionError(f"the ranks are at steps {sorted(steps)}")
@@ -620,7 +625,7 @@ def check_replicas(reports: List[Dict]) -> Dict[str, int]:
                         f"data-parallel ranks {group[0]['rank']} and "
                         f"{r['rank']} differ in {key} leaves {bad[:8]}")
                 leaves += len(r[key])
-    replicated = 0
+    replicated = heads = 0
     if "grads" in reports[0]:
         by_d: Dict[int, List[Dict]] = {}
         for r in reports:
@@ -637,8 +642,26 @@ def check_replicas(reports: List[Dict]) -> Dict[str, int]:
                             f"tensor-parallel ranks {ref['rank']} and "
                             f"{r['rank']} got other gradients for "
                             f"replicated leaf {i}")
+            if "heads" in ref and len(ref["heads"]) != len(ref["grads"]):
+                raise AssertionError(
+                    f"{len(ref['heads'])} K/V head entries for "
+                    f"{len(ref['grads'])} gradient leaves")
+            for i, head in enumerate(ref.get("heads", ())):
+                if head is None:
+                    continue
+                by_head: Dict[int, Dict] = {}
+                for r in group:
+                    first = by_head.setdefault(r["heads"][i], r)
+                    if first is r:
+                        continue
+                    heads += 1
+                    if r["grads"][i] != first["grads"][i]:
+                        raise AssertionError(
+                            f"tensor-parallel ranks {first['rank']} and "
+                            f"{r['rank']} hold K/V head {r['heads'][i]} "
+                            f"and got other gradients for its leaf {i}")
     return {"leaves_compared": leaves, "replicated_grads_compared":
-            replicated}
+            replicated, "head_grads_compared": heads}
 
 
 def make_dist_supervisor(cfg: ModelConfig, *, data_parallel: int,

@@ -11,17 +11,24 @@ mark. ``"n"`` (a column split) runs as any linear on its columns; ``"k"``
 (a row split) computes its f32 partial product, all-reduces it over the
 current group (``tp.bound``), then adds the bias and casts, where a single
 card's f32 epilogue does; ``"gather"`` (the lm head) all-gathers its
-columns' logits. A gated MLP whose down projection is a row split
-all-reduces B4's f32 partial the same way. ``linear_spec`` gives
-``repro``'s logical spec of a projection.
+columns' logits; ``("kv", KV, tp)`` (k or v columns of the one K/V
+head a rank's query heads read) runs as a column split. A gated MLP
+whose down projection is a row split all-reduces B4's f32 partial the
+same way. A ``"vocab"`` embedding holds the rank's vocabulary rows: a
+token outside them reads zeros, and the ranks' lookups are summed (one
+nonzero term: exact). ``linear_spec`` gives ``repro``'s logical spec of
+a projection.
 
 Training a rank's latent shards (``distributed.tp.shard_params(...,
 latent=True)``) takes gradients through the same collectives as
 Megatron's f/g pair: the row split's all-reduce passes the gradient
 through, each column-split region's input (``region_input``: q/k/v,
 gate/up, the lm head) all-reduces its input gradient, the logits'
-all-gather keeps this rank's columns of the gradient. A row split's
-latent weight ternarizes with its column statistics summed over the group
+all-gather keeps this rank's columns of the gradient, a replicated
+K/V head's partial gradients are summed over its ranks
+(``tp.reduce_head_grads``), the lookup's sum passes the gradient through
+to the rank's rows. A row split's latent weight ternarizes with its
+column statistics summed over the group
 (``quantize.ste_ternarize_rows``); a column split's ternarizes whole
 columns locally.
 """
@@ -102,7 +109,8 @@ def region_input(x: torch.Tensor, params: dict) -> torch.Tensor:
     whose first linear is ``params``: Megatron's f (identity forward, the
     input gradient all-reduced) where a gradient is being taken, so every
     rank's replicated activations get the whole gradient; else ``x``."""
-    if params.get("tp") in ("n", "gather"):
+    mark = params.get("tp")
+    if mark in ("n", "gather") or tp_lib.is_head_mark(mark):
         return tp_lib.copy_to_group(x, _group())
     return x
 
@@ -141,6 +149,7 @@ def linear_apply(params: dict, x: torch.Tensor,
                                                 group)
             y, bias = x2.float() @ w.to(x.dtype).float(), params.get("b")
         return _reduce_partial(y, bias, x.dtype).reshape(*lead, -1)
+    b = params.get("b")
     if wc is not None:
         lead = x.shape[:-1]
         y = ops.ternary_gemm(x.reshape(-1, x.shape[-1]), wc,
@@ -150,12 +159,17 @@ def linear_apply(params: dict, x: torch.Tensor,
         w = params["w"]
         # a column shard ternarizes as its columns of the whole matrix
         n = w.shape[-1] * (_group().size if part in ("n", "gather") else 1)
+        if tp_lib.is_head_mark(part):
+            n = w.shape[-1] * part[1]
+            w = tp_lib.reduce_head_grads(w, part, _group())
+            if b is not None:
+                b = tp_lib.reduce_head_grads(b, part, _group())
         if cfg.quantization == "ternary" and _is_ternary(cfg, w.shape[-2],
                                                          n):
             w = quantize.ste_ternarize(w, cfg.ternary_threshold)
         y = x @ w.to(x.dtype)
-    if "b" in params:
-        y = y + params["b"].to(y.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
     if part == "gather":
         y = tp_lib.gather_from_group(y, _group(), dim=-1)
     return y
@@ -233,7 +247,28 @@ def embed_apply(params: dict, tokens: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     # repro casts the table, then gathers; gathering first and casting the
     # gathered rows gives the same values without a full-table cast per call
-    return params["table"][tokens].to(dtype_of(cfg.dtype))
+    table = params["table"]
+    if params.get("tp") != "vocab":
+        return table[tokens].to(dtype_of(cfg.dtype))
+    group = _group()
+    rows = table.shape[0]
+    local = tokens - group.rank * rows
+    inside = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)].to(dtype_of(cfg.dtype))
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+    return tp_lib.reduce_from_group(x, group)
+
+
+def tied_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """A tied model's logits from its embedding ``params``: ``x`` times the
+    table's transpose; a ``"vocab"`` table's rows are the rank's columns
+    of the logits, all-gathered (the lm head's ``"gather"``)."""
+    if params.get("tp") != "vocab":
+        return x @ params["table"].to(x.dtype).T
+    group = _group()
+    y = tp_lib.copy_to_group(x, group) @ params["table"].to(x.dtype).T
+    return tp_lib.gather_from_group(y, group, dim=-1)
 
 
 def unembed_init(gen: torch.Generator, cfg: ModelConfig) -> dict:

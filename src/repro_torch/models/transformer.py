@@ -387,7 +387,7 @@ class LM:
 
     def _logits(self, params, x):
         if self.cfg.tie_embeddings:
-            return x @ params["embed"]["table"].to(x.dtype).T
+            return layers.tied_logits(params["embed"], x)
         return layers.unembed_apply(params["unembed"], x, self.cfg)
 
     def param_specs(self, params: Optional[dict] = None) -> dict:

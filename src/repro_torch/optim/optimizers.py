@@ -47,7 +47,8 @@ def global_norm(tree, split=None, group=None, data=None,
     the group, the replicated leaves' counted once, so every rank gets the
     same norm. A ``split`` leaf may also be a bool tensor over the leaf's
     last axis (a split SSM in_proj's columns: False at the replicated
-    ones). ``data`` (``fsdp.data_marks``, not None where a leaf is a data
+    ones), or a float: the share of the leaf's squares this rank counts
+    in the group's sum (a K/V head held by several ranks). ``data`` (``fsdp.data_marks``, not None where a leaf is a data
     shard) and ``data_group``: the shards' squares are summed over the
     data group as well, so every leaf counts once. The squares go in four
     sums by (tensor-parallel slice, data shard); the data shards' two are
@@ -65,6 +66,8 @@ def global_norm(tree, split=None, group=None, data=None,
         if isinstance(s, torch.Tensor):
             sums[True, d].append((sq * s).sum())
             sums[False, d].append((sq * ~s).sum())
+        elif isinstance(s, float):
+            sums[True, d].append(sq.sum() * s)
         else:
             sums[bool(s), d].append(sq.sum())
     zero = torch.zeros((), dtype=torch.float32, device=xs[0].device)

@@ -137,6 +137,10 @@ class PagePool:
         return len(self._free_slots)
 
     @property
+    def n_live(self) -> int:
+        return self.max_slots - len(self._free_slots)
+
+    @property
     def usable_pages(self) -> int:
         return self.n_pages - 1
 

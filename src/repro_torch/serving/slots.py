@@ -30,6 +30,10 @@ class SlotPool:
         return len(self._free)
 
     @property
+    def n_live(self) -> int:
+        return self.max_slots - len(self._free)
+
+    @property
     def nbytes(self) -> int:
         """Device bytes of the cache tensors."""
         return tree_nbytes(self.layers)

@@ -118,13 +118,15 @@ def make_schedule(tc: TrafficConfig, vocab_size: int,
 
 def run_open_loop(engine, schedule: Sequence[Arrival], *,
                   time_scale: float = 1.0,
+                  deadline_s: Optional[float] = None,
                   ) -> Tuple[List[Any], Dict[str, Any]]:
     """Drive ``engine`` from ``schedule``: submit each arrival at (or as
     soon as possible after) its time, stepping the engine in between,
     until the schedule is spent and the engine drained. ``time_scale``
     compresses the schedule (0: everything at t = 0, a closed-loop
-    drain). Returns ``(requests, metrics)``: the engine's JSON plus a
-    ``traffic`` block."""
+    drain); ``deadline_s`` is every request's wall-clock budget from its
+    arrival (``engine.submit``'s). Returns ``(requests, metrics)``: the
+    engine's JSON plus a ``traffic`` block."""
     if engine.params is None:
         raise RuntimeError("load(params) first")
     snap = engine.begin_metrics()
@@ -141,6 +143,7 @@ def run_open_loop(engine, schedule: Sequence[Arrival], *,
             # and a late stamp would erase the head-of-line delay the open
             # loop exists to show
             reqs.append(engine.submit(a.prompt, a.max_new, slo=a.slo,
+                                      deadline_s=deadline_s,
                                       submit_t=t0 + a.t * time_scale))
             i += 1
         if engine.has_work():

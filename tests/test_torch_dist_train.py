@@ -20,7 +20,8 @@ out after ``TIMEOUT_S``), on a reduced ``ternary-paper`` (2 layers, d
   clip norm on two ranks against the whole computation (1e-5);
 * data-parallel ranks hold the same bits after every step, and the
   tensor-parallel ranks get the same gradients for every replicated leaf
-  (the embedding table, the norms): 64-bit checksums of each leaf;
+  (the norms; the table is split by vocabulary rows): 64-bit checksums of
+  each leaf;
 * checkpoints cross between a dp 2 x tp 2 mesh and one process both
   ways, and a restart brings every rank back to the same step;
 * every family the one-process trainer trains runs plain and compressed
@@ -196,14 +197,16 @@ def test_data_parallel_ranks_hold_the_same_bits(mesh_run):
 @pytest.mark.parametrize("mesh_run", [(1, 2), (2, 2)], indirect=True,
                          ids=_mesh_id)
 def test_replicated_leaves_get_equal_grads(mesh_run):
-    """The embedding table, the norms (and the row splits' whole biases)
-    are replicated leaves; their gradients are equal on every
-    tensor-parallel rank of a replica, and the split leaves' differ."""
+    """The norms (and the row splits' whole biases) are replicated
+    leaves; their gradients are equal on every tensor-parallel rank of a
+    replica, and the split leaves' differ (the embedding table, split by
+    vocabulary rows, is the first leaf)."""
     (dp, tp), run = mesh_run
     rep = run["report1"]
     counts = train.check_replicas(rep)
     n_rep = sum(not s for s in rep[0]["split"])
-    assert n_rep >= 2 * 2 + 2          # 2 norms a layer, final norm, table
+    assert n_rep >= 2 * 2 + 1          # 2 norms a layer, final norm
+    assert rep[0]["split"][0]          # the table
     assert counts["replicated_grads_compared"] == dp * (tp - 1) * n_rep
     split = [i for i, s in enumerate(rep[0]["split"]) if s]
     assert all(rep[0]["grads"][i] != rep[1]["grads"][i] for i in split)
@@ -220,12 +223,13 @@ def test_data_group_syncs_in_f32_and_tp_collectives_are_counted(mesh_run):
     if tp > 1:
         # per layer: o and down, each two STE statistics and one partial
         # sum forward, q/k/v and gate/up regions' input grads backward;
-        # the logits' gather and its input's grad; the clip norm. Under
-        # full remat (tp 2) the backward recomputes each block up to its
-        # last saved tensor: all but the down projection's sum
+        # the logits' gather and its input's grad; the clip norm; the
+        # split table's lookup sum. Under full remat (tp 2) the backward
+        # recomputes each block up to its last saved tensor: all but the
+        # down projection's sum
         recompute = 2 * (3 + 2) if dp == 1 else 0
         assert comm["model"]["calls"] == 2 * (3 + 3) + recompute \
-            + 2 * 2 + 2 + 1
+            + 2 * 2 + 2 + 1 + 1
 
 
 # ---------------------------------------------------------------------------

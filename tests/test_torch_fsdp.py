@@ -100,20 +100,20 @@ def _repro_shard_shape(arch, path, amesh):
 
 
 def _c15_c18(cfg, tp, path):
-    """Whether ROADMAP C15 or C18 names a difference at ``path``: the
-    embedding table whole on every tensor-parallel rank, attention whole
-    where the head rule keeps it so, an SSM mixer's columns placed by
+    """Whether ROADMAP C15 or C18 names a difference at ``path``:
+    attention whole where the head rule keeps it so, a K/V head's columns
+    whole where it replicates them, an SSM mixer's columns placed by
     heads, its conv channels and per-head vectors with them (or the whole
     mixer where its heads do not split)."""
     if tp == 1:
         return False
-    if path == ("embed", "table"):
-        return True
     for node in ("mixer", "cross"):
         if node in path:
             leaf = path[path.index(node) + 1]
             if leaf in ("q", "k", "v", "o"):
-                return not tp_lib.attention_split(cfg, tp)
+                place = tp_lib.attention_split(cfg, tp)
+                return place is None or (place == "replicate"
+                                         and leaf in ("k", "v"))
             return True                             # an SSM mixer's leaf
     return False
 

@@ -359,8 +359,9 @@ def test_param_specs_refuse_other_families():
 def test_shard_params_marks_and_slices():
     """tp 2 of a reduced packed ternary-paper: q/k/v, up, gate column
     shards, o and down row shards, the lm head a gathered column shard,
-    norms and the embedding table whole; the head rule replicates the
-    attention when the K/V heads do not divide."""
+    the embedding table split by vocabulary rows, norms whole; the head
+    rule gives each rank the one K/V head its query heads read when the
+    K/V heads do not divide."""
     _, pcfg = _reduced()
     pcfg, params = serve.build_params(pcfg, 0, "cpu", True)
     specs = param_specs(pcfg, params)
@@ -379,7 +380,10 @@ def test_shard_params_marks_and_slices():
         assert sh["unembed"]["tp"] == "gather"
         assert sh["unembed"]["w_packed"].n == params["unembed"][
             "w_packed"].n // 2
-        assert sh["embed"]["table"] is params["embed"]["table"]
+        table, rows = params["embed"]["table"], pcfg.padded_vocab() // 2
+        assert sh["embed"]["tp"] == "vocab"
+        assert torch.equal(sh["embed"]["table"],
+                           table[rank * rows:(rank + 1) * rows])
         assert sh["final_norm"] is not None
     plans = ops.precompute_plans(sh, decode_ms=(4,),
                                  shard=tp_lib.gemm_shard_fn(mesh, sh))
@@ -388,15 +392,23 @@ def test_shard_params_marks_and_slices():
     assert parts == [("k", "psum"), ("n", None)]
     fused = ops.precompute_fused_plans(sh, decode_ms=(4,), tp=2)
     assert {(p.collective, p.tp) for p in fused.values()} == {("psum", 2)}
-    # the head rule: one K/V head does not split two ways
+    # the head rule: one K/V head does not split two ways, so both ranks
+    # keep it (its columns whole) beside their half of the query heads
     gcfg = dataclasses.replace(pcfg, num_kv_heads=1)
     g_params = serve.build_params(dataclasses.replace(
         gcfg, quantization="ternary"), 0, "cpu", True)[1]
     sh = tp_lib.shard_params(g_params, param_specs(gcfg, g_params), mesh,
                              rank=1, cfg=gcfg)
-    assert all("tp" not in sh["layers"][0]["mixer"][n] for n in "qkvo")
+    mixer = sh["layers"][0]["mixer"]
+    assert (mixer["q"]["tp"], mixer["o"]["tp"]) == ("n", "k")
+    for n in "kv":
+        assert mixer[n]["tp"] == ("kv", 1, 2)
+        # one head's 32 columns are below ternary_min_dim: latent
+        assert torch.equal(mixer[n]["w"], g_params["layers"][0]["mixer"][n]
+                           ["w"])
     assert sh["layers"][0]["ffn"]["out"]["tp"] == "k"
-    assert tp_lib.local_config(gcfg, 2) is gcfg
+    local = tp_lib.local_config(gcfg, 2)
+    assert (local.num_heads, local.num_kv_heads) == (gcfg.num_heads // 2, 1)
     assert tp_lib.local_config(pcfg, 2).num_heads == pcfg.num_heads // 2
     # an SSM stack's rank holds its heads' share of d_inner
     mamba = get_config("mamba2-130m", reduced=True)
@@ -430,6 +442,12 @@ def test_cache_sharding_equals_repros():
         if tp > 1 and kv % tp == 0:
             assert put["k"].shape[-2] == kv // tp
             assert torch.equal(put["s"], leaves["s"][..., :kv // tp])
+        elif tp > 1:
+            # the head rule's replicated K/V head: rank 0 keeps head 0,
+            # a placement no spec holds
+            assert tp_lib.attention_split(pcfg, tp) == "replicate"
+            assert put["k"].shape[-2] == 1
+            assert torch.equal(put["s"], leaves["s"][..., :1])
         else:
             assert put["k"].shape == leaves["k"].shape
     assert tp_lib.replicated_sharding({"a": torch.zeros(2)}, {"model": 2}) \

@@ -6,7 +6,7 @@ port), on a reduced packed ``ternary-paper`` (2 layers, bf16) drawn by
 (4-token chunks) and speculative decoding (``layer_skip``, k 2), each
 against the port at tp 1 and against ``repro``'s single-device engine on
 the same weights; one GQA case whose single K/V head does not split (the
-head rule keeps its attention whole on both ranks).
+head rule gives each rank half the query heads and that head).
 
 The rule for streams: equal, or parting at a near tie of the reference
 (``_near_tie``: teacher-forced, both tokens at the split and every later
@@ -154,8 +154,9 @@ def test_tp2_serves_as_tp1_and_repro(pair, workload, mode):
 
 
 def test_tp2_gqa_head_rule_replicates_attention(pair):
-    """One K/V head: the attention stays whole on both ranks (no
-    all-reduce after o), the MLP and the lm head split."""
+    """One K/V head: each rank keeps half the query heads and the one
+    K/V head they read (replicated on both ranks), o row split, the MLP,
+    the lm head and the embedding table split."""
     _, _, pcfg, pparams = _packed_pair("bfloat16", num_layers=2,
                                        num_kv_heads=1)
     prompts, gens = _workload(pcfg.vocab_size, seed=12)
@@ -166,7 +167,10 @@ def test_tp2_gqa_head_rule_replicates_attention(pair):
     scale = float(first1.abs().max())
     assert float((first2 - first1).abs().max()) <= LOGIT_TOL * scale
     _streams(pcfg, pparams, prompts, one, two)
-    assert tp_lib.local_config(pcfg, 2) is pcfg
+    local = tp_lib.local_config(pcfg, 2)
+    assert (local.num_heads, local.num_kv_heads, local.head_pad) == (
+        pcfg.num_heads // 2, 1, 0)
+    assert tp_lib.attention_split(pcfg, 2) == "replicate"
 
 
 def test_tp_refusals():

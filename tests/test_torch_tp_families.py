@@ -76,14 +76,17 @@ def _placement(cfg, tp):
 
 def test_cases_cover_every_placement():
     """The cases reach expert parallelism, the d_ff split, the SSM head
-    split and its whole-mixer fallback."""
+    split and its whole-mixer fallback; attention splits by heads in
+    every case with attention (two K/V heads over two ranks)."""
     seen = {name: _placement(get_config(arch, reduced=True, **dict(
         _kw(arch, True), **over)), 2) for name, (arch, over, _) in
         CASES.items()}
     assert seen["mixtral_expert_parallel"][0] == "e"
     assert seen["mixtral_ff_split"][0] == "ff"
     assert seen["mamba2_dense"][1] and not seen["mamba2_whole"][1]
-    assert seen["jamba_dense"] == ("e", True, True)
+    assert seen["jamba_dense"] == ("e", True, "heads")
+    assert {p[2] for name, p in seen.items()
+            if not name.startswith("mamba2")} == {"heads"}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
