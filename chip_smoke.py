@@ -257,7 +257,16 @@ width with one K/V head, 2 layers, at tp 2, dense and paged bf16: each
 rank 8 query heads and the one K/V head, held by both ranks (the
 replication GQA-8 has at tp 16), against tp 1 by the same rules, and B5
 at (h 8, kv 1) against its plain version with max abs err 0 (bf16 and
-int8 pages), the case's seconds printed. Last, the router at
+int8 pages), the case's seconds printed. Then TP_UNEVEN: ternary-paper
+at full width with 7 query heads of 128 and one K/V head, 2 layers, at
+tp 2, where tp does not divide the heads: rank 0 holds heads 0-3 and
+rank 1 heads 4-6, both reading the one K/V head (deepseek-coder-33b's
+group of 7 split 4 + 3, as each pair of ranks holds it at tp 16); B1 at
+each rank's q columns (N 512, 384) and o rows (K 512, 384, the f32
+form), every built tile bitwise the plan's, and B5 at (h 4, kv 1) and
+(h 3, kv 1), hd 128, max abs err 0 (bf16 and int8 pages); dense and
+paged bf16 against tp 1 by the same rules, each rank's local heads and
+the case's seconds printed. Last, the router at
 dp 2 x tp 1 and dp 2 x tp 2 (four ranks on the card) over paged bf16
 pools, two waves of a workload whose even requests share a 64-token
 prefix: the placements, affinity hits and spills printed, at least one
@@ -302,7 +311,10 @@ TP_FAMILIES_TRAIN that the 28-B-a-parameter reckoning fits in
 TP_TRAIN_BUDGET_GIB (mamba2 at 6 layers, seamless at 6 + 6), the cuts
 passed over printed with why; TP_ONE_HEAD's ternary-paper too, whose
 shared K/V head's gradients must be equal on both ranks once summed
-(``check_replicas`` over a gradient report). ``--only tp_families`` builds and runs this phase alone.
+(``check_replicas`` over a gradient report), and TP_UNEVEN's, its
+shared K/V head's likewise and its q and o, gathered from the ranks'
+unequal head ranges (``tp.gather_tree``), held to the one process's by
+the same rule. ``--only tp_families`` builds and runs this phase alone.
 ``tcsc`` runs the paper's TCSC formats on the card (plain PyTorch: no TPU
 kernel computes them) at K = N = 4096, s 1/2 and 1/16, M 8 and 64: each
 format's arrays round-trip, each matmul agrees with the plain dense
@@ -717,6 +729,16 @@ TP = dict(tp=2, requests=16, prefix_len=64, gen_lens=(2, 4),
 TP_ONE_HEAD = dict(overrides=dict(num_kv_heads=1, num_layers=2),
                    modes=("dense", "paged_bf16"),
                    b5=dict(PAGED, h=PAGED["h"] // 2, kv=1))
+# the tp phase's uneven case: ternary-paper at full width with 7 query
+# heads of 128 and one K/V head, 2 layers, at tp 2: tp does not divide the
+# heads, so rank 0 holds heads 0-3 (q N 512, o K 512) and rank 1 heads 4-6
+# (N 384, K 384), both reading the one K/V head — deepseek-coder-33b's K/V
+# group of 7 heads of 128 split 4 + 3, as each pair of ranks holds it at
+# tp 16; dense and paged bf16 at TP's budgets; B1 at each rank's q and o
+# shard (every tile bitwise the plan's) and B5 at each rank's shape
+TP_UNEVEN = dict(overrides=dict(num_heads=7, num_kv_heads=1, head_dim=128,
+                                num_layers=2),
+                 modes=("dense", "paged_bf16"), ms=(8, 1024))
 # the tp phase's cache modes, each an engine's keyword arguments
 TP_MODES = (("dense", {}),
             ("paged_bf16", dict(cache="paged", page_size=PAGE_SIZE)),
@@ -757,6 +779,7 @@ TP_FAMILIES_TRAIN = {
     "mixtral-8x22b": (dict(num_layers=2), dict(num_layers=1),
                       dict(num_layers=1, num_experts=4)),
     "ternary-paper": (TP_ONE_HEAD["overrides"],),
+    "ternary-paper:uneven": (TP_UNEVEN["overrides"],),
 }
 # (the reckoning reads ~0.9 of the peaks measured: seamless whole 59.9
 # GiB against 57.4 for one process and 66.1 for the two ranks, measured
@@ -5641,7 +5664,7 @@ def tp_train_cut(name):
     from repro_torch.configs import get_config
     skipped = []
     for cut in TP_FAMILIES_TRAIN[name]:
-        cfg = get_config(name, **cut)
+        cfg = get_config(name.split(":")[0], **cut)
         n = cfg.param_count()
         gib = 28 * (n + cfg.padded_vocab() * cfg.d_model) / 2**30
         if gib <= TP_TRAIN_BUDGET_GIB:
@@ -5650,6 +5673,17 @@ def tp_train_cut(name):
                         "why": f"28 B a parameter (the table twice) > "
                                f"{TP_TRAIN_BUDGET_GIB} GiB"})
     raise AssertionError(f"tp_families: no cut of {name} fits")
+
+
+def _qo_state(params, opt, met):
+    """(params, {"m", "v"}, metrics) cut to the attention layers' q and o
+    (``hold_first_step``'s trees)."""
+    def qo(tree):
+        return {"layers": [{"mixer": {k: layer["mixer"][k]
+                                      for k in ("q", "o")}}
+                           for layer in tree["layers"]
+                           if "q" in layer.get("mixer", {})]}
+    return qo(params), {"m": qo(opt["m"]), "v": qo(opt["v"])}, met
 
 
 def tp_family_train_phase():
@@ -5683,7 +5717,8 @@ def tp_family_train_phase():
         for name in TP_FAMILIES_TRAIN:
             t0 = time.perf_counter()
             cut, n, gib, skipped = tp_train_cut(name)
-            cfg = get_config(name, quantization="ternary", **cut)
+            cfg = get_config(name.split(":")[0], quantization="ternary",
+                             **cut)
             cfg32 = dataclasses.replace(cfg, dtype="float32", grad_accum=1)
             if trainer is None:
                 trainer = train.DistTrainer(
@@ -5740,6 +5775,22 @@ def tp_family_train_phase():
             except AssertionError as e:
                 held = {"failed": str(e)}
                 failed[name] = str(e)
+            gathered = None
+            if (cfg.num_heads + cfg.head_pad) % TP["tp"]:
+                # unequal head ranges: q and o gathered from both ranks
+                # (tp.gather_tree) against the one process's
+                whole = trainer.state()
+                try:
+                    gathered = hold_first_step(
+                        label + " q/o", "tp 2 gathered", "one process",
+                        _qo_state(whole["params"], whole["opt"], met),
+                        _qo_state(ref[0], ref[1], ref[2]),
+                        floor=TP_TRAIN_RULE["floor"], device="cuda",
+                        bounds=bounds, signs=True)
+                except AssertionError as e:
+                    gathered = {"failed": str(e)}
+                    failed[name + " q/o"] = str(e)
+                del whole
             del ref, ref_opt
             # the shared K/V head's gradients, summed over its ranks, must
             # be equal on them (a gradient report of the first batch)
@@ -5762,7 +5813,7 @@ def tp_family_train_phase():
                                  "attention": tp_lib.attention_split(
                                      cfg, TP["tp"])},
                    "first_step": held, "witness": seen, "bounds": bounds,
-                   "replicas": replicas,
+                   "replicas": replicas, "qo_gathered": gathered,
                    "one_process_step_s": one_s,
                    "one_process_peak_gib": ref_peak / 2**30,
                    "tp2_step_s": tp_s, "collectives_a_step": comm,
@@ -6747,22 +6798,26 @@ def tp_collectives():
     return rows
 
 
-def tp_gemm_rows(gen, shards, ms, flush, prefix="tp kernel"):
+def tp_gemm_rows(gen, shards, ms, flush, prefix="tp kernel", tiles=False):
     """B1 at tp 2's per-shard shapes, each through ops as the rank's
     forward calls it, against its plain version, timed: ``shards`` lists
     (label, K, N, part) of the whole weight, ``part`` "n" a column shard
-    (bf16 out) or "k" a row shard (the f32 form: scale, no bias). The
-    library time of an f32 form is cuBLAS's bf16 product of the same
-    shape (a bf16 output)."""
+    (bf16 out) or "k" a row shard (the f32 form: scale, no bias), rank 0's
+    even block, or (label, K, N, part, (lo, hi)) the range [lo, hi)
+    (``weights.shard_range``). ``tiles``: B1 at every built tile must give
+    the plan's bits. The library time of an f32 form is cuBLAS's bf16
+    product of the same shape (a bf16 output)."""
     import torch
     from repro_torch.core import weights
     from repro_torch.kernels import ops
     from repro_torch.kernels import ternary_gemm as gemm_lib
 
     rows = []
-    for label, k, n, part in shards:
+    for label, k, n, part, *span in shards:
         w = _packed_weight(gen, k, n)
-        if part is not None:
+        if span:
+            w = weights.shard_range(w, part, *span[0])
+        elif part is not None:
             w = weights.shard_weight(w, part, 0, TP["tp"])
         for m in ms:
             phase = _serving_phase(m)
@@ -6779,12 +6834,22 @@ def tp_gemm_rows(gen, shards, ms, flush, prefix="tp kernel"):
                     raise AssertionError(f"{label}: {got.dtype} against "
                                          f"{ref.dtype}")
                 err = check_close(f"ternary_gemm {label} M={m}", got, ref)
+                for bm, bn in gemm_lib.TILES if tiles else ():
+                    y = gemm_lib.ternary_gemm_cuda(
+                        x, w.packed, w.scale, None if f32 else w.bias,
+                        n=w.n, block_m=bm, block_n=bn,
+                        out_dtype=torch.float32 if f32 else torch.bfloat16)
+                    if not torch.equal(y, got):
+                        raise AssertionError(
+                            f"ternary_gemm {label} M={m}: tile ({bm}, "
+                            f"{bn}) differs from the plan's bits")
                 w_eff = w.materialize(torch.float32, with_scale=True).to(
                     torch.bfloat16)
                 iters = _iters_for(m)
                 row = {"tp_shard": label, "m": m, "k": w.k, "n": w.n,
                        "phase": phase, "out": "float32" if f32 else
                        "bfloat16", "max_abs_err": err,
+                       "tiles_equal": bool(tiles) or None,
                        "ms": cuda_ms(lambda: ops.ternary_gemm(x, w, **kw),
                                      iters, flush),
                        "plain_ms": cuda_ms(lambda: gemm_lib.ternary_gemm_ref(
@@ -6980,13 +7045,85 @@ def tp_one_head_case(flush, mesh):
             {f"tp2_one_head_{k}": v for k, v in runs.items()}, out)
 
 
+def tp_uneven_case(flush, mesh):
+    """TP_UNEVEN (module docstring, ``tp``): B1 at each rank's q column
+    range and o row range (the f32 form), every tile bitwise the plan's,
+    and B5 at each rank's (h 4, kv 1) and (h 3, kv 1) shape with hd 128,
+    max abs err 0, against their plain versions; then full-width
+    ternary-paper with 7 query heads and one K/V head at tp 2 against tp 1
+    on the same packed weights in each TP_UNEVEN mode (``tp_modes``).
+    Returns (kernel rows by name, launches by run, a summary)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tp as tp_lib
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    cfg = get_config("ternary-paper", **TP_UNEVEN["overrides"])
+    tp, d, hd = TP["tp"], cfg.d_model, cfg.head_dim
+    if tp_lib.attention_split(cfg, tp) != "replicate" \
+            or cfg.num_heads % tp == 0:
+        raise AssertionError("TP_UNEVEN: the head rule does not split its "
+                             "heads unevenly")
+    heads = [tp_lib.query_heads(cfg, r, tp) for r in range(tp)]
+    local = [tp_lib.local_config(cfg, tp, r) for r in range(tp)]
+    width = cfg.num_heads * hd
+    shards = []
+    for r, hs in enumerate(heads):
+        span = (hs.start * hd, hs.stop * hd)
+        shards += [(f"uneven q rank {r} ({len(hs)} heads)", d, width, "n",
+                    span),
+                   (f"uneven o rank {r} ({len(hs)} heads, f32)", width, d,
+                    "k", span)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    gemm = tp_gemm_rows(gen, shards, TP_UNEVEN["ms"], flush, tiles=True)
+    b5 = []
+    for r, lc in enumerate(local):
+        shape = dict(PAGED, h=lc.num_heads, kv=lc.num_kv_heads, hd=hd)
+        gen_p = torch.Generator(device="cuda").manual_seed(SEED + 62 + r)
+        inputs = _paged_inputs(gen_p, shape, lambda: torch.randint(
+            1, shape["max_len"] + 1, (shape["b"],), generator=gen_p,
+            device="cuda", dtype=torch.int32))
+        rows_r = paged_rows(f"tp rank {r} {lc.num_heads} heads, 1 K/V head,"
+                            f" hd {hd}", shape, inputs, flush,
+                            subsets=([3], [6, 1, 4, 0, 7, 2, 5, 3]),
+                            on_path=True)
+        for row in rows_r:
+            row["tp_shard"] = (f"rank {r}: {lc.num_heads} of "
+                               f"{cfg.num_heads} heads, the one K/V head")
+            if row["max_abs_err"] != 0.0:
+                raise AssertionError(
+                    f"B5 at (h {lc.num_heads}, kv 1), {row['pages']} pages:"
+                    f" max abs err {row['max_abs_err']} against its plain "
+                    f"version, not 0")
+        b5 += rows_r
+    cfg, params = serve.build_params(cfg, SEED, "cuda", packed=True)
+    prompts, gens, _ = serve.build_workload(
+        cfg, SERVE["requests"], SERVE["prompt_len"], TP["gen_lens"],
+        seed=SEED)
+    max_len = SERVE["prompt_len"] + max(TP["gen_lens"]) + 1
+    modes = [(m, dict(TP_MODES)[m]) for m in TP_UNEVEN["modes"]]
+    runs, out = tp_modes("tp 2 uneven heads", cfg, params, modes, mesh,
+                         prompts, gens, max_len, graphed_ref=False)
+    out["local_heads"] = [[lc.num_heads, lc.num_kv_heads] for lc in local]
+    out["query_heads"] = [[hs.start, hs.stop] for hs in heads]
+    del params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print("tp uneven heads: " + json.dumps(out), flush=True)
+    print(f"tp uneven heads case took {out['seconds']:.1f}s", flush=True)
+    return ({"ternary_gemm": gemm, "paged_decode_attention": b5},
+            {f"tp2_uneven_{k}": v for k, v in runs.items()}, out)
+
+
 @_warm_ranks(2)
 def tp_phase(flush, cfg=None, params=None):
     """Tensor-parallel serving on this card (module docstring, ``tp``):
     gloo's CUDA collectives and their times, the per-shard kernel rows,
     then full-width ternary-paper at tp 2 (two ranks sharing cuda:0 over
     gloo, eager) dense, paged bf16 and paged int8 against tp 1 (``tp_modes``),
-    TP_ONE_HEAD's case (``tp_one_head_case``), and the router at dp 2 x
+    TP_ONE_HEAD's case (``tp_one_head_case``), TP_UNEVEN's
+    (``tp_uneven_case``), and the router at dp 2 x
     tp 1 and dp 2 x tp 2 against one engine. Returns
     (kernel rows by name, launch counts by run, a summary)."""
     from repro_torch.configs import get_config
@@ -7023,6 +7160,10 @@ def tp_phase(flush, cfg=None, params=None):
     for name, extra in one_rows.items():
         rows[name] += extra
     runs.update(one_runs)
+    un_rows, un_runs, summary["uneven_heads"] = tp_uneven_case(flush, mesh)
+    for name, extra in un_rows.items():
+        rows[name] += extra
+    runs.update(un_runs)
 
     p_prompts, p_gens = tp_prefix_workload(cfg)
     kw = dict(cache="paged", page_size=PAGE_SIZE)

@@ -3,7 +3,7 @@ variant and the straight-through estimator for QAT (the port's copy of
 ``repro.core.quantize``)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -109,10 +109,9 @@ class _SteTernarizeRows(torch.autograd.Function):
     backward."""
 
     @staticmethod
-    def forward(ctx, w, threshold_factor, group):
+    def forward(ctx, w, threshold_factor, group, rows):
         absw = w.float().abs()
-        mean = group.all_reduce(absw.sum(dim=-2, keepdim=True)) \
-            / (absw.shape[-2] * group.size)
+        mean = group.all_reduce(absw.sum(dim=-2, keepdim=True)) / rows
         mask = absw > threshold_factor * mean
         t = torch.sign(w.float()) * mask
         stats = group.all_reduce(torch.cat(
@@ -126,16 +125,19 @@ class _SteTernarizeRows(torch.autograd.Function):
     def backward(ctx, g):
         w, mean = ctx.saved_tensors
         passthrough = (w.abs() <= 2.0 * (mean + 1e-8)).to(g.dtype)
-        return g * passthrough, None, None
+        return g * passthrough, None, None, None
 
 
 def ste_ternarize_rows(w: torch.Tensor, threshold_factor: float,
-                       group) -> torch.Tensor:
+                       group, rows: Optional[int] = None) -> torch.Tensor:
     """QAT weight of a (..., K/tp, N) row shard of a latent whose columns
     ternarize over the whole K, the other rows held by ``group``'s ranks
     (a ``distributed.tp.Group``): the shard's rows of ``ste_ternarize`` of
-    the whole matrix, up to the order of the column sums."""
-    return _SteTernarizeRows.apply(w, threshold_factor, group)
+    the whole matrix, up to the order of the column sums. ``rows``: the
+    whole K where the ranks hold unequal shares (default K/tp x tp)."""
+    if rows is None:
+        rows = w.shape[-2] * group.size
+    return _SteTernarizeRows.apply(w, threshold_factor, group, rows)
 
 
 def effective_weight(w: torch.Tensor, quantization: str,

@@ -25,7 +25,9 @@ indivisible pack unit, ``validate_spec_twin`` rejects a spec whose shard
 boundaries would split one, and ``shard_weight`` cuts one rank's slice out
 of a container along K (a row split) or N (a column split), re-packed so
 that it equals ``pack`` of the sliced matrix (a ``Tiled`` shard's
-``kt_indices``/``kt_counts`` recomputed over its own tiles).
+``kt_indices``/``kt_counts`` recomputed over its own tiles);
+``shard_range`` cuts a range of its own (``validate_range`` checks its
+boundaries), for splits whose ranks hold unequal shares.
 
 A ``meta`` tensor (the dry run's shapes, allocated nowhere) packs and
 shards too: its count is unknown (``nnz=-1``) where a pack reads it, and
@@ -43,7 +45,8 @@ from repro_torch.core import formats, quantize
 
 __all__ = ["TernaryWeight", "Dense2Bit", "Tiled", "Bitplane", "Base3",
            "FORMATS", "register_format", "ternarize_stacked", "pack",
-           "validate_spec_twin", "shard_weight", "select_columns"]
+           "validate_spec_twin", "shard_weight", "validate_range",
+           "shard_range", "select_columns"]
 
 # name -> container class; the one place a new layout registers
 FORMATS: Dict[str, Type["TernaryWeight"]] = {}
@@ -468,18 +471,26 @@ def shard_weight(wc: TernaryWeight, partition: str, rank: int,
         return wc
     if t is None:
         t = wc.materialize(torch.float32).to(torch.int8)
-    scale, bias = wc.scale, wc.bias
     if partition == "e":
         step = t.shape[0] // tp
         t = t[rank * step:(rank + 1) * step]
         scale, bias = (None if v is None else
                        v[rank * step:(rank + 1) * step].contiguous()
-                       for v in (scale, bias))
+                       for v in (wc.scale, wc.bias))
         return _meta_share(FORMATS[wc.format_name].from_dense(
             t.contiguous(), scale=scale, bias=bias, **wc.pack_opts()), wc)
     step = wc.shard_constraints()[partition][0] // tp
     logical = wc.k if partition == "k" else wc.n
     lo, hi = min(rank * step, logical), min((rank + 1) * step, logical)
+    return _repack_range(wc, t, partition, lo, hi)
+
+
+def _repack_range(wc: TernaryWeight, t: torch.Tensor, partition: str,
+                  lo: int, hi: int) -> TernaryWeight:
+    """The logical rows (``"k"``) or columns (``"n"``) [lo, hi) of ``t``,
+    ``wc`` decoded, re-packed in ``wc``'s format (a column range with its
+    scale and bias; a row range keeps them whole)."""
+    scale, bias = wc.scale, wc.bias
     if partition == "k":
         t = t[..., lo:hi, :]
     else:
@@ -488,6 +499,47 @@ def shard_weight(wc: TernaryWeight, partition: str, rank: int,
         bias = None if bias is None else bias[..., lo:hi].contiguous()
     return _meta_share(FORMATS[wc.format_name].from_dense(
         t.contiguous(), scale=scale, bias=bias, **wc.pack_opts()), wc)
+
+
+def validate_range(wc: TernaryWeight, partition: str, lo: int,
+                   hi: int) -> None:
+    """Raise ``ValueError`` (``validate_spec_twin``'s message) unless the
+    logical rows (``partition="k"``) or columns (``"n"``) [lo, hi) of
+    ``wc`` start and end on the format's pack multiple
+    (``shard_constraints``); the logical end of the axis is a legal end
+    (the last range holds the tile padding). Return None when legal."""
+    if partition not in ("k", "n"):
+        raise ValueError(f"partition must be 'k' or 'n', got {partition!r}")
+    logical = wc.k if partition == "k" else wc.n
+    if not 0 <= lo < hi <= logical:
+        raise ValueError(f"{wc.format_name} shard: {partition.upper()} "
+                         f"range [{lo}, {hi}) outside 0..{logical}")
+    multiple = wc.shard_constraints()[partition][1]
+    for b in (lo, hi):
+        if b % multiple == 0 or b == logical:
+            continue
+        legal = max(multiple, int(round(b / multiple)) * multiple)
+        raise ValueError(
+            f"{wc.format_name} shard: the {partition.upper()} range [{lo}, "
+            f"{hi}) puts a shard boundary at {b} of {logical} values — off "
+            f"the {multiple}-value pack multiple of {wc!r}. A boundary "
+            f"must be a multiple of {multiple}; nearest legal boundary is "
+            f"{legal}.")
+
+
+def shard_range(wc: TernaryWeight, partition: str, lo: int,
+                hi: int) -> TernaryWeight:
+    """The logical rows (``partition="k"``: a row split's shard, scale and
+    bias whole) or columns (``"n"``: with their scale and bias) [lo, hi)
+    of ``wc``: ``shard_weight``'s range form, for splits whose ranks hold
+    unequal shares (whole attention heads where tp does not divide them).
+    Both boundaries must land on the format's pack multiple
+    (``validate_range``, else ``ValueError``). Decoded and re-packed in
+    the same format, so it equals ``pack`` of the sliced matrix bit for
+    bit."""
+    validate_range(wc, partition, lo, hi)
+    t = wc.materialize(torch.float32).to(torch.int8)
+    return _repack_range(wc, t, partition, lo, hi)
 
 
 def select_columns(wc: TernaryWeight, cols: torch.Tensor) -> TernaryWeight:

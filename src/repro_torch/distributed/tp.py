@@ -27,9 +27,15 @@ rank:
   heads read (``repro`` groups query heads contiguously: head i reads K/V
   head i // g), that head's k/v columns held again by tp / KV ranks
   (``kv_heads``; marked ``("kv", KV, tp)``), whose partial gradients are
-  summed over those ranks (``reduce_head_grads``). Otherwise attention
-  stays whole on every rank, where ``repro``'s resolver would still split
-  a q or K/V projection whose width divides (ROADMAP C15);
+  summed over those ranks (``reduce_head_grads``). Where tp does not
+  divide the query heads but every K/V group of g heads has at least its
+  tp / KV ranks, each group's heads split over its ranks by whole heads,
+  the larger shares first (``query_heads``: deepseek-coder-33b's 7 a
+  group 4 + 3 at tp 16); q's columns and o's rows are then the rank's
+  head range (marked ``("qo", part, H, KV, tp)``, cut by
+  ``weights.shard_range``). Otherwise attention stays whole on every
+  rank, where ``repro``'s resolver would still split a q or K/V
+  projection whose width divides (ROADMAP C15);
 * the other families, as ``repro`` resolves their specs: a MoE layer's
   banks by whole experts where tp divides E (``"expert"`` -> ``"model"``),
   else by every expert's d_ff (w_in and w_gate columns, w_out rows), the
@@ -42,7 +48,8 @@ rank:
   channels and per-head vectors with them, out_proj by rows, and the
   gated norm's sum of squares all-reduced; else the mixer stays whole;
 * ``local_config``: a rank's model is the config with its local head
-  counts (and a ``ShardConfig``'s local d_inner where SSM mixers split),
+  counts (its own where the heads split unevenly; and a
+  ``ShardConfig``'s local d_inner where SSM mixers split),
   so attention, caches and page pools hold the local KV heads and SSM
   rows (``device_put_cache``'s placement);
 * ``Group``: a rank's process group — the data collectives (all-reduce,
@@ -106,7 +113,8 @@ __all__ = ["Mesh", "parse_mesh", "replica_meshes", "validate_param_specs",
            "spawn_ranks", "keep_spares", "ShardConfig", "ssm_split",
            "moe_split", "ssm_columns", "ssm_replicated", "sum_over_group",
            "reduce_grad_columns", "kv_heads", "is_head_mark",
-           "reduce_head_grads", "vocab_split", "head_replicas"]
+           "reduce_head_grads", "vocab_split", "head_replicas",
+           "query_heads", "mark_part", "whole_extent"]
 
 MODEL = sharding.MODEL
 
@@ -497,16 +505,45 @@ def attention_split(cfg, tp: int) -> Optional[str]:
     """The head rule, with H = ``num_heads + head_pad`` (``repro`` counts
     padded heads as heads) and KV the K/V heads: ``"heads"`` where tp
     divides both (each rank H/tp query heads and KV/tp K/V heads),
-    ``"replicate"`` where tp divides H and KV divides tp (each rank H/tp
-    query heads and the one K/V head they read, ``kv_heads``), else None
-    (attention whole on every rank)."""
-    kv = cfg.num_kv_heads
-    if tp <= 1 or not cfg.num_heads or not kv \
-            or (cfg.num_heads + cfg.head_pad) % tp:
+    ``"replicate"`` where KV divides tp and each K/V group's g = H/KV
+    query heads are at least its tp/KV ranks (each rank its
+    ``query_heads``, H/tp of them where tp divides H, and the one K/V
+    head they read, ``kv_heads``), else None (attention whole on every
+    rank)."""
+    kv, h = cfg.num_kv_heads, cfg.num_heads + cfg.head_pad
+    if tp <= 1 or not cfg.num_heads or not kv:
         return None
     if kv % tp == 0:
-        return "heads"
-    return "replicate" if tp % kv == 0 else None
+        return "heads" if h % tp == 0 else None
+    if tp % kv == 0 and h % kv == 0 and h // kv >= tp // kv:
+        return "replicate"
+    return None
+
+
+def _query_range(h: int, kv: int, rank: int, tp: int) -> range:
+    """``query_heads`` from the counts (the split is the head rule's)."""
+    if h % tp == 0:
+        return range(rank * (h // tp), (rank + 1) * (h // tp))
+    n, g = tp // kv, h // kv
+    grp, j = divmod(rank, n)
+    q, r = divmod(g, n)
+    return range(grp * g + j * q + min(j, r),
+                 grp * g + (j + 1) * q + min(j + 1, r))
+
+
+def query_heads(cfg, rank: int, tp: int) -> range:
+    """The query heads (padded ones counted) rank ``rank`` of ``tp``
+    holds under the head rule: its block of H/tp where tp divides H;
+    else the rank sits at place j = rank % n of K/V group rank // n (n =
+    tp/KV ranks a group of g = H/KV heads) and holds the group's heads
+    [j (g // n) + min(j, g % n), (j + 1) (g // n) + min(j + 1, g % n)),
+    the larger shares first. The ranges are contiguous, in rank order,
+    and cover range(H); every head of a rank reads its ``kv_heads``.
+    All of range(H) where attention stays whole."""
+    h = cfg.num_heads + cfg.head_pad
+    if attention_split(cfg, tp) is None:
+        return range(h)
+    return _query_range(h, cfg.num_kv_heads, rank, tp)
 
 
 def kv_heads(kv: int, rank: int, tp: int) -> range:
@@ -522,6 +559,35 @@ def kv_heads(kv: int, rank: int, tp: int) -> range:
 def is_head_mark(mark) -> bool:
     """Whether ``mark`` is a replicated K/V head's, ``("kv", KV, tp)``."""
     return isinstance(mark, tuple) and mark[:1] == ("kv",)
+
+
+def _is_qo_mark(mark) -> bool:
+    return isinstance(mark, tuple) and mark[:1] == ("qo",)
+
+
+def mark_part(mark):
+    """How a linear's shard splits: its mark, or for a q or o projection
+    cut by unequal head ranges (``("qo", part, H, KV, tp)``) its
+    ``part``, ``"n"`` (q's columns) or ``"k"`` (o's rows)."""
+    return mark[1] if _is_qo_mark(mark) else mark
+
+
+def _head_span(mark, width: int, rank: int) -> Tuple[int, int]:
+    """The values [lo, hi) of a q or o axis of ``width`` = H x hd that
+    rank ``rank`` holds under its ``("qo", part, H, KV, tp)`` mark."""
+    _, _, h, kv, tp = mark
+    heads, hd = _query_range(h, kv, rank, tp), width // h
+    return heads.start * hd, heads.stop * hd
+
+
+def whole_extent(mark, extent: int, group) -> int:
+    """The whole width of the split axis of a shard of ``extent`` under
+    ``mark`` on ``group``'s rank: ``extent`` x tp for an even split,
+    H x hd for unequal head ranges."""
+    if _is_qo_mark(mark):
+        _, _, h, kv, tp = mark
+        return extent // len(_query_range(h, kv, group.rank, tp)) * h
+    return extent * group.size
 
 
 def vocab_split(table_shape, spec, mesh, fsdp: bool = False) -> bool:
@@ -571,10 +637,11 @@ class ShardConfig(ModelConfig):
         return self.ssm_expand * self.d_model // self.ssm_tp
 
 
-def local_config(cfg, tp: int):
-    """A rank's model config: where attention splits (``attention_split``)
-    H/tp query heads, no padding and max(KV/tp, 1) K/V heads — the
-    attention, its caches, page pools and B5's grid at those counts —,
+def local_config(cfg, tp: int, rank: int = 0):
+    """Rank ``rank``'s model config: where attention splits
+    (``attention_split``) its ``query_heads`` (H/tp where tp divides H),
+    no padding and max(KV/tp, 1) K/V heads — the attention, its caches,
+    page pools and B5's grid at those counts —,
     the local SSM heads and d_inner where the SSM mixers split
     (``ssm_split``: a ``ShardConfig``), else ``cfg``. Expert banks need
     nothing here: the router sees every expert on every rank and a MoE
@@ -585,7 +652,7 @@ def local_config(cfg, tp: int):
     out = cfg
     if attention_split(cfg, tp):
         out = dataclasses.replace(
-            out, num_heads=(cfg.num_heads + cfg.head_pad) // tp, head_pad=0,
+            out, num_heads=len(query_heads(cfg, rank, tp)), head_pad=0,
             num_kv_heads=max(cfg.num_kv_heads // tp, 1))
     if ssm_split(cfg, tp):
         fields = {f.name: getattr(out, f.name)
@@ -654,22 +721,51 @@ def _walk_specs(params, specs, fn, path=()):
                         path + (i,))
 
 
-def validate_param_specs(params, specs, mesh, *, fsdp: bool = False) -> int:
+def _is_attn(path) -> bool:
+    return len(path) >= 2 and path[-1] in ("q", "k", "v", "o") \
+        and path[-2] in ("mixer", "cross")
+
+
+def _qo_mark(cfg, tp: int, path) -> Optional[tuple]:
+    """The mark ``("qo", part, H, KV, tp)`` of a q (``"n"``) or o
+    (``"k"``) projection at ``path`` where the head rule splits the query
+    heads and tp does not divide them (unequal head ranges), else None."""
+    if cfg is None or not _is_attn(path) or path[-1] not in ("q", "o"):
+        return None
+    h = cfg.num_heads + cfg.head_pad
+    if h % tp == 0 or attention_split(cfg, tp) is None:
+        return None
+    return ("qo", "n" if path[-1] == "q" else "k", h, cfg.num_kv_heads, tp)
+
+
+def validate_param_specs(params, specs, mesh, *, fsdp: bool = False,
+                         cfg=None) -> int:
     """Validate every packed container's spec twin against the mesh
     (``weights.validate_spec_twin``); returns the number checked, raises
     ``ValueError`` on the first bad twin. An SSM in_proj is left out: it
     is placed by its column set (``ssm_columns``), not by its twin's
-    contiguous range (ROADMAP C18)."""
+    contiguous range (ROADMAP C18). With ``cfg``, a q or o projection the
+    head rule cuts by unequal head ranges is checked at every rank's
+    range instead (``weights.validate_range``)."""
     checked = [0]
+    tp = mesh_axis_sizes(mesh).get(MODEL, 1)
 
     def check(path, p, spec):
         wc = p.get("w_packed")
         if path[-1:] == ("in_proj",):
             return
-        if isinstance(wc, weights.TernaryWeight):
+        if not isinstance(wc, weights.TernaryWeight):
+            return
+        mark = _qo_mark(cfg, tp, path)
+        if mark is None:
             weights.validate_spec_twin(wc, spec["w_packed"], mesh,
                                        fsdp=fsdp)
-            checked[0] += 1
+        else:
+            width = wc.k if mark[1] == "k" else wc.n
+            for r in range(tp):
+                weights.validate_range(wc, mark[1],
+                                       *_head_span(mark, width, r))
+        checked[0] += 1
 
     _walk_specs(params, specs, check)
     return checked[0]
@@ -777,6 +873,26 @@ def _shard_kv(p: dict, mark: tuple, rank: int) -> dict:
     return out
 
 
+def _shard_heads(p: dict, mark: tuple, rank: int) -> dict:
+    """A q or o projection's head range of rank ``rank`` under its
+    ``("qo", part, H, KV, tp)`` mark (``_head_span``): q's columns with
+    their bias, o's rows (its bias whole, after the all-reduce); a packed
+    container cut by ``weights.shard_range``."""
+    part = mark[1]
+    out = {k: v for k, v in p.items() if k not in ("w", "b", "w_packed")}
+    wc = p.get("w_packed")
+    if wc is not None:
+        span = _head_span(mark, wc.k if part == "k" else wc.n, rank)
+        out["w_packed"] = weights.shard_range(wc, part, *span)
+        return out
+    ax = -2 if part == "k" else -1
+    lo, hi = _head_span(mark, p["w"].shape[ax], rank)
+    out["w"] = p["w"].narrow(ax, lo, hi - lo).contiguous()
+    if "b" in p:
+        out["b"] = p["b"] if part == "k" else p["b"][..., lo:hi].contiguous()
+    return out
+
+
 def _shard_table(p: dict, rank: int, tp: int) -> dict:
     """The embedding's vocabulary rows of rank ``rank``."""
     return dict(p, table=_slice(p["table"], "k", rank, tp))
@@ -819,7 +935,9 @@ def shard_params(params, specs, mesh, *, rank: int = 0, cfg=None,
     split linear gains a ``"tp"`` mark: ``"n"`` column split, ``"k"``
     row split (its partial product all-reduced), ``"gather"`` the lm
     head's column split (its logits all-gathered), ``("kv", KV, tp)`` a
-    k or v projection's columns of a K/V head held by tp/KV ranks; a
+    k or v projection's columns of a K/V head held by tp/KV ranks,
+    ``("qo", part, H, KV, tp)`` a q (``"n"``) or o (``"k"``) projection
+    cut at the rank's ``query_heads`` where tp does not divide them; a
     split embedding table's node the mark ``"vocab"``. ``cfg`` (the
     model's) applies the head rule, and places the other families'
     nodes: a MoE node under ``moe_split`` (marked ``"e"`` or ``"ff"``),
@@ -832,7 +950,7 @@ def shard_params(params, specs, mesh, *, rank: int = 0, cfg=None,
     (``quantize.ste_ternarize_rows``)."""
     tp = mesh_axis_sizes(mesh).get(MODEL, 1)
     if validate:
-        validate_param_specs(params, specs, mesh, fsdp=fsdp)
+        validate_param_specs(params, specs, mesh, fsdp=fsdp, cfg=cfg)
     if tp <= 1:
         return params
     place = "heads" if cfg is None else attention_split(cfg, tp)
@@ -861,12 +979,14 @@ def shard_params(params, specs, mesh, *, rank: int = 0, cfg=None,
                 return dict(_shard_table(p, rank, tp), tp="vocab")
             if "w" in p or "w_packed" in p:
                 part = _linear_partition(p, s, mesh, fsdp)
-                attn = len(path) >= 2 and path[-1] in ("q", "k", "v", "o") \
-                    and path[-2] in ("mixer", "cross")
+                attn = _is_attn(path)
                 if attn and place is None:
                     return dict(p)
                 if attn and place == "replicate" and path[-1] in ("k", "v"):
                     part = "kv"
+                qo = _qo_mark(cfg, tp, path)
+                if qo is not None:
+                    part = qo
                 if part is None:
                     return dict(p)
                 if "w" in p and cfg is not None and not latent \
@@ -878,6 +998,8 @@ def shard_params(params, specs, mesh, *, rank: int = 0, cfg=None,
                         "(training shards them with latent=True)")
                 if part == "kv":
                     return dict(_shard_kv(p, kv_mark, rank), tp=kv_mark)
+                if qo is not None:
+                    return dict(_shard_heads(p, qo, rank), tp=qo)
                 out = _shard_linear(p, part, rank, tp)
                 out["tp"] = ("gather" if part == "n" and path[:1]
                              == ("unembed",) else part)
@@ -969,6 +1091,7 @@ def split_mask(params, marks: Dict[tuple, Any]):
         kind = _family_mark(m)
         if kind == "kv":
             return {k: m[1] / m[2] for k in p}
+        m = mark_part(m)
         if kind == "ssm":
             rep_in, rep_conv = ssm_replicated(m)
             out = {k: True for k in p}
@@ -1007,6 +1130,8 @@ def shard_tree(tree, marks: Dict[tuple, Any], rank: int, tp: int):
             return strip_marks(_shard_moe(p, m, rank))[0]
         if kind == "kv":
             return _shard_kv(p, m, rank)
+        if kind == "qo":
+            return _shard_heads(p, m, rank)
         if m == "vocab":
             return _shard_table(p, rank, tp)
         return _shard_linear(p, "n" if m == "gather" else m, rank, tp)
@@ -1025,12 +1150,28 @@ def _gather_cols(group: Group, t: torch.Tensor, cols_of, n: int):
     return whole
 
 
+def _gather_spans(group: Group, t: torch.Tensor, dim: int,
+                  sizes: Sequence[int]) -> torch.Tensor:
+    """The ranks' pieces of ``t`` along ``dim``, ``sizes[r]`` wide on rank
+    r, concatenated in rank order: each padded to the largest and
+    all-gathered (the collective takes equal shapes), then cut back — the
+    bits as they were."""
+    top = max(sizes)
+    pad = list(t.shape)
+    pad[dim] = top - t.shape[dim]
+    t = torch.cat([t, t.new_zeros(pad)], dim=dim)
+    parts = group.all_gather(t, dim=dim).chunk(group.size, dim=dim)
+    return torch.cat([piece.narrow(dim, 0, n)
+                      for piece, n in zip(parts, sizes)], dim=dim)
+
+
 def gather_tree(tree, marks: Dict[tuple, Any], group: Optional[Group]):
     """The whole tree from every rank's slices (``shard_tree``'s inverse):
     each marked node's split leaves all-gathered over ``group`` in rank
     order (a split SSM mixer's in_proj and conv columns put back at their
     places; a replicated K/V head's columns taken once, from the first of
-    its ranks)."""
+    its ranks; unequal head ranges of q and o padded for the gather and
+    cut back, ``_gather_spans``)."""
     if group is None or not marks:
         return tree
 
@@ -1060,12 +1201,28 @@ def gather_tree(tree, marks: Dict[tuple, Any], group: Optional[Group]):
                 out[name] = torch.cat(parts[::tp // kv], dim=-1)
         return out
 
+    def heads_whole(p, m):
+        _, part, h, kv, tp = m
+        dim = -2 if part == "k" else -1
+        out = dict(p)
+        for name in ("w", "b") if part == "n" else ("w",):
+            if name in p:
+                hd = p[name].shape[dim] // len(
+                    _query_range(h, kv, group.rank, tp))
+                out[name] = _gather_spans(
+                    group, p[name], dim,
+                    [len(_query_range(h, kv, r, tp)) * hd
+                     for r in range(tp)])
+        return out
+
     def whole(p, m):
         kind = _family_mark(m)
         if kind == "ssm":
             return ssm_whole(p, m)
         if kind == "kv":
             return kv_whole(p, m)
+        if kind == "qo":
+            return heads_whole(p, m)
         if m == "vocab":
             return dict(p, table=group.all_gather(p["table"], dim=-2))
         out = dict(p)
@@ -1109,10 +1266,10 @@ def gemm_shard_fn(mesh, params) -> Callable:
     marks: Dict[int, str] = {}
 
     def note(path, p, spec):
+        part = mark_part(p.get("tp"))
         if isinstance(p.get("w_packed"), weights.TernaryWeight) \
-                and p.get("tp") in ("n", "k", "gather"):
-            marks[id(p["w_packed"])] = "n" if p["tp"] == "gather" \
-                else p["tp"]
+                and part in ("n", "k", "gather"):
+            marks[id(p["w_packed"])] = "n" if part == "gather" else part
 
     _walk_specs(params, None, note)
 
@@ -1357,7 +1514,7 @@ def _follower_main(job_path: str, rank: int) -> None:
     params = torch.load(job["params"], map_location="cpu",
                         weights_only=False)
     eng = ContinuousScheduler(**job["engine"], mesh=mesh,
-                              device=str(device))
+                              device=str(device), tp_rank=rank)
     eng._attach_group(group, rank)
     eng.load(_tree_to(params, device))
     del params

@@ -10,7 +10,10 @@ of the port's own placement runs, allocated nowhere and run nowhere:
 
 * the parameters are ``steps.model_shardings``' (packed containers for a
   ``ternary_packed`` config), sharded by ``tp.shard_params(..., rank=0,
-  cfg=)`` for a model of ``tp.local_config`` — the head rule (C15),
+  cfg=)`` for a model of ``tp.local_config(cfg, tp, 0)`` — the head
+  rule (C15): where tp does not divide the query heads, rank 0 holds the
+  largest share (``tp.query_heads`` hands the larger shares out first),
+  so its peak and bytes are the mesh's largest —,
   ``moe_split`` and ``ssm_split`` (C18) apply as in serving and training;
   in a ``train`` cell of a config with ``fsdp`` set, rank 0 then keeps
   its data slice of every leaf ``repro`` places on the data axes and of
@@ -228,7 +231,7 @@ def rank_step(cfg: ModelConfig, shape: ShapeConfig, mesh, params=None,
         params, full.param_specs(params), mesh, rank=0, cfg=cfg,
         latent=latent))
     data, model_group = _groups(mesh)
-    model = LM(tp_lib.local_config(cfg, tp), device)
+    model = LM(tp_lib.local_config(cfg, tp, 0), device)
     model.comm = model_group
     batch = _rank_batch(cfg, shape, mesh, device)
     groups = [g for g in (data, model_group) if g is not None]

@@ -259,7 +259,7 @@ class _Rank:
             g.timed = timed
         dev = self.device
         self.full_model = LM(cfg, dev)
-        self.model = LM(tp_lib.local_config(cfg, self.tp), dev)
+        self.model = LM(tp_lib.local_config(cfg, self.tp, self.m), dev)
         self.model.comm = self.model_group
         self.data_src = SyntheticLM(cfg, batch, seq)
         self.marks: Dict[tuple, str] = {}

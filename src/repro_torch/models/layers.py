@@ -12,7 +12,9 @@ mark. ``"n"`` (a column split) runs as any linear on its columns; ``"k"``
 current group (``tp.bound``), then adds the bias and casts, where a single
 card's f32 epilogue does; ``"gather"`` (the lm head) all-gathers its
 columns' logits; ``("kv", KV, tp)`` (k or v columns of the one K/V
-head a rank's query heads read) runs as a column split. A gated MLP
+head a rank's query heads read) runs as a column split, and
+``("qo", part, H, KV, tp)`` (q's columns or o's rows of the rank's
+query heads where tp does not divide them) as its ``part``. A gated MLP
 whose down projection is a row split all-reduces B4's f32 partial the
 same way. A ``"vocab"`` embedding holds the rank's vocabulary rows: a
 token outside them reads zeros, and the ranks' lookups are summed (one
@@ -110,7 +112,7 @@ def region_input(x: torch.Tensor, params: dict) -> torch.Tensor:
     input gradient all-reduced) where a gradient is being taken, so every
     rank's replicated activations get the whole gradient; else ``x``."""
     mark = params.get("tp")
-    if mark in ("n", "gather") or tp_lib.is_head_mark(mark):
+    if tp_lib.mark_part(mark) in ("n", "gather") or tp_lib.is_head_mark(mark):
         return tp_lib.copy_to_group(x, _group())
     return x
 
@@ -133,7 +135,8 @@ def linear_apply(params: dict, x: torch.Tensor,
     """x: (..., d_in) -> (..., d_out); a rank's shard under its ``"tp"``
     mark (module docstring)."""
     wc = params.get("w_packed")
-    part = params.get("tp")
+    mark = params.get("tp")
+    part = tp_lib.mark_part(mark)
     if part == "k":
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
@@ -143,10 +146,11 @@ def linear_apply(params: dict, x: torch.Tensor,
             bias = wc.bias
         else:
             w, group = params["w"], _group()
+            rows = tp_lib.whole_extent(mark, w.shape[-2], group)
             if cfg.quantization == "ternary" and _is_ternary(
-                    cfg, w.shape[-2] * group.size, w.shape[-1]):
+                    cfg, rows, w.shape[-1]):
                 w = quantize.ste_ternarize_rows(w, cfg.ternary_threshold,
-                                                group)
+                                                group, rows)
             y, bias = x2.float() @ w.to(x.dtype).float(), params.get("b")
         return _reduce_partial(y, bias, x.dtype).reshape(*lead, -1)
     b = params.get("b")
@@ -158,7 +162,8 @@ def linear_apply(params: dict, x: torch.Tensor,
     else:
         w = params["w"]
         # a column shard ternarizes as its columns of the whole matrix
-        n = w.shape[-1] * (_group().size if part in ("n", "gather") else 1)
+        n = tp_lib.whole_extent(mark, w.shape[-1], _group()) \
+            if part in ("n", "gather") else w.shape[-1]
         if tp_lib.is_head_mark(part):
             n = w.shape[-1] * part[1]
             w = tp_lib.reduce_head_grads(w, part, _group())

@@ -111,7 +111,10 @@ configuration on its own device that keeps its own shards of the params
 (``tp.shard_params``: q/k/v, up, gate and the lm head column split, o and
 down row split with an f32 all-reduce; an SSM mixer by its heads, a MoE
 layer by its experts or their d_ff; the rest whole) and a cache pool of
-its local KV heads and SSM rows (``tp.local_config``). ``rank_routes``
+its local KV heads and SSM rows (``tp.local_config`` of its rank: where tp
+does not divide the query heads, ranks hold unequal head counts, and
+their steps, caches and decode graphs differ in shape while the leader's
+schedule and page accounting count tokens alone). ``rank_routes``
 returns every rank's MoE capacity picks of one forward (they must be
 equal: routing runs on the replicated activations). The leader alone schedules, pages, handles faults,
 runs the speculative draft (whole, on its own card) and reads tokens.
@@ -195,7 +198,10 @@ class ContinuousScheduler:
     ranks that share one card over gloo; no CLI flag sets it. On the CPU
     both always run eagerly. ``mesh``: a ``distributed.tp.Mesh`` (module
     docstring), None for one device; with one, ``device`` defaults to the
-    mesh's first."""
+    mesh's first. ``tp_rank``: this engine's rank in the mesh (0, the
+    leader, unless a follower builds it: its model holds its own query
+    heads, which differ from the leader's where tp does not divide
+    them)."""
 
     def __init__(self, cfg: ModelConfig, max_slots: int, max_len: int,
                  eos_id: Optional[int] = None, *, cache: str = "dense",
@@ -206,7 +212,7 @@ class ContinuousScheduler:
                  faults: Optional[FaultConfig] = None,
                  resilience: Optional[ResilienceConfig] = None,
                  device=None, tracer=None, cuda_graph: bool = True,
-                 mesh=None):
+                 mesh=None, tp_rank: int = 0):
         # what a follower rank needs to build the same engine
         self._init_kwargs = dict(
             cfg=cfg, max_slots=max_slots, max_len=max_len, eos_id=eos_id,
@@ -257,12 +263,12 @@ class ContinuousScheduler:
         self.mesh = mesh
         self.tp = tp
         self._group: Optional[tp_lib.Group] = None
-        self._tp_rank = 0
+        self._tp_rank = tp_rank
         self._followers: List[Any] = []
         self._tp_dir: Optional[str] = None
         self._outbox: List[tuple] = []
         self._full_params = None
-        self.model = LM(tp_lib.local_config(cfg, tp), self.device)
+        self.model = LM(tp_lib.local_config(cfg, tp, tp_rank), self.device)
         self.max_slots = max_slots
         self.max_len = max_len
         self.eos_id = eos_id

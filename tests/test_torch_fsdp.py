@@ -102,7 +102,8 @@ def _repro_shard_shape(arch, path, amesh):
 def _c15_c18(cfg, tp, path):
     """Whether ROADMAP C15 or C18 names a difference at ``path``:
     attention whole where the head rule keeps it so, a K/V head's columns
-    whole where it replicates them, an SSM mixer's columns placed by
+    whole where it replicates them, q's and o's whole heads where tp does
+    not divide the query heads, an SSM mixer's columns placed by
     heads, its conv channels and per-head vectors with them (or the whole
     mixer where its heads do not split)."""
     if tp == 1:
@@ -112,8 +113,9 @@ def _c15_c18(cfg, tp, path):
             leaf = path[path.index(node) + 1]
             if leaf in ("q", "k", "v", "o"):
                 place = tp_lib.attention_split(cfg, tp)
+                uneven = (cfg.num_heads + cfg.head_pad) % tp != 0
                 return place is None or (place == "replicate"
-                                         and leaf in ("k", "v"))
+                                         and (leaf in ("k", "v") or uneven))
             return True                             # an SSM mixer's leaf
     return False
 

@@ -2,14 +2,19 @@
 against ``repro``'s placement (ROADMAP C15):
 
 * every registered config at tp 2, 4, 8 and 16: whether attention splits
-  by heads, replicates its K/V heads or stays whole, the local head
-  counts, each rank's K/V heads (every query head of a rank reads one of
-  them under ``repro``'s contiguous grouping), the table's rows; at tp 16
-  the production placement of the eight GQA-8 configs;
+  by heads, replicates its K/V heads or stays whole, each rank's query
+  heads (contiguous, in rank order, covering every head; unequal where tp
+  does not divide them) and local head counts, each rank's K/V heads
+  (every query head of a rank reads one of them under ``repro``'s
+  contiguous grouping), the table's rows; at tp 16 the production
+  placement of the eight GQA-8 configs (deepseek-coder-33b's 7 heads a
+  group split 4 + 3);
 * that placement against ``repro``'s ``resolve_spec`` on a ``("model",)``
   mesh: q, o and the table are ``repro``'s shards, and so are k and v
   where ``repro`` splits whole K/V heads; where it splits part of a head
-  the port holds the whole head (replication, C15's remainder);
+  the port holds the whole head (replication, C15's remainder), and where
+  tp does not divide the query heads q and o hold the rank's head range
+  (C15's remainder too);
 * reduced ternary-paper with one K/V head at tp 2: streams, dense and
   paged, against tp 1 and ``repro``'s engine (its first train step, and
   two K/V heads at tp 4, are in ``test_torch_tp_heads_replicas.py``);
@@ -68,21 +73,37 @@ def test_placement_of_every_config(arch, tp):
     h, kv = cfg.num_heads + cfg.head_pad, cfg.num_kv_heads
     local = tp_lib.local_config(cfg, tp)
     if place is None:
-        assert not kv or h % tp or (kv % tp and tp % kv)
+        assert not kv or (kv % tp and tp % kv) or (
+            kv % tp == 0 and h % tp) or (tp % kv == 0 and h < tp)
         assert (local.num_heads, local.num_kv_heads) == (cfg.num_heads, kv)
+        assert all(tp_lib.query_heads(cfg, r, tp) == range(h)
+                   for r in range(tp))
     else:
         assert place == ("heads" if kv % tp == 0 else "replicate")
-        assert (local.num_heads * tp, local.head_pad) == (h, 0)
-        assert local.num_kv_heads == max(kv // tp, 1)
-        hl, g = h // tp, h // kv
+        g = h // kv
+        if h % tp:
+            # whole heads, unequal shares: every K/V group's g heads over
+            # its tp/KV ranks
+            assert place == "replicate" and g >= tp // kv
+        heads = [tp_lib.query_heads(cfg, r, tp) for r in range(tp)]
+        # contiguous, in rank order, covering range(H)
+        assert [i for hs in heads for i in hs] == list(range(h))
         held = [list(tp_lib.kv_heads(kv, r, tp)) for r in range(tp)]
         for r in range(tp):
-            assert len(held[r]) == local.num_kv_heads
+            mine = tp_lib.local_config(cfg, tp, r)
+            assert (mine.num_heads, mine.head_pad) == (len(heads[r]), 0)
+            assert mine.num_kv_heads == max(kv // tp, 1) == len(held[r])
+            assert min(len(hs) for hs in heads) <= mine.num_heads \
+                <= len(heads[0])
             # repro's q.reshape(b, s, kvh, g, hd): query head i reads K/V
             # head i // g, and so does the rank's local head j
-            for j in range(hl):
-                i = r * hl + j
-                assert i // g == held[r][j // (hl // local.num_kv_heads)]
+            per = len(heads[r]) // mine.num_kv_heads
+            for j, i in enumerate(heads[r]):
+                assert i // g == held[r][j // per]
+        assert (local.num_heads, local.num_kv_heads) == (
+            len(heads[0]), len(held[0]))
+        if h % tp == 0:
+            assert all(len(hs) == h // tp for hs in heads)
         assert sorted({x for hs in held for x in hs}) == list(range(kv))
         if place == "replicate":
             assert [held[r][0] for r in range(tp)] == [
@@ -94,14 +115,22 @@ def test_placement_of_every_config(arch, tp):
 
 
 def test_production_mesh_places_gqa8():
-    """tp 16: the seven GQA-8 configs whose heads divide hold H/16 query
-    heads and one K/V head a rank, deepseek's 56 heads only with
-    head_pad=8; every padded vocabulary of the registry divides."""
+    """tp 16: the eight GQA-8 configs hold one K/V head a rank; the seven
+    whose heads divide H/16 query heads a rank, deepseek's 56 heads (7 a
+    K/V group, 2 ranks a group) 4 and 3 on ranks 2i and 2i + 1, both
+    reading K/V head i (with head_pad=8, 4 each); every padded vocabulary
+    of the registry divides."""
     for arch in GQA8:
         cfg = get_config(arch)
-        want = None if arch == "deepseek-coder-33b" else "replicate"
-        assert tp_lib.attention_split(cfg, 16) == want, arch
+        assert tp_lib.attention_split(cfg, 16) == "replicate", arch
         assert cfg.padded_vocab() % 16 == 0
+    cfg = get_config("deepseek-coder-33b")
+    for r in range(16):
+        local = tp_lib.local_config(cfg, 16, r)
+        assert (local.num_heads, local.num_kv_heads) == (
+            4 if r % 2 == 0 else 3, 1)
+        assert list(tp_lib.kv_heads(8, r, 16)) == [r // 2]
+    assert list(tp_lib.query_heads(cfg, 3, 16)) == [11, 12, 13]
     cfg = get_config("deepseek-coder-33b", head_pad=8)
     local = tp_lib.local_config(cfg, 16)
     assert (local.num_heads, local.num_kv_heads) == (4, 1)
@@ -166,8 +195,22 @@ def test_placement_against_repros_resolution(tp):
                 assert torch.equal(q, params["layers"][0]["mixer"]["q"]
                                    ["w"][0])
                 continue
-            assert torch.equal(q, torch.arange(r * rq, (r + 1) * rq,
-                                               dtype=torch.float32))
+            heads = tp_lib.query_heads(cfg, r, tp)
+            mine = torch.arange(heads.start * hd, heads.stop * hd,
+                                dtype=torch.float32)
+            if h % tp == 0:
+                assert torch.equal(mine, torch.arange(
+                    r * rq, (r + 1) * rq, dtype=torch.float32))
+            else:
+                # repro's rank holds rq = H hd / tp columns, part of a
+                # head; the port its whole heads
+                assert mix["q"]["tp"] == ("qo", "n", h, kv, tp)
+                assert mix["o"]["tp"] == ("qo", "k", h, kv, tp)
+                assert rq % hd and mine.numel() in (
+                    (h // tp) * hd, (h // tp + 1) * hd)
+                if r == 0:
+                    remainder.append(arch + ":q")
+            assert torch.equal(q, mine)
             assert torch.equal(mix["o"]["w"][:, 0], q)
             want = torch.cat([torch.arange(x * hd, (x + 1) * hd)
                               for x in tp_lib.kv_heads(kv, r, tp)]).float()
@@ -183,8 +226,7 @@ def test_placement_against_repros_resolution(tp):
                 if r == 0:
                     remainder.append(arch)
     if tp == 16:
-        assert sorted(remainder) == sorted(set(GQA8) - {
-            "deepseek-coder-33b"})
+        assert sorted(remainder) == sorted(GQA8 + ("deepseek-coder-33b:q",))
     elif tp <= 8:
         assert remainder == []
 
@@ -293,10 +335,13 @@ def test_tied_table_split_rows_and_logits():
                  rlog[:, -1], np.float32)),
              "decode": (step[:, 0].float(), np.asarray(rstep[:, 0],
                                                        np.float32))}
+    ranks = [{k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+              for k, v in got.items()} for got in ranks]
     for got in ranks:
         assert got["table"] == "vocab"
         assert got["table_rows"] == cfg.padded_vocab() // 2
-        assert torch.equal(got["rows"], rows)
+        # f32 from the rank: exact for any bf16 row
+        assert torch.equal(got["rows"], rows.float())
         for key, (one, rep) in wants.items():
             for want in (one, torch.from_numpy(rep)):
                 scale = float(want.abs().max())

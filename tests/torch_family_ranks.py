@@ -54,7 +54,7 @@ def routes_rank(group, rank, cfg, params, tokens):
     mesh = {"model": group.size}
     shards = tp_lib.shard_params(params, param_specs(cfg, params), mesh,
                                  rank=rank, cfg=cfg)
-    model = LM(tp_lib.local_config(cfg, group.size), "cpu")
+    model = LM(tp_lib.local_config(cfg, group.size, rank), "cpu")
     model.comm = group
     with torch.no_grad(), moe.recorded_routes() as log:
         _, logits = model.prefill(shards, {"tokens": torch.as_tensor(
@@ -73,7 +73,7 @@ def decode_comm_rank(group, rank, cfg, params, rows, cache_len):
     mesh = {"model": group.size}
     shards = tp_lib.shard_params(params, param_specs(cfg, params), mesh,
                                  rank=rank, cfg=cfg)
-    model = LM(tp_lib.local_config(cfg, group.size), "cpu")
+    model = LM(tp_lib.local_config(cfg, group.size, rank), "cpu")
     model.comm = group
     cache = model.init_cache(rows, cache_len)
     cache["pos"] = torch.full((rows,), cache_len - 1, dtype=torch.int32)

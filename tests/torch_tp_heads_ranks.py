@@ -8,7 +8,9 @@ def tied_vocab_rank(group, rank, arch, over, tree, tokens, nxt, max_len):
     """Rank ``rank``'s reduced ``arch`` on ``tree`` (whole latent params in
     ``repro``'s layout, as numpy; cut by ``tp.shard_params``): the embedded
     rows of ``tokens`` through its split table, the prefill's last logits
-    and the logits of a decode step of ``nxt``, all in the group."""
+    and the logits of a decode step of ``nxt``, all in the group, as f32
+    numpy (a torch tensor would cross the queue through a file descriptor
+    that the rank's exit can close before the caller reads it)."""
     from repro_torch.checkpoint.convert import params_from_numpy
     from repro_torch.configs import get_config
     from repro_torch.distributed import tp as tp_lib
@@ -20,7 +22,7 @@ def tied_vocab_rank(group, rank, arch, over, tree, tokens, nxt, max_len):
     shards = tp_lib.shard_params(params, param_specs(cfg, params),
                                  {"model": group.size}, rank=rank, cfg=cfg,
                                  latent=True)
-    model = LM(tp_lib.local_config(cfg, group.size), "cpu")
+    model = LM(tp_lib.local_config(cfg, group.size, rank), "cpu")
     model.comm = group
     toks = torch.as_tensor(tokens)
     with torch.no_grad():
@@ -29,6 +31,8 @@ def tied_vocab_rank(group, rank, arch, over, tree, tokens, nxt, max_len):
         cache, logits = model.prefill(shards, {"tokens": toks}, max_len)
         step, _ = model.decode_step(shards, cache,
                                     torch.as_tensor(nxt)[:, None])
-    return {"rows": rows, "prefill": logits[:, -1].float(),
-            "decode": step[:, 0].float(), "table": shards["embed"]["tp"],
+    return {"rows": rows.float().numpy(),
+            "prefill": logits[:, -1].float().numpy(),
+            "decode": step[:, 0].float().numpy(),
+            "table": shards["embed"]["tp"],
             "table_rows": shards["embed"]["table"].shape[0]}
